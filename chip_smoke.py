@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`tf_operator_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases (each prints its own lines; any failure raises and exits non-zero):
+  card     the card's name and power limit (nvidia-smi), torch and CUDA versions
+  build    nvcc-builds the kernels from ops/csrc, prints the build time and
+           the ptxas register/spill report
+  kernels  each hand-written kernel (flash forward, dq, dk/dv) against its
+           plain PyTorch version in f32 on the same inputs, at the LM's
+           main-path shape and at GQA / ragged T / non-causal / window+sink /
+           head_dim 128; prints the error against the stated tolerance, the
+           kernel's time, the plain version's, the bound, and as a yardstick
+           only F.scaled_dot_product_attention's (which the port never calls)
+  slice    the LM workload (`workloads.lm.main`) at GPT-small full width
+           (12 x 768, seq 2048, batch 8, vocab 32000) for 6 steps with
+           checkpoints, checking every kernel launched 12 x steps times; a
+           resumed run to step 11 checks the resume and that the loss fell;
+           a third run reads its own step time (step ms, tokens/s, peak
+           memory) and a fourth profiles two steps through its --profile-dir
+  llama    the llama/GQA arch through the workload (4 layers, 2 steps) with
+           the same launch check, and a small model whose logits with the
+           kernels agree with the plain attention path on the card
+
+The last lines are the card line, one JSON object with every kernel's
+numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
+longer output (compiler report, profile summary) is also written under DIR.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+SOURCE = "tf_operator_tpu_torch/ops/csrc/flash_attention.cu"
+REPLACES = {
+    "flash_forward": "tf_operator_tpu/ops/attention.py:255",
+    "flash_backward_dq": "tf_operator_tpu/ops/attention.py:419",
+    "flash_backward_dkv": "tf_operator_tpu/ops/attention.py:485",
+}
+# Kernel against plain version, held per element and as a whole:
+#   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
+#   ||got - ref|| <= FRO * ||ref||          (Frobenius)
+# The kernels round P and dS to bf16 before their second product and write
+# bf16 outputs (unit roundoff 2^-8), while the plain version runs in f32 on
+# the same bf16 inputs.  The rounding of a product's operand errs by about
+# 2^-8/sqrt(3) of the size of its row, and of an output by at most 2^-8 of
+# the element, so the per-element limit sits ~9 sigma above the first and
+# 5x above the second.  The row's own RMS scales the limit, so late rows
+# (small values, many keys) are held as tightly as early ones; the 0.05 *
+# rms(ref) floor covers rows that are exactly zero (dq of row 0).
+RTOL = 2e-2
+FRO = 1e-2
+# lse: f32 in both, from the same bf16 inputs; only exp/sum order differ
+TOL_LSE = 1e-3
+# the workload's own step-time line (`workloads/lm.py`)
+STEP_TIME = re.compile(r"^step time (\S+) ms over steps \S+, (\S+) tokens/s$",
+                       re.M)
+
+
+def tolerance_ratios(got, ref, rtol: float = RTOL):
+    """(worst per-element error over its limit, relative Frobenius error);
+    the kernel passes when the first is <= 1 and the second <= FRO."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    rms_row = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    limit = rtol * (ref.abs() + rms_row + 0.05 * ref.pow(2).mean().sqrt())
+    worst = float((diff / limit).max())
+    rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
+    return worst, rel
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over `reps` back-to-back calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+class Tee(io.TextIOBase):
+    """stdout that is also kept, so a phase can read the workload's log."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        self.buf.write(s)
+        return len(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_lm(argv):
+    """lm.main(argv) with its log captured; raises unless it exits 0."""
+    from tf_operator_tpu_torch.workloads import lm
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = lm.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"lm.main({argv}) exited {rc}")
+    return tee.buf.getvalue()
+
+
+def step_losses(log: str) -> dict:
+    return {int(m.group(1)): float(m.group(2))
+            for m in re.finditer(r"^step (\d+) loss (\S+)$", log, re.M)}
+
+
+def check_launches(expected: int, what: str) -> dict:
+    from tf_operator_tpu_torch.ops import attention as A
+
+    counts = A.launches()
+    print(f"{what}: kernel launches {counts} (expected {expected} each)",
+          flush=True)
+    for name, n in counts.items():
+        if n != expected:
+            raise RuntimeError(f"{what}: {name} launched {n} times, "
+                               f"expected {expected}")
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# kernels against their plain versions
+
+CASES = [
+    # name, B, H, Hkv, T, D, causal, window, sink, block
+    ("main", 8, 12, 12, 2048, 64, True, None, 0, 128),
+    ("gqa", 8, 12, 4, 2048, 64, True, None, 0, 128),
+    ("ragged", 2, 4, 2, 1000, 64, True, None, 0, 64),
+    ("noncausal", 2, 4, 4, 1000, 64, False, None, 0, 128),
+    ("window_sink", 2, 4, 4, 2048, 64, True, 256, 4, 128),
+    ("wide_sink_gqa", 1, 4, 2, 1000, 64, True, 64, 70, 64),
+    ("d128", 2, 8, 4, 1024, 128, True, None, 0, 128),
+    ("d128_b64", 1, 4, 4, 300, 128, False, None, 0, 64),
+]
+
+
+def live_pairs(t, causal, window, sink, device) -> int:
+    import torch
+
+    i = torch.arange(t, device=device)[:, None]
+    j = torch.arange(t, device=device)[None, :]
+    keep = torch.ones(t, t, dtype=torch.bool, device=device)
+    if causal:
+        keep = j <= i
+        if window:
+            keep = keep & ((i - j < window) | (j < sink))
+    return int(keep.sum())
+
+
+def kernel_case(case, timing: bool):
+    import torch
+    import torch.nn.functional as F
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    name, b, h, hkv, t, d, causal, window, sink, block = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, do = randn(b, h, t, d), randn(b, h, t, d)
+    k, v = randn(b, hkv, t, d), randn(b, hkv, t, d)
+    scale = d ** -0.5
+    opts = dict(scale=scale, causal=causal, window=window, sink=sink)
+
+    def fwd():
+        return A.flash_forward(q, k, v, block_q=block, **opts)
+
+    o, lse = fwd()
+    delta = (do.float() * o.float()).sum(-1)
+
+    def dq_kernel():
+        return A.flash_backward_dq(q, k, v, do, lse, delta, block_q=block,
+                                   **opts)
+
+    def dkv_kernel():
+        return A.flash_backward_dkv(q, k, v, do, lse, delta, block_k=block,
+                                    **opts)
+
+    dq = dq_kernel()
+    dk, dv = dkv_kernel()
+    torch.cuda.synchronize()
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+
+    def fwd_plain():
+        return A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), causal=causal,
+                               scale=scale, window=window, sink=sink)
+
+    def dq_plain():
+        return A.backward_dq_plain(qf, kf, vf, dof, lse, delta, **opts)
+
+    def dkv_plain():
+        return A.backward_dkv_plain(qf, kf, vf, dof, lse, delta, **opts)
+
+    o_ref, lse_ref = fwd_plain()
+    dq_ref = dq_plain()
+    dk_ref, dv_ref = dkv_plain()
+
+    errs = {}
+    for label, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref),
+                            ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref)):
+        got = got.float()
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise RuntimeError(f"kernel case {name}: {label} has shape "
+                               f"{tuple(got.shape)} or non-finite values")
+        err = float((got - ref).abs().max())
+        errs[label] = err
+        if label == "lse":
+            print(f"  {name:11s} lse max_abs_err {err:.3e} (tolerance "
+                  f"{TOL_LSE:.0e})", flush=True)
+            ok = err <= TOL_LSE
+        else:
+            worst, rel = tolerance_ratios(got, ref)
+            print(f"  {name:11s} {label:3s} max_abs_err {err:.3e} "
+                  f"worst err/limit {worst:.3f} (<= 1) relative Frobenius "
+                  f"{rel:.3e} (<= {FRO:.0e})", flush=True)
+            ok = worst <= 1.0 and rel <= FRO
+        if not ok:
+            raise RuntimeError(f"kernel case {name}: {label} is outside its "
+                               "tolerance")
+
+    pairs = b * h * live_pairs(t, causal, window, sink, dev)
+    rows = b * h * t
+    elt = 2  # bf16
+    work = {
+        # (products, bytes: inputs read once + outputs written once)
+        "flash_forward": (2, (b * h * t * d * 2 + 2 * b * hkv * t * d) * elt
+                          + rows * 4),
+        "flash_backward_dq": (3, (3 * b * h * t * d + 2 * b * hkv * t * d)
+                              * elt + 2 * rows * 4),
+        "flash_backward_dkv": (4, (2 * b * h * t * d + 4 * b * hkv * t * d)
+                               * elt + 2 * rows * 4),
+    }
+    result = {}
+    for kname, (products, nbytes) in work.items():
+        flops = 2.0 * products * pairs * d
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        result[kname] = {
+            "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "max_abs_err": max(errs[x] for x in {
+                "flash_forward": ("o", "lse"),
+                "flash_backward_dq": ("dq",),
+                "flash_backward_dkv": ("dk", "dv")}[kname]),
+        }
+    if not timing:
+        return result
+
+    reps = 20
+    times = {
+        "flash_forward": (cuda_ms(fwd, reps), cuda_ms(fwd_plain, 3)),
+        "flash_backward_dq": (cuda_ms(dq_kernel, reps), cuda_ms(dq_plain, 3)),
+        "flash_backward_dkv": (cuda_ms(dkv_kernel, reps),
+                               cuda_ms(dkv_plain, 3)),
+    }
+    # yardstick only: one PyTorch call for the same function
+    mask = None
+    if window:
+        i = torch.arange(t, device=dev)[:, None]
+        j = torch.arange(t, device=dev)[None, :]
+        mask = (j <= i) & ((i - j < window) | (j < sink))
+    sdpa_kw = dict(attn_mask=mask, is_causal=causal and mask is None,
+                   scale=scale)
+    if hkv != h:
+        sdpa_kw["enable_gqa"] = True
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, **sdpa_kw)
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+        out.backward(do)
+
+    lib_fwd = cuda_ms(sdpa_fwd, reps)
+    lib_fwd_bwd = cuda_ms(sdpa_fwd_bwd, reps)
+    kern_total = sum(k_ms for k_ms, _ in times.values())
+    for kname, (k_ms, p_ms) in times.items():
+        r = result[kname]
+        r.update(ms=k_ms, plain_ms=p_ms,
+                 library_ms=lib_fwd if kname == "flash_forward" else None)
+        print(f"  {name:11s} {kname:18s} kernel_ms {k_ms:.4f} plain_ms "
+              f"{p_ms:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"bound/kernel {r['bound_ms'] / k_ms:.3f}", flush=True)
+    print(f"  {name:11s} kernels fwd+bwd ms {kern_total:.4f}; sdpa (yardstick)"
+          f" fwd ms {lib_fwd:.4f} fwd+bwd ms {lib_fwd_bwd:.4f}", flush=True)
+    return result
+
+
+def phase_kernels():
+    import torch
+
+    out = {}
+    for case in CASES:
+        timing = case[0] in ("main", "gqa", "window_sink", "d128")
+        print(f"kernel case {case[0]}: B={case[1]} H={case[2]} Hkv={case[3]}"
+              f" T={case[4]} D={case[5]} causal={case[6]} window={case[7]} "
+              f"sink={case[8]} block={case[9]}", flush=True)
+        res = kernel_case(case, timing)
+        if case[0] == "main":
+            out = res
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the slice at full width
+
+
+def write_detail(out_dir, name: str, text: str) -> None:
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write(text)
+
+
+def phase_slice(card: str, out_dir):
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import gpt_small_config
+    from tf_operator_tpu_torch.ops import attention as A
+
+    layers, steps = 12, 6
+    with tempfile.TemporaryDirectory(prefix="lm-ckpt-") as ckpt:
+        base = ["--checkpoint-dir", ckpt, "--checkpoint-every", "3"]
+        A.reset_launches()
+        t0 = time.perf_counter()
+        log = run_lm(["--steps", str(steps)] + base)
+        wall = time.perf_counter() - t0
+        counts = check_launches(layers * steps, "gpt-small main path")
+        first = step_losses(log)
+        A.reset_launches()
+        log2 = run_lm(["--steps", str(steps + 5)] + base)
+        check_launches(layers * 5, "gpt-small resumed run")
+    if f"resumed from step {steps}" not in log2:
+        raise RuntimeError("the second run did not resume from step "
+                           f"{steps}")
+    last = step_losses(log2)
+    l0, l10 = first.get(0), last.get(10)
+    if l0 is None or l10 is None or not (math.isfinite(l0)
+                                         and math.isfinite(l10)):
+        raise RuntimeError(f"losses missing or not finite: {first} {last}")
+    if not l10 < l0:
+        raise RuntimeError(f"loss did not fall: step 0 {l0}, step 10 {l10}")
+    print(f"gpt-small: loss step 0 {l0} -> step 10 {l10} (after resume); "
+          f"6-step run wall {wall:.1f} s incl. init and checkpoints",
+          flush=True)
+
+    # the workload's own step time, without checkpoints
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    log3 = run_lm(["--steps", "12"])
+    peak = torch.cuda.max_memory_allocated()
+    m = STEP_TIME.search(log3)
+    if m is None:
+        raise RuntimeError("the workload printed no step time")
+    ms = float(m.group(1))
+    mfu = model_flops(gpt_small_config(), 8, 2048) / (ms / 1e3) / \
+        PEAK_BF16_FLOPS
+    print(f"gpt-small step: {ms} ms/step, {m.group(2)} tokens/s, MFU "
+          f"{mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+
+    # two steps under the workload's profiler (--profile-dir)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="lm-profile-") as prof_dir:
+        run_lm(["--steps", "4", "--profile-dir", prof_dir, "--profile-start",
+                "2", "--profile-steps", "2"])
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    summary = device_profile(events, 2, ms)
+    print(summary, flush=True)
+    write_detail(out_dir, "profile_gpt_small.txt", f"{card}\n{summary}\n")
+    return counts
+
+
+def device_profile(events, steps: int, step_ms: float) -> str:
+    """Per-step device time, the device's idle share over the profiled
+    window, and the kernels that take the most time, from a torch.profiler
+    Chrome trace."""
+    dev = [e for e in events if "dur" in e and e.get("cat") in
+           ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise RuntimeError("the profile holds no device activity")
+    busy = sum(e["dur"] for e in dev)
+    span = max(e["ts"] + e["dur"] for e in dev) - min(e["ts"] for e in dev)
+    by_name = {}
+    for e in dev:
+        total, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (total + e["dur"], n + 1)
+    lines = [f"profile ({steps} steps): device busy {busy / steps / 1e3:.3f} "
+             f"ms/step over a span of {span / steps / 1e3:.3f} ms/step, idle "
+             f"share {1 - busy / span:.4f}; unprofiled step {step_ms} ms"]
+    for name, (total, n) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:15]:
+        lines.append(f"  {total / steps / 1e3:9.3f} ms/step {n // steps:5d}x "
+                     f" {name[:100]}")
+    return "\n".join(lines)
+
+
+def model_flops(cfg, batch: int, seq: int) -> float:
+    """FLOPs of one training step (forward + backward = 3x forward) of the
+    model's products: the dense projections, the tied readout, and causal
+    attention (QK^T and PV over the T(T+1)/2 live pairs)."""
+    head_dim = cfg.d_model // cfg.num_heads
+    kv = cfg.num_kv_heads or cfg.num_heads
+    attn_proj = cfg.d_model * head_dim * (2 * cfg.num_heads + 2 * kv)
+    mlp = cfg.d_model * cfg.d_ff * (3 if cfg.mlp == "swiglu" else 2)
+    matmul_params = cfg.num_layers * (attn_proj + mlp) + \
+        cfg.vocab_size * cfg.d_model
+    pairs = seq * (seq + 1) // 2 if cfg.causal else seq * seq
+    attn = cfg.num_layers * batch * cfg.num_heads * 2 * 2 * pairs * head_dim
+    return 3.0 * (2 * batch * seq * matmul_params + attn)
+
+
+def phase_llama():
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (
+        TransformerLM, llama_style_config)
+    from tf_operator_tpu_torch.ops import attention as A
+
+    layers, steps = 4, 2
+    A.reset_launches()
+    run_lm(["--arch", "llama", "--layers", str(layers), "--steps",
+            str(steps)])
+    check_launches(layers * steps, "llama (GQA 12/4) run")
+
+    # the model with the kernels against the model on the plain attention
+    # path, same weights and tokens, on the card
+    dev = torch.device("cuda")
+    cfg = llama_style_config(num_layers=2, max_len=512)
+    model = TransformerLM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.to(dev)
+    plain = TransformerLM(llama_style_config(num_layers=2, max_len=512,
+                                             use_flash=False)).to(dev)
+    plain.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    with torch.no_grad():
+        got, ref = model(tokens), plain(tokens)
+    err = float((got - ref).abs().max())
+    limit = 5e-2 * float(ref.abs().max())
+    print(f"llama 2-layer logits, kernels vs plain attention: shape "
+          f"{tuple(got.shape)} max_abs_err {err:.3e} (tolerance {limit:.3e})",
+          flush=True)
+    if got.shape != (2, 512, cfg.vocab_size) or not torch.isfinite(got).all():
+        raise RuntimeError("llama logits have the wrong shape or are not "
+                           "finite")
+    if not err <= limit:
+        raise RuntimeError(f"llama logits differ by {err} > {limit}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out-dir", default=None,
+                        help="also write the compiler report and the "
+                             "profile summary under this directory")
+    args = parser.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    # the reference side of every comparison runs in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import attention as A
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}",
+          flush=True)
+    t_start = time.perf_counter()
+
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({_build.target().name})", flush=True)
+    if _build.build_log is not None:
+        write_detail(args.out_dir, "build.txt", _build.build_log)
+        for line in _build.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip(), flush=True)
+
+    kernels = phase_kernels()
+    counts = phase_slice(card, args.out_dir)
+    phase_llama()
+
+    print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    print(card, flush=True)
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[name], "launches": counts[name],
+         "max_abs_err": kernels[name]["max_abs_err"],
+         "ms": kernels[name]["ms"],
+         "plain_ms": kernels[name]["plain_ms"],
+         "bound_ms": kernels[name]["bound_ms"],
+         "bound_by": kernels[name]["bound_by"],
+         "library_ms": kernels[name]["library_ms"]}
+        for name in (fn.__name__ for fn in A.KERNELS)]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,198 @@
+"""Parity of the PyTorch port's attention (tf_operator_tpu_torch.ops.attention)
+with the JAX package's.
+
+The same numpy inputs go through the JAX Pallas kernels in interpret mode
+(`flash_attention_grads_interpret`) or `xla_attention_lse`, and through the
+port: its public `flash_attention` (on the CPU: the plain version under
+autograd) and its `FlashAttentionFn` (on the CPU its kernel wrappers
+compute each kernel's plain version, so this checks the forward/backward
+plumbing the CUDA kernels sit in: lse residual, delta, GQA folding).  The
+hand-written kernels themselves need the card:
+tests/test_torch_kernels_cuda.py compares them with the plain versions
+there.
+
+Tolerances: f32 everywhere; 2e-5 on outputs and lse, 1e-4 on gradients —
+the JAX package's own interpret-vs-XLA tolerances (tests/test_ops.py), since
+both sides sum the same products in a different order.  bf16 inputs: 0.06,
+the JAX package's bf16 tolerance against an f32 reference.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tf_operator_tpu.ops.attention import (
+    flash_attention_grads_interpret,
+    xla_attention_lse,
+)
+from tf_operator_tpu_torch.ops import attention as A
+
+torch.set_num_threads(1)
+
+ATOL_OUT = 2e-5
+ATOL_GRAD = 1e-4
+
+
+def inputs(t, d=16, b=2, h=2, kv_h=None, seed=0):
+    rng = np.random.RandomState(seed)
+    kv_h = kv_h or h
+    q = rng.randn(b, h, t, d).astype(np.float32)
+    k = rng.randn(b, kv_h, t, d).astype(np.float32)
+    v = rng.randn(b, kv_h, t, d).astype(np.float32)
+    g = rng.randn(b, h, t, d).astype(np.float32)
+    return q, k, v, g
+
+
+def port_grads(q, k, v, g, fn):
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = fn(qt, kt, vt)
+    out.backward(torch.tensor(g))
+    return [x.detach().numpy() for x in (out, qt.grad, kt.grad, vt.grad)]
+
+
+def assert_matches(got, want):
+    for name, a, b, tol in zip(("out", "dq", "dk", "dv"), got, want,
+                               (ATOL_OUT, ATOL_GRAD, ATOL_GRAD, ATOL_GRAD)):
+        assert a.shape == np.asarray(b).shape, name
+        np.testing.assert_allclose(a, np.asarray(b), atol=tol, err_msg=name)
+
+
+# (t, d, h, kv_h, causal, window, sink, block_q, block_k) — cases of
+# tests/test_ops.py: causal and not, padded T, GQA, window, window + sink,
+# window wider than T
+CASES = {
+    "causal": (128, 16, 2, 2, True, None, 0, 64, 64),
+    "noncausal": (128, 16, 2, 2, False, None, 0, 64, 64),
+    "padded_causal": (100, 16, 2, 2, True, None, 0, 64, 64),
+    "padded_noncausal": (65, 16, 2, 2, False, None, 0, 64, 64),
+    "gqa": (100, 16, 4, 2, True, None, 0, 64, 64),
+    "gqa_d128": (64, 128, 4, 2, True, None, 0, 64, 64),
+    "window": (256, 16, 2, 2, True, 64, 0, 64, 64),
+    "window_ragged": (100, 16, 2, 2, True, 30, 0, 64, 64),
+    "window_gqa": (128, 16, 4, 2, True, 40, 0, 64, 64),
+    "window_sink": (256, 16, 2, 2, True, 32, 8, 64, 64),
+    "window_sink_ragged": (100, 16, 2, 2, True, 30, 5, 64, 64),
+    "window_wider_than_t": (128, 16, 2, 2, True, 500, 0, 64, 64),
+}
+
+
+@pytest.fixture(scope="module")
+def interpret_results():
+    """The Pallas kernels' (out, dq, dk, dv) per case, computed once."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            t, d, h, kv_h, causal, window, sink, bq, bk = CASES[name]
+            q, k, v, g = inputs(t, d=d, h=h, kv_h=kv_h)
+            cache[name] = [np.asarray(x) for x in
+                           flash_attention_grads_interpret(
+                               q, k, v, g, causal, None, bq, bk,
+                               window=window, sink=sink)]
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_attention_matches_pallas_interpret(name, interpret_results):
+    """The public entry on CPU tensors (plain version under autograd)."""
+    t, d, h, kv_h, causal, window, sink, _, _ = CASES[name]
+    q, k, v, g = inputs(t, d=d, h=h, kv_h=kv_h)
+    got = port_grads(q, k, v, g, lambda q, k, v: A.flash_attention(
+        q, k, v, causal, window=window, sink=sink))
+    assert_matches(got, interpret_results(name))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_autograd_function_matches_pallas_interpret(
+        name, interpret_results):
+    """FlashAttentionFn, whose wrappers compute the forward / dq / dk-dv
+    kernels' plain versions on CPU tensors: the custom backward (lse
+    residual, delta = rowsum(dO * O), GQA sums) equals the Pallas kernels."""
+    t, d, h, kv_h, causal, window, sink, bq, bk = CASES[name]
+    q, k, v, g = inputs(t, d=d, h=h, kv_h=kv_h)
+    before = A.launches()
+    got = port_grads(q, k, v, g, lambda q, k, v: A.FlashAttentionFn.apply(
+        q, k, v, causal, d ** -0.5, bq, bk, A.check_window(causal, window),
+        sink))
+    assert_matches(got, interpret_results(name))
+    assert A.launches() == before  # the plain path launches no kernel
+
+
+@pytest.mark.parametrize("causal,window,sink", [
+    (True, None, 0), (False, None, 0), (True, 24, 0), (True, 24, 4)])
+def test_attention_lse_matches_xla(causal, window, sink):
+    q, k, v, _ = inputs(100, h=4, kv_h=2, seed=3)
+    kw, vw = (np.repeat(x, 2, axis=1) for x in (k, v))
+    want_o, want_lse = xla_attention_lse(q, kw, vw, causal=causal,
+                                         window=window, sink=sink)
+    got_o, got_lse = A.flash_forward(
+        torch.tensor(q), torch.tensor(k), torch.tensor(v), scale=16 ** -0.5,
+        causal=causal, window=window, sink=sink, block_q=128)
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o),
+                               atol=ATOL_OUT)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=ATOL_OUT)
+
+
+def test_bf16_inputs_within_bf16_noise_of_f32_reference():
+    """bf16 q/k/v/g through the port (plain path) and the f32 closed-form
+    gradients of the JAX reference agree within bf16 noise."""
+    q, k, v, g = inputs(128, d=32, seed=3)
+    qt, kt, vt = (torch.tensor(x).bfloat16().requires_grad_()
+                  for x in (q, k, v))
+    out = A.flash_attention(qt, kt, vt, True)
+    out.backward(torch.tensor(g).bfloat16())
+    assert out.dtype == torch.bfloat16 and qt.grad.dtype == torch.bfloat16
+
+    def ref(q, k, v):
+        return xla_attention_lse(q, k, v, causal=True)[0]
+
+    want, vjp = jax.vjp(ref, q, k, v)
+    wants = (want,) + vjp(jnp.asarray(g))
+    for got, w in zip((out, qt.grad, kt.grad, vt.grad), wants):
+        np.testing.assert_allclose(got.float().detach().numpy(),
+                                   np.asarray(w), atol=0.06, rtol=0.06)
+
+
+def test_validators_match_the_jax_package():
+    q = torch.zeros(1, 3, 8, 16)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        A.flash_attention(q, q[:, :2], q[:, :2])
+    with pytest.raises(ValueError, match="causal"):
+        A.flash_attention(q, q, q, False, window=4)
+    with pytest.raises(ValueError, match="positive"):
+        A.flash_attention(q, q, q, True, window=-4)
+    with pytest.raises(ValueError, match="window"):
+        A.flash_attention(q, q, q, True, sink=2)
+    with pytest.raises(ValueError, match="sink must be >= 0"):
+        A.check_sink(8, -1)
+    assert A.check_window(True, 0) is None and A.check_sink(None, 0) == 0
+    kv = torch.arange(2.0).reshape(1, 2, 1, 1)
+    widened, _ = A.repeat_kv(torch.zeros(1, 4, 1, 1), kv, kv)
+    assert widened.flatten().tolist() == [0.0, 0.0, 1.0, 1.0]
+
+
+def test_default_blocks_env_contract(monkeypatch):
+    monkeypatch.delenv("TPUJOB_FLASH_BLOCK_Q", raising=False)
+    monkeypatch.delenv("TPUJOB_FLASH_BLOCK_K", raising=False)
+    assert A.default_blocks(None, None) == (128, 128)
+    assert A.default_blocks(256, None) == (256, 128)
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_Q", "512")
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_K", "256")
+    assert A.default_blocks(None, None) == (512, 256)
+    assert A.default_blocks(64, 64) == (64, 64)  # explicit args win
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_Q", "abc")
+    with pytest.raises(ValueError, match="TPUJOB_FLASH_BLOCK_Q"):
+        A.default_blocks(None, 64)
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_K", "100")
+    with pytest.raises(ValueError, match="TPUJOB_FLASH_BLOCK_K=100"):
+        A.default_blocks(64, None)
+
+
+def test_unsupported_device_raises():
+    q = torch.zeros(1, 2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        A.flash_attention(q, q, q)

@@ -1,0 +1,166 @@
+"""The port's hand-written flash-attention kernels against their plain
+PyTorch versions, on the card.
+
+The tests marked `cuda` need a CUDA device and skip elsewhere.  The machine
+with the card has no JAX, so this file imports none, and is run there
+without the repo's conftest (which sets JAX up):
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda
+
+Tolerance: `chip_smoke.tolerance_ratios`, each element within
+2e-2 * (|plain| + RMS of its row + 0.05 * RMS of the tensor) and the
+whole within 1e-2 relative Frobenius error, the plain version in f32 on
+the same bf16 inputs; the kernels round P and dS to bf16 before their
+second product and write bf16 outputs.  lse within 1e-3 (f32 on both
+sides).  The unmarked tests check that rule itself on the CPU.
+"""
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import FRO, tolerance_ratios
+from tf_operator_tpu_torch.ops import _build
+from tf_operator_tpu_torch.ops import attention as A
+
+
+def _inputs(t, h, kv_h, d=64, b=2, seed=0, device="cuda"):
+    rng = np.random.RandomState(seed)
+    shapes = ((b, h, t, d), (b, kv_h, t, d), (b, kv_h, t, d), (b, h, t, d))
+    return [torch.tensor(rng.randn(*s).astype(np.float32), device=device)
+            .bfloat16() for s in shapes]
+
+
+def _held(got, ref):
+    worst, rel = tolerance_ratios(got, ref)
+    return worst <= 1.0 and rel <= FRO
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _pv_without_early_keys(q, k, v, t_drop, n_drop):
+    """o with the P.V terms of keys [0, n_drop) left out for query rows >=
+    t_drop, the softmax denominator kept: a fault on late rows only."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * q.shape[-1] ** -0.5
+    t = q.shape[2]
+    s = s.masked_fill(torch.ones(t, t, dtype=torch.bool).triu(1), -1e30)
+    p = torch.softmax(s, -1)
+    p[:, :, t_drop:, :n_drop] = 0
+    return torch.einsum("bhqk,bhkd->bhqd", p, v)
+
+
+@pytest.mark.parametrize("t", [512, 2048])
+@pytest.mark.parametrize("n_drop", [16, 64])
+def test_tolerance_takes_rounding_and_rejects_a_late_tile_fault(t, n_drop):
+    """The rule passes the plain output rounded to bf16 (what a right
+    kernel adds) and rejects one that drops the first keys' P.V terms for
+    the last 128 rows only."""
+    torch.manual_seed(0)
+    q, k, v = (torch.randn(1, 2, t, 64).bfloat16().float() for _ in range(3))
+    ref, _ = A.attention_lse(q, k, v, causal=True, scale=0.125)
+    assert _held(ref.bfloat16(), ref)
+    assert not _held(_pv_without_early_keys(q, k, v, t - 128, n_drop), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,h,kv_h,causal,window,sink,block", [
+    (256, 4, 2, True, None, 0, 128),
+    (200, 4, 4, False, None, 0, 64),
+    (512, 2, 2, True, 64, 4, 128),
+])
+def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
+                                      sink, block):
+    q, k, v, g = _inputs(t, h, kv_h)
+    opts = dict(scale=0.125, causal=causal, window=window, sink=sink)
+    before = A.launches()
+    o, lse = A.flash_forward(q, k, v, block_q=block, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=block, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=block,
+                                  **opts)
+    torch.cuda.synchronize()
+    assert all(A.launches()[n] == before[n] + 1 for n in before)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                     causal=causal, scale=0.125,
+                                     window=window, sink=sink)
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    for got, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _held(got, ref), tolerance_ratios(got, ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card(cuda):
+    """The public entry on CUDA tensors goes through the kernels, forward
+    and backward.  Its gradients are held per element against the plain
+    backward in f32 given the forward's output in the inputs' dtype (the
+    flash backward's delta = rowsum(dO * O) reads the bf16 O, as the JAX
+    package's does), and as a whole against f32 autograd of the plain
+    version, whose delta reads an f32 O: that difference is shared by a
+    whole row and does not cancel where a row's gradient does."""
+    q, k, v, g = _inputs(300, 4, 2)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = A.launches()
+    out = A.flash_attention(*leaves, True)
+    out.backward(g)
+    assert all(A.launches()[n] == before[n] + 1 for n in before)
+    got = [out.detach()] + [x.grad for x in leaves]
+
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                     causal=True, scale=0.125)
+    delta = (gf * o_ref.bfloat16().float()).sum(-1)
+    opts = dict(scale=0.125, causal=True, window=None, sink=0)
+    plain = [o_ref, A.backward_dq_plain(qf, kf, vf, gf, lse_ref, delta,
+                                        **opts),
+             *A.backward_dkv_plain(qf, kf, vf, gf, lse_ref, delta, **opts)]
+    for x, want in zip(got, plain):
+        assert _held(x, want), tolerance_ratios(x, want)
+
+    ref_leaves = [x.detach().float().requires_grad_() for x in (q, k, v)]
+    ref = A.attention(ref_leaves[0], *A.repeat_kv(*ref_leaves), causal=True)
+    ref.backward(gf)
+    for x, want in zip(got, [ref.detach()] + [x.grad for x in ref_leaves]):
+        assert tolerance_ratios(x, want)[1] <= FRO
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
+                                                           monkeypatch):
+    """A forward built with a planted fault (the P.V product of the first
+    16 keys skipped for the last query tile; m, l and lse untouched) at
+    the LM's main-path shape: o fails the tolerance while lse still
+    passes."""
+    src = _build.SOURCE.read_text()
+    site = ("load_b(b, sVt + dn * 8 * LDT, LDT, kk * 16, g, t);\n"
+            "        mma16816(acc[dn], a, b);")
+    assert src.count(site) == 1
+    faulty = tmp_path / "flash_attention.cu"
+    faulty.write_text(src.replace(site, site.replace(
+        "mma16816(", "if (it > 0 || kk > 0 || q0 + BM < T) mma16816(")))
+    lib = tmp_path / "libflash_attention_fault.so"
+    _build.nvcc(faulty, lib)
+    monkeypatch.setattr(A, "_lib", None)
+    monkeypatch.setattr(_build, "library", lambda: ctypes.CDLL(str(lib)))
+
+    q, k, v, _ = _inputs(2048, 12, 12, b=8)
+    o, lse = A.flash_forward(q, k, v, scale=0.125, causal=True, window=None,
+                             sink=0, block_q=128)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, kf, vf, causal=True, scale=0.125)
+    worst, rel = tolerance_ratios(o, o_ref)
+    err = float((o.float() - o_ref).abs().max())
+    print(f"planted fault: o worst err/limit {worst:.3f}, relative "
+          f"Frobenius {rel:.3e}, max_abs_err {err:.3e} (a limit of 2e-2 * "
+          f"max(1, max|o|) would be "
+          f"{2e-2 * max(1.0, float(o_ref.abs().max())):.3e})")
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    assert not _held(o, o_ref)

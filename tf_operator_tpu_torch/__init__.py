@@ -1,0 +1,13 @@
+"""tf_operator_tpu_torch — the training runtime of tf_operator_tpu, ported to
+PyTorch and CUDA for an NVIDIA H100.
+
+The JAX package `tf_operator_tpu` stays the reference; this package imports
+nothing of it (nor jax, flax, optax or orbax) and keeps its own copy of what
+it needs.  Layout mirrors the reference so each counterpart is easy to find:
+
+  api/        — the topology env names the runner reads
+  ops/        — flash attention: hand-written Hopper kernels (csrc/) + plain versions
+  models/     — Transformer LM, and the flax-params converter
+  train/      — loss/step, AdamW, train state, data, checkpoints
+  workloads/  — the pod-side entry points (lm)
+"""

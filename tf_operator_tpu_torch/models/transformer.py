@@ -1,0 +1,364 @@
+"""Transformer LM (GPT- and llama-style), the training path.
+
+The counterpart of `tf_operator_tpu/models/transformer.py`: the same config
+fields and validation, the same architecture and numerics — bf16 compute
+with f32 params (every Dense casts its input and weight to `cfg.dtype`, as
+flax `Dense(dtype=...)` does), f32 norms with flax's eps 1e-6, tanh GELU,
+and a weight-tied readout that promotes the bf16 hidden state to f32 before
+the vocab product (flax `Embed.attend` promotes to the common dtype).
+
+Attention goes through `ops.attention.flash_attention`: the hand-written
+CUDA kernels on the card, the plain version on the CPU.
+
+Not ported in this package yet (raise at config construction): the decode
+KV cache (`decode=True`), mixture-of-experts blocks, and a device mesh
+(sequence/tensor parallelism).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.attention import attention, flash_attention, repeat_kv
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    num_layers: int = 12
+    num_heads: int = 12
+    d_model: int = 768
+    d_ff: int = 3072
+    max_len: int = 2048
+    dropout_rate: float = 0.0
+    dtype: Any = torch.bfloat16
+    causal: bool = True
+    ring_axis: str = "sp"
+    seq_parallel: str = "ring"
+    mesh: Optional[Any] = None
+    remat: bool = False
+    # False runs the plain O(T^2) attention even on the card
+    use_flash: bool = True
+    decode: bool = False
+    num_kv_heads: int = 0          # 0 -> num_heads (plain MHA)
+    use_rope: bool = False
+    rope_theta: float = 10000.0
+    rope_scaling: str = "none"     # "none" | "linear" | "ntk"
+    rope_factor: float = 1.0
+    norm: str = "layernorm"        # "layernorm" | "rmsnorm"
+    mlp: str = "gelu"              # "gelu" | "swiglu"
+    type_vocab_size: int = 2
+    moe_num_experts: int = 0
+    moe_every: int = 2
+    moe_top_k: int = 2
+    moe_capacity_factor: float = 1.25
+    attn_window: int = 0
+    attn_sink: int = 0
+    kv_cache_dtype: str = "model"  # "model" | "int8"
+
+    def __post_init__(self):
+        # A typo'd knob must not silently train the default architecture.
+        if self.norm not in ("layernorm", "rmsnorm"):
+            raise ValueError(f"norm must be 'layernorm'|'rmsnorm', got {self.norm!r}")
+        if self.mlp not in ("gelu", "swiglu"):
+            raise ValueError(f"mlp must be 'gelu'|'swiglu', got {self.mlp!r}")
+        if self.seq_parallel not in ("ring", "ulysses"):
+            raise ValueError(
+                f"seq_parallel must be 'ring'|'ulysses', got {self.seq_parallel!r}")
+        if self.use_rope and (self.d_model // self.num_heads) % 2:
+            raise ValueError(
+                f"rope needs an even head_dim; d_model {self.d_model} / "
+                f"num_heads {self.num_heads} = {self.d_model // self.num_heads}"
+            )
+        if self.kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'model'|'int8', "
+                f"got {self.kv_cache_dtype!r}")
+        if self.rope_scaling not in ("none", "linear", "ntk"):
+            raise ValueError(
+                f"rope_scaling must be 'none'|'linear'|'ntk', "
+                f"got {self.rope_scaling!r}")
+        if self.rope_scaling != "none":
+            if not self.use_rope:
+                raise ValueError("rope_scaling requires use_rope=True")
+            if self.rope_factor < 1.0:
+                raise ValueError(
+                    f"rope_factor must be >= 1, got {self.rope_factor}")
+        if self.num_kv_heads < 0 or self.num_kv_heads > self.num_heads or (
+            self.num_kv_heads and self.num_heads % self.num_kv_heads
+        ):
+            raise ValueError(
+                f"num_kv_heads {self.num_kv_heads} must be in [0, num_heads] "
+                f"and divide num_heads {self.num_heads}"
+            )
+        if self.attn_window:
+            if self.attn_window < 0:
+                raise ValueError(
+                    f"attn_window must be >= 0, got {self.attn_window}")
+            if not self.causal:
+                raise ValueError(
+                    "attn_window (sliding-window attention) requires "
+                    "causal=True")
+        if self.attn_sink:
+            if self.attn_sink < 0:
+                raise ValueError(
+                    f"attn_sink must be >= 0, got {self.attn_sink}")
+            if not self.attn_window:
+                raise ValueError(
+                    "attn_sink requires attn_window > 0 (without a window "
+                    "every position already attends the first tokens)")
+            if self.attn_sink >= self.max_len:
+                raise ValueError(
+                    f"attn_sink ({self.attn_sink}) must be < max_len "
+                    f"({self.max_len}): a sink covering every position is "
+                    "full attention, and the rolling decode cache needs at "
+                    "least one non-sink slot")
+        # Fields of the JAX config this package does not run yet.
+        if self.decode:
+            raise NotImplementedError(
+                "decode (KV-cache generation) is not yet ported "
+                "(ROADMAP item A.12)")
+        if self.moe_num_experts:
+            raise NotImplementedError(
+                "mixture-of-experts blocks are not yet ported "
+                "(ROADMAP item A.13)")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "a device mesh (sequence/tensor parallelism) is not yet "
+                "ported (ROADMAP items A.6-A.8)")
+
+
+def rope(x, *, theta: float = 10000.0, positions=None,
+         scaling: str = "none", factor: float = 1.0):
+    """Rotary position embeddings on [B, H, T, D] (D even), computed in f32
+    and returned in x's dtype.  scaling="linear" divides positions by
+    `factor`; scaling="ntk" stretches theta to theta * factor**(d/(d-2))."""
+    b, h, t, d = x.shape
+    if positions is None:
+        positions = torch.arange(t, device=x.device)
+    positions = positions.to(torch.float32)
+    if scaling == "linear":
+        positions = positions / factor
+    elif scaling == "ntk":
+        theta = theta * factor ** (d / max(d - 2, 1))
+    elif scaling != "none":
+        raise ValueError(
+            f"rope scaling must be 'none'|'linear'|'ntk', got {scaling!r}")
+    freqs = theta ** (-torch.arange(0, d, 2, dtype=torch.float32,
+                                    device=x.device) / d)
+    angles = positions[:, None] * freqs[None, :]  # [T, D/2]
+    cos = torch.cos(angles)[None, None]
+    sin = torch.sin(angles)[None, None]
+    x1, x2 = x[..., 0::2].float(), x[..., 1::2].float()
+    rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                      dim=-1).reshape(b, h, t, d)
+    return rot.to(x.dtype)
+
+
+def _normal_(p: torch.Tensor, generator: Optional[torch.Generator]):
+    with torch.no_grad():
+        p.normal_(0.0, 0.02, generator=generator)
+
+
+class Dense(nn.Module):
+    """flax `Dense(dtype=...)`: input, weight and bias cast to the compute
+    dtype; weight stored [out, in] in f32, initialised N(0, 0.02).  A
+    per-head projection keeps its bias as flax does, [heads, head_dim]
+    (`bias_shape`), so rank-based rules such as the weight-decay mask see
+    the same ranks as in the JAX model."""
+
+    def __init__(self, in_features: int, out_features: int, dtype,
+                 bias: bool = True, bias_shape=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = (nn.Parameter(torch.zeros(bias_shape or (out_features,)))
+                     if bias else None)
+
+    def reset_parameters(self, generator=None):
+        _normal_(self.weight, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x):
+        bias = (None if self.bias is None
+                else self.bias.reshape(-1).to(self.dtype))
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class Norm(nn.Module):
+    """flax LayerNorm / RMSNorm with dtype=float32: statistics and output in
+    f32, eps 1e-6."""
+
+    def __init__(self, kind: str, features: int):
+        super().__init__()
+        self.kind = kind
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = (nn.Parameter(torch.zeros(features))
+                     if kind == "layernorm" else None)
+
+    def reset_parameters(self, generator=None):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            if self.bias is not None:
+                self.bias.zero_()
+
+    def forward(self, x):
+        x = x.float()
+        if self.kind == "rmsnorm":
+            ms = x.pow(2).mean(-1, keepdim=True)
+            return x * torch.rsqrt(ms + 1e-6) * self.weight
+        return F.layer_norm(x, (x.shape[-1],), self.weight, self.bias, 1e-6)
+
+
+class SelfAttention(nn.Module):
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.head_dim = cfg.d_model // cfg.num_heads
+        self.kv_heads = cfg.num_kv_heads or cfg.num_heads
+        d = cfg.d_model
+        def per_head(n):
+            return Dense(d, n * self.head_dim, cfg.dtype,
+                         bias_shape=(n, self.head_dim))
+
+        self.query = per_head(cfg.num_heads)
+        self.key = per_head(self.kv_heads)
+        self.value = per_head(self.kv_heads)
+        self.out = Dense(cfg.num_heads * self.head_dim, d, cfg.dtype)
+
+    def forward(self, x):
+        cfg = self.cfg
+        b, t, _ = x.shape
+
+        def heads(proj, n):  # [B, T, n*D] -> [B, n, T, D]
+            return proj(x).view(b, t, n, self.head_dim).transpose(1, 2)
+
+        q = heads(self.query, cfg.num_heads)
+        k = heads(self.key, self.kv_heads)
+        v = heads(self.value, self.kv_heads)
+        if cfg.use_rope:
+            q = rope(q, theta=cfg.rope_theta, scaling=cfg.rope_scaling,
+                     factor=cfg.rope_factor)
+            k = rope(k, theta=cfg.rope_theta, scaling=cfg.rope_scaling,
+                     factor=cfg.rope_factor)
+        window = cfg.attn_window or None
+        if cfg.use_flash:
+            # the kernels take contiguous [B, H, T, D]; grouped k/v stay
+            # grouped (the kernels map query heads to KV heads)
+            out = flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), cfg.causal, window=window,
+                                  sink=cfg.attn_sink)
+        else:
+            out = attention(q, *repeat_kv(q, k, v), causal=cfg.causal,
+                            window=window, sink=cfg.attn_sink)
+        out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * self.head_dim)
+        return self.out(out)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.swiglu = cfg.mlp == "swiglu"
+        d, f = cfg.d_model, cfg.d_ff
+        if self.swiglu:
+            self.wg = Dense(d, f, cfg.dtype, bias=False)
+            self.wi = Dense(d, f, cfg.dtype, bias=False)
+            self.wo = Dense(f, d, cfg.dtype, bias=False)
+        else:
+            self.wi = Dense(d, f, cfg.dtype)
+            self.wo = Dense(f, d, cfg.dtype)
+
+    def forward(self, x):
+        if self.swiglu:
+            return self.wo(F.silu(self.wg(x)) * self.wi(x))
+        # flax nn.gelu defaults to the tanh approximation
+        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+
+
+class Block(nn.Module):
+    """Pre-norm transformer block (dense MLP)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.dtype = cfg.dtype
+        self.ln1 = Norm(cfg.norm, cfg.d_model)
+        self.attn = SelfAttention(cfg)
+        self.ln2 = Norm(cfg.norm, cfg.d_model)
+        self.mlp = MLP(cfg)
+
+    def forward(self, x):
+        x = x + self.attn(self.ln1(x).to(self.dtype))
+        return x + self.mlp(self.ln2(x).to(self.dtype))
+
+
+class TransformerLM(nn.Module):
+    """Decoder-only causal language model with a weight-tied readout."""
+
+    def __init__(self, cfg: TransformerConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.wte = nn.Embedding(cfg.vocab_size, cfg.d_model)
+        # rotary models encode positions inside attention instead
+        self.wpe = (None if cfg.use_rope else
+                    nn.Parameter(torch.empty(cfg.max_len, cfg.d_model)))
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.ln_f = Norm(cfg.norm, cfg.d_model)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Initialise every parameter as the JAX model does (N(0, 0.02) for
+        embeddings and kernels, zero biases, unit norm scales), drawing from
+        `generator`."""
+        _normal_(self.wte.weight, generator)
+        if self.wpe is not None:
+            _normal_(self.wpe, generator)
+        for module in self.modules():
+            if isinstance(module, (Dense, Norm)):
+                module.reset_parameters(generator)
+
+    def forward(self, tokens, return_hidden: bool = False):
+        cfg = self.cfg
+        t = tokens.shape[1]
+        x = self.wte(tokens)
+        if self.wpe is not None:
+            x = x + self.wpe[None, :t, :]
+        x = x.to(cfg.dtype)
+        for block in self.blocks:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(block, x, use_reentrant=False)
+            else:
+                x = block(x)
+        x = self.ln_f(x).to(cfg.dtype)
+        if return_hidden:
+            # pre-readout hidden states for the chunked cross-entropy, with
+            # the rounding the full readout applies
+            return x
+        # tied readout: bf16 hidden promoted to f32 against the f32 table
+        return F.linear(x.float(), self.wte.weight)
+
+
+def llama_style_config(**overrides) -> TransformerConfig:
+    """Llama-family architecture: RoPE + RMSNorm + SwiGLU + grouped-query
+    attention, no learned positional table.  Sized like gpt-small."""
+    base = dict(
+        vocab_size=32000, num_layers=12, num_heads=12, num_kv_heads=4,
+        d_model=768, d_ff=2048, max_len=2048, causal=True,
+        use_rope=True, norm="rmsnorm", mlp="swiglu",
+    )
+    base.update(overrides)
+    return TransformerConfig(**base)
+
+
+def gpt_small_config(**overrides) -> TransformerConfig:
+    base = dict(
+        vocab_size=32000, num_layers=12, num_heads=12, d_model=768,
+        d_ff=3072, max_len=2048, causal=True,
+    )
+    base.update(overrides)
+    return TransformerConfig(**base)

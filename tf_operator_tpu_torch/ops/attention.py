@@ -1,0 +1,403 @@
+"""Flash attention for the H100: three hand-written CUDA kernels and their
+plain PyTorch versions.
+
+The counterpart of `tf_operator_tpu/ops/attention.py`.  Layout: q/k/v are
+[batch, heads, seq, head_dim]; k/v may carry fewer (grouped-query) heads
+than q (heads % kv_heads == 0) and are never repeated in memory by the
+kernels.  Masks: causal, sliding window (`window`, requires causal) and
+attention sinks (`sink`, requires a window), with the same validation as
+the JAX package.
+
+Dispatch is decided by the tensors' device, outside autograd:
+  * a CPU tensor runs the plain version (`attention_lse`) under ordinary
+    autograd;
+  * a CUDA tensor goes through `FlashAttentionFn`, whose forward launches
+    the forward kernel (saving the per-row logsumexp) and whose backward
+    launches the dq and the dk/dv kernels.  A CUDA tensor the kernels do not
+    take (dtype other than bf16, head_dim other than 64/128, a block size
+    without an instantiation, non-contiguous) raises; nothing falls back.
+
+Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
+`flash_backward_dkv`) computes its kernel's plain version when handed CPU
+tensors, and counts, in its `launches` attribute, every time it launches
+its kernel.  The kernels live in `csrc/flash_attention.cu` and are built at
+first use (`_build.py`).
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+# ---------------------------------------------------------------------------
+# validation, shared with the plain path
+
+
+def check_sink(window: Optional[int], sink: int) -> int:
+    """Normalize the attention-sink knob: 0 = none; positive requires a
+    sliding window (sinks only change behavior when distant context is
+    otherwise masked off)."""
+    if not sink:
+        return 0
+    if sink < 0:
+        raise ValueError(f"sink must be >= 0, got {sink}")
+    if window is None:
+        raise ValueError(
+            "attention sinks require a sliding window (without one every "
+            "position already attends the first tokens)")
+    return int(sink)
+
+
+def check_window(causal: bool, window: Optional[int]) -> Optional[int]:
+    """Normalize the sliding-window knob: None/0 -> full attention; a
+    positive window requires causal."""
+    if not window:
+        return None
+    if window < 0:
+        raise ValueError(f"window must be positive, got {window}")
+    if not causal:
+        raise ValueError("sliding-window attention requires causal=True")
+    return int(window)
+
+
+def repeat_kv(q, k, v):
+    """Widen GQA k/v to q's head count (what the plain version needs; the
+    kernels map each query head to its KV head instead)."""
+    group = q.shape[1] // k.shape[1]
+    if group == 1:
+        return k, v
+    return (k.repeat_interleave(group, dim=1),
+            v.repeat_interleave(group, dim=1))
+
+
+def check_gqa(q, k):
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(
+            f"q heads {q.shape[1]} must be a multiple of kv heads {k.shape[1]}"
+        )
+
+
+def _env_block(name: str, multiple: int) -> int:
+    raw = os.environ.get(name, "128")
+    try:
+        value = int(raw)
+    except ValueError:
+        raise ValueError(
+            f"{name}={raw!r} is not an integer (this env var carries a tuned "
+            "block size to workloads)") from None
+    if value <= 0 or value % multiple:
+        raise ValueError(
+            f"{name}={value} must be a positive multiple of {multiple}")
+    return value
+
+
+def default_blocks(block_q, block_k):
+    """Resolve block sizes: explicit args win; otherwise the
+    TPUJOB_FLASH_BLOCK_Q/K env (the same contract as the JAX package);
+    otherwise 128.  A bad env value fails here, naming the variable."""
+    if block_q is None:
+        block_q = _env_block("TPUJOB_FLASH_BLOCK_Q", 8)
+    if block_k is None:
+        block_k = _env_block("TPUJOB_FLASH_BLOCK_K", 128)
+    return block_q, block_k
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path, and the card's reference in chip_smoke.py)
+
+
+def _scores(q, k, scale: float, causal: bool, window: Optional[int],
+            sink: int):
+    """Masked f32 scores [B, H, Tq, Tk] (masked entries at NEG_INF); k at
+    q's head count."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        t_q, t_k = logits.shape[-2:]
+        rows = torch.arange(t_q, device=q.device)[:, None]
+        cols = torch.arange(t_k, device=q.device)[None, :]
+        keep = rows >= cols
+        if window is not None:
+            near = rows - cols < window
+            if sink:
+                near = near | (cols < sink)
+            keep = keep & near
+        logits = logits.masked_fill(~keep, NEG_INF)
+    return logits
+
+
+def attention_lse(q, k, v, *, causal: bool = True,
+                  scale: Optional[float] = None,
+                  window: Optional[int] = None, sink: int = 0):
+    """Closed-form (o, lse [B, H, T] f32): the counterpart of
+    `xla_attention_lse`.  k/v carry q's head count."""
+    window = check_window(causal, window)
+    sink = check_sink(window, sink)
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    logits = _scores(q, k, scale, causal, window, sink)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(v.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v).to(q.dtype)
+    return out, lse
+
+
+def attention(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
+              window: Optional[int] = None, sink: int = 0):
+    """Plain attention output (k/v at q's head count)."""
+    return attention_lse(q, k, v, causal=causal, scale=scale, window=window,
+                         sink=sink)[0]
+
+
+def _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window, sink):
+    """p = exp(s - lse) and ds = p (dO V^T - delta), in f32, from the
+    forward's lse: what the two backward kernels rebuild tile by tile."""
+    s = _scores(q, kw, scale, causal, window, sink)
+    p = torch.exp(s - lse[..., None].float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vw.float())
+    return p, p * (dp - delta[..., None].float())
+
+
+def backward_dq_plain(q, k, v, do, lse, delta, *, scale: float,
+                      causal: bool, window: Optional[int], sink: int):
+    """Plain version of the dq kernel: dq = scale * ds K."""
+    kw, vw = repeat_kv(q, k, v)
+    _, ds = _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window,
+                          sink)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kw.float()) * scale).to(
+        q.dtype)
+
+
+def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
+                       causal: bool, window: Optional[int], sink: int):
+    """Plain version of the dk/dv kernel: dk = scale * ds^T Q and
+    dv = p^T dO, summed over each KV head's query group."""
+    kw, vw = repeat_kv(q, k, v)
+    p, ds = _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window,
+                          sink)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    b, kv_heads, t, d = k.shape
+    group = q.shape[1] // kv_heads
+    dk = dk.reshape(b, kv_heads, group, t, d).sum(2)
+    dv = dv.reshape(b, kv_heads, group, t, d).sum(2)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+HEAD_DIMS = (64, 128)
+# rows per CUDA block (16 per warp) the kernels are instantiated for
+BLOCK_ROWS = (64, 128)
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        from . import _build
+
+        lib = _build.library()
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        mask = [f32, i32, i32, i32, ptr]  # scale, causal, window, sink, stream
+        lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 6 + mask
+        lib.fa_backward_dq.argtypes = [ptr] * 7 + [i32] * 6 + mask
+        lib.fa_backward_dkv.argtypes = [ptr] * 8 + [i32] * 6 + mask
+        for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
+            fn.restype = i32
+        lib.fa_error_string.argtypes = [i32]
+        lib.fa_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def _check(err: int, name: str) -> None:
+    if err:
+        msg = _library().fa_error_string(err).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def _warps(block: int, name: str) -> int:
+    if block not in BLOCK_ROWS:
+        raise ValueError(
+            f"{name}={block} has no CUDA instantiation; the kernels take "
+            f"{BLOCK_ROWS} rows per block")
+    return block // 16
+
+
+def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
+    """Raise on anything the kernels do not take."""
+    b, heads, t, d = q.shape
+    bf16 = [q, k, v] + ([do] if do is not None else [])
+    rows = [x for x in (lse, delta) if x is not None]
+    for x in bf16 + rows:
+        if x.device != q.device:
+            raise ValueError("flash attention inputs must share one device")
+        if not x.is_contiguous():
+            raise ValueError("flash attention kernels take contiguous "
+                             "tensors")
+        if x.data_ptr() % 16:
+            raise ValueError("flash attention kernels need 16-byte aligned "
+                             "tensors")
+    for x in bf16:
+        if x.dtype != torch.bfloat16:
+            raise ValueError(
+                f"flash attention kernels take bfloat16, got {x.dtype}")
+    for x in rows:
+        if x.dtype != torch.float32 or x.shape != (b, heads, t):
+            raise ValueError(f"lse/delta must be float32 [{b}, {heads}, {t}]"
+                             f", got {x.dtype} {tuple(x.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (t, d):
+        raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"dO shape {tuple(do.shape)} != q shape "
+                         f"{tuple(q.shape)}")
+    if t < 1:
+        raise ValueError("flash attention needs seq len >= 1")
+    if b * heads > 65535:
+        raise ValueError(f"batch*heads {b * heads} exceeds the kernels' "
+                         "grid limit of 65535")
+
+
+def _mask_args(scale, causal, window, sink, device):
+    return [ctypes.c_float(scale), int(causal), int(window or 0), int(sink),
+            torch.cuda.current_stream(device).cuda_stream]
+
+
+def flash_forward(q, k, v, *, scale: float, causal: bool,
+                  window: Optional[int], sink: int,
+                  block_q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`."""
+    if q.device.type == "cpu":
+        return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
+                             scale=scale, window=window, sink=sink)
+    _check_cuda(q, k, v)
+    b, heads, t, d = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        err = _library().fa_forward(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * heads, heads, k.shape[1], t, d,
+            _warps(block_q, "block_q"),
+            *_mask_args(scale, causal, window, sink, q.device))
+    _check(err, "flash forward")
+    flash_forward.launches += 1
+    return o, lse
+
+
+def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
+                      window: Optional[int], sink: int, block_q: int):
+    """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`."""
+    if q.device.type == "cpu":
+        return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
+                                 causal=causal, window=window, sink=sink)
+    _check_cuda(q, k, v, do, lse, delta)
+    b, heads, t, d = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _library().fa_backward_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * heads,
+            heads, k.shape[1], t, d, _warps(block_q, "block_q"),
+            *_mask_args(scale, causal, window, sink, q.device))
+    _check(err, "flash dq")
+    flash_backward_dq.launches += 1
+    return dq
+
+
+def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
+                       causal: bool, window: Optional[int], sink: int,
+                       block_k: int):
+    """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`."""
+    if q.device.type == "cpu":
+        return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
+                                  causal=causal, window=window, sink=sink)
+    _check_cuda(q, k, v, do, lse, delta)
+    b, heads, t, d = q.shape
+    kv_heads = k.shape[1]
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _library().fa_backward_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * kv_heads, heads, kv_heads, t, d, _warps(block_k, "block_k"),
+            *_mask_args(scale, causal, window, sink, q.device))
+    _check(err, "flash dk/dv")
+    flash_backward_dkv.launches += 1
+    return dk, dv
+
+
+flash_forward.launches = 0
+flash_backward_dq.launches = 0
+flash_backward_dkv.launches = 0
+KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The kernels' gradient: the forward saves (q, k, v, o, lse); the
+    backward forms delta = rowsum(dO * O) in f32 and launches dq and
+    dk/dv."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k, window, sink):
+        o, lse = flash_forward(q, k, v, scale=scale, causal=causal,
+                               window=window, sink=sink, block_q=block_q)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(scale=scale, causal=causal, window=window, sink=sink)
+        ctx.blocks = (block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        block_q, block_k = ctx.blocks
+        g = g.contiguous()
+        delta = (g.float() * o.float()).sum(-1)
+        dq = flash_backward_dq(q, k, v, g, lse, delta, block_q=block_q,
+                               **ctx.opts)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_k=block_k,
+                                    **ctx.opts)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention(q, k, v, causal=True, scale=None, block_q=None,
+                    block_k=None, window=None, sink=0):
+    """Fused attention: the CUDA kernels (forward and backward) on a CUDA
+    tensor, the plain version under ordinary autograd on a CPU tensor.
+
+    `window` (sliding window, requires causal) restricts each query to its
+    last `window` keys; `sink` keeps the first `sink` positions visible on
+    top of it.  The kernels skip every key tile outside the band."""
+    window = check_window(causal, window)
+    sink = check_sink(window, sink)
+    check_gqa(q, k)
+    s = scale if scale is not None else q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return attention(q, *repeat_kv(q, k, v), causal=causal, scale=s,
+                         window=window, sink=sink)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    block_q, block_k = default_blocks(block_q, block_k)
+    return FlashAttentionFn.apply(q, k, v, causal, s, block_q, block_k,
+                                  window, sink)

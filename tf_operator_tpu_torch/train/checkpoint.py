@@ -1,0 +1,120 @@
+"""Checkpoint / resume with `torch.save`.
+
+The same contract as `tf_operator_tpu/train/checkpoint.py`, which the
+restart state machine relies on: one directory per step under `directory`,
+the newest `max_to_keep` kept, `latest_step()`, `restore(template)` that
+returns the template unchanged when there is no checkpoint, and
+`save(state, wait=)`.  A preempted gang that restarts resumes from the
+latest complete step.
+
+A save first copies the state to host memory (so training may go on
+updating the parameters in place), then writes it on a background thread
+unless `wait=True`.  The step directory is written under a temporary name
+and renamed when complete, so `latest_step()` never sees a partial one.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+from concurrent.futures import Future, ThreadPoolExecutor
+from typing import List, Optional
+
+import torch
+
+from .state import TrainState
+
+_STATE_FILE = "state.pt"
+
+
+def _to_host(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 3) -> None:
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+        self.max_to_keep = max_to_keep
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._pending: List[Future] = []
+        self._submitted: set = set()  # steps saved or being written
+
+    def all_steps(self) -> List[int]:
+        steps = []
+        for name in os.listdir(self.directory):
+            if name.isdigit() and os.path.exists(
+                    os.path.join(self.directory, name, _STATE_FILE)):
+                steps.append(int(name))
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, state: TrainState, step: Optional[int] = None,
+             wait: bool = True) -> int:
+        step = state.step if step is None else step
+        if step in self._submitted or step in self.all_steps():
+            # already saved or being saved (the final save after a periodic
+            # one at the same step)
+            if wait:
+                self.wait_until_finished()
+            return step
+        self._submitted.add(step)
+        payload = _to_host({
+            "model": state.model.state_dict(),
+            "optimizer": state.optimizer.state_dict(),
+            "step": state.step,
+        })
+        if self._executor is None:
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="tpujob-ckpt")
+        self._pending.append(self._executor.submit(self._write, step, payload))
+        if wait:
+            self.wait_until_finished()
+        return step
+
+    def _write(self, step: int, payload) -> None:
+        final = os.path.join(self.directory, str(step))
+        tmp = os.path.join(self.directory, f".tmp-{step}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save(payload, os.path.join(tmp, _STATE_FILE))
+        os.replace(tmp, final)
+        for old in self.all_steps()[:-self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)))
+
+    def wait_until_finished(self) -> None:
+        """Block until every save has been written; re-raise a failed one."""
+        pending, self._pending = self._pending, []
+        for fut in pending:
+            fut.result()
+
+    def restore(self, template: TrainState,
+                step: Optional[int] = None) -> TrainState:
+        """Load checkpoint `step` (default latest) into the template's model
+        and optimizer, on the template's device; returns the template, which
+        is unchanged if no checkpoint exists."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return template
+        device = next(template.model.parameters()).device
+        payload = torch.load(
+            os.path.join(self.directory, str(step), _STATE_FILE),
+            map_location=device, weights_only=True)
+        template.model.load_state_dict(payload["model"])
+        template.optimizer.load_state_dict(payload["optimizer"])
+        template.step = int(payload["step"])
+        return template
+
+    def close(self) -> None:
+        self.wait_until_finished()
+        if self._executor is not None:
+            self._executor.shutdown()
+            self._executor = None

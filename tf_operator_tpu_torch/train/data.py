@@ -1,0 +1,57 @@
+"""Data pipeline: a synthetic, learnable token stream and the copy to the
+device.
+
+`synthetic_tokens` is a copy of the generator in
+`tf_operator_tpu/train/data.py` (the port imports nothing of the JAX
+package): the same seed yields the same stream, bit for bit.
+"""
+from __future__ import annotations
+
+import collections
+from typing import Dict, Iterator
+
+import numpy as np
+import torch
+
+
+def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int = 32000,
+                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Markov-ish token streams with learnable bigram structure."""
+    rng = np.random.RandomState(seed)
+    next_tok = (np.arange(vocab_size) * 31 + 7) % vocab_size
+    while True:
+        start = rng.randint(0, vocab_size, size=batch_size)
+        toks = np.empty((batch_size, seq_len), dtype=np.int32)
+        toks[:, 0] = start
+        for t in range(1, seq_len):
+            noise = rng.rand(batch_size) < 0.1
+            toks[:, t] = np.where(
+                noise, rng.randint(0, vocab_size, size=batch_size), next_tok[toks[:, t - 1]]
+            )
+        yield {"tokens": toks}
+
+
+def prefetch_to_device(it: Iterator, device: torch.device,
+                       size: int = 2) -> Iterator:
+    """Keep up to `size` batches in flight to `device` ahead of the
+    consumer.  On a CUDA device each array is copied from pinned host memory
+    with `non_blocking=True`, so the copy of batch N+1 overlaps step N."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+
+    def place(batch):
+        out = {}
+        for key, value in batch.items():
+            x = torch.from_numpy(np.asarray(value))
+            if cuda:
+                x = x.pin_memory().to(device, non_blocking=True)
+            out[key] = x
+        return out
+
+    queue = collections.deque()
+    for batch in it:
+        queue.append(place(batch))
+        if len(queue) > size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

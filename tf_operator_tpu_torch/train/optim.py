@@ -1,0 +1,124 @@
+"""Optimizer for the LM workloads: AdamW with linear warmup + cosine decay,
+global-norm gradient clipping, and weight decay on matrices only.
+
+The counterpart of `tf_operator_tpu/train/optim.py` (an optax chain), kept
+to optax's arithmetic where PyTorch's defaults differ:
+  * clipping scales by max_norm / norm with no epsilon, and only when
+    norm >= max_norm (`torch.nn.utils.clip_grad_norm_` adds 1e-6);
+  * the schedule is evaluated at the update count before it is incremented,
+    so the first update uses lr(0).
+The moments and the decoupled decay are torch.optim.AdamW's, which computes
+optax's adamw update up to rounding.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+
+def decay_mask(model) -> dict:
+    """{name: True} for parameters weight decay applies to: rank >= 2
+    (matmul kernels, embeddings); biases / norm scales are excluded."""
+    return {name: p.ndim >= 2 for name, p in model.named_parameters()}
+
+
+def lr_schedule(peak_lr: float, *, schedule: str = "constant",
+                warmup_steps: int = 0, total_steps: Optional[int] = None,
+                end_fraction: float = 0.1) -> Callable[[int], float]:
+    """A learning-rate schedule count -> lr: linear warmup from 0 over
+    `warmup_steps`, then constant, or cosine decay to
+    `end_fraction * peak_lr` by `total_steps` (required for cosine).  The
+    same values as optax's warmup_cosine_decay_schedule / join_schedules."""
+    if schedule not in ("constant", "cosine"):
+        raise ValueError(f"schedule must be 'constant'|'cosine', got {schedule!r}")
+    if schedule == "cosine" and not total_steps:
+        raise ValueError("cosine schedule needs total_steps")
+
+    def warmup(count: int) -> float:
+        return peak_lr * min(max(count, 0), warmup_steps) / warmup_steps
+
+    if schedule == "cosine":
+        decay_steps = total_steps - warmup_steps
+        if decay_steps <= 0:
+            raise ValueError(
+                "cosine schedule needs total_steps > warmup_steps")
+        alpha = end_fraction if peak_lr else 0.0
+
+        def after(count: int) -> float:
+            count = min(count, decay_steps)
+            cosine = 0.5 * (1 + math.cos(math.pi * count / decay_steps))
+            return peak_lr * ((1 - alpha) * cosine + alpha)
+    else:
+        def after(count: int) -> float:
+            return peak_lr
+
+    def sched(count: int) -> float:
+        if count < warmup_steps:
+            return warmup(count)
+        return after(count - warmup_steps)
+
+    return sched
+
+
+def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+    """Scale the gradients in place by max_norm / norm when their global
+    norm is >= max_norm, exactly as optax.clip_by_global_norm (no epsilon).
+    Returns the norm."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    factor = torch.where(norm < max_norm, torch.ones_like(norm),
+                         max_norm / norm)
+    for g in grads:
+        g.mul_(factor)
+    return norm
+
+
+@dataclass(frozen=True)
+class AdamW:
+    """The optimizer recipe (the optax GradientTransformation's
+    counterpart): `init(model)` builds the torch optimizer over the model's
+    parameters; `update(optimizer, params, count)` clips and applies one
+    step at lr(count)."""
+
+    schedule: Callable[[int], float]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+
+    def init(self, model) -> torch.optim.AdamW:
+        mask = decay_mask(model)
+        named = list(model.named_parameters())
+        groups = [
+            {"params": [p for n, p in named if mask[n]],
+             "weight_decay": self.weight_decay},
+            {"params": [p for n, p in named if not mask[n]],
+             "weight_decay": 0.0},
+        ]
+        return torch.optim.AdamW(groups, lr=self.schedule(0),
+                                 betas=(self.b1, self.b2), eps=self.eps)
+
+    def update(self, optimizer: torch.optim.Optimizer, params,
+               count: int) -> None:
+        if self.grad_clip:
+            clip_by_global_norm_(params, self.grad_clip)
+        lr = self.schedule(count)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+
+
+def lm_optimizer(peak_lr: float, *, schedule: str = "constant",
+                 warmup_steps: int = 0, total_steps: Optional[int] = None,
+                 weight_decay: float = 0.1, grad_clip: float = 1.0,
+                 b1: float = 0.9, b2: float = 0.95) -> AdamW:
+    """AdamW + clipping + masked decay under the configured schedule."""
+    sched = lr_schedule(peak_lr, schedule=schedule,
+                        warmup_steps=warmup_steps, total_steps=total_steps)
+    return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
+                 grad_clip=grad_clip)

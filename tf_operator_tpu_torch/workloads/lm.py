@@ -1,0 +1,263 @@
+"""LM pretraining workload on one CUDA device (or the CPU, on request).
+
+The counterpart of `tf_operator_tpu/workloads/lm.py`: the same flags,
+defaults, exit-2 rejections and log lines (`step {i} loss ...`,
+`resumed from step ...`, `done`), plus one `step time ...` line: the mean
+wall time of the run's steps after its first, periodic checkpoint saves
+included.  Checkpoints make a preempted pod resume
+from its latest step.  Options of the JAX workload that this package does
+not run yet exit 2 with a "not yet ported" message naming the ROADMAP item;
+none is silently ignored.
+
+Usage: python -m tf_operator_tpu_torch.workloads.lm --steps 100 \
+           --checkpoint-dir /tmp/ckpt
+Set TPUJOB_FORCE_PLATFORM=cpu to run on the CPU (the attention kernels'
+plain versions); otherwise a CUDA device is required.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+
+def _not_ported(what: str, item: str) -> int:
+    print(f"{what} is not yet ported (ROADMAP item {item})", flush=True)
+    return 2
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--seq-len", type=int, default=2048)
+    parser.add_argument("--vocab", type=int, default=32000)
+    parser.add_argument("--layers", type=int, default=12)
+    parser.add_argument("--d-model", type=int, default=768)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--lr-schedule", choices=("constant", "cosine"),
+                        default="constant")
+    parser.add_argument("--warmup-steps", type=int, default=0)
+    parser.add_argument("--weight-decay", type=float, default=0.1)
+    parser.add_argument("--grad-clip", type=float, default=1.0)
+    parser.add_argument("--checkpoint-dir", default=None)
+    parser.add_argument("--checkpoint-every", type=int, default=20)
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--seq-parallel", choices=("ring", "ulysses"),
+                        default="ring",
+                        help="strategy on the sp mesh axis (meshes are not "
+                             "ported yet)")
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="microbatches per optimizer step (activation "
+                             "memory / N, same update math)")
+    parser.add_argument("--zero-shard-weight-update", action="store_true",
+                        dest="zero_shard_weight_update", default=None,
+                        help="shard optimizer state + weight update over "
+                             "the dp mesh axis. Defaults to the spec knob "
+                             "injected as TPUJOB_ZERO_SHARD_WEIGHT_UPDATE")
+    parser.add_argument("--no-zero-shard-weight-update", action="store_false",
+                        dest="zero_shard_weight_update", default=None,
+                        help="force the dense weight update even when the "
+                             "spec knob injected the env")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="enable MoE with this many experts")
+    parser.add_argument("--moe-aux-weight", type=float, default=0.01)
+    from .runner import add_profile_args
+
+    add_profile_args(parser)
+    parser.add_argument("--arch", choices=("gpt", "llama"), default="gpt",
+                        help="gpt: learned positions + LayerNorm + GELU; "
+                             "llama: RoPE + RMSNorm + SwiGLU + GQA")
+    parser.add_argument("--kv-heads", type=int, default=0,
+                        help="GQA KV heads for --arch llama (0 = heads/3)")
+    parser.add_argument("--rope-scaling", choices=("none", "linear", "ntk"),
+                        default="none",
+                        help="context extension for RoPE models (requires "
+                             "--arch llama)")
+    parser.add_argument("--rope-factor", type=float, default=1.0,
+                        help="extension factor for --rope-scaling")
+    parser.add_argument("--attn-window", type=int, default=0,
+                        help="sliding-window attention: each token attends "
+                             "its last N positions (0 = full; the kernels "
+                             "skip key tiles outside the band)")
+    parser.add_argument("--attn-sink", type=int, default=0,
+                        help="attention sinks: with --attn-window, keep the "
+                             "first N positions visible to every token")
+    parser.add_argument("--kv-cache-dtype", choices=("model", "int8"),
+                        default="model",
+                        help="decode KV-cache storage for --sample-tokens")
+    parser.add_argument("--loss-chunk", type=int, default=0,
+                        help="compute the cross-entropy in T-chunks of "
+                             "this size so the full [B,T,vocab] logits "
+                             "never materialize (0 = one-shot)")
+    parser.add_argument("--sample-tokens", type=int, default=0,
+                        help="after training, greedily generate this many "
+                             "tokens with the KV-cache decode path")
+    args = parser.parse_args(argv)
+
+    from .runner import ProfileCapture, WorkloadContext, apply_forced_platform
+
+    try:
+        device = apply_forced_platform()
+    except RuntimeError as e:
+        print(f"lm workload: {e}", flush=True)
+        return 1
+
+    if args.grad_accum < 1 or args.batch % args.grad_accum:
+        print(f"--grad-accum {args.grad_accum} must be >= 1 and divide "
+              f"--batch {args.batch}", flush=True)
+        return 2
+    SAMPLE_PROMPT_LEN = 8
+    if args.sample_tokens > 0 and (
+        SAMPLE_PROMPT_LEN + args.sample_tokens > args.seq_len
+    ):
+        # honored or rejected, never silently clamped
+        print(f"--sample-tokens {args.sample_tokens} needs prompt "
+              f"({SAMPLE_PROMPT_LEN}) + tokens <= --seq-len {args.seq_len}",
+              flush=True)
+        return 2
+
+    ctx = WorkloadContext.from_env()
+    print(f"lm workload: role={ctx.replica_type} index={ctx.replica_index} "
+          f"mesh={ctx.mesh_shape}", flush=True)
+    if ctx.is_elastic:
+        print(f"elastic mapping: virtual={ctx.virtual_replicas} "
+              f"physical={ctx.physical_replicas} "
+              f"generation={ctx.elastic_generation} "
+              f"hosted={ctx.virtual_assignment()}", flush=True)
+
+    if args.moe_experts > 0:
+        return _not_ported("--moe-experts (mixture of experts)", "A.13")
+    if args.sample_tokens > 0:
+        return _not_ported("--sample-tokens (KV-cache decode)", "A.12")
+    if ctx.num_processes > 1:
+        return _not_ported(
+            f"a multi-process job (TPUJOB_NUM_PROCESSES={ctx.num_processes})",
+            "A.7")
+    zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
+            is None else args.zero_shard_weight_update)
+    if zero and ctx.mesh_shape.get("dp", 1) > 1:
+        return _not_ported("--zero-shard-weight-update over dp > 1", "A.8")
+    sharded = {a: n for a, n in ctx.mesh_shape.items() if n > 1}
+    if sharded:
+        return _not_ported(f"a device mesh with axes {sharded} (data, "
+                           "tensor or sequence parallelism)", "A.6-A.8")
+    if zero:
+        print("zero-shard-weight-update: dp axis size is 1, running dense",
+              flush=True)
+
+    import torch
+
+    from ..models.transformer import TransformerConfig, TransformerLM
+    from ..train.data import prefetch_to_device, synthetic_tokens
+    from ..train.optim import lm_optimizer
+    from ..train.state import create_train_state
+    from ..train.step import lm_loss_fn, make_train_step
+
+    heads = max(1, args.d_model // 64)
+    extra = {}
+    d_ff = args.d_model * 4
+    if args.arch != "llama" and args.rope_scaling != "none":
+        # explicit input is honored or rejected, never silently dropped:
+        # only the llama arch uses RoPE, so scaling has nothing to scale
+        print(f"--rope-scaling {args.rope_scaling} requires --arch llama "
+              "(the gpt arch uses learned positions, not RoPE)", flush=True)
+        return 2
+    if args.arch == "llama":
+        # one device, so no tp constraint on the KV head count
+        if args.kv_heads:
+            kv = args.kv_heads
+            problem = None
+            if kv <= 0:
+                problem = "must be positive"
+            elif heads % kv:
+                problem = f"must divide num_heads {heads}"
+            if problem:
+                print(f"--kv-heads {kv} {problem}", flush=True)
+                return 2
+        else:
+            # derived default: largest kv <= heads//3 that divides heads
+            kv = max(1, heads // 3)
+            while kv > 1 and heads % kv:
+                kv -= 1
+        extra = dict(num_kv_heads=kv, use_rope=True, norm="rmsnorm",
+                     mlp="swiglu", rope_scaling=args.rope_scaling,
+                     rope_factor=args.rope_factor)
+        # SwiGLU has 3 matrices; 8/3 scaling keeps MLP params comparable
+        # to the 2-matrix GELU MLP at 4*d_model
+        d_ff = args.d_model * 8 // 3
+    try:
+        cfg = TransformerConfig(
+            vocab_size=args.vocab, num_layers=args.layers,
+            num_heads=heads, d_model=args.d_model,
+            d_ff=d_ff, max_len=args.seq_len, seq_parallel=args.seq_parallel,
+            remat=args.remat, attn_window=args.attn_window,
+            attn_sink=args.attn_sink, kv_cache_dtype=args.kv_cache_dtype,
+            **extra,
+        )
+    except ValueError as e:
+        print(f"invalid model config: {e}", flush=True)
+        return 2
+    try:
+        tx = lm_optimizer(
+            args.lr, schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
+            total_steps=args.steps, weight_decay=args.weight_decay,
+            grad_clip=args.grad_clip,
+        )
+    except ValueError as e:
+        print(f"invalid optimizer config: {e}", flush=True)
+        return 2
+    state = create_train_state(TransformerLM(cfg), tx, seed=0, device=device)
+
+    mgr = None
+    if args.checkpoint_dir:
+        from ..train.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(args.checkpoint_dir)
+        state = mgr.restore(state)
+        if mgr.latest_step() is not None:
+            print(f"resumed from step {state.step}", flush=True)
+
+    step = make_train_step(
+        lm_loss_fn(state.model, loss_chunk=args.loss_chunk),
+        grad_accum=args.grad_accum)
+    data = prefetch_to_device(
+        synthetic_tokens(args.batch, args.seq_len + 1, args.vocab), device)
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    start = state.step
+    prof = ProfileCapture(args.profile_dir, start + args.profile_start,
+                          args.profile_steps)
+    t_warm = None
+    for i in range(start, args.steps):
+        prof.step(i)
+        state, metrics = step(state, next(data))
+        if i % 10 == 0:
+            print(f"step {i} loss {float(metrics['loss']):.4f}", flush=True)
+        if mgr is not None and (i + 1) % args.checkpoint_every == 0:
+            # written in the background; the final save below waits
+            mgr.save(state, wait=False)
+        if i == start:
+            # the first step of a run warms caches and the allocator
+            sync()
+            t_warm = time.perf_counter()
+    sync()
+    timed = args.steps - start - 1
+    if timed > 0:
+        ms = (time.perf_counter() - t_warm) / timed * 1e3
+        print(f"step time {ms:.3f} ms over steps {start + 1}-"
+              f"{args.steps - 1}, {args.batch * args.seq_len / ms * 1e3:.1f} "
+              "tokens/s", flush=True)
+    prof.close()
+    if mgr is not None:
+        mgr.save(state)
+        mgr.close()
+    sync()
+    print("done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

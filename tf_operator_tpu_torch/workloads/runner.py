@@ -1,0 +1,171 @@
+"""Workload bootstrap: what a pod process does with the injected topology.
+
+The counterpart of `tf_operator_tpu/workloads/runner.py`: parse TF_CONFIG +
+the TPUJOB_* env into a WorkloadContext, pick the device, and capture a
+profiler trace for a window of steps.  Multi-process groups and meshes are
+not ported yet (ROADMAP items A.6-A.8); the workloads reject them.
+"""
+from __future__ import annotations
+
+import json
+import os
+from dataclasses import dataclass, field
+from typing import Dict, Optional
+
+from ..api import constants
+
+
+class ProfileCapture:
+    """Profile a window of training steps with `torch.profiler` (host ops
+    and, on the card, CUDA kernels) into a Chrome trace under
+    `profile_dir`, between `start_step` and `start_step + num_steps`.
+    No-op when profile_dir is falsy — workloads call `step(i)`
+    unconditionally."""
+
+    def __init__(self, profile_dir: Optional[str], start_step: int = 2,
+                 num_steps: int = 3) -> None:
+        # A non-positive window means "capture nothing", not "never stop".
+        self.profile_dir = profile_dir if num_steps > 0 else None
+        self.start_step = start_step
+        self.stop_step = start_step + num_steps
+        self._prof = None
+        self._captured = False
+
+    def step(self, i: int) -> None:
+        if not self.profile_dir:
+            return
+        if i == self.start_step and self._prof is None:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        elif i == self.stop_step and self._prof is not None:
+            self._stop()
+
+    def close(self) -> None:
+        if self._prof is not None:
+            self._stop()
+        elif self.profile_dir and not self._captured:
+            # asked for a profile, never reached the window — say so rather
+            # than exit 0 with an empty directory
+            print(f"warning: profile window (start step {self.start_step}) "
+                  f"was never reached; no trace written", flush=True)
+
+    def _stop(self) -> None:
+        import torch
+
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        self._prof.__exit__(None, None, None)
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._prof.export_chrome_trace(
+            os.path.join(self.profile_dir, "trace.json"))
+        self._prof = None
+        self._captured = True
+        print(f"profile trace written to {self.profile_dir}", flush=True)
+
+
+def add_profile_args(parser) -> None:
+    """The shared --profile-* CLI surface for training workloads."""
+    parser.add_argument("--profile-dir", default=None,
+                        help="capture a torch.profiler trace here")
+    parser.add_argument("--profile-start", type=int, default=2)
+    parser.add_argument("--profile-steps", type=int, default=3)
+
+
+def apply_forced_platform(env: Optional[Dict[str, str]] = None):
+    """The device the workload runs on: CUDA, unless TPUJOB_FORCE_PLATFORM
+    asks for the CPU (hermetic tests).  Raises RuntimeError when no CUDA
+    device is present and the CPU was not asked for: the port never falls
+    back to the CPU on its own."""
+    import torch
+
+    forced = (os.environ if env is None else env).get(
+        constants.ENV_FORCE_PLATFORM, "").lower()
+    if forced == "cpu":
+        return torch.device("cpu")
+    if forced not in ("", "cuda", "gpu"):
+        raise RuntimeError(
+            f"{constants.ENV_FORCE_PLATFORM}={forced!r}: this runtime runs "
+            "on 'cuda' (default) or 'cpu'")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible; set "
+            f"{constants.ENV_FORCE_PLATFORM}=cpu to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+@dataclass
+class WorkloadContext:
+    replica_type: str = "worker"
+    replica_index: int = 0
+    tf_config: Optional[dict] = None
+    coordinator_address: Optional[str] = None
+    process_id: Optional[int] = None
+    num_processes: int = 1
+    mesh_shape: Dict[str, int] = field(default_factory=dict)
+    accelerator: str = ""
+    slice_topology: str = ""
+    zero_shard_weight_update: bool = False
+    # Elastic virtual-replica mapping: V fixed virtual replicas multiplexed
+    # onto the current physical width.  0/0 means the group is not elastic.
+    virtual_replicas: int = 0
+    physical_replicas: int = 0
+    elastic_generation: int = 0
+
+    @property
+    def is_elastic(self) -> bool:
+        return self.virtual_replicas > 0 and self.physical_replicas > 0
+
+    def virtual_assignment(self) -> list:
+        """The virtual replica ids THIS physical replica hosts:
+        {j : j % P == replica_index}.  Empty for non-elastic contexts."""
+        if not self.is_elastic:
+            return []
+        return [
+            j for j in range(self.virtual_replicas)
+            if j % self.physical_replicas == self.replica_index
+        ]
+
+    @classmethod
+    def from_env(cls, env: Optional[Dict[str, str]] = None) -> "WorkloadContext":
+        env = dict(os.environ if env is None else env)
+        tf_config = None
+        raw = env.get(constants.ENV_TF_CONFIG)
+        if raw:
+            tf_config = json.loads(raw)
+        mesh_raw = env.get(constants.ENV_MESH_SHAPE, "")
+        pid = env.get(constants.ENV_PROCESS_ID)
+        ctx = cls(
+            replica_type=env.get(constants.ENV_REPLICA_TYPE, "worker"),
+            replica_index=int(env.get(constants.ENV_REPLICA_INDEX, "0")),
+            tf_config=tf_config,
+            coordinator_address=env.get(constants.ENV_COORDINATOR_ADDRESS),
+            process_id=int(pid) if pid is not None else None,
+            num_processes=int(env.get(constants.ENV_NUM_PROCESSES, "1")),
+            mesh_shape=json.loads(mesh_raw) if mesh_raw else {},
+            accelerator=env.get(constants.ENV_ACCELERATOR, ""),
+            slice_topology=env.get(constants.ENV_SLICE_TOPOLOGY, ""),
+            zero_shard_weight_update=env.get(
+                constants.ENV_ZERO_SHARD_WEIGHT_UPDATE, ""
+            ).lower() in ("1", "true"),
+            virtual_replicas=int(
+                env.get(constants.ENV_VIRTUAL_REPLICAS, "0") or 0
+            ),
+            physical_replicas=int(
+                env.get(constants.ENV_PHYSICAL_REPLICAS, "0") or 0
+            ),
+            elastic_generation=int(
+                env.get(constants.ENV_ELASTIC_GENERATION, "0") or 0
+            ),
+        )
+        # TF_CONFIG task block wins when present (parity with the reference's
+        # contract: the task identity is authoritative there).
+        if tf_config and "task" in tf_config:
+            ctx.replica_type = tf_config["task"].get("type", ctx.replica_type)
+            ctx.replica_index = int(tf_config["task"].get("index", ctx.replica_index))
+        return ctx
