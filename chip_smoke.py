@@ -12,7 +12,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            main-path shape and at GQA / ragged T / non-causal / window+sink /
            head_dim 128; prints the error against the stated tolerance, the
            kernel's time, the plain version's, the bound, and as a yardstick
-           only F.scaled_dot_product_attention's (which the port never calls)
+           only F.scaled_dot_product_attention's (which the port never calls):
+           its forward beside the forward kernel, its backward alone
+           (autograd.grad on a retained graph) beside dq + dk/dv
   slice    the LM workload (`workloads.lm.main`) at GPT-small full width
            (12 x 768, seq 2048, batch 8, vocab 32000) for 6 steps with
            checkpoints, checking every kernel launched 12 x steps times; a
@@ -311,9 +313,20 @@ def kernel_case(case, timing: bool):
         out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
         out.backward(do)
 
+    # SDPA's backward alone (dq, dk and dv in one call) on a retained graph
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, **sdpa_kw)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do,
+                                   retain_graph=True)
+
     lib_fwd = cuda_ms(sdpa_fwd, reps)
     lib_fwd_bwd = cuda_ms(sdpa_fwd_bwd, reps)
+    lib_bwd = cuda_ms(sdpa_bwd, reps)
+    del sdpa_out
     kern_total = sum(k_ms for k_ms, _ in times.values())
+    kern_bwd = (times["flash_backward_dq"][0] +
+                times["flash_backward_dkv"][0])
     for kname, (k_ms, p_ms) in times.items():
         r = result[kname]
         r.update(ms=k_ms, plain_ms=p_ms,
@@ -323,6 +336,9 @@ def kernel_case(case, timing: bool):
               f"bound/kernel {r['bound_ms'] / k_ms:.3f}", flush=True)
     print(f"  {name:11s} kernels fwd+bwd ms {kern_total:.4f}; sdpa (yardstick)"
           f" fwd ms {lib_fwd:.4f} fwd+bwd ms {lib_fwd_bwd:.4f}", flush=True)
+    print(f"  {name:11s} kernels dq + dk/dv ms {kern_bwd:.4f}; sdpa backward "
+          f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
+          flush=True)
     return result
 
 

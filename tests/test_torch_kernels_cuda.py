@@ -15,6 +15,7 @@ second product and write bf16 outputs.  lse within 1e-3 (f32 on both
 sides).  The unmarked tests check that rule itself on the CPU.
 """
 import ctypes
+import shutil
 
 import numpy as np
 import pytest
@@ -67,15 +68,29 @@ def test_tolerance_takes_rounding_and_rejects_a_late_tile_fault(t, n_drop):
     assert not _held(_pv_without_early_keys(q, k, v, t - 128, n_drop), ref)
 
 
+@pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
+                                      (-0.125, False), (float("nan"), False)])
+def test_the_kernels_take_only_a_positive_scale(scale, ok):
+    """The forward kernel takes the row max of the unscaled scores, which
+    is the max of the scaled ones only for a positive scale."""
+    if ok:
+        A._check_scale(scale)
+    else:
+        with pytest.raises(ValueError, match="positive scale"):
+            A._check_scale(scale)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("t,h,kv_h,causal,window,sink,block", [
-    (256, 4, 2, True, None, 0, 128),
-    (200, 4, 4, False, None, 0, 64),
-    (512, 2, 2, True, 64, 4, 128),
+@pytest.mark.parametrize("t,h,kv_h,causal,window,sink,block,d", [
+    (256, 4, 2, True, None, 0, 128, 64),
+    (200, 4, 4, False, None, 0, 64, 64),
+    (512, 2, 2, True, 64, 4, 128, 64),
+    (300, 4, 2, True, None, 0, 128, 128),
+    (200, 4, 4, False, None, 0, 64, 128),
 ])
 def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
-                                      sink, block):
-    q, k, v, g = _inputs(t, h, kv_h)
+                                      sink, block, d):
+    q, k, v, g = _inputs(t, h, kv_h, d)
     opts = dict(scale=0.125, causal=causal, window=window, sink=sink)
     before = A.launches()
     o, lse = A.flash_forward(q, k, v, block_q=block, **opts)
@@ -132,6 +147,21 @@ def test_flash_attention_autograd_on_the_card(cuda):
         assert tolerance_ratios(x, want)[1] <= FRO
 
 
+def _faulty_library(tmp_path, monkeypatch, site, fault):
+    """Build the kernels from a copy of ops/csrc with `site` (which must
+    occur once) replaced by `fault`, and make the wrappers launch them."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    source = csrc / _build.SOURCE.name
+    src = source.read_text()
+    assert src.count(site) == 1
+    source.write_text(src.replace(site, fault))
+    lib = tmp_path / "libflash_attention_fault.so"
+    _build.nvcc(source, lib)
+    monkeypatch.setattr(A, "_lib", None)
+    monkeypatch.setattr(_build, "library", lambda: ctypes.CDLL(str(lib)))
+
+
 @pytest.mark.cuda
 def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
                                                            monkeypatch):
@@ -139,17 +169,9 @@ def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
     16 keys skipped for the last query tile; m, l and lse untouched) at
     the LM's main-path shape: o fails the tolerance while lse still
     passes."""
-    src = _build.SOURCE.read_text()
-    site = ("load_b(b, sVt + dn * 8 * LDT, LDT, kk * 16, g, t);\n"
-            "        mma16816(acc[dn], a, b);")
-    assert src.count(site) == 1
-    faulty = tmp_path / "flash_attention.cu"
-    faulty.write_text(src.replace(site, site.replace(
-        "mma16816(", "if (it > 0 || kk > 0 || q0 + BM < T) mma16816(")))
-    lib = tmp_path / "libflash_attention_fault.so"
-    _build.nvcc(faulty, lib)
-    monkeypatch.setattr(A, "_lib", None)
-    monkeypatch.setattr(_build, "library", lambda: ctypes.CDLL(str(lib)))
+    site = "hopper::wgmma_rs64(acc[h], pa[kk]"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "if (it > 0 || kk > 0 || q0 + BM < T) " + site)
 
     q, k, v, _ = _inputs(2048, 12, 12, b=8)
     o, lse = A.flash_forward(q, k, v, scale=0.125, causal=True, window=None,
@@ -164,3 +186,27 @@ def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
           f"{2e-2 * max(1.0, float(o_ref.abs().max())):.3e})")
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     assert not _held(o, o_ref)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_dkv_kernel_that_skips_a_query_tile(
+        cuda, tmp_path, monkeypatch):
+    """A dk/dv kernel built with a planted fault (each key tile leaves out
+    the dV contribution of the first query tile it visits; dK untouched)
+    at the LM's main-path shape: dv fails the tolerance, dk still passes."""
+    site = "hopper::wgmma_rs64(dv_acc[h], pa[kk]"
+    _faulty_library(tmp_path, monkeypatch, site, "if (it > 0) " + site)
+
+    q, k, v, g = _inputs(2048, 12, 12, b=8)
+    opts = dict(scale=0.125, causal=True, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+                                  **opts)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    worst, rel = tolerance_ratios(dv, dv_ref)
+    print(f"planted dk/dv fault: dv worst err/limit {worst:.3f}, relative "
+          f"Frobenius {rel:.3e}")
+    assert _held(dk, dk_ref), tolerance_ratios(dk, dk_ref)
+    assert not _held(dv, dv_ref)

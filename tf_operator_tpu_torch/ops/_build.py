@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-`ops/csrc/flash_attention.cu` is compiled by `nvcc` for Hopper (`sm_90a`)
-into a shared library with a plain C interface and loaded with `ctypes`: no
-PyTorch headers are compiled, so a build takes seconds.  The library is
-built at first use, from the source in this checkout only, into
-`ops/_build/` (git-ignored), under a name keyed by a hash of the source and
-flags, so an edited kernel is rebuilt and a stale library is never loaded.
+`ops/csrc/flash_attention.cu` (with the headers beside it) is compiled by
+`nvcc` for Hopper (`sm_90a`) into a shared library with a plain C interface
+and loaded with `ctypes`: no PyTorch headers are compiled, so a build takes
+seconds.  The library is built at first use, from the sources in this
+checkout only, into `ops/_build/` (git-ignored), under a name keyed by a
+hash of the flags and of every file under `ops/csrc/`, so an edited kernel
+or header is rebuilt and a stale library is never loaded.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -40,8 +42,12 @@ def _nvcc_path() -> str:
 
 
 def target() -> Path:
+    """The library's path for the sources now under CSRC: the hash covers
+    the flags and every file's name and bytes."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
+    for path in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(CSRC)).encode() + b"\0")
+        digest.update(path.read_bytes())
     return BUILD_DIR / f"lib{SOURCE.stem}-{digest.hexdigest()[:16]}.so"
 
 

@@ -15,13 +15,15 @@ Dispatch is decided by the tensors' device, outside autograd:
     the forward kernel (saving the per-row logsumexp) and whose backward
     launches the dq and the dk/dv kernels.  A CUDA tensor the kernels do not
     take (dtype other than bf16, head_dim other than 64/128, a block size
-    without an instantiation, non-contiguous) raises; nothing falls back.
+    without an instantiation, non-contiguous, a scale that is not positive)
+    raises; nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`) computes its kernel's plain version when handed CPU
 tensors, and counts, in its `launches` attribute, every time it launches
-its kernel.  The kernels live in `csrc/flash_attention.cu` and are built at
-first use (`_build.py`).
+its kernel.  The kernels live in `csrc/flash_attention.cu` (with the Hopper
+building blocks in `csrc/hopper.cuh`) and are built at first use
+(`_build.py`).
 """
 from __future__ import annotations
 
@@ -191,7 +193,9 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 # kernel wrappers
 
 HEAD_DIMS = (64, 128)
-# rows per CUDA block (16 per warp) the kernels are instantiated for
+# rows per CUDA block the kernels are instantiated for: one or two consumer
+# warpgroups of 64 rows in the forward and dk/dv kernels, 16 rows per warp
+# in dq; the C interface takes the block as a count of warps
 BLOCK_ROWS = (64, 128)
 
 _lib: Optional[ctypes.CDLL] = None
@@ -268,6 +272,13 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
                          "grid limit of 65535")
 
 
+def _check_scale(scale: float) -> None:
+    # the forward kernel takes the row max of the unscaled scores
+    if not scale > 0:
+        raise ValueError(f"flash attention kernels take a positive scale, "
+                         f"got {scale}")
+
+
 def _mask_args(scale, causal, window, sink, device):
     return [ctypes.c_float(scale), int(causal), int(window or 0), int(sink),
             torch.cuda.current_stream(device).cuda_stream]
@@ -281,6 +292,7 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
         return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
                              scale=scale, window=window, sink=sink)
     _check_cuda(q, k, v)
+    _check_scale(scale)
     b, heads, t, d = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
