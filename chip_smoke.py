@@ -6,7 +6,8 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   card     the card's name and power limit (nvidia-smi), torch and CUDA versions
   build    nvcc-builds the kernels from ops/csrc, prints the build time and
-           the ptxas register/spill report
+           each instantiation's registers and spills (ptxas), and fails if
+           any instantiation spills
   kernels  each hand-written kernel (flash forward, dq, dk/dv) against its
            plain PyTorch version in f32 on the same inputs, at the LM's
            main-path shape and at GQA / ragged T / non-causal / window+sink /
@@ -66,6 +67,12 @@ RTOL = 2e-2
 FRO = 1e-2
 # lse: f32 in both, from the same bf16 inputs; only exp/sum order differ
 TOL_LSE = 1e-3
+# ptxas's -v report: each kernel instantiation's entry, then its spills and
+# its registers at launch
+PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)_kernel"
+                         r"ILi(\d+)ELi(\d+)E")
+PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # the workload's own step-time line (`workloads/lm.py`)
 STEP_TIME = re.compile(r"^step time (\S+) ms over steps \S+, (\S+) tokens/s$",
                        re.M)
@@ -81,6 +88,26 @@ def tolerance_ratios(got, ref, rtol: float = RTOL):
     worst = float((diff / limit).max())
     rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
     return worst, rel
+
+
+def ptxas_report(log: str):
+    """[(instantiation, registers at launch, spill store bytes, spill load
+    bytes)] from nvcc's -Xptxas=-v output."""
+    out, name, spill = [], None, None
+    for line in log.splitlines():
+        m = PTXAS_ENTRY.search(line)
+        if m:
+            name, spill = f"{m.group(1)}_kernel<D {m.group(2)}, WG " \
+                f"{m.group(3)}>", None
+            continue
+        m = PTXAS_SPILL.search(line)
+        if m and name:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = PTXAS_REGS.search(line)
+        if m and name and spill:
+            out.append((name, int(m.group(1)), *spill))
+            name = None
+    return out
 
 
 def card_line() -> str:
@@ -539,9 +566,14 @@ def main(argv=None) -> int:
           f"({_build.target().name})", flush=True)
     if _build.build_log is not None:
         write_detail(args.out_dir, "build.txt", _build.build_log)
-        for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  " + line.strip(), flush=True)
+        report = ptxas_report(_build.build_log)
+        for name, regs, stores, loads in report:
+            print(f"  {name}: {regs} registers at launch, {stores} bytes "
+                  f"spill stores, {loads} bytes spill loads", flush=True)
+        spilled = [r[0] for r in report if r[2] or r[3]]
+        if not report or spilled:
+            raise RuntimeError(f"ptxas reports spills in {spilled} (or no "
+                               "kernel at all); no instantiation may spill")
 
     kernels = phase_kernels()
     counts = phase_slice(card, args.out_dir)

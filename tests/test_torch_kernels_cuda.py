@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FRO, tolerance_ratios
+from chip_smoke import FRO, ptxas_report, tolerance_ratios
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import attention as A
 
@@ -68,6 +68,53 @@ def test_tolerance_takes_rounding_and_rejects_a_late_tile_fault(t, n_drop):
     assert not _held(_pv_without_early_keys(q, k, v, t - 128, n_drop), ref)
 
 
+def _dq_without_early_keys(q, k, v, do, t_drop, n_drop):
+    """(plain dq, dq with the dS.K terms of keys [0, n_drop) left out for
+    query rows >= t_drop): a fault on late rows only."""
+    o, lse = A.attention_lse(q, k, v, causal=True, scale=0.125)
+    delta = (do * o).sum(-1)
+    ref = A.backward_dq_plain(q, k, v, do, lse, delta, scale=0.125,
+                              causal=True, window=None, sink=0)
+    _, ds = A._probs_and_ds(q, k, v, do, lse, delta, 0.125, True, None, 0)
+    ds[:, :, t_drop:, :n_drop] = 0
+    return ref, torch.einsum("bhqk,bhkd->bhqd", ds, k) * 0.125
+
+
+@pytest.mark.parametrize("t", [512, 2048])
+@pytest.mark.parametrize("n_drop", [16, 64])
+def test_tolerance_takes_rounding_and_rejects_a_late_dq_fault(t, n_drop):
+    """The rule passes the plain dq rounded to bf16 and rejects one that
+    drops the first keys' dS.K terms for the last 128 rows only (what the
+    planted dq fault on the card does)."""
+    torch.manual_seed(0)
+    q, k, v, do = (torch.randn(1, 2, t, 64).bfloat16().float()
+                   for _ in range(4))
+    ref, faulty = _dq_without_early_keys(q, k, v, do, t - 128, n_drop)
+    assert _held(ref.bfloat16(), ref)
+    assert not _held(faulty, ref)
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dq_kernelILi64ELi2EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19dq_kernelILi64ELi2EEEv
+    8 bytes stack frame, 8 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fwd_kernelILi128ELi1EEEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110fwd_kernelILi128ELi1EEEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_names_each_instantiation_and_its_spills():
+    """chip_smoke's build phase reads each kernel instantiation's
+    registers and spills from nvcc's -Xptxas=-v output (a report in the
+    card's format) and fails on any spill."""
+    assert ptxas_report(_PTXAS_LOG) == [
+        ("dq_kernel<D 64, WG 2>", 168, 8, 20),
+        ("fwd_kernel<D 128, WG 1>", 128, 0, 0)]
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -87,6 +134,13 @@ def test_the_kernels_take_only_a_positive_scale(scale, ok):
     (512, 2, 2, True, 64, 4, 128, 64),
     (300, 4, 2, True, None, 0, 128, 128),
     (200, 4, 4, False, None, 0, 64, 128),
+    # ragged T with window + sink at every (head_dim, block): the 70 sink
+    # keys end inside a key tile that later query tiles visit as band
+    # (keys 0-127 at head_dim 64, keys 64-127 at head_dim 128)
+    (1000, 4, 2, True, 64, 70, 128, 64),
+    (1000, 4, 2, True, 64, 70, 64, 64),
+    (1000, 4, 2, True, 64, 70, 128, 128),
+    (1000, 4, 2, True, 64, 70, 64, 128),
 ])
 def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
                                       sink, block, d):
@@ -210,3 +264,26 @@ def test_tolerance_rejects_a_dkv_kernel_that_skips_a_query_tile(
           f"Frobenius {rel:.3e}")
     assert _held(dk, dk_ref), tolerance_ratios(dk, dk_ref)
     assert not _held(dv, dv_ref)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_dq_kernel_that_skips_early_keys(
+        cuda, tmp_path, monkeypatch):
+    """A dq kernel built with a planted fault (the dS.K product of the
+    first 16 keys skipped for the last query tile) at the LM's main-path
+    shape: dq fails the tolerance."""
+    site = "hopper::wgmma_rs64(dq_acc[h], da[kk]"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "if (it > 0 || kk > 0 || q0 + BM < T) " + site)
+
+    q, k, v, g = _inputs(2048, 12, 12, b=8)
+    opts = dict(scale=0.125, causal=True, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    worst, rel = tolerance_ratios(dq, dq_ref)
+    print(f"planted dq fault: dq worst err/limit {worst:.3f}, relative "
+          f"Frobenius {rel:.3e}")
+    assert not _held(dq, dq_ref)

@@ -194,8 +194,8 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 HEAD_DIMS = (64, 128)
 # rows per CUDA block the kernels are instantiated for: one or two consumer
-# warpgroups of 64 rows in the forward and dk/dv kernels, 16 rows per warp
-# in dq; the C interface takes the block as a count of warps
+# warpgroups of 64 rows (query rows in the forward and dq, keys in dk/dv);
+# the C interface takes the block as a count of warps
 BLOCK_ROWS = (64, 128)
 
 _lib: Optional[ctypes.CDLL] = None

@@ -12,22 +12,17 @@
 //     run in parallel and share nothing, so no atomics are needed.
 //   * Masks become loop bounds: the causal upper bound, the sliding-window
 //     band, and a sink prefix in front of the band (each tile visited once).
-//     Inside a visited tile an element test masks causal/window/sink and the
-//     ragged edge (rows or keys >= T), so no input is ever padded in memory.
-//
-// The forward and dk/dv kernels are built for Hopper (hopper.cuh): one
-// producer warp (in a warpgroup of its own, which hands its registers to
-// the consumers) keeps tiles in flight through a ring of 128-byte-swizzled
-// shared-memory stages filled by TMA (3-D tensor maps, so the zero fill of a
-// ragged tile stops at its own head), and one or two consumer warpgroups
-// issue every product as wgmma, reading each operand in its stored layout
-// (the descriptor's transpose bit where the reduction runs along the
-// sequence axis) and feeding P and dS to the second product from registers.
-// The element mask runs only on tiles that are not full.
-//
-// The dq kernel is the first version: warp-level mma.sync.m16n8k16, tiles
-// staged with plain 16-byte loads between barriers (K also transposed), a
-// padded row stride, and the element test on every tile.
+//     Inside a visited tile that is not full, an element test masks
+//     causal/window/sink and the ragged edge (rows or keys >= T), so no
+//     input is ever padded in memory.
+//   * One producer warp (in a warpgroup of its own, which hands its
+//     registers to the consumers) keeps tiles in flight through a ring of
+//     128-byte-swizzled shared-memory stages filled by TMA (3-D tensor maps,
+//     so the zero fill of a ragged tile stops at its own head), and one or
+//     two consumer warpgroups issue every product as wgmma, reading each
+//     operand in its stored layout (the descriptor's transpose bit where the
+//     reduction runs along the sequence axis) and feeding P and dS to the
+//     second product from registers.
 //
 // Bounds on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s), at the LM's
 // main-path shape B*H = 96, T = 2048, D = 64, causal, counting two FLOPs per
@@ -41,6 +36,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
@@ -50,9 +46,6 @@
 namespace {
 
 typedef __nv_bfloat16 bf16;
-
-constexpr int BN = 64;   // key tile of the forward and dq loops
-constexpr int PAD = 8;   // halves of padding per shared-memory row
 
 // Which (query i, key j) pairs attend: the same predicate as the plain
 // version's mask (causal, sliding window with optional sink prefix) plus
@@ -71,85 +64,23 @@ struct Mask {
   }
 };
 
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A operand (16 x 16) of a row-major tile s[row * ld + k], rows [0, 16),
-// k in [k0, k0 + 16).  g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void load_a(uint32_t a[4], const bf16* s, int ld,
-                                       int k0, int g, int t) {
-  const bf16* p = s + g * ld + k0 + 2 * t;
-  a[0] = *reinterpret_cast<const uint32_t*>(p);
-  a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-  a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-  a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-}
-
-// B operand (16 x 8) of a tile stored n-major, s[n * ld + k] = B[k][n],
-// n in [0, 8), k in [k0, k0 + 16).
-__device__ __forceinline__ void load_b(uint32_t b[2], const bf16* s, int ld,
-                                       int k0, int g, int t) {
-  const bf16* p = s + g * ld + k0 + 2 * t;
-  b[0] = *reinterpret_cast<const uint32_t*>(p);
-  b[1] = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The accumulator layout of two neighbouring 16 x 8 tiles is the A-operand
-// layout of one 16 x 16 tile: scores become the next product's A in
-// registers, rounded to bf16.
-__device__ __forceinline__ void c_to_a(uint32_t a[4], const float c0[4],
-                                       const float c1[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
 // The wgmma accumulator layout of m64nN (per thread, warp w of the
 // warpgroup, lane g * 4 + t: d[4j + 2h + e] is row 16w + g + 8h, column
-// 8j + 2t + e) is that of mma.sync's, so columns 16kk..16kk+15 of it are
-// the A-register fragment of k step kk of the next product.
+// 8j + 2t + e) is also the layout of an A operand held in registers, so
+// columns 16kk..16kk+15 of it, rounded to bf16, are the A fragment of k
+// step kk of the next product.
 template <int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N],
                                          int kk) {
-  c_to_a(a, &d[8 * kk], &d[8 * kk + 4]);
-}
-
-// Rows [row0, row0 + nrows) of a [T, D] matrix into shared memory, row-major
-// (dst[r * ld + d]) and, when dst_t is given, also transposed
-// (dst_t[d * ld_t + r]).  Rows at or past T read as zero.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, int ld, bf16* dst_t,
-                                          int ld_t, const bf16* src, int row0,
-                                          int nrows, int T) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < nrows * CH; c += blockDim.x) {
-    const int r = c / CH, cc = c % CH;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (gr < T) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)gr * D + cc * 8);
-    }
-    if (dst != nullptr) {
-      *reinterpret_cast<uint4*>(dst + r * ld + cc * 8) = val;
-    }
-    if (dst_t != nullptr) {
-      const bf16* h = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dst_t[(cc * 8 + e) * ld_t + r] = h[e];
-    }
-  }
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // Key tiles a query tile [q0, q0 + bm) must visit, in order: `n_sink` sink
@@ -158,7 +89,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, int ld, bf16* dst_t,
 // diagonal (the last tile without causality).  Sink tiles that fall inside
 // the band are left to the band, so no tile is visited twice.  Tiles are
 // BK keys wide.
-template <int BK = BN>
+template <int BK>
 __device__ __forceinline__ void key_tiles(int q0, int bm, const Mask& mk,
                                           int* lo, int* n_sink, int* n_iter) {
   const int n_kt = (mk.T + BK - 1) / BK;
@@ -174,7 +105,7 @@ __device__ __forceinline__ void key_tiles(int q0, int bm, const Mask& mk,
 }
 
 // ---------------------------------------------------------------------------
-// Shared by the forward and dk/dv kernels (wgmma + TMA ring).
+// Shared by the kernels.
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -195,6 +126,33 @@ __device__ __forceinline__ bool tile_full(const Mask& mk, int i0, int ni,
   if (mk.window > 0 && i0 + ni - 1 - j0 >= mk.window && j0 + nj > mk.sink)
     return false;
   return true;
+}
+
+// Zeroes the dead elements of one m64nN accumulator tile of scores (this
+// thread's rows row0 and row0 + 8, keys k0 + column): Mask::live, with
+// each row's live keys taken once as bounds relative to the thread's first
+// column (an upper bound from the causal diagonal and the ragged edge; under
+// a window a lower bound, with the sink prefix kept), so that an element
+// costs compares against constants.
+template <int N>
+__device__ __forceinline__ void mask_tile(float (&s)[N], const Mask& mk,
+                                          int row0, int k0, int t) {
+  const int j0 = k0 + 2 * t;
+  const int sink = mk.sink - j0;
+  int hi[2], lo[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    int last = mk.causal ? min(i, mk.T - 1) : mk.T - 1;
+    if (i >= mk.T) last = -1;
+    hi[h] = last - j0;
+    lo[h] = mk.window > 0 ? i - mk.window + 1 - j0 : INT_MIN;
+  }
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    const int c = 8 * (x >> 2) + (x & 1), h = (x >> 1) & 1;
+    if (!(c <= hi[h] && (c >= lo[h] || c < sink))) s[x] = 0.f;
+  }
 }
 
 // The dynamic shared memory, moved up to a 1024-byte boundary (the
@@ -422,120 +380,183 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
 
 // ---------------------------------------------------------------------------
 // dq.  Replaces tf_operator_tpu/ops/attention.py:_bwd_dq_kernel.
-// One block per (query tile, b*h), looping over the same key tiles as the
-// forward: p = exp(s - lse), dp = dO V^T, ds = p (dp - delta),
-// dq += ds K; dq is written times scale.  Bound: operations (3 products).
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ dout,
+//
+// One block per (query tile of 64 * WG rows, b*h), longest rows first: WG
+// consumer warpgroups of 64 query rows each and a producer warpgroup, whose
+// first thread loads the block's Q and dO tiles once and keeps K/V tiles of
+// BK keys in flight through a ring of STAGES stages (TMA, full/empty
+// mbarriers), in key_tiles' order (sinks, then the band), each K/V tile
+// read at the query head's KV head (GQA).  Per key tile each consumer
+// warpgroup issues S = Q K^T and dP = dO V^T (wgmma, all four operands
+// K-major as stored), forms p = exp2(s * scale * log2 e - lse * log2 e)
+// and ds = p (dp - delta) with the element mask only on tiles that are not
+// full, and issues dQ += dS K with dS from registers and the same K stage
+// read through the descriptor's transpose bit: one copy of K in shared
+// memory serves both of its products.  The dq sum stays inside the block
+// (no atomics, deterministic); dq is written times scale.  A row with no
+// live key (rows past T) has lse 0, so p stays finite before the mask.
+// Bound: operations (3 products, ~77.3 GFLOP at the main shape -> ~78 us).
+// Against it the design keeps all three products on wgmma with no operand
+// staged twice, overlaps the loads with the products, and keeps the
+// exponentials (one per score, as in the forward, but with no running max
+// or rescale) down to one FMA and one ex2 each.  At head_dim 64, 128-key
+// tiles hold S, dP (64 floats each) and the dQ accumulator (32) in the
+// consumers' 240 registers (232 with two blocks per SM); the element mask
+// takes per-row bounds (mask_tile), since Mask::live on each element made
+// the compiler hold 64 results in registers and spill.  Two consumer
+// warpgroups keep four stages in flight (PERF.md has the variants this was
+// chosen from).
+template <int D, int WG>
+struct DqSmem {
+  static constexpr int BM = 64 * WG;
+  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
+  static constexpr int BLOCKS = WG == 2 ? 1 : 2;
+  // two blocks of one warpgroup share an SM's 227 KB
+  static constexpr int STAGES = WG == 2 ? 4 : 2;
+  static constexpr int QT_BYTES = BM * D * 2;  // the Q or dO tile
+  static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int RING_OFF = 2 * QT_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+template <int D, int WG>
+__global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
+    dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int group, float scale, Mask mk) {
-  constexpr int BM = 16 * WARPS;
-  constexpr int LD = D + PAD;
-  constexpr int LDT = BN + PAD;
-  constexpr int NT = BN / 8;
-  constexpr int DT = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [BM][LD]
-  bf16* sdO = sQ + BM * LD;                  // [BM][LD]
-  bf16* sK = sdO + BM * LD;                  // [BN][LD]
-  bf16* sV = sK + BN * LD;                   // [BN][LD]
-  bf16* sKt = sV + BN * LD;                  // [D][LDT]
+  using S = DqSmem<D, WG>;
+  constexpr int BM = S::BM, BK = S::BK, STAGES = S::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t sdO = sQ + S::QT_BYTES;
+  const uint32_t ring = sQ + S::RING_OFF;  // stage s: K, then V
+  const uint32_t bars = sQ + S::BAR_OFF;   // full[STAGES], empty[STAGES], q
+  const uint32_t q_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
   const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t qoff = (size_t)bh * T * D;
-  const bf16* kp = k + (size_t)(bh / group) * T * D;
-  const bf16* vp = v + (size_t)(bh / group) * T * D;
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse_r[2], delta_r[2];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bars + 8 * s, 1);
+      hopper::mbar_init(bars + 8 * (STAGES + s), WG * 128);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= WG * 128) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == WG * 128) {
+      const int bkv = bh / group;
+      hopper::mbar_arrive_tx(q_bar, 2 * S::QT_BYTES);
+      hopper::tma_tile<D>(sQ, &map_q, BM, q0, bh, q_bar);
+      hopper::tma_tile<D>(sdO, &map_do, BM, q0, bh, q_bar);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        if (it >= STAGES)
+          hopper::mbar_wait(bars + 8 * (STAGES + s), (it / STAGES - 1) & 1);
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        const uint32_t sk = ring + s * S::STAGE_BYTES;
+        hopper::mbar_arrive_tx(bars + 8 * s, S::STAGE_BYTES);
+        hopper::tma_tile<D>(sk, &map_k, BK, k0, bkv, bars + 8 * s);
+        hopper::tma_tile<D>(sk + S::KV_BYTES, &map_v, BK, k0, bkv,
+                            bars + 8 * s);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(WG, S::BLOCKS)>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t sQw = sQ + wg * 64 * 128, sdOw = sdO + wg * 64 * 128;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];  // lse * log2 e and delta of this thread's rows
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const bool in = row[h] < T;
-    lse_r[h] = in ? lse[(size_t)bh * T + row[h]] : 0.f;
-    delta_r[h] = in ? delta[(size_t)bh * T + row[h]] : 0.f;
+    const int i = row0 + 8 * h;
+    lse2[h] = i < T ? lse[(size_t)bh * T + i] * LOG2E : 0.f;
+    dl[h] = i < T ? delta[(size_t)bh * T + i] : 0.f;
   }
 
-  load_tile<D>(sQ, LD, nullptr, 0, q + qoff, q0, BM, T);
-  load_tile<D>(sdO, LD, nullptr, 0, dout + qoff, q0, BM, T);
-  int lo, n_sink, n_iter;
-  key_tiles(q0, BM, mk, &lo, &n_sink, &n_iter);
-
-  float acc[DT][4];
+  float dq_acc[D / 64][32];
 #pragma unroll
-  for (int dn = 0; dn < DT; ++dn)
-    acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[h][i] = 0.f;
+  hopper::mbar_wait(q_bar, 0);
   for (int it = 0; it < n_iter; ++it) {
-    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BN;
-    __syncthreads();
-    load_tile<D>(sK, LD, sKt, LDT, kp, k0, BN, T);
-    load_tile<D>(sV, LD, nullptr, 0, vp, k0, BN, T);
-    __syncthreads();
+    const int s = it % STAGES;
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    const uint32_t sk = ring + s * S::STAGE_BYTES, sv = sk + S::KV_BYTES;
+    hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
 
-    float s[NT][4], dp[NT][4];
+    float sc[BK / 2], dp[BK / 2];
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
+    for (int i = 0; i < BK / 2; ++i) sc[i] = dp[i] = 0.f;
+    hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], a2[4];
-      load_a(a, sQ + warp * 16 * LD, LD, kk * 16, g, t);
-      load_a(a2, sdO + warp * 16 * LD, LD, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t b[2];
-        load_b(b, sK + n * 8 * LD, LD, kk * 16, g, t);
-        mma16816(s[n], a, b);
-        load_b(b, sV + n * 8 * LD, LD, kk * 16, g, t);
-        mma16816(dp[n], a2, b);
-      }
+      hopper::wgmma_ss(sc, hopper::desc_k(sQw, BM, kk),
+                       hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::wgmma_ss(dp, hopper::desc_k(sdOw, BM, kk),
+                       hopper::desc_k(sv, BK, kk), kk > 0);
     }
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::wg_fence_regs(dp);
 
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int x = 0; x < BK / 2; ++x)
+      sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2[(x >> 1) & 1]));
+    if (!tile_full(mk, r0, 64, k0, BK)) mask_tile(sc, mk, row0, k0, t);
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
+    for (int x = 0; x < BK / 2; ++x)
+      dp[x] = sc[x] * (dp[x] - dl[(x >> 1) & 1]);  // ds
+    uint32_t da[BK / 16][4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int j = k0 + n * 8 + 2 * t + e;
-          const float p = mk.live(row[h], j)
-                              ? __expf(s[n][2 * h + e] * scale - lse_r[h])
-                              : 0.f;
-          s[n][2 * h + e] = p * (dp[n][2 * h + e] - delta_r[h]);
-        }
-      }
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::wgmma_rs64(dq_acc[h], da[kk],
+                           hopper::desc_mn(sk, BK, kk, h));
     }
-
+    hopper::wg_commit();
+    hopper::wg_wait();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int dn = 0; dn < DT; ++dn) {
-        uint32_t b[2];
-        load_b(b, sKt + dn * 8 * LDT, LDT, kk * 16, g, t);
-        mma16816(acc[dn], a, b);
-      }
-    }
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(dq_acc[h]);
+    hopper::mbar_arrive(bars + 8 * (STAGES + s));
   }
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int i = row[h];
+    const int i = row0 + 8 * h;
     if (i >= T) continue;
-    bf16* dp_out = dq + qoff + (size_t)i * D;
+    bf16* out = dq + ((size_t)bh * T + i) * D;
 #pragma unroll
-    for (int dn = 0; dn < DT; ++dn) {
-      *reinterpret_cast<__nv_bfloat162*>(dp_out + dn * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[dn][2 * h] * scale,
-                                acc[dn][2 * h + 1] * scale);
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(out + dh * 64 + 8 * j + 2 * t) =
+            __floats2bfloat162_rn(dq_acc[dh][4 * j + 2 * h] * scale,
+                                  dq_acc[dh][4 * j + 2 * h + 1] * scale);
+      }
     }
   }
 }
@@ -766,9 +787,9 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
 // ---------------------------------------------------------------------------
 // Launchers: dynamic shared memory (above 48 KB needs the opt-in), grid
 // (row tiles, b*heads) on the caller's stream; each returns the launch error.
-// The forward and dk/dv launchers first encode their tensor maps (a few
-// microseconds of host time per call); a failed encoding returns
-// TENSOR_MAP_ERROR + its CUresult.
+// Each launcher first encodes its tensor maps (a few microseconds of host
+// time per call); a failed encoding returns TENSOR_MAP_ERROR + its
+// CUresult.
 
 constexpr int TENSOR_MAP_ERROR = 100000;
 
@@ -811,20 +832,26 @@ struct BwdArgs {
   Mask mk;
 };
 
-template <int D, int WARPS>
+template <int D, int WG>
 int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
-  constexpr int BM = 16 * WARPS;
-  const size_t smem =
-      (2 * BM * (D + PAD) + 2 * BN * (D + PAD) + D * (BN + PAD)) *
-      sizeof(bf16);
-  auto kernel = dq_kernel<D, WARPS>;
+  using S = DqSmem<D, WG>;
+  const int T = a.mk.T;
+  const int group = a.heads / a.kv_heads;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = hopper::tile_map(&map_q, a.q, bh, T, D, S::BM)) ||
+      (e = hopper::tile_map(&map_k, a.k, bh / group, T, D, S::BK)) ||
+      (e = hopper::tile_map(&map_v, a.v, bh / group, T, D, S::BK)) ||
+      (e = hopper::tile_map(&map_do, a.dout, bh, T, D, S::BM)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = dq_kernel<D, WG>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.mk.T + BM - 1) / BM, bh);
-  kernel<<<grid, WARPS * 32, smem, stream>>>(
-      a.q, a.k, a.v, a.dout, a.lse, a.delta, a.dq, a.heads / a.kv_heads,
-      a.scale, a.mk);
+  dim3 grid((T + S::BM - 1) / S::BM, bh);
+  kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_do, a.lse, a.delta, a.dq, group, a.scale,
+      a.mk);
   return (int)cudaGetLastError();
 }
 
@@ -856,8 +883,8 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
 // head_dim in {64, 128} and warps in {4, 8} (rows per block = 16 * warps:
-// one or two warpgroups of 64 rows in the forward and dk/dv kernels) are
-// the instantiated shapes; anything else returns cudaErrorInvalidValue.
+// one or two consumer warpgroups of 64 rows) are the instantiated shapes;
+// anything else returns cudaErrorInvalidValue.
 
 extern "C" const char* fa_error_string(int err) {
   static char buf[96];
@@ -899,10 +926,10 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
             kv_heads,                        scale,
             Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64 && warps == 4) return dq<64, 4>(bh, a, st);
-  if (head_dim == 64 && warps == 8) return dq<64, 8>(bh, a, st);
-  if (head_dim == 128 && warps == 4) return dq<128, 4>(bh, a, st);
-  if (head_dim == 128 && warps == 8) return dq<128, 8>(bh, a, st);
+  if (head_dim == 64 && warps == 4) return dq<64, 1>(bh, a, st);
+  if (head_dim == 64 && warps == 8) return dq<64, 2>(bh, a, st);
+  if (head_dim == 128 && warps == 4) return dq<128, 1>(bh, a, st);
+  if (head_dim == 128 && warps == 8) return dq<128, 2>(bh, a, st);
   return (int)cudaErrorInvalidValue;
 }
 

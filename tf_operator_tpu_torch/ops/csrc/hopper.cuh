@@ -183,8 +183,9 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int rows, int kk) {
   return desc(tile + (kk >> 2) * rows * 128 + (kk & 3) * 32);
 }
 
-// MN-major operand (the reduction axis is a tile's rows: V in P.V, dO and
-// Q in the dk/dv products): k step kk (16 rows), column block h.
+// MN-major operand (the reduction axis is a tile's rows: V in P.V, K in
+// dS.K, dO and Q in the dk/dv products): k step kk (16 rows), column
+// block h.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk,
                                             int h) {
   return desc(tile + h * rows * 128 + kk * 16 * 128);
@@ -196,9 +197,10 @@ __device__ __forceinline__ void wg_fence() {
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-// Waits until no committed group of this warpgroup is in flight.
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N = 0>
 __device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
