@@ -25,6 +25,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   llama    the llama/GQA arch through the workload (4 layers, 2 steps) with
            the same launch check, and a small model whose logits with the
            kernels agree with the plain attention path on the card
+  lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
+           forward and backward with cotangents on both outputs, at ring-hop
+           shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
+           causal and not; GQA 12/4; head_dim 128), against f32 autograd of
+           the plain `attention_lse`; a planted fault (the backward given
+           delta where it needs delta' = delta - dlse) must be rejected
+  ring     ring attention's hop loop (`ring_hops`) for every rank of n = 2
+           and 4, in one process, the blocks handed over in place of the
+           ring shift, against the plain f32 attention over the whole
+           sequence (by the kernel rule; its backward given the ring's f32
+           merge, whose rowsum(dO * O) the hops' backward reads) and
+           `flash_attention` (as a whole), output and dq/dk/dv; at n = 4 a ring that leaves out
+           its last shift (a planted fault) must fail; prints the hop
+           launches (causal: n(n+1)/2 forward hops per layer) and the hops'
+           summed time beside one full forward and backward
+  dist     the LM workload at GPT-small width through the distributed step
+           over a one-rank NCCL group (the group made here: the workload
+           makes none for one process), 11 steps, against the plain
+           one-process run: losses equal within 1e-5 relative, step times
+           taken in turns; then two profiled steps in the group and the
+           gradient all-reduce alone
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -39,6 +60,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -456,12 +478,18 @@ def phase_slice(card: str, out_dir):
     return counts
 
 
+def device_events(events) -> list:
+    """The device activities (kernels, copies, sets) of a torch.profiler
+    Chrome trace."""
+    return [e for e in events if "dur" in e and e.get("cat") in
+            ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def device_profile(events, steps: int, step_ms: float) -> str:
     """Per-step device time, the device's idle share over the profiled
     window, and the kernels that take the most time, from a torch.profiler
     Chrome trace."""
-    dev = [e for e in events if "dur" in e and e.get("cat") in
-           ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = device_events(events)
     if not dev:
         raise RuntimeError("the profile holds no device activity")
     busy = sum(e["dur"] for e in dev)
@@ -534,6 +562,339 @@ def phase_llama():
         raise RuntimeError(f"llama logits differ by {err} > {limit}")
 
 
+# ---------------------------------------------------------------------------
+# the second path: flash_attention_lse, ring hops, the distributed step
+
+LSE_CASES = [
+    # name, B, H, Hkv, T, D, causal
+    ("sp2_causal", 8, 12, 12, 1024, 64, True),
+    ("sp2_full", 8, 12, 12, 1024, 64, False),
+    ("sp4_causal", 8, 12, 12, 512, 64, True),
+    ("sp4_full", 8, 12, 12, 512, 64, False),
+    ("gqa_full", 8, 12, 4, 1024, 64, False),
+    ("d128_causal", 4, 8, 8, 1024, 128, True),
+]
+
+
+def held(got, ref) -> bool:
+    worst, rel = tolerance_ratios(got, ref)
+    return worst <= 1.0 and rel <= FRO
+
+
+def lse_case(case):
+    """flash_attention_lse on the card, forward and backward with
+    cotangents on o and lse, against the plain versions in f32 on the same
+    bf16 inputs.  o within the tolerance rule and lse within TOL_LSE of f32
+    autograd of `attention_lse`; dq/dk/dv per element against the kernels'
+    plain versions given the kernel's bf16 O and lse (delta' = rowsum(dO *
+    O) - dlse, as the backward forms it) and by Frobenius against f32
+    autograd.  The same kernels given delta (the dlse term dropped: the
+    planted fault) must fail the rule in dq and dk (dv reads no delta).
+    Returns the worst ratios; raises on any failure."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    name, b, h, hkv, t, d, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    q, do = randn(b, h, t, d).bfloat16(), randn(b, h, t, d).bfloat16()
+    k, v = randn(b, hkv, t, d).bfloat16(), randn(b, hkv, t, d).bfloat16()
+    dlse = randn(b, h, t)
+    scale = d ** -0.5
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    before = A.launches()
+    o, lse = A.flash_attention_lse(*leaves, causal)
+    torch.autograd.backward((o, lse), (do, dlse))
+    after = A.launches()
+    if any(after[n] != before[n] + 1 for n in after):
+        raise RuntimeError(f"lse case {name}: launches {before} -> {after}")
+    got = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
+           "dv": leaves[2].grad}
+
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    ref_leaves = [x.detach().requires_grad_() for x in (qf, kf, vf)]
+    o_ref, lse_ref = A.attention_lse(
+        ref_leaves[0], *A.repeat_kv(*ref_leaves), causal=causal, scale=scale)
+    torch.autograd.backward((o_ref, lse_ref), (dof, dlse))
+    autograd = {"o": o_ref.detach(), "dq": ref_leaves[0].grad,
+                "dk": ref_leaves[1].grad, "dv": ref_leaves[2].grad}
+    opts = dict(scale=scale, causal=causal, window=None, sink=0)
+    lse_k = lse.detach()
+    delta = (dof * o.detach().float()).sum(-1)
+    plain = {"o": o_ref.detach(),
+             "dq": A.backward_dq_plain(qf, kf, vf, dof, lse_k, delta - dlse,
+                                       **opts)}
+    plain["dk"], plain["dv"] = A.backward_dkv_plain(qf, kf, vf, dof, lse_k,
+                                                    delta - dlse, **opts)
+    lse_err = float((lse_k - lse_ref.detach()).abs().max())
+    if not (torch.isfinite(lse_k).all() and lse_err <= TOL_LSE):
+        raise RuntimeError(f"lse case {name}: lse max_abs_err {lse_err}")
+    ratios = {}
+    for key in ("o", "dq", "dk", "dv"):
+        if got[key].shape != plain[key].shape or \
+                not torch.isfinite(got[key]).all():
+            raise RuntimeError(f"lse case {name}: {key} has the wrong shape "
+                               "or non-finite values")
+        worst, rel = tolerance_ratios(got[key], plain[key])
+        rel_autograd = tolerance_ratios(got[key], autograd[key])[1]
+        ratios[key] = worst
+        print(f"  {name:11s} {key}: worst err/limit {worst:.3f} (<= 1), "
+              f"relative Frobenius {rel:.3e}, vs f32 autograd "
+              f"{rel_autograd:.3e} (<= {FRO:.0e})", flush=True)
+        if not (worst <= 1.0 and rel <= FRO and rel_autograd <= FRO):
+            raise RuntimeError(f"lse case {name}: {key} is outside its "
+                               "tolerance")
+    # the planted fault: delta where the backward needs delta'
+    k_opts = dict(opts, block_q=128)
+    fault = {"dq": A.flash_backward_dq(q, k, v, do, lse_k, delta.contiguous(),
+                                       **k_opts)}
+    k_opts = dict(opts, block_k=128)
+    fault["dk"], fault["dv"] = A.flash_backward_dkv(
+        q, k, v, do, lse_k, delta.contiguous(), **k_opts)
+    fault_ratios = {key: tolerance_ratios(fault[key], plain[key])[0]
+                    for key in fault}
+    print(f"  {name:11s} planted fault (delta for delta'): worst err/limit "
+          + ", ".join(f"{key} {r:.1f}" for key, r in fault_ratios.items()),
+          flush=True)
+    # dv = P^T dO reads no delta; dq and dk must both fail
+    if held(fault["dq"], plain["dq"]) or held(fault["dk"], plain["dk"]):
+        raise RuntimeError(f"lse case {name}: the planted fault passed the "
+                           "tolerance")
+    ratios["fault_dq"] = fault_ratios["dq"]
+    return ratios
+
+
+def phase_lse():
+    import torch
+
+    for case in LSE_CASES:
+        print(f"lse case {case[0]}: B={case[1]} H={case[2]} Hkv={case[3]} "
+              f"T={case[4]} D={case[5]} causal={case[6]}", flush=True)
+        lse_case(case)
+        torch.cuda.empty_cache()
+
+
+RING_CASES = [
+    # name, B, H, T (whole sequence), D, n ranks, causal
+    ("n2_causal", 8, 12, 2048, 64, 2, True),
+    ("n2_full", 8, 12, 2048, 64, 2, False),
+    ("n4_causal", 8, 12, 2048, 64, 4, True),
+    ("n4_full", 8, 12, 2048, 64, 4, False),
+    ("long_n4_causal", 2, 12, 8192, 64, 4, True),
+]
+
+
+def ring_case(case, card: str):
+    """Every rank's hop loop on the card, its blocks handed over from the
+    whole sequence in place of the ring shift (the same `ring_hops` the
+    collective runs), against attention over the whole sequence."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.parallel.ring_attention import ring_hops
+
+    name, b, h, t, d, n, causal = case
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda")
+                   .bfloat16() for _ in range(4))
+    tl = t // n
+
+    def ring(fault=False, backward=True):
+        """([o, dq, dk, dv], the f32 merge that o is rounded from).  Rank me
+        receives rank (me - s)'s blocks at step s; the planted fault leaves
+        out the last shift, so the last step sees the blocks of the step
+        before."""
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        blocks = [tuple(x[:, :, i * tl:(i + 1) * tl].contiguous()
+                        for x in leaves[1:]) for i in range(n)]
+        merged = torch.cat([ring_hops(
+            leaves[0][:, :, me * tl:(me + 1) * tl].contiguous(), me, n,
+            [blocks[(me - min(s, n - 2 if fault else s)) % n]
+             for s in range(n)], causal=causal) for me in range(n)], dim=2)
+        out = merged.to(q.dtype)  # as ring_attention returns it
+        if not backward:
+            return [out.detach()], merged.detach()
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in leaves], merged.detach()
+
+    def full():
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        out = A.flash_attention(*leaves, causal)
+        out.backward(do)
+        return [out.detach()] + [x.grad for x in leaves]
+
+    def plain(merged):
+        """The plain f32 attention and its backward with delta =
+        rowsum(dO * O), O the ring's f32 merge: the merge's gradient gives
+        each hop the delta' = rowsum(dO_h * o_h) - dlse_h = w_h *
+        rowsum(dO * O) (w_h = exp(lse_h - LSE)), so the hops' gradients sum
+        to this backward (`_FlashHops` hands the kernels that delta).  The
+        bf16 output that O is rounded to would make a row-wide delta
+        error."""
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        o_ref, lse = A.attention_lse(qf, kf, vf, causal=causal,
+                                     scale=d ** -0.5)
+        delta = (dof * merged).sum(-1)
+        opts = dict(scale=d ** -0.5, causal=causal, window=None, sink=0)
+        return [o_ref, A.backward_dq_plain(qf, kf, vf, dof, lse, delta,
+                                           **opts),
+                *A.backward_dkv_plain(qf, kf, vf, dof, lse, delta, **opts)]
+
+    A.reset_launches()
+    got, merged = ring()
+    hops = A.launches()
+    want_hops = n * (n + 1) // 2 if causal else n * n
+    print(f"  {name:14s} hop launches {hops} (expected {want_hops} each)",
+          flush=True)
+    if any(c != want_hops for c in hops.values()):
+        raise RuntimeError(f"ring case {name}: hop launches {hops}")
+    # per element and as a whole against the plain f32 version, as the
+    # kernels are held; as a whole against flash_attention
+    exact, ref = plain(merged), full()
+    del merged
+    for label, a, e, r in zip(("o", "dq", "dk", "dv"), got, exact, ref):
+        worst, rel = tolerance_ratios(a, e)
+        rel_flash = tolerance_ratios(a, r)[1]
+        print(f"  {name:14s} {label}: vs plain f32 worst err/limit "
+              f"{worst:.3f} (<= 1), relative Frobenius {rel:.3e}; vs "
+              f"flash_attention relative Frobenius {rel_flash:.3e} (<= "
+              f"{FRO:.0e})", flush=True)
+        if not (torch.isfinite(a).all() and worst <= 1.0 and rel <= FRO
+                and rel_flash <= FRO):
+            raise RuntimeError(f"ring case {name}: {label} is outside its "
+                               "tolerance")
+    del ref
+    if n == 4:
+        wrong = ring(fault=True, backward=False)[0][0]
+        worst = tolerance_ratios(wrong, exact[0])[0]
+        print(f"  {name:14s} planted fault (the last shift left out): o "
+              f"worst err/limit {worst:.1f}", flush=True)
+        if held(wrong, exact[0]):
+            raise RuntimeError(f"ring case {name}: the planted fault passed "
+                               "the tolerance")
+    del exact
+    ring_ms, full_ms = cuda_ms(ring, 5), cuda_ms(full, 5)
+    busy_ms, kernels = device_busy(ring)
+    print(f"  {name:14s} ring hops of all {n} ranks fwd+bwd (merge "
+          f"included) {ring_ms:.4f} ms, of it device busy {busy_ms:.4f} ms "
+          f"in {kernels} kernels; flash_attention fwd+bwd over the whole "
+          f"sequence {full_ms:.4f} ms [{card}]", flush=True)
+    return {"hops": hops, "ring_ms": ring_ms, "full_ms": full_ms}
+
+
+def device_busy(fn):
+    """(device ms, device activities) of one call of fn, from a
+    torch.profiler Chrome trace (as `device_profile` reads the workload's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="ring-profile-") as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            dev = device_events(json.load(f)["traceEvents"])
+    return sum(e["dur"] for e in dev) / 1e3, len(dev)
+
+
+def phase_ring(card: str):
+    import torch
+
+    for case in RING_CASES:
+        print(f"ring case {case[0]}: B={case[1]} H={case[2]} T={case[3]} "
+              f"D={case[4]} n={case[5]} causal={case[6]}", flush=True)
+        ring_case(case, card)
+        torch.cuda.empty_cache()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(card: str):
+    """The workload through the distributed step (shard_batch, the summed
+    gradient all-reduce, the all-reduced loss) over a one-rank NCCL group,
+    against the plain one-process run at the same seed: plain, group,
+    group, plain.  Then, in the group, two profiled steps and the gradient
+    all-reduce alone at GPT-small's parameter count."""
+    import torch
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.transformer import (TransformerLM,
+                                                          gpt_small_config)
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.train.step import all_reduce_grads
+
+    steps, layers = 11, 12  # loss lines at steps 0 and 10
+    address = f"127.0.0.1:{free_port()}"
+    env = {"TPUJOB_PROCESS_ID": "0", "TPUJOB_NUM_PROCESSES": "1",
+           "TPUJOB_COORDINATOR_ADDRESS": address}
+    saved = {key: os.environ.get(key) for key in env}
+    logs = {"plain": [], "dist": []}
+    logs["plain"].append(run_lm(["--steps", str(steps)]))
+    os.environ.update(env)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://{address}",
+                            world_size=1, rank=0)
+    try:
+        for _ in range(2):
+            A.reset_launches()
+            logs["dist"].append(run_lm(["--steps", str(steps)]))
+            check_launches(layers * steps, "distributed step, one rank")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="lm-profile-") as prof_dir:
+            run_lm(["--steps", "4", "--profile-dir", prof_dir,
+                    "--profile-start", "2", "--profile-steps", "2"])
+            with open(os.path.join(prof_dir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        step_ms = float(STEP_TIME.search(logs["dist"][-1]).group(1))
+        print(device_profile(events, 2, step_ms), flush=True)
+        params = [torch.nn.Parameter(torch.empty(p.shape, device="cuda"))
+                  for p in TransformerLM(gpt_small_config()).parameters()]
+        for p in params:
+            p.grad = torch.randn_like(p)
+        count = sum(p.numel() for p in params)
+        print(f"dist: gradient all-reduce of {count} f32 in one flat buffer "
+              f"(one rank) {cuda_ms(lambda: all_reduce_grads(params), 10):.3f}"
+              f" ms [{card}]", flush=True)
+        del params
+    finally:
+        dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    logs["plain"].append(run_lm(["--steps", str(steps)]))
+    plain = step_losses(logs["plain"][0])
+    for log in logs["plain"][1:] + logs["dist"]:
+        other = step_losses(log)
+        if not plain or sorted(other) != sorted(plain):
+            raise RuntimeError(f"loss lines differ: {plain} {other}")
+        for i, loss in plain.items():
+            if not (math.isfinite(loss) and
+                    abs(other[i] - loss) <= 1e-5 * abs(loss)):
+                raise RuntimeError(f"step {i}: loss {other[i]} against the "
+                                   f"plain run's {loss}")
+    times = {kind: [float(STEP_TIME.search(log).group(1)) for log in runs]
+             for kind, runs in logs.items()}
+    print(f"dist: losses {plain} equal within 1e-5 relative in all four "
+          f"runs; step ms in turns: plain {times['plain'][0]}, group "
+          f"{times['dist'][0]}, group {times['dist'][1]}, plain "
+          f"{times['plain'][1]} [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
@@ -578,6 +939,9 @@ def main(argv=None) -> int:
     kernels = phase_kernels()
     counts = phase_slice(card, args.out_dir)
     phase_llama()
+    phase_lse()
+    phase_ring(card)
+    phase_dist(card)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -11,6 +11,9 @@ hand-written kernels themselves need the card:
 tests/test_torch_kernels_cuda.py compares them with the plain versions
 there.
 
+`flash_attention_lse` (the (o, lse) entry, with cotangents on both outputs)
+is held against `flash_attention_lse_grads_interpret` the same way.
+
 Tolerances: f32 everywhere; 2e-5 on outputs and lse, 1e-4 on gradients —
 the JAX package's own interpret-vs-XLA tolerances (tests/test_ops.py), since
 both sides sum the same products in a different order.  bf16 inputs: 0.06,
@@ -24,6 +27,7 @@ import torch
 
 from tf_operator_tpu.ops.attention import (
     flash_attention_grads_interpret,
+    flash_attention_lse_grads_interpret,
     xla_attention_lse,
 )
 from tf_operator_tpu_torch.ops import attention as A
@@ -135,6 +139,74 @@ def test_attention_lse_matches_xla(causal, window, sink):
                                atol=ATOL_OUT)
     np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
                                atol=ATOL_OUT)
+
+
+# (t, d, h, kv_h, causal, block_q, block_k): flash_attention_lse, the ring
+# hop primitive, with cotangents on both outputs
+LSE_CASES = {
+    "causal": (128, 16, 2, 2, True, 64, 64),
+    "noncausal": (128, 16, 2, 2, False, 64, 64),
+    "padded_causal": (100, 16, 2, 2, True, 64, 64),
+    "gqa_noncausal": (65, 16, 4, 2, False, 64, 64),
+}
+
+
+def _lse_grads(q, k, v, g, g_lse, fn):
+    """(o, lse, dq, dk, dv) of fn(q, k, v) -> (o, lse) for cotangents
+    (g, g_lse)."""
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out, lse = fn(qt, kt, vt)
+    torch.autograd.backward((out, lse), (torch.tensor(g), torch.tensor(g_lse)))
+    return [x.detach().numpy() for x in (out, lse, qt.grad, kt.grad, vt.grad)]
+
+
+@pytest.mark.parametrize("entry", ["public", "autograd_function"])
+@pytest.mark.parametrize("name", list(LSE_CASES))
+def test_flash_attention_lse_matches_pallas_interpret(name, entry):
+    """Both cotangents: out and lse within 2e-5, gradients 1e-4 of the
+    Pallas kernels in interpret mode.  "public" is `flash_attention_lse`
+    on CPU tensors (plain attention_lse under autograd);
+    "autograd_function" is `FlashAttentionLseFn`, whose wrappers compute
+    the kernels' plain versions here: its backward's delta' = rowsum(dO *
+    O) - dlse is what the card's kernels are given."""
+    t, d, h, kv_h, causal, bq, bk = LSE_CASES[name]
+    q, k, v, g = inputs(t, d=d, h=h, kv_h=kv_h, seed=5)
+    g_lse = np.random.RandomState(6).randn(2, h, t).astype(np.float32)
+    want = flash_attention_lse_grads_interpret(q, k, v, g, g_lse, causal,
+                                               None, bq, bk)
+    if entry == "public":
+        def fn(q, k, v):
+            return A.flash_attention_lse(q, k, v, causal)
+    else:
+        def fn(q, k, v):
+            return A.FlashAttentionLseFn.apply(q, k, v, causal, d ** -0.5,
+                                               bq, bk)
+    got = _lse_grads(q, k, v, g, g_lse, fn)
+    for label, a, b, tol in zip(("out", "lse", "dq", "dk", "dv"), got, want,
+                                (ATOL_OUT,) * 2 + (ATOL_GRAD,) * 3):
+        assert a.shape == np.asarray(b).shape, label
+        np.testing.assert_allclose(a, np.asarray(b), atol=tol, err_msg=label)
+
+
+@pytest.mark.parametrize("used", ["out", "lse"])
+def test_flash_attention_lse_unused_output_counts_as_zeros(used):
+    """Autograd hands None for an output the loss does not read;
+    FlashAttentionLseFn's backward takes it as a zero cotangent."""
+    q, k, v, g = inputs(64, h=4, kv_h=2, seed=7)
+    g_lse = np.random.RandomState(8).randn(2, 4, 64).astype(np.float32)
+    zeros = {"out": (g, np.zeros_like(g_lse)),
+             "lse": (np.zeros_like(g), g_lse)}[used]
+    want = _lse_grads(q, k, v, *zeros,
+                      lambda q, k, v: A.attention_lse(
+                          q, *A.repeat_kv(q, k, v), causal=True))
+    leaves = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out, lse = A.FlashAttentionLseFn.apply(*leaves, True, 16 ** -0.5, 64, 64)
+    if used == "out":
+        out.backward(torch.tensor(g))
+    else:
+        lse.backward(torch.tensor(g_lse))
+    for a, b in zip((x.grad.numpy() for x in leaves), want[2:]):
+        np.testing.assert_allclose(a, b, atol=ATOL_GRAD)
 
 
 def test_bf16_inputs_within_bf16_noise_of_f32_reference():

@@ -12,7 +12,10 @@ Tolerance: `chip_smoke.tolerance_ratios`, each element within
 whole within 1e-2 relative Frobenius error, the plain version in f32 on
 the same bf16 inputs; the kernels round P and dS to bf16 before their
 second product and write bf16 outputs.  lse within 1e-3 (f32 on both
-sides).  The unmarked tests check that rule itself on the CPU.
+sides).  `flash_attention_lse` is held by `chip_smoke.lse_case` with
+cotangents on both outputs, and the same kernels given delta where the
+backward needs delta' = delta - dlse (a planted fault) must fail.  The
+unmarked tests check that rule itself on the CPU.
 """
 import ctypes
 import shutil
@@ -21,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FRO, ptxas_report, tolerance_ratios
+from chip_smoke import FRO, lse_case, ptxas_report, tolerance_ratios
+from tf_operator_tpu_torch.parallel.ring_attention import ring_hops
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import attention as A
 
@@ -92,6 +96,54 @@ def test_tolerance_takes_rounding_and_rejects_a_late_dq_fault(t, n_drop):
     ref, faulty = _dq_without_early_keys(q, k, v, do, t - 128, n_drop)
     assert _held(ref.bfloat16(), ref)
     assert not _held(faulty, ref)
+
+
+@pytest.mark.parametrize("t", [256, 1024])
+def test_tolerance_rejects_delta_for_delta_prime(t):
+    """The rule passes the plain dq and dk of the (o, lse) backward rounded
+    to bf16 and rejects those computed with delta where the lse cotangent
+    asks for delta' = delta - dlse (what the planted fault on the card
+    does); dv reads no delta."""
+    torch.manual_seed(1)
+    q, k, v, do = (torch.randn(1, 2, t, 64).bfloat16().float()
+                   for _ in range(4))
+    dlse = torch.randn(1, 2, t)
+    o, lse = A.attention_lse(q, k, v, causal=True, scale=0.125)
+    delta = (do * o).sum(-1)
+    opts = dict(scale=0.125, causal=True, window=None, sink=0)
+    for wrong, right in (
+            (A.backward_dq_plain(q, k, v, do, lse, delta, **opts),
+             A.backward_dq_plain(q, k, v, do, lse, delta - dlse, **opts)),
+            (A.backward_dkv_plain(q, k, v, do, lse, delta, **opts)[0],
+             A.backward_dkv_plain(q, k, v, do, lse, delta - dlse,
+                                  **opts)[0])):
+        assert _held(right.bfloat16(), right)
+        assert not _held(wrong, right)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_rule_rejects_a_ring_without_its_last_shift(causal):
+    """The ring phase's rule (the kernel rule per element and as a whole,
+    against plain attention over the whole sequence) passes the plain ring
+    of 4 ranks rounded to bf16 and rejects one whose last step sees the
+    blocks of the step before (the planted fault on the card: causal, only
+    the last rank's first block goes missing)."""
+    torch.manual_seed(2)
+    q, k, v = (torch.randn(1, 2, 512, 64).bfloat16().float()
+               for _ in range(3))
+    n, tl = 4, 128
+    ref = A.attention(q, k, v, causal=causal)
+
+    def ring(last):
+        blocks = [(k[:, :, i * tl:(i + 1) * tl], v[:, :, i * tl:(i + 1) * tl])
+                  for i in range(n)]
+        return torch.cat([ring_hops(
+            q[:, :, me * tl:(me + 1) * tl], me, n,
+            [blocks[(me - min(s, last)) % n] for s in range(n)],
+            causal=causal) for me in range(n)], dim=2)
+
+    assert _held(ring(n - 1).bfloat16(), ref)
+    assert not _held(ring(n - 2), ref)
 
 
 _PTXAS_LOG = """\
@@ -287,3 +339,33 @@ def test_tolerance_rejects_a_dq_kernel_that_skips_early_keys(
     print(f"planted dq fault: dq worst err/limit {worst:.3f}, relative "
           f"Frobenius {rel:.3e}")
     assert not _held(dq, dq_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv_h,t,d,causal", [
+    (2, 4, 4, 300, 64, True),
+    (2, 4, 2, 512, 64, False),
+    (2, 4, 4, 200, 128, True),
+    (8, 12, 12, 1024, 64, True),
+])
+def test_flash_attention_lse_with_both_cotangents(cuda, b, h, kv_h, t, d,
+                                                  causal):
+    """flash_attention_lse through the kernels (one launch of each), o and
+    lse, and dq/dk/dv under cotangents on both outputs within the rule;
+    the planted delta-for-delta' fault fails it (lse_case raises
+    otherwise) by a wide margin."""
+    ratios = lse_case(("card", b, h, kv_h, t, d, causal))
+    print(f"lse case: {ratios}")
+    assert max(ratios[key] for key in ("o", "dq", "dk", "dv")) <= 1.0
+    assert ratios["fault_dq"] > 5.0
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
+    """No fallback on the card: f32 inputs or head_dim 32 raise."""
+    q, k, v, _ = _inputs(128, 2, 2)
+    with pytest.raises(ValueError, match="bfloat16"):
+        A.flash_attention_lse(q.float(), k.float(), v.float())
+    q32 = torch.zeros(1, 2, 64, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):
+        A.flash_attention_lse(q32, q32, q32)

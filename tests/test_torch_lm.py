@@ -103,17 +103,29 @@ def test_llama_options_run(clean_env, capsys):
     assert "done" in out and "step 0 loss" in out
 
 
+# a process of a multi-process job: the checks below run before it joins
+# the group, so no peer is needed
+PROCESS_0_OF = {"TPUJOB_PROCESS_ID": "0",
+                "TPUJOB_COORDINATOR_ADDRESS": "127.0.0.1:1"}
+
+
+def _multi(n, mesh):
+    return {**PROCESS_0_OF, "TPUJOB_NUM_PROCESSES": str(n),
+            "TPUJOB_MESH_SHAPE": json.dumps(mesh)}
+
+
 @pytest.mark.parametrize("args,env,message", [
     (["--moe-experts", "2"], {}, "A.13"),
     (["--sample-tokens", "4"], {}, "A.12"),
-    ([], {"TPUJOB_NUM_PROCESSES": "2"}, "A.7"),
-    ([], {"TPUJOB_MESH_SHAPE": json.dumps({"dp": 2})}, "A.6"),
-    ([], {"TPUJOB_MESH_SHAPE": json.dumps({"tp": 2, "dp": 1})}, "A.6"),
-    ([], {"TPUJOB_MESH_SHAPE": json.dumps({"sp": 4})}, "A.6"),
-    (["--zero-shard-weight-update"],
-     {"TPUJOB_MESH_SHAPE": json.dumps({"dp": 2})}, "A.8"),
-    ([], {"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1",
-          "TPUJOB_MESH_SHAPE": json.dumps({"dp": 4})}, "A.8"),
+    ([], _multi(2, {"tp": 2, "dp": 1}), "the tp mesh axis (tp=2) is not yet "
+                                        "ported (ROADMAP item A.8)"),
+    ([], _multi(4, {"dp": 2, "fsdp": 2}), "the fsdp mesh axis (fsdp=2) is "
+                                          "not yet ported (ROADMAP item A.7)"),
+    ([], _multi(2, {"ep": 2}), "A.13"),
+    ([], _multi(2, {"pp": 2}), "A.13"),
+    (["--zero-shard-weight-update"], _multi(2, {"dp": 2}), "A.8"),
+    ([], {"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1", **_multi(4, {"dp": 4})},
+     "A.8"),
 ])
 def test_unported_options_exit_2(clean_env, capsys, args, env, message):
     for name, value in env.items():
@@ -122,6 +134,51 @@ def test_unported_options_exit_2(clean_env, capsys, args, env, message):
     out = capsys.readouterr().out
     assert rc == 2
     assert "not yet ported" in out and message in out
+
+
+@pytest.mark.parametrize("env,message", [
+    ({"TPUJOB_MESH_SHAPE": json.dumps({"dp": 2})},
+     "mesh axes {'dp': 2} require 2 devices, but 1 are available"),
+    ({"TPUJOB_MESH_SHAPE": json.dumps({"tp": 2, "dp": 1})},
+     "mesh axes {'dp': 1, 'tp': 2} require 2 devices, but 1 are available"),
+    ({"TPUJOB_MESH_SHAPE": json.dumps({"sp": 4})},
+     "mesh axes {'sp': 4} require 4 devices, but 1 are available"),
+    # without a process id the job makes no group, as in the JAX package
+    ({"TPUJOB_NUM_PROCESSES": "2",
+      "TPUJOB_MESH_SHAPE": json.dumps({"dp": 2})},
+     "mesh axes {'dp': 2} require 2 devices, but 1 are available"),
+    (_multi(2, {"dp": 4}),
+     "mesh axes {'dp': 4} require 4 devices, but 2 are available"),
+])
+def test_mesh_that_does_not_fit_the_processes_exits_2(clean_env, capsys,
+                                                       env, message):
+    """The mesh's product must equal the job's process count: otherwise
+    exit 2 with build_mesh's message, before any group is joined."""
+    for name, value in env.items():
+        clean_env.setenv(name, value)
+    rc = lm.main(["--steps", "1"] + TINY)
+    out = capsys.readouterr().out
+    assert rc == 2
+    assert f"invalid mesh: {message}" in out
+
+
+@pytest.mark.parametrize("args,env,message", [
+    (["--batch", "6"], _multi(4, {"dp": 4}), "--batch 6 must split over "
+                                             "dp=4"),
+    (["--grad-accum", "4"], _multi(2, {"dp": 2}), "--grad-accum 4 divides"),
+    (["--seq-len", "18"], _multi(4, {"sp": 4}), "--seq-len 18 must divide "
+                                                "by sp=4"),
+    (["--seq-parallel", "ulysses", "--d-model", "128"], _multi(4, {"sp": 4}),
+     "seq_parallel='ulysses' needs num_heads (2)"),
+])
+def test_batch_or_model_that_does_not_shard_exits_2(clean_env, capsys, args,
+                                                    env, message):
+    for name, value in env.items():
+        clean_env.setenv(name, value)
+    rc = lm.main(["--steps", "1"] + TINY + args)
+    out = capsys.readouterr().out
+    assert rc == 2
+    assert message in out
 
 
 @pytest.mark.parametrize("args,message", [
@@ -223,7 +280,8 @@ assert not bad, bad
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15
+    # every module, the parallel package's four among them
+    assert int(proc.stdout.split()[0]) >= 22
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

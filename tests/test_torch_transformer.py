@@ -175,8 +175,33 @@ def test_config_validation_matches_jax(kwargs, match):
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(decode=True), "A.12"), (dict(moe_num_experts=4), "A.13"),
-    (dict(mesh=object()), "A.6"),
 ])
 def test_unported_config_fields_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         T.TransformerConfig(**kwargs)
+
+
+@pytest.mark.parametrize("axes,kwargs,match", [
+    ({"sp": 8}, dict(seq_parallel="ulysses", num_heads=12, d_model=96),
+     "needs num_heads \\(12\\) divisible by the 'sp' axis size \\(8\\)"),
+    ({"dp": 2, "sp": 4}, dict(attn_window=8),
+     "attn_window does not compose with sequence parallelism"),
+    ({"dp": 8}, dict(seq_parallel="ulysses", num_heads=12, d_model=96), None),
+    ({"dp": 4, "sp": 2}, dict(seq_parallel="ulysses"), None),
+])
+def test_mesh_config_validation_matches_jax(axes, kwargs, match):
+    """A config with a mesh (the JAX mesh over 8 virtual devices, the
+    port's over 8 ranks) is checked as the JAX package checks it: Ulysses
+    needs the heads to split over sp, and a window does not compose with
+    sp > 1."""
+    from tf_operator_tpu.parallel.mesh import build_mesh as j_build_mesh
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+
+    pairs = ((J.TransformerConfig, j_build_mesh(axes)),
+             (T.TransformerConfig, build_mesh(axes, 8)))
+    for config, mesh in pairs:
+        if match is None:
+            assert config(mesh=mesh, **kwargs).mesh is mesh
+        else:
+            with pytest.raises(ValueError, match=match):
+                config(mesh=mesh, **kwargs)

@@ -8,11 +8,14 @@ and a weight-tied readout that promotes the bf16 hidden state to f32 before
 the vocab product (flax `Embed.attend` promotes to the common dtype).
 
 Attention goes through `ops.attention.flash_attention`: the hand-written
-CUDA kernels on the card, the plain version on the CPU.
+CUDA kernels on the card, the plain version on the CPU.  With a mesh
+(`parallel.mesh.Mesh`) whose `ring_axis` is larger than 1, the model runs
+on this rank's contiguous slice of the sequence, and attention goes through
+ring attention or Ulysses over that axis's group (`seq_parallel`); learned
+positions and rope take the slice's global positions.
 
 Not ported in this package yet (raise at config construction): the decode
-KV cache (`decode=True`), mixture-of-experts blocks, and a device mesh
-(sequence/tensor parallelism).
+KV cache (`decode=True`) and mixture-of-experts blocks.
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, flash_attention, repeat_kv
+from ..parallel.ring_attention import ring_attention
+from ..parallel.ulysses import ulysses_attention
 
 
 @dataclass(frozen=True)
@@ -70,6 +75,13 @@ class TransformerConfig:
         if self.seq_parallel not in ("ring", "ulysses"):
             raise ValueError(
                 f"seq_parallel must be 'ring'|'ulysses', got {self.seq_parallel!r}")
+        if (self.seq_parallel == "ulysses" and self.mesh is not None
+                and self.ring_axis in self.mesh.axis_names
+                and self.num_heads % self.mesh.shape[self.ring_axis]):
+            raise ValueError(
+                f"seq_parallel='ulysses' needs num_heads ({self.num_heads}) "
+                f"divisible by the {self.ring_axis!r} axis size "
+                f"({self.mesh.shape[self.ring_axis]}); use 'ring' instead")
         if self.use_rope and (self.d_model // self.num_heads) % 2:
             raise ValueError(
                 f"rope needs an even head_dim; d_model {self.d_model} / "
@@ -104,6 +116,11 @@ class TransformerConfig:
                 raise ValueError(
                     "attn_window (sliding-window attention) requires "
                     "causal=True")
+            if _seq_parallel(self):
+                raise ValueError(
+                    "attn_window does not compose with sequence "
+                    "parallelism (ring/ulysses shard the full-attention "
+                    "pattern); drop the sp axis or the window")
         if self.attn_sink:
             if self.attn_sink < 0:
                 raise ValueError(
@@ -127,10 +144,12 @@ class TransformerConfig:
             raise NotImplementedError(
                 "mixture-of-experts blocks are not yet ported "
                 "(ROADMAP item A.13)")
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sequence/tensor parallelism) is not yet "
-                "ported (ROADMAP items A.6-A.8)")
+
+
+def _seq_parallel(cfg: TransformerConfig) -> bool:
+    """Whether attention runs sequence parallel (the JAX `_use_ring`)."""
+    return (cfg.mesh is not None and cfg.ring_axis in cfg.mesh.axis_names
+            and cfg.mesh.shape[cfg.ring_axis] > 1)
 
 
 def rope(x, *, theta: float = 10000.0, positions=None,
@@ -233,7 +252,7 @@ class SelfAttention(nn.Module):
         self.value = per_head(self.kv_heads)
         self.out = Dense(cfg.num_heads * self.head_dim, d, cfg.dtype)
 
-    def forward(self, x):
+    def forward(self, x, positions=None):
         cfg = self.cfg
         b, t, _ = x.shape
 
@@ -244,12 +263,20 @@ class SelfAttention(nn.Module):
         k = heads(self.key, self.kv_heads)
         v = heads(self.value, self.kv_heads)
         if cfg.use_rope:
-            q = rope(q, theta=cfg.rope_theta, scaling=cfg.rope_scaling,
-                     factor=cfg.rope_factor)
-            k = rope(k, theta=cfg.rope_theta, scaling=cfg.rope_scaling,
-                     factor=cfg.rope_factor)
+            q = rope(q, theta=cfg.rope_theta, positions=positions,
+                     scaling=cfg.rope_scaling, factor=cfg.rope_factor)
+            k = rope(k, theta=cfg.rope_theta, positions=positions,
+                     scaling=cfg.rope_scaling, factor=cfg.rope_factor)
         window = cfg.attn_window or None
-        if cfg.use_flash:
+        if _seq_parallel(cfg):
+            # grouped k/v stay grouped: ring hops move them as they are,
+            # Ulysses widens them only when the kv heads do not split
+            seq_attend = (ulysses_attention if cfg.seq_parallel == "ulysses"
+                          else ring_attention)
+            out = seq_attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                             cfg.mesh.group(cfg.ring_axis), causal=cfg.causal,
+                             use_flash=cfg.use_flash)
+        elif cfg.use_flash:
             # the kernels take contiguous [B, H, T, D]; grouped k/v stay
             # grouped (the kernels map query heads to KV heads)
             out = flash_attention(q.contiguous(), k.contiguous(),
@@ -293,8 +320,8 @@ class Block(nn.Module):
         self.ln2 = Norm(cfg.norm, cfg.d_model)
         self.mlp = MLP(cfg)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x).to(self.dtype))
+    def forward(self, x, positions=None):
+        x = x + self.attn(self.ln1(x).to(self.dtype), positions)
         return x + self.mlp(self.ln2(x).to(self.dtype))
 
 
@@ -323,17 +350,24 @@ class TransformerLM(nn.Module):
                 module.reset_parameters(generator)
 
     def forward(self, tokens, return_hidden: bool = False):
+        """tokens [B, T]: the whole sequence, or under sequence parallelism
+        this rank's slice of it (rank i of the ring axis holding positions
+        [i*T, (i+1)*T))."""
         cfg = self.cfg
         t = tokens.shape[1]
+        first, positions = 0, None
+        if _seq_parallel(cfg):
+            first = cfg.mesh.coordinate(cfg.ring_axis) * t
+            positions = torch.arange(first, first + t, device=tokens.device)
         x = self.wte(tokens)
         if self.wpe is not None:
-            x = x + self.wpe[None, :t, :]
+            x = x + self.wpe[None, first:first + t, :]
         x = x.to(cfg.dtype)
         for block in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, use_reentrant=False)
+                x = checkpoint(block, x, positions, use_reentrant=False)
             else:
-                x = block(x)
+                x = block(x, positions)
         x = self.ln_f(x).to(cfg.dtype)
         if return_hidden:
             # pre-readout hidden states for the chunked cross-entropy, with

@@ -13,7 +13,9 @@ Dispatch is decided by the tensors' device, outside autograd:
     autograd;
   * a CUDA tensor goes through `FlashAttentionFn`, whose forward launches
     the forward kernel (saving the per-row logsumexp) and whose backward
-    launches the dq and the dk/dv kernels.  A CUDA tensor the kernels do not
+    launches the dq and the dk/dv kernels; `flash_attention_lse` returns
+    the lse too, through `FlashAttentionLseFn`, whose backward takes a
+    cotangent on it as well.  A CUDA tensor the kernels do not
     take (dtype other than bf16, head_dim other than 64/128, a block size
     without an instantiation, non-contiguous, a scale that is not positive)
     raises; nothing falls back.
@@ -392,6 +394,46 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None
 
 
+class FlashAttentionLseFn(torch.autograd.Function):
+    """(o, lse) through the same kernels, differentiable in both outputs.
+    The lse cotangent folds into the backward kernels' row scalar:
+    ds = p (dp - delta + dlse) = p (dp - delta'), since d lse_i / d s_ij =
+    p_ij, so dq and dk/dv are launched with delta' = rowsum(dO * O) - dlse
+    and need no change.  An output that the caller does not use gets no
+    cotangent (None) and counts as zeros."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        o, lse = flash_forward(q, k, v, scale=scale, causal=causal,
+                               window=None, sink=0, block_q=block_q)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.set_materialize_grads(False)
+        ctx.opts = dict(scale=scale, causal=causal, window=None, sink=0)
+        ctx.blocks = (block_q, block_k)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, o, lse = ctx.saved_tensors
+        block_q, block_k = ctx.blocks
+        g = torch.zeros_like(o) if g is None else g.contiguous()
+        delta = (g.float() * o.float()).sum(-1)
+        if g_lse is not None:
+            delta = delta - g_lse.float()
+        dq = flash_backward_dq(q, k, v, g, lse, delta, block_q=block_q,
+                               **ctx.opts)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_k=block_k,
+                                    **ctx.opts)
+        return dq, dk, dv, None, None, None, None
+
+
+def _route(q) -> str:
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash attention runs on cuda or cpu, got "
+                         f"{q.device}")
+    return q.device.type
+
+
 def flash_attention(q, k, v, causal=True, scale=None, block_q=None,
                     block_k=None, window=None, sink=0):
     """Fused attention: the CUDA kernels (forward and backward) on a CUDA
@@ -404,12 +446,24 @@ def flash_attention(q, k, v, causal=True, scale=None, block_q=None,
     sink = check_sink(window, sink)
     check_gqa(q, k)
     s = scale if scale is not None else q.shape[-1] ** -0.5
-    if q.device.type == "cpu":
+    if _route(q) == "cpu":
         return attention(q, *repeat_kv(q, k, v), causal=causal, scale=s,
                          window=window, sink=sink)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu, got "
-                         f"{q.device}")
     block_q, block_k = default_blocks(block_q, block_k)
     return FlashAttentionFn.apply(q, k, v, causal, s, block_q, block_k,
                                   window, sink)
+
+
+def flash_attention_lse(q, k, v, causal=True, scale=None, block_q=None,
+                        block_k=None):
+    """(o, lse [B, H, T] f32), differentiable in both outputs: the
+    counterpart of the JAX `flash_attention_lse`, the hop primitive of ring
+    attention.  The CUDA kernels on a CUDA tensor (`FlashAttentionLseFn`),
+    the plain `attention_lse` under ordinary autograd on a CPU tensor.  k/v
+    may carry fewer (grouped-query) heads than q."""
+    check_gqa(q, k)
+    s = scale if scale is not None else q.shape[-1] ** -0.5
+    if _route(q) == "cpu":
+        return attention_lse(q, *repeat_kv(q, k, v), causal=causal, scale=s)
+    block_q, block_k = default_blocks(block_q, block_k)
+    return FlashAttentionLseFn.apply(q, k, v, causal, s, block_q, block_k)

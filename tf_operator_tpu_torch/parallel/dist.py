@@ -1,0 +1,82 @@
+"""Differentiable collectives for sequence parallelism.
+
+JAX transposes `ppermute` and `all_to_all` by itself; PyTorch's
+point-to-point ops have no gradient, so each collective here is an
+`autograd.Function` whose backward is the transposed collective:
+  * `ring_shift` sends its tensors to the next rank of the group and
+    receives the previous rank's (one `batch_isend_irecv`); its backward
+    shifts the gradients the other way.
+  * `all_to_all` exchanges equal chunks of dim 0 with every rank of the
+    group (`all_to_all_single`); the exchange is its own transpose.
+Every rank of the group must make the same calls in the same order, in the
+forward and (autograd runs them in reverse) in the backward.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def _shift(tensors, group, step: int):
+    """Send each tensor to group rank (i + step) % n and receive the same
+    shapes from (i - step) % n."""
+    n = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    dst = dist.get_global_rank(group, (me + step) % n)
+    src = dist.get_global_rank(group, (me - step) % n)
+    out = [torch.empty_like(x) for x in tensors]
+    ops = [dist.P2POp(dist.isend, x, dst, group) for x in tensors]
+    ops += [dist.P2POp(dist.irecv, y, src, group) for y in out]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        return tuple(_shift([x.contiguous() for x in tensors], group, 1))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        # Autograd runs this only where an output reaches the loss, and the
+        # peers' backward waits for ours: every rank's outputs must reach
+        # its loss (ring attention gives a skipped hop's blocks a zero
+        # gradient for that).
+        return (None, *_shift([g.contiguous() for g in grads], ctx.group,
+                              -1))
+
+
+def ring_shift(group, *tensors):
+    """The tensors of group rank (i - 1) % n, for rank i: one hop of the
+    ring, as `lax.ppermute` with perm [(i, (i + 1) % n)]."""
+    return _RingShift.apply(group, *tensors)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _exchange(g, ctx.group)
+
+
+def _exchange(x, group):
+    # both buffers contiguous: empty_like would copy a permuted layout
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def all_to_all(group, x):
+    """Chunk j of x's dim 0 goes to group rank j; chunk j of the result
+    came from group rank j.  Dim 0 must divide by the group's size."""
+    if x.shape[0] % dist.get_world_size(group):
+        raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) does not divide "
+                         f"by the group size {dist.get_world_size(group)}")
+    return _AllToAll.apply(group, x)

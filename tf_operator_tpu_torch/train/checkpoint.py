@@ -11,6 +11,12 @@ A save first copies the state to host memory (so training may go on
 updating the parameters in place), then writes it on a background thread
 unless `wait=True`.  The step directory is written under a temporary name
 and renamed when complete, so `latest_step()` never sees a partial one.
+
+In a process group the parameters are replicated, so rank 0 writes and
+every rank restores.  Every rank meets a barrier once its saves are on
+disk: at each `save(wait=True)`, `wait_until_finished()` and `close()`,
+after rank 0 has joined its background writes, so no rank reads or exits
+before the step it saved is complete.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from .state import TrainState
 
@@ -44,6 +51,7 @@ class CheckpointManager:
         self._executor: Optional[ThreadPoolExecutor] = None
         self._pending: List[Future] = []
         self._submitted: set = set()  # steps saved or being written
+        self._writer = not dist.is_initialized() or dist.get_rank() == 0
 
     def all_steps(self) -> List[int]:
         steps = []
@@ -60,9 +68,10 @@ class CheckpointManager:
     def save(self, state: TrainState, step: Optional[int] = None,
              wait: bool = True) -> int:
         step = state.step if step is None else step
-        if step in self._submitted or step in self.all_steps():
-            # already saved or being saved (the final save after a periodic
-            # one at the same step)
+        if not self._writer or step in self._submitted or \
+                step in self.all_steps():
+            # not this rank's to write, or already saved or being saved (the
+            # final save after a periodic one at the same step)
             if wait:
                 self.wait_until_finished()
             return step
@@ -91,10 +100,15 @@ class CheckpointManager:
             shutil.rmtree(os.path.join(self.directory, str(old)))
 
     def wait_until_finished(self) -> None:
-        """Block until every save has been written; re-raise a failed one."""
+        """Block until every save has been written; re-raise a failed one.
+        In a process group, then wait for every rank."""
         pending, self._pending = self._pending, []
-        for fut in pending:
-            fut.result()
+        try:
+            for fut in pending:
+                fut.result()
+        finally:
+            if dist.is_initialized():
+                dist.barrier()
 
     def restore(self, template: TrainState,
                 step: Optional[int] = None) -> TrainState:

@@ -1,16 +1,25 @@
-"""LM loss and the train step.
+"""LM loss, the train step, and the batch's shard for this rank.
 
-The counterpart of `tf_operator_tpu/train/step.py` for one device: the
-cross-entropy (full or chunked), `lm_loss_fn`, and `make_train_step` with
-gradient accumulation.  PyTorch runs eagerly, so there is no jit and no
-donation; the model's parameters live in the module and the step updates
-them in place through the optimizer.
+The counterpart of `tf_operator_tpu/train/step.py`: the cross-entropy
+(full or chunked), `lm_loss_fn`, `make_train_step` with gradient
+accumulation, and `shard_batch`.  PyTorch runs eagerly, so there is no jit
+and no donation; the model's parameters live in the module and the step
+updates them in place through the optimizer.
+
+Over a mesh (one process per rank) the step is the data- and
+sequence-parallel step that GSPMD derives for the JAX package: each rank
+takes its shard of the global batch (`shard_batch`), its loss is its sum
+over the global token count, the gradients are summed over every rank
+before clipping (so the clip sees the global norm), and the reported loss
+is summed likewise.  Parameters stay replicated.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
@@ -90,15 +99,77 @@ def lm_loss_fn(model, loss_chunk: int = 0,
     return loss
 
 
-def make_train_step(loss_fn, grad_accum: int = 1):
+def shard_batch(batch, mesh):
+    """This rank's shard of a global LM batch {"tokens": [B, T + 1]}: its
+    rows of the data axes (dp, fsdp) and, over the `sp` axis, its slice of
+    the shifted sequence.  The loss reads inputs tokens[:, :-1] and targets
+    tokens[:, 1:]; sp rank s of n takes the window tokens[:, s*T/n :
+    (s+1)*T/n + 1], whose own shift gives exactly its slice of the global
+    inputs and targets (neighbouring windows share one token).  Works on
+    numpy arrays and tensors; rank-0 leaves are replicated."""
+    from ..parallel.mesh import AXIS_SP, axis_size, data_axes
+
+    sizes = [axis_size(mesh, a) for a in data_axes(mesh)]
+    n_data = int(np.prod(sizes, initial=1))
+    row = int(np.ravel_multi_index(
+        [mesh.coordinate(a) for a in data_axes(mesh)], sizes)) if sizes else 0
+    sp = axis_size(mesh, AXIS_SP)
+    seq_idx = mesh.coordinate(AXIS_SP)
+    out = {}
+    for name, leaf in batch.items():
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shape:
+            out[name] = leaf
+            continue
+        if shape[0] % n_data:
+            raise ValueError(
+                f"batch leaf {name!r} has leading dim {shape[0]}, which the "
+                f"mesh's data axes (size {n_data}, mesh {mesh.shape}) don't "
+                f"divide — use a batch that is a multiple of {n_data}")
+        rows = shape[0] // n_data
+        leaf = leaf[row * rows:(row + 1) * rows]
+        if sp > 1:
+            if len(shape) < 2 or (shape[1] - 1) % sp:
+                raise ValueError(
+                    f"batch leaf {name!r} of shape {shape}: sequence "
+                    f"parallelism needs [B, T + 1] tokens with T divisible "
+                    f"by the sp axis size {sp}")
+            t = (shape[1] - 1) // sp
+            leaf = leaf[:, seq_idx * t:(seq_idx + 1) * t + 1]
+        out[name] = leaf
+    return out
+
+
+def all_reduce_grads(params) -> None:
+    """Sum the gradients over every rank, in one flat buffer."""
+    grads = [p.grad for p in params if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist.all_reduce(flat)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+
+
+def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     """Build `step(state, batch) -> (state, metrics)`.
 
     grad_accum > 1 splits the batch's leading dim into that many
     microbatches and accumulates their mean gradient before the single
     optimizer update: the same update as one big batch (exact for
-    mean-reduced losses), activation memory held to one microbatch."""
+    mean-reduced losses), activation memory held to one microbatch.
+
+    With a `mesh` (over the initialized process group) the batch is this
+    rank's shard (`shard_batch`) and the step is the distributed one
+    described in the module docstring; grad_accum splits the local rows."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    # every rank holds an equal share of the tokens, so each rank's sum over
+    # the global token count is its mean loss over the rank count
+    ranks = 1 if mesh is None else mesh.size
+    if mesh is not None and mesh.size != dist.get_world_size():
+        raise ValueError(f"{mesh} does not cover the process group's "
+                         f"{dist.get_world_size()} ranks")
 
     def step(state: TrainState, batch):
         for key, x in batch.items():
@@ -111,9 +182,13 @@ def make_train_step(loss_fn, grad_accum: int = 1):
         total = 0.0
         for i in range(grad_accum):
             loss, _ = loss_fn({key: parts[i] for key, parts in micro.items()})
-            (loss / grad_accum).backward()
+            (loss / (grad_accum * ranks)).backward()
             total = total + loss.detach()
+        total = total / (grad_accum * ranks)
+        if mesh is not None:
+            all_reduce_grads(state.model.parameters())
+            dist.all_reduce(total)
         state.apply_gradients()
-        return state, {"loss": total / grad_accum}
+        return state, {"loss": total}
 
     return step

@@ -1,13 +1,16 @@
-"""LM pretraining workload on one CUDA device (or the CPU, on request).
+"""LM pretraining workload: one CUDA device per process (or the CPU, on
+request), data parallel over the mesh's `dp` axis and sequence parallel
+(ring or Ulysses) over `sp` when the job has several processes.
 
 The counterpart of `tf_operator_tpu/workloads/lm.py`: the same flags,
 defaults, exit-2 rejections and log lines (`step {i} loss ...`,
 `resumed from step ...`, `done`), plus one `step time ...` line: the mean
 wall time of the run's steps after its first, periodic checkpoint saves
-included.  Checkpoints make a preempted pod resume
-from its latest step.  Options of the JAX workload that this package does
-not run yet exit 2 with a "not yet ported" message naming the ROADMAP item;
-none is silently ignored.
+included, and the global batch's tokens/s.  In a process group only rank
+0 prints them.  Checkpoints make a preempted pod resume from its latest
+step.  Options of the JAX workload that this package does not run yet
+(the tp, fsdp, ep and pp axes among them) exit 2 with a "not yet ported"
+message naming the ROADMAP item; none is silently ignored.
 
 Usage: python -m tf_operator_tpu_torch.workloads.lm --steps 100 \
            --checkpoint-dir /tmp/ckpt
@@ -45,8 +48,7 @@ def main(argv=None) -> int:
     parser.add_argument("--remat", action="store_true")
     parser.add_argument("--seq-parallel", choices=("ring", "ulysses"),
                         default="ring",
-                        help="strategy on the sp mesh axis (meshes are not "
-                             "ported yet)")
+                        help="strategy on the sp mesh axis")
     parser.add_argument("--grad-accum", type=int, default=1,
                         help="microbatches per optimizer step (activation "
                              "memory / N, same update math)")
@@ -130,29 +132,37 @@ def main(argv=None) -> int:
         return _not_ported("--moe-experts (mixture of experts)", "A.13")
     if args.sample_tokens > 0:
         return _not_ported("--sample-tokens (KV-cache decode)", "A.12")
-    if ctx.num_processes > 1:
-        return _not_ported(
-            f"a multi-process job (TPUJOB_NUM_PROCESSES={ctx.num_processes})",
-            "A.7")
+    try:
+        layout = ctx.build_mesh()
+    except ValueError as e:
+        print(f"invalid mesh: {e}", flush=True)
+        return 2
+    for axis, item in (("tp", "A.8"), ("fsdp", "A.7"), ("ep", "A.13"),
+                       ("pp", "A.13")):
+        if layout.shape.get(axis, 1) > 1:
+            return _not_ported(f"the {axis} mesh axis ({axis}="
+                               f"{layout.shape[axis]})", item)
     zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
             is None else args.zero_shard_weight_update)
-    if zero and ctx.mesh_shape.get("dp", 1) > 1:
+    dp, sp = layout.shape.get("dp", 1), layout.shape.get("sp", 1)
+    if zero and dp > 1:
         return _not_ported("--zero-shard-weight-update over dp > 1", "A.8")
-    sharded = {a: n for a, n in ctx.mesh_shape.items() if n > 1}
-    if sharded:
-        return _not_ported(f"a device mesh with axes {sharded} (data, "
-                           "tensor or sequence parallelism)", "A.6-A.8")
+    if args.batch % dp or (args.batch // dp) % args.grad_accum:
+        print(f"--batch {args.batch} must split over dp={dp} into rows that "
+              f"--grad-accum {args.grad_accum} divides", flush=True)
+        return 2
+    if args.seq_len % sp:
+        print(f"--seq-len {args.seq_len} must divide by sp={sp}", flush=True)
+        return 2
+
     if zero:
         print("zero-shard-weight-update: dp axis size is 1, running dense",
               flush=True)
 
-    import torch
+    import torch.distributed as dist
 
-    from ..models.transformer import TransformerConfig, TransformerLM
-    from ..train.data import prefetch_to_device, synthetic_tokens
+    from ..models.transformer import TransformerConfig
     from ..train.optim import lm_optimizer
-    from ..train.state import create_train_state
-    from ..train.step import lm_loss_fn, make_train_step
 
     heads = max(1, args.d_model // 64)
     extra = {}
@@ -164,7 +174,8 @@ def main(argv=None) -> int:
               "(the gpt arch uses learned positions, not RoPE)", flush=True)
         return 2
     if args.arch == "llama":
-        # one device, so no tp constraint on the KV head count
+        # no tp axis yet (it exits 2 above), so no tp constraint on the
+        # KV head count
         if args.kv_heads:
             kv = args.kv_heads
             problem = None
@@ -187,10 +198,13 @@ def main(argv=None) -> int:
         # to the 2-matrix GELU MLP at 4*d_model
         d_ff = args.d_model * 8 // 3
     try:
+        # validated against the mesh's layout; the model gets the mesh over
+        # the process group once this process has joined it
         cfg = TransformerConfig(
             vocab_size=args.vocab, num_layers=args.layers,
             num_heads=heads, d_model=args.d_model,
-            d_ff=d_ff, max_len=args.seq_len, seq_parallel=args.seq_parallel,
+            d_ff=d_ff, max_len=args.seq_len, mesh=layout,
+            seq_parallel=args.seq_parallel,
             remat=args.remat, attn_window=args.attn_window,
             attn_sink=args.attn_sink, kv_cache_dtype=args.kv_cache_dtype,
             **extra,
@@ -207,8 +221,39 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"invalid optimizer config: {e}", flush=True)
         return 2
-    state = create_train_state(TransformerLM(cfg), tx, seed=0, device=device)
+    owned = ctx.initialize_distributed(device)
+    try:
+        return _train(args, ctx, cfg, tx, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
 
+
+def _train(args, ctx, cfg, tx, device) -> int:
+    """Build and train the model: over the mesh of the process group when
+    there is one (the distributed step, this rank's shard of each global
+    batch), else on one device.  Only rank 0 prints."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from ..models.transformer import TransformerLM
+    from ..train.data import prefetch_to_device, synthetic_tokens
+    from ..train.state import create_train_state
+    from ..train.step import lm_loss_fn, make_train_step, shard_batch
+    from .runner import ProfileCapture
+
+    mesh = None
+    if dist.is_initialized():
+        mesh = ctx.build_mesh(device.type)
+        cfg = dataclasses.replace(cfg, mesh=mesh)
+
+    def say(line):
+        if mesh is None or dist.get_rank() == 0:
+            print(line, flush=True)
+
+    state = create_train_state(TransformerLM(cfg), tx, seed=0, device=device)
     mgr = None
     if args.checkpoint_dir:
         from ..train.checkpoint import CheckpointManager
@@ -216,13 +261,17 @@ def main(argv=None) -> int:
         mgr = CheckpointManager(args.checkpoint_dir)
         state = mgr.restore(state)
         if mgr.latest_step() is not None:
-            print(f"resumed from step {state.step}", flush=True)
+            say(f"resumed from step {state.step}")
 
     step = make_train_step(
         lm_loss_fn(state.model, loss_chunk=args.loss_chunk),
-        grad_accum=args.grad_accum)
-    data = prefetch_to_device(
-        synthetic_tokens(args.batch, args.seq_len + 1, args.vocab), device)
+        grad_accum=args.grad_accum, mesh=mesh)
+    # every rank draws the same global stream and keeps its shard
+    batches = synthetic_tokens(args.batch, args.seq_len + 1, args.vocab)
+    if mesh is not None:
+        batches = (shard_batch(b, mesh) for b in batches)
+    data = prefetch_to_device(batches, device)
+
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -235,7 +284,7 @@ def main(argv=None) -> int:
         prof.step(i)
         state, metrics = step(state, next(data))
         if i % 10 == 0:
-            print(f"step {i} loss {float(metrics['loss']):.4f}", flush=True)
+            say(f"step {i} loss {float(metrics['loss']):.4f}")
         if mgr is not None and (i + 1) % args.checkpoint_every == 0:
             # written in the background; the final save below waits
             mgr.save(state, wait=False)
@@ -247,15 +296,16 @@ def main(argv=None) -> int:
     timed = args.steps - start - 1
     if timed > 0:
         ms = (time.perf_counter() - t_warm) / timed * 1e3
-        print(f"step time {ms:.3f} ms over steps {start + 1}-"
-              f"{args.steps - 1}, {args.batch * args.seq_len / ms * 1e3:.1f} "
-              "tokens/s", flush=True)
+        # the global batch's tokens
+        say(f"step time {ms:.3f} ms over steps {start + 1}-"
+            f"{args.steps - 1}, {args.batch * args.seq_len / ms * 1e3:.1f} "
+            "tokens/s")
     prof.close()
     if mgr is not None:
         mgr.save(state)
         mgr.close()
     sync()
-    print("done", flush=True)
+    say("done")
     return 0
 
 

@@ -1,9 +1,9 @@
 """Workload bootstrap: what a pod process does with the injected topology.
 
 The counterpart of `tf_operator_tpu/workloads/runner.py`: parse TF_CONFIG +
-the TPUJOB_* env into a WorkloadContext, pick the device, and capture a
-profiler trace for a window of steps.  Multi-process groups and meshes are
-not ported yet (ROADMAP items A.6-A.8); the workloads reject them.
+the TPUJOB_* env into a WorkloadContext, pick the device, join the job's
+process group and lay the mesh over its ranks, and capture a profiler
+trace for a window of steps.  One process drives one GPU.
 """
 from __future__ import annotations
 
@@ -169,3 +169,40 @@ class WorkloadContext:
             ctx.replica_type = tf_config["task"].get("type", ctx.replica_type)
             ctx.replica_index = int(tf_config["task"].get("index", ctx.replica_index))
         return ctx
+
+    @property
+    def multi_process(self) -> bool:
+        """Whether this process joins a group (the JAX package initializes
+        jax.distributed on the same condition)."""
+        return self.num_processes > 1 and self.process_id is not None
+
+    def initialize_distributed(self, device) -> bool:
+        """Join the job's process group: process TPUJOB_PROCESS_ID of
+        TPUJOB_NUM_PROCESSES, its store at TPUJOB_COORDINATOR_ADDRESS (the
+        coordinator's host:port, which process 0 serves); nccl on a CUDA
+        device, which becomes this process's device first, gloo on the CPU.
+        No-op for single-process jobs (returns whether it joined)."""
+        if not self.multi_process:
+            return False
+        import torch
+        import torch.distributed as dist
+
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://{self.coordinator_address}",
+            world_size=self.num_processes, rank=self.process_id)
+        return True
+
+    def build_mesh(self, device_type=None):
+        """The mesh of TPUJOB_MESH_SHAPE over the job's ranks (all on dp
+        when the shape is empty); with `device_type`, over the initialized
+        process group."""
+        from ..parallel.mesh import build_mesh
+
+        import torch.distributed as dist
+
+        world = (dist.get_world_size() if dist.is_initialized() else
+                 self.num_processes if self.multi_process else 1)
+        return build_mesh(self.mesh_shape or None, world, device_type)
