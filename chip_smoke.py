@@ -46,6 +46,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            one-process run: losses equal within 1e-5 relative, step times
            taken in turns; then two profiled steps in the group and the
            gradient all-reduce alone
+  resnet   the third path: the ResNet workload (`workloads.resnet.main`) at
+           full width (ResNet-50, 224x224, batch 256, bf16 convs, SGD) on
+           the native image loader, which the log must name: loss finite at
+           every step, step time and images/s from its step time line, MFU
+           from the convs' and the head's FLOPs (counted from their shapes
+           in a forward pass), peak memory, two profiled steps (idle share,
+           top device operations); then the bf16 model's train-mode logits
+           against the f32 model's with the same weights (every block's
+           last BatchNorm scale set to 0.1 so the residual branches count)
+           on the same batch
+  vit      the ViT workload at ViT-B/16 width (224x224, patch 16: T 197,
+           batch 256) and
+  bert     the BERT workload at BERT-base width (T 128, batch 32): each as
+           resnet, plus the kernels' launches (12 per step each, counted
+           from zero just before the run), and the model's logits with the
+           kernels against the same model on the plain attention path
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -95,9 +111,13 @@ PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)_kernel"
                          r"ILi(\d+)ELi(\d+)E")
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
-# the workload's own step-time line (`workloads/lm.py`)
-STEP_TIME = re.compile(r"^step time (\S+) ms over steps \S+, (\S+) tokens/s$",
-                       re.M)
+# the workloads' own step-time line (`workloads/runner.StepTimer`)
+STEP_TIME = re.compile(r"^step time (\S+) ms over steps \S+, (\S+) "
+                       r"(tokens|images|sequences)/s$", re.M)
+# logits of a model on the kernels against the same model on the plain
+# attention path (both bf16), and of the bf16 ResNet against the f32 one:
+# max |got - ref| <= TOL_LOGITS * max |ref|
+TOL_LOGITS = 5e-2
 
 
 def tolerance_ratios(got, ref, rtol: float = RTOL):
@@ -172,16 +192,22 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_lm(argv):
-    """lm.main(argv) with its log captured; raises unless it exits 0."""
-    from tf_operator_tpu_torch.workloads import lm
+def run_workload(name: str, argv):
+    """workloads.<name>.main(argv) with its log captured; raises unless it
+    exits 0."""
+    import importlib
 
+    module = importlib.import_module(f"tf_operator_tpu_torch.workloads.{name}")
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        rc = lm.main(argv)
+        rc = module.main(argv)
     if rc != 0:
-        raise RuntimeError(f"lm.main({argv}) exited {rc}")
+        raise RuntimeError(f"{name}.main({argv}) exited {rc}")
     return tee.buf.getvalue()
+
+
+def run_lm(argv):
+    return run_workload("lm", argv)
 
 
 def step_losses(log: str) -> dict:
@@ -215,7 +241,12 @@ CASES = [
     ("wide_sink_gqa", 1, 4, 2, 1000, 64, True, 64, 70, 64),
     ("d128", 2, 8, 4, 1024, 128, True, None, 0, 128),
     ("d128_b64", 1, 4, 4, 300, 128, False, None, 0, 64),
+    # the third path: ViT-B/16 at 224x224 (196 patches + CLS) and BERT-base
+    # at T 128, both non-causal at their workloads' batch
+    ("vit_b16", 256, 12, 12, 197, 64, False, None, 0, 128),
+    ("bert_base", 32, 12, 12, 128, 64, False, None, 0, 128),
 ]
+TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base")
 
 
 def live_pairs(t, causal, window, sink, device) -> int:
@@ -378,8 +409,11 @@ def kernel_case(case, timing: bool):
                 times["flash_backward_dkv"][0])
     for kname, (k_ms, p_ms) in times.items():
         r = result[kname]
+        # SDPA's forward beside the forward kernel; its whole backward (dq,
+        # dk and dv in one call) beside each backward kernel, as the joint
+        # yardstick of the two
         r.update(ms=k_ms, plain_ms=p_ms,
-                 library_ms=lib_fwd if kname == "flash_forward" else None)
+                 library_ms=lib_fwd if kname == "flash_forward" else lib_bwd)
         print(f"  {name:11s} {kname:18s} kernel_ms {k_ms:.4f} plain_ms "
               f"{p_ms:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
               f"bound/kernel {r['bound_ms'] / k_ms:.3f}", flush=True)
@@ -396,7 +430,7 @@ def phase_kernels():
 
     out = {}
     for case in CASES:
-        timing = case[0] in ("main", "gqa", "window_sink", "d128")
+        timing = case[0] in TIMED_CASES
         print(f"kernel case {case[0]}: B={case[1]} H={case[2]} Hkv={case[3]}"
               f" T={case[4]} D={case[5]} causal={case[6]} window={case[7]} "
               f"sink={case[8]} block={case[9]}", flush=True)
@@ -523,6 +557,19 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     return 3.0 * (2 * batch * seq * matmul_params + attn)
 
 
+def logits_within(what: str, got, ref, shape) -> None:
+    import torch
+
+    err = float((got.float() - ref.float()).abs().max())
+    limit = TOL_LOGITS * float(ref.float().abs().max())
+    print(f"{what}: shape {tuple(got.shape)} max_abs_err {err:.3e} "
+          f"(tolerance {limit:.3e})", flush=True)
+    if tuple(got.shape) != shape or not torch.isfinite(got).all():
+        raise RuntimeError(f"{what}: wrong shape or not finite")
+    if not err <= limit:
+        raise RuntimeError(f"{what}: differs by {err} > {limit}")
+
+
 def phase_llama():
     import torch
 
@@ -550,16 +597,8 @@ def phase_llama():
                            generator=torch.Generator().manual_seed(2)).to(dev)
     with torch.no_grad():
         got, ref = model(tokens), plain(tokens)
-    err = float((got - ref).abs().max())
-    limit = 5e-2 * float(ref.abs().max())
-    print(f"llama 2-layer logits, kernels vs plain attention: shape "
-          f"{tuple(got.shape)} max_abs_err {err:.3e} (tolerance {limit:.3e})",
-          flush=True)
-    if got.shape != (2, 512, cfg.vocab_size) or not torch.isfinite(got).all():
-        raise RuntimeError("llama logits have the wrong shape or are not "
-                           "finite")
-    if not err <= limit:
-        raise RuntimeError(f"llama logits differ by {err} > {limit}")
+    logits_within("llama 2-layer logits, kernels vs plain attention", got,
+                  ref, (2, 512, cfg.vocab_size))
 
 
 # ---------------------------------------------------------------------------
@@ -895,6 +934,189 @@ def phase_dist(card: str):
           f"{times['plain'][1]} [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the third path: the classification workloads at full width
+
+
+def conv_dense_flops(model, image_size: int) -> float:
+    """Forward FLOPs of one image through `model`'s convolutions and dense
+    layers (2 x multiply-adds), from each layer's weight and output shape
+    in a forward pass of one image on the model's device."""
+    import torch
+
+    total = []
+
+    def conv_hook(module, inputs, out):
+        # out [1, Cout, H, W]; each output element takes Cin * kh * kw MACs
+        total.append(2.0 * out.numel() * module.weight[0].numel())
+
+    def dense_hook(module, inputs, out):
+        total.append(2.0 * module.weight.numel())
+
+    from tf_operator_tpu_torch.models import resnet as R
+
+    hooks = [m.register_forward_hook(conv_hook) for m in model.modules()
+             if isinstance(m, R.Conv)]
+    hooks += [m.register_forward_hook(dense_hook) for m in model.modules()
+              if isinstance(m, torch.nn.Linear)]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, image_size, image_size, 3,
+                              device=next(model.parameters()).device))
+    finally:
+        for hook in hooks:
+            hook.remove()
+    return sum(total)
+
+
+def encoder_flops(cfg, batch: int, seq: int, per_sequence: float) -> float:
+    """FLOPs of one training step (3 x forward) of a non-causal encoder's
+    products: the blocks' projections and MLP per token, attention over
+    T^2 pairs, plus `per_sequence` forward FLOPs of each sequence outside
+    the blocks (patch embedding, pooler, heads)."""
+    head_dim = cfg.d_model // cfg.num_heads
+    per_token = 2 * cfg.num_layers * (4 * cfg.d_model ** 2 +
+                                      2 * cfg.d_model * cfg.d_ff)
+    attn = cfg.num_layers * cfg.num_heads * 2 * 2 * seq * seq * head_dim
+    return 3.0 * batch * (seq * per_token + attn + per_sequence)
+
+
+def run_classification(card: str, out_dir, name: str, argv, steps: int,
+                       flops: float, launches_per_step: int = 0):
+    """The workload `name` for `steps` steps at `argv`: every step's loss
+    finite, its step time line read, MFU against PEAK_BF16_FLOPS from
+    `flops` per step, peak memory; the kernels' launches counted from zero
+    over the run when `launches_per_step`; then two steps profiled through
+    its --profile-dir.  Returns the run's log."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    log = run_workload(name, argv + ["--steps", str(steps),
+                                     "--log-every", "1"])
+    if launches_per_step:
+        check_launches(launches_per_step * steps, f"{name} run")
+    peak = torch.cuda.max_memory_allocated()
+    losses = step_losses(log)
+    if sorted(losses) != list(range(steps)) or not all(
+            math.isfinite(v) for v in losses.values()):
+        raise RuntimeError(f"{name}: losses missing or not finite: {losses}")
+    m = STEP_TIME.search(log)
+    if m is None:
+        raise RuntimeError(f"{name}: the workload printed no step time")
+    ms = float(m.group(1))
+    mfu = flops / (ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"{name} step: {ms} ms/step, {m.group(2)} {m.group(3)}/s, "
+          f"{flops / 1e12:.3f} TFLOP/step, MFU {mfu:.4f} of "
+          f"{PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; losses {losses} [{card}]", flush=True)
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix=f"{name}-profile-") as prof_dir:
+        run_workload(name, argv + ["--steps", "4", "--profile-dir", prof_dir,
+                                   "--profile-start", "2",
+                                   "--profile-steps", "2"])
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    summary = device_profile(events, 2, ms)
+    print(summary, flush=True)
+    write_detail(out_dir, f"profile_{name}.txt", f"{card}\n{summary}\n")
+    return log
+
+
+def phase_resnet(card: str, out_dir):
+    import torch
+
+    from tf_operator_tpu_torch.models import resnet as R
+
+    batch, size = 256, 224
+    probe = R.ResNet50(num_classes=1000)
+    probe.reset_parameters(torch.Generator().manual_seed(0))
+    flops = 3.0 * batch * conv_dense_flops(probe.cuda(), size)
+    del probe
+    log = run_classification(card, out_dir, "resnet", [], 8, flops)
+    if "image source: native" not in log:
+        raise RuntimeError("resnet: the images did not come from the native "
+                           "loader")
+
+    # bf16 convs against f32 on the card: the same weights, the same batch,
+    # train mode (batch statistics), without gradients
+    g = torch.Generator().manual_seed(5)
+    model = R.ResNet50(num_classes=1000)
+    model.reset_parameters(g)
+    with torch.no_grad():
+        for block in model.blocks:
+            block.norms[-1].weight.fill_(0.1)
+    f32 = R.ResNet50(num_classes=1000, dtype=torch.float32)
+    f32.load_state_dict(model.state_dict())
+    model.cuda().train()
+    f32.cuda().train()
+    images = torch.randn(16, size, size, 3, generator=g).cuda()
+    with torch.no_grad():
+        got, ref = model(images), f32(images)
+    logits_within("resnet-50 logits, bf16 convs vs f32 (B 16, 224x224)",
+                  got, ref, (16, 1000))
+
+
+def phase_encoder(card: str, out_dir, name: str):
+    """vit or bert: the workload, then its model on the kernels against the
+    same model on the plain attention path."""
+    import dataclasses
+
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (BertEncoder,
+                                                          bert_base_config)
+    from tf_operator_tpu_torch.models.vit import ViT, vit_base_config
+
+    if name == "vit":
+        batch, seq, steps = 256, 197, 5
+        cfg = vit_base_config(max_len=seq)
+        per_seq = 2.0 * (seq - 1) * 3 * 16 * 16 * cfg.d_model + \
+            2.0 * cfg.d_model * 1000
+
+        def build(c):
+            return ViT(c, num_classes=1000, patch_size=16, image_size=224)
+
+        def inputs(g):
+            return torch.randn(8, 224, 224, 3, generator=g)
+        shape = (8, 1000)
+    else:
+        batch, seq, steps = 32, 128, 10
+        cfg = bert_base_config(max_len=seq)
+        per_seq = 2.0 * cfg.d_model ** 2 + 2.0 * cfg.d_model * 2
+
+        def build(c):
+            return BertEncoder(c, num_labels=2)
+
+        def inputs(g):
+            return torch.randint(0, cfg.vocab_size, (8, seq), generator=g)
+        shape = (8, 2)
+    flops = encoder_flops(cfg, batch, seq, per_seq)
+    run_classification(card, out_dir, name, [], steps, flops,
+                       launches_per_step=cfg.num_layers)
+
+    g = torch.Generator().manual_seed(6)
+    model = build(cfg)
+    model.reset_parameters(g)
+    plain = build(dataclasses.replace(cfg, use_flash=False))
+    plain.load_state_dict(model.state_dict())
+    model.cuda()
+    plain.cuda()
+    x = inputs(g).cuda()
+
+    def logits(out):
+        return out["logits"] if isinstance(out, dict) else out
+
+    with torch.no_grad():
+        got, ref = logits(model(x)), logits(plain(x))
+    logits_within(f"{name} {cfg.num_layers}-layer logits, kernels vs plain "
+                  f"attention (B 8, T {seq})", got, ref, shape)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
@@ -942,6 +1164,9 @@ def main(argv=None) -> int:
     phase_lse()
     phase_ring(card)
     phase_dist(card)
+    phase_resnet(card, args.out_dir)
+    phase_encoder(card, args.out_dir, "vit")
+    phase_encoder(card, args.out_dir, "bert")
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

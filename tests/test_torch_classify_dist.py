@@ -1,0 +1,392 @@
+"""The port's classification workloads over processes: the data-parallel
+step with global BatchNorm over gloo ranks against the one-process port
+and the JAX package, the workloads as pods run them, and their flags,
+exits and log lines against the JAX workloads'.
+
+ResNet18 (10 classes, 32x32 images, global batch 8) takes 3 SGD steps (lr
+0.01, momentum 0.9) from flax's init on 2 ranks of dp (`torch_dist_worker.py`,
+each rank on its 4 rows), in one process on the global batch, and in the
+JAX package under a dp 2 mesh of virtual CPU devices, in f32.  Loss,
+params and batch_stats agree within 2e-5 (the tolerance of the one-process
+SGD test, `tests/test_torch_resnet.py`: the ranks sum in another order),
+and the ranks end bit-equal.  A ResNet whose BatchNorms leave out the dp
+group (each rank normalising over its own 4 rows: a planted fault) must
+not agree.  ViT (2 layers, d 64) takes 3 adamw steps at dp 2 against the
+one-process port within 5e-5 (the key biases aside, as in
+`tests/test_torch_vit_bert.py`).
+"""
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tf_operator_tpu.models.resnet import ResNet18 as JResNet18
+from tf_operator_tpu.models import vit as JV
+from tf_operator_tpu.parallel.mesh import build_mesh as j_build_mesh
+from tf_operator_tpu.train import data as jdata
+from tf_operator_tpu.train.state import create_train_state as j_create
+from tf_operator_tpu.train.step import classification_loss_fn as j_loss_fn
+from tf_operator_tpu.train.step import make_train_step as j_make_step
+from tf_operator_tpu.train.step import shard_batch as j_shard_batch
+from tf_operator_tpu.train.step import shard_train_state
+from tf_operator_tpu.workloads import bert as j_bert
+from tf_operator_tpu.workloads import resnet as j_resnet
+from tf_operator_tpu.workloads import vit as j_vit
+from tf_operator_tpu_torch.models import resnet as R
+from tf_operator_tpu_torch.models import vit as V
+from tf_operator_tpu_torch.models.convert import (resnet_from_flax,
+                                                  vit_from_flax)
+from tf_operator_tpu_torch.train import optim
+from tf_operator_tpu_torch.train.state import create_train_state
+from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                              make_train_step)
+from tf_operator_tpu_torch.workloads import bert, resnet, vit
+from torch_dist_worker import World
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+RESNET_ATOL = 2e-5
+VIT_ATOL = 5e-5
+RESNET_LR = 0.01
+VIT_LR = 1e-3
+VIT_CONFIG = dict(num_layers=2, num_heads=4, d_model=64, d_ff=128,
+                  max_len=17)
+
+
+def resnet_batches():
+    return [b for b, _ in zip(jdata.synthetic_images(8, 32, 10, seed=1),
+                              range(3))]
+
+
+def vit_batches():
+    out = []
+    for seed in (1, 2, 3):
+        rng = np.random.RandomState(seed)
+        out.append({"x": rng.randn(8, 16, 16, 3).astype(np.float32),
+                    "label": rng.randint(0, 10, 8).astype(np.int32)})
+    return out
+
+
+def torch_batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def one_process(model, recipe, batches):
+    state = create_train_state(model, recipe, seed=None)
+    step = make_train_step(classification_loss_fn(model))
+    losses = []
+    for batch in batches:
+        state, metrics = step(state, torch_batch(batch))
+        losses.append(float(metrics["loss"]))
+    return losses, model.state_dict()
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The 2-rank world's results, started first; meanwhile the one-process
+    port's and JAX's."""
+    jmodel = JResNet18(num_classes=10, dtype=jnp.float32)
+    variables = jax.device_get(jmodel.init(
+        jax.random.PRNGKey(0), jnp.zeros((2, 32, 32, 3)), train=True))
+    r_init = resnet_from_flax(variables["params"], variables["batch_stats"])
+    jvit = JV.ViT(JV.vit_base_config(dtype=jnp.float32, **VIT_CONFIG),
+                  num_classes=10, patch_size=4)
+    v_init = vit_from_flax(jax.device_get(jvit.init(
+        jax.random.PRNGKey(0), vit_batches()[0]["x"])["params"]))
+    to_torch = [{k: torch.from_numpy(v) for k, v in b.items()}
+                for b in resnet_batches()]
+    cases = [
+        dict(name="resnet18", model="resnet18", lr=RESNET_LR, init=r_init,
+             batches=to_torch),
+        dict(name="resnet18_per_rank_bn", model="resnet18", lr=RESNET_LR,
+             init=r_init, batches=to_torch, per_rank_bn=True),
+        dict(name="vit", model="vit", lr=VIT_LR, init=v_init,
+             config=VIT_CONFIG, batches=[torch_batch(b)
+                                         for b in vit_batches()]),
+    ]
+    world = World(tmp_path_factory.mktemp("classify"), 2,
+                  dict(kind="classify", cases=cases))
+
+    model = R.ResNet18(num_classes=10, dtype=torch.float32)
+    model.load_state_dict(r_init)
+    port = one_process(model, optim.sgd(RESNET_LR), resnet_batches())
+    vmodel = V.ViT(V.vit_base_config(dtype=torch.float32, **VIT_CONFIG),
+                   num_classes=10, patch_size=4, image_size=16)
+    vmodel.load_state_dict(v_init)
+    vit_port = one_process(vmodel, optim.adamw(VIT_LR), vit_batches())
+
+    mesh = j_build_mesh({"dp": 2}, devices=jax.devices()[:2])
+    state = j_create(jax.random.PRNGKey(0), jmodel,
+                     optax.sgd(RESNET_LR, 0.9), jnp.zeros((2, 32, 32, 3)),
+                     init_kwargs={"train": True})
+    state = shard_train_state(state.replace(
+        params=variables["params"], batch_stats=variables["batch_stats"]),
+        mesh)
+    step = j_make_step(j_loss_fn(jmodel.apply, has_batch_stats=True,
+                                 model_kwargs={"train": True}),
+                       has_batch_stats=True, donate=False)
+    jax_losses = []
+    for batch in resnet_batches():
+        state, metrics = step(state, j_shard_batch(batch, mesh))
+        jax_losses.append(float(metrics["loss"]))
+    jax_state = resnet_from_flax(jax.device_get(state.params),
+                                 jax.device_get(state.batch_stats))
+    ranks = world.results()
+    return dict(port=port, vit_port=vit_port, jax=(jax_losses, jax_state),
+                ranks={case["name"]: [r[case["name"]] for r in ranks]
+                       for case in cases}, r_init=r_init)
+
+
+def assert_state_close(got, want, atol, skip=()):
+    assert set(got) == set(want)
+    for key, value in want.items():
+        if not key.endswith(skip):
+            torch.testing.assert_close(got[key], value, atol=atol, rtol=0,
+                                       msg=key)
+
+
+@pytest.mark.parametrize("against", ["one_process", "jax_dp2"])
+def test_resnet_dp2_global_batchnorm_matches(runs, against):
+    losses, state = (runs["port"] if against == "one_process"
+                     else runs["jax"])
+    first = runs["ranks"]["resnet18"][0]
+    np.testing.assert_allclose(first["losses"].numpy(), losses,
+                               atol=RESNET_ATOL, rtol=0)
+    assert_state_close(first["state"], state, RESNET_ATOL)
+    moved = max(float((state[k] - runs["r_init"][k]).abs().max())
+                for k in state)
+    assert moved > 100 * RESNET_ATOL
+
+
+@pytest.mark.parametrize("case", ["resnet18", "vit"])
+def test_ranks_end_bit_equal(runs, case):
+    first, other = runs["ranks"][case]
+    assert torch.equal(first["losses"], other["losses"])
+    for key, value in first["state"].items():
+        assert torch.equal(other["state"][key], value), key
+
+
+def test_planted_per_rank_batchnorm_fails(runs):
+    """Each rank's BatchNorm over its own rows trains another model: its
+    losses and running statistics are off by far more than the tolerance,
+    and the ranks' running statistics part."""
+    first, other = runs["ranks"]["resnet18_per_rank_bn"]
+    assert not torch.equal(first["state"]["bn_init.running_mean"],
+                           other["state"]["bn_init.running_mean"])
+    losses, state = runs["port"]
+    assert float(np.abs(first["losses"].numpy() - losses).max()) > \
+        100 * RESNET_ATOL
+    with pytest.raises(AssertionError):
+        assert_state_close(first["state"], state, RESNET_ATOL)
+
+
+def test_vit_dp2_matches_one_process(runs):
+    losses, state = runs["vit_port"]
+    first = runs["ranks"]["vit"][0]
+    np.testing.assert_allclose(first["losses"].numpy(), losses,
+                               atol=VIT_ATOL, rtol=0)
+    assert_state_close(first["state"], state, VIT_ATOL,
+                       skip=("attn.key.bias",))
+
+
+# ---------------------------------------------------------------------------
+# the workloads: flags, exits, log lines, and a TPUJob of the port's ResNet
+
+WORKLOADS = {"resnet": (resnet, j_resnet), "vit": (vit, j_vit),
+             "bert": (bert, j_bert)}
+TINY = {
+    "resnet": ["--depth", "18", "--batch", "4", "--image-size", "32",
+               "--num-classes", "10"],
+    "vit": ["--batch", "4", "--image-size", "16", "--patch-size", "4",
+            "--layers", "1", "--d-model", "64", "--num-classes", "10"],
+    "bert": ["--batch", "4", "--seq-len", "16", "--layers", "1",
+             "--d-model", "64"],
+}
+SP_ITEM = {"resnet": "A.9", "vit": "A.10", "bert": "A.10"}
+TOPOLOGY_ENV = ("TPUJOB_MESH_SHAPE", "TPUJOB_NUM_PROCESSES",
+                "TPUJOB_PROCESS_ID", "TPUJOB_ZERO_SHARD_WEIGHT_UPDATE",
+                "TPUJOB_VIRTUAL_REPLICAS", "TPUJOB_PHYSICAL_REPLICAS",
+                "TF_CONFIG")
+PROCESS_0_OF = {"TPUJOB_PROCESS_ID": "0",
+                "TPUJOB_COORDINATOR_ADDRESS": "127.0.0.1:1"}
+
+
+class _Parsed(Exception):
+    pass
+
+
+def parser_defaults(main, monkeypatch):
+    """{dest: default} of the parser `main` builds (stopped at its
+    parse_args, before anything else runs)."""
+    def stop(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", stop)
+    with pytest.raises(_Parsed) as caught:
+        main([])
+    monkeypatch.undo()
+    return {a.dest: a.default for a in caught.value.args[0]._actions
+            if a.dest != "help"}
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_flags_and_defaults_are_the_reference_workloads(name, monkeypatch):
+    ours, theirs = WORKLOADS[name]
+    got = parser_defaults(ours.main, monkeypatch)
+    want = parser_defaults(theirs.main, monkeypatch)
+    assert {k: got[k] for k in want} == want
+    # bert alone adds --log-every, at the step interval it logs anyway
+    assert set(got) - set(want) == ({"log_every"} if name == "bert"
+                                    else set())
+
+
+@pytest.fixture
+def clean_env(monkeypatch):
+    for key in TOPOLOGY_ENV:
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("TPUJOB_FORCE_PLATFORM", "cpu")
+    return monkeypatch
+
+
+def _multi(n, mesh):
+    return {**PROCESS_0_OF, "TPUJOB_NUM_PROCESSES": str(n),
+            "TPUJOB_MESH_SHAPE": json.dumps(mesh)}
+
+
+EXITS = [
+    ("tp", _multi(2, {"tp": 2}), "the tp mesh axis (tp=2) is not yet "
+                                 "ported (ROADMAP item A.8)"),
+    ("fsdp", _multi(2, {"fsdp": 2}), "the fsdp mesh axis (fsdp=2) is not "
+                                     "yet ported (ROADMAP item A.7)"),
+    ("ep", _multi(2, {"ep": 2}), "(ROADMAP item A.13)"),
+    ("pp", _multi(2, {"pp": 2}), "(ROADMAP item A.13)"),
+    ("sp", _multi(2, {"sp": 2}), "the sp mesh axis (sp=2) is not yet "
+                                 "ported (ROADMAP item {sp})"),
+    ("zero", {"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1", **_multi(2,
+                                                               {"dp": 2})},
+     "--zero-shard-weight-update over dp > 1 is not yet ported (ROADMAP "
+     "item A.8)"),
+    ("mesh", _multi(2, {"dp": 4}),
+     "invalid mesh: mesh axes {{'dp': 4}} require 4 devices, but 2 are "
+     "available"),
+    ("batch", _multi(8, {"dp": 8}), "--batch 4 must split over dp=8"),
+]
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+@pytest.mark.parametrize("what,env,message", EXITS,
+                         ids=[e[0] for e in EXITS])
+def test_unported_or_unfit_topology_exits_2(clean_env, capsys, name, what,
+                                            env, message):
+    """Checked before any group is joined (the coordinator address is
+    never dialled)."""
+    for key, value in env.items():
+        clean_env.setenv(key, value)
+    rc = WORKLOADS[name][0].main(["--steps", "1"] + TINY[name])
+    out = capsys.readouterr().out
+    assert rc == 2
+    assert message.format(sp=SP_ITEM[name]) in out
+
+
+def test_vit_patch_size_that_does_not_divide_exits_2(clean_env, capsys):
+    assert vit.main(["--image-size", "18", "--patch-size", "4"]) == 2
+    assert "--image-size 18 must divide by --patch-size 4" in \
+        capsys.readouterr().out
+
+
+STEP_TIME = re.compile(r"^step time (\S+) ms over steps 1-2, (\S+) "
+                       r"(images|sequences)/s$", re.M)
+LAST_LINE = {"resnet": r"^done: 3 steps, \S+ img/s$",
+             "vit": r"^final loss \S+ \(\S+ images/sec\)$",
+             "bert": r"^done$"}
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_runs_with_the_reference_log_lines(clean_env, capsys, name):
+    """The reference's lines (role, a loss line per --log-every, the last
+    line), the zero knob at dp 1 running dense, and the step time line."""
+    clean_env.setenv("TPUJOB_ZERO_SHARD_WEIGHT_UPDATE", "1")
+    rc = WORKLOADS[name][0].main(["--steps", "3", "--log-every", "1"]
+                                 + TINY[name])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert f"{name} workload: role=worker index=0" in out
+    assert "zero-shard-weight-update: dp axis size is 1, running dense" \
+        in out
+    losses = re.findall(r"^step (\d+) loss (\S+)$", out, re.M)
+    assert [int(i) for i, _ in losses] == [0, 1, 2]
+    assert all(np.isfinite(float(v)) for _, v in losses)
+    m = STEP_TIME.search(out)
+    assert m and float(m.group(1)) > 0
+    assert re.search(LAST_LINE[name], out, re.M), out
+    if name == "resnet":
+        assert re.search(r"^image source: (native|python) ", out, re.M)
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_exits_nonzero_without_cuda_or_cpu_knob(name):
+    env = {k: v for k, v in os.environ.items()
+           if k not in TOPOLOGY_ENV + ("TPUJOB_FORCE_PLATFORM",)}
+    env.update(PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", f"tf_operator_tpu_torch.workloads.{name}",
+         "--steps", "1"] + TINY[name], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "TPUJOB_FORCE_PLATFORM=cpu" in proc.stdout
+    assert "step 0" not in proc.stdout
+
+
+def test_two_worker_resnet_tpujob_succeeds(tmp_path):
+    """The control plane launches the port's ResNet workload as two pod
+    processes with mesh {"dp": 2}; they join one gloo group (BatchNorm's
+    statistics over both), rank 0 logs, and the job reaches Succeeded."""
+    from tf_operator_tpu.api.core import Container, ObjectMeta, PodTemplateSpec
+    from tf_operator_tpu.api.types import (ReplicaSpec, ReplicaType, TPUJob,
+                                           TPUJobSpec, TPUTopology)
+    from tf_operator_tpu.controller.controller import TPUJobController
+    from tf_operator_tpu.runtime.local import LocalProcessCluster
+    from tf_operator_tpu.sdk.client import TPUJobClient
+
+    cluster = LocalProcessCluster(
+        workdir=str(tmp_path / "work"),
+        extra_env={"TPUJOB_FORCE_PLATFORM": "cpu", "PYTHONPATH": str(REPO),
+                   "OMP_NUM_THREADS": "1"})
+    controller = TPUJobController(cluster, threadiness=2,
+                                  resolver=cluster.resolver)
+    controller.start()
+    try:
+        client = TPUJobClient(cluster)
+        client.create(TPUJob(
+            metadata=ObjectMeta(name="port-resnet-dp"),
+            spec=TPUJobSpec(replica_specs={ReplicaType.WORKER: ReplicaSpec(
+                replicas=2, tpu=TPUTopology(mesh={"dp": 2}),
+                template=PodTemplateSpec(containers=[Container(
+                    name="tensorflow", image="local",
+                    command=[sys.executable, "-m",
+                             "tf_operator_tpu_torch.workloads.resnet"],
+                    args=["--steps", "3", "--log-every", "1"]
+                    + TINY["resnet"],
+                )]),
+            )}),
+        ))
+        client.wait_for_job("port-resnet-dp", timeout=180)
+        text = "\n".join(client.get_logs("port-resnet-dp").values())
+        assert client.is_job_succeeded("port-resnet-dp"), text
+        assert text.count("done: 3 steps") == 1
+        assert len(re.findall(r"^step \d+ loss \S+$", text, re.M)) == 3
+    finally:
+        controller.stop()
+        cluster.close()

@@ -219,6 +219,30 @@ def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,t", [(256, 197), (32, 128)],
+                         ids=["vit_b16", "bert_base"])
+def test_kernels_at_the_classification_shapes(cuda, b, t):
+    """Non-causal at the encoders' shapes: ViT-B/16 at 224x224 (T 197, a
+    ragged last key tile of 69, B*H 3072) and BERT-base at T 128 (one tile
+    a head), 12 heads of 64."""
+    q, k, v, g = _inputs(t, 12, 12, b=b)
+    opts = dict(scale=0.125, causal=False, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+                                  **opts)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = A.attention_lse(qf, kf, vf, causal=False, scale=0.125)
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    for got, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _held(got, ref), tolerance_ratios(got, ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_on_the_card(cuda):
     """The public entry on CUDA tensors goes through the kernels, forward
     and backward.  Its gradients are held per element against the plain

@@ -1,14 +1,14 @@
 """One rank of a multi-process gloo world for the port's parallel tests.
 
-The tests (`tests/test_torch_parallel.py`, `tests/test_torch_dist_lm.py`)
-write a job file, start `world` processes of this script and read back one
+The tests (`tests/test_torch_parallel.py`, `tests/test_torch_dist_lm.py`,
+`tests/test_torch_classify_dist.py`) write a job file, start `world` processes of this script and read back one
 result file per rank.  The ranks import the port and torch only (never JAX),
 join one group through a `file://` store, and run every case of the job in
 that one world, so a test file pays for its world's start once.
 
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
-A job is {"kind": "attention" | "lm", "cases": [...]}, saved with
+A job is {"kind": "attention" | "lm" | "classify", "cases": [...]}, saved with
 torch.save; each case's result goes into the rank's result file under the
 case's name.
 """
@@ -119,6 +119,41 @@ def lm_case(case: dict) -> dict:
             "params": model.state_dict()}
 
 
+def classify_case(case: dict) -> dict:
+    """ResNet18 (SGD) or ViT (adamw) steps over a dp mesh of every rank, each
+    rank on its rows of the global batches; `per_rank_bn` builds the
+    ResNet's BatchNorms without the dp group (a planted fault)."""
+    from tf_operator_tpu_torch.models import resnet, vit
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.train import optim
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                                  make_train_step,
+                                                  shard_batch)
+
+    mesh = build_mesh({"dp": torch.distributed.get_world_size()},
+                      device_type="cpu")
+    if case["model"] == "resnet18":
+        group = None if case.get("per_rank_bn") else mesh.group("dp")
+        model = resnet.ResNet18(num_classes=10, dtype=torch.float32,
+                                bn_group=group)
+        recipe = optim.sgd(case["lr"])
+    else:
+        model = vit.ViT(vit.vit_base_config(dtype=torch.float32,
+                                            **case["config"]),
+                        num_classes=10, patch_size=4, image_size=16)
+        recipe = optim.adamw(case["lr"])
+    model.load_state_dict(case["init"])
+    state = create_train_state(model, recipe, seed=None)
+    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+    losses = []
+    for batch in case["batches"]:
+        state, metrics = step(state, shard_batch(batch, mesh))
+        losses.append(float(metrics["loss"]))
+    return {"losses": torch.tensor(losses, dtype=torch.float64),
+            "state": model.state_dict()}
+
+
 def main(job_file, rank, world, store, out_dir) -> None:
     import torch.distributed as dist
 
@@ -127,7 +162,8 @@ def main(job_file, rank, world, store, out_dir) -> None:
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=int(rank), world_size=int(world))
     try:
-        run = {"attention": attention_case, "lm": lm_case}[job["kind"]]
+        run = {"attention": attention_case, "lm": lm_case,
+               "classify": classify_case}[job["kind"]]
         results = {case["name"]: run(case) for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")
     finally:

@@ -1,4 +1,5 @@
-"""Transformer LM (GPT- and llama-style), the training path.
+"""Transformer LM (GPT- and llama-style) and the BERT encoder, the
+training path.
 
 The counterpart of `tf_operator_tpu/models/transformer.py`: the same config
 fields and validation, the same architecture and numerics — bf16 compute
@@ -13,6 +14,10 @@ CUDA kernels on the card, the plain version on the CPU.  With a mesh
 on this rank's contiguous slice of the sequence, and attention goes through
 ring attention or Ulysses over that axis's group (`seq_parallel`); learned
 positions and rope take the slice's global positions.
+
+`BertEncoder` (BASELINE config 4) runs the same blocks non-causal between
+token + type + learned position embeddings summed in f32 and a tanh pooler
+in f32 on position 0; `models/vit.py` runs them over image patches.
 
 Not ported in this package yet (raise at config construction): the decode
 KV cache (`decode=True`) and mixture-of-experts blocks.
@@ -30,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.attention import attention, flash_attention, repeat_kv
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
+from .initializers import lecun_normal_
 
 
 @dataclass(frozen=True)
@@ -375,6 +381,66 @@ class TransformerLM(nn.Module):
             return x
         # tied readout: bf16 hidden promoted to f32 against the f32 table
         return F.linear(x.float(), self.wte.weight)
+
+
+class BertEncoder(nn.Module):
+    """BERT-base-style bidirectional encoder with a classification head:
+    `forward(tokens, token_types=None)` returns {"sequence_output" (the
+    final norm's f32 output), "logits" (f32)}."""
+
+    def __init__(self, cfg: TransformerConfig, num_labels: int = 2):
+        super().__init__()
+        self.cfg = cfg
+        d = cfg.d_model
+        self.tok_emb = nn.Embedding(cfg.vocab_size, d)
+        self.type_emb = nn.Embedding(cfg.type_vocab_size, d)
+        self.pos_emb = nn.Parameter(torch.empty(cfg.max_len, d))
+        self.emb_ln = Norm(cfg.norm, d)
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.ln_f = Norm(cfg.norm, d)
+        self.pooler = nn.Linear(d, d)
+        self.classifier = nn.Linear(d, num_labels)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Initialise as the flax model does: embeddings N(0, 1/d) (flax
+        `Embed`'s default), positions and the blocks' kernels N(0, 0.02),
+        pooler and classifier lecun-normal, zero biases, unit norm
+        scales."""
+        std = self.cfg.d_model ** -0.5
+        with torch.no_grad():
+            self.tok_emb.weight.normal_(0.0, std, generator=generator)
+            self.type_emb.weight.normal_(0.0, std, generator=generator)
+        _normal_(self.pos_emb, generator)
+        for module in self.modules():
+            if isinstance(module, (Dense, Norm)):
+                module.reset_parameters(generator)
+        for head in (self.pooler, self.classifier):
+            lecun_normal_(head.weight, head.in_features, generator)
+            with torch.no_grad():
+                head.bias.zero_()
+
+    def forward(self, tokens, token_types=None):
+        cfg = self.cfg
+        t = tokens.shape[1]
+        if token_types is None:
+            token_types = torch.zeros_like(tokens)
+        x = (self.tok_emb(tokens) + self.type_emb(token_types)
+             + self.pos_emb[None, :t, :])
+        x = self.emb_ln(x).to(cfg.dtype)
+        for block in self.blocks:
+            x = block(x)
+        x = self.ln_f(x)
+        cls = torch.tanh(self.pooler(x[:, 0]))
+        return {"sequence_output": x, "logits": self.classifier(cls)}
+
+
+def bert_base_config(**overrides) -> TransformerConfig:
+    base = dict(
+        vocab_size=30522, num_layers=12, num_heads=12, d_model=768,
+        d_ff=3072, max_len=512, causal=False,
+    )
+    base.update(overrides)
+    return TransformerConfig(**base)
 
 
 def llama_style_config(**overrides) -> TransformerConfig:

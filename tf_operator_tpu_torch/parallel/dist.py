@@ -1,13 +1,16 @@
-"""Differentiable collectives for sequence parallelism.
+"""Differentiable collectives for sequence parallelism and synced
+BatchNorm.
 
-JAX transposes `ppermute` and `all_to_all` by itself; PyTorch's
-point-to-point ops have no gradient, so each collective here is an
+JAX transposes `ppermute`, `all_to_all` and `psum` by itself; PyTorch's
+collectives have no gradient, so each collective here is an
 `autograd.Function` whose backward is the transposed collective:
   * `ring_shift` sends its tensors to the next rank of the group and
     receives the previous rank's (one `batch_isend_irecv`); its backward
     shifts the gradients the other way.
   * `all_to_all` exchanges equal chunks of dim 0 with every rank of the
     group (`all_to_all_single`); the exchange is its own transpose.
+  * `all_reduce` sums a tensor over the group; every rank's result depends
+    on every rank's input, so its backward sums the gradients likewise.
 Every rank of the group must make the same calls in the same order, in the
 forward and (autograd runs them in reverse) in the backward.
 """
@@ -80,3 +83,25 @@ def all_to_all(group, x):
         raise ValueError(f"all_to_all: dim 0 ({x.shape[0]}) does not divide "
                          f"by the group size {dist.get_world_size(group)}")
     return _AllToAll.apply(group, x)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+def all_reduce(group, x):
+    """The sum of x over the group's ranks, differentiable: as `lax.psum`
+    over a mesh axis, or what the JAX step's batch-wide reductions come to
+    when the batch is sharded over dp."""
+    return _AllReduce.apply(group, x)

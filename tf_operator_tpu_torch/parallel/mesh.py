@@ -38,11 +38,11 @@ class Mesh:
     over a process group, the torch DeviceMesh whose per-axis groups the
     collectives use."""
 
-    def __init__(self, axis_names, sizes, device_mesh=None) -> None:
+    def __init__(self, axis_names, sizes) -> None:
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
         self.size = int(np.prod(sizes)) if sizes else 1
-        self.device_mesh = device_mesh
+        self.device_mesh = None
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -56,6 +56,17 @@ class Mesh:
             rank = _rank()
         coords = np.unravel_index(rank, tuple(self.shape.values()))
         return int(coords[self.axis_names.index(axis)])
+
+    def over_group(self, device_type: str) -> "Mesh":
+        """Lay this layout over the initialized process group (a torch
+        DeviceMesh, whose per-axis groups the collectives use) and return
+        it."""
+        from torch.distributed.device_mesh import init_device_mesh
+
+        self.device_mesh = init_device_mesh(
+            device_type, tuple(self.shape.values()),
+            mesh_dim_names=self.axis_names)
+        return self
 
     def group(self, axis: str):
         """The process group of this rank's line along `axis`."""
@@ -101,13 +112,8 @@ def build_mesh(axes: Optional[Dict[str, int]] = None,
             f"mesh axes {dict(zip(names, sizes))} require {total} devices, "
             f"but {n} are available"
         )
-    device_mesh = None
-    if device_type is not None:
-        from torch.distributed.device_mesh import init_device_mesh
-
-        device_mesh = init_device_mesh(device_type, tuple(sizes),
-                                       mesh_dim_names=tuple(names))
-    return Mesh(names, sizes, device_mesh)
+    mesh = Mesh(names, sizes)
+    return mesh if device_type is None else mesh.over_group(device_type)
 
 
 def mesh_from_env(world_size: Optional[int] = None,

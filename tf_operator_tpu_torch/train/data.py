@@ -1,7 +1,7 @@
-"""Data pipeline: a synthetic, learnable token stream and the copy to the
-device.
+"""Data pipeline: synthetic, learnable token and image streams and the copy
+to the device.
 
-`synthetic_tokens` is a copy of the generator in
+`synthetic_tokens` and `synthetic_images` are copies of the generators in
 `tf_operator_tpu/train/data.py` (the port imports nothing of the JAX
 package): the same seed yields the same stream, bit for bit.
 """
@@ -29,6 +29,23 @@ def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int = 32000,
                 noise, rng.randint(0, vocab_size, size=batch_size), next_tok[toks[:, t - 1]]
             )
         yield {"tokens": toks}
+
+
+def synthetic_images(batch_size: int, image_size: int = 224,
+                     num_classes: int = 1000,
+                     seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """ImageNet-shaped class-conditional images (for ResNet benchmarking)."""
+    rng = np.random.RandomState(seed)
+    freq = (np.arange(num_classes) % 13 + 1).astype(np.float32)
+    ys = np.linspace(0, np.pi * 2, image_size, dtype=np.float32)
+    while True:
+        labels = rng.randint(0, num_classes, size=batch_size)
+        base = np.sin(ys[None, :, None] * freq[labels][:, None, None])
+        images = (
+            base[..., None]
+            + rng.randn(batch_size, image_size, image_size, 3).astype(np.float32) * 0.5
+        )
+        yield {"x": images.astype(np.float32), "label": labels.astype(np.int32)}
 
 
 def prefetch_to_device(it: Iterator, device: torch.device,

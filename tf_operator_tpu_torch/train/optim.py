@@ -1,8 +1,15 @@
-"""Optimizer for the LM workloads: AdamW with linear warmup + cosine decay,
-global-norm gradient clipping, and weight decay on matrices only.
+"""Optimizer recipes: the LM's AdamW (linear warmup + cosine decay,
+global-norm gradient clipping, weight decay on matrices only), and the
+classification workloads' `optax.sgd` with momentum and unmasked
+`optax.adamw`.
 
-The counterpart of `tf_operator_tpu/train/optim.py` (an optax chain), kept
-to optax's arithmetic where PyTorch's defaults differ:
+A recipe is the optax GradientTransformation's counterpart: `init(model)`
+builds the torch optimizer over the model's parameters, and
+`update(optimizer, params, count)` applies one step from the gradients in
+`.grad` (`train/state.TrainState` takes any recipe).
+
+The LM recipe is the counterpart of `tf_operator_tpu/train/optim.py` (an
+optax chain), kept to optax's arithmetic where PyTorch's defaults differ:
   * clipping scales by max_norm / norm with no epsilon, and only when
     norm >= max_norm (`torch.nn.utils.clip_grad_norm_` adds 1e-6);
   * the schedule is evaluated at the update count before it is incremented,
@@ -79,10 +86,9 @@ def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class AdamW:
-    """The optimizer recipe (the optax GradientTransformation's
-    counterpart): `init(model)` builds the torch optimizer over the model's
-    parameters; `update(optimizer, params, count)` clips and applies one
-    step at lr(count)."""
+    """AdamW at lr(count), after a global-norm clip when `grad_clip` > 0;
+    weight decay only where `decay_mask` says when `masked`, else on every
+    parameter."""
 
     schedule: Callable[[int], float]
     b1: float = 0.9
@@ -90,8 +96,14 @@ class AdamW:
     eps: float = 1e-8
     weight_decay: float = 0.1
     grad_clip: float = 1.0
+    masked: bool = True
 
     def init(self, model) -> torch.optim.AdamW:
+        if not self.masked:
+            return torch.optim.AdamW(
+                model.parameters(), lr=self.schedule(0),
+                betas=(self.b1, self.b2), eps=self.eps,
+                weight_decay=self.weight_decay)
         mask = decay_mask(model)
         named = list(model.named_parameters())
         groups = [
@@ -122,3 +134,33 @@ def lm_optimizer(peak_lr: float, *, schedule: str = "constant",
                         warmup_steps=warmup_steps, total_steps=total_steps)
     return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
                  grad_clip=grad_clip)
+
+
+def adamw(lr: float) -> AdamW:
+    """`optax.adamw(lr)` with optax's defaults: b1 0.9, b2 0.999, eps 1e-8,
+    weight decay 1e-4 on every parameter (mask=None), a constant rate and
+    no clip (the ViT and BERT workloads' recipe)."""
+    return AdamW(lambda count: lr, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=1e-4, grad_clip=0.0, masked=False)
+
+
+@dataclass(frozen=True)
+class SGD:
+    """`optax.sgd(lr, momentum)`: the trace t = g + momentum * t (zero at
+    first) and the step -lr * t, which is torch's SGD with dampening 0; no
+    weight decay, no clip (the ResNet workload's recipe)."""
+
+    lr: float
+    momentum: float = 0.9
+
+    def init(self, model) -> torch.optim.SGD:
+        return torch.optim.SGD(model.parameters(), lr=self.lr,
+                               momentum=self.momentum, dampening=0.0)
+
+    def update(self, optimizer: torch.optim.Optimizer, params,
+               count: int) -> None:
+        optimizer.step()
+
+
+def sgd(lr: float, momentum: float = 0.9) -> SGD:
+    return SGD(lr, momentum)

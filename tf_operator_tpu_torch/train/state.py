@@ -1,12 +1,21 @@
-"""Train state: the model (its parameters), the optimizer and the step."""
+"""Train state: the model (its parameters and buffers, such as BatchNorm's
+running statistics), the optimizer and the step."""
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Protocol
 
 import torch
 
-from .optim import AdamW
+
+class Recipe(Protocol):
+    """An optimizer recipe (`train/optim.py`): the optax
+    GradientTransformation's counterpart."""
+
+    def init(self, model: torch.nn.Module) -> torch.optim.Optimizer: ...
+
+    def update(self, optimizer: torch.optim.Optimizer, params,
+               count: int) -> None: ...
 
 
 @dataclass
@@ -18,11 +27,11 @@ class TrainState:
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
-    tx: AdamW
+    tx: Recipe
 
     def apply_gradients(self) -> "TrainState":
         """One optimizer update from the gradients in `.grad`, at the
-        schedule's value for the current step (optax's pre-increment
+        recipe's value for the current step (optax's pre-increment
         count)."""
         self.tx.update(self.optimizer, list(self.model.parameters()),
                        self.step)
@@ -30,7 +39,7 @@ class TrainState:
         return self
 
 
-def create_train_state(model: torch.nn.Module, tx: AdamW,
+def create_train_state(model: torch.nn.Module, tx: Recipe,
                        seed: Optional[int] = 0,
                        device: Optional[torch.device] = None) -> TrainState:
     """Initialise the model's parameters from `seed` (drawn on the CPU, so

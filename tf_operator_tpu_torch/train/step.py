@@ -1,17 +1,23 @@
-"""LM loss, the train step, and the batch's shard for this rank.
+"""Losses, the train and eval steps, and the batch's shard for this rank.
 
 The counterpart of `tf_operator_tpu/train/step.py`: the cross-entropy
-(full or chunked), `lm_loss_fn`, `make_train_step` with gradient
-accumulation, and `shard_batch`.  PyTorch runs eagerly, so there is no jit
-and no donation; the model's parameters live in the module and the step
-updates them in place through the optimizer.
+(full or chunked), `lm_loss_fn`, `classification_loss_fn`,
+`make_train_step` with gradient accumulation, `classification_metrics`
+with `make_eval_step`, and `shard_batch`.  The train step runs the model
+in training mode (BatchNorm normalises with the batch's statistics and
+updates its running ones); the eval step runs it in eval mode without
+gradients and changes no parameter or buffer.  PyTorch runs eagerly, so
+there is no jit and no donation; the model's parameters live in the module
+and the step updates them in place through the optimizer.
 
 Over a mesh (one process per rank) the step is the data- and
 sequence-parallel step that GSPMD derives for the JAX package: each rank
-takes its shard of the global batch (`shard_batch`), its loss is its sum
-over the global token count, the gradients are summed over every rank
-before clipping (so the clip sees the global norm), and the reported loss
-is summed likewise.  Parameters stay replicated.
+takes its shard of the global batch (`shard_batch`), its loss is its mean
+over its share divided by the rank count (for the LM, its sum over the
+global token count), the gradients are summed over every rank before
+clipping (so the clip sees the global norm), and the reported loss is
+summed likewise.  Parameters stay replicated; a model whose layers reduce
+over the batch (ResNet's BatchNorm) all-reduces those sums itself.
 """
 from __future__ import annotations
 
@@ -99,6 +105,52 @@ def lm_loss_fn(model, loss_chunk: int = 0,
     return loss
 
 
+def _logits(out):
+    """Unwrap a model output: dict heads expose 'logits', plain tensors are
+    the logits already."""
+    return out["logits"] if isinstance(out, dict) else out
+
+
+def classification_loss_fn(model):
+    """Image/sequence classification loss: `loss(batch) -> (loss, aux)` on
+    {"x", "label"}.  A BatchNorm model updates its running statistics in
+    the forward (the train step runs it in training mode)."""
+
+    def loss(batch):
+        logits = _logits(model(batch["x"]))
+        return softmax_cross_entropy(logits, batch["label"]), {}
+
+    return loss
+
+
+def classification_metrics(model):
+    """Eval-side metric fn: loss and accuracy from a forward pass; pair it
+    with `make_eval_step`, which runs the model in eval mode (BatchNorm
+    reads its running statistics)."""
+
+    def metric_fn(batch):
+        logits = _logits(model(batch["x"]))
+        labels = batch["label"].long()
+        return {
+            "loss": softmax_cross_entropy(logits, labels),
+            "accuracy": (logits.argmax(-1) == labels).float().mean(),
+        }
+
+    return metric_fn
+
+
+def make_eval_step(metric_fn):
+    """`eval_step(state, batch) -> metrics`: forward only, in eval mode and
+    without gradients, so no parameter or buffer changes."""
+
+    def step(state: TrainState, batch):
+        state.model.eval()
+        with torch.no_grad():
+            return metric_fn(batch)
+
+    return step
+
+
 def shard_batch(batch, mesh):
     """This rank's shard of a global LM batch {"tokens": [B, T + 1]}: its
     rows of the data axes (dp, fsdp) and, over the `sp` axis, its slice of
@@ -164,14 +216,15 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     described in the module docstring; grad_accum splits the local rows."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    # every rank holds an equal share of the tokens, so each rank's sum over
-    # the global token count is its mean loss over the rank count
+    # every rank holds an equal share of the rows (tokens), so the global
+    # mean is the sum over ranks of each rank's mean over the rank count
     ranks = 1 if mesh is None else mesh.size
     if mesh is not None and mesh.size != dist.get_world_size():
         raise ValueError(f"{mesh} does not cover the process group's "
                          f"{dist.get_world_size()} ranks")
 
     def step(state: TrainState, batch):
+        state.model.train()
         for key, x in batch.items():
             if x.shape[0] % grad_accum:
                 raise ValueError(

@@ -1,0 +1,104 @@
+"""BERT fine-tune workload (BASELINE config 4): sequence classification.
+
+The counterpart of `tf_operator_tpu/workloads/bert.py`: the same flags,
+defaults and log lines (`bert workload: role=... index=...`, `step {i}
+loss ...` every 10 steps, `done`), plus `--log-every` (default 10) and the
+`step time ... ms over steps ..., ... sequences/s` line.  BERT-base
+(heads = d/64, d_ff 4d) with two labels, AdamW with optax's defaults
+(`optim.adamw`), on the reference's `np.random.RandomState(replica_index)`
+token and label stream.  Attention runs non-causal through the flash
+kernels at T = --seq-len.
+
+Data parallel over the mesh's dp axis; other mesh axes, and ZeRO over
+dp > 1, exit 2 naming their ROADMAP item.
+
+Usage: python -m tf_operator_tpu_torch.workloads.bert --steps 50
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .runner import UNPORTED_AXES
+
+# sequence parallelism over the tokens (ring/Ulysses in the encoder)
+UNPORTED = UNPORTED_AXES + (("sp", "A.10"),)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=50)
+    parser.add_argument("--batch", type=int, default=32)
+    parser.add_argument("--seq-len", type=int, default=128)
+    parser.add_argument("--lr", type=float, default=5e-5)
+    parser.add_argument("--layers", type=int, default=12)
+    parser.add_argument("--d-model", type=int, default=768)
+    parser.add_argument("--log-every", type=int, default=10)
+    from .runner import (WorkloadContext, add_profile_args,
+                         apply_forced_platform, plan_mesh, process_group)
+
+    add_profile_args(parser)
+    args = parser.parse_args(argv)
+
+    try:
+        device = apply_forced_platform()
+    except RuntimeError as e:
+        print(f"bert workload: {e}", flush=True)
+        return 1
+
+    ctx = WorkloadContext.from_env()
+    print(f"bert workload: role={ctx.replica_type} index={ctx.replica_index}",
+          flush=True)
+    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    if layout is None:
+        return rc
+    dp = layout.shape.get("dp", 1)
+    if args.batch % dp:
+        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+        return 2
+    with process_group(ctx, device, layout) as mesh:
+        return _train(args, ctx, device, mesh)
+
+
+def _train(args, ctx, device, mesh) -> int:
+    import numpy as np
+
+    from ..models.transformer import BertEncoder, bert_base_config
+    from ..train.data import prefetch_to_device
+    from ..train.optim import adamw
+    from ..train.state import create_train_state
+    from ..train.step import (classification_loss_fn, make_train_step,
+                              shard_batch)
+    from .runner import ProfileCapture, run_steps, say
+
+    cfg = bert_base_config(
+        num_layers=args.layers, d_model=args.d_model,
+        num_heads=max(1, args.d_model // 64), d_ff=args.d_model * 4,
+        max_len=args.seq_len)
+    model = BertEncoder(cfg, num_labels=2)
+    state = create_train_state(model, adamw(args.lr), seed=0, device=device)
+    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+
+    rng = np.random.RandomState(ctx.replica_index)
+
+    def batches():
+        while True:
+            batch = {
+                "x": rng.randint(
+                    0, cfg.vocab_size, (args.batch, args.seq_len)
+                ).astype(np.int32),
+                "label": rng.randint(0, 2, args.batch).astype(np.int32),
+            }
+            yield batch if mesh is None else shard_batch(batch, mesh)
+
+    run_steps(state, step, prefetch_to_device(batches(), device),
+              steps=args.steps, device=device, log_every=args.log_every,
+              profile=ProfileCapture(args.profile_dir, args.profile_start,
+                                     args.profile_steps),
+              items=args.batch, unit="sequences")
+    say("done")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

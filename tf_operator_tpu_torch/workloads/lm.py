@@ -21,12 +21,8 @@ from __future__ import annotations
 
 import argparse
 import sys
-import time
 
-
-def _not_ported(what: str, item: str) -> int:
-    print(f"{what} is not yet ported (ROADMAP item {item})", flush=True)
-    return 2
+from .runner import not_ported
 
 
 def main(argv=None) -> int:
@@ -97,7 +93,7 @@ def main(argv=None) -> int:
                              "tokens with the KV-cache decode path")
     args = parser.parse_args(argv)
 
-    from .runner import ProfileCapture, WorkloadContext, apply_forced_platform
+    from .runner import WorkloadContext, apply_forced_platform, plan_mesh
 
     try:
         device = apply_forced_platform()
@@ -129,24 +125,15 @@ def main(argv=None) -> int:
               f"hosted={ctx.virtual_assignment()}", flush=True)
 
     if args.moe_experts > 0:
-        return _not_ported("--moe-experts (mixture of experts)", "A.13")
+        return not_ported("--moe-experts (mixture of experts)", "A.13")
     if args.sample_tokens > 0:
-        return _not_ported("--sample-tokens (KV-cache decode)", "A.12")
-    try:
-        layout = ctx.build_mesh()
-    except ValueError as e:
-        print(f"invalid mesh: {e}", flush=True)
-        return 2
-    for axis, item in (("tp", "A.8"), ("fsdp", "A.7"), ("ep", "A.13"),
-                       ("pp", "A.13")):
-        if layout.shape.get(axis, 1) > 1:
-            return _not_ported(f"the {axis} mesh axis ({axis}="
-                               f"{layout.shape[axis]})", item)
+        return not_ported("--sample-tokens (KV-cache decode)", "A.12")
     zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
             is None else args.zero_shard_weight_update)
+    layout, rc = plan_mesh(ctx, zero)
+    if layout is None:
+        return rc
     dp, sp = layout.shape.get("dp", 1), layout.shape.get("sp", 1)
-    if zero and dp > 1:
-        return _not_ported("--zero-shard-weight-update over dp > 1", "A.8")
     if args.batch % dp or (args.batch // dp) % args.grad_accum:
         print(f"--batch {args.batch} must split over dp={dp} into rows that "
               f"--grad-accum {args.grad_accum} divides", flush=True)
@@ -154,12 +141,6 @@ def main(argv=None) -> int:
     if args.seq_len % sp:
         print(f"--seq-len {args.seq_len} must divide by sp={sp}", flush=True)
         return 2
-
-    if zero:
-        print("zero-shard-weight-update: dp axis size is 1, running dense",
-              flush=True)
-
-    import torch.distributed as dist
 
     from ..models.transformer import TransformerConfig
     from ..train.optim import lm_optimizer
@@ -221,38 +202,26 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(f"invalid optimizer config: {e}", flush=True)
         return 2
-    owned = ctx.initialize_distributed(device)
-    try:
-        return _train(args, ctx, cfg, tx, device)
-    finally:
-        if owned:
-            dist.destroy_process_group()
+    from .runner import process_group
+
+    with process_group(ctx, device, layout) as mesh:
+        return _train(args, cfg, tx, device, mesh)
 
 
-def _train(args, ctx, cfg, tx, device) -> int:
-    """Build and train the model: over the mesh of the process group when
-    there is one (the distributed step, this rank's shard of each global
-    batch), else on one device.  Only rank 0 prints."""
+def _train(args, cfg, tx, device, mesh) -> int:
+    """Build and train the model: over `mesh` (laid over the process
+    group) when there is one (the distributed step, this rank's shard of
+    each global batch), else on one device.  Only rank 0 prints."""
     import dataclasses
-
-    import torch
-    import torch.distributed as dist
 
     from ..models.transformer import TransformerLM
     from ..train.data import prefetch_to_device, synthetic_tokens
     from ..train.state import create_train_state
     from ..train.step import lm_loss_fn, make_train_step, shard_batch
-    from .runner import ProfileCapture
+    from .runner import ProfileCapture, StepTimer, say
 
-    mesh = None
-    if dist.is_initialized():
-        mesh = ctx.build_mesh(device.type)
+    if mesh is not None:
         cfg = dataclasses.replace(cfg, mesh=mesh)
-
-    def say(line):
-        if mesh is None or dist.get_rank() == 0:
-            print(line, flush=True)
-
     state = create_train_state(TransformerLM(cfg), tx, seed=0, device=device)
     mgr = None
     if args.checkpoint_dir:
@@ -272,14 +241,10 @@ def _train(args, ctx, cfg, tx, device) -> int:
         batches = (shard_batch(b, mesh) for b in batches)
     data = prefetch_to_device(batches, device)
 
-    def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-
     start = state.step
     prof = ProfileCapture(args.profile_dir, start + args.profile_start,
                           args.profile_steps)
-    t_warm = None
+    timer = StepTimer(device, start)
     for i in range(start, args.steps):
         prof.step(i)
         state, metrics = step(state, next(data))
@@ -288,23 +253,16 @@ def _train(args, ctx, cfg, tx, device) -> int:
         if mgr is not None and (i + 1) % args.checkpoint_every == 0:
             # written in the background; the final save below waits
             mgr.save(state, wait=False)
-        if i == start:
-            # the first step of a run warms caches and the allocator
-            sync()
-            t_warm = time.perf_counter()
-    sync()
-    timed = args.steps - start - 1
-    if timed > 0:
-        ms = (time.perf_counter() - t_warm) / timed * 1e3
-        # the global batch's tokens
-        say(f"step time {ms:.3f} ms over steps {start + 1}-"
-            f"{args.steps - 1}, {args.batch * args.seq_len / ms * 1e3:.1f} "
-            "tokens/s")
+        timer.step_done(i)
+    # the global batch's tokens
+    line = timer.line(args.steps - 1, args.batch * args.seq_len, "tokens")
+    if line:
+        say(line)
     prof.close()
     if mgr is not None:
         mgr.save(state)
         mgr.close()
-    sync()
+    timer.sync()
     say("done")
     return 0
 

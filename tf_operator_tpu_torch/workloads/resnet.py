@@ -1,0 +1,112 @@
+"""ResNet-50 training workload (BASELINE config 3).
+
+The counterpart of `tf_operator_tpu/workloads/resnet.py`: the same flags,
+defaults and log lines (`resnet workload: role=... index=...`, `step {i}
+loss ...`, `done: N steps, X img/s`), plus the `step time ... ms over
+steps ..., ... images/s` line of the port's workloads.  SGD with momentum
+0.9 on the native image loader (the Python generator where it does not
+build; one line names the source).  Images are copied to the device in f32
+and cast to bf16 there (round to nearest even, the values the reference's
+host-side cast gives).
+
+Sync data parallelism: with several processes the batch is split over the
+mesh's dp axis (every rank draws the global stream and keeps its rows; the
+native loader's threads hand batches over in no fixed order, so, as in the
+reference, the ranks' rows need not come from one global batch), the
+gradients are summed over the ranks, and BatchNorm's batch statistics are
+those of the global batch (its sums all-reduced over dp), as the JAX step's
+one jit over the globally sharded batch computes them.  Other mesh axes,
+and ZeRO weight-update sharding over dp > 1, exit 2 naming their ROADMAP
+item.
+
+Usage: python -m tf_operator_tpu_torch.workloads.resnet --steps 100 --batch 256
+Set TPUJOB_FORCE_PLATFORM=cpu to run on the CPU; otherwise a CUDA device
+is required.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .runner import UNPORTED_AXES
+
+# sp would replicate the batch; the JAX workload gives it no meaning either
+UNPORTED = UNPORTED_AXES + (("sp", "A.9"),)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--image-size", type=int, default=224)
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--lr", type=float, default=0.1)
+    parser.add_argument("--depth", type=int, default=50,
+                        choices=(18, 34, 50, 101, 152))
+    parser.add_argument("--log-every", type=int, default=10)
+    from .runner import (WorkloadContext, add_profile_args,
+                         apply_forced_platform, plan_mesh, process_group)
+
+    add_profile_args(parser)
+    args = parser.parse_args(argv)
+
+    try:
+        device = apply_forced_platform()
+    except RuntimeError as e:
+        print(f"resnet workload: {e}", flush=True)
+        return 1
+
+    ctx = WorkloadContext.from_env()
+    print(f"resnet workload: role={ctx.replica_type} index={ctx.replica_index}",
+          flush=True)
+    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    if layout is None:
+        return rc
+    dp = layout.shape.get("dp", 1)
+    if args.batch % dp:
+        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+        return 2
+    with process_group(ctx, device, layout) as mesh:
+        return _train(args, device, mesh)
+
+
+def _train(args, device, mesh) -> int:
+    import torch
+
+    from ..models import resnet as resnet_lib
+    from ..train.data import prefetch_to_device
+    from ..train.native_data import images_or_fallback
+    from ..train.optim import sgd
+    from ..train.state import create_train_state
+    from ..train.step import (classification_loss_fn, make_train_step,
+                              shard_batch)
+    from .runner import ProfileCapture, run_steps, say
+
+    group = mesh.group("dp") if mesh is not None and \
+        mesh.shape.get("dp", 1) > 1 else None
+    model = getattr(resnet_lib, f"ResNet{args.depth}")(
+        num_classes=args.num_classes, dtype=torch.bfloat16, bn_group=group)
+    state = create_train_state(model, sgd(args.lr), seed=0, device=device)
+    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+
+    raw = images_or_fallback(args.batch, args.image_size, args.num_classes)
+    batches = raw if mesh is None else (shard_batch(b, mesh) for b in raw)
+    data = ({**b, "x": b["x"].to(torch.bfloat16)}
+            for b in prefetch_to_device(batches, device))
+    try:
+        _, elapsed = run_steps(
+            state, step, data, steps=args.steps, device=device,
+            log_every=args.log_every,
+            profile=ProfileCapture(args.profile_dir, args.profile_start,
+                                   args.profile_steps),
+            items=args.batch, unit="images")
+    finally:
+        if hasattr(raw, "close"):
+            raw.close()
+    say(f"done: {args.steps} steps, {args.steps * args.batch / elapsed:.1f} "
+        "img/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

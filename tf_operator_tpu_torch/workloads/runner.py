@@ -1,16 +1,21 @@
 """Workload bootstrap: what a pod process does with the injected topology.
 
 The counterpart of `tf_operator_tpu/workloads/runner.py`: parse TF_CONFIG +
-the TPUJOB_* env into a WorkloadContext, pick the device, join the job's
-process group and lay the mesh over its ranks, and capture a profiler
-trace for a window of steps.  One process drives one GPU.
+the TPUJOB_* env into a WorkloadContext, pick the device, validate the
+mesh and the options this package does not run yet (exit 2 naming their
+ROADMAP item), join the job's process group and lay the one mesh over its
+ranks, time the steps, and capture a profiler trace for a window of steps.
+One process drives one GPU.  The four training workloads (lm, resnet, vit,
+bert) share these steps.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import time
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 from ..api import constants
 
@@ -195,14 +200,130 @@ class WorkloadContext:
             world_size=self.num_processes, rank=self.process_id)
         return True
 
-    def build_mesh(self, device_type=None):
+    def mesh_layout(self):
         """The mesh of TPUJOB_MESH_SHAPE over the job's ranks (all on dp
-        when the shape is empty); with `device_type`, over the initialized
-        process group."""
+        when the shape is empty), as a layout: axis names, sizes and each
+        rank's place, before any group is joined.  Raises ValueError when
+        the axes do not multiply to the rank count."""
         from ..parallel.mesh import build_mesh
 
         import torch.distributed as dist
 
         world = (dist.get_world_size() if dist.is_initialized() else
                  self.num_processes if self.multi_process else 1)
-        return build_mesh(self.mesh_shape or None, world, device_type)
+        return build_mesh(self.mesh_shape or None, world)
+
+
+# mesh axes this package does not run yet, and the ROADMAP item for each
+UNPORTED_AXES = (("tp", "A.8"), ("fsdp", "A.7"), ("ep", "A.13"),
+                 ("pp", "A.13"))
+
+
+def not_ported(what: str, item: str) -> int:
+    print(f"{what} is not yet ported (ROADMAP item {item})", flush=True)
+    return 2
+
+
+def plan_mesh(ctx: WorkloadContext, zero: bool,
+              unported=UNPORTED_AXES) -> Tuple[Optional[object], int]:
+    """(the mesh layout, 0), or (None, 2) after printing why the job cannot
+    run: a mesh that does not fit the processes, an axis this package does
+    not run yet, or ZeRO weight-update sharding over dp > 1.  ZeRO over
+    dp 1 runs dense, as the reference says."""
+    try:
+        layout = ctx.mesh_layout()
+    except ValueError as e:
+        print(f"invalid mesh: {e}", flush=True)
+        return None, 2
+    for axis, item in unported:
+        if layout.shape.get(axis, 1) > 1:
+            return None, not_ported(
+                f"the {axis} mesh axis ({axis}={layout.shape[axis]})", item)
+    if zero and layout.shape.get("dp", 1) > 1:
+        return None, not_ported("--zero-shard-weight-update over dp > 1",
+                                "A.8")
+    if zero:
+        print("zero-shard-weight-update: dp axis size is 1, running dense",
+              flush=True)
+    return layout, 0
+
+
+@contextlib.contextmanager
+def process_group(ctx: WorkloadContext, device, layout):
+    """Join the job's group (a no-op for one process) and yield the layout
+    laid over it, the one mesh of the run; None when no group is
+    initialized.  A group this process joined is left on exit."""
+    import torch.distributed as dist
+
+    owned = ctx.initialize_distributed(device)
+    try:
+        yield layout.over_group(device.type) if dist.is_initialized() \
+            else None
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def say(line: str) -> None:
+    """Print on rank 0 of the group (or without one)."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(line, flush=True)
+
+
+class StepTimer:
+    """The mean wall time of a run's steps after its first (which warms
+    caches and the allocator), on the host clock, ending in a
+    synchronize."""
+
+    def __init__(self, device, first_step: int) -> None:
+        self.device, self.first = device, first_step
+        self._t0: Optional[float] = None
+
+    def sync(self) -> None:
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def step_done(self, i: int) -> None:
+        if i == self.first:
+            self.sync()
+            self._t0 = time.perf_counter()
+
+    def line(self, last_step: int, items: int, unit: str) -> Optional[str]:
+        """`step time {ms} ms over steps {a}-{b}, {rate} {unit}/s` for
+        `items` per step (of the global batch), or None for a run of one
+        step."""
+        self.sync()
+        timed = last_step - self.first
+        if timed <= 0 or self._t0 is None:
+            return None
+        ms = (time.perf_counter() - self._t0) / timed * 1e3
+        return (f"step time {ms:.3f} ms over steps {self.first + 1}-"
+                f"{last_step}, {items / ms * 1e3:.1f} {unit}/s")
+
+
+def run_steps(state, step, data, *, steps: int, device, log_every: int,
+              profile: ProfileCapture, items: int, unit: str):
+    """The classification workloads' loop: `steps` steps of `step` on
+    `data`, `step {i} loss ...` every `log_every`, then the step time line;
+    returns (the last loss, the loop's wall seconds).  Reads the loss only
+    where it logs, so the host runs ahead of the device."""
+    timer = StepTimer(device, 0)
+    t_start = time.time()
+    loss = None
+    for i in range(steps):
+        profile.step(i)
+        state, metrics = step(state, next(data))
+        loss = metrics["loss"]
+        if i % log_every == 0:
+            say(f"step {i} loss {float(loss):.4f}")
+        timer.step_done(i)
+    line = timer.line(steps - 1, items, unit)
+    if line:
+        say(line)
+    profile.close()
+    return (float("nan") if loss is None else float(loss),
+            time.time() - t_start)

@@ -1,0 +1,115 @@
+"""Vision Transformer training workload.
+
+The counterpart of `tf_operator_tpu/workloads/vit.py`: the same flags,
+defaults, exit 2 on an image size the patch size does not divide, and log
+lines (`vit workload: role=... index=...`, `step {i} loss ...`, `final loss
+... (... images/sec)`), plus the `step time ... ms over steps ..., ...
+images/s` line.  AdamW with optax's defaults (`optim.adamw`).  The batch
+stream is the reference's: `np.random.RandomState(replica_index)` Gaussian
+images in f32 drawn on the host, B x H x W x 3 normals a step.  Attention
+runs non-causal through the flash kernels at T = patches + 1.
+
+Data parallel over the mesh's dp axis (each rank keeps its rows of the
+batch it draws); other mesh axes, and ZeRO over dp > 1, exit 2 naming
+their ROADMAP item.
+
+Usage: python -m tf_operator_tpu_torch.workloads.vit --steps 100 --batch 256
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .runner import UNPORTED_AXES
+
+# sequence parallelism over the patches (ring/Ulysses in a ViT)
+UNPORTED = UNPORTED_AXES + (("sp", "A.10"),)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch", type=int, default=256)
+    parser.add_argument("--image-size", type=int, default=224)
+    parser.add_argument("--patch-size", type=int, default=16)
+    parser.add_argument("--num-classes", type=int, default=1000)
+    parser.add_argument("--layers", type=int, default=12)
+    parser.add_argument("--d-model", type=int, default=768)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--log-every", type=int, default=10)
+    from .runner import (WorkloadContext, add_profile_args,
+                         apply_forced_platform, plan_mesh, process_group)
+
+    add_profile_args(parser)
+    args = parser.parse_args(argv)
+
+    try:
+        device = apply_forced_platform()
+    except RuntimeError as e:
+        print(f"vit workload: {e}", flush=True)
+        return 1
+
+    ctx = WorkloadContext.from_env()
+    print(f"vit workload: role={ctx.replica_type} index={ctx.replica_index}",
+          flush=True)
+    if args.image_size % args.patch_size:
+        print(f"--image-size {args.image_size} must divide by --patch-size "
+              f"{args.patch_size}", flush=True)
+        return 2
+    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    if layout is None:
+        return rc
+    dp = layout.shape.get("dp", 1)
+    if args.batch % dp:
+        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+        return 2
+    with process_group(ctx, device, layout) as mesh:
+        return _train(args, ctx, device, mesh)
+
+
+def _train(args, ctx, device, mesh) -> int:
+    import numpy as np
+
+    from ..models.vit import ViT, vit_base_config
+    from ..train.data import prefetch_to_device
+    from ..train.optim import adamw
+    from ..train.state import create_train_state
+    from ..train.step import (classification_loss_fn, make_train_step,
+                              shard_batch)
+    from .runner import ProfileCapture, run_steps, say
+
+    patches = (args.image_size // args.patch_size) ** 2
+    heads = max(1, args.d_model // 64)
+    cfg = vit_base_config(
+        num_layers=args.layers, num_heads=heads, d_model=args.d_model,
+        d_ff=4 * args.d_model, max_len=patches + 1)
+    model = ViT(cfg, num_classes=args.num_classes,
+                patch_size=args.patch_size, image_size=args.image_size)
+    state = create_train_state(model, adamw(args.lr), seed=0, device=device)
+    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+
+    rng = np.random.RandomState(ctx.replica_index)
+
+    def batches():
+        while True:
+            batch = {
+                "x": rng.randn(args.batch, args.image_size, args.image_size,
+                               3).astype(np.float32),
+                "label": rng.randint(0, args.num_classes,
+                                     args.batch).astype(np.int32),
+            }
+            yield batch if mesh is None else shard_batch(batch, mesh)
+
+    loss, elapsed = run_steps(
+        state, step, prefetch_to_device(batches(), device),
+        steps=args.steps, device=device, log_every=args.log_every,
+        profile=ProfileCapture(args.profile_dir, args.profile_start,
+                               args.profile_steps),
+        items=args.batch, unit="images")
+    say(f"final loss {loss:.4f} ({args.steps * args.batch / elapsed:.1f} "
+        "images/sec)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
