@@ -62,6 +62,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            resnet, plus the kernels' launches (12 per step each, counted
            from zero just before the run), and the model's logits with the
            kernels against the same model on the plain attention path
+  shard    the fourth path: the LM workload at GPT-small width over a
+           one-rank NCCL group with the mesh {"fsdp": 1, "tp": 1} (FSDP2
+           per block and the tensor-parallel layout, each at size 1),
+           11 steps, between two plain runs: losses equal within 1e-5
+           relative, 12 launches per step of each kernel, step ms, tokens/s
+           and peak memory, two profiled steps, a checkpoint saved under
+           the mesh resumed by a plain run; and the ZeRO plan's optimizer
+           bytes per rank for GPT-small at dp 8, computed
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -245,8 +253,13 @@ CASES = [
     # at T 128, both non-causal at their workloads' batch
     ("vit_b16", 256, 12, 12, 197, 64, False, None, 0, 128),
     ("bert_base", 32, 12, 12, 128, 64, False, None, 0, 128),
+    # the fourth path: each tp rank's heads at tp 2 (GPT-small 12 -> 6,
+    # llama 12/4 -> 6/2)
+    ("gpt_small_tp2", 8, 6, 6, 2048, 64, True, None, 0, 128),
+    ("llama_tp2", 8, 6, 2, 2048, 64, True, None, 0, 128),
 ]
-TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base")
+TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
+               "gpt_small_tp2", "llama_tp2")
 
 
 def live_pairs(t, causal, window, sink, device) -> int:
@@ -861,6 +874,33 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def one_rank_group(env_extra=None):
+    """A one-rank NCCL process group (the workloads make none for one
+    process, and join this one) with the workload env `env_extra` set;
+    both undone on exit."""
+    import torch
+    import torch.distributed as dist
+
+    address = f"127.0.0.1:{free_port()}"
+    env = {"TPUJOB_PROCESS_ID": "0", "TPUJOB_NUM_PROCESSES": "1",
+           "TPUJOB_COORDINATOR_ADDRESS": address, **(env_extra or {})}
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://{address}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+
+
 def phase_dist(card: str):
     """The workload through the distributed step (shard_batch, the summed
     gradient all-reduce, the all-reduced loss) over a one-rank NCCL group,
@@ -868,25 +908,17 @@ def phase_dist(card: str):
     group, plain.  Then, in the group, two profiled steps and the gradient
     all-reduce alone at GPT-small's parameter count."""
     import torch
-    import torch.distributed as dist
 
     from tf_operator_tpu_torch.models.transformer import (TransformerLM,
                                                           gpt_small_config)
     from tf_operator_tpu_torch.ops import attention as A
-    from tf_operator_tpu_torch.train.step import all_reduce_grads
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.parallel.shard import Sharding
 
     steps, layers = 11, 12  # loss lines at steps 0 and 10
-    address = f"127.0.0.1:{free_port()}"
-    env = {"TPUJOB_PROCESS_ID": "0", "TPUJOB_NUM_PROCESSES": "1",
-           "TPUJOB_COORDINATOR_ADDRESS": address}
-    saved = {key: os.environ.get(key) for key in env}
     logs = {"plain": [], "dist": []}
     logs["plain"].append(run_lm(["--steps", str(steps)]))
-    os.environ.update(env)
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://{address}",
-                            world_size=1, rank=0)
-    try:
+    with one_rank_group():
         for _ in range(2):
             A.reset_launches()
             logs["dist"].append(run_lm(["--steps", str(steps)]))
@@ -899,22 +931,20 @@ def phase_dist(card: str):
                 events = json.load(f)["traceEvents"]
         step_ms = float(STEP_TIME.search(logs["dist"][-1]).group(1))
         print(device_profile(events, 2, step_ms), flush=True)
-        params = [torch.nn.Parameter(torch.empty(p.shape, device="cuda"))
-                  for p in TransformerLM(gpt_small_config()).parameters()]
-        for p in params:
-            p.grad = torch.randn_like(p)
-        count = sum(p.numel() for p in params)
+        model = TransformerLM(gpt_small_config()).cuda()
+        sharding = Sharding(model, build_mesh(device_type="cuda"))
+        grads = [torch.randn_like(p) for p in model.parameters()]
+
+        def reduce():
+            for p, g in zip(model.parameters(), grads):
+                p.grad = g
+            sharding.reduce_grads()
+
+        count = sum(p.numel() for p in model.parameters())
         print(f"dist: gradient all-reduce of {count} f32 in one flat buffer "
-              f"(one rank) {cuda_ms(lambda: all_reduce_grads(params), 10):.3f}"
-              f" ms [{card}]", flush=True)
-        del params
-    finally:
-        dist.destroy_process_group()
-        for key, value in saved.items():
-            if value is None:
-                os.environ.pop(key, None)
-            else:
-                os.environ[key] = value
+              f"(one rank) {cuda_ms(reduce, 10):.3f} ms [{card}]",
+              flush=True)
+        del model, sharding, grads
     logs["plain"].append(run_lm(["--steps", str(steps)]))
     plain = step_losses(logs["plain"][0])
     for log in logs["plain"][1:] + logs["dist"]:
@@ -932,6 +962,103 @@ def phase_dist(card: str):
           f"runs; step ms in turns: plain {times['plain'][0]}, group "
           f"{times['dist'][0]}, group {times['dist'][1]}, plain "
           f"{times['plain'][1]} [{card}]", flush=True)
+
+
+def phase_shard(card: str, out_dir):
+    """The fourth path: the LM workload at GPT-small width over a one-rank
+    NCCL group with the mesh {"fsdp": 1, "tp": 1}, so its parameters go
+    through FSDP2 (one unit per block) and the tensor-parallel layout (the
+    column- and row-parallel products, the vocab-sharded embedding and
+    cross-entropy), against the plain one-process run: plain, sharded,
+    plain, losses equal within 1e-5 relative, each kernel launched 12 x
+    steps times in the sharded run, and two of its steps profiled; a
+    checkpoint written under the mesh (its whole state, gathered) resumes
+    in a plain run with the loss a plain checkpoint gives.  Then the ZeRO plan's optimizer-state
+    bytes per rank for GPT-small at dp 8, computed (one card cannot run
+    dp 8)."""
+    import torch
+
+    from tf_operator_tpu_torch.models.convert import flax_param_map
+    from tf_operator_tpu_torch.models.transformer import (TransformerLM,
+                                                          gpt_small_config)
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.train import zero
+
+    steps, layers = 11, 12
+    logs = [run_lm(["--steps", str(steps)])]
+    mesh = json.dumps({"fsdp": 1, "tp": 1})
+    with one_rank_group({"TPUJOB_MESH_SHAPE": mesh}):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        A.reset_launches()
+        logs.append(run_lm(["--steps", str(steps)]))
+        check_launches(layers * steps, f"sharded step ({mesh}, one rank)")
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix="lm-profile-") as prof_dir:
+            run_lm(["--steps", "4", "--profile-dir", prof_dir,
+                    "--profile-start", "2", "--profile-steps", "2"])
+            with open(os.path.join(prof_dir, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        summary = device_profile(
+            events, 2, float(STEP_TIME.search(logs[1]).group(1)))
+        print(summary, flush=True)
+        write_detail(out_dir, "profile_shard.txt", f"{card}\n{summary}\n")
+    logs.append(run_lm(["--steps", str(steps)]))
+    plain = step_losses(logs[0])
+    for log in logs[1:]:
+        other = step_losses(log)
+        if not plain or sorted(other) != sorted(plain):
+            raise RuntimeError(f"loss lines differ: {plain} {other}")
+        for i, loss in plain.items():
+            if not (math.isfinite(loss) and
+                    abs(other[i] - loss) <= 1e-5 * abs(loss)):
+                raise RuntimeError(f"step {i}: loss {other[i]} against the "
+                                   f"plain run's {loss}")
+    # the whole state saved under the mesh restores into the plain run:
+    # 6 steps with checkpoints, sharded and plain, each resumed to step 11
+    # by a plain run
+    resumed = {}
+    with tempfile.TemporaryDirectory(prefix="shard-ckpt-") as sharded_dir, \
+            tempfile.TemporaryDirectory(prefix="plain-ckpt-") as plain_dir:
+        every = ["--checkpoint-every", "3"]
+        with one_rank_group({"TPUJOB_MESH_SHAPE": mesh}):
+            run_lm(["--steps", "6", "--checkpoint-dir", sharded_dir] + every)
+        run_lm(["--steps", "6", "--checkpoint-dir", plain_dir] + every)
+        for name, ckpt in (("sharded", sharded_dir), ("plain", plain_dir)):
+            log = run_lm(["--steps", "11", "--checkpoint-dir", ckpt] + every)
+            if "resumed from step 6" not in log:
+                raise RuntimeError(f"the {name} checkpoint did not resume "
+                                   "from step 6")
+            resumed[name] = step_losses(log)[10]
+    if not abs(resumed["sharded"] - resumed["plain"]) <= \
+            1e-5 * abs(resumed["plain"]):
+        raise RuntimeError(f"resumed from the sharded checkpoint: step 10 "
+                           f"loss {resumed['sharded']} against "
+                           f"{resumed['plain']} from the plain one")
+    print(f"shard: a checkpoint saved under {mesh} at step 6 resumes in a "
+          f"plain run: step 10 loss {resumed['sharded']} (from the plain "
+          f"checkpoint: {resumed['plain']})", flush=True)
+
+    times = [STEP_TIME.search(log) for log in logs]
+    print(f"shard: losses {plain} equal within 1e-5 relative in all three "
+          f"runs; step ms in turns: plain {times[0].group(1)}, sharded "
+          f"{times[1].group(1)}, plain {times[2].group(1)}; sharded "
+          f"{times[1].group(2)} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}]", flush=True)
+
+    with torch.device("meta"):
+        model = TransformerLM(gpt_small_config())
+    layout = build_mesh({"dp": 8}, 8)
+    plan = zero.plan_for_model(model, layout)
+    params = [(e.path, e.shape) for e in flax_param_map(model)]
+    dense = zero.opt_state_bytes_per_device(None, params)
+    sharded = zero.opt_state_bytes_per_device(plan, params)
+    print(f"shard: computed, not measured: GPT-small AdamW moments per rank "
+          f"{dense} bytes dense, {sharded} bytes under the ZeRO plan at "
+          f"dp 8 ({sum(e.dim is not None for e in plan.entries)} of "
+          f"{len(plan.entries)} entries sharded)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1167,6 +1294,7 @@ def main(argv=None) -> int:
     phase_resnet(card, args.out_dir)
     phase_encoder(card, args.out_dir, "vit")
     phase_encoder(card, args.out_dir, "bert")
+    phase_shard(card, args.out_dir)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

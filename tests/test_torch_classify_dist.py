@@ -14,6 +14,14 @@ group (each rank normalising over its own 4 rows: a planted fault) must
 not agree.  ViT (2 layers, d 64) takes 3 adamw steps at dp 2 against the
 one-process port within 5e-5 (the key biases aside, as in
 `tests/test_torch_vit_bert.py`).
+
+The same world also runs: ResNet18 at dp 2 with grad_accum 2 against JAX
+at dp 2 with grad_accum 2 (each microbatch is each rank's share of the
+global batch's part, so BatchNorm's statistics cover the same rows; within
+2e-5), the eval step at dp 2 against the one-process eval of the global
+batch (within 1e-6: the same forward, the mean weighted by rows), and
+ResNet18 and ViT fully sharded (`{"fsdp": 2}`) and under ZeRO over dp 2
+against the one-process port (2e-5, 5e-5).
 """
 import argparse
 import json
@@ -49,6 +57,8 @@ from tf_operator_tpu_torch.models.convert import (resnet_from_flax,
 from tf_operator_tpu_torch.train import optim
 from tf_operator_tpu_torch.train.state import create_train_state
 from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                              classification_metrics,
+                                              make_eval_step,
                                               make_train_step)
 from tf_operator_tpu_torch.workloads import bert, resnet, vit
 from torch_dist_worker import World
@@ -76,6 +86,12 @@ def vit_batches():
         out.append({"x": rng.randn(8, 16, 16, 3).astype(np.float32),
                     "label": rng.randint(0, 10, 8).astype(np.int32)})
     return out
+
+
+def eval_batch():
+    """8 images whose rows the two ranks split 4 and 4: the port's eval
+    step must weigh them into the global batch's loss and accuracy."""
+    return next(jdata.synthetic_images(8, 32, 10, seed=7))
 
 
 def torch_batch(batch):
@@ -106,14 +122,26 @@ def runs(tmp_path_factory):
         jax.random.PRNGKey(0), vit_batches()[0]["x"])["params"]))
     to_torch = [{k: torch.from_numpy(v) for k, v in b.items()}
                 for b in resnet_batches()]
+    vit_torch = [torch_batch(b) for b in vit_batches()]
     cases = [
         dict(name="resnet18", model="resnet18", lr=RESNET_LR, init=r_init,
              batches=to_torch),
         dict(name="resnet18_per_rank_bn", model="resnet18", lr=RESNET_LR,
              init=r_init, batches=to_torch, per_rank_bn=True),
         dict(name="vit", model="vit", lr=VIT_LR, init=v_init,
-             config=VIT_CONFIG, batches=[torch_batch(b)
-                                         for b in vit_batches()]),
+             config=VIT_CONFIG, batches=vit_torch),
+        dict(name="resnet18_accum2", model="resnet18", lr=RESNET_LR,
+             init=r_init, batches=to_torch[:1], grad_accum=2),
+        dict(name="resnet18_eval", model="resnet18", lr=RESNET_LR,
+             init=r_init, batches=[], eval_batch=torch_batch(eval_batch())),
+        dict(name="resnet18_fsdp2", model="resnet18", lr=RESNET_LR,
+             init=r_init, batches=to_torch, mesh={"fsdp": 2}),
+        dict(name="resnet18_zero", model="resnet18", lr=RESNET_LR,
+             init=r_init, batches=to_torch, zero=True),
+        dict(name="vit_fsdp2", model="vit", lr=VIT_LR, init=v_init,
+             config=VIT_CONFIG, batches=vit_torch, mesh={"fsdp": 2}),
+        dict(name="vit_zero", model="vit", lr=VIT_LR, init=v_init,
+             config=VIT_CONFIG, batches=vit_torch, zero=True),
     ]
     world = World(tmp_path_factory.mktemp("classify"), 2,
                   dict(kind="classify", cases=cases))
@@ -142,8 +170,30 @@ def runs(tmp_path_factory):
         jax_losses.append(float(metrics["loss"]))
     jax_state = resnet_from_flax(jax.device_get(state.params),
                                  jax.device_get(state.batch_stats))
+
+    # one step at grad_accum 2 under the same dp 2 mesh
+    state = j_create(jax.random.PRNGKey(0), jmodel,
+                     optax.sgd(RESNET_LR, 0.9), jnp.zeros((2, 32, 32, 3)),
+                     init_kwargs={"train": True})
+    state = shard_train_state(state.replace(
+        params=variables["params"], batch_stats=variables["batch_stats"]),
+        mesh)
+    step = j_make_step(j_loss_fn(jmodel.apply, has_batch_stats=True,
+                                 model_kwargs={"train": True}),
+                       has_batch_stats=True, donate=False, grad_accum=2)
+    state, metrics = step(state, j_shard_batch(resnet_batches()[0], mesh))
+    jax_accum = ([float(metrics["loss"])],
+                 resnet_from_flax(jax.device_get(state.params),
+                                  jax.device_get(state.batch_stats)))
+
+    model = R.ResNet18(num_classes=10, dtype=torch.float32)
+    model.load_state_dict(r_init)
+    eval_port = make_eval_step(classification_metrics(model))(
+        create_train_state(model, optim.sgd(RESNET_LR), seed=None),
+        torch_batch(eval_batch()))
     ranks = world.results()
     return dict(port=port, vit_port=vit_port, jax=(jax_losses, jax_state),
+                jax_accum=jax_accum, eval_port=eval_port,
                 ranks={case["name"]: [r[case["name"]] for r in ranks]
                        for case in cases}, r_init=r_init)
 
@@ -189,6 +239,39 @@ def test_planted_per_rank_batchnorm_fails(runs):
         100 * RESNET_ATOL
     with pytest.raises(AssertionError):
         assert_state_close(first["state"], state, RESNET_ATOL)
+
+
+def test_resnet_dp2_grad_accum_matches_jax(runs):
+    """Microbatch i of each rank is its share of the global batch's i-th
+    part, as JAX's reshape of the global batch gives it: BatchNorm's
+    statistics then cover the same rows."""
+    losses, state = runs["jax_accum"]
+    first = runs["ranks"]["resnet18_accum2"][0]
+    np.testing.assert_allclose(first["losses"].numpy(), losses,
+                               atol=RESNET_ATOL, rtol=0)
+    assert_state_close(first["state"], state, RESNET_ATOL)
+
+
+def test_eval_step_dp2_gives_the_global_batch_metrics(runs):
+    want = runs["eval_port"]
+    for rank in runs["ranks"]["resnet18_eval"]:
+        assert set(rank["eval"]) == {"loss", "accuracy"}
+        for key, value in want.items():
+            assert abs(float(rank["eval"][key]) - float(value)) <= 1e-6, key
+
+
+@pytest.mark.parametrize("case", ["resnet18_fsdp2", "resnet18_zero",
+                                  "vit_fsdp2", "vit_zero"])
+def test_fsdp_and_zero_match_one_process(runs, case):
+    if case.startswith("resnet"):
+        (losses, state), atol, skip = runs["port"], RESNET_ATOL, ()
+    else:
+        (losses, state), atol, skip = (runs["vit_port"], VIT_ATOL,
+                                       ("attn.key.bias",))
+    for rank in runs["ranks"][case]:
+        np.testing.assert_allclose(rank["losses"].numpy(), losses, atol=atol,
+                                   rtol=0)
+        assert_state_close(rank["state"], state, atol, skip=skip)
 
 
 def test_vit_dp2_matches_one_process(runs):
@@ -266,17 +349,13 @@ def _multi(n, mesh):
 
 EXITS = [
     ("tp", _multi(2, {"tp": 2}), "the tp mesh axis (tp=2) is not yet "
-                                 "ported (ROADMAP item A.8)"),
-    ("fsdp", _multi(2, {"fsdp": 2}), "the fsdp mesh axis (fsdp=2) is not "
-                                     "yet ported (ROADMAP item A.7)"),
+                                 "ported (ROADMAP item A.18)"),
+    ("fsdp", _multi(8, {"dp": 2, "fsdp": 4}),
+     "--batch 4 must split over dp=2 x fsdp=4"),
     ("ep", _multi(2, {"ep": 2}), "(ROADMAP item A.13)"),
     ("pp", _multi(2, {"pp": 2}), "(ROADMAP item A.13)"),
     ("sp", _multi(2, {"sp": 2}), "the sp mesh axis (sp=2) is not yet "
                                  "ported (ROADMAP item {sp})"),
-    ("zero", {"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1", **_multi(2,
-                                                               {"dp": 2})},
-     "--zero-shard-weight-update over dp > 1 is not yet ported (ROADMAP "
-     "item A.8)"),
     ("mesh", _multi(2, {"dp": 4}),
      "invalid mesh: mesh axes {{'dp': 4}} require 4 devices, but 2 are "
      "available"),

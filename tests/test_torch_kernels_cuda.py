@@ -243,6 +243,31 @@ def test_kernels_at_the_classification_shapes(cuda, b, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h,kv_h", [(6, 6), (6, 2)],
+                         ids=["gpt_small_tp2", "llama_tp2"])
+def test_kernels_at_the_tp_local_shapes(cuda, h, kv_h):
+    """Causal at T 2048 and B 8 with each tp rank's heads at tp 2:
+    GPT-small's 12 -> 6 and llama's 12 query / 4 KV heads -> 6 / 2 (a GQA
+    group of 3)."""
+    q, k, v, g = _inputs(2048, h, kv_h, b=8)
+    opts = dict(scale=0.125, causal=True, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+                                  **opts)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                     causal=True, scale=0.125)
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    for got, ref in ((o, o_ref), (dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert _held(got, ref), tolerance_ratios(got, ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_attention_autograd_on_the_card(cuda):
     """The public entry on CUDA tensors goes through the kernels, forward
     and backward.  Its gradients are held per element against the plain

@@ -117,15 +117,8 @@ def _multi(n, mesh):
 @pytest.mark.parametrize("args,env,message", [
     (["--moe-experts", "2"], {}, "A.13"),
     (["--sample-tokens", "4"], {}, "A.12"),
-    ([], _multi(2, {"tp": 2, "dp": 1}), "the tp mesh axis (tp=2) is not yet "
-                                        "ported (ROADMAP item A.8)"),
-    ([], _multi(4, {"dp": 2, "fsdp": 2}), "the fsdp mesh axis (fsdp=2) is "
-                                          "not yet ported (ROADMAP item A.7)"),
     ([], _multi(2, {"ep": 2}), "A.13"),
     ([], _multi(2, {"pp": 2}), "A.13"),
-    (["--zero-shard-weight-update"], _multi(2, {"dp": 2}), "A.8"),
-    ([], {"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1", **_multi(4, {"dp": 4})},
-     "A.8"),
 ])
 def test_unported_options_exit_2(clean_env, capsys, args, env, message):
     for name, value in env.items():
@@ -166,6 +159,10 @@ def test_mesh_that_does_not_fit_the_processes_exits_2(clean_env, capsys,
     (["--batch", "6"], _multi(4, {"dp": 4}), "--batch 6 must split over "
                                              "dp=4"),
     (["--grad-accum", "4"], _multi(2, {"dp": 2}), "--grad-accum 4 divides"),
+    (["--batch", "6"], _multi(4, {"dp": 2, "fsdp": 2}),
+     "--batch 6 must split over dp=2 x fsdp=2"),
+    (["--arch", "llama", "--d-model", "768", "--kv-heads", "3"],
+     _multi(2, {"tp": 2}), "--kv-heads 3 must be divisible by tp=2"),
     (["--seq-len", "18"], _multi(4, {"sp": 4}), "--seq-len 18 must divide "
                                                 "by sp=4"),
     (["--seq-parallel", "ulysses", "--d-model", "128"], _multi(4, {"sp": 4}),

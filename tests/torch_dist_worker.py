@@ -8,9 +8,9 @@ that one world, so a test file pays for its world's start once.
 
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
-A job is {"kind": "attention" | "lm" | "classify", "cases": [...]}, saved with
-torch.save; each case's result goes into the rank's result file under the
-case's name.
+A job is {"kind": "attention" | "lm" | "classify" | "shard", "cases":
+[...]}, saved with torch.save; each case's result goes into the rank's
+result file under the case's name.
 """
 from __future__ import annotations
 
@@ -108,33 +108,44 @@ def lm_case(case: dict) -> dict:
     model = T.TransformerLM(cfg)
     model.load_state_dict(case["init"])
     state = create_train_state(model, optim.lm_optimizer(**case["opt"]),
-                               seed=None)
+                               seed=None, mesh=mesh)
     step = make_train_step(lm_loss_fn(model), grad_accum=case["grad_accum"],
                            mesh=mesh)
     losses = []
     for tokens in case["batches"]:
-        state, metrics = step(state, shard_batch({"tokens": tokens}, mesh))
+        state, metrics = step(state, shard_batch({"tokens": tokens}, mesh,
+                                                 case["grad_accum"]))
         losses.append(float(metrics["loss"]))
     return {"losses": torch.tensor(losses, dtype=torch.float64),
             "params": model.state_dict()}
 
 
 def classify_case(case: dict) -> dict:
-    """ResNet18 (SGD) or ViT (adamw) steps over a dp mesh of every rank, each
-    rank on its rows of the global batches; `per_rank_bn` builds the
-    ResNet's BatchNorms without the dp group (a planted fault)."""
+    """ResNet18 (SGD) or ViT (adamw) steps over the case's mesh (default: dp
+    over every rank; fsdp, and ZeRO over dp with `zero`), each rank on its
+    rows of the global batches (with `grad_accum`, its rows of each
+    microbatch); `per_rank_bn` builds the ResNet's BatchNorms without the
+    data group (a planted fault).  With `eval_batch`, the eval step's
+    metrics on it after the steps."""
     from tf_operator_tpu_torch.models import resnet, vit
-    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh, data_axes
     from tf_operator_tpu_torch.train import optim
     from tf_operator_tpu_torch.train.state import create_train_state
     from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                                  classification_metrics,
+                                                  make_eval_step,
                                                   make_train_step,
                                                   shard_batch)
+    from tf_operator_tpu_torch.train.zero import plan_for_model
 
-    mesh = build_mesh({"dp": torch.distributed.get_world_size()},
-                      device_type="cpu")
+    world = torch.distributed.get_world_size()
+    mesh = build_mesh(case.get("mesh", {"dp": world}), device_type="cpu")
+    accum = case.get("grad_accum", 1)
     if case["model"] == "resnet18":
-        group = None if case.get("per_rank_bn") else mesh.group("dp")
+        group = None
+        if not case.get("per_rank_bn"):
+            group = mesh.group_over(data_axes(mesh)) or \
+                torch.distributed.group.WORLD
         model = resnet.ResNet18(num_classes=10, dtype=torch.float32,
                                 bn_group=group)
         recipe = optim.sgd(case["lr"])
@@ -144,14 +155,97 @@ def classify_case(case: dict) -> dict:
                         num_classes=10, patch_size=4, image_size=16)
         recipe = optim.adamw(case["lr"])
     model.load_state_dict(case["init"])
-    state = create_train_state(model, recipe, seed=None)
-    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+    plan = plan_for_model(model, mesh) if case.get("zero") else None
+    state = create_train_state(model, recipe, seed=None, mesh=mesh,
+                               zero_plan=plan)
+    step = make_train_step(classification_loss_fn(model), grad_accum=accum,
+                           mesh=mesh)
     losses = []
     for batch in case["batches"]:
-        state, metrics = step(state, shard_batch(batch, mesh))
+        state, metrics = step(state, shard_batch(batch, mesh, accum))
         losses.append(float(metrics["loss"]))
-    return {"losses": torch.tensor(losses, dtype=torch.float64),
-            "state": model.state_dict()}
+    out = {"losses": torch.tensor(losses, dtype=torch.float64),
+           "state": full_state_dict(state)}
+    if "eval_batch" in case:
+        metrics = make_eval_step(classification_metrics(model), mesh)(
+            state, shard_batch(case["eval_batch"], mesh))
+        out["eval"] = {k: v.double() for k, v in metrics.items()}
+    return out
+
+
+def full_state_dict(state):
+    """The whole parameters and buffers of a (possibly sharded) state."""
+    from tf_operator_tpu_torch.train.state import full_state
+
+    return full_state(state)["model"]
+
+
+def _lm_state(case, axes, zero):
+    """A TransformerLM from the case's whole parameters, laid out on the
+    mesh `axes` (over every rank), with the ZeRO plan when `zero`."""
+    import dataclasses
+
+    from tf_operator_tpu_torch.models import transformer as T
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.train import optim
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.zero import plan_for_model
+
+    mesh = build_mesh(axes, device_type="cpu")
+    cfg = getattr(T, case["preset"])(**case["config"])
+    cfg = dataclasses.replace(cfg, mesh=mesh,
+                              seq_parallel=case.get("seq_parallel", "ring"))
+    model = T.TransformerLM(cfg)
+    model.load_state_dict(case["init"])
+    plan = plan_for_model(model, mesh) if zero else None
+    state = create_train_state(model, optim.lm_optimizer(**case["opt"]),
+                               seed=None, mesh=mesh, zero_plan=plan)
+    return mesh, state
+
+
+def shard_case(case: dict) -> dict:
+    """The LM over a mesh with tp, fsdp or ZeRO: AdamW steps on the global
+    batches, the whole parameters gathered after them, each rank's
+    parameter and moment sizes, and the specs the ranks hold.  With
+    `resume` (a second mesh) the first `resume_at` steps run on the case's
+    mesh and save a checkpoint, and the rest restore it on the second."""
+    from tf_operator_tpu_torch.parallel.shard import local
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.state import full_state
+    from tf_operator_tpu_torch.train.step import (lm_loss_fn, make_train_step,
+                                                  shard_batch)
+
+    accum = case.get("grad_accum", 1)
+    mesh, state = _lm_state(case, case["mesh"], case.get("zero", False))
+    out = {"held": state.sharding.held_specs()}
+    losses = []
+    for i, tokens in enumerate(case["batches"]):
+        if case.get("resume") and i == case["resume_at"]:
+            mgr = CheckpointManager(case["ckpt"])
+            mgr.save(state)
+            mgr.close()
+            out["files"] = sorted(os.listdir(case["ckpt"]))
+            mesh, state = _lm_state(case, case["resume"]["mesh"],
+                                    case["resume"].get("zero", False))
+            mgr = CheckpointManager(case["ckpt"])
+            mgr.restore(state)
+            mgr.close()
+            out["restored_step"] = torch.tensor(state.step)
+        step = make_train_step(
+            lm_loss_fn(state.model, loss_chunk=case.get("loss_chunk", 0)),
+            grad_accum=accum, mesh=mesh)
+        state, metrics = step(state, shard_batch({"tokens": tokens}, mesh,
+                                                 accum))
+        losses.append(float(metrics["loss"]))
+    full = full_state(state)
+    out.update(
+        losses=torch.tensor(losses, dtype=torch.float64),
+        params=full["model"],
+        local_params={n: torch.tensor(local(p).numel())
+                      for n, p in state.model.named_parameters()},
+        local_moments={n: torch.tensor(local(state.optimizer.state[t][
+            "exp_avg"]).numel()) for n, t in state.sharding.opt_named()})
+    return out
 
 
 def main(job_file, rank, world, store, out_dir) -> None:
@@ -163,7 +257,7 @@ def main(job_file, rank, world, store, out_dir) -> None:
                             rank=int(rank), world_size=int(world))
     try:
         run = {"attention": attention_case, "lm": lm_case,
-               "classify": classify_case}[job["kind"]]
+               "classify": classify_case, "shard": shard_case}[job["kind"]]
         results = {case["name"]: run(case) for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")
     finally:

@@ -11,10 +11,16 @@ query/key/value).  Norm `scale` is the torch `weight`; `wte/embedding` and
 OIHW; BatchNorm `scale`/`bias` are the module's `weight`/`bias` and its
 `mean`/`var` statistics the `running_mean`/`running_var` buffers.  Both
 directions are explicit so each layout change is visible.
+
+`flax_param_map` names, for each port parameter, its flax path and shape
+and where each flax dim lies in the port's tensor: the map the sharding
+rules (`parallel/tp_rules.py`, written on flax paths and shapes) and the
+ZeRO plan (`train/zero.py`) are carried over by.
 """
 from __future__ import annotations
 
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -284,3 +290,155 @@ def resnet_to_flax(state_dict, block_cls: str):
                                 for theirs, ours in _BN_STATS})
     params["Dense_0"] = _dense_to_flax(sd, "head")
     return params, batch_stats
+
+
+# ---------------------------------------------------------------------------
+# each port parameter's flax path, flax shape and dim map
+
+
+@dataclass(frozen=True)
+class FlaxParam:
+    """A port parameter `name` as the flax param at `path` of `shape`;
+    `dims[i]` is the port dim that holds flax dim i whole, or None where
+    none does (head_dim inside the port's [heads * head_dim] when heads
+    > 1)."""
+
+    name: str
+    path: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    dims: Tuple[Optional[int], ...]
+
+
+def _same(name, path, shape):
+    return FlaxParam(name, path, tuple(shape), tuple(range(len(shape))))
+
+
+def _kernel(name, path, cin, cout):
+    """A Dense kernel (in, out) against the port's weight [out, in]."""
+    return FlaxParam(name, path, (cin, cout), (1, 0))
+
+
+def _conv(name, path, weight_shape):
+    """A conv kernel HWIO against the port's OIHW weight."""
+    o, i, h, w = weight_shape
+    return FlaxParam(name, path, (h, w, i, o), (2, 3, 1, 0))
+
+
+def _norm_map(prefix, path, features, bias=True):
+    out = [_same(f"{prefix}.weight", path + ("scale",), (features,))]
+    if bias:
+        out.append(_same(f"{prefix}.bias", path + ("bias",), (features,)))
+    return out
+
+
+def _blocks_map(cfg, count) -> List[FlaxParam]:
+    d, f = cfg.d_model, cfg.d_ff
+    head_dim = d // cfg.num_heads
+    kv = cfg.num_kv_heads or cfg.num_heads
+    norm_bias = cfg.norm == "layernorm"
+    out = []
+    for i in range(count):
+        pre, blk = f"blocks.{i}.", (f"block_{i}",)
+        for name, heads in (("query", cfg.num_heads), ("key", kv),
+                            ("value", kv)):
+            path = blk + ("attn", name)
+            # (d, H, D) against [H * D, d]: D is whole only when H is 1
+            out.append(FlaxParam(f"{pre}attn.{name}.weight",
+                                 path + ("kernel",), (d, heads, head_dim),
+                                 (1, 0, 0 if heads == 1 else None)))
+            out.append(_same(f"{pre}attn.{name}.bias", path + ("bias",),
+                             (heads, head_dim)))
+        path = blk + ("attn", "out")
+        # (H, D, d) against [d, H * D]
+        out.append(FlaxParam(f"{pre}attn.out.weight", path + ("kernel",),
+                             (cfg.num_heads, head_dim, d),
+                             (1, 1 if cfg.num_heads == 1 else None, 0)))
+        out.append(_same(f"{pre}attn.out.bias", path + ("bias",), (d,)))
+        mlp = (("wg", d, f), ("wi", d, f), ("wo", f, d)) \
+            if cfg.mlp == "swiglu" else (("wi", d, f), ("wo", f, d))
+        for name, cin, cout in mlp:
+            path = blk + ("mlp", name)
+            out.append(_kernel(f"{pre}mlp.{name}.weight", path + ("kernel",),
+                               cin, cout))
+            if cfg.mlp != "swiglu":
+                out.append(_same(f"{pre}mlp.{name}.bias", path + ("bias",),
+                                 (cout,)))
+        out += _norm_map(pre + "ln1", blk + ("ln1",), d, norm_bias)
+        out += _norm_map(pre + "ln2", blk + ("ln2",), d, norm_bias)
+    return out
+
+
+def _linear_map(name, path, linear):
+    return [_kernel(f"{name}.weight", path + ("kernel",), linear.in_features,
+                    linear.out_features),
+            _same(f"{name}.bias", path + ("bias",), (linear.out_features,))]
+
+
+def flax_param_map(model) -> List[FlaxParam]:
+    """Every parameter of a TransformerLM, BertEncoder, ViT or ResNet as
+    its flax param, in the order of the flax params' flattening (paths
+    sorted).  Shapes are the whole model's, read from its config and its
+    modules' sizes, so the map is the same before and after sharding."""
+    from .resnet import BatchNorm, BottleneckBlock, ResNet
+    from .transformer import BertEncoder, TransformerLM
+    from .vit import ViT
+
+    if isinstance(model, TransformerLM):
+        cfg = model.cfg
+        d = cfg.d_model
+        out = [_same("wte.weight", ("wte", "embedding"),
+                     (cfg.vocab_size, d))]
+        if model.wpe is not None:
+            out.append(_same("wpe", ("wpe",), (cfg.max_len, d)))
+        out += _norm_map("ln_f", ("ln_f",), d, cfg.norm == "layernorm")
+        out += _blocks_map(cfg, cfg.num_layers)
+    elif isinstance(model, BertEncoder):
+        cfg = model.cfg
+        d = cfg.d_model
+        out = [_same("tok_emb.weight", ("tok_emb", "embedding"),
+                     (cfg.vocab_size, d)),
+               _same("type_emb.weight", ("type_emb", "embedding"),
+                     (cfg.type_vocab_size, d)),
+               _same("pos_emb", ("pos_emb",), (cfg.max_len, d))]
+        out += _norm_map("emb_ln", ("emb_ln",), d, cfg.norm == "layernorm")
+        out += _norm_map("ln_f", ("ln_f",), d, cfg.norm == "layernorm")
+        out += _linear_map("pooler", ("pooler",), model.pooler)
+        out += _linear_map("classifier", ("classifier",), model.classifier)
+        out += _blocks_map(cfg, cfg.num_layers)
+    elif isinstance(model, ViT):
+        cfg = model.cfg
+        conv = model.patch_embed
+        out = [_conv("patch_embed.weight", ("patch_embed", "kernel"),
+                     (conv.out_channels, conv.in_channels,
+                      *conv.kernel_size)),
+               _same("patch_embed.bias", ("patch_embed", "bias"),
+                     (conv.out_channels,)),
+               _same("cls_token", ("cls_token",), (1, 1, cfg.d_model)),
+               _same("pos_emb", ("pos_emb",), tuple(model.pos_emb.shape))]
+        out += _norm_map("ln_f", ("ln_f",), cfg.d_model,
+                         cfg.norm == "layernorm")
+        out += _linear_map("head", ("head",), model.head)
+        out += _blocks_map(cfg, cfg.num_layers)
+    elif isinstance(model, ResNet):
+        cls = ("BottleneckBlock" if isinstance(model.blocks[0],
+                                               BottleneckBlock)
+               else "ResNetBlock")
+        blocks = [f"{cls}_{i}" for i in range(len(model.blocks))]
+        modules = dict(model.named_modules())
+        out = []
+        for path, prefix, kind in _resnet_layers(
+                blocks, lambda name: len(
+                    model.blocks[blocks.index(name)].convs)):
+            module = modules.get(prefix)
+            if module is None:
+                continue
+            if kind == "conv":
+                out.append(_conv(prefix + ".weight", path + ("kernel",),
+                                 tuple(module.weight.shape)))
+            else:
+                assert isinstance(module, BatchNorm)
+                out += _norm_map(prefix, path, module.weight.shape[0])
+        out += _linear_map("head", ("Dense_0",), model.head)
+    else:
+        raise TypeError(f"no flax map for {type(model).__name__}")
+    return sorted(out, key=lambda e: e.path)

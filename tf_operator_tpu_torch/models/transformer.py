@@ -15,6 +15,15 @@ on this rank's contiguous slice of the sequence, and attention goes through
 ring attention or Ulysses over that axis's group (`seq_parallel`); learned
 positions and rope take the slice's global positions.
 
+Under tensor parallelism (`parallel/shard.py` slices the parameters by
+`parallel/tp_rules.py` and sets each module's `tp`) a block runs Megatron's
+layout: q, k, v, wi and wg column-parallel on this rank's heads or columns
+(`flash_attention` gets this rank's [B, H/tp, T, D] and its KV/tp heads),
+out and wo row-parallel with their partial sums added over the tp group,
+and the token embedding vocab-sharded (the readout gives this rank's
+vocab slice of the logits; `train/step.py` takes the cross-entropy over
+the group).  Head counts come from the parameters' local shapes.
+
 `BertEncoder` (BASELINE config 4) runs the same blocks non-causal between
 token + type + learned position embeddings summed in f32 and a tanh pooler
 in f32 on position 0; `models/vit.py` runs them over image patches.
@@ -33,6 +42,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import attention, flash_attention, repeat_kv
+from ..parallel.dist import copy_to_group, reduce_from_group
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 from .initializers import lecun_normal_
@@ -82,12 +92,18 @@ class TransformerConfig:
             raise ValueError(
                 f"seq_parallel must be 'ring'|'ulysses', got {self.seq_parallel!r}")
         if (self.seq_parallel == "ulysses" and self.mesh is not None
-                and self.ring_axis in self.mesh.axis_names
-                and self.num_heads % self.mesh.shape[self.ring_axis]):
-            raise ValueError(
-                f"seq_parallel='ulysses' needs num_heads ({self.num_heads}) "
-                f"divisible by the {self.ring_axis!r} axis size "
-                f"({self.mesh.shape[self.ring_axis]}); use 'ring' instead")
+                and self.ring_axis in self.mesh.axis_names):
+            # each tp rank holds heads / tp of them when tp divides them
+            tp = self.mesh.shape.get("tp", 1)
+            heads = (self.num_heads // tp if self.num_heads % tp == 0
+                     else self.num_heads)
+            if heads % self.mesh.shape[self.ring_axis]:
+                raise ValueError(
+                    f"seq_parallel='ulysses' needs num_heads ({heads}"
+                    f"{' per tp rank' if heads != self.num_heads else ''}) "
+                    f"divisible by the {self.ring_axis!r} axis size "
+                    f"({self.mesh.shape[self.ring_axis]}); use 'ring' "
+                    "instead")
         if self.use_rope and (self.d_model // self.num_heads) % 2:
             raise ValueError(
                 f"rope needs an even head_dim; d_model {self.d_model} / "
@@ -216,6 +232,20 @@ class Dense(nn.Module):
                 else self.bias.reshape(-1).to(self.dtype))
         return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
+    def row_parallel(self, x, tp):
+        """The product of a weight sharded on its input dim, summed over
+        the tp group.  The bias (replicated) enters on tp rank 0 alone, so
+        it is added once and, at tp 1, exactly as `forward` adds it; the
+        other ranks add it times 0, and their zero gradient for it is
+        summed over the group with rank 0's (`parallel/shard.py`)."""
+        bias = self.bias
+        if bias is not None:
+            bias = bias.reshape(-1).to(self.dtype)
+            if tp.rank:
+                bias = bias * 0
+        return reduce_from_group(tp.group, F.linear(
+            x.to(self.dtype), self.weight.to(self.dtype), bias))
+
 
 class Norm(nn.Module):
     """flax LayerNorm / RMSNorm with dtype=float32: statistics and output in
@@ -243,6 +273,10 @@ class Norm(nn.Module):
 
 
 class SelfAttention(nn.Module):
+    # the tensor-parallel group (parallel.dist.TPGroup) when this rank holds
+    # a slice of the heads
+    tp = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.cfg = cfg
@@ -261,13 +295,15 @@ class SelfAttention(nn.Module):
     def forward(self, x, positions=None):
         cfg = self.cfg
         b, t, _ = x.shape
+        if self.tp is not None:
+            x = copy_to_group(self.tp.group, x)
 
-        def heads(proj, n):  # [B, T, n*D] -> [B, n, T, D]
-            return proj(x).view(b, t, n, self.head_dim).transpose(1, 2)
+        def heads(proj):  # [B, T, n*D] -> [B, n, T, D], n this rank's
+            y = proj(x)
+            return y.view(b, t, y.shape[-1] // self.head_dim,
+                          self.head_dim).transpose(1, 2)
 
-        q = heads(self.query, cfg.num_heads)
-        k = heads(self.key, self.kv_heads)
-        v = heads(self.value, self.kv_heads)
+        q, k, v = heads(self.query), heads(self.key), heads(self.value)
         if cfg.use_rope:
             q = rope(q, theta=cfg.rope_theta, positions=positions,
                      scaling=cfg.rope_scaling, factor=cfg.rope_factor)
@@ -291,11 +327,17 @@ class SelfAttention(nn.Module):
         else:
             out = attention(q, *repeat_kv(q, k, v), causal=cfg.causal,
                             window=window, sink=cfg.attn_sink)
-        out = out.transpose(1, 2).reshape(b, t, cfg.num_heads * self.head_dim)
+        out = out.transpose(1, 2).reshape(b, t, q.shape[1] * self.head_dim)
+        if self.tp is not None:
+            return self.out.row_parallel(out, self.tp)
         return self.out(out)
 
 
 class MLP(nn.Module):
+    # the tensor-parallel group when this rank holds a slice of the d_ff
+    # columns
+    tp = None
+
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
         self.swiglu = cfg.mlp == "swiglu"
@@ -309,10 +351,16 @@ class MLP(nn.Module):
             self.wo = Dense(f, d, cfg.dtype)
 
     def forward(self, x):
+        if self.tp is not None:
+            x = copy_to_group(self.tp.group, x)
         if self.swiglu:
-            return self.wo(F.silu(self.wg(x)) * self.wi(x))
-        # flax nn.gelu defaults to the tanh approximation
-        return self.wo(F.gelu(self.wi(x), approximate="tanh"))
+            h = F.silu(self.wg(x)) * self.wi(x)
+        else:
+            # flax nn.gelu defaults to the tanh approximation
+            h = F.gelu(self.wi(x), approximate="tanh")
+        if self.tp is not None:
+            return self.wo.row_parallel(h, self.tp)
+        return self.wo(h)
 
 
 class Block(nn.Module):
@@ -333,6 +381,10 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """Decoder-only causal language model with a weight-tied readout."""
+
+    # the tensor-parallel group when this rank holds a slice of the vocab
+    # (rows [rank * V/tp, (rank + 1) * V/tp) of the embedding)
+    vocab_tp = None
 
     def __init__(self, cfg: TransformerConfig):
         super().__init__()
@@ -365,7 +417,11 @@ class TransformerLM(nn.Module):
         if _seq_parallel(cfg):
             first = cfg.mesh.coordinate(cfg.ring_axis) * t
             positions = torch.arange(first, first + t, device=tokens.device)
-        x = self.wte(tokens)
+        if self.vocab_tp is None:
+            x = self.wte(tokens)
+        else:
+            x = vocab_parallel_embedding(tokens, self.wte.weight,
+                                         self.vocab_tp)
         if self.wpe is not None:
             x = x + self.wpe[None, first:first + t, :]
         x = x.to(cfg.dtype)
@@ -380,7 +436,21 @@ class TransformerLM(nn.Module):
             # the rounding the full readout applies
             return x
         # tied readout: bf16 hidden promoted to f32 against the f32 table
+        # (under tp: this rank's vocab slice of the logits)
+        if self.vocab_tp is not None:
+            x = copy_to_group(self.vocab_tp.group, x)
         return F.linear(x.float(), self.wte.weight)
+
+
+def vocab_parallel_embedding(tokens, table, tp):
+    """The rows of a vocab-sharded embedding: each rank looks up the
+    tokens in its slice (zero for the others), summed over the tp group."""
+    start = tp.rank * table.shape[0]
+    local = tokens - start
+    inside = (local >= 0) & (local < table.shape[0])
+    rows = F.embedding(torch.where(inside, local, 0), table)
+    return reduce_from_group(tp.group,
+                             torch.where(inside[..., None], rows, 0.0))
 
 
 class BertEncoder(nn.Module):

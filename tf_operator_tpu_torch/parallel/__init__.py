@@ -1,2 +1,3 @@
-"""Meshes over ranks, the differentiable collectives, and sequence
-parallelism (ring attention, Ulysses)."""
+"""Meshes over ranks, the differentiable collectives, sequence
+parallelism (ring attention, Ulysses), and the parameters' layouts over
+tp, fsdp and (ZeRO) dp (`tp_rules`, `shard`)."""

@@ -1,5 +1,5 @@
-"""Differentiable collectives for sequence parallelism and synced
-BatchNorm.
+"""Differentiable collectives for sequence and tensor parallelism and
+synced BatchNorm.
 
 JAX transposes `ppermute`, `all_to_all` and `psum` by itself; PyTorch's
 collectives have no gradient, so each collective here is an
@@ -11,13 +11,30 @@ collectives have no gradient, so each collective here is an
     group (`all_to_all_single`); the exchange is its own transpose.
   * `all_reduce` sums a tensor over the group; every rank's result depends
     on every rank's input, so its backward sums the gradients likewise.
+  * `copy_to_group` and `reduce_from_group` are tensor parallelism's
+    pair (Megatron's f and g): where every rank of the group computes the
+    same loss from a replicated tensor, the replicated tensor's gradient is
+    the sum of the ranks' partial gradients (f: identity forward, sum in the
+    backward), and a sum of the ranks' partial results hands each rank the
+    whole gradient unchanged (g: sum forward, identity backward).
 Every rank of the group must make the same calls in the same order, in the
 forward and (autograd runs them in reverse) in the backward.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.distributed as dist
+
+
+class TPGroup(NamedTuple):
+    """A tensor-parallel group as a module sees it: the group, this rank's
+    place in it and its size."""
+
+    group: object
+    rank: int
+    size: int
 
 
 def _shift(tensors, group, step: int):
@@ -105,3 +122,48 @@ def all_reduce(group, x):
     over a mesh axis, or what the JAX step's batch-wide reductions come to
     when the batch is sharded over dp."""
     return _AllReduce.apply(group, x)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return None, g
+
+
+def copy_to_group(group, x):
+    """x as it is; in the backward, the sum of the ranks' gradients: the
+    input of a column-parallel product (tensor parallelism's f)."""
+    return _CopyToGroup.apply(group, x)
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def reduce_from_group(group, x):
+    """The sum of x over the group's ranks, whose gradient goes back to
+    every rank unchanged: the output of a row-parallel product (tensor
+    parallelism's g)."""
+    return _ReduceFromGroup.apply(group, x)
+
+
+def all_reduce_max(group, x):
+    """The elementwise maximum of x over the group (no gradient)."""
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out

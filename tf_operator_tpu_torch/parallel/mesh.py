@@ -10,14 +10,20 @@ neighbours.
 PyTorch runs one process per GPU, so where JAX lays devices the port lays
 ranks, and the collectives of an axis run over that axis's process group
 (`Mesh.group`), which `torch.distributed.device_mesh.init_device_mesh`
-makes.  Parameter partition specs (fsdp, tp) are not ported yet (ROADMAP
-item A.8).
+makes; a collective over several axes at once (the gradient sum over the
+data and sequence axes) runs over `Mesh.group_over`.
+
+Partition specs are plain tuples of axis names (None for a replicated dim),
+the counterpart of `jax.sharding.PartitionSpec`: `param_partition_spec` and
+`free_dim_partition_spec` choose the dim an axis shards, as the JAX
+package's do, on the flax shapes of the parameters (`models/convert.py`
+maps them onto the port's layout).
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -43,6 +49,7 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(self.axis_names, sizes))
         self.size = int(np.prod(sizes)) if sizes else 1
         self.device_mesh = None
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape})"
@@ -75,6 +82,31 @@ class Mesh:
                 f"{self} is a layout without a process group; build it with "
                 "device_type= after torch.distributed.init_process_group")
         return self.device_mesh.get_group(axis)
+
+    def group_over(self, axes: Sequence[str]):
+        """The process group of this rank's ranks that differ only along
+        `axes` (the mesh's axes among them; unknown names are ignored): the
+        group one axis's `group` gives, None (the whole world) when `axes`
+        cover every axis, or a subgroup made once per set of axes.  Every
+        rank must ask for the same sets in the same order."""
+        axes = tuple(a for a in self.axis_names if a in axes)
+        if axes == self.axis_names:
+            return None
+        if len(axes) == 1:
+            return self.group(axes[0])
+        if self.device_mesh is None:
+            self.group(self.axis_names[0])  # raises: a layout has no groups
+        if axes not in self._groups:
+            import torch.distributed as dist
+
+            ranks = np.arange(self.size).reshape(tuple(self.shape.values()))
+            keep = [self.axis_names.index(a) for a in axes]
+            rest = [i for i in range(len(self.axis_names)) if i not in keep]
+            lines = ranks.transpose(rest + keep).reshape(
+                -1, int(np.prod([self.shape[a] for a in axes], initial=1)))
+            self._groups[axes], _ = dist.new_subgroups_by_enumeration(
+                [row.tolist() for row in lines])
+        return self._groups[axes]
 
 
 def _rank() -> int:
@@ -140,3 +172,71 @@ def local_batch_size(global_batch: int, mesh: Mesh) -> int:
     if global_batch % n:
         raise ValueError(f"global batch {global_batch} not divisible by dp size {n}")
     return global_batch // n
+
+
+# ---------------------------------------------------------------------------
+# partition specs on flax shapes: a spec is a tuple with one entry per dim
+# (an axis name, a tuple of them, or None), trailing Nones optional
+
+
+def _pick_shard_dim(shape: Sequence[int], size: int, prefer: str,
+                    taken: Sequence[int] = ()) -> Optional[int]:
+    """Among dims not in `taken` that the axis size divides (and that are
+    >= size, so every shard is non-empty), the last (prefer="last") or the
+    largest, ties toward the last (prefer="largest"); None when no dim
+    qualifies."""
+    if prefer not in ("last", "largest"):
+        raise ValueError(f"prefer must be 'last'|'largest', got {prefer!r}")
+    taken_set = set(taken)
+    candidates = [i for i, d in enumerate(shape)
+                  if i not in taken_set and d % size == 0 and d >= size]
+    if not candidates:
+        return None
+    if prefer == "last":
+        return candidates[-1]
+    return max(candidates, key=lambda i: (shape[i], i))
+
+
+def param_partition_spec(shape: Sequence[int], mesh: Mesh,
+                         fsdp_axis: str = AXIS_FSDP) -> tuple:
+    """FSDP-style weight sharding: the last divisible dim over the fsdp
+    axis; () (replicated) otherwise."""
+    size = axis_size(mesh, fsdp_axis)
+    if size <= 1 or not shape:
+        return ()
+    dim = _pick_shard_dim(shape, size, "last")
+    if dim is None:
+        return ()
+    spec = [None] * len(shape)
+    spec[dim] = fsdp_axis
+    return tuple(spec)
+
+
+def spec_axes(entry) -> tuple:
+    """The axis names of one spec entry."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def free_dim_partition_spec(shape: Sequence[int], mesh: Mesh,
+                            axis: str = AXIS_DP, *, base: tuple = (),
+                            prefer: str = "largest") -> tuple:
+    """Lay `axis` onto a free dim of an array already laid out as `base`
+    (the dim ZeRO's weight-update sharding splits the optimizer state
+    over): a dim `base` leaves unsharded that the axis size divides,
+    the largest (ties toward the last) by default.  Returns `base` itself
+    when the axis is trivial, already used by `base`, or no dim
+    qualifies."""
+    size = axis_size(mesh, axis)
+    base_entries = list(base) + [None] * (len(shape) - len(base))
+    if size <= 1 or not shape:
+        return base
+    taken = [i for i, e in enumerate(base_entries) if e is not None]
+    if any(axis in spec_axes(e) for e in base_entries):
+        return base
+    dim = _pick_shard_dim(shape, size, prefer, taken)
+    if dim is None:
+        return base
+    base_entries[dim] = axis
+    return tuple(base_entries)

@@ -12,11 +12,16 @@ updating the parameters in place), then writes it on a background thread
 unless `wait=True`.  The step directory is written under a temporary name
 and renamed when complete, so `latest_step()` never sees a partial one.
 
-In a process group the parameters are replicated, so rank 0 writes and
-every rank restores.  Every rank meets a barrier once its saves are on
-disk: at each `save(wait=True)`, `wait_until_finished()` and `close()`,
-after rank 0 has joined its background writes, so no rank reads or exits
-before the step it saved is complete.
+The state is saved whole (`train/state.full_state`: every rank gathers
+the parameters and moments its mesh shards, then rank 0 writes), so a
+checkpoint written under one mesh restores under another, each rank
+cutting its piece (`load_full_state`).  A state trained under a ZeRO plan
+also gets the plan as a `zero_plan-<step>.json` sidecar beside its step
+directory, pruned with it (`saved_zero_plan` reads it back).  Every rank
+meets a barrier once its saves are on disk: at each `save(wait=True)`,
+`wait_until_finished()` and `close()`, after rank 0 has joined its
+background writes, so no rank reads or exits before the step it saved is
+complete.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
-from .state import TrainState
+from .state import TrainState, full_state, load_full_state
 
 _STATE_FILE = "state.pt"
 
@@ -68,36 +73,61 @@ class CheckpointManager:
     def save(self, state: TrainState, step: Optional[int] = None,
              wait: bool = True) -> int:
         step = state.step if step is None else step
-        if not self._writer or step in self._submitted or \
-                step in self.all_steps():
-            # not this rank's to write, or already saved or being saved (the
-            # final save after a periodic one at the same step)
+        if step in self._submitted:
+            # already saved or being saved (the final save after a periodic
+            # one at the same step, or the step restored); every rank
+            # decides alike, so none gathers alone
             if wait:
                 self.wait_until_finished()
             return step
         self._submitted.add(step)
-        payload = _to_host({
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "step": state.step,
-        })
-        if self._executor is None:
-            self._executor = ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="tpujob-ckpt")
-        self._pending.append(self._executor.submit(self._write, step, payload))
+        # every rank joins the gathers; rank 0 writes
+        payload = _to_host(full_state(state))
+        plan = None if state.zero_plan is None else state.zero_plan.to_json()
+        if self._writer and step not in self.all_steps():
+            if self._executor is None:
+                self._executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="tpujob-ckpt")
+            self._pending.append(
+                self._executor.submit(self._write, step, payload, plan))
         if wait:
             self.wait_until_finished()
         return step
 
-    def _write(self, step: int, payload) -> None:
+    def _plan_path(self, step: int) -> str:
+        return os.path.join(self.directory, f"zero_plan-{step}.json")
+
+    def _write(self, step: int, payload, plan: Optional[str]) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = os.path.join(self.directory, f".tmp-{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         torch.save(payload, os.path.join(tmp, _STATE_FILE))
+        if plan is not None:
+            # beside the step directory, as the JAX package writes it
+            with open(self._plan_path(step), "w") as f:
+                f.write(plan)
         os.replace(tmp, final)
         for old in self.all_steps()[:-self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)))
+        # a sidecar does not outlive its step directory
+        keep = set(self.all_steps())
+        for name in os.listdir(self.directory):
+            if name.startswith("zero_plan-") and name.endswith(".json"):
+                tag = name[len("zero_plan-"):-len(".json")]
+                if tag.isdigit() and int(tag) not in keep:
+                    os.remove(os.path.join(self.directory, name))
+
+    def saved_zero_plan(self, step: Optional[int] = None, mesh=None):
+        """The ZeroShardingPlan checkpoint `step` (default latest) was
+        written under, or None for a dense one."""
+        from .zero import ZeroShardingPlan
+
+        step = self.latest_step() if step is None else step
+        if step is None or not os.path.exists(self._plan_path(step)):
+            return None
+        with open(self._plan_path(step)) as f:
+            return ZeroShardingPlan.from_json(f.read(), mesh=mesh)
 
     def wait_until_finished(self) -> None:
         """Block until every save has been written; re-raise a failed one.
@@ -113,18 +143,17 @@ class CheckpointManager:
     def restore(self, template: TrainState,
                 step: Optional[int] = None) -> TrainState:
         """Load checkpoint `step` (default latest) into the template's model
-        and optimizer, on the template's device; returns the template, which
-        is unchanged if no checkpoint exists."""
+        and optimizer (each rank its piece, on the template's device);
+        returns the template, which is unchanged if no checkpoint
+        exists."""
         step = self.latest_step() if step is None else step
         if step is None:
             return template
-        device = next(template.model.parameters()).device
         payload = torch.load(
             os.path.join(self.directory, str(step), _STATE_FILE),
-            map_location=device, weights_only=True)
-        template.model.load_state_dict(payload["model"])
-        template.optimizer.load_state_dict(payload["optimizer"])
-        template.step = int(payload["step"])
+            map_location="cpu", weights_only=True)
+        load_full_state(template, payload)
+        self._submitted.add(template.step)
         return template
 
     def close(self) -> None:

@@ -4,9 +4,13 @@ classification workloads' `optax.sgd` with momentum and unmasked
 `optax.adamw`.
 
 A recipe is the optax GradientTransformation's counterpart: `init(model)`
-builds the torch optimizer over the model's parameters, and
+builds the torch optimizer over the model's parameters (or over `named`
+tensors in their place: under ZeRO, slices of them), and
 `update(optimizer, params, count)` applies one step from the gradients in
-`.grad` (`train/state.TrainState` takes any recipe).
+`.grad` (`train/state.TrainState` takes any recipe).  Over a sharded
+layout the clip's global norm is the full gradient's: each tensor's sum of
+squares is summed over the groups its elements are split over
+(`shard_groups`), and a replicated tensor counts once.
 
 The LM recipe is the counterpart of `tf_operator_tpu/train/optim.py` (an
 optax chain), kept to optax's arithmetic where PyTorch's defaults differ:
@@ -28,7 +32,8 @@ import torch
 
 def decay_mask(model) -> dict:
     """{name: True} for parameters weight decay applies to: rank >= 2
-    (matmul kernels, embeddings); biases / norm scales are excluded."""
+    (matmul kernels, embeddings); biases / norm scales are excluded.  The
+    rank is the whole parameter's: slicing and sharding keep it."""
     return {name: p.ndim >= 2 for name, p in model.named_parameters()}
 
 
@@ -70,13 +75,40 @@ def lr_schedule(peak_lr: float, *, schedule: str = "constant",
     return sched
 
 
-def clip_by_global_norm_(params, max_norm: float) -> torch.Tensor:
+def _local(t):
+    return t.to_local() if hasattr(t, "to_local") else t
+
+
+def clip_by_global_norm_(params, max_norm: float,
+                         shard_groups=None) -> torch.Tensor:
     """Scale the gradients in place by max_norm / norm when their global
     norm is >= max_norm, exactly as optax.clip_by_global_norm (no epsilon).
-    Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    Returns the norm.  With `shard_groups` (for each of `params`, the
+    process groups its elements are split over) the gradients are this
+    rank's pieces and the norm is the whole gradient's."""
+    params = list(params)
+    if shard_groups is None or not any(shard_groups):
+        # nothing split over more than one rank: the one-process arithmetic
+        grads = [_local(p.grad) for p in params if p.grad is not None]
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float())
+                         for g in grads]))
+    else:
+        import torch.distributed as dist
+
+        # sum the squares per set of groups, then over each set's groups
+        sums = {}
+        for p, groups in zip(params, shard_groups):
+            if p.grad is not None:
+                sq = _local(p.grad).float().pow(2).sum()
+                sums[groups] = sums.get(groups, 0) + sq
+        total = 0
+        for groups, sq in sums.items():
+            for group in groups:
+                dist.all_reduce(sq, group=group)
+            total = total + sq
+        norm = torch.sqrt(total)
+        grads = [_local(p.grad) for p in params if p.grad is not None]
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:
@@ -98,14 +130,14 @@ class AdamW:
     grad_clip: float = 1.0
     masked: bool = True
 
-    def init(self, model) -> torch.optim.AdamW:
+    def init(self, model, named=None) -> torch.optim.AdamW:
+        named = list(model.named_parameters()) if named is None else named
         if not self.masked:
             return torch.optim.AdamW(
-                model.parameters(), lr=self.schedule(0),
+                [t for _, t in named], lr=self.schedule(0),
                 betas=(self.b1, self.b2), eps=self.eps,
                 weight_decay=self.weight_decay)
         mask = decay_mask(model)
-        named = list(model.named_parameters())
         groups = [
             {"params": [p for n, p in named if mask[n]],
              "weight_decay": self.weight_decay},
@@ -116,9 +148,9 @@ class AdamW:
                                  betas=(self.b1, self.b2), eps=self.eps)
 
     def update(self, optimizer: torch.optim.Optimizer, params,
-               count: int) -> None:
+               count: int, shard_groups=None) -> None:
         if self.grad_clip:
-            clip_by_global_norm_(params, self.grad_clip)
+            clip_by_global_norm_(params, self.grad_clip, shard_groups)
         lr = self.schedule(count)
         for group in optimizer.param_groups:
             group["lr"] = lr
@@ -153,12 +185,14 @@ class SGD:
     lr: float
     momentum: float = 0.9
 
-    def init(self, model) -> torch.optim.SGD:
-        return torch.optim.SGD(model.parameters(), lr=self.lr,
-                               momentum=self.momentum, dampening=0.0)
+    def init(self, model, named=None) -> torch.optim.SGD:
+        tensors = (model.parameters() if named is None
+                   else [t for _, t in named])
+        return torch.optim.SGD(tensors, lr=self.lr, momentum=self.momentum,
+                               dampening=0.0)
 
     def update(self, optimizer: torch.optim.Optimizer, params,
-               count: int) -> None:
+               count: int, shard_groups=None) -> None:
         optimizer.step()
 
 

@@ -10,14 +10,20 @@ gradients and changes no parameter or buffer.  PyTorch runs eagerly, so
 there is no jit and no donation; the model's parameters live in the module
 and the step updates them in place through the optimizer.
 
-Over a mesh (one process per rank) the step is the data- and
-sequence-parallel step that GSPMD derives for the JAX package: each rank
-takes its shard of the global batch (`shard_batch`), its loss is its mean
-over its share divided by the rank count (for the LM, its sum over the
-global token count), the gradients are summed over every rank before
-clipping (so the clip sees the global norm), and the reported loss is
-summed likewise.  Parameters stay replicated; a model whose layers reduce
-over the batch (ResNet's BatchNorm) all-reduces those sums itself.
+Over a mesh (one process per rank) the step is the one GSPMD derives for
+the JAX package: each rank takes its shard of the global batch
+(`shard_batch`: its rows over dp and fsdp, its slice of the sequence over
+sp; with grad_accum, microbatch i is its share of the global batch's i-th
+part, as JAX's reshape of the global batch gives it), its loss is its mean
+over its share divided by the data ranks times sp (tp ranks compute the
+same loss on the same rows), the gradients are summed once over dp, fsdp
+and sp and never over tp (`parallel/shard.Sharding.reduce_grads`), before
+clipping, and the reported loss is summed likewise.  A model whose layers
+reduce over the batch (ResNet's BatchNorm) all-reduces those sums itself.
+Under tp the LM's logits are this rank's vocab slice, and the
+cross-entropy's log-sum-exp and target logit are summed over the tp group
+(`softmax_cross_entropy(..., tp=)`).  The eval step's metrics are the
+global batch's: the ranks' means weighted by their rows.
 """
 from __future__ import annotations
 
@@ -29,30 +35,74 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.dist import all_reduce_max, copy_to_group, reduce_from_group
 from .state import TrainState
 
 
-def softmax_cross_entropy(logits, labels) -> torch.Tensor:
-    """labels: int class ids. Mean loss in f32."""
+def _vocab_parallel_nll(logits, labels, tp):
+    """-log p(label) per row of logits that hold this rank's vocab slice
+    ([rank * V/tp, (rank + 1) * V/tp)), p the softmax over the whole
+    vocab.
+
+    Each rank normalises its slice with `log_softmax` and shifts it by
+    its slice's log-sum-exp less the whole vocab's (the maxima and the sums
+    of exponentials combined over the tp group); the label's log
+    probability comes from the rank that holds it.  The gradient of
+    `log_softmax` holds this slice's own softmax; a term whose value is 0
+    adds the difference to the whole vocab's softmax.  Over a group of one
+    rank the shift and that difference are exactly 0, so the loss and its
+    gradient are, bit for bit, the plain cross-entropy's."""
+    import torch.distributed as dist
+
+    v = logits.shape[-1]
+    logp = F.log_softmax(logits, dim=-1)
+    with torch.no_grad():
+        m = logits.max(-1).values
+        s = (logits - m[..., None]).exp().sum(-1)
+        m_all = all_reduce_max(tp.group, m)
+        s_all = s * (m - m_all).exp()
+        dist.all_reduce(s_all, group=tp.group)
+        shift = (s.log() + m) - (s_all.log() + m_all)
+    local = labels - tp.rank * v
+    inside = (local >= 0) & (local < v)
+    picked = logp.gather(-1, torch.where(inside, local, 0)[..., None])[..., 0]
+    with torch.no_grad():
+        # the whole vocab's softmax less what log_softmax's gradient holds
+        d = (logp + shift[..., None]).exp() - torch.where(
+            inside[..., None], logp.exp(), 0.0)
+    extra = (logits * d).sum(-1)
+    picked = torch.where(inside, picked + shift, 0.0) - (extra - extra.detach())
+    return -reduce_from_group(tp.group, picked)
+
+
+def softmax_cross_entropy(logits, labels, tp=None) -> torch.Tensor:
+    """labels: int class ids. Mean loss in f32.  With `tp` (a
+    parallel.dist.TPGroup) the logits are this rank's vocab slice."""
+    if tp is not None:
+        return _vocab_parallel_nll(logits.float(), labels.long(), tp).mean()
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.long()[..., None])[..., 0]
     return -ll.mean()
 
 
-def _chunk_nll(hx, table, yy):
+def _chunk_nll(hx, table, yy, tp=None):
     # bf16 hidden x f32 table runs as an f32 product, as the full readout does
+    if tp is not None:
+        hx = copy_to_group(tp.group, hx)
+        return _vocab_parallel_nll(F.linear(hx.float(), table), yy, tp).sum()
     logits = F.linear(hx.float(), table)
     logp = F.log_softmax(logits, dim=-1)
     return -logp.gather(-1, yy[..., None]).sum()
 
 
-def chunked_softmax_xent(hidden, table, targets, chunk: int) -> torch.Tensor:
+def chunked_softmax_xent(hidden, table, targets, chunk: int,
+                         tp=None) -> torch.Tensor:
     """Weight-tied LM cross-entropy computed in T-chunks so the full
     [B, T, vocab] logits never materialize.  Each chunk's logits are
     recomputed in the backward (`torch.utils.checkpoint`), so peak logits
     memory is B * chunk * vocab regardless of T.  `hidden` [B, T, D] is the
     model's pre-readout output (already in the model dtype); `table`
-    [vocab, D] the readout matrix."""
+    [vocab, D] the readout matrix (with `tp`, this rank's vocab slice)."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     b, t, _ = hidden.shape
@@ -62,10 +112,10 @@ def chunked_softmax_xent(hidden, table, targets, chunk: int) -> torch.Tensor:
         hx = hidden[:, lo:lo + chunk]
         yy = targets[:, lo:lo + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_chunk_nll, hx, table, yy,
+            total = total + checkpoint(_chunk_nll, hx, table, yy, tp,
                                        use_reentrant=False)
         else:
-            total = total + _chunk_nll(hx, table, yy)
+            total = total + _chunk_nll(hx, table, yy, tp)
     return total / (b * t)
 
 
@@ -95,12 +145,14 @@ def lm_loss_fn(model, loss_chunk: int = 0,
 
     def loss(batch):
         tokens = batch["tokens"]
+        # under tp the readout gives this rank's vocab slice
+        tp = getattr(model, "vocab_tp", None)
         if loss_chunk > 0:
             hidden = model(tokens[:, :-1], return_hidden=True)
             return chunked_softmax_xent(
-                hidden, get_table(model), tokens[:, 1:], loss_chunk), {}
+                hidden, get_table(model), tokens[:, 1:], loss_chunk, tp), {}
         logits = model(tokens[:, :-1])
-        return softmax_cross_entropy(logits, tokens[:, 1:]), {}
+        return softmax_cross_entropy(logits, tokens[:, 1:], tp), {}
 
     return loss
 
@@ -139,26 +191,44 @@ def classification_metrics(model):
     return metric_fn
 
 
-def make_eval_step(metric_fn):
+def make_eval_step(metric_fn, mesh=None):
     """`eval_step(state, batch) -> metrics`: forward only, in eval mode and
-    without gradients, so no parameter or buffer changes."""
+    without gradients, so no parameter or buffer changes.  With a `mesh`
+    (over the process group) `batch` is this rank's shard and each metric
+    is the global batch's: the ranks' values weighted by their rows and
+    summed over the data axes."""
+    from ..parallel.mesh import data_axes
+
+    group = None if mesh is None else mesh.group_over(data_axes(mesh))
 
     def step(state: TrainState, batch):
         state.model.eval()
         with torch.no_grad():
-            return metric_fn(batch)
+            metrics = metric_fn(batch)
+            if mesh is None:
+                return metrics
+            rows = next(iter(batch.values())).shape[0]
+            names = sorted(metrics)
+            sums = torch.stack([metrics[k].float() * rows for k in names] +
+                               [metrics[names[0]].new_tensor(float(rows))])
+            dist.all_reduce(sums, group=group)
+            return {k: sums[i] / sums[-1] for i, k in enumerate(names)}
 
     return step
 
 
-def shard_batch(batch, mesh):
-    """This rank's shard of a global LM batch {"tokens": [B, T + 1]}: its
-    rows of the data axes (dp, fsdp) and, over the `sp` axis, its slice of
-    the shifted sequence.  The loss reads inputs tokens[:, :-1] and targets
-    tokens[:, 1:]; sp rank s of n takes the window tokens[:, s*T/n :
-    (s+1)*T/n + 1], whose own shift gives exactly its slice of the global
-    inputs and targets (neighbouring windows share one token).  Works on
-    numpy arrays and tensors; rank-0 leaves are replicated."""
+def shard_batch(batch, mesh, grad_accum: int = 1):
+    """This rank's shard of a global batch: its rows of the data axes (dp,
+    fsdp) and, over the `sp` axis, its slice of an LM batch's shifted
+    sequence {"tokens": [B, T + 1]}.  With grad_accum k the global rows
+    split into k parts (microbatches) first and the rank keeps its rows of
+    each, in order, so `make_train_step`'s chunk i of the shard is this
+    rank's share of global rows [i*B/k, (i+1)*B/k), as in the JAX step.
+    The loss reads inputs tokens[:, :-1] and targets tokens[:, 1:]; sp rank
+    s of n takes the window tokens[:, s*T/n : (s+1)*T/n + 1], whose own
+    shift gives exactly its slice of the global inputs and targets
+    (neighbouring windows share one token).  Works on numpy arrays and
+    tensors; rank-0 leaves are replicated."""
     from ..parallel.mesh import AXIS_SP, axis_size, data_axes
 
     sizes = [axis_size(mesh, a) for a in data_axes(mesh)]
@@ -173,13 +243,16 @@ def shard_batch(batch, mesh):
         if not shape:
             out[name] = leaf
             continue
-        if shape[0] % n_data:
+        if shape[0] % (n_data * grad_accum):
             raise ValueError(
                 f"batch leaf {name!r} has leading dim {shape[0]}, which the "
-                f"mesh's data axes (size {n_data}, mesh {mesh.shape}) don't "
-                f"divide — use a batch that is a multiple of {n_data}")
-        rows = shape[0] // n_data
-        leaf = leaf[row * rows:(row + 1) * rows]
+                f"mesh's data axes (size {n_data}, mesh {mesh.shape}) times "
+                f"grad_accum {grad_accum} don't divide — use a batch that is "
+                f"a multiple of {n_data * grad_accum}")
+        rows = shape[0] // (n_data * grad_accum)
+        parts = leaf.reshape((grad_accum, shape[0] // grad_accum) + shape[1:])
+        leaf = parts[:, row * rows:(row + 1) * rows].reshape(
+            (grad_accum * rows,) + shape[1:])
         if sp > 1:
             if len(shape) < 2 or (shape[1] - 1) % sp:
                 raise ValueError(
@@ -192,17 +265,6 @@ def shard_batch(batch, mesh):
     return out
 
 
-def all_reduce_grads(params) -> None:
-    """Sum the gradients over every rank, in one flat buffer."""
-    grads = [p.grad for p in params if p.grad is not None]
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
-
-
 def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     """Build `step(state, batch) -> (state, metrics)`.
 
@@ -212,18 +274,29 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     mean-reduced losses), activation memory held to one microbatch.
 
     With a `mesh` (over the initialized process group) the batch is this
-    rank's shard (`shard_batch`) and the step is the distributed one
-    described in the module docstring; grad_accum splits the local rows."""
+    rank's shard (`shard_batch` with the same grad_accum) and the step is
+    the distributed one described in the module docstring: the gradients
+    are reduced by the train state's `Sharding` (`create_train_state` with
+    the same mesh)."""
+    from ..parallel.shard import DATA_AXES
+
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    # every rank holds an equal share of the rows (tokens), so the global
-    # mean is the sum over ranks of each rank's mean over the rank count
-    ranks = 1 if mesh is None else mesh.size
-    if mesh is not None and mesh.size != dist.get_world_size():
-        raise ValueError(f"{mesh} does not cover the process group's "
-                         f"{dist.get_world_size()} ranks")
+    # every data (and sp) rank holds an equal share of the rows (tokens),
+    # so the global mean is the sum over those ranks of each rank's mean
+    # over their count; tp ranks hold the same rows
+    ranks, loss_group = 1, None
+    if mesh is not None:
+        if mesh.size != dist.get_world_size():
+            raise ValueError(f"{mesh} does not cover the process group's "
+                             f"{dist.get_world_size()} ranks")
+        ranks = int(np.prod([mesh.shape.get(a, 1) for a in DATA_AXES]))
+        loss_group = mesh.group_over(DATA_AXES)
 
     def step(state: TrainState, batch):
+        if mesh is not None and state.sharding is None:
+            raise ValueError("a step over a mesh needs the train state laid "
+                             "out on it: create_train_state(..., mesh=)")
         state.model.train()
         for key, x in batch.items():
             if x.shape[0] % grad_accum:
@@ -239,8 +312,8 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
             total = total + loss.detach()
         total = total / (grad_accum * ranks)
         if mesh is not None:
-            all_reduce_grads(state.model.parameters())
-            dist.all_reduce(total)
+            state.sharding.reduce_grads()
+            dist.all_reduce(total, group=loss_group)
         state.apply_gradients()
         return state, {"loss": total}
 

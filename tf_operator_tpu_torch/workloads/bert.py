@@ -9,8 +9,9 @@ loss ...` every 10 steps, `done`), plus `--log-every` (default 10) and the
 token and label stream.  Attention runs non-causal through the flash
 kernels at T = --seq-len.
 
-Data parallel over the mesh's dp axis; other mesh axes, and ZeRO over
-dp > 1, exit 2 naming their ROADMAP item.
+Data parallel over the mesh's dp and fsdp axes, the parameters fully
+sharded over fsdp and, with the ZeRO knob, the moments and the update over
+dp; tp and sp exit 2 naming their ROADMAP item.
 
 Usage: python -m tf_operator_tpu_torch.workloads.bert --steps 50
 """
@@ -19,10 +20,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .runner import UNPORTED_AXES
+from .runner import UNPORTED_CLASSIFY_AXES
 
 # sequence parallelism over the tokens (ring/Ulysses in the encoder)
-UNPORTED = UNPORTED_AXES + (("sp", "A.10"),)
+UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.10"),)
 
 
 def main(argv=None) -> int:
@@ -35,7 +36,8 @@ def main(argv=None) -> int:
     parser.add_argument("--d-model", type=int, default=768)
     parser.add_argument("--log-every", type=int, default=10)
     from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, process_group)
+                         apply_forced_platform, plan_mesh, process_group,
+                         split_batch)
 
     add_profile_args(parser)
     args = parser.parse_args(argv)
@@ -49,34 +51,36 @@ def main(argv=None) -> int:
     ctx = WorkloadContext.from_env()
     print(f"bert workload: role={ctx.replica_type} index={ctx.replica_index}",
           flush=True)
-    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    layout, rc = plan_mesh(ctx, UNPORTED)
     if layout is None:
         return rc
-    dp = layout.shape.get("dp", 1)
-    if args.batch % dp:
-        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+    problem = split_batch(args.batch, layout)
+    if problem:
+        print(problem, flush=True)
         return 2
     with process_group(ctx, device, layout) as mesh:
-        return _train(args, ctx, device, mesh)
+        return _train(args, ctx, device, mesh, layout)
 
 
-def _train(args, ctx, device, mesh) -> int:
+def _train(args, ctx, device, mesh, layout) -> int:
     import numpy as np
 
     from ..models.transformer import BertEncoder, bert_base_config
     from ..train.data import prefetch_to_device
     from ..train.optim import adamw
-    from ..train.state import create_train_state
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say
+    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
 
     cfg = bert_base_config(
         num_layers=args.layers, d_model=args.d_model,
         num_heads=max(1, args.d_model // 64), d_ff=args.d_model * 4,
         max_len=args.seq_len)
     model = BertEncoder(cfg, num_labels=2)
-    state = create_train_state(model, adamw(args.lr), seed=0, device=device)
+    state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
+                                ctx.zero_shard_weight_update)
+    if state is None:
+        return 2
     step = make_train_step(classification_loss_fn(model), mesh=mesh)
 
     rng = np.random.RandomState(ctx.replica_index)

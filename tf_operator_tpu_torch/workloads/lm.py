@@ -1,6 +1,8 @@
 """LM pretraining workload: one CUDA device per process (or the CPU, on
-request), data parallel over the mesh's `dp` axis and sequence parallel
-(ring or Ulysses) over `sp` when the job has several processes.
+request); over several processes, data parallel over the mesh's `dp` axis,
+fully sharded (FSDP2) over `fsdp`, tensor parallel over `tp` and sequence
+parallel (ring or Ulysses) over `sp`, with ZeRO weight-update sharding
+over dp on request (`--zero-shard-weight-update` or the spec knob's env).
 
 The counterpart of `tf_operator_tpu/workloads/lm.py`: the same flags,
 defaults, exit-2 rejections and log lines (`step {i} loss ...`,
@@ -8,8 +10,9 @@ defaults, exit-2 rejections and log lines (`step {i} loss ...`,
 wall time of the run's steps after its first, periodic checkpoint saves
 included, and the global batch's tokens/s.  In a process group only rank
 0 prints them.  Checkpoints make a preempted pod resume from its latest
-step.  Options of the JAX workload that this package does not run yet
-(the tp, fsdp, ep and pp axes among them) exit 2 with a "not yet ported"
+step.  Under ZeRO the `zero_sharding_plan: {...}` line is the JAX
+workload's.  Options of the JAX workload that this package does not run
+yet (the ep and pp axes among them) exit 2 with a "not yet ported"
 message naming the ROADMAP item; none is silently ignored.
 
 Usage: python -m tf_operator_tpu_torch.workloads.lm --steps 100 \
@@ -130,13 +133,15 @@ def main(argv=None) -> int:
         return not_ported("--sample-tokens (KV-cache decode)", "A.12")
     zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
             is None else args.zero_shard_weight_update)
-    layout, rc = plan_mesh(ctx, zero)
+    layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
-    dp, sp = layout.shape.get("dp", 1), layout.shape.get("sp", 1)
-    if args.batch % dp or (args.batch // dp) % args.grad_accum:
-        print(f"--batch {args.batch} must split over dp={dp} into rows that "
-              f"--grad-accum {args.grad_accum} divides", flush=True)
+    from .runner import split_batch
+
+    sp, tp = layout.shape.get("sp", 1), layout.shape.get("tp", 1)
+    problem = split_batch(args.batch, layout, args.grad_accum)
+    if problem:
+        print(problem, flush=True)
         return 2
     if args.seq_len % sp:
         print(f"--seq-len {args.seq_len} must divide by sp={sp}", flush=True)
@@ -155,23 +160,41 @@ def main(argv=None) -> int:
               "(the gpt arch uses learned positions, not RoPE)", flush=True)
         return 2
     if args.arch == "llama":
-        # no tp axis yet (it exits 2 above), so no tp constraint on the
-        # KV head count
         if args.kv_heads:
             kv = args.kv_heads
+            # honored or rejected, never silently changed; the kv % tp
+            # constraint binds only when the heads shard at all (heads %
+            # tp == 0): otherwise the projections replicate
             problem = None
             if kv <= 0:
                 problem = "must be positive"
             elif heads % kv:
                 problem = f"must divide num_heads {heads}"
+            elif heads % tp == 0 and kv % tp:
+                problem = f"must be divisible by tp={tp}"
             if problem:
                 print(f"--kv-heads {kv} {problem}", flush=True)
                 return 2
-        else:
-            # derived default: largest kv <= heads//3 that divides heads
+            if heads % tp:
+                print(f"warning: num_heads {heads} not divisible by tp={tp}; "
+                      f"attention projections will replicate", flush=True)
+        elif heads % tp:
+            # the heads do not shard over tp (the projections replicate),
+            # so kv % tp is moot: a divisor of heads near heads // 3
             kv = max(1, heads // 3)
-            while kv > 1 and heads % kv:
+            while heads % kv:
                 kv -= 1
+            print(f"warning: num_heads {heads} not divisible by tp={tp}; "
+                  f"attention projections will replicate", flush=True)
+        else:
+            # derived default: largest kv <= heads // 3 that divides heads
+            # and shards over the tp axis
+            kv = max(1, heads // 3)
+            while kv > 1 and (heads % kv or kv % tp):
+                kv -= 1
+            if heads % kv or kv % tp:
+                # tp divides heads here, so kv = tp satisfies both
+                kv = tp
         extra = dict(num_kv_heads=kv, use_rope=True, norm="rmsnorm",
                      mlp="swiglu", rope_scaling=args.rope_scaling,
                      rope_factor=args.rope_factor)
@@ -205,24 +228,29 @@ def main(argv=None) -> int:
     from .runner import process_group
 
     with process_group(ctx, device, layout) as mesh:
-        return _train(args, cfg, tx, device, mesh)
+        return _train(args, cfg, tx, device, mesh, layout, zero)
 
 
-def _train(args, cfg, tx, device, mesh) -> int:
+def _train(args, cfg, tx, device, mesh, layout, zero) -> int:
     """Build and train the model: over `mesh` (laid over the process
-    group) when there is one (the distributed step, this rank's shard of
-    each global batch), else on one device.  Only rank 0 prints."""
+    group) when there is one (laid out on its axes; the distributed step,
+    this rank's shard of each global batch), else on one device.  Only
+    rank 0 prints, but every rank prints the ZeRO plan line, as every
+    process of the JAX workload does."""
     import dataclasses
 
     from ..models.transformer import TransformerLM
     from ..train.data import prefetch_to_device, synthetic_tokens
-    from ..train.state import create_train_state
     from ..train.step import lm_loss_fn, make_train_step, shard_batch
-    from .runner import ProfileCapture, StepTimer, say
+    from .runner import (ProfileCapture, StepTimer, say,
+                         train_state_on_mesh)
 
     if mesh is not None:
         cfg = dataclasses.replace(cfg, mesh=mesh)
-    state = create_train_state(TransformerLM(cfg), tx, seed=0, device=device)
+    state = train_state_on_mesh(TransformerLM(cfg), tx, device, mesh, layout,
+                                zero)
+    if state is None:
+        return 2
     mgr = None
     if args.checkpoint_dir:
         from ..train.checkpoint import CheckpointManager
@@ -238,7 +266,7 @@ def _train(args, cfg, tx, device, mesh) -> int:
     # every rank draws the same global stream and keeps its shard
     batches = synthetic_tokens(args.batch, args.seq_len + 1, args.vocab)
     if mesh is not None:
-        batches = (shard_batch(b, mesh) for b in batches)
+        batches = (shard_batch(b, mesh, args.grad_accum) for b in batches)
     data = prefetch_to_device(batches, device)
 
     start = state.step

@@ -10,14 +10,16 @@ and cast to bf16 there (round to nearest even, the values the reference's
 host-side cast gives).
 
 Sync data parallelism: with several processes the batch is split over the
-mesh's dp axis (every rank draws the global stream and keeps its rows; the
-native loader's threads hand batches over in no fixed order, so, as in the
-reference, the ranks' rows need not come from one global batch), the
-gradients are summed over the ranks, and BatchNorm's batch statistics are
-those of the global batch (its sums all-reduced over dp), as the JAX step's
-one jit over the globally sharded batch computes them.  Other mesh axes,
-and ZeRO weight-update sharding over dp > 1, exit 2 naming their ROADMAP
-item.
+mesh's data axes, dp and fsdp (every rank draws the global stream and keeps
+its rows; the native loader's threads hand batches over in no fixed order,
+so, as in the reference, the ranks' rows need not come from one global
+batch), the gradients are summed over the ranks, and BatchNorm's batch
+statistics are those of the global batch (its sums all-reduced over the
+data ranks), as the JAX step's one jit over the globally sharded batch
+computes them.  fsdp shards the parameters (FSDP2), and ZeRO
+weight-update sharding (the spec knob's env) the momentum and the update
+over dp, printing the JAX workload's plan line.  tp and sp exit 2 naming
+their ROADMAP item.
 
 Usage: python -m tf_operator_tpu_torch.workloads.resnet --steps 100 --batch 256
 Set TPUJOB_FORCE_PLATFORM=cpu to run on the CPU; otherwise a CUDA device
@@ -28,10 +30,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .runner import UNPORTED_AXES
+from .runner import UNPORTED_CLASSIFY_AXES
 
 # sp would replicate the batch; the JAX workload gives it no meaning either
-UNPORTED = UNPORTED_AXES + (("sp", "A.9"),)
+UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.9"),)
 
 
 def main(argv=None) -> int:
@@ -45,7 +47,8 @@ def main(argv=None) -> int:
                         choices=(18, 34, 50, 101, 152))
     parser.add_argument("--log-every", type=int, default=10)
     from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, process_group)
+                         apply_forced_platform, plan_mesh, process_group,
+                         split_batch)
 
     add_profile_args(parser)
     args = parser.parse_args(argv)
@@ -59,34 +62,45 @@ def main(argv=None) -> int:
     ctx = WorkloadContext.from_env()
     print(f"resnet workload: role={ctx.replica_type} index={ctx.replica_index}",
           flush=True)
-    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    layout, rc = plan_mesh(ctx, UNPORTED)
     if layout is None:
         return rc
-    dp = layout.shape.get("dp", 1)
-    if args.batch % dp:
-        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+    problem = split_batch(args.batch, layout)
+    if problem:
+        print(problem, flush=True)
         return 2
     with process_group(ctx, device, layout) as mesh:
-        return _train(args, device, mesh)
+        return _train(args, device, mesh, layout,
+                      ctx.zero_shard_weight_update)
 
 
-def _train(args, device, mesh) -> int:
+def _train(args, device, mesh, layout, zero) -> int:
+    import numpy as np
     import torch
 
     from ..models import resnet as resnet_lib
     from ..train.data import prefetch_to_device
     from ..train.native_data import images_or_fallback
     from ..train.optim import sgd
-    from ..train.state import create_train_state
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say
+    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
 
-    group = mesh.group("dp") if mesh is not None and \
-        mesh.shape.get("dp", 1) > 1 else None
+    from ..parallel.mesh import data_axes
+
+    # BatchNorm's sums over every data rank (dp and fsdp)
+    group = None
+    if mesh is not None and int(np.prod(
+            [mesh.shape[a] for a in data_axes(mesh)], initial=1)) > 1:
+        group = mesh.group_over(data_axes(mesh))
+        if group is None:
+            group = torch.distributed.group.WORLD
     model = getattr(resnet_lib, f"ResNet{args.depth}")(
         num_classes=args.num_classes, dtype=torch.bfloat16, bn_group=group)
-    state = create_train_state(model, sgd(args.lr), seed=0, device=device)
+    state = train_state_on_mesh(model, sgd(args.lr), device, mesh, layout,
+                                zero)
+    if state is None:
+        return 2
     step = make_train_step(classification_loss_fn(model), mesh=mesh)
 
     raw = images_or_fallback(args.batch, args.image_size, args.num_classes)

@@ -215,8 +215,9 @@ class WorkloadContext:
 
 
 # mesh axes this package does not run yet, and the ROADMAP item for each
-UNPORTED_AXES = (("tp", "A.8"), ("fsdp", "A.7"), ("ep", "A.13"),
-                 ("pp", "A.13"))
+UNPORTED_AXES = (("ep", "A.13"), ("pp", "A.13"))
+# the classification workloads: tensor parallelism runs the LM only
+UNPORTED_CLASSIFY_AXES = UNPORTED_AXES + (("tp", "A.18"),)
 
 
 def not_ported(what: str, item: str) -> int:
@@ -224,12 +225,11 @@ def not_ported(what: str, item: str) -> int:
     return 2
 
 
-def plan_mesh(ctx: WorkloadContext, zero: bool,
+def plan_mesh(ctx: WorkloadContext,
               unported=UNPORTED_AXES) -> Tuple[Optional[object], int]:
     """(the mesh layout, 0), or (None, 2) after printing why the job cannot
-    run: a mesh that does not fit the processes, an axis this package does
-    not run yet, or ZeRO weight-update sharding over dp > 1.  ZeRO over
-    dp 1 runs dense, as the reference says."""
+    run: a mesh that does not fit the processes, or an axis this package
+    does not run yet."""
     try:
         layout = ctx.mesh_layout()
     except ValueError as e:
@@ -239,13 +239,58 @@ def plan_mesh(ctx: WorkloadContext, zero: bool,
         if layout.shape.get(axis, 1) > 1:
             return None, not_ported(
                 f"the {axis} mesh axis ({axis}={layout.shape[axis]})", item)
-    if zero and layout.shape.get("dp", 1) > 1:
-        return None, not_ported("--zero-shard-weight-update over dp > 1",
-                                "A.8")
-    if zero:
+    return layout, 0
+
+
+def split_batch(batch: int, layout, grad_accum: int = 1) -> Optional[str]:
+    """Why `batch` rows do not split over the layout's data axes (dp,
+    fsdp) into rows that grad_accum divides, or None when they do."""
+    dp, fsdp = layout.shape.get("dp", 1), layout.shape.get("fsdp", 1)
+    over = f"dp={dp}" + (f" x fsdp={fsdp}" if "fsdp" in layout.shape
+                         else "")
+    if batch % (dp * fsdp) or (batch // (dp * fsdp)) % grad_accum:
+        tail = (f" into rows that --grad-accum {grad_accum} divides"
+                if grad_accum > 1 else "")
+        return f"--batch {batch} must split over {over}{tail}"
+    return None
+
+
+def zero_plan_for_workload(model, layout, enabled: bool):
+    """The ZeRO weight-update sharding plan (train/zero.py) when `enabled`
+    (the spec knob, injected as TPUJOB_ZERO_SHARD_WEIGHT_UPDATE, or the
+    flag) and the layout has a dp axis larger than 1; else None.  Prints
+    the plan as one `zero_sharding_plan: {...}` line, byte for byte the JAX
+    workload's for the same model and mesh (the log line AMP tooling
+    lifts), or that the dp axis of size 1 runs dense.  Shapes come from the
+    model's flax map, so no weights are needed."""
+    if not enabled:
+        return None
+    from ..train.zero import plan_for_model
+
+    if layout.shape.get("dp", 1) <= 1:
         print("zero-shard-weight-update: dp axis size is 1, running dense",
               flush=True)
-    return layout, 0
+        return None
+    plan = plan_for_model(model, layout)
+    print(f"zero_sharding_plan: {plan.to_json()}", flush=True)
+    return plan
+
+
+def train_state_on_mesh(model, tx, device, mesh, layout, zero: bool):
+    """The train state of `model` from seed 0 on `device`, laid out on
+    `mesh` (over the process group, or None for one process), with the ZeRO
+    plan when `zero` asks for it (its line printed on every rank, as every
+    JAX process prints it); None after printing why a layout cannot hold
+    the model (a caller exits 2)."""
+    from ..train.state import create_train_state
+
+    plan = zero_plan_for_workload(model, layout, zero)
+    try:
+        return create_train_state(model, tx, seed=0, device=device,
+                                  mesh=mesh, zero_plan=plan)
+    except ValueError as e:
+        print(f"invalid sharding: {e}", flush=True)
+        return None
 
 
 @contextlib.contextmanager

@@ -9,9 +9,10 @@ stream is the reference's: `np.random.RandomState(replica_index)` Gaussian
 images in f32 drawn on the host, B x H x W x 3 normals a step.  Attention
 runs non-causal through the flash kernels at T = patches + 1.
 
-Data parallel over the mesh's dp axis (each rank keeps its rows of the
-batch it draws); other mesh axes, and ZeRO over dp > 1, exit 2 naming
-their ROADMAP item.
+Data parallel over the mesh's dp and fsdp axes (each rank keeps its rows
+of the batch it draws), the parameters fully sharded over fsdp and, with
+the ZeRO knob, the moments and the update over dp; tp and sp exit 2
+naming their ROADMAP item.
 
 Usage: python -m tf_operator_tpu_torch.workloads.vit --steps 100 --batch 256
 """
@@ -20,10 +21,10 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .runner import UNPORTED_AXES
+from .runner import UNPORTED_CLASSIFY_AXES
 
 # sequence parallelism over the patches (ring/Ulysses in a ViT)
-UNPORTED = UNPORTED_AXES + (("sp", "A.10"),)
+UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.10"),)
 
 
 def main(argv=None) -> int:
@@ -38,7 +39,8 @@ def main(argv=None) -> int:
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--log-every", type=int, default=10)
     from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, process_group)
+                         apply_forced_platform, plan_mesh, process_group,
+                         split_batch)
 
     add_profile_args(parser)
     args = parser.parse_args(argv)
@@ -56,27 +58,26 @@ def main(argv=None) -> int:
         print(f"--image-size {args.image_size} must divide by --patch-size "
               f"{args.patch_size}", flush=True)
         return 2
-    layout, rc = plan_mesh(ctx, ctx.zero_shard_weight_update, UNPORTED)
+    layout, rc = plan_mesh(ctx, UNPORTED)
     if layout is None:
         return rc
-    dp = layout.shape.get("dp", 1)
-    if args.batch % dp:
-        print(f"--batch {args.batch} must split over dp={dp}", flush=True)
+    problem = split_batch(args.batch, layout)
+    if problem:
+        print(problem, flush=True)
         return 2
     with process_group(ctx, device, layout) as mesh:
-        return _train(args, ctx, device, mesh)
+        return _train(args, ctx, device, mesh, layout)
 
 
-def _train(args, ctx, device, mesh) -> int:
+def _train(args, ctx, device, mesh, layout) -> int:
     import numpy as np
 
     from ..models.vit import ViT, vit_base_config
     from ..train.data import prefetch_to_device
     from ..train.optim import adamw
-    from ..train.state import create_train_state
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say
+    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
 
     patches = (args.image_size // args.patch_size) ** 2
     heads = max(1, args.d_model // 64)
@@ -85,7 +86,10 @@ def _train(args, ctx, device, mesh) -> int:
         d_ff=4 * args.d_model, max_len=patches + 1)
     model = ViT(cfg, num_classes=args.num_classes,
                 patch_size=args.patch_size, image_size=args.image_size)
-    state = create_train_state(model, adamw(args.lr), seed=0, device=device)
+    state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
+                                ctx.zero_shard_weight_update)
+    if state is None:
+        return 2
     step = make_train_step(classification_loss_fn(model), mesh=mesh)
 
     rng = np.random.RandomState(ctx.replica_index)
