@@ -70,6 +70,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            and peak memory, two profiled steps, a checkpoint saved under
            the mesh resumed by a plain run; and the ZeRO plan's optimizer
            bytes per rank for GPT-small at dp 8, computed
+  mnist    the fifth path, the small workloads: the MNIST workload
+           (`workloads.mnist.main`, BASELINE config 1) with the MLP and the
+           CNN at the JAX defaults (B 64, Adam 1e-3), 200 steps each: final
+           loss below 1.0, step time and images/s from its step time line,
+           two profiled steps (idle share); the TF32 settings in force; each
+           model's logits on the card against the same weights in f32 on
+           the CPU, with cuDNN's TF32 off (TOL_MNIST_F32) and on (TOL_LOGITS)
+  preempt  BASELINE config 5: an MNIST run with --checkpoint-dir and
+           --preempt-at-step 5 must exit 143; the state restored from that
+           checkpoint equals the saved one bit for bit; the rerun prints
+           `resumed from checkpoint step 5` and finishes
+  dist_mnist BASELINE config 2: 2 PS + 4 workers started here as processes
+           with TF_CONFIG (the PS in host memory, the four workers on the
+           card), 200 steps, once per transport (python, native): every
+           worker's final loss finite and below 1.5; worker steps/s and the
+           pull and push ms per step from the workers' logs
+  estimator chief + worker + 1 PS + evaluator as processes: DONE published
+           and at least one checkpoint evaluated
+  multislice `workloads.multislice_check` as 4 processes on the card with
+           the env the controller injects for 4 workers of a 2-host slice
+           topology (2 slices): one NCCL group (no NCCL communicator is
+           made), the fabric table gathered over gloo and checked
+  smoke    `workloads.smoke` (a bf16 1024 x 1024 matmul, checksum n^3) and
+           `workloads.allreduce_check` at one process (its early exit: NCCL
+           refuses two ranks on one card)
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -126,6 +151,12 @@ STEP_TIME = re.compile(r"^step time (\S+) ms over steps \S+, (\S+) "
 # attention path (both bf16), and of the bf16 ResNet against the f32 one:
 # max |got - ref| <= TOL_LOGITS * max |ref|
 TOL_LOGITS = 5e-2
+# the MNIST models' logits on the card against the same weights in f32 on
+# the CPU, with TF32 off for cuBLAS and cuDNN (both f32; the products
+# summed in other orders, cuDNN's algorithms included), by the rule above
+TOL_MNIST_F32 = 1e-4
+# the small workloads' processes: the seconds each may take
+PROCESS_TIMEOUT = 300
 
 
 def tolerance_ratios(got, ref, rtol: float = RTOL):
@@ -200,18 +231,25 @@ class Tee(io.TextIOBase):
         self.out.flush()
 
 
-def run_workload(name: str, argv):
-    """workloads.<name>.main(argv) with its log captured; raises unless it
-    exits 0."""
+def run_module(name: str, argv=None) -> tuple:
+    """(exit code, log) of workloads.<name>.main(argv) (main() when argv is
+    None), its log captured."""
     import importlib
 
     module = importlib.import_module(f"tf_operator_tpu_torch.workloads.{name}")
     tee = Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
-        rc = module.main(argv)
+        rc = module.main() if argv is None else module.main(argv)
+    return rc, tee.buf.getvalue()
+
+
+def run_workload(name: str, argv):
+    """workloads.<name>.main(argv) with its log captured; raises unless it
+    exits 0."""
+    rc, log = run_module(name, argv)
     if rc != 0:
         raise RuntimeError(f"{name}.main({argv}) exited {rc}")
-    return tee.buf.getvalue()
+    return log
 
 
 def run_lm(argv):
@@ -570,11 +608,11 @@ def model_flops(cfg, batch: int, seq: int) -> float:
     return 3.0 * (2 * batch * seq * matmul_params + attn)
 
 
-def logits_within(what: str, got, ref, shape) -> None:
+def logits_within(what: str, got, ref, shape, tol: float = TOL_LOGITS) -> None:
     import torch
 
     err = float((got.float() - ref.float()).abs().max())
-    limit = TOL_LOGITS * float(ref.float().abs().max())
+    limit = tol * float(ref.float().abs().max())
     print(f"{what}: shape {tuple(got.shape)} max_abs_err {err:.3e} "
           f"(tolerance {limit:.3e})", flush=True)
     if tuple(got.shape) != shape or not torch.isfinite(got).all():
@@ -1244,6 +1282,294 @@ def phase_encoder(card: str, out_dir, name: str):
                   f"attention (B 8, T {seq})", got, ref, shape)
 
 
+# ---------------------------------------------------------------------------
+# the fifth path: the small workloads
+
+
+def final_loss(log: str, pattern: str = r"^final loss (\S+)$") -> float:
+    m = re.search(pattern, log, re.M)
+    if m is None:
+        raise RuntimeError(f"no final loss line ({pattern})")
+    return float(m.group(1))
+
+
+def phase_mnist(card: str, out_dir):
+    """BASELINE config 1: the MNIST workload, MLP and CNN at the JAX
+    defaults (B 64, Adam 1e-3), 200 steps each on the card: final loss
+    below 1.0, the step time line, two profiled steps; then each model's
+    logits on the card against the same weights in f32 on the CPU."""
+    import torch
+
+    from tf_operator_tpu_torch.models.mnist import MnistCNN, MnistMLP
+    from tf_operator_tpu_torch.train.data import synthetic_mnist
+
+    print(f"TF32 in force: cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    for model in ("mlp", "cnn"):
+        log = run_workload("mnist", ["--model", model, "--steps", "200"])
+        loss = final_loss(log)
+        if not (math.isfinite(loss) and loss < 1.0):
+            raise RuntimeError(f"mnist {model}: final loss {loss} is not "
+                               "below 1.0")
+        m = STEP_TIME.search(log)
+        if m is None:
+            raise RuntimeError(f"mnist {model}: the workload printed no "
+                               "step time")
+        ms = float(m.group(1))
+        print(f"mnist {model} (B 64, 200 steps): final loss {loss}, {ms} "
+              f"ms/step, {m.group(2)} images/s [{card}]", flush=True)
+        with tempfile.TemporaryDirectory(prefix="mnist-profile-") as prof:
+            run_workload("mnist", ["--model", model, "--steps", "4",
+                                   "--profile-dir", prof, "--profile-start",
+                                   "2", "--profile-steps", "2"])
+            with open(os.path.join(prof, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        summary = device_profile(events, 2, ms)
+        print(summary, flush=True)
+        write_detail(out_dir, f"profile_mnist_{model}.txt",
+                     f"{card}\n{summary}\n")
+
+    x = torch.from_numpy(next(synthetic_mnist(64, seed=0))["x"])
+    saved = torch.backends.cudnn.allow_tf32
+    try:
+        for cls in (MnistMLP, MnistCNN):
+            ref_model = cls()
+            ref_model.reset_parameters(torch.Generator().manual_seed(0))
+            model = cls(device="cuda")
+            model.load_state_dict(ref_model.state_dict())
+            kw = {} if cls is MnistMLP else {"train": False}
+            with torch.no_grad():
+                ref = ref_model(x, **kw)
+                for tf32, tol in ((False, TOL_MNIST_F32), (True, TOL_LOGITS)):
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    got = model(x.cuda(), **kw).cpu()
+                    logits_within(
+                        f"{cls.__name__} logits, card (cudnn.allow_tf32="
+                        f"{tf32}) vs f32 on the CPU (B 64)", got, ref,
+                        (64, 10), tol)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def phase_preempt(card: str):
+    """BASELINE config 5 on the card: the MNIST run checkpoints at step 5
+    and exits 143; the state a fresh process would restore equals the saved
+    one bit for bit; the rerun resumes at step 5 and finishes."""
+    import torch
+
+    from tf_operator_tpu_torch.models.mnist import MnistMLP
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.optim import adam
+    from tf_operator_tpu_torch.train.state import (create_train_state,
+                                                   full_state)
+
+    with tempfile.TemporaryDirectory(prefix="mnist-preempt-") as ckpt:
+        argv = ["--steps", "12", "--checkpoint-dir", ckpt,
+                "--preempt-at-step", "5"]
+        rc, log = run_module("mnist", argv)
+        if rc != 143 or "preempted at step 5, checkpoint saved" not in log:
+            raise RuntimeError(f"preempt: the first life exited {rc}, "
+                               "expected 143 after its checkpoint")
+        saved = torch.load(os.path.join(ckpt, "5", "state.pt"),
+                           map_location="cpu", weights_only=True)
+        template = create_train_state(MnistMLP(), adam(1e-3), seed=1,
+                                      device=torch.device("cuda"))
+        restored = full_state(CheckpointManager(ckpt).restore(template))
+        pairs = [(restored["model"][n], t) for n, t in saved["model"].items()]
+        pairs += [(restored["optimizer"][n][k], t)
+                  for n, moments in saved["optimizer"].items()
+                  for k, t in moments.items()]
+        if restored["step"] != 5 or not all(
+                torch.equal(a.cpu(), b) for a, b in pairs):
+            raise RuntimeError("preempt: the restored state differs from "
+                               "the saved one")
+        rc, log = run_module("mnist", argv)
+        if rc != 0 or "resumed from checkpoint step 5" not in log:
+            raise RuntimeError(f"preempt: the second life exited {rc} or "
+                               "did not resume from step 5")
+        loss = final_loss(log)
+    print(f"preempt: exit 143 at step 5, {len(pairs)} saved tensors restored "
+          f"bit for bit on the card, resumed to step 12, final loss {loss} "
+          f"[{card}]", flush=True)
+
+
+class Processes:
+    """Workload processes started with their own TF_CONFIG, each writing
+    its log to a file; every one is stopped on exit.  Each gets one
+    intra-op CPU thread (OMP_NUM_THREADS=1), as each pod gets its own
+    cores: six processes share the host's cores here, and a worker's math
+    runs on the card."""
+
+    def __init__(self, tmp: str):
+        self.tmp, self.procs = tmp, {}
+
+    def start(self, key: str, module: str, argv, tf_config: dict,
+              env_extra=None):
+        env = dict(os.environ,
+                   PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                   TF_CONFIG=json.dumps(tf_config), OMP_NUM_THREADS="1")
+        for name in ("TPUJOB_FORCE_PLATFORM", "TPUJOB_PROCESS_ID",
+                     "TPUJOB_NUM_PROCESSES", "TPUJOB_COORDINATOR_ADDRESS"):
+            env.pop(name, None)
+        env.update(env_extra or {})
+        out = open(os.path.join(self.tmp, f"{key}.log"), "w")
+        self.procs[key] = (subprocess.Popen(
+            [sys.executable, "-m", f"tf_operator_tpu_torch.workloads.{module}"]
+            + list(argv), env=env, stdout=out, stderr=subprocess.STDOUT),
+            out)
+
+    def wait(self, keys) -> dict:
+        """{key: log} once each of `keys` has exited 0; raises otherwise."""
+        deadline = time.time() + PROCESS_TIMEOUT
+        logs = {}
+        for key in keys:
+            proc, out = self.procs[key]
+            try:
+                rc = proc.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            out.close()
+            with open(out.name) as f:
+                logs[key] = f.read()
+            if rc != 0:
+                raise RuntimeError(f"{key} exited {rc}:\n{logs[key][-3000:]}")
+        return logs
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for proc, out in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+
+
+def cluster_spec(**counts) -> dict:
+    return {kind: [f"127.0.0.1:{free_port()}" for _ in range(n)]
+            for kind, n in counts.items()}
+
+
+def phase_dist_mnist(card: str):
+    """BASELINE config 2: 2 PS + 4 workers as processes with TF_CONFIG (the
+    PS on the host, the four workers on the one card), 200 steps on each
+    transport; every worker's final loss finite and below 1.5; worker
+    steps/s and the pull and push ms per step from their logs."""
+    from tf_operator_tpu_torch.train import native_ps, ps
+
+    for transport in ("python", "native"):
+        cluster = cluster_spec(ps=2, worker=4)
+        argv = ["--steps", "200", "--transport", transport]
+        with tempfile.TemporaryDirectory(prefix="dist-mnist-") as tmp, \
+                Processes(tmp) as procs:
+            t0 = time.perf_counter()
+            for kind, n in (("ps", 2), ("worker", 4)):
+                for i in range(n):
+                    procs.start(f"{kind}{i}", "dist_mnist", argv,
+                                {"cluster": cluster,
+                                 "task": {"type": kind, "index": i}})
+            logs = procs.wait([f"worker{i}" for i in range(4)])
+            wall = time.perf_counter() - t0
+            client = (native_ps.NativePSClient if transport == "native"
+                      else ps.PSClient)(cluster["ps"])
+            client.shutdown_servers()
+            client.close()
+            procs.wait(["ps0", "ps1"])
+        rates, pulls, pushes = [], [], []
+        for i in range(4):
+            log = logs[f"worker{i}"]
+            loss = final_loss(
+                log, rf"^worker {i} \({transport} transport\) final loss "
+                r"(\S+)$")
+            if not (math.isfinite(loss) and loss < 1.5):
+                raise RuntimeError(f"dist_mnist {transport}: worker {i} "
+                                   f"final loss {loss}")
+            m = STEP_TIME.search(log)
+            io = re.search(rf"^worker {i} pull (\S+) ms \+ push (\S+) ms",
+                           log, re.M)
+            if m is None or io is None:
+                raise RuntimeError(f"dist_mnist: worker {i} printed no "
+                                   "timing lines")
+            rates.append(1e3 / float(m.group(1)))
+            pulls.append(float(io.group(1)))
+            pushes.append(float(io.group(2)))
+        print(f"dist_mnist {transport} (2 PS + 4 workers, B 64, 200 steps): "
+              f"worker steps/s {[round(r, 2) for r in rates]}, pull ms/step "
+              f"{pulls}, push ms/step {pushes}, job wall {wall:.1f} s incl. "
+              f"process start [{card}]", flush=True)
+
+
+def phase_estimator(card: str):
+    """The estimator's train-and-evaluate: chief + worker + 1 PS +
+    evaluator as processes; the chief publishes DONE and the evaluator
+    evaluates at least one of its checkpoints."""
+    cluster = cluster_spec(chief=1, worker=1, ps=1)
+    with tempfile.TemporaryDirectory(prefix="estimator-") as tmp, \
+            Processes(tmp) as procs:
+        model_dir = os.path.join(tmp, "model")
+        argv = ["--steps", "200", "--model-dir", model_dir]
+        for kind in ("ps", "evaluator", "worker", "chief"):
+            procs.start(kind, "estimator", argv,
+                        {"cluster": cluster,
+                         "task": {"type": kind, "index": 0}})
+        logs = procs.wait(["chief", "worker", "ps", "evaluator"])
+        done = os.path.exists(os.path.join(model_dir, "DONE"))
+    evals = re.findall(r"^eval step=(\d+) loss=(\S+)$", logs["evaluator"],
+                       re.M)
+    if not done or "chief: published DONE" not in logs["chief"] or \
+            not evals or "evaluator done" not in logs["evaluator"]:
+        raise RuntimeError("estimator: no DONE, or the evaluator saw no "
+                           "checkpoint")
+    print(f"estimator: DONE published; evaluator saw {len(evals)} "
+          f"checkpoint(s), last step {evals[-1][0]} loss {evals[-1][1]} "
+          f"[{card}]", flush=True)
+
+
+def phase_multislice(card: str):
+    """multislice_check as the controller launches it for 4 workers of a
+    2x4 (2-host) slice topology: 4 processes on the one card with the
+    injected env (process ids, the coordinator, the MEGASCALE document: 2
+    slices, slice = index // 2); they join one NCCL group, gather the
+    fabric table over gloo and check it."""
+    cluster = cluster_spec(worker=4)
+    coordinator = f"127.0.0.1:{free_port()}"
+    with tempfile.TemporaryDirectory(prefix="multislice-") as tmp, \
+            Processes(tmp) as procs:
+        for i in range(4):
+            procs.start(f"worker{i}", "multislice_check", [],
+                        {"cluster": cluster,
+                         "task": {"type": "worker", "index": i}},
+                        {"TPUJOB_PROCESS_ID": str(i),
+                         "TPUJOB_NUM_PROCESSES": "4",
+                         "TPUJOB_COORDINATOR_ADDRESS": coordinator,
+                         "TPUJOB_SLICE_TOPOLOGY": "2x4",
+                         "MEGASCALE_COORDINATOR_ADDRESS":
+                             cluster["worker"][0],
+                         "MEGASCALE_NUM_SLICES": "2",
+                         "MEGASCALE_SLICE_ID": str(i // 2)})
+        logs = procs.wait([f"worker{i}" for i in range(4)])
+    table = "fabric table: [[0, 0], [1, 0], [2, 1], [3, 1]]"
+    if not all(table in log and "multislice_check OK" in log
+               for log in logs.values()):
+        raise RuntimeError("multislice: a process saw another table")
+    print(f"multislice: 4 processes on one card, one NCCL group, {table} "
+          f"checked by every process [{card}]", flush=True)
+
+
+def phase_smoke(card: str):
+    """workloads.smoke (a bf16 1024 x 1024 matmul) and allreduce_check
+    (one process: the JAX workload's early exit) on the card."""
+    log = run_workload("smoke", [])
+    if "smoke matmul on cuda" not in log:
+        raise RuntimeError("smoke: the matmul did not run on the card")
+    rc, log2 = run_module("allreduce_check")
+    if rc != 0 or "single process; nothing to verify" not in log2:
+        raise RuntimeError(f"allreduce_check exited {rc}")
+    print(f"smoke: {log.strip().splitlines()[-1]} [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
@@ -1295,6 +1621,12 @@ def main(argv=None) -> int:
     phase_encoder(card, args.out_dir, "vit")
     phase_encoder(card, args.out_dir, "bert")
     phase_shard(card, args.out_dir)
+    phase_mnist(card, args.out_dir)
+    phase_preempt(card)
+    phase_dist_mnist(card)
+    phase_estimator(card)
+    phase_multislice(card)
+    phase_smoke(card)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -2,6 +2,7 @@
 run as a pod would run it, on the CPU at a tiny size, and the port's import
 hygiene: the port never imports JAX or the JAX package.
 """
+import ast
 import json
 import os
 import re
@@ -256,9 +257,13 @@ def test_profile_capture_writes_a_trace(tmp_path, capsys):
     assert "never reached" in capsys.readouterr().out
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu")
+
+
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke.py, import without pulling
-    in jax/flax/optax/orbax or anything of tf_operator_tpu."""
+    in jax/flax/optax/orbax or anything of tf_operator_tpu, and no
+    `import` or `from` statement in their files names them."""
     code = """
 import importlib, pkgutil, sys
 import tf_operator_tpu_torch as pkg
@@ -279,6 +284,23 @@ assert not bad, bad
     assert proc.returncode == 0, proc.stdout + proc.stderr
     # every module, the parallel package's four among them
     assert int(proc.stdout.split()[0]) >= 22
+    # and no file imports them anywhere, a function body included (the
+    # workloads import their frameworks inside main())
+    files = sorted((REPO / "tf_operator_tpu_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
+                    for n in names if n.split(".")[0] in FORBIDDEN]
+    assert len(files) >= 22
+    assert not bad, bad
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

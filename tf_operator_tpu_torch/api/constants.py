@@ -24,3 +24,11 @@ ENV_ELASTIC_GENERATION = "TPUJOB_ELASTIC_GENERATION"
 # Test/user override of the device (never injected): "cpu" runs the port on
 # the CPU with the kernels' plain versions.
 ENV_FORCE_PLATFORM = "TPUJOB_FORCE_PLATFORM"
+# Multislice (DCN) document the controller injects into a worker group that
+# spans several slices (controller/topology.py:_add_multislice_env).
+ENV_MEGASCALE_COORDINATOR = "MEGASCALE_COORDINATOR_ADDRESS"
+ENV_MEGASCALE_NUM_SLICES = "MEGASCALE_NUM_SLICES"
+ENV_MEGASCALE_SLICE_ID = "MEGASCALE_SLICE_ID"
+# User default of the parameter-server transport, "python" or "native"
+# (never injected).
+ENV_PS_TRANSPORT = "TPUJOB_PS_TRANSPORT"

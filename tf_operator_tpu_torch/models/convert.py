@@ -1,6 +1,7 @@
 """Carry model weights between the flax layout and this package's:
-TransformerLM, ViT and BertEncoder parameters, and ResNet's parameters with
-its BatchNorm `batch_stats`.
+TransformerLM, ViT and BertEncoder parameters, ResNet's parameters with
+its BatchNorm `batch_stats`, and the MNIST models' (`mnist_from_flax`,
+`mnist_to_flax`: the parameter server's wire carries the flax ones).
 
 flax keeps `DenseGeneral` kernels per head — query/key/value
 (d_model, heads, head_dim), out (heads, head_dim, d_model) — and `Dense`
@@ -442,3 +443,35 @@ def flax_param_map(model) -> List[FlaxParam]:
     else:
         raise TypeError(f"no flax map for {type(model).__name__}")
     return sorted(out, key=lambda e: e.path)
+
+
+def mnist_from_flax(params) -> Dict[str, torch.Tensor]:
+    """flax MnistMLP / MnistCNN params ({"Dense_0": {"kernel", "bias"},
+    "Conv_0": ...}) -> state_dict of `models.mnist` (`dense_0.weight`, ...).
+    Dense kernels go from flax's [in, out] to [out, in], conv kernels from
+    HWIO to OIHW."""
+    sd = {}
+    for layer, leaves in params.items():
+        kind, index = layer.split("_")
+        kernel = np.asarray(leaves["kernel"])
+        weight = kernel.T if kind == "Dense" else kernel.transpose(3, 2, 0, 1)
+        sd[f"{kind.lower()}_{index}.weight"] = _t(weight)
+        sd[f"{kind.lower()}_{index}.bias"] = _t(leaves["bias"])
+    return sd
+
+
+def mnist_to_flax(tensors) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of `mnist_from_flax` for any {port name: tensor} of the
+    MNIST models (the state_dict, or the parameters' gradients): f32 numpy
+    arrays under the flax names and layouts."""
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    for name, t in tensors.items():
+        layer, field = name.split(".")
+        kind, index = layer.split("_")
+        a = np.array(t.detach().cpu(), dtype=np.float32)
+        if field == "weight":
+            a = np.ascontiguousarray(
+                a.T if kind == "dense" else a.transpose(2, 3, 1, 0))
+        out.setdefault(f"{kind.capitalize()}_{index}", {})[
+            "kernel" if field == "weight" else "bias"] = a
+    return out

@@ -1,9 +1,10 @@
-"""Data pipeline: synthetic, learnable token and image streams and the copy
-to the device.
+"""Data pipeline: synthetic, learnable digit, token and image streams and
+the copy to the device.
 
-`synthetic_tokens` and `synthetic_images` are copies of the generators in
-`tf_operator_tpu/train/data.py` (the port imports nothing of the JAX
-package): the same seed yields the same stream, bit for bit.
+`synthetic_mnist`, `synthetic_tokens` and `synthetic_images` are copies of
+the generators in `tf_operator_tpu/train/data.py` (the port imports
+nothing of the JAX package): the same seed yields the same stream, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -12,6 +13,20 @@ from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+
+def synthetic_mnist(batch_size: int,
+                    seed: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """28x28 'digits': class-dependent stripe/checker patterns + noise."""
+    rng = np.random.RandomState(seed)
+    ys, xs = np.mgrid[0:28, 0:28]
+    templates = np.stack(
+        [np.sin(xs * (c + 1) * 0.35 + ys * (9 - c) * 0.15) for c in range(10)]
+    ).astype(np.float32)
+    while True:
+        labels = rng.randint(0, 10, size=batch_size)
+        images = templates[labels] + rng.randn(batch_size, 28, 28).astype(np.float32) * 0.3
+        yield {"x": images.reshape(batch_size, 784), "label": labels.astype(np.int32)}
 
 
 def synthetic_tokens(batch_size: int, seq_len: int, vocab_size: int = 32000,

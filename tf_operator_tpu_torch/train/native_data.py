@@ -3,10 +3,8 @@
 The port's own binding of `native/dataloader.cpp` (a C++ source outside
 both packages; `tf_operator_tpu/train/native_data.py` is the JAX package's
 binding).  The library is built at first use with g++ into `ops/_build/`
-(git-ignored), under a name keyed by a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.  The
-loader generates class-conditional images on C++ threads into a bounded
-queue; its values follow `train/data.synthetic_images`' recipe but are not
+(`train/native_build.py`).  The loader generates class-conditional images
+on C++ threads into a bounded queue; its values follow `train/data.synthetic_images`' recipe but are not
 the same stream (uniform noise, its own generator).
 
 `images_or_fallback` keeps the reference's contract: the native loader
@@ -16,18 +14,16 @@ source it took.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-SOURCE = Path(__file__).resolve().parents[2] / "native" / "dataloader.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "ops" / "_build"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+from . import native_build
+
+SOURCE = native_build.NATIVE_DIR / "dataloader.cpp"
+_STEM = "tpujob_data"
 
 _KIND_IMAGES = 0
 # the reference binding's settings for images
@@ -41,23 +37,7 @@ _build_failed = False  # guarded-by: _lock
 
 def target() -> Path:
     """The library's path for the source now in the checkout."""
-    digest = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    digest.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libtpujob_data-{digest.hexdigest()[:16]}.so"
-
-
-def _build(out: Path) -> bool:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}")
-    try:
-        subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE),
-                        "-lpthread"], check=True, capture_output=True,
-                       timeout=120)
-        os.replace(tmp, out)
-        return True
-    except (OSError, subprocess.SubprocessError):
-        tmp.unlink(missing_ok=True)
-        return False
+    return native_build.target(SOURCE, _STEM)
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -65,15 +45,7 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _build_failed:
             return _lib
-        out = target() if SOURCE.exists() else None
-        lib = None
-        if out is not None and (out.exists() or _build(out)):
-            try:
-                lib = ctypes.CDLL(str(out))
-            except OSError:
-                # a library built elsewhere (another libc): build it here
-                if _build(out):
-                    lib = ctypes.CDLL(str(out))
+        lib = native_build.load(SOURCE, _STEM)
         if lib is None:
             _build_failed = True
             return None

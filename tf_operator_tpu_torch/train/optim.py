@@ -1,7 +1,7 @@
 """Optimizer recipes: the LM's AdamW (linear warmup + cosine decay,
-global-norm gradient clipping, weight decay on matrices only), and the
+global-norm gradient clipping, weight decay on matrices only), the
 classification workloads' `optax.sgd` with momentum and unmasked
-`optax.adamw`.
+`optax.adamw`, and MNIST's `optax.adam`.
 
 A recipe is the optax GradientTransformation's counterpart: `init(model)`
 builds the torch optimizer over the model's parameters (or over `named`
@@ -166,6 +166,14 @@ def lm_optimizer(peak_lr: float, *, schedule: str = "constant",
                         warmup_steps=warmup_steps, total_steps=total_steps)
     return AdamW(sched, b1=b1, b2=b2, weight_decay=weight_decay,
                  grad_clip=grad_clip)
+
+
+def adam(lr: float) -> AdamW:
+    """`optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8 (outside the square
+    root), a constant rate, no weight decay and no clip (the MNIST
+    workload's recipe)."""
+    return AdamW(lambda count: lr, b1=0.9, b2=0.999, eps=1e-8,
+                 weight_decay=0.0, grad_clip=0.0, masked=False)
 
 
 def adamw(lr: float) -> AdamW:

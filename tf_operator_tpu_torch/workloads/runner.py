@@ -6,7 +6,8 @@ mesh and the options this package does not run yet (exit 2 naming their
 ROADMAP item), join the job's process group and lay the one mesh over its
 ranks, time the steps, and capture a profiler trace for a window of steps.
 One process drives one GPU.  The four training workloads (lm, resnet, vit,
-bert) share these steps.
+bert) share these steps; the estimator reads TF_CONFIG as TF's RunConfig
+does (`runconfig_from_env`).
 """
 from __future__ import annotations
 
@@ -212,6 +213,87 @@ class WorkloadContext:
         world = (dist.get_world_size() if dist.is_initialized() else
                  self.num_processes if self.multi_process else 1)
         return build_mesh(self.mesh_shape or None, world)
+
+
+def runconfig_from_env(env: Optional[Dict[str, str]] = None) -> Dict[str, object]:
+    """Parse TF_CONFIG exactly as TF's TFConfigClusterResolver + RunConfig
+    would (a copy of the JAX package's `runconfig_from_env`), returning the
+    same dict shape the reference's test-server dumps from the *real*
+    RunConfig (test/test-server/test_app.py:35-44) and its E2E asserts per
+    replica (estimator_runconfig_tests.py:26-102):
+
+        task_type, task_id, cluster_spec, is_chief, master,
+        num_worker_replicas, num_ps_replicas
+
+    Semantics reproduced:
+    - master = "grpc://<own cluster_spec entry>";
+    - is_chief iff task is chief/master (or the job is non-distributed);
+    - num_worker_replicas counts chief+master+worker ("chief is also a
+      worker" — estimator_runconfig_tests.py:84);
+    - the evaluator runs outside the cluster: empty cluster_spec, empty
+      master, zero counts (estimator_runconfig_tests.py:88-96);
+    - no TF_CONFIG (single-process): local-master defaults;
+    - sparse variant (EnableDynamicWorker): the worker's view is itself +
+      all PS (tensorflow.go:64-83), so master/counts derive from that.
+    """
+    env = dict(os.environ if env is None else env)
+    raw = env.get(constants.ENV_TF_CONFIG)
+    if not raw:
+        # local mode: TF's RunConfig reports itself as the one worker
+        return {
+            "task_type": "worker", "task_id": 0, "cluster_spec": {},
+            "is_chief": True, "master": "", "num_worker_replicas": 1,
+            "num_ps_replicas": 0,
+        }
+    cfg = json.loads(raw)
+    task = cfg.get("task", {})
+    task_type = str(task.get("type", "worker"))
+    task_id = int(task.get("index", 0))
+
+    if task_type == "evaluator":
+        return {
+            "task_type": "evaluator", "task_id": task_id, "cluster_spec": {},
+            "is_chief": False, "master": "", "num_worker_replicas": 0,
+            "num_ps_replicas": 0,
+        }
+
+    if "sparseCluster" in cfg:
+        # The sparse document carries only worker/ps views by design
+        # (tensorflow.go:64-83 has exactly those two fields); a chief/master
+        # in a dynamic-worker job keeps its role bit but has no address in
+        # its own sparse view.
+        sparse = cfg["sparseCluster"]
+        workers = sparse.get("worker", {}) or {}
+        ps = list(sparse.get("ps", []) or [])
+        if task_type == "ps":
+            own = ps[0] if ps else ""
+        else:
+            own = workers.get(str(task_id), "")
+        return {
+            "task_type": task_type, "task_id": task_id,
+            "cluster_spec": {"worker": workers, "ps": ps},
+            "is_chief": task_type in ("chief", "master"),
+            "master": f"grpc://{own}" if own else "",
+            "num_worker_replicas": len(workers),
+            "num_ps_replicas": len(ps),
+        }
+
+    cluster = cfg.get("cluster", {})
+    own_list = cluster.get(task_type, [])
+    own = own_list[task_id] if task_id < len(own_list) else ""
+    return {
+        "task_type": task_type,
+        "task_id": task_id,
+        "cluster_spec": cluster,
+        "is_chief": task_type in ("chief", "master"),
+        "master": f"grpc://{own}" if own else "",
+        "num_worker_replicas": (
+            len(cluster.get("worker", []))
+            + len(cluster.get("chief", []))
+            + len(cluster.get("master", []))
+        ),
+        "num_ps_replicas": len(cluster.get("ps", [])),
+    }
 
 
 # mesh axes this package does not run yet, and the ROADMAP item for each
