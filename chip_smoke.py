@@ -95,6 +95,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   smoke    `workloads.smoke` (a bf16 1024 x 1024 matmul, checksum n^3) and
            `workloads.allreduce_check` at one process (its early exit: NCCL
            refuses two ranks on one card)
+  decode   the sixth path: `models.generate.generate` at GPT-small full
+           width from seeded weights, B 8, a 1024-token prompt, 256 greedy
+           tokens, with the bf16 cache, the int8 cache and llama (4 KV
+           heads, RoPE) with window 256 + sink 4 (a 260-slot rolling
+           cache): prefill ms, median ms per token, decode tokens/s, cache
+           bytes, peak memory, no kernel launched (the decode path is the
+           plain one, as the JAX package's); each step's logits held by
+           the model-logits rule against the training forward on the
+           kernels over the generated sequence, and the greedy tokens
+           equal to the forward's wherever its top-2 margin exceeds the
+           rule; the int8 cache fed the bf16 run's tokens agrees with its
+           greedy choices at least 0.9 of the steps; then `lm.py --steps 2
+           --sample-tokens 32` prints a 40-token sample
+  moe      `lm.py --moe-experts 8` at GPT-small defaults (top-2, capacity
+           factor 1.25, 6 MoE blocks), 11 steps: 12 launches per step of
+           each kernel, loss and load-balancing loss finite, the loss
+           falling, step ms, tokens/s, peak memory; the same over a
+           one-rank NCCL group with {"dp": 1, "ep": 1}: equal losses; two
+           profiled steps; one MoE layer on the card against its CPU f32
+           run with the card's dispatch (tokens the CPU routes otherwise
+           counted apart)
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -1570,6 +1591,311 @@ def phase_smoke(card: str):
     print(f"smoke: {log.strip().splitlines()[-1]} [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the sixth path: KV-cache decoding and mixture of experts
+
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 1024, 256
+SAMPLE_LINE = re.compile(r"^sample: (\[.*\])$", re.M)
+AUX_LINE = re.compile(r"^step (\d+) moe_aux_loss (\S+)$", re.M)
+
+
+def decode_steps(model, prompt, steps: int, forced=None):
+    """Greedy decoding as `models.generate.generate` runs it (one prefill,
+    then T=1 calls on the same cache), each call timed by CUDA events:
+    (tokens [B, steps], logits [B, steps, V] f32, prefill ms, T=1 step ms
+    list).  With `forced` [B, steps] the cache is fed those tokens in
+    place of its own picks (the same history for two caches)."""
+    import torch
+
+    cache = model.init_cache(prompt.shape[0])
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    tokens, logits = [], []
+    with torch.no_grad():
+        marks[0].record()
+        out = model(prompt, cache=cache)[:, -1]
+        for i in range(steps):
+            marks[i + 1].record()
+            logits.append(out.float())
+            tokens.append(out.argmax(-1))
+            if i + 1 < steps:
+                feed = tokens[-1] if forced is None else forced[:, i]
+                out = model(feed[:, None], cache=cache)[:, -1]
+    torch.cuda.synchronize()
+    times = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    return (torch.stack(tokens, 1), torch.stack(logits, 1), times[0],
+            times[1:])
+
+
+def decode_case(card: str, name: str, model, prompt, history=None) -> dict:
+    """One config's decoding at full width: `generate` as a user calls it
+    (no kernel launched: the decode path is the plain one, as the JAX
+    package's), its peak memory and wall time; the step loop's prefill ms,
+    median ms per token and tokens/s; its tokens equal `generate`'s; and
+    its logits held by the model-logits rule against the training forward
+    (the kernels) over the generated sequence, its tokens equal to the
+    forward's wherever the forward's top-2 margin exceeds the rule.  With
+    `history` (another cache's case on the same weights) the step loop is
+    fed that case's tokens and held against that case's forward."""
+    import torch
+
+    from tf_operator_tpu_torch.models.generate import generate
+    from tf_operator_tpu_torch.ops import attention as A
+
+    b, p = prompt.shape
+    cache = model.init_cache(b)
+    cache_bytes = sum(t.nbytes for layer in cache.layers
+                      for t in (layer.cached_key, layer.cached_value,
+                                layer.cached_key_scale,
+                                layer.cached_value_scale, layer.cached_pos1)
+                      if t is not None)
+    slots = cache.layers[0].cached_key.shape[2]
+    del cache
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    t0 = time.perf_counter()
+    out = generate(model, prompt, DECODE_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = A.launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()):
+        raise RuntimeError(f"{name}: decoding launched kernels {launches}")
+    tokens, logits, prefill_ms, step_ms = decode_steps(
+        model, prompt, DECODE_NEW,
+        forced=None if history is None else history["tokens"])
+    if history is None and not torch.equal(tokens, out[:, p:]):
+        raise RuntimeError(f"{name}: the step loop's tokens differ from "
+                           "generate's")
+    step_ms.sort()
+    median = step_ms[len(step_ms) // 2]
+    rate = b * len(step_ms) / (sum(step_ms) / 1e3)
+    print(f"decode {name}: B {b}, prompt {p}, {DECODE_NEW} greedy tokens: "
+          f"prefill {prefill_ms:.3f} ms, median {median:.3f} ms per token, "
+          f"{rate:.1f} decode tokens/s; generate() wall {wall:.3f} s; cache "
+          f"{cache_bytes} bytes ({slots} slots a layer); peak memory "
+          f"{peak / 2**30:.2f} GiB; kernel launches {launches} [{card}]",
+          flush=True)
+    ref = teacher_forced(model, out, p) if history is None else \
+        history["ref"]
+    check_decode_logits(f"decode {name}", logits, ref, tokens)
+    return {"tokens": tokens, "free": out[:, p:], "ref": ref,
+            "cache_bytes": cache_bytes}
+
+
+def teacher_forced(model, seq, prompt_len: int):
+    """The training forward's (the kernels') f32 logits over `seq` at the
+    positions that predict its generated tokens: [B, N, V]."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    A.reset_launches()
+    with torch.no_grad():
+        logits = model(seq)[:, prompt_len - 1:-1].float()
+    if not all(A.launches()[k] == 0 for k in ("flash_backward_dq",
+                                              "flash_backward_dkv")) or \
+            A.launches()["flash_forward"] != model.cfg.num_layers:
+        raise RuntimeError(f"teacher-forced forward: launches "
+                           f"{A.launches()}")
+    return logits
+
+
+def check_decode_logits(what: str, got, ref, tokens) -> None:
+    """The model-logits rule on every step's logits, and each greedy token
+    equal to the forward's argmax wherever the forward's top-2 margin
+    exceeds the rule."""
+    import torch
+
+    limit = TOL_LOGITS * float(ref.abs().max())
+    logits_within(f"{what}: step logits vs the training forward", got, ref,
+                  tuple(ref.shape))
+    top2 = torch.topk(ref, 2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > limit
+    wrong = int(((tokens != ref.argmax(-1)) & clear).sum())
+    print(f"{what}: {int(clear.sum())} of {clear.numel()} steps with a "
+          f"top-2 margin above {limit:.3e}; tokens off the forward's there: "
+          f"{wrong}", flush=True)
+    if wrong:
+        raise RuntimeError(f"{what}: {wrong} tokens differ where the "
+                           "forward's choice is clear")
+
+
+def phase_decode(card: str):
+    """The sixth path's decoding at GPT-small full width (12 x 768, vocab
+    32000, max_len 2048) from seeded weights: B 8, a 1024-token prompt,
+    256 greedy tokens with the model-dtype cache, then with the int8
+    cache (fed the model-dtype run's tokens: per-step greedy agreement
+    at least 0.9, JAX's bar), then llama (4 KV heads, RoPE) with window
+    256 + sink 4 (a rolling cache of 260 slots) against the windowed
+    kernels; last the workload's --sample-tokens."""
+    import dataclasses
+
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (
+        TransformerLM, gpt_small_config, llama_style_config)
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(21)
+    cfg = gpt_small_config()
+    model = TransformerLM(cfg)
+    model.reset_parameters(torch.Generator().manual_seed(20))
+    model.to(dev)
+    prompt = torch.randint(0, cfg.vocab_size, (DECODE_BATCH, DECODE_PROMPT),
+                           generator=gen).to(dev)
+    base = decode_case(card, "gpt-small bf16 cache", model, prompt)
+    want = 12 * 2 * DECODE_BATCH * 12 * cfg.max_len * 64 * 2
+    if base["cache_bytes"] != want:
+        raise RuntimeError(f"cache {base['cache_bytes']} bytes, expected "
+                           f"{want}")
+
+    quant = TransformerLM(dataclasses.replace(cfg, kv_cache_dtype="int8"))
+    quant.load_state_dict(model.state_dict())
+    quant.to(dev)
+    q = decode_case(card, "gpt-small int8 cache (steps fed the bf16 "
+                    "run's tokens)", quant, prompt, history=base)
+    agree = float((q["tokens"] == base["tokens"]).float().mean())
+    free = float((q["free"] == base["tokens"]).float().mean())
+    print(f"decode int8 cache: {q['cache_bytes']} bytes against "
+          f"{base['cache_bytes']}; greedy agreement with the bf16 cache "
+          f"{agree:.4f} step by step on the same history, {free:.4f} "
+          f"free-running (the bar: 0.9 step by step) [{card}]", flush=True)
+    if agree < 0.9:
+        raise RuntimeError(f"int8 cache agreement {agree} < 0.9")
+    del quant, model
+    torch.cuda.empty_cache()
+
+    lcfg = llama_style_config(attn_window=256, attn_sink=4)
+    llama = TransformerLM(lcfg)
+    llama.reset_parameters(torch.Generator().manual_seed(22))
+    llama.to(dev)
+    decode_case(card, "llama window 256 + sink 4", llama, prompt)
+    del llama
+    torch.cuda.empty_cache()
+
+    log = run_lm(["--steps", "2", "--sample-tokens", "32"])
+    m = SAMPLE_LINE.search(log)
+    sample = json.loads(m.group(1)) if m else []
+    if len(sample) != 40 or not all(0 <= t < cfg.vocab_size
+                                    for t in sample):
+        raise RuntimeError(f"the workload's sample line is wrong: {sample}")
+    print(f"decode: lm.py --steps 2 --sample-tokens 32 printed a sample of "
+          f"{len(sample)} tokens", flush=True)
+
+
+def phase_moe(card: str, out_dir):
+    """The sixth path's mixture of experts: `lm.py --moe-experts 8` at
+    GPT-small defaults (top-2, capacity factor 1.25, every second block:
+    6 MoE blocks), 11 steps: every kernel launched 12 x steps times, loss
+    and load-balancing loss finite, the loss falling, step time, tokens/s,
+    peak memory; the same run over a one-rank NCCL group with
+    {"dp": 1, "ep": 1} (the logits gathered over the data group, the
+    experts' collectives over ep), two of its steps profiled, with the
+    plain run's losses within 1e-5 relative; then one MoE layer on the
+    card against its CPU f32 run with the card's dispatch."""
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (TransformerLM,
+                                                          gpt_small_config)
+    from tf_operator_tpu_torch.ops import attention as A
+
+    steps, layers = 11, 12
+    argv = ["--moe-experts", "8", "--steps", str(steps)]
+    with torch.device("meta"):
+        count = sum(p.numel() for p in TransformerLM(gpt_small_config(
+            moe_num_experts=8)).parameters())
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    log = run_lm(argv)
+    counts = check_launches(layers * steps, "moe LM")
+    peak = torch.cuda.max_memory_allocated()
+    losses = step_losses(log)
+    aux = {int(i): float(v) for i, v in AUX_LINE.findall(log)}
+    values = list(losses.values()) + list(aux.values())
+    if sorted(losses) != [0, 10] or sorted(aux) != [0, 10] or \
+            not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"moe LM: losses {losses}, aux {aux}")
+    if not losses[10] < losses[0]:
+        raise RuntimeError(f"moe LM: the loss did not fall: {losses}")
+    m = STEP_TIME.search(log)
+    print(f"moe LM ({count} parameters, 8 experts, top-2, 6 MoE blocks): "
+          f"loss {losses[0]} -> {losses[10]}, moe_aux_loss {aux[0]} -> "
+          f"{aux[10]}; {m.group(1)} ms/step, {m.group(2)} tokens/s, peak "
+          f"memory {peak / 2**30:.2f} GiB; kernel launches {counts} "
+          f"[{card}]", flush=True)
+
+    mesh = json.dumps({"dp": 1, "ep": 1})
+    with one_rank_group({"TPUJOB_MESH_SHAPE": mesh}), \
+            tempfile.TemporaryDirectory(prefix="moe-profile-") as prof_dir:
+        torch.cuda.empty_cache()
+        log2 = run_lm(argv + ["--profile-dir", prof_dir, "--profile-start",
+                              "2", "--profile-steps", "2"])
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    summary = device_profile(events, 2, float(m.group(1)))
+    print(summary, flush=True)
+    write_detail(out_dir, "profile_moe.txt", f"{card}\n{summary}\n")
+    other = step_losses(log2)
+    for i, loss in losses.items():
+        if not abs(other.get(i, math.inf) - loss) <= 1e-5 * abs(loss):
+            raise RuntimeError(f"moe over {mesh}: step {i} loss "
+                               f"{other.get(i)} against {loss}")
+    m2 = STEP_TIME.search(log2)
+    print(f"moe over a one-rank group {mesh}: losses {other} equal the "
+          f"plain run's within 1e-5 relative; {m2.group(1)} ms/step with "
+          f"steps 2-3 profiled [{card}]", flush=True)
+    moe_layer_check(card)
+
+
+def moe_layer_check(card: str) -> None:
+    """One MoE layer at the LM's shapes (B 8 x T 2048 tokens, d 768, f
+    3072, 8 experts, top-2, capacity 5120), seeded: the card's bf16 output
+    against the CPU f32 function with the card's dispatch (the CPU's own
+    gates at those indices), by the model-logits rule; the tokens the CPU
+    would route otherwise are counted, not folded into the error."""
+    import torch
+
+    from tf_operator_tpu_torch.parallel.moe import (MoEMLP, Routing,
+                                                    capacity_for,
+                                                    expert_ffn, route)
+
+    gen = torch.Generator().manual_seed(23)
+    n, d, f, e, k, cf = 8 * 2048, 768, 3072, 8, 2, 1.25
+    layer = MoEMLP(d, f, e, k, cf)
+    layer.reset_parameters(gen)
+    x = torch.randn(n, d, generator=gen).to(torch.bfloat16)
+    cap = capacity_for(n, k, cf, e)
+    card_layer = MoEMLP(d, f, e, k, cf).cuda()
+    card_layer.load_state_dict(layer.state_dict())
+    xc = x.cuda()
+    with torch.no_grad():
+        r = route(card_layer.router(xc.float()), k, cap)
+        got = expert_ffn(xc, r, card_layer.wi, card_layer.wo,
+                         torch.bfloat16, 0, cap)
+        whole = card_layer(xc.view(8, 2048, d)).view(n, d)
+        layer_ms = cuda_ms(lambda: card_layer(xc.view(8, 2048, d)), 10)
+        probs = torch.softmax(layer.router(x.float()), -1)
+        mine = route(layer.router(x.float()), k, cap)
+        choice = r.choice.cpu()
+        fixed = Routing(choice, probs.gather(-1, choice.T).T, r.pos.cpu(),
+                        r.keep.cpu(), mine.aux)
+        ref = expert_ffn(x.float(), fixed, layer.wi, layer.wo,
+                         torch.float32, 0, cap)
+    if not torch.equal(got, whole):
+        raise RuntimeError("the MoE layer's forward is not route + "
+                           "expert_ffn")
+    moved = int(((mine.choice != choice) | (mine.keep != r.keep.cpu()))
+                .any(0).sum())
+    logits_within("moe layer, the card's dispatch, bf16 card vs f32 CPU",
+                  got.cpu(), ref, (n, d))
+    print(f"moe layer: {int(r.keep.sum())} of {n * k} assignments kept at "
+          f"capacity {cap}; {moved} of {n} tokens routed otherwise by the "
+          f"CPU f32 router; layer forward {layer_ms:.3f} ms [{card}]",
+          flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
@@ -1627,6 +1953,8 @@ def main(argv=None) -> int:
     phase_estimator(card)
     phase_multislice(card)
     phase_smoke(card)
+    phase_decode(card)
+    phase_moe(card, args.out_dir)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

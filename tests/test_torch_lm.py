@@ -116,10 +116,8 @@ def _multi(n, mesh):
 
 
 @pytest.mark.parametrize("args,env,message", [
-    (["--moe-experts", "2"], {}, "A.13"),
-    (["--sample-tokens", "4"], {}, "A.12"),
-    ([], _multi(2, {"ep": 2}), "A.13"),
     ([], _multi(2, {"pp": 2}), "A.13"),
+    (["--moe-experts", "2"], _multi(4, {"dp": 2, "pp": 2}), "A.13"),
 ])
 def test_unported_options_exit_2(clean_env, capsys, args, env, message):
     for name, value in env.items():

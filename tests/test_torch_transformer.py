@@ -173,14 +173,6 @@ def test_config_validation_matches_jax(kwargs, match):
         T.TransformerConfig(**kwargs)
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(decode=True), "A.12"), (dict(moe_num_experts=4), "A.13"),
-])
-def test_unported_config_fields_raise(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        T.TransformerConfig(**kwargs)
-
-
 @pytest.mark.parametrize("axes,kwargs,match", [
     ({"sp": 8}, dict(seq_parallel="ulysses", num_heads=12, d_model=96),
      "needs num_heads \\(12\\) divisible by the 'sp' axis size \\(8\\)"),

@@ -8,9 +8,9 @@ that one world, so a test file pays for its world's start once.
 
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
-A job is {"kind": "attention" | "lm" | "classify" | "shard", "cases":
-[...]}, saved with torch.save; each case's result goes into the rank's
-result file under the case's name.
+A job is {"kind": "attention" | "lm" | "classify" | "shard" | "decode",
+"cases": [...]}, saved with torch.save; each case's result goes into the
+rank's result file under the case's name.
 """
 from __future__ import annotations
 
@@ -204,11 +204,15 @@ def _lm_state(case, axes, zero):
 
 
 def shard_case(case: dict) -> dict:
-    """The LM over a mesh with tp, fsdp or ZeRO: AdamW steps on the global
-    batches, the whole parameters gathered after them, each rank's
-    parameter and moment sizes, and the specs the ranks hold.  With
-    `resume` (a second mesh) the first `resume_at` steps run on the case's
-    mesh and save a checkpoint, and the rest restore it on the second."""
+    """The LM over a mesh with tp, ep, fsdp or ZeRO: AdamW steps on the
+    global batches (with `moe_aux_weight`, the MoE load-balancing loss
+    added and its metric kept), the whole parameters gathered after them,
+    each rank's parameter and moment sizes, and the specs the ranks hold.
+    With `resume` (a second mesh) the first `resume_at` steps run on the
+    case's mesh and save a checkpoint, and the rest restore it on the
+    second.  `local_routing` routes each rank's tokens alone (a planted
+    fault: the MoE layers forget the groups that split the batch)."""
+    from tf_operator_tpu_torch.parallel.moe import MoEMLP
     from tf_operator_tpu_torch.parallel.shard import local
     from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
     from tf_operator_tpu_torch.train.state import full_state
@@ -217,8 +221,12 @@ def shard_case(case: dict) -> dict:
 
     accum = case.get("grad_accum", 1)
     mesh, state = _lm_state(case, case["mesh"], case.get("zero", False))
+    if case.get("local_routing"):
+        for module in state.model.modules():
+            if isinstance(module, MoEMLP):
+                module.token_groups = ()
     out = {"held": state.sharding.held_specs()}
-    losses = []
+    losses, aux = [], []
     for i, tokens in enumerate(case["batches"]):
         if case.get("resume") and i == case["resume_at"]:
             mgr = CheckpointManager(case["ckpt"])
@@ -232,20 +240,53 @@ def shard_case(case: dict) -> dict:
             mgr.close()
             out["restored_step"] = torch.tensor(state.step)
         step = make_train_step(
-            lm_loss_fn(state.model, loss_chunk=case.get("loss_chunk", 0)),
+            lm_loss_fn(state.model,
+                       moe_aux_weight=case.get("moe_aux_weight", 0.0),
+                       loss_chunk=case.get("loss_chunk", 0)),
             grad_accum=accum, mesh=mesh)
         state, metrics = step(state, shard_batch({"tokens": tokens}, mesh,
                                                  accum))
         losses.append(float(metrics["loss"]))
+        if "moe_aux_loss" in metrics:
+            aux.append(float(metrics["moe_aux_loss"]))
     full = full_state(state)
     out.update(
         losses=torch.tensor(losses, dtype=torch.float64),
+        aux=torch.tensor(aux, dtype=torch.float64),
         params=full["model"],
         local_params={n: torch.tensor(local(p).numel())
                       for n, p in state.model.named_parameters()},
         local_moments={n: torch.tensor(local(state.optimizer.state[t][
             "exp_avg"]).numel()) for n, t in state.sharding.opt_named()})
     return out
+
+
+def decode_case(case: dict) -> dict:
+    """Greedy (or, with `temperature` and `seed`, sampled) generation from
+    the case's whole parameters laid out on its mesh (tp: each rank's
+    heads, its KV heads in the cache, its vocab slice of the logits)."""
+    import dataclasses
+
+    from tf_operator_tpu_torch.models import transformer as T
+    from tf_operator_tpu_torch.models.generate import generate
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.parallel.shard import Sharding
+
+    mesh = build_mesh(case["mesh"], device_type="cpu")
+    cfg = dataclasses.replace(getattr(T, case["preset"])(**case["config"]),
+                              mesh=mesh)
+    model = T.TransformerLM(cfg)
+    model.load_state_dict(case["init"])
+    Sharding(model, mesh)
+    generator = None
+    if case.get("seed") is not None:
+        generator = torch.Generator().manual_seed(case["seed"])
+    tokens = generate(model, case["prompt"], case["new_tokens"],
+                      temperature=case.get("temperature", 0.0),
+                      top_k=case.get("top_k", 0), generator=generator)
+    cache = model.init_cache(case["prompt"].shape[0])
+    return {"tokens": tokens,
+            "cache_shape": torch.tensor(cache.layers[0].cached_key.shape)}
 
 
 def main(job_file, rank, world, store, out_dir) -> None:
@@ -257,7 +298,8 @@ def main(job_file, rank, world, store, out_dir) -> None:
                             rank=int(rank), world_size=int(world))
     try:
         run = {"attention": attention_case, "lm": lm_case,
-               "classify": classify_case, "shard": shard_case}[job["kind"]]
+               "classify": classify_case, "shard": shard_case,
+               "decode": decode_case}[job["kind"]]
         results = {case["name"]: run(case) for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")
     finally:

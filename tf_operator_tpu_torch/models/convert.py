@@ -1,5 +1,6 @@
 """Carry model weights between the flax layout and this package's:
-TransformerLM, ViT and BertEncoder parameters, ResNet's parameters with
+TransformerLM (with its mixture-of-experts blocks and its decode cache,
+`cache_from_flax`), ViT and BertEncoder parameters, ResNet's parameters with
 its BatchNorm `batch_stats`, and the MNIST models' (`mnist_from_flax`,
 `mnist_to_flax`: the parameter server's wire carries the flax ones).
 
@@ -58,8 +59,13 @@ def _blocks_from_flax(params) -> Dict[str, torch.Tensor]:
         out = np.asarray(blk["attn"]["out"]["kernel"])  # (H, D, d)
         sd[pre + "attn.out.weight"] = _t(out.reshape(-1, out.shape[-1]).T)
         sd[pre + "attn.out.bias"] = _t(blk["attn"]["out"]["bias"])
-        for name, dense in blk["mlp"].items():
+        for name, dense in blk.get("mlp", {}).items():
             sd.update(_dense_from_flax(dense, pre + f"mlp.{name}"))
+        if "moe" in blk:
+            moe = blk["moe"]
+            sd.update(_dense_from_flax(moe["router"], pre + "moe.router"))
+            sd[pre + "moe.wi"] = _t(moe["wi"])
+            sd[pre + "moe.wo"] = _t(moe["wo"])
         sd.update(_norm_from_flax(blk["ln1"], pre + "ln1"))
         sd.update(_norm_from_flax(blk["ln2"], pre + "ln2"))
         i += 1
@@ -112,12 +118,17 @@ def _blocks_to_flax(sd):
         w = sd[pre + "attn.out.weight"]  # [d, H*D]
         attn["out"] = {"kernel": w.T.reshape(heads, head_dim, w.shape[0]),
                        "bias": sd[pre + "attn.out.bias"]}
-        mlp = {name: _dense_to_flax(sd, pre + f"mlp.{name}")
-               for name in ("wg", "wi", "wo")
-               if pre + f"mlp.{name}.weight" in sd}
-        params[f"block_{i}"] = {"attn": attn, "mlp": mlp,
-                                "ln1": _norm_to_flax(sd, pre + "ln1"),
-                                "ln2": _norm_to_flax(sd, pre + "ln2")}
+        block = {"attn": attn, "ln1": _norm_to_flax(sd, pre + "ln1"),
+                 "ln2": _norm_to_flax(sd, pre + "ln2")}
+        if pre + "moe.wi" in sd:
+            block["moe"] = {"router": _dense_to_flax(sd, pre + "moe.router"),
+                            "wi": sd[pre + "moe.wi"],
+                            "wo": sd[pre + "moe.wo"]}
+        else:
+            block["mlp"] = {name: _dense_to_flax(sd, pre + f"mlp.{name}")
+                            for name in ("wg", "wi", "wo")
+                            if pre + f"mlp.{name}.weight" in sd}
+        params[f"block_{i}"] = block
         i += 1
     return params
 
@@ -355,8 +366,19 @@ def _blocks_map(cfg, count) -> List[FlaxParam]:
                              (cfg.num_heads, head_dim, d),
                              (1, 1 if cfg.num_heads == 1 else None, 0)))
         out.append(_same(f"{pre}attn.out.bias", path + ("bias",), (d,)))
-        mlp = (("wg", d, f), ("wi", d, f), ("wo", f, d)) \
-            if cfg.mlp == "swiglu" else (("wi", d, f), ("wo", f, d))
+        if cfg.moe_num_experts and (i + 1) % cfg.moe_every == 0:
+            e, path = cfg.moe_num_experts, blk + ("moe",)
+            out += [_kernel(f"{pre}moe.router.weight",
+                            path + ("router", "kernel"), d, e),
+                    _same(f"{pre}moe.router.bias", path + ("router", "bias"),
+                          (e,)),
+                    _same(f"{pre}moe.wi", path + ("wi",), (e, d, f)),
+                    _same(f"{pre}moe.wo", path + ("wo",), (e, f, d))]
+            mlp = ()
+        elif cfg.mlp == "swiglu":
+            mlp = (("wg", d, f), ("wi", d, f), ("wo", f, d))
+        else:
+            mlp = (("wi", d, f), ("wo", f, d))
         for name, cin, cout in mlp:
             path = blk + ("mlp", name)
             out.append(_kernel(f"{pre}mlp.{name}.weight", path + ("kernel",),
@@ -443,6 +465,29 @@ def flax_param_map(model) -> List[FlaxParam]:
     else:
         raise TypeError(f"no flax map for {type(model).__name__}")
     return sorted(out, key=lambda e: e.path)
+
+
+def cache_from_flax(cache):
+    """A JAX decode cache (the 'cache' collection as numpy leaves:
+    `block_i/attn/{cached_key, cached_value, cached_key_scale,
+    cached_value_scale, cached_pos1, cache_index}` and the model's
+    `wpe_index`) -> `models.transformer.DecodeCache` on the CPU."""
+    from .transformer import DecodeCache, LayerCache
+
+    def tensor(x):
+        return None if x is None else torch.from_numpy(np.array(x))
+
+    layers = []
+    i = 0
+    while f"block_{i}" in cache:
+        attn = cache[f"block_{i}"]["attn"]
+        layers.append(LayerCache(
+            **{name: tensor(attn.get(name)) for name in (
+                "cached_key", "cached_value", "cached_key_scale",
+                "cached_value_scale", "cached_pos1")},
+            cache_index=int(np.asarray(attn["cache_index"]))))
+        i += 1
+    return DecodeCache(layers, int(np.asarray(cache.get("wpe_index", 0))))
 
 
 def mnist_from_flax(params) -> Dict[str, torch.Tensor]:

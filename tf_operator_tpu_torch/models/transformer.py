@@ -28,21 +28,30 @@ the group).  Head counts come from the parameters' local shapes.
 token + type + learned position embeddings summed in f32 and a tanh pooler
 in f32 on position 0; `models/vit.py` runs them over image patches.
 
-Not ported in this package yet (raise at config construction): the decode
-KV cache (`decode=True`) and mixture-of-experts blocks.
+Decoding (`models/generate.py`) passes a `DecodeCache` to
+`TransformerLM.forward`: each attention layer appends the call's keys and
+values to its `LayerCache` at the running position and attends the cache
+on the plain torch path, as the JAX decode twin runs with
+`use_flash=False` (JAX `SelfAttention._decode_attend`): the full cache of
+`max_len` slots read whole under the absolute causal mask, or with
+`attn_window` a rolling cache of `sink + window` slots masked by each
+slot's absolute position, keys and values optionally stored in int8 with
+per-slot absmax scales.  With `moe_num_experts`, every `moe_every`-th
+block's MLP is a mixture of experts (`parallel/moe.py`).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Any, Optional
+from dataclasses import dataclass, field
+from typing import Any, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.attention import attention, flash_attention, repeat_kv
+from ..ops.attention import NEG_INF, attention, flash_attention, repeat_kv
 from ..parallel.dist import copy_to_group, reduce_from_group
+from ..parallel.moe import MoEMLP
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
 from .initializers import lecun_normal_
@@ -157,15 +166,6 @@ class TransformerConfig:
                     f"({self.max_len}): a sink covering every position is "
                     "full attention, and the rolling decode cache needs at "
                     "least one non-sink slot")
-        # Fields of the JAX config this package does not run yet.
-        if self.decode:
-            raise NotImplementedError(
-                "decode (KV-cache generation) is not yet ported "
-                "(ROADMAP item A.12)")
-        if self.moe_num_experts:
-            raise NotImplementedError(
-                "mixture-of-experts blocks are not yet ported "
-                "(ROADMAP item A.13)")
 
 
 def _seq_parallel(cfg: TransformerConfig) -> bool:
@@ -199,6 +199,41 @@ def rope(x, *, theta: float = 10000.0, positions=None,
     rot = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                       dim=-1).reshape(b, h, t, d)
     return rot.to(x.dtype)
+
+
+@dataclass
+class LayerCache:
+    """One attention layer's decode cache, under the flax leaf names:
+    keys and values [B, kv_heads, cap, D] (this rank's KV heads under tp)
+    in the model dtype or int8, the int8 cache's per-slot f32 scales
+    [B, kv_heads, cap], with a window each slot's absolute position + 1
+    (`cached_pos1` [cap] int32, 0 = empty), and the running position.
+    Decoding writes the tensors in place."""
+
+    cached_key: torch.Tensor
+    cached_value: torch.Tensor
+    cached_key_scale: Optional[torch.Tensor] = None
+    cached_value_scale: Optional[torch.Tensor] = None
+    cached_pos1: Optional[torch.Tensor] = None
+    cache_index: int = 0
+
+
+@dataclass
+class DecodeCache:
+    """Every layer's cache and the learned positions' running index (JAX's
+    model-level `wpe_index`)."""
+
+    layers: List[LayerCache] = field(default_factory=list)
+    wpe_index: int = 0
+
+
+def cache_capacity(cfg: TransformerConfig) -> int:
+    """Slots per layer: max_len, or with a window min(sink + window,
+    max_len) (positions never exceed max_len, so a clamped rolling region
+    evicts no key inside the window)."""
+    if cfg.attn_window:
+        return min(cfg.attn_sink + cfg.attn_window, cfg.max_len)
+    return cfg.max_len
 
 
 def _normal_(p: torch.Tensor, generator: Optional[torch.Generator]):
@@ -292,7 +327,7 @@ class SelfAttention(nn.Module):
         self.value = per_head(self.kv_heads)
         self.out = Dense(cfg.num_heads * self.head_dim, d, cfg.dtype)
 
-    def forward(self, x, positions=None):
+    def forward(self, x, positions=None, cache: Optional[LayerCache] = None):
         cfg = self.cfg
         b, t, _ = x.shape
         if self.tp is not None:
@@ -304,6 +339,17 @@ class SelfAttention(nn.Module):
                           self.head_dim).transpose(1, 2)
 
         q, k, v = heads(self.query), heads(self.key), heads(self.value)
+        if cache is not None:
+            out = self._decode_attend(q, k, v, cache)
+        else:
+            out = self._attend(q, k, v, positions)
+        out = out.transpose(1, 2).reshape(b, t, q.shape[1] * self.head_dim)
+        if self.tp is not None:
+            return self.out.row_parallel(out, self.tp)
+        return self.out(out)
+
+    def _attend(self, q, k, v, positions):
+        cfg = self.cfg
         if cfg.use_rope:
             q = rope(q, theta=cfg.rope_theta, positions=positions,
                      scaling=cfg.rope_scaling, factor=cfg.rope_factor)
@@ -327,10 +373,111 @@ class SelfAttention(nn.Module):
         else:
             out = attention(q, *repeat_kv(q, k, v), causal=cfg.causal,
                             window=window, sink=cfg.attn_sink)
-        out = out.transpose(1, 2).reshape(b, t, q.shape[1] * self.head_dim)
-        if self.tp is not None:
-            return self.out.row_parallel(out, self.tp)
-        return self.out(out)
+        return out
+
+    def _decode_attend(self, q, k, v, c: LayerCache):
+        """Cached attention for decoding (JAX `_decode_attend`): the call's
+        T keys and values go into the cache at the running position, RoPE
+        rotates by absolute positions, and q attends the cache on the plain
+        path (f32 scores, probabilities in the model dtype).
+
+        Without a window the span is written at [pos, pos + T) and q reads
+        all `max_len` slots under the absolute causal mask (a static shape:
+        unfilled slots are masked).  With one, a T=1 step writes slot
+        `sink + (p - sink) % (cap - sink)` (sinks keep their own slot) and
+        the window|sink mask comes from each slot's position; a T>1 call
+        (chunked prefill) attends the cached keys plus its own under one
+        mask, then stores its sink-bound tokens and its last cap - sink
+        others and drops the rest.  In int8 only positions cached by
+        earlier calls pay the quantisation round trip: the span in hand is
+        attended exactly."""
+        cfg = self.cfg
+        _, _, t, head_dim = q.shape
+        window = cfg.attn_window or None
+        sink = cfg.attn_sink if window else 0
+        cap = c.cached_key.shape[2]
+        quant = c.cached_key_scale is not None
+        pos0 = c.cache_index
+        span = torch.arange(pos0, pos0 + t, device=q.device)
+        if cfg.use_rope:
+            q = rope(q, theta=cfg.rope_theta, positions=span,
+                     scaling=cfg.rope_scaling, factor=cfg.rope_factor)
+            k = rope(k, theta=cfg.rope_theta, positions=span,
+                     scaling=cfg.rope_scaling, factor=cfg.rope_factor)
+
+        def enc(x):
+            """Model-dtype [.., T, D] -> (stored, its scales or None)."""
+            if not quant:
+                return x.to(cfg.dtype), None
+            xf = x.float()
+            s = (xf.abs().amax(-1, keepdim=True) / 127.0).clamp_min(1e-8)
+            return torch.round(xf / s).to(torch.int8), s[..., 0]
+
+        def dec(stored, scale):
+            if not quant:
+                return stored
+            return (stored.float() * scale[..., None]).to(cfg.dtype)
+
+        def store(kq, ks, vq, vs, at):
+            c.cached_key[:, :, at] = kq
+            c.cached_value[:, :, at] = vq
+            if quant:
+                c.cached_key_scale[:, :, at] = ks
+                c.cached_value_scale[:, :, at] = vs
+
+        def attend(kf, vf, valid):
+            kf, vf = repeat_kv(q, kf, vf)
+            logits = torch.matmul(q.float(), kf.float().transpose(-1, -2))
+            logits = (logits * head_dim ** -0.5).masked_fill(~valid, NEG_INF)
+            probs = torch.softmax(logits, dim=-1).to(vf.dtype)
+            return torch.matmul(probs, vf).to(q.dtype)
+
+        def append_and_read(start):
+            """Write the span at `start` and return the cache in the model
+            dtype, the span exact."""
+            at = slice(start, start + t)
+            store(*enc(k), *enc(v), at)
+            kf = dec(c.cached_key, c.cached_key_scale)
+            vf = dec(c.cached_value, c.cached_value_scale)
+            if quant:
+                kf[:, :, at] = k.to(cfg.dtype)
+                vf[:, :, at] = v.to(cfg.dtype)
+            return kf, vf
+
+        c.cache_index = pos0 + t
+        if window and t > 1:
+            k_abs = torch.cat([c.cached_pos1 - 1, span])
+            near = span[:, None] - k_abs[None, :] < window
+            if sink:
+                near = near | (k_abs[None, :] < sink)
+            valid = (k_abs[None, :] >= 0) & (k_abs[None, :] <= span[:, None]) \
+                & near
+            kf = torch.cat([dec(c.cached_key, c.cached_key_scale), k], dim=2)
+            vf = torch.cat([dec(c.cached_value, c.cached_value_scale), v],
+                           dim=2)
+            out = attend(kf, vf, valid)
+            roll = cap - sink
+            slots = torch.where(span < sink, span,
+                                sink + torch.remainder(span - sink, roll))
+            kept = ((span < sink) | (span >= pos0 + t - roll)).nonzero()[:, 0]
+            kq, ks = enc(k[:, :, kept])
+            vq, vs = enc(v[:, :, kept])
+            store(kq, ks, vq, vs, slots[kept])
+            c.cached_pos1[slots[kept]] = (span[kept] + 1).to(torch.int32)
+            return out
+        if window:
+            slot = pos0 if pos0 < sink else sink + (pos0 - sink) % (cap - sink)
+            kf, vf = append_and_read(slot)
+            c.cached_pos1[slot] = pos0 + 1
+            k_abs = c.cached_pos1 - 1
+            near = pos0 - k_abs < window
+            if sink:
+                near = near | (k_abs < sink)
+            valid = (k_abs >= 0) & (k_abs <= pos0) & near
+            return attend(kf, vf, valid[None, :])
+        kf, vf = append_and_read(pos0)
+        cols = torch.arange(cap, device=q.device)
+        return attend(kf, vf, cols[None, :] <= span[:, None])
 
 
 class MLP(nn.Module):
@@ -364,23 +511,35 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm transformer block (dense MLP)."""
+    """Pre-norm transformer block: a dense MLP (`mlp`), or with `use_moe` a
+    mixture of experts (`moe`, the flax module's name)."""
 
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, use_moe: bool = False):
         super().__init__()
         self.dtype = cfg.dtype
         self.ln1 = Norm(cfg.norm, cfg.d_model)
         self.attn = SelfAttention(cfg)
         self.ln2 = Norm(cfg.norm, cfg.d_model)
-        self.mlp = MLP(cfg)
+        if use_moe:
+            self.moe = MoEMLP(cfg.d_model, cfg.d_ff, cfg.moe_num_experts,
+                              cfg.moe_top_k, cfg.moe_capacity_factor,
+                              cfg.dtype)
+        else:
+            self.mlp = MLP(cfg)
 
-    def forward(self, x, positions=None):
-        x = x + self.attn(self.ln1(x).to(self.dtype), positions)
-        return x + self.mlp(self.ln2(x).to(self.dtype))
+    def forward(self, x, positions=None, cache: Optional[LayerCache] = None):
+        x = x + self.attn(self.ln1(x).to(self.dtype), positions, cache)
+        h = self.ln2(x).to(self.dtype)
+        if hasattr(self, "moe"):
+            # a decode call routes its own sequences alone
+            return x + self.moe(h, local=cache is not None)
+        return x + self.mlp(h)
 
 
 class TransformerLM(nn.Module):
-    """Decoder-only causal language model with a weight-tied readout."""
+    """Decoder-only causal language model with a weight-tied readout.
+    Block i is a mixture-of-experts block when the config has experts and
+    (i + 1) % moe_every == 0."""
 
     # the tensor-parallel group when this rank holds a slice of the vocab
     # (rows [rank * V/tp, (rank + 1) * V/tp) of the embedding)
@@ -393,28 +552,65 @@ class TransformerLM(nn.Module):
         # rotary models encode positions inside attention instead
         self.wpe = (None if cfg.use_rope else
                     nn.Parameter(torch.empty(cfg.max_len, cfg.d_model)))
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(
+            Block(cfg, use_moe=cfg.moe_num_experts > 0
+                  and (i + 1) % cfg.moe_every == 0)
+            for i in range(cfg.num_layers))
         self.ln_f = Norm(cfg.norm, cfg.d_model)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         """Initialise every parameter as the JAX model does (N(0, 0.02) for
-        embeddings and kernels, zero biases, unit norm scales), drawing from
-        `generator`."""
+        embeddings, kernels and experts, a lecun-normal router, zero
+        biases, unit norm scales), drawing from `generator`."""
         _normal_(self.wte.weight, generator)
         if self.wpe is not None:
             _normal_(self.wpe, generator)
         for module in self.modules():
-            if isinstance(module, (Dense, Norm)):
+            if isinstance(module, (Dense, Norm, MoEMLP)):
                 module.reset_parameters(generator)
 
-    def forward(self, tokens, return_hidden: bool = False):
+    def init_cache(self, batch: int, device=None) -> DecodeCache:
+        """An empty decode cache for `batch` sequences on `device` (the
+        parameters' by default), with this rank's KV heads under tp."""
+        cfg = self.cfg
+        device = self.wte.weight.device if device is None else device
+        cap = cache_capacity(cfg)
+        quant = cfg.kv_cache_dtype == "int8"
+        layers = []
+        for block in self.blocks:
+            attn = block.attn
+            kv = attn.key.weight.shape[0] // attn.head_dim
+            shape = (batch, kv, cap, attn.head_dim)
+            store = torch.int8 if quant else cfg.dtype
+            layers.append(LayerCache(
+                cached_key=torch.zeros(shape, dtype=store, device=device),
+                cached_value=torch.zeros(shape, dtype=store, device=device),
+                cached_key_scale=(torch.zeros(shape[:3], device=device)
+                                  if quant else None),
+                cached_value_scale=(torch.zeros(shape[:3], device=device)
+                                    if quant else None),
+                cached_pos1=(torch.zeros(cap, dtype=torch.int32,
+                                         device=device)
+                             if cfg.attn_window else None)))
+        return DecodeCache(layers)
+
+    def forward(self, tokens, return_hidden: bool = False,
+                cache: Optional[DecodeCache] = None):
         """tokens [B, T]: the whole sequence, or under sequence parallelism
         this rank's slice of it (rank i of the ring axis holding positions
-        [i*T, (i+1)*T))."""
+        [i*T, (i+1)*T)).  With a `cache` (decoding) the tokens continue the
+        cached positions, and only the last position's logits [B, 1, V]
+        come back."""
         cfg = self.cfg
         t = tokens.shape[1]
+        if cfg.decode and cache is None:
+            raise ValueError("a decode config runs with a cache: pass "
+                             "cache=model.init_cache(batch)")
         first, positions = 0, None
-        if _seq_parallel(cfg):
+        if cache is not None:
+            first = cache.wpe_index
+            cache.wpe_index += t
+        elif _seq_parallel(cfg):
             first = cfg.mesh.coordinate(cfg.ring_axis) * t
             positions = torch.arange(first, first + t, device=tokens.device)
         if self.vocab_tp is None:
@@ -425,11 +621,17 @@ class TransformerLM(nn.Module):
         if self.wpe is not None:
             x = x + self.wpe[None, first:first + t, :]
         x = x.to(cfg.dtype)
-        for block in self.blocks:
-            if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(block, x, positions, use_reentrant=False)
-            else:
-                x = block(x, positions)
+        if cache is not None:
+            for block, layer in zip(self.blocks, cache.layers):
+                x = block(x, cache=layer)
+            # generation reads the last position alone
+            x = x[:, -1:]
+        else:
+            for block in self.blocks:
+                if cfg.remat and torch.is_grad_enabled():
+                    x = checkpoint(block, x, positions, use_reentrant=False)
+                else:
+                    x = block(x, positions)
         x = self.ln_f(x).to(cfg.dtype)
         if return_hidden:
             # pre-readout hidden states for the chunked cross-entropy, with

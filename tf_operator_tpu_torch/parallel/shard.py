@@ -9,6 +9,10 @@ and the ZeRO plan's dp dim) and XLA inserts the collectives.  Here
   * tp: every parameter with a tp dim is cut to this rank's slice, and the
     modules get their tensor-parallel group (`models/transformer.py`:
     column- and row-parallel products, the vocab-sharded embedding);
+  * ep: each mixture-of-experts layer's experts are cut to this rank's
+    E / ep, and the layer gets the ep group (`parallel/moe.py`); every
+    MoE layer also gets the groups that split the batch's tokens (sp, and
+    the data axes), over which it routes the global batch;
   * fsdp: FSDP2's `fully_shard`, one unit per block and one for the rest,
     on the fsdp axis's sub-mesh, each parameter sharded on the dim its
     spec gives (all-gathered before use, its gradient reduce-scattered, in
@@ -21,10 +25,10 @@ Whenever the mesh names tp or fsdp, even at size 1, the machinery runs
 one-card run goes through it with the plain run's numbers.
 
 After the backward `reduce_grads` sums each gradient exactly once over the
-data and sequence axes (dp, fsdp, sp) and never over tp: FSDP2 has summed
-it over fsdp (its divide factor set to 1: the step scales the loss), ZeRO
-reduce-scatters it over dp, and the rest is one flat all-reduce per set of
-axes.  The row-parallel biases, whose gradient only tp rank 0 holds, are
+data and sequence axes (dp, fsdp, sp) and never over tp or ep: FSDP2 has
+summed it over fsdp (its divide factor set to 1: the step scales the
+loss), ZeRO reduce-scatters it over dp, and the rest is one flat
+all-reduce per set of axes.  The row-parallel biases, whose gradient only tp rank 0 holds, are
 summed over tp as well.  `gather` joins a parameter's or moment's pieces
 into the whole tensor (`train/state.full_state`, for a checkpoint) and
 `cut` takes this rank's piece of one (`load_full_state`), whatever mesh
@@ -39,7 +43,8 @@ import torch.distributed as dist
 
 from ..train.zero import all_gather_along, reduce_scatter_along, slice_along
 from .dist import TPGroup
-from .mesh import AXIS_DP, AXIS_FSDP, AXIS_SP, AXIS_TP
+from .mesh import AXIS_DP, AXIS_EP, AXIS_FSDP, AXIS_SP, AXIS_TP, \
+    data_axes
 
 DATA_AXES = (AXIS_DP, AXIS_FSDP, AXIS_SP)
 
@@ -78,6 +83,11 @@ class Sharding:
         self.partial_tp: set = set()
         if self.tp is not None:
             self._apply_tp(model)
+        self.ep = (TPGroup(mesh.group(AXIS_EP), mesh.coordinate(AXIS_EP),
+                           mesh.shape[AXIS_EP])
+                   if AXIS_EP in mesh.axis_names else None)
+        self.ep_dims: Dict[str, int] = {}
+        self._apply_moe(model)
         self.fsdp_dims: Dict[str, int] = {}
         if AXIS_FSDP in mesh.axis_names:
             self._apply_fsdp(model)
@@ -135,6 +145,39 @@ class Sharding:
         if "wte.weight" in self.tp_dims:
             model.vocab_tp = self.tp
         self.partial_tp &= set(self.params)
+
+    def _apply_moe(self, model) -> None:
+        """Cut the experts over ep (at ep 1, a 1-way slice of every expert
+        weight) and hand each MoE layer its ep group and the groups that
+        split the batch's tokens."""
+        from .moe import MoEMLP
+        from .tp_rules import ep_rule_dim
+
+        layers = [(prefix, m) for prefix, m in model.named_modules()
+                  if isinstance(m, MoEMLP)]
+        if not layers:
+            return
+        if self.ep is not None:
+            for name, lay in self.layouts.items():
+                if lay.ep_dim is not None:
+                    self.ep_dims[name] = lay.ep_dim
+                elif self.ep.size == 1:
+                    dim = ep_rule_dim("/".join(lay.path))
+                    if dim is not None:
+                        self.ep_dims[name] = lay.port_dim(dim)
+            with torch.no_grad():
+                for name, dim in self.ep_dims.items():
+                    p = self.params[name]
+                    p.data = slice_along(p.data, dim, self.ep.group).clone()
+        groups = []
+        if AXIS_SP in self.mesh.axis_names:
+            groups.append((self.mesh.group(AXIS_SP), 1))
+        if data_axes(self.mesh):
+            groups.append((self.mesh.group_over(data_axes(self.mesh)), 0))
+        for prefix, layer in layers:
+            layer.token_groups = tuple(groups)
+            if prefix + ".wi" in self.ep_dims:
+                layer.ep = self.ep
 
     def _apply_fsdp(self, model) -> None:
         from torch.distributed.fsdp import fully_shard
@@ -207,6 +250,8 @@ class Sharding:
             axes = []
             if name in self.tp_dims and self.tp.size > 1:
                 axes.append(AXIS_TP)
+            if name in self.ep_dims and self.ep.size > 1:
+                axes.append(AXIS_EP)
             if name in self.fsdp_dims and self.mesh.shape[AXIS_FSDP] > 1:
                 axes.append(AXIS_FSDP)
             if name in self.zero_dims:
@@ -267,6 +312,8 @@ class Sharding:
             out.append((AXIS_FSDP, self.fsdp_dims[name]))
         if name in self.tp_dims and self.tp.size > 1:
             out.append((AXIS_TP, self.tp_dims[name]))
+        if name in self.ep_dims and self.ep.size > 1:
+            out.append((AXIS_EP, self.ep_dims[name]))
         return out
 
     def gather(self, name: str, t, zero: bool = False):
@@ -294,6 +341,8 @@ class Sharding:
             held = {}
             if name in self.tp_dims and self.tp.size > 1:
                 held[AXIS_TP] = self.tp_dims[name]
+            if name in self.ep_dims and self.ep.size > 1:
+                held[AXIS_EP] = self.ep_dims[name]
             if self.mesh.shape.get(AXIS_FSDP, 1) > 1:
                 for placement in getattr(self.params[name], "placements", ()):
                     if hasattr(placement, "dim"):

@@ -9,11 +9,14 @@ column-parallel qkv, wi and wg (output dim sharded) feed row-parallel out
 and wo (input dim sharded), one all-reduce per attention or MLP, and the
 token embedding is vocab-sharded.
 
+The mixture-of-experts weights wi [E, d, f] and wo [E, f, d] shard their
+expert dim over `ep` (`_EP_RULES`, consulted first); no tp rule matches a
+`moe/*` leaf, so under tp the experts and the router are replicated.
+
 The JAX package hands the specs to XLA; here `param_layouts` maps each
 spec onto the port's parameters through `models/convert.flax_param_map`
-(flax dim -> port dim), and `parallel/shard.py` lays them out: tp by
+(flax dim -> port dim), and `parallel/shard.py` lays them out: tp and ep by
 slicing the parameter and the modules' own collectives, fsdp with FSDP2.
-The expert-parallel rules come with mixture of experts (ROADMAP A.13).
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ import re
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
-from .mesh import AXIS_FSDP, AXIS_TP, axis_size, spec_axes
+from .mesh import AXIS_EP, AXIS_FSDP, AXIS_TP, axis_size, spec_axes
 
 # (path regex, dim the tp axis shards or None) — first match wins
 _TP_RULES: Tuple[Tuple[str, Optional[int]], ...] = (
@@ -39,6 +42,12 @@ _TP_RULES: Tuple[Tuple[str, Optional[int]], ...] = (
     (r"mlp/wo/bias$", None),
     # embeddings: vocab-sharded
     (r"(wte|tok_emb)/embedding$", 0),
+)
+
+# MoE expert weights [E, d_in, d_out]: the expert dim shards over `ep`
+_EP_RULES: Tuple[Tuple[str, int], ...] = (
+    (r"moe/wi$", 0),
+    (r"moe/wo$", 0),
 )
 
 
@@ -69,11 +78,36 @@ def tp_spec_for_path(path: str, shape, mesh) -> Optional[tuple]:
     return tuple(spec)
 
 
+def ep_rule_dim(path: str) -> Optional[int]:
+    """The dim an ep rule shards for `path`, or None when none matches."""
+    for pattern, dim in _EP_RULES:
+        if re.search(pattern, path):
+            return dim
+    return None
+
+
+def ep_spec_for_path(path: str, shape, mesh) -> Optional[tuple]:
+    """The expert-parallel spec for a flax param path (the rule's dim, when
+    the ep axis divides it), or None when no rule matches or the ep axis
+    is absent or of size 1."""
+    ep = axis_size(mesh, AXIS_EP)
+    dim = ep_rule_dim(path)
+    if ep <= 1 or dim is None:
+        return None
+    spec = [None] * len(shape)
+    if dim < len(shape) and shape[dim] % ep == 0:
+        spec[dim] = AXIS_EP
+    return tuple(spec)
+
+
 def combined_spec(path: str, shape, mesh) -> tuple:
-    """The tp rule first; then fsdp on the largest remaining divisible dim.
-    Trailing Nones are dropped, as the JAX function drops them."""
+    """The ep rule, else the tp rule; then fsdp on the largest remaining
+    divisible dim.  Trailing Nones are dropped, as the JAX function drops
+    them."""
     ndim = len(shape)
-    spec = tp_spec_for_path(path, shape, mesh)
+    spec = ep_spec_for_path(path, shape, mesh)
+    if spec is None:
+        spec = tp_spec_for_path(path, shape, mesh)
     parts = list(spec) if spec is not None else [None] * ndim
     while len(parts) < ndim:
         parts.append(None)
@@ -92,8 +126,8 @@ def combined_spec(path: str, shape, mesh) -> tuple:
 @dataclass(frozen=True)
 class ParamLayout:
     """One port parameter's place on the mesh: its flax path and shape, its
-    spec there (`combined_spec`), and the port dims the tp, fsdp and (under
-    ZeRO) dp axes shard (None: replicated over that axis)."""
+    spec there (`combined_spec`), and the port dims the tp, ep, fsdp and
+    (under ZeRO) dp axes shard (None: replicated over that axis)."""
 
     name: str
     path: Tuple[str, ...]
@@ -102,6 +136,7 @@ class ParamLayout:
     # port_dims[i]: the port dim holding flax dim i (convert.FlaxParam.dims)
     port_dims: Tuple[Optional[int], ...] = ()
     tp_dim: Optional[int] = None
+    ep_dim: Optional[int] = None
     fsdp_dim: Optional[int] = None
     zero_dim: Optional[int] = None
 
@@ -155,7 +190,8 @@ def param_layouts(model, mesh, zero_plan=None) -> Dict[str, ParamLayout]:
         lay = ParamLayout(name=entry.name, path=entry.path,
                           flax_shape=entry.shape, spec=spec,
                           port_dims=entry.dims)
-        dims = {axis: _flax_dim(spec, axis) for axis in (AXIS_TP, AXIS_FSDP)}
+        dims = {axis: _flax_dim(spec, axis)
+                for axis in (AXIS_TP, AXIS_EP, AXIS_FSDP)}
         if zero_plan is not None:
             plan_entry = zero_plan.match(entry.path, entry.shape)
             if plan_entry is not None:
@@ -163,6 +199,7 @@ def param_layouts(model, mesh, zero_plan=None) -> Dict[str, ParamLayout]:
         dims = {k: None if d is None else lay.port_dim(d)
                 for k, d in dims.items()}
         out[entry.name] = dataclasses.replace(
-            lay, tp_dim=dims[AXIS_TP], fsdp_dim=dims[AXIS_FSDP],
+            lay, tp_dim=dims[AXIS_TP], ep_dim=dims[AXIS_EP],
+            fsdp_dim=dims[AXIS_FSDP],
             zero_dim=dims.get("zero"))
     return out

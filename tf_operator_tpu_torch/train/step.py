@@ -2,7 +2,8 @@
 
 The counterpart of `tf_operator_tpu/train/step.py`: the cross-entropy
 (full or chunked), `lm_loss_fn`, `classification_loss_fn`,
-`make_train_step` with gradient accumulation, `classification_metrics`
+`make_train_step` with gradient accumulation (the MoE load-balancing
+loss reported as the microbatches' mean), `classification_metrics`
 with `make_eval_step`, and `shard_batch`.  The train step runs the model
 in training mode (BatchNorm normalises with the batch's statistics and
 updates its running ones); the eval step runs it in eval mode without
@@ -131,11 +132,15 @@ def _tied_table(model):
             "table_fn= for other layouts") from exc
 
 
-def lm_loss_fn(model, loss_chunk: int = 0,
+def lm_loss_fn(model, moe_aux_weight: float = 0.0, loss_chunk: int = 0,
                table_fn: Optional[Callable] = None):
     """Next-token prediction loss for TransformerLM: `loss(batch) ->
-    (loss, aux)`.  With loss_chunk > 0 the cross-entropy goes through
-    `chunked_softmax_xent` on the model's pre-readout hidden states."""
+    (loss, aux)`.  With moe_aux_weight > 0 the loss adds that times the
+    MoE layers' mean load-balancing loss (`parallel/moe.moe_aux_loss`),
+    which aux reports as "moe_aux_loss": without it the router gets no
+    balancing gradient.  With loss_chunk > 0 the cross-entropy goes
+    through `chunked_softmax_xent` on the model's pre-readout hidden
+    states."""
     if loss_chunk < 0:
         raise ValueError(
             f"loss_chunk must be >= 0, got {loss_chunk} (0 disables "
@@ -143,16 +148,24 @@ def lm_loss_fn(model, loss_chunk: int = 0,
             "full-logits memory peak in place)")
     get_table = table_fn or _tied_table
 
-    def loss(batch):
-        tokens = batch["tokens"]
+    def ce(tokens):
         # under tp the readout gives this rank's vocab slice
         tp = getattr(model, "vocab_tp", None)
         if loss_chunk > 0:
             hidden = model(tokens[:, :-1], return_hidden=True)
             return chunked_softmax_xent(
-                hidden, get_table(model), tokens[:, 1:], loss_chunk, tp), {}
+                hidden, get_table(model), tokens[:, 1:], loss_chunk, tp)
         logits = model(tokens[:, :-1])
-        return softmax_cross_entropy(logits, tokens[:, 1:], tp), {}
+        return softmax_cross_entropy(logits, tokens[:, 1:], tp)
+
+    def loss(batch):
+        value = ce(batch["tokens"])
+        if moe_aux_weight > 0.0:
+            from ..parallel.moe import moe_aux_loss
+
+            aux = moe_aux_loss(model)
+            return value + moe_aux_weight * aux, {"moe_aux_loss": aux}
+        return value, {}
 
     return loss
 
@@ -305,16 +318,23 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
                     f"grad_accum={grad_accum}")
         micro = {key: x.chunk(grad_accum) for key, x in batch.items()}
         state.optimizer.zero_grad(set_to_none=True)
-        total = 0.0
+        total, aux_total = 0.0, None
         for i in range(grad_accum):
-            loss, _ = loss_fn({key: parts[i] for key, parts in micro.items()})
+            loss, aux = loss_fn({key: parts[i] for key, parts in micro.items()})
             (loss / (grad_accum * ranks)).backward()
             total = total + loss.detach()
+            if "moe_aux_loss" in aux:
+                # the global batch's on every rank: no reduction
+                aux_total = aux["moe_aux_loss"].detach() + (
+                    0.0 if aux_total is None else aux_total)
         total = total / (grad_accum * ranks)
         if mesh is not None:
             state.sharding.reduce_grads()
             dist.all_reduce(total, group=loss_group)
         state.apply_gradients()
-        return state, {"loss": total}
+        metrics = {"loss": total}
+        if aux_total is not None:
+            metrics["moe_aux_loss"] = aux_total / grad_accum
+        return state, metrics
 
     return step

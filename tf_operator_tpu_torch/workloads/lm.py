@@ -1,19 +1,23 @@
 """LM pretraining workload: one CUDA device per process (or the CPU, on
 request); over several processes, data parallel over the mesh's `dp` axis,
-fully sharded (FSDP2) over `fsdp`, tensor parallel over `tp` and sequence
-parallel (ring or Ulysses) over `sp`, with ZeRO weight-update sharding
-over dp on request (`--zero-shard-weight-update` or the spec knob's env).
+fully sharded (FSDP2) over `fsdp`, tensor parallel over `tp`, sequence
+parallel (ring or Ulysses) over `sp` and, with `--moe-experts`, expert
+parallel over `ep`, with ZeRO weight-update sharding over dp on request
+(`--zero-shard-weight-update` or the spec knob's env).  After training,
+`--sample-tokens N` decodes N tokens greedily with the KV cache
+(`--kv-cache-dtype`) from an 8-token prompt and prints `sample: [...]`.
 
 The counterpart of `tf_operator_tpu/workloads/lm.py`: the same flags,
 defaults, exit-2 rejections and log lines (`step {i} loss ...`,
-`resumed from step ...`, `done`), plus one `step time ...` line: the mean
-wall time of the run's steps after its first, periodic checkpoint saves
-included, and the global batch's tokens/s.  In a process group only rank
-0 prints them.  Checkpoints make a preempted pod resume from its latest
+`resumed from step ...`, `sample: [...]`, `done`), plus, with experts,
+`step {i} moe_aux_loss ...` beside each loss line, and one `step time ...`
+line: the mean wall time of the run's steps after its first, periodic
+checkpoint saves included, and the global batch's tokens/s.  In a process
+group only rank 0 prints them.  Checkpoints make a preempted pod resume from its latest
 step.  Under ZeRO the `zero_sharding_plan: {...}` line is the JAX
 workload's.  Options of the JAX workload that this package does not run
-yet (the ep and pp axes among them) exit 2 with a "not yet ported"
-message naming the ROADMAP item; none is silently ignored.
+yet (the pp axis) exit 2 with a "not yet ported" message naming the
+ROADMAP item; none is silently ignored.
 
 Usage: python -m tf_operator_tpu_torch.workloads.lm --steps 100 \
            --checkpoint-dir /tmp/ckpt
@@ -24,9 +28,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-from .runner import not_ported
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
@@ -127,10 +128,6 @@ def main(argv=None) -> int:
               f"generation={ctx.elastic_generation} "
               f"hosted={ctx.virtual_assignment()}", flush=True)
 
-    if args.moe_experts > 0:
-        return not_ported("--moe-experts (mixture of experts)", "A.13")
-    if args.sample_tokens > 0:
-        return not_ported("--sample-tokens (KV-cache decode)", "A.12")
     zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
             is None else args.zero_shard_weight_update)
     layout, rc = plan_mesh(ctx)
@@ -209,9 +206,9 @@ def main(argv=None) -> int:
             num_heads=heads, d_model=args.d_model,
             d_ff=d_ff, max_len=args.seq_len, mesh=layout,
             seq_parallel=args.seq_parallel,
-            remat=args.remat, attn_window=args.attn_window,
-            attn_sink=args.attn_sink, kv_cache_dtype=args.kv_cache_dtype,
-            **extra,
+            remat=args.remat, moe_num_experts=args.moe_experts,
+            attn_window=args.attn_window, attn_sink=args.attn_sink,
+            kv_cache_dtype=args.kv_cache_dtype, **extra,
         )
     except ValueError as e:
         print(f"invalid model config: {e}", flush=True)
@@ -228,15 +225,17 @@ def main(argv=None) -> int:
     from .runner import process_group
 
     with process_group(ctx, device, layout) as mesh:
-        return _train(args, cfg, tx, device, mesh, layout, zero)
+        return _train(args, cfg, tx, device, mesh, layout, zero,
+                      ctx.num_processes, SAMPLE_PROMPT_LEN)
 
 
-def _train(args, cfg, tx, device, mesh, layout, zero) -> int:
+def _train(args, cfg, tx, device, mesh, layout, zero, processes: int,
+           prompt_len: int) -> int:
     """Build and train the model: over `mesh` (laid over the process
     group) when there is one (laid out on its axes; the distributed step,
-    this rank's shard of each global batch), else on one device.  Only
-    rank 0 prints, but every rank prints the ZeRO plan line, as every
-    process of the JAX workload does."""
+    this rank's shard of each global batch), else on one device; then
+    sample from it.  Only rank 0 prints, but every rank prints the ZeRO
+    plan line, as every process of the JAX workload does."""
     import dataclasses
 
     from ..models.transformer import TransformerLM
@@ -261,7 +260,10 @@ def _train(args, cfg, tx, device, mesh, layout, zero) -> int:
             say(f"resumed from step {state.step}")
 
     step = make_train_step(
-        lm_loss_fn(state.model, loss_chunk=args.loss_chunk),
+        lm_loss_fn(state.model,
+                   moe_aux_weight=(args.moe_aux_weight if args.moe_experts
+                                   else 0.0),
+                   loss_chunk=args.loss_chunk),
         grad_accum=args.grad_accum, mesh=mesh)
     # every rank draws the same global stream and keeps its shard
     batches = synthetic_tokens(args.batch, args.seq_len + 1, args.vocab)
@@ -278,6 +280,9 @@ def _train(args, cfg, tx, device, mesh, layout, zero) -> int:
         state, metrics = step(state, next(data))
         if i % 10 == 0:
             say(f"step {i} loss {float(metrics['loss']):.4f}")
+            if "moe_aux_loss" in metrics:
+                say(f"step {i} moe_aux_loss "
+                    f"{float(metrics['moe_aux_loss']):.4f}")
         if mgr is not None and (i + 1) % args.checkpoint_every == 0:
             # written in the background; the final save below waits
             mgr.save(state, wait=False)
@@ -291,6 +296,16 @@ def _train(args, cfg, tx, device, mesh, layout, zero) -> int:
         mgr.save(state)
         mgr.close()
     timer.sync()
+    if args.sample_tokens > 0 and processes > 1:
+        # every process would sample the same tokens
+        say("sampling skipped on multi-host runs")
+    elif args.sample_tokens > 0:
+        from ..models.generate import generate
+
+        prompt = next(synthetic_tokens(1, prompt_len + 1, args.vocab))[
+            "tokens"][:, :prompt_len]
+        out = generate(state.model, prompt, args.sample_tokens)
+        say(f"sample: {out[0].tolist()}")
     say("done")
     return 0
 
