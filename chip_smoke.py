@@ -116,6 +116,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            profiled steps; one MoE layer on the card against its CPU f32
            run with the card's dispatch (tokens the CPU routes otherwise
            counted apart)
+  pipeline the seventh path: `models/pipeline_lm.PipelinedTransformerLM`
+           at GPT-small width (T 2048, B 8) as the JAX package's pp dryrun
+           arms drive it.  Over a one-rank NCCL group with
+           TPUJOB_MESH_SHAPE={"pp": 1}, at M 4 and M 8: GPipe, 1F1B and
+           1F1B's primal under autograd (GPipe's forward, the head per
+           microbatch): 1F1B's loss within 1e-4 relative of GPipe's, its
+           gradients by the per-leaf rule against its primal's, and the
+           primal's against GPipe's by the head-tiling rule, one profiled
+           step of GPipe and 1F1B each (device busy, idle share); three
+           SGD steps, the interleaved schedule at V 2, M 1; then every
+           rank of P 2 (M 4) and P 4 (M 8) in this process (the hops as
+           hand-overs, the times serialising the ranks), GPipe against the
+           one-rank GPipe and 1F1B against the one-rank primal at the same
+           M; two 1F1B faults planted at P 4 (invalid forwards that
+           overwrite their slot; a backward that re-runs the previous
+           microbatch's input) must leave the rule.  Each run: ms,
+           tokens/s, peak memory, and each kernel's launches held to the
+           schedule's count (M x 12 each; 1F1B's forward kernel twice
+           that)
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -176,6 +195,24 @@ TOL_LOGITS = 5e-2
 # the CPU, with TF32 off for cuBLAS and cuDNN (both f32; the products
 # summed in other orders, cuDNN's algorithms included), by the rule above
 TOL_MNIST_F32 = 1e-4
+# the pipeline's schedules against each other and against the one-rank
+# run on the same weights: losses within TOL_PIPE_LOSS relative (the JAX
+# dryrun's rule).  Gradients: every leaf within its rule in relative
+# Frobenius norm, the whole gradient within FRO.  1F1B against its primal
+# under autograd, and the in-process ranks against the one-rank run of the
+# same function, round at the same points (the stage's products at the
+# same shapes, the head per microbatch in both): only the f32 order of the
+# microbatches' sum differs (the phase reads whole errors ~5e-9), so
+# TOL_PIPE_GRAD, which a backward fed the previous microbatch's input
+# leaves by a factor above 1e4.  The primal against GPipe
+# differs in the head alone: GPipe's runs on the whole batch, and the bf16
+# readout's backward (16384 or 2048 rows by a 32000-wide contraction) then
+# rounds otherwise, which 12 layers of bf16 backward carry to block 0's
+# small attention gradients: TOL_PIPE_HEAD, 2.8x the phase's own reading of
+# that gap at M 8 (1.08e-2 on block 0's query kernel)
+TOL_PIPE_LOSS = 1e-4
+TOL_PIPE_GRAD = 1e-4
+TOL_PIPE_HEAD = 3e-2
 # the small workloads' processes: the seconds each may take
 PROCESS_TIMEOUT = 300
 
@@ -316,6 +353,10 @@ CASES = [
     # llama 12/4 -> 6/2)
     ("gpt_small_tp2", 8, 6, 6, 2048, 64, True, None, 0, 128),
     ("llama_tp2", 8, 6, 2, 2048, 64, True, None, 0, 128),
+    # the seventh path: GPT-small's microbatches in the pipeline, B 8 split
+    # in 4 (B 2) and in 8 (B 1)
+    ("pipeline_mb4", 2, 12, 12, 2048, 64, True, None, 0, 128),
+    ("pipeline_mb8", 1, 12, 12, 2048, 64, True, None, 0, 128),
 ]
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2")
@@ -897,9 +938,10 @@ def ring_case(case, card: str):
     return {"hops": hops, "ring_ms": ring_ms, "full_ms": full_ms}
 
 
-def device_busy(fn):
-    """(device ms, device activities) of one call of fn, from a
-    torch.profiler Chrome trace (as `device_profile` reads the workload's)."""
+def profiled_events(fn) -> list:
+    """The device activities of one call of fn, after a warm-up call, from
+    a torch.profiler Chrome trace (as `device_profile` reads the
+    workload's)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -909,11 +951,16 @@ def device_busy(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(prefix="ring-profile-") as tmp:
+    with tempfile.TemporaryDirectory(prefix="chip-profile-") as tmp:
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
         with open(path) as f:
-            dev = device_events(json.load(f)["traceEvents"])
+            return device_events(json.load(f)["traceEvents"])
+
+
+def device_busy(fn):
+    """(device ms, device activities) of one call of fn."""
+    dev = profiled_events(fn)
     return sum(e["dur"] for e in dev) / 1e3, len(dev)
 
 
@@ -1896,6 +1943,306 @@ def moe_layer_check(card: str) -> None:
           flush=True)
 
 
+def pipeline_launches(what: str, schedule: str, microbatches: int,
+                      layers: int, got: dict) -> dict:
+    """The kernels' launches `got` over one step, held against the count
+    the schedule implies: each rank runs its stage once per microbatch
+    (bubble steps skip it), so GPipe and the interleaved schedule launch
+    each kernel M x layers times, and 1F1B, which runs every stage again
+    in its backward, twice that of the forward kernel."""
+    n = microbatches * layers
+    want = {"flash_forward": 2 * n if schedule == "1f1b" else n,
+            "flash_backward_dq": n, "flash_backward_dkv": n}
+    print(f"{what}: kernel launches {got} (the schedule implies {want})",
+          flush=True)
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def pipeline_grads(models) -> dict:
+    """{the one-rank module's parameter name: gradient} from every rank's
+    module of an in-process pipeline (V = 1): rank r's block j is global
+    block r * layers_per_stage + j; the embedding and head are rank 0's."""
+    out = {}
+    for model in models:
+        for name, p in model.named_parameters():
+            if name.startswith("blocks."):
+                _, j, rest = name.split(".", 2)
+                j = model.rank * model.layers_per_stage + int(j)
+                name = f"blocks.{j}.{rest}"
+            elif model.rank:
+                continue
+            out[name] = p.grad.detach().clone()
+    return out
+
+
+def grad_ratio(got: dict, ref: dict, tol: float) -> tuple:
+    """(worst leaf's relative Frobenius error over `tol`, the leaf, the
+    whole gradient's relative Frobenius error); the key biases, whose
+    gradient is zero in exact arithmetic, only in the whole."""
+    import torch
+
+    worst, where = 0.0, None
+    for name, g in ref.items():
+        if name.endswith("attn.key.bias"):
+            continue
+        rel = float((got[name] - g).norm() / g.norm().clamp_min(1e-30))
+        if rel / tol > worst:
+            worst, where = rel / tol, name
+    diff = torch.cat([(got[n] - g).reshape(-1) for n, g in ref.items()])
+    whole = torch.cat([g.reshape(-1) for g in ref.values()])
+    return worst, where, float(diff.norm() / whole.norm())
+
+
+def hold_pipeline(what: str, loss, ref_loss, grads=None, ref_grads=None,
+                  tol: float = TOL_PIPE_GRAD):
+    """Loss within TOL_PIPE_LOSS relative of the reference's; gradients, if
+    given, by the `grad_ratio` rule at `tol`."""
+    rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    line = f"{what}: loss {float(loss)} vs {float(ref_loss)} (rel {rel:.2e})"
+    if not (math.isfinite(float(loss)) and rel <= TOL_PIPE_LOSS):
+        raise RuntimeError(f"{line} > {TOL_PIPE_LOSS}")
+    if grads is not None:
+        worst, where, whole = grad_ratio(grads, ref_grads, tol)
+        line += (f"; gradients: worst leaf {worst:.3g} of the {tol:g} rule "
+                 f"({where}), whole {whole:.2e}")
+        if not (worst <= 1.0 and whole <= FRO):
+            raise RuntimeError(f"{line}: outside the rule")
+    print(line, flush=True)
+
+
+def timed_loss(models, fn, tokens, update=None, reps: int = 3) -> dict:
+    """One forward and backward through `fn` (and `update()` after it),
+    after a warm-up call whose gradients are dropped, `reps` times: the
+    first call's loss, launches (counted from zero), peak memory and the
+    memory held before it (parameters and what the caller keeps), and the
+    calls' mean ms.  The gradients left are the last call's."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    fn(tokens).backward()
+    torch.cuda.synchronize()
+    out = {"held": torch.cuda.memory_allocated()}
+    t0 = time.perf_counter()
+    for i in range(reps):
+        zero_grads(models)
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            A.reset_launches()
+        loss = fn(tokens)
+        loss.backward()
+        if update is not None:
+            update()
+        if i == 0:
+            torch.cuda.synchronize()
+            out.update(loss=loss.detach(), launches=A.launches(),
+                       peak=torch.cuda.max_memory_allocated())
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    return out
+
+
+def zero_grads(models) -> None:
+    for model in models:
+        model.zero_grad(set_to_none=True)
+
+
+def planted_state(kept=dict, dx=dict):
+    """A 1F1B `CycleState` whose kept inputs and input gradients live in
+    the given dict types (a planted fault's)."""
+    from tf_operator_tpu_torch.parallel import pipeline as pipeline_mod
+
+    class State(pipeline_mod.CycleState):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.kept, self.dx = kept(), dx()
+
+    return State
+
+
+class PreviousInput(dict):
+    """Kept inputs that hand microbatch b's backward the input of b - 1 (a
+    backward index off by one; microbatch 0 keeps its own)."""
+
+    def __getitem__(self, slot):
+        return super().__getitem__(slot - 1 if slot - 1 in self else slot)
+
+
+def phase_pipeline(card: str):
+    """The seventh path: the pipeline-parallel LM (`models/pipeline_lm.py`
+    over `parallel/pipeline.py`) at GPT-small width (12 x 768, 12 heads,
+    d_ff 3072, vocab 32000, T 2048, B 8, bf16 compute, f32 params), as the
+    JAX package's pp dryrun arms drive it.  (a) Over a one-rank NCCL group
+    with TPUJOB_MESH_SHAPE={"pp": 1}, at M 4 and 8: GPipe, 1F1B and 1F1B's
+    primal under autograd, 1F1B held against the primal and the primal
+    against GPipe (`TOL_PIPE_*`), one profiled step of GPipe and 1F1B;
+    a GPipe training step (SGD 1e-3) at M 4, the interleaved schedule at
+    V 2, M 1; step ms, tokens/s and peak memory of each.  (b) Every rank
+    of P 2 (M 4) and P 4 (M 8) in this process (the hops as hand-overs;
+    times serialise the ranks), GPipe against the one-rank GPipe and 1F1B
+    against the one-rank primal at the same M.  (c) Two faults planted in
+    1F1B at P 4 must leave the rule.  Every run's launches are held to the
+    schedule's count."""
+    from unittest import mock
+
+    import torch
+
+    from tf_operator_tpu_torch.models import pipeline_lm as PL
+    from tf_operator_tpu_torch.models.transformer import gpt_small_config
+    from tf_operator_tpu_torch.parallel import pipeline as pipeline_mod
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh, mesh_from_env
+
+    cfg = gpt_small_config()
+    layers, batch, seq = cfg.num_layers, 8, cfg.max_len
+    tokens = torch.randint(0, cfg.vocab_size, (batch, seq),
+                           generator=torch.Generator().manual_seed(40)).cuda()
+
+    def build(mesh, m, virtual=1, rank=None):
+        with torch.device("cuda"):
+            model = PL.PipelinedTransformerLM(
+                cfg, mesh, num_microbatches=m, virtual_stages=virtual,
+                pp_rank=rank)
+        model.reset_parameters(
+            torch.Generator(device="cuda").manual_seed(41))
+        return model
+
+    def loss_fn(models, name):
+        """The loss through schedule `name` ("gpipe", "1f1b" or
+        "1f1b_primal") over the modules (one: its process-group method;
+        several: every rank in this process)."""
+        if len(models) == 1:
+            return getattr(models[0], f"loss_{name}")
+        all_ranks = getattr(PL, f"loss_{name}_all_ranks")
+        return lambda t: all_ranks(models, t)
+
+    def run(models, name, update=None):
+        return timed_loss(models, loss_fn(models, name), tokens, update)
+
+    def sgd(models):
+        def update():
+            with torch.no_grad():
+                for model in models:
+                    for p in model.parameters():
+                        if p.grad is not None:
+                            p -= 1e-3 * p.grad
+        return update
+
+    def report(what, r, steps="per forward + backward"):
+        """Print a run's loss, ms, tokens/s and memory; returns it."""
+        above = (r["peak"] - r["held"]) / 2**30
+        print(f"{what}: loss {float(r['loss'])}, {r['ms']:.3f} ms {steps}, "
+              f"{batch * seq / r['ms'] * 1e3:.1f} tokens/s, peak memory "
+              f"{r['peak'] / 2**30:.2f} GiB ({above:.2f} above the "
+              f"{r['held'] / 2**30:.2f} held before it) [{card}]",
+              flush=True)
+        return r
+
+    def profile(what, models, name, step_ms):
+        fn = loss_fn(models, name)
+
+        def step():
+            zero_grads(models)
+            fn(tokens).backward()
+
+        text = device_profile(profiled_events(step), 1, step_ms)
+        print(f"{what}: " + "\n".join(text.splitlines()[:6]), flush=True)
+
+    with one_rank_group({"TPUJOB_MESH_SHAPE": json.dumps({"pp": 1})}):
+        mesh = mesh_from_env(device_type="cuda")
+        mesh.group("pp")  # the axis's group, laid from the TPUJob env
+        model = build(mesh, 4)
+        ref, one = {}, {}
+        for m in (4, 8):
+            model.num_microbatches = m
+            for name in ("gpipe", "1f1b", "1f1b_primal"):
+                what = f"pp 1 (NCCL) {name}, M {m}"
+                r = one[name, m] = report(what, run([model], name))
+                pipeline_launches(what, "1f1b" if name == "1f1b" else
+                                  "gpipe", m, layers, r["launches"])
+                ref[name, m] = (r["loss"], pipeline_grads([model]))
+                if name != "1f1b_primal":
+                    profile(f"{what}, one step profiled", [model], name,
+                            r["ms"])
+            for got, want, tol in (("1f1b", "1f1b_primal", TOL_PIPE_GRAD),
+                                   ("1f1b_primal", "gpipe", TOL_PIPE_HEAD),
+                                   ("1f1b", "gpipe", TOL_PIPE_HEAD)):
+                hold_pipeline(f"pp 1, M {m}: {got} against {want}",
+                              ref[got, m][0], ref[want, m][0],
+                              ref[got, m][1], ref[want, m][1], tol)
+        model.num_microbatches = 4
+        r = report("pp 1 (NCCL) GPipe training step (SGD 1e-3), M 4",
+                   run([model], "gpipe", sgd([model])), "per step")
+        after = model.loss_gpipe(tokens).detach()
+        print(f"pp 1 GPipe steps: loss {float(r['loss'])} -> {float(after)} "
+              f"after 3 steps", flush=True)
+        if not (math.isfinite(float(r["loss"]))
+                and math.isfinite(float(after))):
+            raise RuntimeError(f"the GPipe step: loss {float(r['loss'])} "
+                               f"-> {float(after)}")
+        del model
+        torch.cuda.empty_cache()
+        model_v = build(mesh, 1, virtual=2)
+        what = "pp 1 (NCCL) interleaved V 2, M 1"
+        r = report(what, run([model_v], "gpipe"))
+        pipeline_launches(what, "gpipe", 1, layers, r["launches"])
+        profile(f"{what}, one step profiled", [model_v], "gpipe", r["ms"])
+        hold_pipeline(f"{what} against GPipe M 4", r["loss"],
+                      ref["gpipe", 4][0])
+        del model_v
+        torch.cuda.empty_cache()
+
+    for size, m in ((2, 4), (4, 8)):
+        layout = build_mesh({"pp": size}, world_size=size)
+        models = [build(layout, m, rank=r) for r in range(size)]
+        losses = {}
+        for name in ("gpipe", "1f1b"):
+            what = f"P {size} in process (the ranks serialised), {name}, M {m}"
+            r = report(what, run(models, name))
+            pipeline_launches(what, name, m, layers, r["launches"])
+            against = "gpipe" if name == "gpipe" else "1f1b_primal"
+            hold_pipeline(f"{what} against the one-rank {against}",
+                          r["loss"], ref[against, m][0],
+                          pipeline_grads(models), ref[against, m][1])
+            losses[name] = r["loss"]
+        hold_pipeline(f"P {size} in process: 1F1B against GPipe",
+                      losses["1f1b"], losses["gpipe"])
+        if size == 4:
+            def overwrite(kept, slots, f, valid, inp):
+                kept[f % slots] = inp
+
+            faults = {
+                "1F1B's invalid forwards overwrite their slot": mock.patch
+                .object(pipeline_mod, "_save_input", overwrite),
+                "1F1B's backward re-runs the previous microbatch's input":
+                mock.patch.object(pipeline_mod, "CycleState",
+                                  planted_state(kept=PreviousInput)),
+            }
+            for fault, patch in faults.items():
+                zero_grads(models)
+                with patch:
+                    PL.loss_1f1b_all_ranks(models, tokens).backward()
+                worst, where, whole = grad_ratio(
+                    pipeline_grads(models), ref["1f1b_primal", m][1],
+                    TOL_PIPE_GRAD)
+                print(f"planted fault ({fault}, P 4, M 8): worst leaf "
+                      f"{worst:.3g} of the {TOL_PIPE_GRAD:g} rule "
+                      f"({where}), whole {whole:.2e}", flush=True)
+                if worst <= 1.0 and whole <= FRO:
+                    raise RuntimeError(f"the planted fault ({fault}) passed "
+                                       "the gradient rule")
+        del models
+        torch.cuda.empty_cache()
+    for m in (4, 8):
+        gp, fb = one["gpipe", m], one["1f1b", m]
+        print(f"pipeline: peak memory at M {m}, one rank: GPipe "
+              f"{gp['peak'] / 2**30:.2f} GiB, 1F1B {fb['peak'] / 2**30:.2f} "
+              f"GiB ({(gp['peak'] - gp['held']) / 2**30:.2f} and "
+              f"{(fb['peak'] - fb['held']) / 2**30:.2f} above what each held "
+              f"before the step) [{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
@@ -1955,6 +2302,7 @@ def main(argv=None) -> int:
     phase_smoke(card)
     phase_decode(card)
     phase_moe(card, args.out_dir)
+    phase_pipeline(card)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

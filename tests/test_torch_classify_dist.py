@@ -22,6 +22,14 @@ global batch's part, so BatchNorm's statistics cover the same rows; within
 batch (within 1e-6: the same forward, the mean weighted by rows), and
 ResNet18 and ViT fully sharded (`{"fsdp": 2}`) and under ZeRO over dp 2
 against the one-process port (2e-5, 5e-5).
+
+The workloads run as processes too: over 2 ranks on an axis that neither
+splits the batch nor shards the model (pp and ep for all three, tp and sp
+for ResNet), their rank 0 logs the one-process run's losses, as the JAX
+workloads replicate the step there, and every rank takes rank 0's batch
+and holds its parameters: rank 1 reads its own stream (its replica index
+seeds ViT's and BERT's; ResNet's native loader hands batches over in no
+fixed order), so only the broadcast over the replicas makes them agree.
 """
 import argparse
 import json
@@ -61,7 +69,7 @@ from tf_operator_tpu_torch.train.step import (classification_loss_fn,
                                               make_eval_step,
                                               make_train_step)
 from tf_operator_tpu_torch.workloads import bert, resnet, vit
-from torch_dist_worker import World
+from torch_dist_worker import World, launch_workload, replica_steps
 
 torch.set_num_threads(1)
 
@@ -296,7 +304,7 @@ TINY = {
     "bert": ["--batch", "4", "--seq-len", "16", "--layers", "1",
              "--d-model", "64"],
 }
-SP_ITEM = {"resnet": "A.9", "vit": "A.10", "bert": "A.10"}
+SP_ITEM = {"vit": "A.10", "bert": "A.10"}
 TOPOLOGY_ENV = ("TPUJOB_MESH_SHAPE", "TPUJOB_NUM_PROCESSES",
                 "TPUJOB_PROCESS_ID", "TPUJOB_ZERO_SHARD_WEIGHT_UPDATE",
                 "TPUJOB_VIRTUAL_REPLICAS", "TPUJOB_PHYSICAL_REPLICAS",
@@ -352,8 +360,6 @@ EXITS = [
                                  "ported (ROADMAP item A.18)"),
     ("fsdp", _multi(8, {"dp": 2, "fsdp": 4}),
      "--batch 4 must split over dp=2 x fsdp=4"),
-    ("ep", _multi(2, {"ep": 2}), "(ROADMAP item A.13)"),
-    ("pp", _multi(2, {"pp": 2}), "(ROADMAP item A.13)"),
     ("sp", _multi(2, {"sp": 2}), "the sp mesh axis (sp=2) is not yet "
                                  "ported (ROADMAP item {sp})"),
     ("mesh", _multi(2, {"dp": 4}),
@@ -361,11 +367,14 @@ EXITS = [
      "available"),
     ("batch", _multi(8, {"dp": 8}), "--batch 4 must split over dp=8"),
 ]
+# ResNet runs tp and sp (its ranks replicate the step over them, as the JAX
+# workload's do; `test_replicated_axis_trains_as_one_process`)
+EXIT_CASES = [(name, *e) for e in EXITS for name in WORKLOADS
+              if not (name == "resnet" and e[0] in ("tp", "sp"))]
 
 
-@pytest.mark.parametrize("name", list(WORKLOADS))
-@pytest.mark.parametrize("what,env,message", EXITS,
-                         ids=[e[0] for e in EXITS])
+@pytest.mark.parametrize("name,what,env,message", EXIT_CASES,
+                         ids=[f"{c[1]}-{c[0]}" for c in EXIT_CASES])
 def test_unported_or_unfit_topology_exits_2(clean_env, capsys, name, what,
                                             env, message):
     """Checked before any group is joined (the coordinator address is
@@ -375,7 +384,108 @@ def test_unported_or_unfit_topology_exits_2(clean_env, capsys, name, what,
     rc = WORKLOADS[name][0].main(["--steps", "1"] + TINY[name])
     out = capsys.readouterr().out
     assert rc == 2
-    assert message.format(sp=SP_ITEM[name]) in out
+    assert message.format(sp=SP_ITEM.get(name)) in out
+
+
+REPLICATED = [("resnet", "pp"), ("resnet", "ep"), ("resnet", "tp"),
+              ("resnet", "sp"), ("vit", "pp"), ("vit", "ep"), ("bert", "pp"),
+              ("bert", "ep")]
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _launch(name, env_extra, native=False):
+    """The workload's main through the worker's workload mode (every rank
+    prints its loss, batch and parameter digests), the native image loader
+    off unless `native`: its threads hand batches over in no fixed order,
+    so two runs would not read one stream."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("TPUJOB_") and k != "TF_CONFIG"}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               TPUJOB_FORCE_PLATFORM="cpu", **env_extra)
+    return launch_workload(name, ["--steps", "2", "--log-every", "1"]
+                           + TINY[name], env, native)
+
+
+def _ranks(name, axis, native=False):
+    """Two ranks over {axis: 2}, each with its own replica index, as a
+    TPUJob's pods get theirs."""
+    address = f"127.0.0.1:{_free_port()}"
+    return [_launch(name, dict(
+        TPUJOB_NUM_PROCESSES="2", TPUJOB_PROCESS_ID=str(rank),
+        TPUJOB_REPLICA_INDEX=str(rank), TPUJOB_COORDINATOR_ADDRESS=address,
+        TPUJOB_MESH_SHAPE=json.dumps({axis: 2})), native)
+        for rank in range(2)]
+
+
+@pytest.fixture(scope="module")
+def replicated_logs():
+    """Every workload in one process, over 2 ranks on each axis of
+    REPLICATED, and ResNet over pp on the native loader, started at once;
+    {key: each process's log}."""
+    procs = {(name, None): [_launch(name, {})] for name in WORKLOADS}
+    for name, axis in REPLICATED:
+        procs[name, axis] = _ranks(name, axis)
+    procs["resnet", "native"] = _ranks("resnet", "pp", native=True)
+    logs = {}
+    try:
+        for key, ranks in procs.items():
+            outs = [p.communicate(timeout=240)[0] for p in ranks]
+            assert all(p.returncode == 0 for p in ranks), "\n".join(outs)
+            logs[key] = outs
+    finally:
+        for ranks in procs.values():
+            for p in ranks:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    return logs
+
+
+def _replicas_agree(logs, steps):
+    """Every rank took the same batch, computed the same loss and holds the
+    same parameters after each of `steps` steps."""
+    per_rank = [replica_steps(log) for log in logs]
+    assert [s[0] for s in per_rank[0]] == [str(i) for i in range(steps)]
+    for rank, seen in enumerate(per_rank[1:], 1):
+        assert seen == per_rank[0], f"rank {rank}: {seen} != {per_rank[0]}"
+
+
+@pytest.mark.parametrize("name,axis", REPLICATED,
+                         ids=[f"{a}-{n}" for n, a in REPLICATED])
+def test_replicated_axis_trains_as_one_process(replicated_logs, name, axis):
+    """An axis that neither splits the batch nor shards the model
+    replicates the step, as in the JAX workloads: the two ranks' run logs
+    the one-process run's losses (printed to 4 decimals) from rank 0
+    alone, from the one-process run's batches, and rank 1 took rank 0's
+    batches and holds its parameters."""
+    rank0, rank1 = replicated_logs[name, axis]
+    want = re.findall(r"^step (\d+) loss (\S+)$",
+                      replicated_logs[name, None][0], re.M)
+    assert [i for i, _ in want] == ["0", "1"]
+    assert re.findall(r"^step (\d+) loss (\S+)$", rank0, re.M) == want
+    last = {"resnet": r"^done: 2 steps", "vit": r"^final loss ",
+            "bert": r"^done$"}[name]
+    assert re.search(last, rank0, re.M), rank0
+    assert not re.search(r"^step \d+ loss", rank1, re.M)
+    _replicas_agree([rank0, rank1], 2)
+    assert ([s[2] for s in replica_steps(rank0)]
+            == [s[2] for s in replica_steps(replicated_logs[name, None][0])])
+
+
+def test_replicas_take_one_batch_from_the_native_loader(replicated_logs):
+    """ResNet over {"pp": 2} on the native image loader, whose threads hand
+    batches over in no fixed order: the broadcast gives rank 1 rank 0's
+    batches, so the replicas agree step by step."""
+    rank0, rank1 = replicated_logs["resnet", "native"]
+    assert "image source: native" in rank0
+    _replicas_agree([rank0, rank1], 2)
 
 
 def test_vit_patch_size_that_does_not_divide_exits_2(clean_env, capsys):

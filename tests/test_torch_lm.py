@@ -20,6 +20,7 @@ from tf_operator_tpu_torch.workloads.runner import (
     WorkloadContext,
     apply_forced_platform,
 )
+from torch_dist_worker import launch_workload, replica_steps
 
 torch.set_num_threads(1)
 
@@ -115,17 +116,48 @@ def _multi(n, mesh):
             "TPUJOB_MESH_SHAPE": json.dumps(mesh)}
 
 
-@pytest.mark.parametrize("args,env,message", [
-    ([], _multi(2, {"pp": 2}), "A.13"),
-    (["--moe-experts", "2"], _multi(4, {"dp": 2, "pp": 2}), "A.13"),
-])
-def test_unported_options_exit_2(clean_env, capsys, args, env, message):
-    for name, value in env.items():
-        clean_env.setenv(name, value)
-    rc = lm.main(["--steps", "1"] + args + TINY)
-    out = capsys.readouterr().out
-    assert rc == 2
-    assert "not yet ported" in out and message in out
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("args", [[], ["--moe-experts", "2"]],
+                         ids=["dense", "moe"])
+def test_pp_axis_replicates_the_step(args):
+    """The JAX workload builds no pipeline, so its ranks along pp run the
+    same step: two ranks over {"pp": 2} log the one-process run's losses
+    (printed to 4 decimals) from rank 0 alone, and every rank takes the
+    same batch, computes the same loss and holds the same parameters after
+    each step (the worker's workload mode prints each rank's)."""
+    argv = ["--steps", "11"] + args + TINY
+    env = {k: v for k, v in os.environ.items() if k not in TOPOLOGY_ENV}
+    env.update(TPUJOB_FORCE_PLATFORM="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(REPO), TPUJOB_NUM_PROCESSES="2",
+               TPUJOB_COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               TPUJOB_MESH_SHAPE=json.dumps({"pp": 2}))
+    procs = [launch_workload("lm", argv, dict(
+        env, TPUJOB_PROCESS_ID=str(rank), TPUJOB_REPLICA_INDEX=str(rank)))
+        for rank in range(2)]
+    try:
+        single = run_module(argv)
+        logs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert single.returncode == 0, single.stdout + single.stderr
+    assert all(p.returncode == 0 for p in procs), "\n".join(logs)
+    want = re.findall(r"^step (\d+) loss (\S+)$", single.stdout, re.M)
+    assert [i for i, _ in want] == ["0", "10"]
+    assert re.findall(r"^step (\d+) loss (\S+)$", logs[0], re.M) == want
+    assert logs[0].count("done") == 1 and "done" not in logs[1]
+    steps = [replica_steps(log) for log in logs]
+    assert [s[0] for s in steps[0]] == [str(i) for i in range(11)]
+    assert steps[1] == steps[0]
 
 
 @pytest.mark.parametrize("env,message", [

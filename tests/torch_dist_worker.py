@@ -1,20 +1,30 @@
 """One rank of a multi-process gloo world for the port's parallel tests.
 
 The tests (`tests/test_torch_parallel.py`, `tests/test_torch_dist_lm.py`,
-`tests/test_torch_classify_dist.py`) write a job file, start `world` processes of this script and read back one
-result file per rank.  The ranks import the port and torch only (never JAX),
-join one group through a `file://` store, and run every case of the job in
-that one world, so a test file pays for its world's start once.
+`tests/test_torch_classify_dist.py`, `tests/test_torch_pipeline.py` and
+others) write a job file, start `world` processes of this script and read
+back one result file per rank.  The ranks import the port and torch only
+(never JAX), join one group through a `file://` store, and run every case
+of the job in that one world, so a test file pays for its world's start
+once.
 
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
-A job is {"kind": "attention" | "lm" | "classify" | "shard" | "decode",
-"cases": [...]}, saved with torch.save; each case's result goes into the
-rank's result file under the case's name.
+A job is {"kind": "attention" | "lm" | "classify" | "shard" | "decode" |
+"pipeline", "cases": [...]}, saved with torch.save; each case's result
+goes into the rank's result file under the case's name.
+
+    python tests/torch_dist_worker.py workload NAME NATIVE ARGS...
+
+runs one rank of a workload's main (its process group from the TPUJob env)
+with every rank printing its own loss and digests of its batch and its
+parameters after each step (`run_workload`; `launch_workload` starts it,
+`replica_steps` reads it back).
 """
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -113,7 +123,8 @@ def lm_case(case: dict) -> dict:
                            mesh=mesh)
     losses = []
     for tokens in case["batches"]:
-        state, metrics = step(state, shard_batch({"tokens": tokens}, mesh,
+        state, metrics = step(state, shard_batch({"tokens": tokens},
+                                                 state.sharding,
                                                  case["grad_accum"]))
         losses.append(float(metrics["loss"]))
     return {"losses": torch.tensor(losses, dtype=torch.float64),
@@ -162,13 +173,13 @@ def classify_case(case: dict) -> dict:
                            mesh=mesh)
     losses = []
     for batch in case["batches"]:
-        state, metrics = step(state, shard_batch(batch, mesh, accum))
+        state, metrics = step(state, shard_batch(batch, state.sharding, accum))
         losses.append(float(metrics["loss"]))
     out = {"losses": torch.tensor(losses, dtype=torch.float64),
            "state": full_state_dict(state)}
     if "eval_batch" in case:
         metrics = make_eval_step(classification_metrics(model), mesh)(
-            state, shard_batch(case["eval_batch"], mesh))
+            state, shard_batch(case["eval_batch"], state.sharding))
         out["eval"] = {k: v.double() for k, v in metrics.items()}
     return out
 
@@ -244,7 +255,8 @@ def shard_case(case: dict) -> dict:
                        moe_aux_weight=case.get("moe_aux_weight", 0.0),
                        loss_chunk=case.get("loss_chunk", 0)),
             grad_accum=accum, mesh=mesh)
-        state, metrics = step(state, shard_batch({"tokens": tokens}, mesh,
+        state, metrics = step(state, shard_batch({"tokens": tokens},
+                                                 state.sharding,
                                                  accum))
         losses.append(float(metrics["loss"]))
         if "moe_aux_loss" in metrics:
@@ -289,6 +301,115 @@ def decode_case(case: dict) -> dict:
             "cache_shape": torch.tensor(cache.layers[0].cached_key.shape)}
 
 
+def pipeline_case(case: dict) -> dict:
+    """The pipelined LM over the case's mesh (its pp group; dp lines
+    replicate), this rank's stage from the JAX params: the logits, then per
+    schedule in `schedules` the loss and every gradient this rank holds,
+    then `sgd_steps` SGD steps (lr `lr`) through `sgd_schedule` with their
+    losses."""
+    from tf_operator_tpu_torch.models import transformer as T
+    from tf_operator_tpu_torch.models.convert import pipeline_from_flax
+    from tf_operator_tpu_torch.models.pipeline_lm import \
+        PipelinedTransformerLM
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(case["mesh"], device_type="cpu")
+    virtual = case.get("virtual", 1)
+    model = PipelinedTransformerLM(
+        getattr(T, case["preset"])(**case["config"]), mesh,
+        num_microbatches=case["microbatches"], virtual_stages=virtual)
+    model.load_state_dict(pipeline_from_flax(
+        case["params"], model.rank, model.num_stages, virtual))
+    tokens = case["tokens"]
+    out = {"pp": torch.tensor(model.rank),
+           "dp": torch.tensor(mesh.coordinate("dp"))}
+    with torch.no_grad():
+        out["logits"] = model.apply(tokens)
+    for schedule in case["schedules"]:
+        model.zero_grad(set_to_none=True)
+        loss = getattr(model, f"loss_{schedule}")(tokens)
+        loss.backward()
+        out[schedule] = {"loss": loss.detach(), "grads": {
+            n: p.grad.clone() for n, p in model.named_parameters()}}
+    losses = []
+    for _ in range(case.get("sgd_steps", 0)):
+        model.zero_grad(set_to_none=True)
+        loss = getattr(model, f"loss_{case['sgd_schedule']}")(tokens)
+        loss.backward()
+        with torch.no_grad():
+            for p in model.parameters():
+                p -= case["lr"] * p.grad
+        losses.append(float(loss))
+    out["sgd"] = torch.tensor(losses, dtype=torch.float64)
+    return out
+
+
+REPLICA_LINE = re.compile(r"^replica (\d+) step (\d+) loss (\S+) batch (\w+) "
+                          r"params (\w+)$", re.M)
+
+
+def run_workload(name: str, native: str, argv) -> int:
+    """Workload `name`'s main on `argv`, every rank printing after each step
+    `replica RANK step I loss L batch B params P`: its own loss and digests
+    of the batch the step took and of the parameters after its update (the
+    workloads log from rank 0 alone), so a test can hold the ranks that
+    replicate a step to each other.  `native` "0" turns the native image
+    loader off (its threads hand batches over in no fixed order)."""
+    import hashlib
+    import importlib
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.train import native_data
+    from tf_operator_tpu_torch.train import step as S
+
+    if native == "0":
+        native_data.native_available = lambda: False
+    made = S.make_train_step
+
+    def digest(tensors) -> str:
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(torch.as_tensor(t).detach().float().cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+
+    def make(*args, **kwargs):
+        inner, taken = made(*args, **kwargs), []
+
+        def step(state, batch):
+            seen = digest(batch[k] for k in sorted(batch))
+            state, metrics = inner(state, batch)
+            rank = dist.get_rank() if dist.is_initialized() else 0
+            print(f"replica {rank} step {len(taken)} loss "
+                  f"{float(metrics['loss'])!r} batch {seen} params "
+                  f"{digest(state.model.parameters())}", flush=True)
+            taken.append(seen)
+            return state, metrics
+
+        return step
+
+    S.make_train_step = make
+    return importlib.import_module(
+        f"tf_operator_tpu_torch.workloads.{name}").main(list(argv))
+
+
+def launch_workload(name: str, argv, env: dict, native: bool = True):
+    """A process of `run_workload` (stdout and stderr as one text pipe)."""
+    return subprocess.Popen(
+        [sys.executable, __file__, "workload", name, "1" if native else "0",
+         *argv], cwd=str(REPO), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def replica_steps(log: str) -> list:
+    """[(step, loss, batch digest, params digest)] of a `run_workload` log,
+    with the rank it names checked to be one rank throughout."""
+    lines = REPLICA_LINE.findall(log)
+    assert len({rank for rank, *_ in lines}) == 1, log
+    return [tuple(rest) for _, *rest in lines]
+
+
 def main(job_file, rank, world, store, out_dir) -> None:
     import torch.distributed as dist
 
@@ -299,7 +420,7 @@ def main(job_file, rank, world, store, out_dir) -> None:
     try:
         run = {"attention": attention_case, "lm": lm_case,
                "classify": classify_case, "shard": shard_case,
-               "decode": decode_case}[job["kind"]]
+               "decode": decode_case, "pipeline": pipeline_case}[job["kind"]]
         results = {case["name"]: run(case) for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")
     finally:
@@ -307,4 +428,6 @@ def main(job_file, rank, world, store, out_dir) -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1] == "workload":
+        sys.exit(run_workload(sys.argv[2], sys.argv[3], sys.argv[4:]))
     main(*sys.argv[1:])

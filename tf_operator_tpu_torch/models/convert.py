@@ -1,8 +1,10 @@
 """Carry model weights between the flax layout and this package's:
 TransformerLM (with its mixture-of-experts blocks and its decode cache,
-`cache_from_flax`), ViT and BertEncoder parameters, ResNet's parameters with
-its BatchNorm `batch_stats`, and the MNIST models' (`mnist_from_flax`,
-`mnist_to_flax`: the parameter server's wire carries the flax ones).
+`cache_from_flax`), one pp rank's share of the pipelined LM's
+stage-stacked params (`pipeline_from_flax`, `pipeline_to_flax`), ViT and
+BertEncoder parameters, ResNet's parameters with its BatchNorm
+`batch_stats`, and the MNIST models' (`mnist_from_flax`, `mnist_to_flax`:
+the parameter server's wire carries the flax ones).
 
 flax keeps `DenseGeneral` kernels per head — query/key/value
 (d_model, heads, head_dim), out (heads, head_dim, d_model) — and `Dense`
@@ -131,6 +133,64 @@ def _blocks_to_flax(sd):
         params[f"block_{i}"] = block
         i += 1
     return params
+
+
+def _stage_index(rank: int, v: int, j: int, virtual_stages: int):
+    """The index into a stage-stacked flax leaf of layer j of rank `rank`'s
+    chunk v: [P, L, ...] leaves, or [P, V, L, ...] interleaved."""
+    return (rank, j) if virtual_stages == 1 else (rank, v, j)
+
+
+def pipeline_from_flax(params, mesh_rank: int, num_stages: int,
+                       virtual_stages: int = 1) -> Dict[str, torch.Tensor]:
+    """The JAX `PipelinedTransformerLM`'s params (`stages` leaves stacked
+    [P, L, ...], or [P, V, L, ...] with chunk g = v·P + r) -> the state_dict
+    of `models.pipeline_lm.PipelinedTransformerLM` for pp rank
+    `mesh_rank`: its chunks' blocks (local block v·L + j) and the head."""
+    stages = params["stages"]
+    shape = np.asarray(stages["ln1"]["scale"]).shape
+    if shape[0] != num_stages or (virtual_stages > 1
+                                  and shape[1] != virtual_stages):
+        raise ValueError(f"stage-stacked leaves {shape} do not hold "
+                         f"{num_stages} stages x {virtual_stages} chunks")
+    lpc = shape[1 if virtual_stages == 1 else 2]
+    blocks = {}
+    for v in range(virtual_stages):
+        for j in range(lpc):
+            at = _stage_index(mesh_rank, v, j, virtual_stages)
+            blocks[f"block_{v * lpc + j}"] = _tree_map(
+                lambda a: np.asarray(a)[at], stages)
+    sd = {"wte": _t(params["wte"]), "ln_f_scale": _t(params["ln_f_scale"])}
+    for name in ("wpe", "ln_f_bias"):
+        if name in params:
+            sd[name] = _t(params[name])
+    sd.update(_blocks_from_flax(blocks))
+    return sd
+
+
+def pipeline_to_flax(state_dicts, virtual_stages: int = 1):
+    """The inverse of `pipeline_from_flax` over every rank: the state_dicts
+    (or gradients under the same names) of pp ranks 0..P-1 -> the JAX
+    params, `stages` stacked as `init` stacks them; the head from rank 0's."""
+    ranks = [_blocks_to_flax(_host(sd)) for sd in state_dicts]
+    lpc = len(ranks[0]) // virtual_stages
+
+    def stack(*leaves):
+        per_rank = np.stack(leaves).reshape(
+            len(ranks), virtual_stages, lpc, *leaves[0].shape)
+        return per_rank[:, 0] if virtual_stages == 1 else per_rank
+
+    head = _host({k: v for k, v in state_dicts[0].items()
+                  if not k.startswith("blocks.")})
+    return {**head, "stages": _tree_map(
+        stack, *[r[f"block_{k}"] for r in ranks for k in range(len(r))])}
+
+
+def _tree_map(fn, *trees):
+    """fn over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
 
 
 def _dense_to_flax(sd, prefix):

@@ -5,8 +5,8 @@ JAX transposes `ppermute`, `all_to_all` and `psum` by itself; PyTorch's
 collectives have no gradient, so each collective here is an
 `autograd.Function` whose backward is the transposed collective:
   * `ring_shift` sends its tensors to the next rank of the group and
-    receives the previous rank's (one `batch_isend_irecv`); its backward
-    shifts the gradients the other way.
+    receives the previous rank's (one `batch_isend_irecv`, `shift`); its
+    backward shifts the gradients the other way.
   * `all_to_all` exchanges equal chunks of dim 0 with every rank of the
     group (`all_to_all_single`); the exchange is its own transpose.
   * `all_reduce` sums a tensor over the group; every rank's result depends
@@ -37,9 +37,9 @@ class TPGroup(NamedTuple):
     size: int
 
 
-def _shift(tensors, group, step: int):
+def shift(tensors, group, step: int):
     """Send each tensor to group rank (i + step) % n and receive the same
-    shapes from (i - step) % n."""
+    shapes from (i - step) % n, for rank i (no gradient)."""
     n = dist.get_world_size(group)
     me = dist.get_rank(group)
     dst = dist.get_global_rank(group, (me + step) % n)
@@ -56,7 +56,7 @@ class _RingShift(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, *tensors):
         ctx.group = group
-        return tuple(_shift([x.contiguous() for x in tensors], group, 1))
+        return tuple(shift([x.contiguous() for x in tensors], group, 1))
 
     @staticmethod
     def backward(ctx, *grads):
@@ -64,8 +64,8 @@ class _RingShift(torch.autograd.Function):
         # peers' backward waits for ours: every rank's outputs must reach
         # its loss (ring attention gives a skipped hop's blocks a zero
         # gradient for that).
-        return (None, *_shift([g.contiguous() for g in grads], ctx.group,
-                              -1))
+        return (None, *shift([g.contiguous() for g in grads], ctx.group,
+                             -1))
 
 
 def ring_shift(group, *tensors):

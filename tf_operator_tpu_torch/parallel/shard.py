@@ -25,7 +25,10 @@ Whenever the mesh names tp or fsdp, even at size 1, the machinery runs
 one-card run goes through it with the plain run's numbers.
 
 After the backward `reduce_grads` sums each gradient exactly once over the
-data and sequence axes (dp, fsdp, sp) and never over tp or ep: FSDP2 has
+axes that split the batch (`split_axes`: dp, fsdp and, for the LM, whose
+ranks of sp hold slices of the sequence, sp) and never over tp, ep or pp
+(a classifier's ranks along sp, tp, ep or pp, and the LM's along pp,
+replicate the step, as in the JAX workloads): FSDP2 has
 summed it over fsdp (its divide factor set to 1: the step scales the
 loss), ZeRO reduce-scatters it over dp, and the rest is one flat
 all-reduce per set of axes.  The row-parallel biases, whose gradient only tp rank 0 holds, are
@@ -60,9 +63,16 @@ class Sharding:
     group), applied to the model on construction."""
 
     def __init__(self, model, mesh, zero_plan=None) -> None:
+        from ..models.transformer import TransformerLM
         from .tp_rules import param_layouts, tp_rule_dim
 
         self.mesh, self.zero_plan = mesh, zero_plan
+        # the axes that split the batch, and the group the step sums the
+        # loss over
+        self.split_axes = tuple(
+            a for a in (DATA_AXES if isinstance(model, TransformerLM)
+                        else (AXIS_DP, AXIS_FSDP))
+            if a in mesh.axis_names)
         self.layouts = param_layouts(model, mesh, zero_plan)
         self.params = dict(model.named_parameters())
         self.tp = (TPGroup(mesh.group(AXIS_TP), mesh.coordinate(AXIS_TP),
@@ -81,7 +91,7 @@ class Sharding:
                     if dim is not None:
                         self.tp_dims[name] = lay.port_dim(dim)
         self.partial_tp: set = set()
-        if self.tp is not None:
+        if self.tp_dims:
             self._apply_tp(model)
         self.ep = (TPGroup(mesh.group(AXIS_EP), mesh.coordinate(AXIS_EP),
                            mesh.shape[AXIS_EP])
@@ -97,7 +107,7 @@ class Sharding:
         # and their groups (made here, in the same order on every rank)
         self.reduce_axes: Dict[str, Tuple[str, ...]] = {}
         for name in self.params:
-            axes = [a for a in DATA_AXES if a in mesh.axis_names]
+            axes = list(self.split_axes)
             if name in self.fsdp_dims:
                 axes.remove(AXIS_FSDP)
             if name in self.zero_dims:
@@ -108,6 +118,7 @@ class Sharding:
         self.groups = {axes: mesh.group_over(axes)
                        for axes in dict.fromkeys(self.reduce_axes.values())
                        if axes}
+        self.loss_group = mesh.group_over(self.split_axes)
 
     # ------------------------------------------------------------------
     # applying the layout

@@ -13,13 +13,16 @@ and the step updates them in place through the optimizer.
 
 Over a mesh (one process per rank) the step is the one GSPMD derives for
 the JAX package: each rank takes its shard of the global batch
-(`shard_batch`: its rows over dp and fsdp, its slice of the sequence over
-sp; with grad_accum, microbatch i is its share of the global batch's i-th
-part, as JAX's reshape of the global batch gives it), its loss is its mean
-over its share divided by the data ranks times sp (tp ranks compute the
-same loss on the same rows), the gradients are summed once over dp, fsdp
-and sp and never over tp (`parallel/shard.Sharding.reduce_grads`), before
-clipping, and the reported loss is summed likewise.  A model whose layers
+(`shard_batch`: its rows over dp and fsdp, for the LM its slice of the
+sequence over sp, as the state's `Sharding.split_axes` say; with
+grad_accum, microbatch i is its share of the global batch's i-th part, as
+JAX's reshape of the global batch gives it), its
+loss is its mean over its share divided by the ranks of the axes that
+split the batch (`Sharding.split_axes`; the ranks along any other axis
+compute the same loss on the same rows), the gradients are summed once
+over those axes and never over tp, ep or pp
+(`parallel/shard.Sharding.reduce_grads`), before clipping, and the
+reported loss is summed likewise.  A model whose layers
 reduce over the batch (ResNet's BatchNorm) all-reduces those sums itself.
 Under tp the LM's logits are this rank's vocab slice, and the
 cross-entropy's log-sum-exp and target logit are summed over the tp group
@@ -230,13 +233,16 @@ def make_eval_step(metric_fn, mesh=None):
     return step
 
 
-def shard_batch(batch, mesh, grad_accum: int = 1):
-    """This rank's shard of a global batch: its rows of the data axes (dp,
-    fsdp) and, over the `sp` axis, its slice of an LM batch's shifted
-    sequence {"tokens": [B, T + 1]}.  With grad_accum k the global rows
-    split into k parts (microbatches) first and the rank keeps its rows of
-    each, in order, so `make_train_step`'s chunk i of the shard is this
-    rank's share of global rows [i*B/k, (i+1)*B/k), as in the JAX step.
+def shard_batch(batch, sharding, grad_accum: int = 1):
+    """This rank's shard of a global batch, for the train state laid out by
+    `sharding` (`parallel/shard.Sharding`, whose `split_axes` say which
+    axes split the batch): its rows of the data axes (dp, fsdp) and, where
+    sp splits the batch (the LM), its slice of the shifted sequence
+    {"tokens": [B, T + 1]}; the ranks along every other axis keep the same
+    rows.  With grad_accum k the global rows split into k parts
+    (microbatches) first and the rank keeps its rows of each, in order, so
+    `make_train_step`'s chunk i of the shard is this rank's share of global
+    rows [i*B/k, (i+1)*B/k), as in the JAX step.
     The loss reads inputs tokens[:, :-1] and targets tokens[:, 1:]; sp rank
     s of n takes the window tokens[:, s*T/n : (s+1)*T/n + 1], whose own
     shift gives exactly its slice of the global inputs and targets
@@ -244,11 +250,13 @@ def shard_batch(batch, mesh, grad_accum: int = 1):
     tensors; rank-0 leaves are replicated."""
     from ..parallel.mesh import AXIS_SP, axis_size, data_axes
 
+    mesh = sharding.mesh
     sizes = [axis_size(mesh, a) for a in data_axes(mesh)]
     n_data = int(np.prod(sizes, initial=1))
     row = int(np.ravel_multi_index(
         [mesh.coordinate(a) for a in data_axes(mesh)], sizes)) if sizes else 0
-    sp = axis_size(mesh, AXIS_SP)
+    sp = (axis_size(mesh, AXIS_SP) if AXIS_SP in sharding.split_axes
+          else 1)
     seq_idx = mesh.coordinate(AXIS_SP)
     out = {}
     for name, leaf in batch.items():
@@ -291,25 +299,25 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
     the distributed one described in the module docstring: the gradients
     are reduced by the train state's `Sharding` (`create_train_state` with
     the same mesh)."""
-    from ..parallel.shard import DATA_AXES
-
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    # every data (and sp) rank holds an equal share of the rows (tokens),
-    # so the global mean is the sum over those ranks of each rank's mean
-    # over their count; tp ranks hold the same rows
-    ranks, loss_group = 1, None
-    if mesh is not None:
-        if mesh.size != dist.get_world_size():
-            raise ValueError(f"{mesh} does not cover the process group's "
-                             f"{dist.get_world_size()} ranks")
-        ranks = int(np.prod([mesh.shape.get(a, 1) for a in DATA_AXES]))
-        loss_group = mesh.group_over(DATA_AXES)
+    if mesh is not None and mesh.size != dist.get_world_size():
+        raise ValueError(f"{mesh} does not cover the process group's "
+                         f"{dist.get_world_size()} ranks")
 
     def step(state: TrainState, batch):
-        if mesh is not None and state.sharding is None:
-            raise ValueError("a step over a mesh needs the train state laid "
-                             "out on it: create_train_state(..., mesh=)")
+        # every rank of the axes that split the batch holds an equal share
+        # of the rows (tokens), so the global mean is the sum over those
+        # ranks of each rank's mean over their count; the ranks along the
+        # other axes hold the same rows
+        ranks = 1
+        if mesh is not None:
+            if state.sharding is None:
+                raise ValueError("a step over a mesh needs the train state "
+                                 "laid out on it: create_train_state(..., "
+                                 "mesh=)")
+            ranks = int(np.prod([mesh.shape[a]
+                                 for a in state.sharding.split_axes]))
         state.model.train()
         for key, x in batch.items():
             if x.shape[0] % grad_accum:
@@ -330,7 +338,7 @@ def make_train_step(loss_fn, grad_accum: int = 1, mesh=None):
         total = total / (grad_accum * ranks)
         if mesh is not None:
             state.sharding.reduce_grads()
-            dist.all_reduce(total, group=loss_group)
+            dist.all_reduce(total, group=state.sharding.loss_group)
         state.apply_gradients()
         metrics = {"loss": total}
         if aux_total is not None:

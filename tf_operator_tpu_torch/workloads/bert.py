@@ -11,7 +11,9 @@ kernels at T = --seq-len.
 
 Data parallel over the mesh's dp and fsdp axes, the parameters fully
 sharded over fsdp and, with the ZeRO knob, the moments and the update over
-dp; tp and sp exit 2 naming their ROADMAP item.
+dp; the ranks along pp and ep replicate the step (the batch broadcast over
+them), as the JAX workload's do; tp and sp exit 2 naming their ROADMAP
+item.
 
 Usage: python -m tf_operator_tpu_torch.workloads.bert --steps 50
 """
@@ -20,10 +22,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .runner import UNPORTED_CLASSIFY_AXES
-
-# sequence parallelism over the tokens (ring/Ulysses in the encoder)
-UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.10"),)
+# tensor parallelism, and sequence parallelism over the tokens
+# (ring/Ulysses in the encoder); pp and ep replicate the step
+UNPORTED = (("tp", "A.18"), ("sp", "A.10"))
 
 
 def main(argv=None) -> int:
@@ -70,7 +71,8 @@ def _train(args, ctx, device, mesh, layout) -> int:
     from ..train.optim import adamw
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
 
     cfg = bert_base_config(
         num_layers=args.layers, d_model=args.d_model,
@@ -93,9 +95,11 @@ def _train(args, ctx, device, mesh, layout) -> int:
                 ).astype(np.int32),
                 "label": rng.randint(0, 2, args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_batch(batch, mesh)
+            yield batch if mesh is None else shard_batch(batch, state.sharding)
 
-    run_steps(state, step, prefetch_to_device(batches(), device),
+    run_steps(state, step,
+              same_batch_over_replicas(prefetch_to_device(batches(), device),
+                                       state.sharding),
               steps=args.steps, device=device, log_every=args.log_every,
               profile=ProfileCapture(args.profile_dir, args.profile_start,
                                      args.profile_steps),

@@ -3,7 +3,10 @@ request); over several processes, data parallel over the mesh's `dp` axis,
 fully sharded (FSDP2) over `fsdp`, tensor parallel over `tp`, sequence
 parallel (ring or Ulysses) over `sp` and, with `--moe-experts`, expert
 parallel over `ep`, with ZeRO weight-update sharding over dp on request
-(`--zero-shard-weight-update` or the spec knob's env).  After training,
+(`--zero-shard-weight-update` or the spec knob's env).  The ranks along
+`pp` (and `ep` without experts) replicate the step, as the JAX workload's
+do: it builds no pipeline (the pipeline-parallel LM is
+`models/pipeline_lm.py`).  After training,
 `--sample-tokens N` decodes N tokens greedily with the KV cache
 (`--kv-cache-dtype`) from an 8-token prompt and prints `sample: [...]`.
 
@@ -15,9 +18,7 @@ line: the mean wall time of the run's steps after its first, periodic
 checkpoint saves included, and the global batch's tokens/s.  In a process
 group only rank 0 prints them.  Checkpoints make a preempted pod resume from its latest
 step.  Under ZeRO the `zero_sharding_plan: {...}` line is the JAX
-workload's.  Options of the JAX workload that this package does not run
-yet (the pp axis) exit 2 with a "not yet ported" message naming the
-ROADMAP item; none is silently ignored.
+workload's.
 
 Usage: python -m tf_operator_tpu_torch.workloads.lm --steps 100 \
            --checkpoint-dir /tmp/ckpt
@@ -268,7 +269,7 @@ def _train(args, cfg, tx, device, mesh, layout, zero, processes: int,
     # every rank draws the same global stream and keeps its shard
     batches = synthetic_tokens(args.batch, args.seq_len + 1, args.vocab)
     if mesh is not None:
-        batches = (shard_batch(b, mesh, args.grad_accum) for b in batches)
+        batches = (shard_batch(b, state.sharding, args.grad_accum) for b in batches)
     data = prefetch_to_device(batches, device)
 
     start = state.step

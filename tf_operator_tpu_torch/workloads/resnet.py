@@ -18,8 +18,10 @@ statistics are those of the global batch (its sums all-reduced over the
 data ranks), as the JAX step's one jit over the globally sharded batch
 computes them.  fsdp shards the parameters (FSDP2), and ZeRO
 weight-update sharding (the spec knob's env) the momentum and the update
-over dp, printing the JAX workload's plan line.  tp and sp exit 2 naming
-their ROADMAP item.
+over dp, printing the JAX workload's plan line.  The ranks along pp, ep,
+tp and sp replicate the step, as the JAX workload's do (its data axes are
+dp and fsdp, and no sharding rule matches a conv): each batch is broadcast
+over them, so they read one batch from the native loader.
 
 Usage: python -m tf_operator_tpu_torch.workloads.resnet --steps 100 --batch 256
 Set TPUJOB_FORCE_PLATFORM=cpu to run on the CPU; otherwise a CUDA device
@@ -29,11 +31,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-from .runner import UNPORTED_CLASSIFY_AXES
-
-# sp would replicate the batch; the JAX workload gives it no meaning either
-UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.9"),)
 
 
 def main(argv=None) -> int:
@@ -62,7 +59,7 @@ def main(argv=None) -> int:
     ctx = WorkloadContext.from_env()
     print(f"resnet workload: role={ctx.replica_type} index={ctx.replica_index}",
           flush=True)
-    layout, rc = plan_mesh(ctx, UNPORTED)
+    layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
     problem = split_batch(args.batch, layout)
@@ -84,7 +81,8 @@ def _train(args, device, mesh, layout, zero) -> int:
     from ..train.optim import sgd
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
 
     from ..parallel.mesh import data_axes
 
@@ -104,9 +102,11 @@ def _train(args, device, mesh, layout, zero) -> int:
     step = make_train_step(classification_loss_fn(model), mesh=mesh)
 
     raw = images_or_fallback(args.batch, args.image_size, args.num_classes)
-    batches = raw if mesh is None else (shard_batch(b, mesh) for b in raw)
+    batches = raw if mesh is None else (shard_batch(b, state.sharding)
+                                        for b in raw)
     data = ({**b, "x": b["x"].to(torch.bfloat16)}
-            for b in prefetch_to_device(batches, device))
+            for b in same_batch_over_replicas(
+                prefetch_to_device(batches, device), state.sharding))
     try:
         _, elapsed = run_steps(
             state, step, data, steps=args.steps, device=device,

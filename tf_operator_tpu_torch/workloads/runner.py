@@ -4,7 +4,8 @@ The counterpart of `tf_operator_tpu/workloads/runner.py`: parse TF_CONFIG +
 the TPUJOB_* env into a WorkloadContext, pick the device, validate the
 mesh and the options this package does not run yet (exit 2 naming their
 ROADMAP item), join the job's process group and lay the one mesh over its
-ranks, time the steps, and capture a profiler trace for a window of steps.
+ranks, hand the ranks that replicate a step the same batch, time the steps,
+and capture a profiler trace for a window of steps.
 One process drives one GPU.  The four training workloads (lm, resnet, vit,
 bert) share these steps; the estimator reads TF_CONFIG as TF's RunConfig
 does (`runconfig_from_env`).
@@ -296,23 +297,19 @@ def runconfig_from_env(env: Optional[Dict[str, str]] = None) -> Dict[str, object
     }
 
 
-# mesh axes this package does not run yet, and the ROADMAP item for each
-UNPORTED_AXES = (("pp", "A.13"),)
-# the classification workloads: tensor and expert parallelism run the LM
-# only
-UNPORTED_CLASSIFY_AXES = (("ep", "A.13"),) + UNPORTED_AXES + (("tp", "A.18"),)
-
-
 def not_ported(what: str, item: str) -> int:
     print(f"{what} is not yet ported (ROADMAP item {item})", flush=True)
     return 2
 
 
 def plan_mesh(ctx: WorkloadContext,
-              unported=UNPORTED_AXES) -> Tuple[Optional[object], int]:
+              unported=()) -> Tuple[Optional[object], int]:
     """(the mesh layout, 0), or (None, 2) after printing why the job cannot
-    run: a mesh that does not fit the processes, or an axis this package
-    does not run yet."""
+    run: a mesh that does not fit the processes, or an axis of `unported`
+    ((axis, ROADMAP item) pairs) that the workload does not run yet.  An
+    axis that neither splits the batch nor shards the model (pp; for the
+    classifiers ep; for ResNet tp and sp) replicates the step, as in the
+    JAX workloads."""
     try:
         layout = ctx.mesh_layout()
     except ValueError as e:
@@ -336,6 +333,34 @@ def split_batch(batch: int, layout, grad_accum: int = 1) -> Optional[str]:
                 if grad_accum > 1 else "")
         return f"--batch {batch} must split over {over}{tail}"
     return None
+
+
+def same_batch_over_replicas(batches, sharding):
+    """`batches` (dicts of tensors on the device), each broadcast over this
+    rank's replicas, the ranks that differ only along axes larger than 1
+    that do not split the batch (`sharding.split_axes`), from the first of
+    them: ranks that replicate the step must read one batch, and a loader
+    whose threads hand batches over in no fixed order (the native image
+    loader), or one seeded per replica, would give them different ones.
+    `batches` as it is without such axes or a mesh (`sharding` None)."""
+    import torch.distributed as dist
+
+    mesh = None if sharding is None else sharding.mesh
+    axes = [] if mesh is None else [
+        a for a in mesh.axis_names
+        if a not in sharding.split_axes and mesh.shape[a] > 1]
+    if not axes:
+        return batches
+    group = mesh.group_over(axes) or dist.group.WORLD
+    src = dist.get_global_rank(group, 0)
+
+    def broadcast():
+        for batch in batches:
+            for t in batch.values():
+                dist.broadcast(t, src, group=group)
+            yield batch
+
+    return broadcast()
 
 
 def zero_plan_for_workload(model, layout, enabled: bool):

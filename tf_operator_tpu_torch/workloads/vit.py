@@ -11,8 +11,9 @@ runs non-causal through the flash kernels at T = patches + 1.
 
 Data parallel over the mesh's dp and fsdp axes (each rank keeps its rows
 of the batch it draws), the parameters fully sharded over fsdp and, with
-the ZeRO knob, the moments and the update over dp; tp and sp exit 2
-naming their ROADMAP item.
+the ZeRO knob, the moments and the update over dp; the ranks along pp and
+ep replicate the step (the batch broadcast over them), as the JAX
+workload's do; tp and sp exit 2 naming their ROADMAP item.
 
 Usage: python -m tf_operator_tpu_torch.workloads.vit --steps 100 --batch 256
 """
@@ -21,10 +22,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from .runner import UNPORTED_CLASSIFY_AXES
-
-# sequence parallelism over the patches (ring/Ulysses in a ViT)
-UNPORTED = UNPORTED_CLASSIFY_AXES + (("sp", "A.10"),)
+# tensor parallelism, and sequence parallelism over the patches
+# (ring/Ulysses in a ViT); pp and ep replicate the step
+UNPORTED = (("tp", "A.18"), ("sp", "A.10"))
 
 
 def main(argv=None) -> int:
@@ -77,7 +77,8 @@ def _train(args, ctx, device, mesh, layout) -> int:
     from ..train.optim import adamw
     from ..train.step import (classification_loss_fn, make_train_step,
                               shard_batch)
-    from .runner import ProfileCapture, run_steps, say, train_state_on_mesh
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
 
     patches = (args.image_size // args.patch_size) ** 2
     heads = max(1, args.d_model // 64)
@@ -102,10 +103,11 @@ def _train(args, ctx, device, mesh, layout) -> int:
                 "label": rng.randint(0, args.num_classes,
                                      args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_batch(batch, mesh)
+            yield batch if mesh is None else shard_batch(batch, state.sharding)
 
     loss, elapsed = run_steps(
-        state, step, prefetch_to_device(batches(), device),
+        state, step, same_batch_over_replicas(
+            prefetch_to_device(batches(), device), state.sharding),
         steps=args.steps, device=device, log_every=args.log_every,
         profile=ProfileCapture(args.profile_dir, args.profile_start,
                                args.profile_steps),
