@@ -70,6 +70,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            and peak memory, two profiled steps, a checkpoint saved under
            the mesh resumed by a plain run; and the ZeRO plan's optimizer
            bytes per rank for GPT-small at dp 8, computed
+  encoder_mesh the eighth path: ViT-B/16 and BERT-base under {"tp": 1}
+           (the tensor-parallel layout on 1-way slices, BERT's
+           vocab-sharded lookup) and under {"dp": 1, "fsdp": 1} with the
+           ZeRO knob (dense at dp 1, as the JAX workload), and the LM
+           under the latter, each over a one-rank NCCL group in turns
+           with two plain runs: losses equal within 1e-5 relative, 12
+           launches per step of each kernel, step ms, items/s, peak
+           memory; and what the ZeRO plan shards at {"dp": 2, "fsdp": 4}
+           (how many entries on a head_dim), computed.  The kernel cases
+           vit_b16_tp2 and bert_base_tp2 hold the kernels at one tp
+           rank's heads, the ring cases bert_n2_full and bert_n4_full at
+           BERT's per-shard lengths under sp 2 and 4
   mnist    the fifth path, the small workloads: the MNIST workload
            (`workloads.mnist.main`, BASELINE config 1) with the MLP and the
            CNN at the JAX defaults (B 64, Adam 1e-3), 200 steps each: final
@@ -349,6 +361,10 @@ CASES = [
     # at T 128, both non-causal at their workloads' batch
     ("vit_b16", 256, 12, 12, 197, 64, False, None, 0, 128),
     ("bert_base", 32, 12, 12, 128, 64, False, None, 0, 128),
+    # the eighth path: each tp rank's heads at tp 2 (ViT-B/16 and BERT-base
+    # 12 -> 6)
+    ("vit_b16_tp2", 256, 6, 6, 197, 64, False, None, 0, 128),
+    ("bert_base_tp2", 32, 6, 6, 128, 64, False, None, 0, 128),
     # the fourth path: each tp rank's heads at tp 2 (GPT-small 12 -> 6,
     # llama 12/4 -> 6/2)
     ("gpt_small_tp2", 8, 6, 6, 2048, 64, True, None, 0, 128),
@@ -359,7 +375,7 @@ CASES = [
     ("pipeline_mb8", 1, 12, 12, 2048, 64, True, None, 0, 128),
 ]
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
-               "gpt_small_tp2", "llama_tp2")
+               "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2")
 
 
 def live_pairs(t, causal, window, sink, device) -> int:
@@ -837,6 +853,10 @@ RING_CASES = [
     ("n4_causal", 8, 12, 2048, 64, 4, True),
     ("n4_full", 8, 12, 2048, 64, 4, False),
     ("long_n4_causal", 2, 12, 8192, 64, 4, True),
+    # the eighth path: BERT-base under sp (B 32, T 128), non-causal, each
+    # rank's block 64 and 32 rows: shorter than one tile
+    ("bert_n2_full", 32, 12, 128, 64, 2, False),
+    ("bert_n4_full", 32, 12, 128, 64, 4, False),
 ]
 
 
@@ -1165,6 +1185,136 @@ def phase_shard(card: str, out_dir):
           f"{dense} bytes dense, {sharded} bytes under the ZeRO plan at "
           f"dp 8 ({sum(e.dim is not None for e in plan.entries)} of "
           f"{len(plan.entries)} entries sharded)", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# the eighth path: the transformers under tp and ZeRO with fsdp at size 1
+
+MESH_RUNS = [
+    # workload, its flags, steps (loss lines at each, or the LM's at 0 and
+    # 10), blocks, items per step, unit, meshes (tag, mesh, ZeRO knob)
+    ("vit", [], 3, 12, 256, "images",
+     [("tp1", {"tp": 1}, False), ("dp1_fsdp1_zero", {"dp": 1, "fsdp": 1},
+                                   True)]),
+    # 3 steps: two plain BERT runs on the card part after that (3e-4
+    # relative at step 4, 6e-4 at step 5), so no layout could be held to
+    # the rule there
+    ("bert", [], 3, 12, 32, "sequences",
+     [("tp1", {"tp": 1}, False), ("dp1_fsdp1_zero", {"dp": 1, "fsdp": 1},
+                                   True)]),
+    ("lm", [], 11, 12, 8 * 2048, "tokens",
+     [("dp1_fsdp1_zero", {"dp": 1, "fsdp": 1}, True)]),
+]
+
+
+def mesh_run(name: str, argv, steps: int, blocks: int):
+    """(log, every step's loss in full precision, peak bytes) of one run of
+    workload `name`, each kernel's launches counted from zero and held to
+    blocks x steps.  The losses are kept as the step returns them (no
+    sync inside the run) and read after it."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.train import step as S
+
+    made, losses = S.make_train_step, []
+
+    def make(*args, **kwargs):
+        inner = made(*args, **kwargs)
+
+        def step(state, batch):
+            state, metrics = inner(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+
+        return step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    A.reset_launches()
+    extra = [] if name == "lm" else ["--log-every", "1"]
+    S.make_train_step = make
+    try:
+        log = run_workload(name, argv + ["--steps", str(steps)] + extra)
+    finally:
+        S.make_train_step = made
+    check_launches(blocks * steps, f"{name} run")
+    return (log, [float(x) for x in losses],
+            torch.cuda.max_memory_allocated())
+
+
+def phase_encoder_mesh(card: str):
+    """The eighth path on one card: ViT-B/16 (B 256, 224 px) and BERT-base
+    (B 32, T 128) under {"tp": 1} (the tensor-parallel layout on 1-way
+    slices, BERT's vocab-sharded lookup) and under {"dp": 1, "fsdp": 1}
+    with the ZeRO knob (FSDP2 per block; at dp 1 the workload builds no
+    plan and runs dense, as the JAX workload does), and the LM (GPT-small)
+    under the latter, each over a one-rank NCCL group beside the plain
+    run, in turns (plain, each mesh, plain again): every step's loss, in
+    full precision, equal within 1e-5 relative, each kernel launched
+    blocks x steps times, step ms,
+    items/s and peak memory.  Then, computed, what
+    the ZeRO plan shards at {"dp": 2, "fsdp": 4} for each model (one card
+    cannot run it)."""
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (BertEncoder,
+                                                          TransformerLM,
+                                                          bert_base_config,
+                                                          gpt_small_config)
+    from tf_operator_tpu_torch.models.vit import ViT, vit_base_config
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.parallel.tp_rules import param_layouts
+    from tf_operator_tpu_torch.train import zero
+
+    for name, argv, steps, blocks, items, unit, meshes in MESH_RUNS:
+        runs = {"plain": mesh_run(name, argv, steps, blocks)}
+        for tag, mesh, knob in meshes:
+            env = {"TPUJOB_MESH_SHAPE": json.dumps(mesh)}
+            if knob:
+                env["TPUJOB_ZERO_SHARD_WEIGHT_UPDATE"] = "1"
+            with one_rank_group(env):
+                runs[tag] = mesh_run(name, argv, steps, blocks)
+            if knob and "dp axis size is 1, running dense" not in \
+                    runs[tag][0]:
+                raise RuntimeError(f"{name} {tag}: the ZeRO knob at dp 1 "
+                                   "did not run dense")
+        runs["plain again"] = mesh_run(name, argv, steps, blocks)
+        plain = runs["plain"][1]
+        for tag, (log, losses, peak) in runs.items():
+            if len(losses) != steps or len(plain) != steps:
+                raise RuntimeError(f"{name} {tag}: {len(losses)} losses "
+                                   f"for {steps} steps")
+            for i, (got, want) in enumerate(zip(losses, plain)):
+                if not (math.isfinite(want) and
+                        abs(got - want) <= 1e-5 * abs(want)):
+                    raise RuntimeError(f"{name} {tag}: step {i} loss {got} "
+                                       f"against the plain run's {want}")
+            m = STEP_TIME.search(log)
+            worst = max(abs(a - b) / abs(b) for a, b in zip(losses, plain))
+            print(f"encoder_mesh {name} {tag}: step {m.group(1)} ms, "
+                  f"{m.group(2)} {unit}/s ({items} {unit} a step), peak "
+                  f"memory {peak / 2**30:.2f} GiB; losses {losses}, worst "
+                  f"relative difference to the plain run {worst:.2e} "
+                  f"[{card}]", flush=True)
+        print(f"encoder_mesh {name}: losses equal to the plain run's within "
+              f"1e-5 relative under {[tag for tag, _, _ in meshes]}",
+              flush=True)
+
+    layout = build_mesh({"dp": 2, "fsdp": 4}, 8)
+    with torch.device("meta"):
+        models = {"vit-b16": ViT(vit_base_config(max_len=197)),
+                  "bert-base": BertEncoder(bert_base_config()),
+                  "gpt-small": TransformerLM(gpt_small_config())}
+    for label, model in models.items():
+        plan = zero.plan_for_model(model, layout)
+        layouts = param_layouts(model, layout, plan)
+        sharded = sum(e.dim is not None for e in plan.entries)
+        heads = sum(lay.zero_split is not None for lay in layouts.values())
+        print(f"encoder_mesh: computed, not measured: {label}'s ZeRO plan "
+              f"at {layout.shape} shards {sharded} of {len(plan.entries)} "
+              f"entries over dp, {heads} of them on a head_dim (the split "
+              "[heads x head_dim] view)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2294,6 +2444,7 @@ def main(argv=None) -> int:
     phase_encoder(card, args.out_dir, "vit")
     phase_encoder(card, args.out_dir, "bert")
     phase_shard(card, args.out_dir)
+    phase_encoder_mesh(card)
     phase_mnist(card, args.out_dir)
     phase_preempt(card)
     phase_dist_mnist(card)

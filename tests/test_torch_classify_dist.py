@@ -30,6 +30,10 @@ workloads replicate the step there, and every rank takes rank 0's batch
 and holds its parameters: rank 1 reads its own stream (its replica index
 seeds ViT's and BERT's; ResNet's native loader hands batches over in no
 fixed order), so only the broadcast over the replicas makes them agree.
+ViT and BERT also run over 2 ranks of tp (the blocks sharded) and of sp
+(the sequence split; ViT at 20x20, whose 26 tokens split in two), their
+rank 0 logging the one-process run's losses within 1e-2 (bf16); ViT at
+TINY's 17 tokens exits 2 under sp naming the rule.
 """
 import argparse
 import json
@@ -304,7 +308,6 @@ TINY = {
     "bert": ["--batch", "4", "--seq-len", "16", "--layers", "1",
              "--d-model", "64"],
 }
-SP_ITEM = {"vit": "A.10", "bert": "A.10"}
 TOPOLOGY_ENV = ("TPUJOB_MESH_SHAPE", "TPUJOB_NUM_PROCESSES",
                 "TPUJOB_PROCESS_ID", "TPUJOB_ZERO_SHARD_WEIGHT_UPDATE",
                 "TPUJOB_VIRTUAL_REPLICAS", "TPUJOB_PHYSICAL_REPLICAS",
@@ -356,21 +359,21 @@ def _multi(n, mesh):
 
 
 EXITS = [
-    ("tp", _multi(2, {"tp": 2}), "the tp mesh axis (tp=2) is not yet "
-                                 "ported (ROADMAP item A.18)"),
     ("fsdp", _multi(8, {"dp": 2, "fsdp": 4}),
      "--batch 4 must split over dp=2 x fsdp=4"),
-    ("sp", _multi(2, {"sp": 2}), "the sp mesh axis (sp=2) is not yet "
-                                 "ported (ROADMAP item {sp})"),
+    ("sp", _multi(2, {"sp": 2}), "17 tokens (patches + CLS) must divide by "
+     "sp=2: ring attention needs T divisible by the sp axis size"),
     ("mesh", _multi(2, {"dp": 4}),
-     "invalid mesh: mesh axes {{'dp': 4}} require 4 devices, but 2 are "
+     "invalid mesh: mesh axes {'dp': 4} require 4 devices, but 2 are "
      "available"),
     ("batch", _multi(8, {"dp": 8}), "--batch 4 must split over dp=8"),
 ]
-# ResNet runs tp and sp (its ranks replicate the step over them, as the JAX
-# workload's do; `test_replicated_axis_trains_as_one_process`)
+# every workload runs tp and sp (ResNet's ranks replicate the step over
+# them, `test_replicated_axis_trains_as_one_process`; ViT's and BERT's
+# split the model or the sequence, `test_tp_and_sp_train_as_one_process`),
+# but ViT's 17 tokens at TINY do not split over sp 2
 EXIT_CASES = [(name, *e) for e in EXITS for name in WORKLOADS
-              if not (name == "resnet" and e[0] in ("tp", "sp"))]
+              if e[0] != "sp" or name == "vit"]
 
 
 @pytest.mark.parametrize("name,what,env,message", EXIT_CASES,
@@ -384,12 +387,16 @@ def test_unported_or_unfit_topology_exits_2(clean_env, capsys, name, what,
     rc = WORKLOADS[name][0].main(["--steps", "1"] + TINY[name])
     out = capsys.readouterr().out
     assert rc == 2
-    assert message.format(sp=SP_ITEM.get(name)) in out
+    assert message in out
 
 
 REPLICATED = [("resnet", "pp"), ("resnet", "ep"), ("resnet", "tp"),
               ("resnet", "sp"), ("vit", "pp"), ("vit", "ep"), ("bert", "pp"),
               ("bert", "ep")]
+# the encoders' axes that shard the model (tp) or split the sequence (sp);
+# ViT under sp at 20x20 (25 patches + CLS: 26 tokens over sp 2)
+SPLIT = [("vit", "tp"), ("bert", "tp"), ("vit", "sp"), ("bert", "sp")]
+VIT_SP = ["--image-size", "20"]
 
 
 def _free_port():
@@ -400,38 +407,44 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _launch(name, env_extra, native=False):
+def _launch(name, env_extra, native=False, extra=()):
     """The workload's main through the worker's workload mode (every rank
     prints its loss, batch and parameter digests), the native image loader
     off unless `native`: its threads hand batches over in no fixed order,
-    so two runs would not read one stream."""
+    so two runs would not read one stream.  `extra` flags follow TINY's."""
     env = {k: v for k, v in os.environ.items()
            if not k.startswith("TPUJOB_") and k != "TF_CONFIG"}
     env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
                TPUJOB_FORCE_PLATFORM="cpu", **env_extra)
     return launch_workload(name, ["--steps", "2", "--log-every", "1"]
-                           + TINY[name], env, native)
+                           + TINY[name] + list(extra), env, native)
 
 
-def _ranks(name, axis, native=False):
+def _ranks(name, axis, native=False, extra=()):
     """Two ranks over {axis: 2}, each with its own replica index, as a
     TPUJob's pods get theirs."""
     address = f"127.0.0.1:{_free_port()}"
     return [_launch(name, dict(
         TPUJOB_NUM_PROCESSES="2", TPUJOB_PROCESS_ID=str(rank),
         TPUJOB_REPLICA_INDEX=str(rank), TPUJOB_COORDINATOR_ADDRESS=address,
-        TPUJOB_MESH_SHAPE=json.dumps({axis: 2})), native)
+        TPUJOB_MESH_SHAPE=json.dumps({axis: 2})), native, extra)
         for rank in range(2)]
+
+
+def _extra(name, axis):
+    return VIT_SP if (name, axis) == ("vit", "sp") else ()
 
 
 @pytest.fixture(scope="module")
 def replicated_logs():
     """Every workload in one process, over 2 ranks on each axis of
-    REPLICATED, and ResNet over pp on the native loader, started at once;
-    {key: each process's log}."""
+    REPLICATED and SPLIT, and ResNet over pp on the native loader, started
+    at once; {key: each process's log} (("vit", "sp-one"): ViT in one
+    process at sp's image size)."""
     procs = {(name, None): [_launch(name, {})] for name in WORKLOADS}
-    for name, axis in REPLICATED:
-        procs[name, axis] = _ranks(name, axis)
+    procs["vit", "sp-one"] = [_launch("vit", {}, extra=VIT_SP)]
+    for name, axis in REPLICATED + SPLIT:
+        procs[name, axis] = _ranks(name, axis, extra=_extra(name, axis))
     procs["resnet", "native"] = _ranks("resnet", "pp", native=True)
     logs = {}
     try:
@@ -477,6 +490,38 @@ def test_replicated_axis_trains_as_one_process(replicated_logs, name, axis):
     _replicas_agree([rank0, rank1], 2)
     assert ([s[2] for s in replica_steps(rank0)]
             == [s[2] for s in replica_steps(replicated_logs[name, None][0])])
+
+
+@pytest.mark.parametrize("name,axis", SPLIT,
+                         ids=[f"{a}-{n}" for n, a in SPLIT])
+def test_tp_and_sp_train_as_one_process(replicated_logs, name, axis):
+    """tp shards the blocks (and BERT's token embedding) over the two
+    ranks, sp splits the sequence; both share the rows, which they take
+    from rank 0's stream.  Rank 0 logs the one-process run's losses
+    within 1e-2 (the workload computes in bf16, and the split sums its
+    partial products in another order), rank 1 logs none, both ranks
+    report one loss at every step, took the same batch (BERT under sp:
+    its halves of each sequence) and, under sp, hold the same parameters
+    (under tp each holds its slices)."""
+    rank0, rank1 = replicated_logs[name, axis]
+    one = replicated_logs[name, "sp-one" if (name, axis) == ("vit", "sp")
+                          else None][0]
+    want = re.findall(r"^step (\d+) loss (\S+)$", one, re.M)
+    got = re.findall(r"^step (\d+) loss (\S+)$", rank0, re.M)
+    assert [i for i, _ in got] == [i for i, _ in want] == ["0", "1"]
+    for (_, a), (_, b) in zip(got, want):
+        assert abs(float(a) - float(b)) <= 1e-2, (got, want)
+    last = {"vit": r"^final loss ", "bert": r"^done$"}[name]
+    assert re.search(last, rank0, re.M), rank0
+    assert not re.search(r"^step \d+ loss", rank1, re.M)
+    steps = [replica_steps(log) for log in (rank0, rank1)]
+    assert [s[0] for s in steps[0]] == ["0", "1"]
+    assert [s[1] for s in steps[0]] == [s[1] for s in steps[1]]
+    same_batch = not (name, axis) == ("bert", "sp")
+    assert ([s[2] for s in steps[0]] == [s[2] for s in steps[1]]) \
+        == same_batch
+    assert ([s[3] for s in steps[0]] == [s[3] for s in steps[1]]) \
+        == (axis == "sp")
 
 
 def test_replicas_take_one_batch_from_the_native_loader(replicated_logs):

@@ -219,13 +219,15 @@ def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,t", [(256, 197), (32, 128)],
-                         ids=["vit_b16", "bert_base"])
-def test_kernels_at_the_classification_shapes(cuda, b, t):
+@pytest.mark.parametrize("b,h,t", [(256, 12, 197), (32, 12, 128),
+                                   (256, 6, 197), (32, 6, 128)],
+                         ids=["vit_b16", "bert_base", "vit_b16_tp2",
+                              "bert_base_tp2"])
+def test_kernels_at_the_classification_shapes(cuda, b, h, t):
     """Non-causal at the encoders' shapes: ViT-B/16 at 224x224 (T 197, a
     ragged last key tile of 69, B*H 3072) and BERT-base at T 128 (one tile
-    a head), 12 heads of 64."""
-    q, k, v, g = _inputs(t, 12, 12, b=b)
+    a head), 12 heads of 64, and each tp rank's 6 of them at tp 2."""
+    q, k, v, g = _inputs(t, h, h, b=b)
     opts = dict(scale=0.125, causal=False, window=None, sink=0)
     o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
     delta = (g.float() * o.float()).sum(-1)

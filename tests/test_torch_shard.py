@@ -198,11 +198,16 @@ def test_opt_state_bytes_per_device_is_the_jax_figure():
 
 def test_a_merged_head_dim_cannot_be_sharded():
     """ZeRO under fsdp puts dp on a query kernel's head_dim, which lies
-    inside the port's [heads * head_dim]: the layout says so."""
+    inside the port's [heads * head_dim]: no port dim holds it
+    (`port_dim` says so), and the ZeRO slice is taken on the view that
+    splits the merged dim in two."""
     port, _ = _models("gpt")
     mesh = build_mesh({"dp": 2, "fsdp": 2}, 4)
+    plan = tzero.plan_for_model(port, mesh)
+    lay = param_layouts(port, mesh, plan)["blocks.0.attn.query.weight"]
     with pytest.raises(ValueError, match="no single dim"):
-        param_layouts(port, mesh, tzero.plan_for_model(port, mesh))
+        lay.port_dim(plan.match(lay.path, lay.flax_shape).dim)
+    assert (lay.zero_dim, lay.zero_split) == (1, (0, 64))
 
 
 # ---------------------------------------------------------------------------

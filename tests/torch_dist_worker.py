@@ -1,8 +1,8 @@
 """One rank of a multi-process gloo world for the port's parallel tests.
 
 The tests (`tests/test_torch_parallel.py`, `tests/test_torch_dist_lm.py`,
-`tests/test_torch_classify_dist.py`, `tests/test_torch_pipeline.py` and
-others) write a job file, start `world` processes of this script and read
+`tests/test_torch_classify_dist.py`, `tests/test_torch_pipeline.py`,
+`tests/test_torch_encoder_parallel.py` and others) write a job file, start `world` processes of this script and read
 back one result file per rank.  The ranks import the port and torch only
 (never JAX), join one group through a `file://` store, and run every case
 of the job in that one world, so a test file pays for its world's start
@@ -11,8 +11,9 @@ once.
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
 A job is {"kind": "attention" | "lm" | "classify" | "shard" | "decode" |
-"pipeline", "cases": [...]}, saved with torch.save; each case's result
-goes into the rank's result file under the case's name.
+"pipeline" | "encoder", "cases": [...]}, saved with torch.save (a case's
+own "kind" overrides the job's); each case's result goes into the rank's
+result file under the case's name.
 
     python tests/torch_dist_worker.py workload NAME NATIVE ARGS...
 
@@ -273,6 +274,95 @@ def shard_case(case: dict) -> dict:
     return out
 
 
+def _encoder_state(case, axes, zero):
+    """ViT or BERT ("model") from the case's whole parameters, laid out on
+    the mesh `axes` (over every rank), with the ZeRO plan when `zero`; its
+    optimizer adamw (with `sgd`, SGD at momentum 0.9)."""
+    import dataclasses
+
+    from tf_operator_tpu_torch.models import transformer as T
+    from tf_operator_tpu_torch.models import vit as V
+    from tf_operator_tpu_torch.parallel.mesh import build_mesh
+    from tf_operator_tpu_torch.train import optim
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.zero import plan_for_model
+
+    mesh = build_mesh(axes, device_type="cpu")
+    if case["model"] == "vit":
+        cfg = V.vit_base_config(dtype=torch.float32, **case["config"])
+        model = V.ViT(dataclasses.replace(cfg, mesh=mesh), **case["build"])
+    else:
+        cfg = T.bert_base_config(dtype=torch.float32, **case["config"])
+        model = T.BertEncoder(dataclasses.replace(cfg, mesh=mesh),
+                              **case["build"])
+    model.load_state_dict(case["init"])
+    plan = plan_for_model(model, mesh) if zero else None
+    recipe = (optim.sgd(case["lr"]) if case.get("sgd")
+              else optim.adamw(case["lr"]))
+    return mesh, create_train_state(model, recipe, seed=None, mesh=mesh,
+                                    zero_plan=plan)
+
+
+def encoder_case(case: dict) -> dict:
+    """ViT or BERT over the case's mesh (tp, sp, fsdp, and ZeRO over dp
+    with `zero`): steps on the global batches (with `grad_accum`), the
+    losses, the whole parameters gathered after them, each rank's
+    parameter and moment sizes, the specs the ranks hold, the entries
+    whose ZeRO slice is taken on a split head_dim and the sequence length
+    the first block saw; with `ckpt`, the state saved there after the
+    steps, and with `resume` (a second mesh and zero) that checkpoint
+    restored under it and one more step taken on `resume_batch`."""
+    from tf_operator_tpu_torch.parallel.shard import local
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.state import full_state
+    from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                                  make_train_step,
+                                                  shard_batch)
+
+    accum = case.get("grad_accum", 1)
+    mesh, state = _encoder_state(case, case["mesh"], case.get("zero"))
+    model = state.model
+    moment = "momentum_buffer" if case.get("sgd") else "exp_avg"
+    seen = []
+    model.blocks[0].register_forward_pre_hook(
+        lambda _, args: seen.append(args[0].shape[1]))
+    step = make_train_step(classification_loss_fn(model), grad_accum=accum,
+                           mesh=mesh)
+    losses = []
+    for batch in case["batches"]:
+        state, metrics = step(state, shard_batch(batch, state.sharding,
+                                                 accum))
+        losses.append(float(metrics["loss"]))
+    out = {"losses": torch.tensor(losses, dtype=torch.float64),
+           "params": full_state(state)["model"],
+           "held": state.sharding.held_specs(),
+           "split": sorted(state.sharding.zero_splits),
+           "seq": torch.tensor(seen[0]),
+           "local_params": {n: torch.tensor(local(p).numel())
+                            for n, p in model.named_parameters()},
+           "local_moments": {n: torch.tensor(local(state.optimizer.state[t][
+               moment]).numel()) for n, t in state.sharding.opt_named()}}
+    if case.get("ckpt"):
+        mgr = CheckpointManager(case["ckpt"])
+        mgr.save(state)
+        mgr.close()
+    if case.get("resume"):
+        mesh, state = _encoder_state(case, case["resume"]["mesh"],
+                                     case["resume"]["zero"])
+        mgr = CheckpointManager(case["ckpt"])
+        mgr.restore(state)
+        mgr.close()
+        step = make_train_step(classification_loss_fn(state.model),
+                               mesh=mesh)
+        state, metrics = step(state, shard_batch(case["resume_batch"],
+                                                 state.sharding))
+        out.update(restored_step=torch.tensor(state.step - 1),
+                   resumed_loss=torch.tensor(float(metrics["loss"]),
+                                             dtype=torch.float64),
+                   resumed_params=full_state(state)["model"])
+    return out
+
+
 def decode_case(case: dict) -> dict:
     """Greedy (or, with `temperature` and `seed`, sampled) generation from
     the case's whole parameters laid out on its mesh (tp: each rank's
@@ -420,8 +510,10 @@ def main(job_file, rank, world, store, out_dir) -> None:
     try:
         run = {"attention": attention_case, "lm": lm_case,
                "classify": classify_case, "shard": shard_case,
-               "decode": decode_case, "pipeline": pipeline_case}[job["kind"]]
-        results = {case["name"]: run(case) for case in job["cases"]}
+               "decode": decode_case, "pipeline": pipeline_case,
+               "encoder": encoder_case}
+        results = {case["name"]: run[case.get("kind", job["kind"])](case)
+                   for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")
     finally:
         dist.destroy_process_group()

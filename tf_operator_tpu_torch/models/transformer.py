@@ -26,7 +26,13 @@ the group).  Head counts come from the parameters' local shapes.
 
 `BertEncoder` (BASELINE config 4) runs the same blocks non-causal between
 token + type + learned position embeddings summed in f32 and a tanh pooler
-in f32 on position 0; `models/vit.py` runs them over image patches.
+in f32 on position 0; `models/vit.py` runs them over image patches.  Under
+tp BERT's token embedding is vocab-sharded (a lookup alone: no tied
+readout); under sp each rank holds its slice of the tokens, attention runs
+the non-causal ring, and position 0, which sp rank 0 alone holds, reaches
+the pooler on every rank through `broadcast_from_first` (the JAX model
+runs the same steps on the global sequence, and passes no attention mask
+on the training path, so neither does the ring).
 
 Decoding (`models/generate.py`) passes a `DecodeCache` to
 `TransformerLM.forward`: each attention layer appends the call's keys and
@@ -50,7 +56,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import NEG_INF, attention, flash_attention, repeat_kv
-from ..parallel.dist import copy_to_group, reduce_from_group
+from ..parallel.dist import (broadcast_from_first, copy_to_group,
+                             reduce_from_group)
 from ..parallel.moe import MoEMLP
 from ..parallel.ring_attention import ring_attention
 from ..parallel.ulysses import ulysses_attention
@@ -172,6 +179,14 @@ def _seq_parallel(cfg: TransformerConfig) -> bool:
     """Whether attention runs sequence parallel (the JAX `_use_ring`)."""
     return (cfg.mesh is not None and cfg.ring_axis in cfg.mesh.axis_names
             and cfg.mesh.shape[cfg.ring_axis] > 1)
+
+
+def first_of_sequence(cfg: TransformerConfig, x):
+    """x[:, 0] of the whole sequence: under sequence parallelism sp rank
+    0's, handed to every rank (`broadcast_from_first`)."""
+    if not _seq_parallel(cfg):
+        return x[:, 0]
+    return broadcast_from_first(cfg.mesh.group(cfg.ring_axis), x[:, 0])
 
 
 def rope(x, *, theta: float = 10000.0, positions=None,
@@ -658,7 +673,11 @@ def vocab_parallel_embedding(tokens, table, tp):
 class BertEncoder(nn.Module):
     """BERT-base-style bidirectional encoder with a classification head:
     `forward(tokens, token_types=None)` returns {"sequence_output" (the
-    final norm's f32 output), "logits" (f32)}."""
+    final norm's f32 output; under sp this rank's slice), "logits"
+    (f32)}."""
+
+    # the tensor-parallel group when this rank holds a slice of the vocab
+    vocab_tp = None
 
     def __init__(self, cfg: TransformerConfig, num_labels: int = 2):
         super().__init__()
@@ -692,17 +711,26 @@ class BertEncoder(nn.Module):
                 head.bias.zero_()
 
     def forward(self, tokens, token_types=None):
+        """tokens [B, T]: the whole sequence, or under sequence parallelism
+        this rank's slice of it (positions [i*T, (i+1)*T) on rank i)."""
         cfg = self.cfg
         t = tokens.shape[1]
+        first = cfg.mesh.coordinate(cfg.ring_axis) * t \
+            if _seq_parallel(cfg) else 0
         if token_types is None:
             token_types = torch.zeros_like(tokens)
-        x = (self.tok_emb(tokens) + self.type_emb(token_types)
-             + self.pos_emb[None, :t, :])
+        if self.vocab_tp is None:
+            x = self.tok_emb(tokens)
+        else:
+            x = vocab_parallel_embedding(tokens, self.tok_emb.weight,
+                                         self.vocab_tp)
+        x = (x + self.type_emb(token_types)
+             + self.pos_emb[None, first:first + t, :])
         x = self.emb_ln(x).to(cfg.dtype)
         for block in self.blocks:
             x = block(x)
         x = self.ln_f(x)
-        cls = torch.tanh(self.pooler(x[:, 0]))
+        cls = torch.tanh(self.pooler(first_of_sequence(cfg, x)))
         return {"sequence_output": x, "logits": self.classifier(cls)}
 
 

@@ -6,6 +6,12 @@ pre-norm encoder `Block`s (non-causal attention, so the flash kernels run
 without the causal mask) -> LayerNorm -> f32 head on CLS.  flax creates the
 position table at the first call from the image it sees; here its size
 comes from `image_size`, and an image of another size is refused.
+
+Under tp the blocks run Megatron's layout (`models/transformer.py`).  Under
+sp every rank embeds the whole image and keeps its slice of the
+patches + CLS tokens, which must divide by the sp axis size (the JAX ring
+requires it too); the ring runs non-causal and the CLS row, which sp rank 0
+holds, reaches the head on every rank (`first_of_sequence`).
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from .initializers import lecun_normal_
-from .transformer import Block, Dense, Norm, TransformerConfig, _normal_
+from .transformer import (Block, Dense, Norm, TransformerConfig, _normal_,
+                          _seq_parallel, first_of_sequence)
 
 
 class ViT(nn.Module):
@@ -79,9 +86,18 @@ class ViT(nn.Module):
         cls = self.cls_token.expand(b, 1, cfg.d_model).to(x.dtype)
         x = torch.cat([cls, x], dim=1)
         x = (x + self.pos_emb[None].to(x.dtype)).to(cfg.dtype)
+        if _seq_parallel(cfg):
+            n, t = cfg.mesh.shape[cfg.ring_axis], x.shape[1]
+            if t % n:
+                raise ValueError(
+                    f"{t} tokens (patches + CLS) do not divide by the "
+                    f"{cfg.ring_axis} axis size {n}: ring attention needs "
+                    "T divisible by the sp axis size")
+            s = cfg.mesh.coordinate(cfg.ring_axis)
+            x = x[:, s * t // n:(s + 1) * t // n]
         for block in self.blocks:
             x = block(x)
-        return self.head(self.ln_f(x)[:, 0])
+        return self.head(first_of_sequence(cfg, self.ln_f(x)))
 
 
 def vit_base_config(**overrides) -> TransformerConfig:

@@ -17,6 +17,10 @@ collectives have no gradient, so each collective here is an
     the sum of the ranks' partial gradients (f: identity forward, sum in the
     backward), and a sum of the ranks' partial results hands each rank the
     whole gradient unchanged (g: sum forward, identity backward).
+  * `broadcast_from_first` gives every rank group rank 0's tensor (the
+    encoders' CLS row under sequence parallelism); its backward sums the
+    ranks' gradients onto rank 0, whose input it was, and gives the others
+    zero.
 Every rank of the group must make the same calls in the same order, in the
 forward and (autograd runs them in reverse) in the backward.
 """
@@ -160,6 +164,29 @@ def reduce_from_group(group, x):
     every rank unchanged: the output of a row-parallel product (tensor
     parallelism's g)."""
     return _ReduceFromGroup.apply(group, x)
+
+
+class _BroadcastFromFirst(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.broadcast(out, dist.get_global_rank(group, 0), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        if dist.get_rank(ctx.group):
+            g.zero_()
+        return None, g
+
+
+def broadcast_from_first(group, x):
+    """Group rank 0's x on every rank; in the backward, the sum of the
+    ranks' gradients on rank 0 and zero on the others."""
+    return _BroadcastFromFirst.apply(group, x)
 
 
 def all_reduce_max(group, x):

@@ -18,17 +18,22 @@ and the ZeRO plan's dp dim) and XLA inserts the collectives.  Here
     spec gives (all-gathered before use, its gradient reduce-scattered, in
     f32: FSDP2 casts nothing, the modules cast per use as before);
   * ZeRO over dp: the optimizer updates this rank's slice of each entry
-    with a dp dim (`train/zero.py`).
+    with a dp dim (`train/zero.py`); where the plan's dim is a head_dim
+    inside the port's merged [heads * head_dim], the slice, its gradient's
+    reduce-scatter and the all-gather run on the view that splits the
+    merged dim (`tp_rules.ParamLayout.zero_split`), on the local shard
+    FSDP2 and tp leave.
 
 Whenever the mesh names tp or fsdp, even at size 1, the machinery runs
 (a 1-way slice is the whole tensor and a 1-rank collective copies), so a
 one-card run goes through it with the plain run's numbers.
 
 After the backward `reduce_grads` sums each gradient exactly once over the
-axes that split the batch (`split_axes`: dp, fsdp and, for the LM, whose
-ranks of sp hold slices of the sequence, sp) and never over tp, ep or pp
-(a classifier's ranks along sp, tp, ep or pp, and the LM's along pp,
-replicate the step, as in the JAX workloads): FSDP2 has
+axes that split the batch (`split_axes`: dp, fsdp and, for the
+transformers, whose ranks of sp hold slices of the sequence, sp) and never
+over tp, ep or pp (ResNet's ranks along sp, tp, ep or pp, the encoders'
+along ep or pp and the LM's along pp replicate the step, as in the JAX
+workloads): FSDP2 has
 summed it over fsdp (its divide factor set to 1: the step scales the
 loss), ZeRO reduce-scatters it over dp, and the rest is one flat
 all-reduce per set of axes.  The row-parallel biases, whose gradient only tp rank 0 holds, are
@@ -63,14 +68,18 @@ class Sharding:
     group), applied to the model on construction."""
 
     def __init__(self, model, mesh, zero_plan=None) -> None:
-        from ..models.transformer import TransformerLM
+        from ..models.transformer import BertEncoder, TransformerLM
+        from ..models.vit import ViT
         from .tp_rules import param_layouts, tp_rule_dim
 
         self.mesh, self.zero_plan = mesh, zero_plan
         # the axes that split the batch, and the group the step sums the
-        # loss over
+        # loss over; the LM's batch is the shifted window [B, T + 1]
+        # (`train/step.shard_sequence`)
+        self.shifted_tokens = isinstance(model, TransformerLM)
         self.split_axes = tuple(
-            a for a in (DATA_AXES if isinstance(model, TransformerLM)
+            a for a in (DATA_AXES if isinstance(
+                model, (TransformerLM, BertEncoder, ViT))
                         else (AXIS_DP, AXIS_FSDP))
             if a in mesh.axis_names)
         self.layouts = param_layouts(model, mesh, zero_plan)
@@ -124,12 +133,12 @@ class Sharding:
     # applying the layout
 
     def _apply_tp(self, model) -> None:
-        from ..models.transformer import MLP, SelfAttention, TransformerLM
+        """Cut the tp slices, and wire the blocks' attention and MLP
+        (column- then row-parallel) and the vocab-sharded token embedding
+        (the LM's `wte`, tied to its readout; BERT's `tok_emb`, a lookup
+        alone) to the tp group."""
+        from ..models.transformer import MLP, SelfAttention
 
-        if not isinstance(model, TransformerLM):
-            raise NotImplementedError(
-                f"tensor parallelism runs the TransformerLM only, not "
-                f"{type(model).__name__} (ROADMAP item A.18)")
         group = self.tp.group
         with torch.no_grad():
             for name, dim in self.tp_dims.items():
@@ -153,7 +162,7 @@ class Sharding:
                 if pre + "wi.weight" in self.tp_dims:
                     module.tp = self.tp
                     self.partial_tp.add(pre + "wo.bias")
-        if "wte.weight" in self.tp_dims:
+        if {"wte.weight", "tok_emb.weight"} & set(self.tp_dims):
             model.vocab_tp = self.tp
         self.partial_tp &= set(self.params)
 
@@ -225,13 +234,14 @@ class Sharding:
         group = self.mesh.group(AXIS_DP) if self.slices else None
         with torch.no_grad():
             for name, s in self.slices.items():
-                s.copy_(slice_along(local(self.params[name]),
-                               self.zero_dims[name], group))
+                s.copy_(slice_along(self._zero_view(name, self.params[name]),
+                                    self.zero_dims[name], group))
 
     def _build_zero(self) -> None:
         """The slices the optimizer updates for the entries with a dp dim
         (ZeRO over dp > 1; at dp 1 the update runs dense)."""
         self.zero_dims: Dict[str, int] = {}
+        self.zero_splits: Dict[str, Tuple[int, int]] = {}
         self.slices: Dict[str, torch.Tensor] = {}
         if self.zero_plan is None or self.mesh.shape.get(AXIS_DP, 1) <= 1:
             return
@@ -240,9 +250,22 @@ class Sharding:
             if lay.zero_dim is None:
                 continue
             self.zero_dims[name] = lay.zero_dim
+            if lay.zero_split is not None:
+                self.zero_splits[name] = lay.zero_split
             with torch.no_grad():
-                self.slices[name] = slice_along(local(self.params[name]),
-                                           lay.zero_dim, group).clone()
+                self.slices[name] = slice_along(
+                    self._zero_view(name, self.params[name]), lay.zero_dim,
+                    group).clone()
+
+    def _zero_view(self, name: str, t):
+        """This rank's tensor of `name` as the ZeRO slice is cut from it:
+        itself, or the view that splits its merged [heads * head_dim]."""
+        t, split = local(t), self.zero_splits.get(name)
+        return t if split is None else t.unflatten(split[0], (-1, split[1]))
+
+    def _zero_unview(self, name: str, t):
+        split = self.zero_splits.get(name)
+        return t if split is None else t.flatten(split[0], split[0] + 1)
 
     # ------------------------------------------------------------------
     # what the optimizer sees
@@ -283,7 +306,8 @@ class Sharding:
             if g is None:
                 g = torch.zeros_like(local(p))
             if name in self.zero_dims:
-                g = reduce_scatter_along(g, self.zero_dims[name],
+                g = reduce_scatter_along(self._zero_view(name, g),
+                                         self.zero_dims[name],
                                          self.mesh.group(AXIS_DP))
                 self.slices[name].grad = g
                 p.grad = None
@@ -307,18 +331,16 @@ class Sharding:
         group = self.mesh.group(AXIS_DP)
         with torch.no_grad():
             for name, s in self.slices.items():
-                local(self.params[name]).copy_(
+                self._zero_view(name, self.params[name]).copy_(
                     all_gather_along(s, self.zero_dims[name], group))
 
     # ------------------------------------------------------------------
     # whole tensors for checkpoints
 
-    def _axes_dims(self, name: str, zero: bool):
-        """(axis, port dim) this rank's piece of `name` is cut along: the
-        ZeRO dim (for the optimizer's slice), fsdp, tp."""
+    def _axes_dims(self, name: str):
+        """(axis, port dim) this rank's piece of `name` is cut along: fsdp,
+        tp, ep (the ZeRO slice is cut from that piece)."""
         out = []
-        if zero and name in self.zero_dims:
-            out.append((AXIS_DP, self.zero_dims[name]))
         if name in self.fsdp_dims and self.mesh.shape[AXIS_FSDP] > 1:
             out.append((AXIS_FSDP, self.fsdp_dims[name]))
         if name in self.tp_dims and self.tp.size > 1:
@@ -328,16 +350,24 @@ class Sharding:
         return out
 
     def gather(self, name: str, t, zero: bool = False):
-        """The whole tensor of which `t` is this rank's piece."""
+        """The whole tensor of which `t` is this rank's piece (with `zero`,
+        its ZeRO slice)."""
         t = local(t).detach()
-        for axis, dim in self._axes_dims(name, zero):
+        if zero and name in self.zero_dims:
+            t = self._zero_unview(name, all_gather_along(
+                t, self.zero_dims[name], self.mesh.group(AXIS_DP)))
+        for axis, dim in self._axes_dims(name):
             t = all_gather_along(t, dim, self.mesh.group(axis))
         return t
 
     def cut(self, name: str, full, zero: bool = False):
-        """This rank's piece of the whole tensor `full`."""
-        for axis, dim in reversed(self._axes_dims(name, zero)):
+        """This rank's piece of the whole tensor `full` (with `zero`, its
+        ZeRO slice)."""
+        for axis, dim in reversed(self._axes_dims(name)):
             full = slice_along(full, dim, self.mesh.group(axis))
+        if zero and name in self.zero_dims:
+            full = slice_along(self._zero_view(name, full),
+                               self.zero_dims[name], self.mesh.group(AXIS_DP))
         return full.contiguous()
 
     def is_zero(self, name: str) -> bool:

@@ -127,7 +127,13 @@ def combined_spec(path: str, shape, mesh) -> tuple:
 class ParamLayout:
     """One port parameter's place on the mesh: its flax path and shape, its
     spec there (`combined_spec`), and the port dims the tp, ep, fsdp and
-    (under ZeRO) dp axes shard (None: replicated over that axis)."""
+    (under ZeRO) dp axes shard (None: replicated over that axis).
+
+    The ZeRO plan may put dp on a head_dim, which lies inside the port's
+    merged [heads * head_dim]: the slice is then taken on the view that
+    splits that port dim in two (`zero_split`: the port dim and head_dim;
+    the query weight [H * D, d] as [H, D, d], a free view), and `zero_dim`
+    is the dim of that view."""
 
     name: str
     path: Tuple[str, ...]
@@ -139,6 +145,7 @@ class ParamLayout:
     ep_dim: Optional[int] = None
     fsdp_dim: Optional[int] = None
     zero_dim: Optional[int] = None
+    zero_split: Optional[Tuple[int, int]] = None
 
     def port_dim(self, flax_dim: int) -> int:
         """The port dim holding flax dim `flax_dim` whole; raises where
@@ -151,6 +158,17 @@ class ParamLayout:
                 "(it lies inside a merged [heads * head_dim] dim), so it "
                 "cannot be sharded there")
         return dim
+
+    def view_dim(self, flax_dim: int):
+        """(dim, split): the port dim holding flax dim `flax_dim` whole and
+        split None; or, for a head_dim (the minor factor of the port dim
+        that holds the flax dim before it, the heads), its dim in the view
+        that splits that port dim in two, and split = (that port dim,
+        head_dim)."""
+        if self.port_dims[flax_dim] is not None or flax_dim == 0:
+            return self.port_dim(flax_dim), None
+        outer = self.port_dim(flax_dim - 1)
+        return outer + 1, (outer, self.flax_shape[flax_dim])
 
     def flax_spec(self, held: Dict[str, int], mesh) -> tuple:
         """The spec on the flax dims of a tensor held sharded on the port
@@ -180,8 +198,10 @@ def param_layouts(model, mesh, zero_plan=None) -> Dict[str, ParamLayout]:
     """{port name: ParamLayout} for every parameter of `model` under `mesh`
     (a layout: axis names and sizes), from the flax paths and shapes of
     `models/convert.flax_param_map`.  With a ZeRO plan each entry also gets
-    the port dim of the plan's dp dim.  Raises ValueError where a spec
-    shards a flax dim that has no single port dim."""
+    the port dim of the plan's dp dim (on the view that splits a merged
+    [heads * head_dim], `ParamLayout.view_dim`).  Raises ValueError where
+    a tp, ep or fsdp spec shards a flax dim that has no single port
+    dim."""
     from ..models.convert import flax_param_map
 
     out = {}
@@ -192,14 +212,15 @@ def param_layouts(model, mesh, zero_plan=None) -> Dict[str, ParamLayout]:
                           port_dims=entry.dims)
         dims = {axis: _flax_dim(spec, axis)
                 for axis in (AXIS_TP, AXIS_EP, AXIS_FSDP)}
-        if zero_plan is not None:
-            plan_entry = zero_plan.match(entry.path, entry.shape)
-            if plan_entry is not None:
-                dims["zero"] = plan_entry.dim
         dims = {k: None if d is None else lay.port_dim(d)
                 for k, d in dims.items()}
+        zero_dim = zero_split = None
+        if zero_plan is not None:
+            plan_entry = zero_plan.match(entry.path, entry.shape)
+            if plan_entry is not None and plan_entry.dim is not None:
+                zero_dim, zero_split = lay.view_dim(plan_entry.dim)
         out[entry.name] = dataclasses.replace(
             lay, tp_dim=dims[AXIS_TP], ep_dim=dims[AXIS_EP],
-            fsdp_dim=dims[AXIS_FSDP],
-            zero_dim=dims.get("zero"))
+            fsdp_dim=dims[AXIS_FSDP], zero_dim=zero_dim,
+            zero_split=zero_split)
     return out

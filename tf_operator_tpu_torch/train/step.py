@@ -13,8 +13,8 @@ and the step updates them in place through the optimizer.
 
 Over a mesh (one process per rank) the step is the one GSPMD derives for
 the JAX package: each rank takes its shard of the global batch
-(`shard_batch`: its rows over dp and fsdp, for the LM its slice of the
-sequence over sp, as the state's `Sharding.split_axes` say; with
+(`shard_batch`: its rows over dp and fsdp, for the transformers its
+slice of the sequence over sp, as the state's `Sharding.split_axes` say; with
 grad_accum, microbatch i is its share of the global batch's i-th part, as
 JAX's reshape of the global batch gives it), its
 loss is its mean over its share divided by the ranks of the axes that
@@ -236,28 +236,26 @@ def make_eval_step(metric_fn, mesh=None):
 def shard_batch(batch, sharding, grad_accum: int = 1):
     """This rank's shard of a global batch, for the train state laid out by
     `sharding` (`parallel/shard.Sharding`, whose `split_axes` say which
-    axes split the batch): its rows of the data axes (dp, fsdp) and, where
-    sp splits the batch (the LM), its slice of the shifted sequence
-    {"tokens": [B, T + 1]}; the ranks along every other axis keep the same
-    rows.  With grad_accum k the global rows split into k parts
-    (microbatches) first and the rank keeps its rows of each, in order, so
-    `make_train_step`'s chunk i of the shard is this rank's share of global
-    rows [i*B/k, (i+1)*B/k), as in the JAX step.
-    The loss reads inputs tokens[:, :-1] and targets tokens[:, 1:]; sp rank
-    s of n takes the window tokens[:, s*T/n : (s+1)*T/n + 1], whose own
-    shift gives exactly its slice of the global inputs and targets
-    (neighbouring windows share one token).  Works on numpy arrays and
-    tensors; rank-0 leaves are replicated."""
-    from ..parallel.mesh import AXIS_SP, axis_size, data_axes
+    axes split the batch): its rows (`shard_rows`), then its slice of the
+    sequence (`shard_sequence`).  Works on numpy arrays and tensors;
+    rank-0 leaves are replicated."""
+    return shard_sequence(shard_rows(batch, sharding, grad_accum), sharding)
+
+
+def shard_rows(batch, sharding, grad_accum: int = 1):
+    """This rank's rows of a global batch over the data axes (dp, fsdp);
+    the ranks along every other axis keep the same rows.  With grad_accum
+    k the global rows split into k parts (microbatches) first and the rank
+    keeps its rows of each, in order, so `make_train_step`'s chunk i of
+    the shard is this rank's share of global rows [i*B/k, (i+1)*B/k), as
+    in the JAX step."""
+    from ..parallel.mesh import axis_size, data_axes
 
     mesh = sharding.mesh
     sizes = [axis_size(mesh, a) for a in data_axes(mesh)]
     n_data = int(np.prod(sizes, initial=1))
     row = int(np.ravel_multi_index(
         [mesh.coordinate(a) for a in data_axes(mesh)], sizes)) if sizes else 0
-    sp = (axis_size(mesh, AXIS_SP) if AXIS_SP in sharding.split_axes
-          else 1)
-    seq_idx = mesh.coordinate(AXIS_SP)
     out = {}
     for name, leaf in batch.items():
         shape = tuple(getattr(leaf, "shape", ()))
@@ -272,17 +270,45 @@ def shard_batch(batch, sharding, grad_accum: int = 1):
                 f"a multiple of {n_data * grad_accum}")
         rows = shape[0] // (n_data * grad_accum)
         parts = leaf.reshape((grad_accum, shape[0] // grad_accum) + shape[1:])
-        leaf = parts[:, row * rows:(row + 1) * rows].reshape(
+        out[name] = parts[:, row * rows:(row + 1) * rows].reshape(
             (grad_accum * rows,) + shape[1:])
-        if sp > 1:
-            if len(shape) < 2 or (shape[1] - 1) % sp:
-                raise ValueError(
-                    f"batch leaf {name!r} of shape {shape}: sequence "
-                    f"parallelism needs [B, T + 1] tokens with T divisible "
-                    f"by the sp axis size {sp}")
-            t = (shape[1] - 1) // sp
-            leaf = leaf[:, seq_idx * t:(seq_idx + 1) * t + 1]
-        out[name] = leaf
+    return out
+
+
+def shard_sequence(batch, sharding):
+    """This rank's slice of the sequence where sp splits the batch
+    (`Sharding.split_axes`); the batch as it is elsewhere.  The LM's
+    leaves are the shifted window {"tokens": [B, T + 1]}: the loss reads
+    inputs tokens[:, :-1] and targets tokens[:, 1:], and sp rank s of n
+    takes tokens[:, s*T/n : (s+1)*T/n + 1], whose own shift gives exactly
+    its slice of the global inputs and targets (neighbouring windows share
+    one token).  The encoders' [B, T] leaves (BERT's tokens and token
+    types) take the plain slice [s*T/n, (s+1)*T/n); their other leaves
+    (labels [B], ViT's images, whose tokens the model slices after the
+    patch embedding) stay whole."""
+    from ..parallel.mesh import AXIS_SP, axis_size
+
+    mesh = sharding.mesh
+    sp = (axis_size(mesh, AXIS_SP) if AXIS_SP in sharding.split_axes
+          else 1)
+    if sp == 1:
+        return batch
+    seq_idx = mesh.coordinate(AXIS_SP)
+    shifted = sharding.shifted_tokens
+    out = {}
+    for name, leaf in batch.items():
+        shape = tuple(getattr(leaf, "shape", ()))
+        if not shifted and len(shape) != 2:
+            out[name] = leaf
+            continue
+        t = shape[1] - shifted if len(shape) >= 2 else -1
+        if t < 0 or t % sp:
+            raise ValueError(
+                f"batch leaf {name!r} of shape {shape}: sequence "
+                f"parallelism needs {'[B, T + 1]' if shifted else '[B, T]'} "
+                f"tokens with T divisible by the sp axis size {sp}")
+        t //= sp
+        out[name] = leaf[:, seq_idx * t:(seq_idx + 1) * t + shifted]
     return out
 
 

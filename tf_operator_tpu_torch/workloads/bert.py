@@ -11,9 +11,11 @@ kernels at T = --seq-len.
 
 Data parallel over the mesh's dp and fsdp axes, the parameters fully
 sharded over fsdp and, with the ZeRO knob, the moments and the update over
-dp; the ranks along pp and ep replicate the step (the batch broadcast over
-them), as the JAX workload's do; tp and sp exit 2 naming their ROADMAP
-item.
+dp; the blocks tensor parallel and the token embedding vocab-sharded over
+tp; the sequence split over sp, whose ranks run the ring (--seq-len must
+divide by sp, else exit 2, as the JAX ring requires); the ranks along pp
+and ep replicate the step, as the JAX workload's do.  The ranks that share
+rows (along tp, sp, pp, ep) take the first one's batch.
 
 Usage: python -m tf_operator_tpu_torch.workloads.bert --steps 50
 """
@@ -21,11 +23,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-# tensor parallelism, and sequence parallelism over the tokens
-# (ring/Ulysses in the encoder); pp and ep replicate the step
-UNPORTED = (("tp", "A.18"), ("sp", "A.10"))
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
@@ -52,9 +49,14 @@ def main(argv=None) -> int:
     ctx = WorkloadContext.from_env()
     print(f"bert workload: role={ctx.replica_type} index={ctx.replica_index}",
           flush=True)
-    layout, rc = plan_mesh(ctx, UNPORTED)
+    layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
+    if args.seq_len % layout.shape.get("sp", 1):
+        print(f"--seq-len {args.seq_len} must divide by "
+              f"sp={layout.shape['sp']}: ring attention needs T divisible "
+              "by the sp axis size", flush=True)
+        return 2
     problem = split_batch(args.batch, layout)
     if problem:
         print(problem, flush=True)
@@ -70,14 +72,14 @@ def _train(args, ctx, device, mesh, layout) -> int:
     from ..train.data import prefetch_to_device
     from ..train.optim import adamw
     from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_batch)
+                              shard_rows)
     from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
                          say, train_state_on_mesh)
 
     cfg = bert_base_config(
         num_layers=args.layers, d_model=args.d_model,
         num_heads=max(1, args.d_model // 64), d_ff=args.d_model * 4,
-        max_len=args.seq_len)
+        max_len=args.seq_len, mesh=mesh)
     model = BertEncoder(cfg, num_labels=2)
     state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
                                 ctx.zero_shard_weight_update)
@@ -95,7 +97,7 @@ def _train(args, ctx, device, mesh, layout) -> int:
                 ).astype(np.int32),
                 "label": rng.randint(0, 2, args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_batch(batch, state.sharding)
+            yield batch if mesh is None else shard_rows(batch, state.sharding)
 
     run_steps(state, step,
               same_batch_over_replicas(prefetch_to_device(batches(), device),

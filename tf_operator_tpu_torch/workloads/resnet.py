@@ -80,7 +80,7 @@ def _train(args, device, mesh, layout, zero) -> int:
     from ..train.native_data import images_or_fallback
     from ..train.optim import sgd
     from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_batch)
+                              shard_rows)
     from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
                          say, train_state_on_mesh)
 
@@ -102,7 +102,7 @@ def _train(args, device, mesh, layout, zero) -> int:
     step = make_train_step(classification_loss_fn(model), mesh=mesh)
 
     raw = images_or_fallback(args.batch, args.image_size, args.num_classes)
-    batches = raw if mesh is None else (shard_batch(b, state.sharding)
+    batches = raw if mesh is None else (shard_rows(b, state.sharding)
                                         for b in raw)
     data = ({**b, "x": b["x"].to(torch.bfloat16)}
             for b in same_batch_over_replicas(

@@ -2,9 +2,9 @@
 
 The counterpart of `tf_operator_tpu/workloads/runner.py`: parse TF_CONFIG +
 the TPUJOB_* env into a WorkloadContext, pick the device, validate the
-mesh and the options this package does not run yet (exit 2 naming their
-ROADMAP item), join the job's process group and lay the one mesh over its
-ranks, hand the ranks that replicate a step the same batch, time the steps,
+mesh (exit 2 when it does not fit), join the job's process group and lay
+the one mesh over its ranks, hand the ranks that share a step's rows the
+same batch, time the steps,
 and capture a profiler trace for a window of steps.
 One process drives one GPU.  The four training workloads (lm, resnet, vit,
 bert) share these steps; the estimator reads TF_CONFIG as TF's RunConfig
@@ -297,28 +297,16 @@ def runconfig_from_env(env: Optional[Dict[str, str]] = None) -> Dict[str, object
     }
 
 
-def not_ported(what: str, item: str) -> int:
-    print(f"{what} is not yet ported (ROADMAP item {item})", flush=True)
-    return 2
-
-
-def plan_mesh(ctx: WorkloadContext,
-              unported=()) -> Tuple[Optional[object], int]:
-    """(the mesh layout, 0), or (None, 2) after printing why the job cannot
-    run: a mesh that does not fit the processes, or an axis of `unported`
-    ((axis, ROADMAP item) pairs) that the workload does not run yet.  An
-    axis that neither splits the batch nor shards the model (pp; for the
-    classifiers ep; for ResNet tp and sp) replicates the step, as in the
-    JAX workloads."""
+def plan_mesh(ctx: WorkloadContext) -> Tuple[Optional[object], int]:
+    """(the mesh layout, 0), or (None, 2) after printing why a mesh does not
+    fit the processes.  An axis that neither splits the batch nor shards
+    the model (pp; for the classifiers ep; for ResNet tp and sp) replicates
+    the step, as in the JAX workloads."""
     try:
         layout = ctx.mesh_layout()
     except ValueError as e:
         print(f"invalid mesh: {e}", flush=True)
         return None, 2
-    for axis, item in unported:
-        if layout.shape.get(axis, 1) > 1:
-            return None, not_ported(
-                f"the {axis} mesh axis ({axis}={layout.shape[axis]})", item)
     return layout, 0
 
 
@@ -336,29 +324,35 @@ def split_batch(batch: int, layout, grad_accum: int = 1) -> Optional[str]:
 
 
 def same_batch_over_replicas(batches, sharding):
-    """`batches` (dicts of tensors on the device), each broadcast over this
-    rank's replicas, the ranks that differ only along axes larger than 1
-    that do not split the batch (`sharding.split_axes`), from the first of
-    them: ranks that replicate the step must read one batch, and a loader
-    whose threads hand batches over in no fixed order (the native image
-    loader), or one seeded per replica, would give them different ones.
-    `batches` as it is without such axes or a mesh (`sharding` None)."""
+    """`batches` (this rank's rows, `train/step.shard_rows`, as dicts of
+    tensors on the device), each broadcast over the ranks that hold the
+    same rows, the ranks that differ only along axes larger than 1 other
+    than the data axes, from the first of them, then cut to this rank's
+    slice of the sequence (`train/step.shard_sequence`): ranks that
+    replicate the step, or split one sequence over sp, must read one
+    batch, and a loader whose threads hand batches over in no fixed order
+    (the native image loader), or one seeded per replica, would give them
+    different ones.  `batches` as it is without a mesh (`sharding`
+    None)."""
     import torch.distributed as dist
 
-    mesh = None if sharding is None else sharding.mesh
-    axes = [] if mesh is None else [
-        a for a in mesh.axis_names
-        if a not in sharding.split_axes and mesh.shape[a] > 1]
-    if not axes:
+    from ..parallel.mesh import data_axes
+    from ..train.step import shard_sequence
+
+    if sharding is None:
         return batches
-    group = mesh.group_over(axes) or dist.group.WORLD
-    src = dist.get_global_rank(group, 0)
+    mesh = sharding.mesh
+    axes = [a for a in mesh.axis_names
+            if a not in data_axes(mesh) and mesh.shape[a] > 1]
+    group = (mesh.group_over(axes) or dist.group.WORLD) if axes else None
 
     def broadcast():
         for batch in batches:
-            for t in batch.values():
-                dist.broadcast(t, src, group=group)
-            yield batch
+            if group is not None:
+                src = dist.get_global_rank(group, 0)
+                for t in batch.values():
+                    dist.broadcast(t, src, group=group)
+            yield shard_sequence(batch, sharding)
 
     return broadcast()
 

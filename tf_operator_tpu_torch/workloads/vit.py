@@ -11,9 +11,12 @@ runs non-causal through the flash kernels at T = patches + 1.
 
 Data parallel over the mesh's dp and fsdp axes (each rank keeps its rows
 of the batch it draws), the parameters fully sharded over fsdp and, with
-the ZeRO knob, the moments and the update over dp; the ranks along pp and
-ep replicate the step (the batch broadcast over them), as the JAX
-workload's do; tp and sp exit 2 naming their ROADMAP item.
+the ZeRO knob, the moments and the update over dp; the blocks tensor
+parallel over tp; the tokens split over sp, whose ranks run the ring
+(patches + CLS must divide by sp, else exit 2, as the JAX ring requires);
+the ranks along pp and ep replicate the step, as the JAX workload's do.
+The ranks that share rows (along tp, sp, pp, ep) take the first one's
+batch.
 
 Usage: python -m tf_operator_tpu_torch.workloads.vit --steps 100 --batch 256
 """
@@ -21,11 +24,6 @@ from __future__ import annotations
 
 import argparse
 import sys
-
-# tensor parallelism, and sequence parallelism over the patches
-# (ring/Ulysses in a ViT); pp and ep replicate the step
-UNPORTED = (("tp", "A.18"), ("sp", "A.10"))
-
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser()
@@ -58,9 +56,15 @@ def main(argv=None) -> int:
         print(f"--image-size {args.image_size} must divide by --patch-size "
               f"{args.patch_size}", flush=True)
         return 2
-    layout, rc = plan_mesh(ctx, UNPORTED)
+    layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
+    tokens = (args.image_size // args.patch_size) ** 2 + 1
+    if tokens % layout.shape.get("sp", 1):
+        print(f"{tokens} tokens (patches + CLS) must divide by "
+              f"sp={layout.shape['sp']}: ring attention needs T divisible "
+              "by the sp axis size", flush=True)
+        return 2
     problem = split_batch(args.batch, layout)
     if problem:
         print(problem, flush=True)
@@ -76,7 +80,7 @@ def _train(args, ctx, device, mesh, layout) -> int:
     from ..train.data import prefetch_to_device
     from ..train.optim import adamw
     from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_batch)
+                              shard_rows)
     from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
                          say, train_state_on_mesh)
 
@@ -84,7 +88,7 @@ def _train(args, ctx, device, mesh, layout) -> int:
     heads = max(1, args.d_model // 64)
     cfg = vit_base_config(
         num_layers=args.layers, num_heads=heads, d_model=args.d_model,
-        d_ff=4 * args.d_model, max_len=patches + 1)
+        d_ff=4 * args.d_model, max_len=patches + 1, mesh=mesh)
     model = ViT(cfg, num_classes=args.num_classes,
                 patch_size=args.patch_size, image_size=args.image_size)
     state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
@@ -103,7 +107,7 @@ def _train(args, ctx, device, mesh, layout) -> int:
                 "label": rng.randint(0, args.num_classes,
                                      args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_batch(batch, state.sharding)
+            yield batch if mesh is None else shard_rows(batch, state.sharding)
 
     loss, elapsed = run_steps(
         state, step, same_batch_over_replicas(
