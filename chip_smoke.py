@@ -15,7 +15,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            kernel's time, the plain version's, the bound, and as a yardstick
            only F.scaled_dot_product_attention's (which the port never calls):
            its forward beside the forward kernel, its backward alone
-           (autograd.grad on a retained graph) beside dq + dk/dv
+           (autograd.grad on a retained graph) beside dq + dk/dv; each
+           kernel launched a second time on the same inputs must give the
+           same bits
   slice    the LM workload (`workloads.lm.main`) at GPT-small full width
            (12 x 768, seq 2048, batch 8, vocab 32000) for 6 steps with
            checkpoints, checking every kernel launched 12 x steps times; a
@@ -61,7 +63,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   bert     the BERT workload at BERT-base width (T 128, batch 32): each as
            resnet, plus the kernels' launches (12 per step each, counted
            from zero just before the run), and the model's logits with the
-           kernels against the same model on the plain attention path
+           kernels against the same model on the plain attention path;
+           for bert one more plain run whose losses, in full precision,
+           must equal the workload run's over the 10 steps
   shard    the fourth path: the LM workload at GPT-small width over a
            one-rank NCCL group with the mesh {"fsdp": 1, "tp": 1} (FSDP2
            per block and the tensor-parallel layout, each at size 1),
@@ -82,6 +86,16 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            vit_b16_tp2 and bert_base_tp2 hold the kernels at one tp
            rank's heads, the ring cases bert_n2_full and bert_n4_full at
            BERT's per-shard lengths under sp 2 and 4
+  pod      the ninth path: GPT-small at full width through the per-pod
+           launcher (`workloads.launch --local-ranks 1`, the spawn path at
+           L = 1), its one child over a one-rank NCCL group, 11 steps: the
+           child's losses in full precision equal to the encoder_mesh
+           phase's two in-process plain runs, its kernels launched 12
+           times a step each, step ms and tokens/s beside theirs; then
+           SIGTERM to the launcher alone after the first checkpoint (2
+           layers, 15 steps): exit 143, the child gone, the saved state
+           restored bit for bit, and the rerun resumes from it and
+           finishes
   mnist    the fifth path, the small workloads: the MNIST workload
            (`workloads.mnist.main`, BASELINE config 1) with the MLP and the
            CNN at the JAX defaults (B 64, Adam 1e-3), 200 steps each: final
@@ -426,7 +440,16 @@ def kernel_case(case, timing: bool):
 
     dq = dq_kernel()
     dk, dv = dkv_kernel()
+    # each kernel again on the same inputs: the same bits (no atomics, no
+    # read of what a launch leaves unset)
+    again = (*fwd(), dq_kernel(), *dkv_kernel())
     torch.cuda.synchronize()
+    differ = [label for label, a, b in zip(
+        ("o", "lse", "dq", "dk", "dv"), (o, lse, dq, dk, dv), again)
+        if not torch.equal(a, b)]
+    if differ:
+        raise RuntimeError(f"kernel case {name}: a second launch on the "
+                           f"same inputs gives other bits in {differ}")
 
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
 
@@ -1196,10 +1219,7 @@ MESH_RUNS = [
     ("vit", [], 3, 12, 256, "images",
      [("tp1", {"tp": 1}, False), ("dp1_fsdp1_zero", {"dp": 1, "fsdp": 1},
                                    True)]),
-    # 3 steps: two plain BERT runs on the card part after that (3e-4
-    # relative at step 4, 6e-4 at step 5), so no layout could be held to
-    # the rule there
-    ("bert", [], 3, 12, 32, "sequences",
+    ("bert", [], 6, 12, 32, "sequences",
      [("tp1", {"tp": 1}, False), ("dp1_fsdp1_zero", {"dp": 1, "fsdp": 1},
                                    True)]),
     ("lm", [], 11, 12, 8 * 2048, "tokens",
@@ -1207,14 +1227,10 @@ MESH_RUNS = [
 ]
 
 
-def mesh_run(name: str, argv, steps: int, blocks: int):
-    """(log, every step's loss in full precision, peak bytes) of one run of
-    workload `name`, each kernel's launches counted from zero and held to
-    blocks x steps.  The losses are kept as the step returns them (no
-    sync inside the run) and read after it."""
-    import torch
-
-    from tf_operator_tpu_torch.ops import attention as A
+@contextlib.contextmanager
+def step_losses_kept():
+    """A list that every train step made inside the block appends its loss
+    to, as the step returns it (no sync inside the run; read it after)."""
     from tf_operator_tpu_torch.train import step as S
 
     made, losses = S.make_train_step, []
@@ -1229,15 +1245,27 @@ def mesh_run(name: str, argv, steps: int, blocks: int):
 
         return step
 
+    S.make_train_step = make
+    try:
+        yield losses
+    finally:
+        S.make_train_step = made
+
+
+def mesh_run(name: str, argv, steps: int, blocks: int):
+    """(log, every step's loss in full precision, peak bytes) of one run of
+    workload `name`, each kernel's launches counted from zero and held to
+    blocks x steps."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
     extra = [] if name == "lm" else ["--log-every", "1"]
-    S.make_train_step = make
-    try:
+    with step_losses_kept() as losses:
         log = run_workload(name, argv + ["--steps", str(steps)] + extra)
-    finally:
-        S.make_train_step = made
     check_launches(blocks * steps, f"{name} run")
     return (log, [float(x) for x in losses],
             torch.cuda.max_memory_allocated())
@@ -1255,7 +1283,8 @@ def phase_encoder_mesh(card: str):
     blocks x steps times, step ms,
     items/s and peak memory.  Then, computed, what
     the ZeRO plan shards at {"dp": 2, "fsdp": 4} for each model (one card
-    cannot run it)."""
+    cannot run it).  Returns the LM's two plain runs (log, losses, peak
+    bytes), the in-process reference of the pod phase."""
     import torch
 
     from tf_operator_tpu_torch.models.transformer import (BertEncoder,
@@ -1300,6 +1329,8 @@ def phase_encoder_mesh(card: str):
         print(f"encoder_mesh {name}: losses equal to the plain run's within "
               f"1e-5 relative under {[tag for tag, _, _ in meshes]}",
               flush=True)
+        if name == "lm":
+            lm_plain = [runs["plain"], runs["plain again"]]
 
     layout = build_mesh({"dp": 2, "fsdp": 4}, 8)
     with torch.device("meta"):
@@ -1315,6 +1346,176 @@ def phase_encoder_mesh(card: str):
               f"at {layout.shape} shards {sharded} of {len(plan.entries)} "
               f"entries over dp, {heads} of them on a head_dim (the split "
               "[heads x head_dim] view)", flush=True)
+    return lm_plain
+
+
+# ---------------------------------------------------------------------------
+# the ninth path: one process per GPU, started by the per-pod launcher
+
+POD_CHILD = re.compile(r"^pod child: (\{.*\})$", re.M)
+LOCAL_PIDS = re.compile(r"^pod launcher: local rank pids \[([\d, ]+)\]$",
+                        re.M)
+
+
+def pod_child(argv) -> int:
+    """`chip_smoke.py --pod-child ARGS`: a local rank that the pod launcher
+    starts, running `workloads.lm.main(ARGS)` through the launcher's child
+    path, then printing `pod child: {...}` with every step's loss in full
+    precision and each kernel's launches over the run."""
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.workloads import lm
+    from tf_operator_tpu_torch.workloads.launch import run_pod
+
+    A.reset_launches()
+    with step_losses_kept() as losses:
+        rc = run_pod(lm.main, argv)
+    print("pod child: " + json.dumps({
+        "rc": rc, "losses": [float(x) for x in losses],
+        "launches": A.launches()}), flush=True)
+    return rc
+
+
+def launch_pod(argv, **kwargs) -> subprocess.Popen:
+    """The pod command through the launcher's entry with an explicit L = 1
+    (`workloads.launch --local-ranks 1`), its output in one text pipe."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.workloads.launch",
+         "--local-ranks", "1", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, **kwargs)
+
+
+def finished(proc: subprocess.Popen) -> tuple:
+    """(exit code, output) of a `launch_pod` process."""
+    try:
+        out, _ = proc.communicate(timeout=PROCESS_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise RuntimeError(f"pod: the launcher ran over {PROCESS_TIMEOUT} s:"
+                           f"\n{out[-4000:]}")
+    return proc.returncode, out
+
+
+def phase_pod(card: str, lm_plain):
+    """The ninth path on one card: GPT-small through the per-pod launcher's
+    spawn path at L = 1 (its entry with an explicit count), the child over
+    a one-rank NCCL group, 11 steps: every loss in full precision equal to
+    the in-process plain runs' of the encoder_mesh phase, 12 launches a
+    step of each kernel in the child, step ms and tokens/s beside the
+    in-process runs'.  Then the preemption relay (2 layers, 15 steps):
+    SIGTERM to the launcher alone after the first checkpoint exits 143
+    with the child gone, the state restored from the newest checkpoint
+    equals the saved one bit for bit, and the rerun resumes from it and
+    finishes."""
+    import signal
+
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (TransformerLM,
+                                                          gpt_small_config)
+    from tf_operator_tpu_torch.train.checkpoint import CheckpointManager
+    from tf_operator_tpu_torch.train.optim import lm_optimizer
+    from tf_operator_tpu_torch.train.state import (create_train_state,
+                                                   full_state)
+
+    steps, layers = 11, 12
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rc, out = finished(launch_pod([os.path.abspath(__file__), "--pod-child",
+                                   "--steps", str(steps)]))
+    wall = time.perf_counter() - t0
+    m = POD_CHILD.search(out)
+    if rc != 0 or m is None or "pod launcher: 1 pod(s) x 1 local rank(s), " \
+            "world 1" not in out:
+        raise RuntimeError(f"pod: the launcher exited {rc}:\n{out[-4000:]}")
+    child = json.loads(m.group(1))
+    for name, n in child["launches"].items():
+        if n != layers * steps:
+            raise RuntimeError(f"pod: {name} launched {n} times in the "
+                               f"child, expected {layers * steps}")
+    for log, losses, _ in lm_plain:
+        if child["losses"] != losses:
+            raise RuntimeError(f"pod: the child's losses {child['losses']} "
+                               f"against the in-process run's {losses}")
+    times = [STEP_TIME.search(log) for log in
+             (lm_plain[0][0], out, lm_plain[1][0])]
+    print(f"pod: GPT-small through the launcher at L 1 (NCCL, world 1), "
+          f"{steps} steps: losses {child['losses']} equal in full precision "
+          f"to both in-process runs'; launches {child['launches']} "
+          f"({layers} a step each); step ms in turns: in-process "
+          f"{times[0].group(1)}, launcher {times[1].group(1)}, in-process "
+          f"{times[2].group(1)}; tokens/s {times[0].group(2)}, "
+          f"{times[1].group(2)}, {times[2].group(2)}; the launcher's wall "
+          f"{wall:.1f} s [{card}]", flush=True)
+
+    # the preemption relay: SIGTERM to the launcher alone.  15 steps save
+    # at 5, 10 and 15: with the manager's three kept, the rerun never
+    # prunes the checkpoint that is checked while it starts
+    argv = ["-m", "tf_operator_tpu_torch.workloads.lm", "--layers", "2",
+            "--steps", "15", "--checkpoint-every", "5"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pod-preempt-") as ckpt:
+        argv += ["--checkpoint-dir", ckpt]
+        proc = launch_pod(argv)
+        deadline = time.monotonic() + PROCESS_TIMEOUT
+        while not os.path.exists(os.path.join(ckpt, "5", "state.pt")):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError("pod: the first checkpoint never came: "
+                                   f"{finished(proc)[1][-4000:]}")
+            time.sleep(0.02)
+        first_life = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        rc, out = finished(proc)
+        pids = LOCAL_PIDS.search(out)
+        if rc != 143 or "pod launcher: exit 143" not in out or pids is None:
+            raise RuntimeError(f"pod: SIGTERM to the launcher exited {rc}, "
+                               f"expected 143:\n{out[-4000:]}")
+        left = [pid for pid in map(int, pids.group(1).split(","))
+                if os.path.exists(f"/proc/{pid}")]
+        if left:
+            raise RuntimeError(f"pod: local ranks {left} outlived the pod")
+        manager = CheckpointManager(ckpt)
+        saved_step = manager.latest_step()
+        # the rerun's process starts while the saved state is checked here
+        t0 = time.perf_counter()
+        rerun = launch_pod(argv)
+        try:
+            saved = torch.load(os.path.join(ckpt, str(saved_step),
+                                            "state.pt"),
+                               map_location="cpu", weights_only=True)
+            template = create_train_state(
+                TransformerLM(gpt_small_config(num_layers=2)),
+                lm_optimizer(3e-4), seed=1, device=torch.device("cuda"))
+            restored = full_state(manager.restore(template))
+            pairs = [(restored["model"][n], t)
+                     for n, t in saved["model"].items()]
+            pairs += [(restored["optimizer"][n][k], t)
+                      for n, moments in saved["optimizer"].items()
+                      for k, t in moments.items()]
+            if restored["step"] != saved_step or not all(
+                    torch.equal(torch.as_tensor(a).cpu(), torch.as_tensor(b))
+                    for a, b in pairs):
+                raise RuntimeError("pod: the restored state differs from "
+                                   "the saved one")
+            del template, restored, saved
+        except BaseException:
+            rerun.kill()
+            rerun.communicate()
+            raise
+        rc, out = finished(rerun)
+        second_life = time.perf_counter() - t0
+        if rc != 0 or f"resumed from step {saved_step}" not in out or \
+                "\ndone\n" not in out:
+            raise RuntimeError(f"pod: the rerun exited {rc} or did not "
+                               f"resume from step {saved_step}:\n"
+                               f"{out[-4000:]}")
+    print(f"pod: SIGTERM to the launcher alone exited 143, its local rank "
+          f"gone; {len(pairs)} saved tensors of step {saved_step} restored "
+          f"bit for bit on the card; the rerun resumed from step "
+          f"{saved_step} and finished (GPT-small width, 2 layers, 15 "
+          f"steps); walls: to the first checkpoint {first_life:.1f} s, the "
+          f"rerun {second_life:.1f} s [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1370,7 +1571,8 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     finite, its step time line read, MFU against PEAK_BF16_FLOPS from
     `flops` per step, peak memory; the kernels' launches counted from zero
     over the run when `launches_per_step`; then two steps profiled through
-    its --profile-dir.  Returns the run's log."""
+    its --profile-dir.  Returns the run's log and every step's loss in
+    full precision."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1378,8 +1580,9 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     A.reset_launches()
-    log = run_workload(name, argv + ["--steps", str(steps),
-                                     "--log-every", "1"])
+    with step_losses_kept() as kept:
+        log = run_workload(name, argv + ["--steps", str(steps),
+                                         "--log-every", "1"])
     if launches_per_step:
         check_launches(launches_per_step * steps, f"{name} run")
     peak = torch.cuda.max_memory_allocated()
@@ -1407,7 +1610,7 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     summary = device_profile(events, 2, ms)
     print(summary, flush=True)
     write_detail(out_dir, f"profile_{name}.txt", f"{card}\n{summary}\n")
-    return log
+    return log, [float(x) for x in kept]
 
 
 def phase_resnet(card: str, out_dir):
@@ -1420,7 +1623,7 @@ def phase_resnet(card: str, out_dir):
     probe.reset_parameters(torch.Generator().manual_seed(0))
     flops = 3.0 * batch * conv_dense_flops(probe.cuda(), size)
     del probe
-    log = run_classification(card, out_dir, "resnet", [], 8, flops)
+    log, _ = run_classification(card, out_dir, "resnet", [], 8, flops)
     if "image source: native" not in log:
         raise RuntimeError("resnet: the images did not come from the native "
                            "loader")
@@ -1479,8 +1682,8 @@ def phase_encoder(card: str, out_dir, name: str):
             return torch.randint(0, cfg.vocab_size, (8, seq), generator=g)
         shape = (8, 2)
     flops = encoder_flops(cfg, batch, seq, per_seq)
-    run_classification(card, out_dir, name, [], steps, flops,
-                       launches_per_step=cfg.num_layers)
+    _, first = run_classification(card, out_dir, name, [], steps, flops,
+                                  launches_per_step=cfg.num_layers)
 
     g = torch.Generator().manual_seed(6)
     model = build(cfg)
@@ -1498,6 +1701,17 @@ def phase_encoder(card: str, out_dir, name: str):
         got, ref = logits(model(x)), logits(plain(x))
     logits_within(f"{name} {cfg.num_layers}-layer logits, kernels vs plain "
                   f"attention (B 8, T {seq})", got, ref, shape)
+    if name == "bert":
+        # the workload's run again, one seed and one batch stream: the same
+        # losses to the bit (every embedding's table gradient sums in token
+        # order)
+        del model, plain
+        second = mesh_run("bert", [], steps, cfg.num_layers)[1]
+        if first != second:
+            raise RuntimeError(f"two plain BERT runs part: {first} against "
+                               f"{second}")
+        print(f"bert: two plain runs give equal losses in full precision "
+              f"over {steps} steps: {first} [{card}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2394,6 +2608,9 @@ def phase_pipeline(card: str):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--pod-child"]:
+        return pod_child(argv[1:])
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=None,
                         help="also write the compiler report and the "
@@ -2434,26 +2651,35 @@ def main(argv=None) -> int:
             raise RuntimeError(f"ptxas reports spills in {spilled} (or no "
                                "kernel at all); no instantiation may spill")
 
-    kernels = phase_kernels()
-    counts = phase_slice(card, args.out_dir)
-    phase_llama()
-    phase_lse()
-    phase_ring(card)
-    phase_dist(card)
-    phase_resnet(card, args.out_dir)
-    phase_encoder(card, args.out_dir, "vit")
-    phase_encoder(card, args.out_dir, "bert")
-    phase_shard(card, args.out_dir)
-    phase_encoder_mesh(card)
-    phase_mnist(card, args.out_dir)
-    phase_preempt(card)
-    phase_dist_mnist(card)
-    phase_estimator(card)
-    phase_multislice(card)
-    phase_smoke(card)
-    phase_decode(card)
-    phase_moe(card, args.out_dir)
-    phase_pipeline(card)
+    def timed(phase, *phase_args):
+        t0 = time.perf_counter()
+        out = phase(*phase_args)
+        what = [a for a in phase_args[2:] if isinstance(a, str)]
+        print(f"{' '.join([phase.__name__, *what])}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        return out
+
+    kernels = timed(phase_kernels)
+    counts = timed(phase_slice, card, args.out_dir)
+    timed(phase_llama)
+    timed(phase_lse)
+    timed(phase_ring, card)
+    timed(phase_dist, card)
+    timed(phase_resnet, card, args.out_dir)
+    timed(phase_encoder, card, args.out_dir, "vit")
+    timed(phase_encoder, card, args.out_dir, "bert")
+    timed(phase_shard, card, args.out_dir)
+    lm_plain = timed(phase_encoder_mesh, card)
+    timed(phase_pod, card, lm_plain)
+    timed(phase_mnist, card, args.out_dir)
+    timed(phase_preempt, card)
+    timed(phase_dist_mnist, card)
+    timed(phase_estimator, card)
+    timed(phase_multislice, card)
+    timed(phase_smoke, card)
+    timed(phase_decode, card)
+    timed(phase_moe, card, args.out_dir)
+    timed(phase_pipeline, card)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -420,3 +420,127 @@ def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
     q32 = torch.zeros(1, 2, 64, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
         A.flash_attention_lse(q32, q32, q32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,causal", [(32, 12, 128, False),
+                                          (256, 12, 197, False),
+                                          (8, 12, 2048, True)],
+                         ids=["bert_base", "vit_b16", "gpt_small"])
+def test_kernels_repeat_bit_for_bit(cuda, b, h, t, causal):
+    """Each kernel run twice on the same inputs gives the same bits: no
+    atomics, and no read of shared memory or padding that a launch leaves
+    unset.  BERT-base at T 128 is one 128-row tile a head, fewer tiles
+    than the TMA ring has stages."""
+    q, k, v, g = _inputs(t, h, h, b=b)
+    opts = dict(scale=0.125, causal=causal, window=None, sink=0)
+
+    def run():
+        o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+        delta = (g.float() * o.float()).sum(-1)
+        dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128,
+                                 **opts)
+        dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+                                      **opts)
+        return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    differ = [name for name in first
+              if not torch.equal(first[name], second[name])]
+    assert not differ, f"outputs that differ between two launches: {differ}"
+
+
+def bert_base_steps(steps: int, device="cuda"):
+    """(every step's loss, every step's gradients by parameter name) of
+    BERT-base (12 x 768, B 32, T 128, 2 labels, adamw 5e-5) from seed 0 on
+    the bert workload's token and label stream, as its step computes
+    them."""
+    from tf_operator_tpu_torch.models.transformer import (BertEncoder,
+                                                          bert_base_config)
+    from tf_operator_tpu_torch.train.optim import adamw
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.step import (classification_loss_fn,
+                                                  make_train_step)
+
+    cfg = bert_base_config(max_len=128)
+    model = BertEncoder(cfg, num_labels=2)
+    state = create_train_state(model, adamw(5e-5), seed=0,
+                               device=torch.device(device))
+    step = make_train_step(classification_loss_fn(model))
+    rng = np.random.RandomState(0)
+    losses, grads = [], []
+    for _ in range(steps):
+        batch = {"x": rng.randint(0, cfg.vocab_size, (32, 128)),
+                 "label": rng.randint(0, 2, 32)}
+        state, metrics = step(state, {
+            key: torch.from_numpy(x.astype(np.int32)).to(device)
+            for key, x in batch.items()})
+        losses.append(metrics["loss"].detach().clone())
+        grads.append({name: p.grad.detach().clone()
+                      for name, p in model.named_parameters()})
+    return losses, grads
+
+
+def first_difference(a, b):
+    """(step, [(leaf, max abs difference)]) of the first step at which two
+    `bert_base_steps` results differ (the loss counts as a leaf), or
+    None."""
+    for i, ((loss_a, grads_a), (loss_b, grads_b)) in enumerate(
+            zip(zip(*a), zip(*b))):
+        differ = [(name, float((grads_a[name] - grads_b[name]).abs().max()))
+                  for name in grads_a
+                  if not torch.equal(grads_a[name], grads_b[name])]
+        if not torch.equal(loss_a, loss_b):
+            differ.insert(0, ("loss", float((loss_a - loss_b).abs())))
+        if differ:
+            return i, differ
+    return None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deterministic", [False, True],
+                         ids=["default", "deterministic_algorithms"])
+def test_two_bert_base_runs_repeat_bit_for_bit(cuda, deterministic,
+                                               monkeypatch):
+    """Two BERT-base runs from one seed on one batch stream give equal
+    losses and gradients, leaf by leaf, at each of 6 steps, with torch's
+    default algorithms and under `torch.use_deterministic_algorithms`
+    (which raises on any op that torch knows to be nondeterministic)."""
+    if deterministic:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        runs = [bert_base_steps(6) for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    found = first_difference(*runs)
+    print(f"bert-base, deterministic algorithms {deterministic}: losses "
+          f"{[float(x) for x in runs[0][0]]} / "
+          f"{[float(x) for x in runs[1][0]]}; first difference {found}")
+    assert found is None
+
+
+@pytest.mark.cuda
+def test_lookup_table_gradient_repeats_bit_for_bit(cuda):
+    """BERT-base's type embedding: every one of the B*T = 4096 token types
+    0.  `transformer.lookup`'s table gradient is the same bits in two
+    backward passes, and within f32 rounding of the sum in f64."""
+    from tf_operator_tpu_torch.models.transformer import lookup
+
+    rng = np.random.RandomState(0)
+    table = torch.tensor(rng.randn(2, 768).astype(np.float32),
+                         device="cuda", requires_grad=True)
+    tokens = torch.zeros(32, 128, dtype=torch.int32, device="cuda")
+    cot = torch.tensor(rng.randn(32, 128, 768).astype(np.float32),
+                       device="cuda")
+    grads = []
+    for _ in range(2):
+        table.grad = None
+        lookup(table, tokens).backward(cot)
+        grads.append(table.grad.clone())
+    assert torch.equal(grads[0], grads[1])
+    want = cot.double().sum((0, 1))
+    torch.testing.assert_close(grads[0][0].double(), want, rtol=1e-5,
+                               atol=1e-3)
+    assert not grads[0][1].any()

@@ -267,8 +267,14 @@ def test_apply_forced_platform():
      "TPUJOB_ELASTIC_GENERATION": "3"},
 ])
 def test_workload_context_matches_jax(env):
+    """Every field of the JAX context, read alike; the port's own two, the
+    per-pod launcher's local rank and count, at their defaults (a pod
+    process the launcher did not start)."""
     ours, theirs = WorkloadContext.from_env(env), JaxContext.from_env(env)
-    assert vars(ours) == vars(theirs)
+    own = {"local_rank": None, "local_count": 1}
+    assert {k: v for k, v in vars(ours).items() if k not in own} \
+        == vars(theirs)
+    assert {k: getattr(ours, k) for k in own} == own
     assert ours.is_elastic == theirs.is_elastic
     assert ours.virtual_assignment() == theirs.virtual_assignment()
 

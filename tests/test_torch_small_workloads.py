@@ -160,17 +160,21 @@ def test_estimator_train_and_evaluate(stack):
 
 def test_smoke_job(stack):
     """Two workers join one gloo group and check the matmul; the PS
-    replica parks at once."""
+    replica parks at once.  The workers can finish before the PS process
+    has started, and the default CleanPodPolicy (Running) would then
+    delete the PS pod and its log, so this job keeps its pods."""
     _, client, _ = stack
     logs = run_job(client, "port-smoke", {
         ReplicaType.PS: ReplicaSpec(replicas=1, template=container("smoke")),
         ReplicaType.WORKER: ReplicaSpec(
             replicas=2, template=container("smoke", ["--size", "128"])),
-    }, success_policy=SuccessPolicy.ALL_WORKERS)
+    }, success_policy=SuccessPolicy.ALL_WORKERS,
+        run_policy=RunPolicy(clean_pod_policy=CleanPodPolicy.NONE))
     logs = logs_with(client, "port-smoke", "checksum=", 2)
     assert sum("checksum=2.097e+06 expected=2.097e+06" in t
                for t in logs.values()) == 2, logs
-    assert "smoke PS parked OK" in logs["port-smoke-ps-0"]
+    logs = logs_with(client, "port-smoke", "smoke PS parked OK", 1)
+    assert "smoke PS parked OK" in logs["port-smoke-ps-0"], logs
 
 
 def test_allreduce_check_over_two_gloo_processes(stack):

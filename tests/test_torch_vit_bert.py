@@ -265,3 +265,31 @@ def test_bert_token_types_default_to_zero():
         b = model(tokens, torch.zeros_like(tokens))["logits"]
         c = model(tokens, torch.ones_like(tokens))["logits"]
     assert torch.equal(a, b) and not torch.equal(a, c)
+
+
+@pytest.mark.parametrize("rows", [2, 64], ids=["type_table", "token_table"])
+def test_lookup_is_the_embedding_and_its_gradient(rows):
+    """`transformer.lookup`, every embedding of the port: on the CPU it is
+    `F.embedding`, forward and backward; the form the card runs (advanced
+    indexing, whose backward sums each row's cotangents in token order)
+    gives the same rows and the same table gradient within f32 rounding,
+    BERT's all-zero token types included."""
+    rng = np.random.RandomState(0)
+    table = torch.tensor(rng.randn(rows, 16).astype(np.float32))
+    tokens = torch.tensor(rng.randint(0, rows, (4, 32)), dtype=torch.int32)
+    if rows == 2:
+        tokens = torch.zeros_like(tokens)
+    cot = torch.tensor(rng.randn(4, 32, 16).astype(np.float32))
+
+    def grad(fn):
+        leaf = table.clone().requires_grad_()
+        out = fn(leaf)
+        out.backward(cot)
+        return out.detach(), leaf.grad
+
+    got = grad(lambda t: T.lookup(t, tokens))
+    ref = grad(lambda t: torch.nn.functional.embedding(tokens, t))
+    card = grad(lambda t: t[tokens])
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert torch.equal(card[0], ref[0])
+    torch.testing.assert_close(card[1], ref[1], rtol=1e-6, atol=1e-5)

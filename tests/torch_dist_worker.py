@@ -17,10 +17,15 @@ result file under the case's name.
 
     python tests/torch_dist_worker.py workload NAME NATIVE ARGS...
 
-runs one rank of a workload's main (its process group from the TPUJob env)
-with every rank printing its own loss and digests of its batch and its
-parameters after each step (`run_workload`; `launch_workload` starts it,
-`replica_steps` reads it back).
+runs one pod of a workload's main (its process group from the TPUJob env;
+as many ranks as the pod launcher gives it) with every rank printing its
+own loss and digests of its batch and its parameters after each step
+(`run_workload`; `launch_workload` starts it, `replica_steps` reads it
+back), and
+
+    python tests/torch_dist_worker.py standin OUT_DIR ACTION...
+
+is the launcher's stand-in child (`standin`).
 """
 from __future__ import annotations
 
@@ -471,9 +476,12 @@ def run_workload(name: str, native: str, argv) -> int:
             seen = digest(batch[k] for k in sorted(batch))
             state, metrics = inner(state, batch)
             rank = dist.get_rank() if dist.is_initialized() else 0
-            print(f"replica {rank} step {len(taken)} loss "
-                  f"{float(metrics['loss'])!r} batch {seen} params "
-                  f"{digest(state.model.parameters())}", flush=True)
+            # one write: the ranks of a pod share its stdout
+            sys.stdout.write(
+                f"replica {rank} step {len(taken)} loss "
+                f"{float(metrics['loss'])!r} batch {seen} params "
+                f"{digest(state.model.parameters())}\n")
+            sys.stdout.flush()
             taken.append(seen)
             return state, metrics
 
@@ -519,7 +527,53 @@ def main(job_file, rank, world, store, out_dir) -> None:
         dist.destroy_process_group()
 
 
+def standin(out_dir: str, *actions: str) -> int:
+    """The pod launcher's stand-in child (`tests/test_torch_launch.py`):
+    local rank i writes its pid to OUT_DIR/pid-<i>, then does actions[i]:
+    `sleep` (until a signal ends it), `exit:N` (after the other ranks'
+    pid files are there), `kill:N` (signal N to itself, likewise; it
+    holds OUT_DIR/lock until it dies), `follow:N` (exit N the moment a
+    `kill` rank dies, as a gloo rank fails when its peer's socket closes)
+    or `ok` (exit 0)."""
+    import fcntl
+    import time
+
+    rank = int(os.environ["LOCAL_RANK"])
+    out = Path(out_dir)
+    kind, _, arg = actions[rank].partition(":")
+    if kind == "kill":
+        lock = open(out / "lock", "w")
+        fcntl.flock(lock, fcntl.LOCK_EX)
+    (out / f".pid-{rank}").write_text(str(os.getpid()))
+    (out / f".pid-{rank}").rename(out / f"pid-{rank}")
+    if kind in ("exit", "kill", "follow"):
+        deadline = time.monotonic() + 60
+        while len(list(out.glob("pid-*"))) < len(actions):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the other ranks' pid files never came")
+            time.sleep(0.01)
+    if kind == "sleep":
+        time.sleep(600)
+        return 1
+    if kind == "exit":
+        return int(arg)
+    if kind == "kill":
+        os.kill(os.getpid(), int(arg))
+        time.sleep(600)
+    if kind == "follow":
+        with open(out / "lock") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+        os._exit(int(arg))
+    return 0
+
+
 if __name__ == "__main__":
+    from tf_operator_tpu_torch.workloads.launch import run_pod
+
     if sys.argv[1] == "workload":
-        sys.exit(run_workload(sys.argv[2], sys.argv[3], sys.argv[4:]))
+        name, native = sys.argv[2], sys.argv[3]
+        sys.exit(run_pod(lambda argv: run_workload(name, native, argv),
+                         sys.argv[4:]))
+    if sys.argv[1] == "standin":
+        sys.exit(run_pod(lambda argv: standin(*argv), sys.argv[2:]))
     main(*sys.argv[1:])

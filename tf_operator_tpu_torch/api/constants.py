@@ -32,3 +32,14 @@ ENV_MEGASCALE_SLICE_ID = "MEGASCALE_SLICE_ID"
 # User default of the parameter-server transport, "python" or "native"
 # (never injected).
 ENV_PS_TRANSPORT = "TPUJOB_PS_TRANSPORT"
+# The local device count L of a pod on the CPU (TPUJOB_FORCE_PLATFORM=cpu),
+# the counterpart of XLA's --xla_force_host_platform_device_count in the
+# CPU tests (never injected; on CUDA, L is torch.cuda.device_count()).  The
+# pod launcher (workloads/launch.py) runs L processes.
+ENV_CPU_DEVICE_COUNT = "TPUJOB_CPU_DEVICE_COUNT"
+# What the pod launcher gives each of its processes, under torchrun's
+# names: its local rank and L.  The TPUJOB_* variables stay the pod's.
+ENV_LOCAL_RANK = "LOCAL_RANK"
+ENV_LOCAL_WORLD_SIZE = "LOCAL_WORLD_SIZE"
+# The launcher's pid, so a process it starts can tell that its pod is gone.
+ENV_LAUNCHER_PID = "TPUJOB_LAUNCHER_PID"

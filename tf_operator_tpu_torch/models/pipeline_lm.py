@@ -39,7 +39,8 @@ from torch import nn
 from ..parallel.pipeline import (GroupRing, LocalRing, gpipe,
                                  gpipe_interleaved, needs_grad,
                                  one_f_one_b_loss, split_microbatches)
-from .transformer import Block, Dense, Norm, TransformerConfig, _normal_
+from .transformer import (Block, Dense, Norm, TransformerConfig, _normal_,
+                          lookup)
 
 
 class PipelinedTransformerLM(nn.Module):
@@ -135,7 +136,7 @@ class PipelinedTransformerLM(nn.Module):
                 if p is not None]
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = F.embedding(tokens, self.wte)
+        x = lookup(self.wte, tokens)
         if self.wpe is not None:
             x = x + self.wpe[None, : tokens.shape[1], :]
         return x.to(self.cfg.dtype)

@@ -629,7 +629,7 @@ class TransformerLM(nn.Module):
             first = cfg.mesh.coordinate(cfg.ring_axis) * t
             positions = torch.arange(first, first + t, device=tokens.device)
         if self.vocab_tp is None:
-            x = self.wte(tokens)
+            x = lookup(self.wte.weight, tokens)
         else:
             x = vocab_parallel_embedding(tokens, self.wte.weight,
                                          self.vocab_tp)
@@ -659,13 +659,26 @@ class TransformerLM(nn.Module):
         return F.linear(x.float(), self.wte.weight)
 
 
+def lookup(table, tokens):
+    """The rows of `table` at `tokens` (an embedding lookup), with a table
+    gradient that repeats bit for bit on the card.  torch's CUDA embedding
+    backward adds the partial sums of a row that many tokens hit (BERT's
+    type embedding: every one of its B*T token types is 0) in an order that
+    varies between runs; advanced indexing accumulates through index_put_,
+    which sorts the tokens and sums each row's cotangents in token order.
+    On the CPU it is `F.embedding`, whose backward is serial."""
+    if table.is_cuda:
+        return table[tokens]
+    return F.embedding(tokens, table)
+
+
 def vocab_parallel_embedding(tokens, table, tp):
     """The rows of a vocab-sharded embedding: each rank looks up the
     tokens in its slice (zero for the others), summed over the tp group."""
     start = tp.rank * table.shape[0]
     local = tokens - start
     inside = (local >= 0) & (local < table.shape[0])
-    rows = F.embedding(torch.where(inside, local, 0), table)
+    rows = lookup(table, torch.where(inside, local, 0))
     return reduce_from_group(tp.group,
                              torch.where(inside[..., None], rows, 0.0))
 
@@ -720,11 +733,11 @@ class BertEncoder(nn.Module):
         if token_types is None:
             token_types = torch.zeros_like(tokens)
         if self.vocab_tp is None:
-            x = self.tok_emb(tokens)
+            x = lookup(self.tok_emb.weight, tokens)
         else:
             x = vocab_parallel_embedding(tokens, self.tok_emb.weight,
                                          self.vocab_tp)
-        x = (x + self.type_emb(token_types)
+        x = (x + lookup(self.type_emb.weight, token_types)
              + self.pos_emb[None, first:first + t, :])
         x = self.emb_ln(x).to(cfg.dtype)
         for block in self.blocks:

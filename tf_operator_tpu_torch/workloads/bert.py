@@ -34,8 +34,8 @@ def main(argv=None) -> int:
     parser.add_argument("--d-model", type=int, default=768)
     parser.add_argument("--log-every", type=int, default=10)
     from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, process_group,
-                         split_batch)
+                         apply_forced_platform, plan_mesh, pod_say,
+                         process_group, split_batch)
 
     add_profile_args(parser)
     args = parser.parse_args(argv)
@@ -43,23 +43,23 @@ def main(argv=None) -> int:
     try:
         device = apply_forced_platform()
     except RuntimeError as e:
-        print(f"bert workload: {e}", flush=True)
+        pod_say(f"bert workload: {e}")
         return 1
 
     ctx = WorkloadContext.from_env()
-    print(f"bert workload: role={ctx.replica_type} index={ctx.replica_index}",
-          flush=True)
+    pod_say(f"bert workload: role={ctx.replica_type} "
+            f"index={ctx.replica_index}")
     layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
     if args.seq_len % layout.shape.get("sp", 1):
-        print(f"--seq-len {args.seq_len} must divide by "
-              f"sp={layout.shape['sp']}: ring attention needs T divisible "
-              "by the sp axis size", flush=True)
+        pod_say(f"--seq-len {args.seq_len} must divide by "
+                f"sp={layout.shape['sp']}: ring attention needs T divisible "
+                "by the sp axis size")
         return 2
     problem = split_batch(args.batch, layout)
     if problem:
-        print(problem, flush=True)
+        pod_say(problem)
         return 2
     with process_group(ctx, device, layout) as mesh:
         return _train(args, ctx, device, mesh, layout)
@@ -111,4 +111,6 @@ def _train(args, ctx, device, mesh, layout) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from tf_operator_tpu_torch.workloads.launch import run_pod
+
+    sys.exit(run_pod(main))

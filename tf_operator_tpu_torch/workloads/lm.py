@@ -98,36 +98,36 @@ def main(argv=None) -> int:
                              "tokens with the KV-cache decode path")
     args = parser.parse_args(argv)
 
-    from .runner import WorkloadContext, apply_forced_platform, plan_mesh
+    from .runner import (WorkloadContext, apply_forced_platform, plan_mesh,
+                         pod_say)
 
     try:
         device = apply_forced_platform()
     except RuntimeError as e:
-        print(f"lm workload: {e}", flush=True)
+        pod_say(f"lm workload: {e}")
         return 1
 
     if args.grad_accum < 1 or args.batch % args.grad_accum:
-        print(f"--grad-accum {args.grad_accum} must be >= 1 and divide "
-              f"--batch {args.batch}", flush=True)
+        pod_say(f"--grad-accum {args.grad_accum} must be >= 1 and divide "
+                f"--batch {args.batch}")
         return 2
     SAMPLE_PROMPT_LEN = 8
     if args.sample_tokens > 0 and (
         SAMPLE_PROMPT_LEN + args.sample_tokens > args.seq_len
     ):
         # honored or rejected, never silently clamped
-        print(f"--sample-tokens {args.sample_tokens} needs prompt "
-              f"({SAMPLE_PROMPT_LEN}) + tokens <= --seq-len {args.seq_len}",
-              flush=True)
+        pod_say(f"--sample-tokens {args.sample_tokens} needs prompt "
+                f"({SAMPLE_PROMPT_LEN}) + tokens <= --seq-len {args.seq_len}")
         return 2
 
     ctx = WorkloadContext.from_env()
-    print(f"lm workload: role={ctx.replica_type} index={ctx.replica_index} "
-          f"mesh={ctx.mesh_shape}", flush=True)
+    pod_say(f"lm workload: role={ctx.replica_type} index={ctx.replica_index} "
+            f"mesh={ctx.mesh_shape}")
     if ctx.is_elastic:
-        print(f"elastic mapping: virtual={ctx.virtual_replicas} "
-              f"physical={ctx.physical_replicas} "
-              f"generation={ctx.elastic_generation} "
-              f"hosted={ctx.virtual_assignment()}", flush=True)
+        pod_say(f"elastic mapping: virtual={ctx.virtual_replicas} "
+                f"physical={ctx.physical_replicas} "
+                f"generation={ctx.elastic_generation} "
+                f"hosted={ctx.virtual_assignment()}")
 
     zero = (ctx.zero_shard_weight_update if args.zero_shard_weight_update
             is None else args.zero_shard_weight_update)
@@ -139,10 +139,10 @@ def main(argv=None) -> int:
     sp, tp = layout.shape.get("sp", 1), layout.shape.get("tp", 1)
     problem = split_batch(args.batch, layout, args.grad_accum)
     if problem:
-        print(problem, flush=True)
+        pod_say(problem)
         return 2
     if args.seq_len % sp:
-        print(f"--seq-len {args.seq_len} must divide by sp={sp}", flush=True)
+        pod_say(f"--seq-len {args.seq_len} must divide by sp={sp}")
         return 2
 
     from ..models.transformer import TransformerConfig
@@ -154,8 +154,8 @@ def main(argv=None) -> int:
     if args.arch != "llama" and args.rope_scaling != "none":
         # explicit input is honored or rejected, never silently dropped:
         # only the llama arch uses RoPE, so scaling has nothing to scale
-        print(f"--rope-scaling {args.rope_scaling} requires --arch llama "
-              "(the gpt arch uses learned positions, not RoPE)", flush=True)
+        pod_say(f"--rope-scaling {args.rope_scaling} requires --arch llama "
+                "(the gpt arch uses learned positions, not RoPE)")
         return 2
     if args.arch == "llama":
         if args.kv_heads:
@@ -171,19 +171,19 @@ def main(argv=None) -> int:
             elif heads % tp == 0 and kv % tp:
                 problem = f"must be divisible by tp={tp}"
             if problem:
-                print(f"--kv-heads {kv} {problem}", flush=True)
+                pod_say(f"--kv-heads {kv} {problem}")
                 return 2
             if heads % tp:
-                print(f"warning: num_heads {heads} not divisible by tp={tp}; "
-                      f"attention projections will replicate", flush=True)
+                pod_say(f"warning: num_heads {heads} not divisible by "
+                        f"tp={tp}; attention projections will replicate")
         elif heads % tp:
             # the heads do not shard over tp (the projections replicate),
             # so kv % tp is moot: a divisor of heads near heads // 3
             kv = max(1, heads // 3)
             while heads % kv:
                 kv -= 1
-            print(f"warning: num_heads {heads} not divisible by tp={tp}; "
-                  f"attention projections will replicate", flush=True)
+            pod_say(f"warning: num_heads {heads} not divisible by tp={tp}; "
+                    f"attention projections will replicate")
         else:
             # derived default: largest kv <= heads // 3 that divides heads
             # and shards over the tp axis
@@ -212,7 +212,7 @@ def main(argv=None) -> int:
             kv_cache_dtype=args.kv_cache_dtype, **extra,
         )
     except ValueError as e:
-        print(f"invalid model config: {e}", flush=True)
+        pod_say(f"invalid model config: {e}")
         return 2
     try:
         tx = lm_optimizer(
@@ -221,22 +221,22 @@ def main(argv=None) -> int:
             grad_clip=args.grad_clip,
         )
     except ValueError as e:
-        print(f"invalid optimizer config: {e}", flush=True)
+        pod_say(f"invalid optimizer config: {e}")
         return 2
     from .runner import process_group
 
     with process_group(ctx, device, layout) as mesh:
         return _train(args, cfg, tx, device, mesh, layout, zero,
-                      ctx.num_processes, SAMPLE_PROMPT_LEN)
+                      ctx.world, SAMPLE_PROMPT_LEN)
 
 
-def _train(args, cfg, tx, device, mesh, layout, zero, processes: int,
+def _train(args, cfg, tx, device, mesh, layout, zero, ranks: int,
            prompt_len: int) -> int:
     """Build and train the model: over `mesh` (laid over the process
     group) when there is one (laid out on its axes; the distributed step,
     this rank's shard of each global batch), else on one device; then
-    sample from it.  Only rank 0 prints, but every rank prints the ZeRO
-    plan line, as every process of the JAX workload does."""
+    sample from it.  Only rank 0 prints, but each pod prints the ZeRO plan
+    line, as every process of the JAX workload does."""
     import dataclasses
 
     from ..models.transformer import TransformerLM
@@ -297,8 +297,8 @@ def _train(args, cfg, tx, device, mesh, layout, zero, processes: int,
         mgr.save(state)
         mgr.close()
     timer.sync()
-    if args.sample_tokens > 0 and processes > 1:
-        # every process would sample the same tokens
+    if args.sample_tokens > 0 and ranks > 1:
+        # every rank would sample the same tokens
         say("sampling skipped on multi-host runs")
     elif args.sample_tokens > 0:
         from ..models.generate import generate
@@ -312,4 +312,6 @@ def _train(args, cfg, tx, device, mesh, layout, zero, processes: int,
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from tf_operator_tpu_torch.workloads.launch import run_pod
+
+    sys.exit(run_pod(main))

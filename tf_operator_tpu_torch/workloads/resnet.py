@@ -44,8 +44,8 @@ def main(argv=None) -> int:
                         choices=(18, 34, 50, 101, 152))
     parser.add_argument("--log-every", type=int, default=10)
     from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, process_group,
-                         split_batch)
+                         apply_forced_platform, plan_mesh, pod_say,
+                         process_group, split_batch)
 
     add_profile_args(parser)
     args = parser.parse_args(argv)
@@ -53,18 +53,18 @@ def main(argv=None) -> int:
     try:
         device = apply_forced_platform()
     except RuntimeError as e:
-        print(f"resnet workload: {e}", flush=True)
+        pod_say(f"resnet workload: {e}")
         return 1
 
     ctx = WorkloadContext.from_env()
-    print(f"resnet workload: role={ctx.replica_type} index={ctx.replica_index}",
-          flush=True)
+    pod_say(f"resnet workload: role={ctx.replica_type} "
+            f"index={ctx.replica_index}")
     layout, rc = plan_mesh(ctx)
     if layout is None:
         return rc
     problem = split_batch(args.batch, layout)
     if problem:
-        print(problem, flush=True)
+        pod_say(problem)
         return 2
     with process_group(ctx, device, layout) as mesh:
         return _train(args, device, mesh, layout,
@@ -123,4 +123,6 @@ def _train(args, device, mesh, layout, zero) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    from tf_operator_tpu_torch.workloads.launch import run_pod
+
+    sys.exit(run_pod(main))

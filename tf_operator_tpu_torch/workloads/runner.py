@@ -6,8 +6,12 @@ mesh (exit 2 when it does not fit), join the job's process group and lay
 the one mesh over its ranks, hand the ranks that share a step's rows the
 same batch, time the steps,
 and capture a profiler trace for a window of steps.
-One process drives one GPU.  The four training workloads (lm, resnet, vit,
-bert) share these steps; the estimator reads TF_CONFIG as TF's RunConfig
+One process drives one GPU, and the pod starts one for each of its GPUs
+(`workloads/launch.py`): process i of pod p is global rank p x L + i of
+pods x L, L the pod's local device count, the process-major order of
+`jax.devices()` over which the JAX workloads lay their mesh.  The four
+training workloads (lm, resnet, vit, bert) share these steps and start
+through the launcher; the estimator reads TF_CONFIG as TF's RunConfig
 does (`runconfig_from_env`).
 """
 from __future__ import annotations
@@ -15,7 +19,9 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import time
+from datetime import timedelta
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
@@ -25,7 +31,9 @@ from ..api import constants
 class ProfileCapture:
     """Profile a window of training steps with `torch.profiler` (host ops
     and, on the card, CUDA kernels) into a Chrome trace under
-    `profile_dir`, between `start_step` and `start_step + num_steps`.
+    `profile_dir`, between `start_step` and `start_step + num_steps`:
+    `trace.json`, or `trace-local<i>.json` in local rank i of a pod's
+    launcher, so the ranks of one pod do not write one file.
     No-op when profile_dir is falsy — workloads call `step(i)`
     unconditionally."""
 
@@ -69,8 +77,10 @@ class ProfileCapture:
             torch.cuda.synchronize()
         self._prof.__exit__(None, None, None)
         os.makedirs(self.profile_dir, exist_ok=True)
-        self._prof.export_chrome_trace(
-            os.path.join(self.profile_dir, "trace.json"))
+        local = os.environ.get(constants.ENV_LOCAL_RANK)
+        self._prof.export_chrome_trace(os.path.join(
+            self.profile_dir,
+            "trace.json" if local is None else f"trace-local{local}.json"))
         self._prof = None
         self._captured = True
         print(f"profile trace written to {self.profile_dir}", flush=True)
@@ -86,13 +96,15 @@ def add_profile_args(parser) -> None:
 
 def apply_forced_platform(env: Optional[Dict[str, str]] = None):
     """The device the workload runs on: CUDA, unless TPUJOB_FORCE_PLATFORM
-    asks for the CPU (hermetic tests).  Raises RuntimeError when no CUDA
-    device is present and the CPU was not asked for: the port never falls
-    back to the CPU on its own."""
+    asks for the CPU (hermetic tests); a process the pod launcher started
+    takes `cuda:<its local rank>` and makes it current.  Raises
+    RuntimeError when no CUDA device is present and the CPU was not asked
+    for, or when the local rank has no GPU: the port never falls back to
+    the CPU, or to fewer ranks than devices, on its own."""
     import torch
 
-    forced = (os.environ if env is None else env).get(
-        constants.ENV_FORCE_PLATFORM, "").lower()
+    env = os.environ if env is None else env
+    forced = env.get(constants.ENV_FORCE_PLATFORM, "").lower()
     if forced == "cpu":
         return torch.device("cpu")
     if forced not in ("", "cuda", "gpu"):
@@ -103,7 +115,16 @@ def apply_forced_platform(env: Optional[Dict[str, str]] = None):
         raise RuntimeError(
             "no CUDA device is visible; set "
             f"{constants.ENV_FORCE_PLATFORM}=cpu to run on the CPU")
-    return torch.device("cuda", torch.cuda.current_device())
+    local = env.get(constants.ENV_LOCAL_RANK)
+    if local is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    if int(local) >= torch.cuda.device_count():
+        raise RuntimeError(
+            f"local rank {local} has no GPU: {torch.cuda.device_count()} "
+            "visible")
+    device = torch.device("cuda", int(local))
+    torch.cuda.set_device(device)
+    return device
 
 
 @dataclass
@@ -123,6 +144,10 @@ class WorkloadContext:
     virtual_replicas: int = 0
     physical_replicas: int = 0
     elastic_generation: int = 0
+    # set in the processes the pod launcher starts (workloads/launch.py):
+    # this process's local rank, and L, the pod's local device count
+    local_rank: Optional[int] = None
+    local_count: int = 1
 
     @property
     def is_elastic(self) -> bool:
@@ -147,6 +172,7 @@ class WorkloadContext:
             tf_config = json.loads(raw)
         mesh_raw = env.get(constants.ENV_MESH_SHAPE, "")
         pid = env.get(constants.ENV_PROCESS_ID)
+        local = env.get(constants.ENV_LOCAL_RANK)
         ctx = cls(
             replica_type=env.get(constants.ENV_REPLICA_TYPE, "worker"),
             replica_index=int(env.get(constants.ENV_REPLICA_INDEX, "0")),
@@ -169,6 +195,8 @@ class WorkloadContext:
             elastic_generation=int(
                 env.get(constants.ENV_ELASTIC_GENERATION, "0") or 0
             ),
+            local_rank=int(local) if local is not None else None,
+            local_count=int(env.get(constants.ENV_LOCAL_WORLD_SIZE, "1")),
         )
         # TF_CONFIG task block wins when present (parity with the reference's
         # contract: the task identity is authoritative there).
@@ -178,17 +206,34 @@ class WorkloadContext:
         return ctx
 
     @property
+    def rank(self) -> int:
+        """This process's global rank: TPUJOB_PROCESS_ID x L + its local
+        rank, so rank r sits where JAX's device r does."""
+        return (self.process_id or 0) * self.local_count + (
+            self.local_rank or 0)
+
+    @property
+    def world(self) -> int:
+        """The job's rank count: pods x L (the count of `jax.devices()`)."""
+        return self.num_processes * self.local_count
+
+    @property
     def multi_process(self) -> bool:
-        """Whether this process joins a group (the JAX package initializes
-        jax.distributed on the same condition)."""
-        return self.num_processes > 1 and self.process_id is not None
+        """Whether this process joins a group: a pod of a multi-pod job
+        (the JAX package initializes jax.distributed on the same
+        condition), or any process the pod launcher started."""
+        return self.local_rank is not None or (
+            self.num_processes > 1 and self.process_id is not None)
 
     def initialize_distributed(self, device) -> bool:
-        """Join the job's process group: process TPUJOB_PROCESS_ID of
-        TPUJOB_NUM_PROCESSES, its store at TPUJOB_COORDINATOR_ADDRESS (the
-        coordinator's host:port, which process 0 serves); nccl on a CUDA
-        device, which becomes this process's device first, gloo on the CPU.
-        No-op for single-process jobs (returns whether it joined)."""
+        """Join the job's process group: global rank `rank` of `world`,
+        its store at TPUJOB_COORDINATOR_ADDRESS (host:port, which global
+        rank 0 serves); nccl on a CUDA device, which becomes this
+        process's device first, gloo on the CPU.  The pods first check
+        that they agree on L; a pod that does not exits 2 (SystemExit)
+        once every process has read the counts, rather than wait in a
+        rendezvous that cannot complete.  No-op for single-process jobs
+        (returns whether it joined)."""
         if not self.multi_process:
             return False
         import torch
@@ -196,11 +241,37 @@ class WorkloadContext:
 
         if device.type == "cuda":
             torch.cuda.set_device(device)
+        host, port = self.coordinator_address.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), is_master=self.rank == 0,
+                              wait_for_workers=False,
+                              timeout=timedelta(seconds=300))
+        self._agree_on_local_count(store)
         dist.init_process_group(
-            "nccl" if device.type == "cuda" else "gloo",
-            init_method=f"tcp://{self.coordinator_address}",
-            world_size=self.num_processes, rank=self.process_id)
+            "nccl" if device.type == "cuda" else "gloo", store=store,
+            world_size=self.world, rank=self.rank)
         return True
+
+    def _agree_on_local_count(self, store) -> None:
+        """Publish this pod's L in `store` and read every pod's; on a
+        disagreement, print it once per pod and exit 2, global rank 0
+        (the store's server) only after every process has read."""
+        pod = self.process_id or 0
+        if not self.local_rank:
+            store.set(f"tpujob/local_count/{pod}", str(self.local_count))
+        counts = [int(store.get(f"tpujob/local_count/{p}"))
+                  for p in range(self.num_processes)]
+        if all(n == self.local_count for n in counts):
+            return
+        store.add("tpujob/local_count/read", 1)
+        if self.rank == 0:
+            deadline = time.monotonic() + 60
+            while (store.add("tpujob/local_count/read", 0) < sum(counts)
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+        pod_say(f"the pods disagree on their local device count: "
+                f"{dict(enumerate(counts))} (pod: count); every pod must "
+                "run as many processes as the others")
+        raise SystemExit(2)
 
     def mesh_layout(self):
         """The mesh of TPUJOB_MESH_SHAPE over the job's ranks (all on dp
@@ -212,7 +283,7 @@ class WorkloadContext:
         import torch.distributed as dist
 
         world = (dist.get_world_size() if dist.is_initialized() else
-                 self.num_processes if self.multi_process else 1)
+                 self.world if self.multi_process else 1)
         return build_mesh(self.mesh_shape or None, world)
 
 
@@ -305,7 +376,7 @@ def plan_mesh(ctx: WorkloadContext) -> Tuple[Optional[object], int]:
     try:
         layout = ctx.mesh_layout()
     except ValueError as e:
-        print(f"invalid mesh: {e}", flush=True)
+        pod_say(f"invalid mesh: {e}")
         return None, 2
     return layout, 0
 
@@ -370,18 +441,17 @@ def zero_plan_for_workload(model, layout, enabled: bool):
     from ..train.zero import plan_for_model
 
     if layout.shape.get("dp", 1) <= 1:
-        print("zero-shard-weight-update: dp axis size is 1, running dense",
-              flush=True)
+        pod_say("zero-shard-weight-update: dp axis size is 1, running dense")
         return None
     plan = plan_for_model(model, layout)
-    print(f"zero_sharding_plan: {plan.to_json()}", flush=True)
+    pod_say(f"zero_sharding_plan: {plan.to_json()}")
     return plan
 
 
 def train_state_on_mesh(model, tx, device, mesh, layout, zero: bool):
     """The train state of `model` from seed 0 on `device`, laid out on
     `mesh` (over the process group, or None for one process), with the ZeRO
-    plan when `zero` asks for it (its line printed on every rank, as every
+    plan when `zero` asks for it (its line printed once per pod, as each
     JAX process prints it); None after printing why a layout cannot hold
     the model (a caller exits 2)."""
     from ..train.state import create_train_state
@@ -391,7 +461,7 @@ def train_state_on_mesh(model, tx, device, mesh, layout, zero: bool):
         return create_train_state(model, tx, seed=0, device=device,
                                   mesh=mesh, zero_plan=plan)
     except ValueError as e:
-        print(f"invalid sharding: {e}", flush=True)
+        pod_say(f"invalid sharding: {e}")
         return None
 
 
@@ -411,12 +481,28 @@ def process_group(ctx: WorkloadContext, device, layout):
             dist.destroy_process_group()
 
 
+def print_line(line: str) -> None:
+    """`line` and its newline in one write, flushed: the processes of a pod
+    share its stdout, and unbuffered (PYTHONUNBUFFERED) `print` writes the
+    newline apart, so another process's line could land between them."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def pod_say(line: str) -> None:
+    """Print once per pod: in a process the pod launcher did not start,
+    or on its local rank 0 (a line each pod's log holds once, as each JAX
+    process prints it)."""
+    if os.environ.get(constants.ENV_LOCAL_RANK, "0") == "0":
+        print_line(line)
+
+
 def say(line: str) -> None:
     """Print on rank 0 of the group (or without one)."""
     import torch.distributed as dist
 
     if not dist.is_initialized() or dist.get_rank() == 0:
-        print(line, flush=True)
+        print_line(line)
 
 
 class StepTimer:
