@@ -5,19 +5,36 @@
 
 Phases (each prints its own lines; any failure raises and exits non-zero):
   card     the card's name and power limit (nvidia-smi), torch and CUDA versions
-  build    nvcc-builds the kernels from ops/csrc, prints the build time and
-           each instantiation's registers and spills (ptxas), and fails if
-           any instantiation spills
+  build    nvcc-builds the kernels from ops/csrc (one process per part of
+           the source, all at once), prints the build time and each
+           instantiation's registers and spills (ptxas), and fails if any
+           instantiation spills or the built instantiations are not
+           attention.INSTANTIATED's
   kernels  each hand-written kernel (flash forward, dq, dk/dv) against its
            plain PyTorch version in f32 on the same inputs, at the LM's
            main-path shape and at GQA / ragged T / non-causal / window+sink /
-           head_dim 128; prints the error against the stated tolerance, the
+           head_dim 128, and since the tenth slice in fp16 and f32, at head
+           dims 32, 80 and 100, scales -0.125 and 0, batch*heads 70,400 and
+           blocks (256, 512) and (8, 128), each printing the tiles its
+           blocks resolve to; prints the error against the stated
+           tolerance (f32: RTOL_F32, FRO_F32), the
            kernel's time, the plain version's, the bound, and as a yardstick
            only F.scaled_dot_product_attention's (which the port never calls):
            its forward beside the forward kernel, its backward alone
            (autograd.grad on a retained graph) beside dq + dk/dv; each
            kernel launched a second time on the same inputs must give the
            same bits
+  autotune the tenth slice: every instantiation (each dtype, head-dim
+           class, tile and forward route) against its plain version at a
+           ragged causal shape with a window and a sink;
+           `ops/autotune.tune_flash_blocks` in bf16 at GPT-small, ViT-B/16
+           and BERT-base, each candidate's fwd+bwd ms and tiles and the
+           winner against (128, 128), no candidate failing; the caches (a
+           second call launches nothing, after _CACHE.clear() the file
+           serves it, a changed kernel hash searches again); the LM (5
+           steps) on the GPT-small winner through TPUJOB_FLASH_BLOCK_Q/K,
+           its losses within TOL_PIPE_LOSS of the slice phase's run on the
+           default blocks and 12 launches a step of each kernel
   slice    the LM workload (`workloads.lm.main`) at GPT-small full width
            (12 x 768, seq 2048, batch 8, vocab 32000) for 6 steps with
            checkpoints, checking every kernel launched 12 x steps times; a
@@ -122,7 +139,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            `workloads.allreduce_check` at one process (its early exit: NCCL
            refuses two ranks on one card)
   decode   the sixth path: `models.generate.generate` at GPT-small full
-           width from seeded weights, B 8, a 1024-token prompt, 256 greedy
+           width from seeded weights, B 8, a 1024-token prompt, 128 greedy
            tokens, with the bf16 cache, the int8 cache and llama (4 KV
            heads, RoPE) with window 256 + sink 4 (a 260-slot rolling
            cache): prefill ms, median ms per token, decode tokens/s, cache
@@ -180,8 +197,10 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple, Optional, Tuple
 
-PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 and fp16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SOURCE = "tf_operator_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {
@@ -204,10 +223,23 @@ RTOL = 2e-2
 FRO = 1e-2
 # lse: f32 in both, from the same bf16 inputs; only exp/sum order differ
 TOL_LSE = 1e-3
-# ptxas's -v report: each kernel instantiation's entry, then its spills and
-# its registers at launch
-PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)_kernel"
-                         r"ILi(\d+)ELi(\d+)E")
+# fp16 inputs are held by the same rule (fp16 rounds P, dS and the outputs
+# with a unit roundoff of 2^-11, finer than bf16's).  f32 inputs run the f32
+# kernels (f32 products and sums, expf): against the plain version in f32
+# only the order of the sums differs, so the rule's factor shrinks from
+# RTOL to RTOL_F32 and the whole from FRO to FRO_F32, and lse to
+# TOL_LSE_F32.
+RTOL_F32 = 1e-4
+FRO_F32 = 1e-5
+TOL_LSE_F32 = 1e-5
+# ptxas's -v report: each kernel instantiation's entry (its template
+# arguments: element type, head-dim class, warpgroups, step and for the
+# forward its route; DMAX for the f32 kernels), then its spills and its
+# registers at launch
+PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)(_f32)?"
+                         r"_kernelI((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
+PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
+PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16"}
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 PTXAS_REGS = re.compile(r"Used (\d+) registers")
 # the workloads' own step-time line (`workloads/runner.StepTimer`)
@@ -246,31 +278,50 @@ PROCESS_TIMEOUT = 300
 def tolerance_ratios(got, ref, rtol: float = RTOL):
     """(worst per-element error over its limit, relative Frobenius error);
     the kernel passes when the first is <= 1 and the second <= FRO."""
+    import torch
+
     got, ref = got.float(), ref.float()
     diff = (got - ref).abs()
     rms_row = ref.pow(2).mean(-1, keepdim=True).sqrt()
     limit = rtol * (ref.abs() + rms_row + 0.05 * ref.pow(2).mean().sqrt())
-    worst = float((diff / limit).max())
+    # a reference that is all zeros (dq and dk at scale 0) is held exactly
+    worst = float(torch.where(limit > 0, diff / limit,
+                              torch.where(diff > 0, torch.inf, 0.0)).max())
     rel = float(diff.norm() / ref.norm().clamp_min(1e-30))
     return worst, rel
 
 
+def ptxas_instantiation(m) -> tuple:
+    """(name, (kernel, dtype, head-dim class, rows, step)) of a PTXAS_ENTRY
+    match; the second is `attention.instantiations()`'s form."""
+    kernel, f32 = m.group(1), m.group(2)
+    args = [PTXAS_TYPES.get(a.group(0)) or int(a.group(1))
+            for a in PTXAS_ARG.finditer(m.group(3))]
+    if f32:
+        return (f"{kernel}_f32_kernel<D {args[0]}>",
+                (kernel, "float32", args[0], 64, 32))
+    dtype, d, wg, step = args[:4]
+    name = (f"{kernel}_kernel<{dtype}, D {d}, rows {64 * wg}, step {step}"
+            + (f", scaled {args[4]}>" if kernel == "fwd" else ">"))
+    return name, (kernel, dtype, d, 64 * wg, step)
+
+
 def ptxas_report(log: str):
     """[(instantiation, registers at launch, spill store bytes, spill load
-    bytes)] from nvcc's -Xptxas=-v output."""
+    bytes, its `attention.instantiations()` key)] from nvcc's -Xptxas=-v
+    output."""
     out, name, spill = [], None, None
     for line in log.splitlines():
         m = PTXAS_ENTRY.search(line)
         if m:
-            name, spill = f"{m.group(1)}_kernel<D {m.group(2)}, WG " \
-                f"{m.group(3)}>", None
+            name, spill = ptxas_instantiation(m), None
             continue
         m = PTXAS_SPILL.search(line)
         if m and name:
             spill = (int(m.group(1)), int(m.group(2)))
         m = PTXAS_REGS.search(line)
         if m and name and spill:
-            out.append((name, int(m.group(1)), *spill))
+            out.append((name[0], int(m.group(1)), *spill, name[1]))
             name = None
     return out
 
@@ -361,35 +412,73 @@ def check_launches(expected: int, what: str) -> dict:
 # ---------------------------------------------------------------------------
 # kernels against their plain versions
 
+class Case(NamedTuple):
+    name: str
+    b: int
+    h: int
+    hkv: int
+    t: int
+    d: int
+    causal: bool
+    window: Optional[int] = None
+    sink: int = 0
+    blocks: Tuple[int, int] = (128, 128)  # (block_q, block_k)
+    dtype: str = "bfloat16"
+    scale: Optional[float] = None  # None: d ** -0.5
+
+
 CASES = [
-    # name, B, H, Hkv, T, D, causal, window, sink, block
-    ("main", 8, 12, 12, 2048, 64, True, None, 0, 128),
-    ("gqa", 8, 12, 4, 2048, 64, True, None, 0, 128),
-    ("ragged", 2, 4, 2, 1000, 64, True, None, 0, 64),
-    ("noncausal", 2, 4, 4, 1000, 64, False, None, 0, 128),
-    ("window_sink", 2, 4, 4, 2048, 64, True, 256, 4, 128),
-    ("wide_sink_gqa", 1, 4, 2, 1000, 64, True, 64, 70, 64),
-    ("d128", 2, 8, 4, 1024, 128, True, None, 0, 128),
-    ("d128_b64", 1, 4, 4, 300, 128, False, None, 0, 64),
+    Case("main", 8, 12, 12, 2048, 64, True),
+    Case("gqa", 8, 12, 4, 2048, 64, True),
+    Case("ragged", 2, 4, 2, 1000, 64, True, blocks=(64, 64)),
+    Case("noncausal", 2, 4, 4, 1000, 64, False),
+    Case("window_sink", 2, 4, 4, 2048, 64, True, 256, 4),
+    Case("wide_sink_gqa", 1, 4, 2, 1000, 64, True, 64, 70, blocks=(64, 64)),
+    Case("d128", 2, 8, 4, 1024, 128, True),
+    Case("d128_b64", 1, 4, 4, 300, 128, False, blocks=(64, 64)),
     # the third path: ViT-B/16 at 224x224 (196 patches + CLS) and BERT-base
     # at T 128, both non-causal at their workloads' batch
-    ("vit_b16", 256, 12, 12, 197, 64, False, None, 0, 128),
-    ("bert_base", 32, 12, 12, 128, 64, False, None, 0, 128),
+    Case("vit_b16", 256, 12, 12, 197, 64, False),
+    Case("bert_base", 32, 12, 12, 128, 64, False),
     # the eighth path: each tp rank's heads at tp 2 (ViT-B/16 and BERT-base
     # 12 -> 6)
-    ("vit_b16_tp2", 256, 6, 6, 197, 64, False, None, 0, 128),
-    ("bert_base_tp2", 32, 6, 6, 128, 64, False, None, 0, 128),
+    Case("vit_b16_tp2", 256, 6, 6, 197, 64, False),
+    Case("bert_base_tp2", 32, 6, 6, 128, 64, False),
     # the fourth path: each tp rank's heads at tp 2 (GPT-small 12 -> 6,
     # llama 12/4 -> 6/2)
-    ("gpt_small_tp2", 8, 6, 6, 2048, 64, True, None, 0, 128),
-    ("llama_tp2", 8, 6, 2, 2048, 64, True, None, 0, 128),
+    Case("gpt_small_tp2", 8, 6, 6, 2048, 64, True),
+    Case("llama_tp2", 8, 6, 2, 2048, 64, True),
     # the seventh path: GPT-small's microbatches in the pipeline, B 8 split
     # in 4 (B 2) and in 8 (B 1)
-    ("pipeline_mb4", 2, 12, 12, 2048, 64, True, None, 0, 128),
-    ("pipeline_mb8", 1, 12, 12, 2048, 64, True, None, 0, 128),
+    Case("pipeline_mb4", 2, 12, 12, 2048, 64, True),
+    Case("pipeline_mb8", 1, 12, 12, 2048, 64, True),
+    # the tenth slice: the main shape in fp16 and f32; head dims 32 (a
+    # 64-column box over a 32-column tensor), 80 (on D 128) and 100 (padded
+    # to 104); scale -0.125 (ragged, window + sink, GQA) and 0; more
+    # batch*heads than a grid's y (65,535); blocks the TPU autotuner writes
+    # (256, 512) and the smallest the env takes (8, 128)
+    Case("main_fp16", 8, 12, 12, 2048, 64, True, dtype="float16"),
+    Case("main_f32", 8, 12, 12, 2048, 64, True, dtype="float32"),
+    Case("d32", 8, 12, 12, 2048, 32, True),
+    Case("d80", 8, 12, 12, 2048, 80, True),
+    Case("d100", 8, 12, 12, 2048, 100, True),
+    Case("scale_neg", 2, 4, 2, 1000, 64, True, 64, 70, scale=-0.125),
+    Case("scale_zero", 2, 4, 4, 1000, 64, True, scale=0.0),
+    Case("bh70400", 4400, 16, 16, 64, 64, True),
+    Case("blocks_256_512", 2, 4, 4, 1000, 64, True, blocks=(256, 512)),
+    Case("blocks_8_128", 2, 4, 4, 1000, 64, True, blocks=(8, 128)),
 ]
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
-               "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2")
+               "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
+               "main_fp16", "main_f32", "d32", "d80", "d100")
+
+
+def rule(dtype: str) -> tuple:
+    """(per-element factor, whole relative Frobenius, lse) of the tolerance
+    for inputs of `dtype`."""
+    if dtype == "float32":
+        return RTOL_F32, FRO_F32, TOL_LSE_F32
+    return RTOL, FRO, TOL_LSE
 
 
 def live_pairs(t, causal, window, sink, device) -> int:
@@ -411,32 +500,33 @@ def kernel_case(case, timing: bool):
 
     from tf_operator_tpu_torch.ops import attention as A
 
-    name, b, h, hkv, t, d, causal, window, sink, block = case
+    name, b, h, hkv, t, d, causal, window, sink = case[:9]
+    dtype = getattr(torch, case.dtype)
+    rtol, fro, tol_lse = rule(case.dtype)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     q, do = randn(b, h, t, d), randn(b, h, t, d)
     k, v = randn(b, hkv, t, d), randn(b, hkv, t, d)
-    scale = d ** -0.5
-    opts = dict(scale=scale, causal=causal, window=window, sink=sink)
+    scale = d ** -0.5 if case.scale is None else case.scale
+    opts = dict(scale=scale, causal=causal, window=window, sink=sink,
+                block_q=case.blocks[0], block_k=case.blocks[1])
+    plain_opts = dict(scale=scale, causal=causal, window=window, sink=sink)
 
     def fwd():
-        return A.flash_forward(q, k, v, block_q=block, **opts)
+        return A.flash_forward(q, k, v, **opts)
 
     o, lse = fwd()
     delta = (do.float() * o.float()).sum(-1)
 
     def dq_kernel():
-        return A.flash_backward_dq(q, k, v, do, lse, delta, block_q=block,
-                                   **opts)
+        return A.flash_backward_dq(q, k, v, do, lse, delta, **opts)
 
     def dkv_kernel():
-        return A.flash_backward_dkv(q, k, v, do, lse, delta, block_k=block,
-                                    **opts)
+        return A.flash_backward_dkv(q, k, v, do, lse, delta, **opts)
 
     dq = dq_kernel()
     dk, dv = dkv_kernel()
@@ -458,10 +548,11 @@ def kernel_case(case, timing: bool):
                                scale=scale, window=window, sink=sink)
 
     def dq_plain():
-        return A.backward_dq_plain(qf, kf, vf, dof, lse, delta, **opts)
+        return A.backward_dq_plain(qf, kf, vf, dof, lse, delta, **plain_opts)
 
     def dkv_plain():
-        return A.backward_dkv_plain(qf, kf, vf, dof, lse, delta, **opts)
+        return A.backward_dkv_plain(qf, kf, vf, dof, lse, delta,
+                                    **plain_opts)
 
     o_ref, lse_ref = fwd_plain()
     dq_ref = dq_plain()
@@ -479,21 +570,22 @@ def kernel_case(case, timing: bool):
         errs[label] = err
         if label == "lse":
             print(f"  {name:11s} lse max_abs_err {err:.3e} (tolerance "
-                  f"{TOL_LSE:.0e})", flush=True)
-            ok = err <= TOL_LSE
+                  f"{tol_lse:.0e})", flush=True)
+            ok = err <= tol_lse
         else:
-            worst, rel = tolerance_ratios(got, ref)
+            worst, rel = tolerance_ratios(got, ref, rtol)
             print(f"  {name:11s} {label:3s} max_abs_err {err:.3e} "
                   f"worst err/limit {worst:.3f} (<= 1) relative Frobenius "
-                  f"{rel:.3e} (<= {FRO:.0e})", flush=True)
-            ok = worst <= 1.0 and rel <= FRO
+                  f"{rel:.3e} (<= {fro:.0e})", flush=True)
+            ok = worst <= 1.0 and rel <= fro
         if not ok:
             raise RuntimeError(f"kernel case {name}: {label} is outside its "
                                "tolerance")
 
     pairs = b * h * live_pairs(t, causal, window, sink, dev)
     rows = b * h * t
-    elt = 2  # bf16
+    elt = q.element_size()
+    peak = PEAK_F32_FLOPS if dtype == torch.float32 else PEAK_BF16_FLOPS
     work = {
         # (products, bytes: inputs read once + outputs written once)
         "flash_forward": (2, (b * h * t * d * 2 + 2 * b * hkv * t * d) * elt
@@ -506,7 +598,7 @@ def kernel_case(case, timing: bool):
     result = {}
     for kname, (products, nbytes) in work.items():
         flops = 2.0 * products * pairs * d
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         result[kname] = {
             "bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -580,17 +672,200 @@ def kernel_case(case, timing: bool):
 def phase_kernels():
     import torch
 
+    from tf_operator_tpu_torch.ops import attention as A
+
     out = {}
     for case in CASES:
-        timing = case[0] in TIMED_CASES
-        print(f"kernel case {case[0]}: B={case[1]} H={case[2]} Hkv={case[3]}"
-              f" T={case[4]} D={case[5]} causal={case[6]} window={case[7]} "
-              f"sink={case[8]} block={case[9]}", flush=True)
-        res = kernel_case(case, timing)
-        if case[0] == "main":
+        tiles = A.resolve_tiles(*case.blocks, case.d,
+                                getattr(torch, case.dtype))
+        print(f"kernel case {case.name}: B={case.b} H={case.h} "
+              f"Hkv={case.hkv} T={case.t} D={case.d} causal={case.causal} "
+              f"window={case.window} sink={case.sink} {case.dtype} scale="
+              f"{case.d ** -0.5 if case.scale is None else case.scale} blocks"
+              f" {case.blocks} -> tiles (rows, step) fwd {tiles.fwd} dq "
+              f"{tiles.dq} dkv {tiles.dkv}", flush=True)
+        res = kernel_case(case, case.name in TIMED_CASES)
+        if case.name == "main":
             out = res
         torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------------------
+# the tenth slice: the block autotuner over the kernels' instantiations
+
+TUNE_SHAPES = {
+    # name: (B, H, T, D, causal) of the three workloads' attention
+    "gpt_small": (8, 12, 2048, 64, True),
+    "vit_b16": (256, 12, 197, 64, False),
+    "bert_base": (32, 12, 128, 64, False),
+}
+TUNE_REPS = 20
+
+
+def every_instantiation():
+    """Each block pair of the tuner's candidates, in bf16 and fp16 at head
+    dims 64 and 128 (positive and negative scale: both forward routes),
+    and the f32 kernels, against the plain versions at a ragged causal
+    shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300, window
+    64, sink 70); fails unless every instantiation ran."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.ops import autotune as AT
+
+    dev = torch.device("cuda")
+    b, h, hkv, t, window, sink = 1, 4, 2, 300, 64, 70
+    runs = [(dtype, d, pair, sign) for dtype in ("bfloat16", "float16")
+            for d in (64, 128) for pair in AT.DEFAULT_CANDIDATES
+            for sign in (1, -1)]
+    runs += [("float32", d, (128, 128), sign) for d in (64, 128)
+             for sign in (1, -1)]
+    ran, worst = set(), {}
+    for dtype_name, d, (bq, bk), sign in runs:
+        dtype = getattr(torch, dtype_name)
+        gen = torch.Generator(device=dev).manual_seed(d + bq + bk)
+        q, k, v, do = (torch.randn(b, n, t, d, generator=gen, device=dev)
+                       .to(dtype) for n in (h, hkv, hkv, h))
+        opts = dict(scale=sign * d ** -0.5, causal=True, window=window,
+                    sink=sink)
+        o, lse = A.flash_forward(q, k, v, block_q=bq, block_k=bk, **opts)
+        delta = (do.float() * o.float()).sum(-1)
+        dq = A.flash_backward_dq(q, k, v, do, lse, delta, block_q=bq,
+                                 block_k=bk, **opts)
+        dk, dv = A.flash_backward_dkv(q, k, v, do, lse, delta, block_q=bq,
+                                      block_k=bk, **opts)
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+        o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                         **opts)
+        refs = {"o": o_ref,
+                "dq": A.backward_dq_plain(qf, kf, vf, dof, lse, delta,
+                                          **opts),
+                **dict(zip(("dk", "dv"), A.backward_dkv_plain(
+                    qf, kf, vf, dof, lse, delta, **opts)))}
+        rtol, fro, tol_lse = rule(dtype_name)
+        got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
+        what = (f"{dtype_name} D {d} blocks ({bq}, {bk}) scale "
+                f"{opts['scale']:.4g}")
+        for key, ref in refs.items():
+            ratio, rel = tolerance_ratios(got[key], ref, rtol)
+            worst[dtype_name] = max(worst.get(dtype_name, 0.0), ratio)
+            if not (ratio <= 1.0 and rel <= fro
+                    and torch.isfinite(got[key]).all()):
+                raise RuntimeError(f"instantiation check, {what}: {key} "
+                                   f"worst err/limit {ratio:.3f}, relative "
+                                   f"Frobenius {rel:.3e}")
+        if float((lse - lse_ref).abs().max()) > tol_lse:
+            raise RuntimeError(f"instantiation check, {what}: lse outside "
+                               f"{tol_lse:g}")
+        tiles = A.resolve_tiles(bq, bk, d, dtype)
+        for kernel in ("fwd", "dq", "dkv"):
+            ran.add((kernel, dtype_name, A.head_class(d),
+                     *getattr(tiles, kernel)))
+    missing = A.instantiations() - ran
+    print(f"autotune: every instantiation ({len(ran)} of "
+          f"{len(A.instantiations())}, both forward routes) held against "
+          f"its plain version in {len(runs)} runs; worst err/limit "
+          + ", ".join(f"{key} {r:.3f}" for key, r in worst.items()),
+          flush=True)
+    if missing:
+        raise RuntimeError(f"instantiations no run reached: {sorted(missing)}")
+
+
+def phase_autotune(card: str, lm_losses):
+    """tune_flash_blocks at the three workloads' shapes (bf16), every
+    instantiation against its plain version, the tuner's caches, and the LM
+    on the GPT-small winner's blocks through the env."""
+    from unittest import mock
+
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.ops import autotune as AT
+
+    every_instantiation()
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="autotune-") as tmp, \
+            mock.patch.dict(os.environ, {"TPUJOB_AUTOTUNE_CACHE": os.path.join(
+                tmp, "tune.json")}):
+        AT._CACHE.clear()
+        for name, (b, h, t, d, causal) in TUNE_SHAPES.items():
+            res = AT.tune_flash_blocks(b, h, t, d, causal=causal,
+                                       dtype=torch.bfloat16, reps=TUNE_REPS)
+            results[name] = res
+            print(f"autotune {name} (B {b}, H {h}, T {t}, D {d}, causal "
+                  f"{causal}; fwd+bwd ms, mean of {TUNE_REPS}) [{card}]:",
+                  flush=True)
+            for row in res["table"]:
+                tiles = row.get("tiles", {})
+                print(f"  ({row['block_q']:3d}, {row['block_k']:3d}) "
+                      + (f"ms {row['ms']:.4f}" if "ms" in row
+                         else f"ERROR {row['error']}")
+                      + " tiles " + " ".join(f"{key} {tuple(v)}" for key, v
+                                             in tiles.items()), flush=True)
+            errors = [row for row in res["table"] if "error" in row]
+            if errors or "block_q" not in res:
+                raise RuntimeError(f"autotune {name}: candidates failed: "
+                                   f"{errors}")
+            default = next(row["ms"] for row in res["table"]
+                           if (row["block_q"], row["block_k"]) == (128, 128))
+            print(f"autotune {name}: winner ({res['block_q']}, "
+                  f"{res['block_k']}) {res['ms']:.4f} ms against the default "
+                  f"(128, 128) {default:.4f} ms ({default / res['ms']:.3f}x)",
+                  flush=True)
+
+        b, h, t, d, causal = TUNE_SHAPES["bert_base"]
+        tune = dict(causal=causal, dtype=torch.bfloat16, reps=TUNE_REPS)
+        A.reset_launches()
+        if AT.tune_flash_blocks(b, h, t, d, **tune) is not results[
+                "bert_base"] or any(A.launches().values()):
+            raise RuntimeError("autotune: a second call was not served from "
+                               "the in-process cache without a launch")
+        AT._CACHE.clear()
+        served = AT.tune_flash_blocks(b, h, t, d, **tune)
+        if served != results["bert_base"] or any(A.launches().values()):
+            raise RuntimeError("autotune: after _CACHE.clear() the result "
+                               "was not served from the file")
+        saved = AT._KERNEL_HASH
+        AT._CACHE.clear()
+        AT._KERNEL_HASH = "0" * 16
+        try:
+            fresh = AT.tune_flash_blocks(b, h, t, d, **tune)
+        finally:
+            AT._KERNEL_HASH = saved
+        searched = A.launches()
+        with open(os.environ["TPUJOB_AUTOTUNE_CACHE"]) as f:
+            entries = len(json.load(f))
+        if not all(searched.values()) or entries != len(TUNE_SHAPES) + 1:
+            raise RuntimeError("autotune: a changed kernel hash did not "
+                               f"search again ({searched}, {entries} file "
+                               "entries)")
+        print(f"autotune: second call served in process, then from the "
+              f"file ({entries - 1} entries), no launch; a changed kernel "
+              f"hash searched again ({searched['flash_forward']} forward "
+              f"launches, winner ({fresh['block_q']}, {fresh['block_k']}))",
+              flush=True)
+
+    # the LM on the GPT-small winner's blocks through the env, against the
+    # slice phase's run on the default blocks (the same seed and data)
+    win = results["gpt_small"]
+    steps, layers = 5, 12
+    A.reset_launches()
+    with mock.patch.dict(os.environ, {
+            "TPUJOB_FLASH_BLOCK_Q": str(win["block_q"]),
+            "TPUJOB_FLASH_BLOCK_K": str(win["block_k"])}), \
+            step_losses_kept() as kept:
+        run_lm(["--steps", str(steps)])
+    check_launches(layers * steps, "gpt-small on the tuned blocks")
+    tuned = [float(x) for x in kept]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tuned, lm_losses))
+    print(f"gpt-small on blocks ({win['block_q']}, {win['block_k']}) via "
+          f"TPUJOB_FLASH_BLOCK_Q/K: losses {tuned} against the default "
+          f"blocks' {lm_losses[:steps]}: worst relative difference "
+          f"{rel:.3e} (<= {TOL_PIPE_LOSS:g})", flush=True)
+    if len(tuned) != steps or not rel <= TOL_PIPE_LOSS:
+        raise RuntimeError("the LM on the tuned blocks left the default "
+                           "run's losses")
 
 
 # ---------------------------------------------------------------------------
@@ -605,6 +880,8 @@ def write_detail(out_dir, name: str, text: str) -> None:
 
 
 def phase_slice(card: str, out_dir):
+    """The main path; returns the kernels' launch counts and the 6-step
+    run's losses in full precision."""
     import torch
 
     from tf_operator_tpu_torch.models.transformer import gpt_small_config
@@ -615,7 +892,8 @@ def phase_slice(card: str, out_dir):
         base = ["--checkpoint-dir", ckpt, "--checkpoint-every", "3"]
         A.reset_launches()
         t0 = time.perf_counter()
-        log = run_lm(["--steps", str(steps)] + base)
+        with step_losses_kept() as kept:
+            log = run_lm(["--steps", str(steps)] + base)
         wall = time.perf_counter() - t0
         counts = check_launches(layers * steps, "gpt-small main path")
         first = step_losses(log)
@@ -661,7 +939,7 @@ def phase_slice(card: str, out_dir):
     summary = device_profile(events, 2, ms)
     print(summary, flush=True)
     write_detail(out_dir, "profile_gpt_small.txt", f"{card}\n{summary}\n")
-    return counts
+    return counts, [float(x) for x in kept]
 
 
 def device_events(events) -> list:
@@ -840,10 +1118,9 @@ def lse_case(case):
             raise RuntimeError(f"lse case {name}: {key} is outside its "
                                "tolerance")
     # the planted fault: delta where the backward needs delta'
-    k_opts = dict(opts, block_q=128)
+    k_opts = dict(opts, block_q=128, block_k=128)
     fault = {"dq": A.flash_backward_dq(q, k, v, do, lse_k, delta.contiguous(),
                                        **k_opts)}
-    k_opts = dict(opts, block_k=128)
     fault["dk"], fault["dv"] = A.flash_backward_dkv(
         q, k, v, do, lse_k, delta.contiguous(), **k_opts)
     fault_ratios = {key: tolerance_ratios(fault[key], plain[key])[0]
@@ -2005,7 +2282,9 @@ def phase_smoke(card: str):
 # ---------------------------------------------------------------------------
 # the sixth path: KV-cache decoding and mixture of experts
 
-DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 1024, 256
+# 128 new tokens (formerly 256: halved to keep the whole script's time
+# once the kernels' coverage cases and the autotune phase were added)
+DECODE_BATCH, DECODE_PROMPT, DECODE_NEW = 8, 1024, 128
 SAMPLE_LINE = re.compile(r"^sample: (\[.*\])$", re.M)
 AUX_LINE = re.compile(r"^step (\d+) moe_aux_loss (\S+)$", re.M)
 
@@ -2135,7 +2414,7 @@ def check_decode_logits(what: str, got, ref, tokens) -> None:
 def phase_decode(card: str):
     """The sixth path's decoding at GPT-small full width (12 x 768, vocab
     32000, max_len 2048) from seeded weights: B 8, a 1024-token prompt,
-    256 greedy tokens with the model-dtype cache, then with the int8
+    128 greedy tokens with the model-dtype cache, then with the int8
     cache (fed the model-dtype run's tokens: per-step greedy agreement
     at least 0.9, JAX's bar), then llama (4 KV heads, RoPE) with window
     256 + sink 4 (a rolling cache of 260 slots) against the windowed
@@ -2643,13 +2922,21 @@ def main(argv=None) -> int:
     if _build.build_log is not None:
         write_detail(args.out_dir, "build.txt", _build.build_log)
         report = ptxas_report(_build.build_log)
-        for name, regs, stores, loads in report:
+        for name, regs, stores, loads, _ in report:
             print(f"  {name}: {regs} registers at launch, {stores} bytes "
                   f"spill stores, {loads} bytes spill loads", flush=True)
         spilled = [r[0] for r in report if r[2] or r[3]]
         if not report or spilled:
             raise RuntimeError(f"ptxas reports spills in {spilled} (or no "
                                "kernel at all); no instantiation may spill")
+        built = {r[4] for r in report}
+        if built != A.instantiations():
+            raise RuntimeError(
+                "the built instantiations are not attention.INSTANTIATED's:"
+                f" built only {sorted(built - A.instantiations())}, listed "
+                f"only {sorted(A.instantiations() - built)}")
+        print(f"build: {len(report)} kernels, the {len(built)} "
+              "instantiations attention.INSTANTIATED lists", flush=True)
 
     def timed(phase, *phase_args):
         t0 = time.perf_counter()
@@ -2660,7 +2947,8 @@ def main(argv=None) -> int:
         return out
 
     kernels = timed(phase_kernels)
-    counts = timed(phase_slice, card, args.out_dir)
+    counts, lm_losses = timed(phase_slice, card, args.out_dir)
+    timed(phase_autotune, card, lm_losses)
     timed(phase_llama)
     timed(phase_lse)
     timed(phase_ring, card)

@@ -9,9 +9,9 @@ ops/csrc/flash_attention.cu (each text must occur exactly once).  Every
 variant, and the source as checked in ("base"), is built into its own
 library (printing ptxas's registers and spills for the dq kernel),
 checked against dq's plain version at the LM's main-path shape (B 8,
-H 12, T 2048, D 64, causal, block 128) with chip_smoke's tolerance, and
-timed with CUDA events in turns: base, v1, ..., vn, then the reverse,
-ROUNDS times.  The edits record the designs the dq kernel was chosen
+H 12, T 2048, D 64, causal, blocks (128, 128)) with chip_smoke's
+tolerance, and timed with CUDA events in turns: base, v1, ..., vn, then
+the reverse, ROUNDS times.  The edits record the designs the dq kernel was chosen
 from (PERF.md); a kernel's next variants replace them.
 """
 from __future__ import annotations
@@ -28,10 +28,10 @@ ROUNDS = 4
 DQ_PRODUCTS = """    hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      hopper::wgmma_ss(sc, hopper::desc_k(sQw, BM, kk),
-                       hopper::desc_k(sk, BK, kk), kk > 0);
-      hopper::wgmma_ss(dp, hopper::desc_k(sdOw, BM, kk),
-                       hopper::desc_k(sv, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(dp, hopper::desc_k(sdOw, BM, kk),
+                         hopper::desc_k(sv, BK, kk), kk > 0);
     }
     hopper::wg_commit();
     hopper::wg_wait();
@@ -43,20 +43,20 @@ DQ_PRODUCTS = """    hopper::wg_fence();
 DQ_SPLIT = """    hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss(sc, hopper::desc_k(sQw, BM, kk),
-                       hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
     hopper::wg_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss(dp, hopper::desc_k(sdOw, BM, kk),
-                       hopper::desc_k(sv, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(dp, hopper::desc_k(sdOw, BM, kk),
+                         hopper::desc_k(sv, BK, kk), kk > 0);
     hopper::wg_commit();
     hopper::wg_wait<1>();
     hopper::wg_fence_regs(sc);
 """
 DQ_DA = """    uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(da[kk], dp, kk);"""
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(da[kk], dp, kk);"""
 DQ_SPLIT_DA = """    hopper::wg_wait();
     hopper::wg_fence_regs(dp);
 """ + DQ_DA
@@ -69,16 +69,21 @@ DQ_LIVE = """    if (!tile_full(mk, r0, 64, k0, BK)) {
         if (!mk.live(row0 + 8 * ((x >> 1) & 1), j)) sc[x] = 0.f;
       }
     }"""
-# keys per tile and stages
-DQ_TILE = """  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr int BLOCKS = WG == 2 ? 1 : 2;
-  // two blocks of one warpgroup share an SM's 227 KB
-  static constexpr int STAGES = WG == 2 ? 4 : 2;"""
+# stages (at most; shared memory may hold fewer)
+DQ_STAGES = """  static constexpr int STAGES =
+      cmin(WG == 2 ? 4 : 2,"""
 
 
-def dq_tile(bk: str, stages: str) -> str:
-    return (DQ_TILE.replace("D == 64 ? 128 : 64", bk)
-            .replace("WG == 2 ? 4 : 2", stages))
+def dq_stages(stages: str) -> str:
+    return DQ_STAGES.replace("WG == 2 ? 4 : 2", stages)
+
+
+# the default tile (128 query rows) at head_dim 64 run with 64-key steps
+DQ_DEFAULT_TILE = """  FA_DQ(64, 128, 128)
+"""
+DQ_BK64 = """  if (dc == 64 && rows == 128 && step == 128)
+    return dq<E, 64, 2, 64>(bh, a, st);
+"""
 
 
 # dQ += dS K of tile j left in flight while S and dP of tile j + 1 are
@@ -116,9 +121,10 @@ DQ_DEFER_END = """    hopper::wg_commit();
 """
 
 VARIANTS = {
-    "stages3": [(DQ_TILE, dq_tile("D == 64 ? 128 : 64", "WG == 2 ? 3 : 2"))],
-    "stages5": [(DQ_TILE, dq_tile("D == 64 ? 128 : 64", "WG == 2 ? 5 : 2"))],
-    "bk64": [(DQ_TILE, dq_tile("64", "WG == 2 ? 4 : 3"))],
+    "stages3": [(DQ_STAGES, dq_stages("WG == 2 ? 3 : 2"))],
+    "stages5": [(DQ_STAGES, dq_stages("WG == 2 ? 5 : 2"))],
+    "bk64": [(DQ_DEFAULT_TILE, DQ_BK64),
+             (DQ_STAGES, dq_stages("WG == 2 ? 4 : 3"))],
     "live_mask": [(DQ_MASK, DQ_LIVE)],
     "split": [(DQ_PRODUCTS, DQ_SPLIT), (DQ_DA, DQ_SPLIT_DA)],
     "defer": [(DQ_LOOP, DQ_DEFER_LOOP), (DQ_PRODUCTS, DQ_DEFER_ISSUE),
@@ -150,7 +156,7 @@ def report(name: str, log: str) -> None:
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance" in line:
             print(f"  {name}: {line.strip()}")
-    for inst, regs, stores, loads in chip_smoke.ptxas_report(log):
+    for inst, regs, stores, loads, _ in chip_smoke.ptxas_report(log):
         if inst.startswith("dq_kernel"):
             print(f"  {name}: {inst} {regs} registers at launch, {stores} "
                   f"bytes spill stores, {loads} bytes spill loads")
@@ -173,11 +179,12 @@ def main() -> int:
     q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device=dev)
                    .to(torch.bfloat16) for _ in range(4))
     opts = dict(scale=d ** -0.5, causal=True, window=None, sink=0)
-    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    blocks = dict(block_q=128, block_k=128)
+    o, lse = A.flash_forward(q, k, v, **blocks, **opts)
     delta = (do.float() * o.float()).sum(-1)
 
     def call():
-        return A.flash_backward_dq(q, k, v, do, lse, delta, block_q=128,
+        return A.flash_backward_dq(q, k, v, do, lse, delta, **blocks,
                                    **opts)
 
     ref = A.backward_dq_plain(*(x.float() for x in (q, k, v, do)), lse, delta,

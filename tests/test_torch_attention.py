@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from tf_operator_tpu.ops import autotune as jax_autotune
 from tf_operator_tpu.ops.attention import (
     flash_attention_grads_interpret,
     flash_attention_lse_grads_interpret,
@@ -268,3 +269,135 @@ def test_unsupported_device_raises():
     q = torch.zeros(1, 2, 8, 16, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         A.flash_attention(q, q, q)
+
+
+# The tenth slice: what the CUDA kernels now take (dtypes, head dims, any
+# scale, any batch*heads, every block size).  On CPU tensors the wrappers
+# compute their kernels' plain versions, so these hold the plumbing around
+# the kernels (dtypes kept, head dims not a multiple of 8, blocks) against
+# the Pallas kernels in interpret mode; the kernels themselves are held on
+# the card (tests/test_torch_kernels_cuda.py).
+
+JAX_CONTRACT_Q = range(8, 1025, 8)       # TPUJOB_FLASH_BLOCK_Q: multiples of 8
+JAX_CONTRACT_K = range(128, 1025, 128)   # TPUJOB_FLASH_BLOCK_K: of 128
+PORT_CONTRACT_K = range(64, 1025, 64)    # the port's superset: of 64
+
+
+def test_resolve_tiles_maps_every_contract_value_onto_an_instantiation():
+    built = A.instantiations()
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        for d in (8, 64, 72, 100, 128):
+            for bq in JAX_CONTRACT_Q:
+                for bk in PORT_CONTRACT_K:
+                    tiles = A.resolve_tiles(bq, bk, d, dtype)
+                    for kernel in ("fwd", "dq", "dkv"):
+                        assert (kernel, name, A.head_class(d),
+                                *getattr(tiles, kernel)) in built
+    assert set(JAX_CONTRACT_K) <= set(PORT_CONTRACT_K)
+
+
+@pytest.mark.parametrize("d,want", [
+    (64, A.Tiles(fwd=(128, 128), dq=(128, 128), dkv=(128, 64))),
+    (128, A.Tiles(fwd=(128, 64), dq=(128, 64), dkv=(128, 32))),
+])
+def test_the_default_blocks_keep_the_tiles_the_kernels_ran(d, want):
+    """(128, 128) resolves to the tiles the kernels ran before they took
+    block pairs (query tiles of 128 rows; key steps 128 at head_dim 64 and
+    64 at 128; dk/dv 128 keys with query steps 64 and 32), in bf16 and
+    fp16; the blocks the TPU tuner writes and the smallest Q block map to
+    the nearest tiles."""
+    for dtype in (torch.bfloat16, torch.float16):
+        assert A.resolve_tiles(128, 128, d, dtype) == want
+    assert A.resolve_tiles(256, 512, 64, torch.bfloat16) == A.Tiles(
+        fwd=(128, 128), dq=(128, 128), dkv=(128, 64))
+    assert A.resolve_tiles(8, 128, 64, torch.bfloat16) == A.Tiles(
+        fwd=(64, 128), dq=(64, 128), dkv=(128, 32))
+    assert A.resolve_tiles(128, 128, d, torch.float32) == A.Tiles(
+        *(A.F32_TILE,) * 3)
+
+
+def test_default_blocks_take_a_key_block_of_64(monkeypatch):
+    """TPUJOB_FLASH_BLOCK_K takes multiples of 64 (a tuned key tile of 64
+    travels through the env), a superset of the JAX contract's 128."""
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_Q", "32")
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_K", "64")
+    assert A.default_blocks(None, None) == (32, 64)
+    monkeypatch.setenv("TPUJOB_FLASH_BLOCK_K", "96")
+    with pytest.raises(ValueError, match="multiple of 64"):
+        A.default_blocks(None, None)
+
+
+@pytest.mark.parametrize("dtype,d,b,h", [
+    (torch.float16, 32, 2, 4),
+    (torch.float32, 96, 2, 4),
+    (torch.bfloat16, 100, 2, 4),
+    (torch.bfloat16, 8, 2, 4),
+    (torch.float32, 128, 2, 4),
+    (torch.bfloat16, 64, 4400, 16),  # batch*heads 70,400
+])
+def test_check_cuda_takes_what_the_pallas_kernels_take(dtype, d, b, h):
+    """`_check_cuda`, called on CPU tensors (it reads only shapes, dtypes
+    and layouts; T 4 keeps B*H 70,400 small), takes every dtype, head dim
+    up to 128 and batch*heads that the Pallas kernels take."""
+    q = torch.empty(b, h, 4, d, dtype=dtype)
+    kv = torch.empty(b, h // 2, 4, d, dtype=dtype)
+    rows = torch.empty(b, h, 4)
+    A._check_cuda(q, kv, kv, q, rows, rows)
+
+
+def test_check_cuda_rejects_what_no_kernel_takes():
+    q = torch.empty(1, 2, 64, 136, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1..128, got 136"):
+        A._check_cuda(q, q, q)
+    q = torch.empty(1, 2, 64, 64, dtype=torch.float64)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        A._check_cuda(q, q, q)
+    with pytest.raises(ValueError, match="one dtype"):
+        A._check_cuda(q.float(), q.half(), q.half())
+
+
+# fp16: the port's plain forward rounds P to fp16 before P.V where the
+# Pallas kernel keeps it in f32 (and both round the outputs to fp16): a few
+# units in the last place of fp16 outputs of size ~1 (measured up to 2e-3)
+ATOL_F16 = 5e-3
+
+
+def _low_precision_parity(q, k, v, g, dtype, causal, bq, bk):
+    """The Pallas kernels in interpret mode and FlashAttentionFn (the
+    kernels' plain versions here) on the same inputs rounded to dtype."""
+    import jax.numpy as jnp
+
+    np_dtype = {torch.float16: np.float16, torch.float32: np.float32}[dtype]
+    q, k, v, g = (x.astype(np_dtype) for x in (q, k, v, g))
+    want = flash_attention_grads_interpret(
+        *(jnp.asarray(x) for x in (q, k, v, g)), causal, None, bq, bk)
+    got = port_grads(q, k, v, g, lambda q, k, v: A.FlashAttentionFn.apply(
+        q, k, v, causal, q.shape[-1] ** -0.5, bq, bk, None, 0))
+    tol = ATOL_F16 if dtype == torch.float16 else ATOL_GRAD
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        assert a.dtype == np_dtype and a.shape == b.shape, name
+        np.testing.assert_allclose(a.astype(np.float32),
+                                   np.asarray(b, np.float32), atol=tol,
+                                   rtol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
+                         ids=["fp16", "f32"])
+@pytest.mark.parametrize("d", [32, 96, 100])
+def test_fp16_and_f32_match_pallas_interpret(dtype, d):
+    """fp16 and f32 inputs at head dims 32 (on the 64 class), 96 (on 128)
+    and 100 (padded to 104 on the card), causal, T 100, GQA 4/2."""
+    _low_precision_parity(*inputs(100, d=d, h=4, kv_h=2, seed=11), dtype,
+                          True, 64, 64)
+
+
+@pytest.mark.parametrize("bq,bk", jax_autotune.DEFAULT_CANDIDATES)
+def test_every_block_pair_of_the_jax_tuner_matches_pallas_interpret(bq, bk):
+    """The pairs the TPU tuner searches (128..512; blocks above T 300 pad
+    the Pallas grid) through FlashAttentionFn, f32."""
+    q, k, v, g = inputs(300, seed=12)
+    want = flash_attention_grads_interpret(q, k, v, g, True, None, bq, bk)
+    got = port_grads(q, k, v, g, lambda q, k, v: A.FlashAttentionFn.apply(
+        q, k, v, True, 16 ** -0.5, bq, bk, None, 0))
+    assert_matches(got, want)

@@ -56,3 +56,20 @@ def test_target_lives_in_the_ignored_build_dir(csrc):
     out = _build.target()
     assert out.parent == _build.BUILD_DIR
     assert out.name.startswith("libflash_attention-") and out.suffix == ".so"
+
+
+def test_the_parts_are_the_sources_translation_units():
+    """nvcc compiles flash_attention.cu once per part (FA_PART 1..PARTS, in
+    parallel) and links the objects: every part the source defines is
+    built, and no part is built that defines nothing."""
+    import re
+
+    parts = {int(n) for n in re.findall(r"#if FA_IN_PART\((\d+)\)",
+                                        _build.SOURCE.read_text())}
+    assert parts == set(range(1, _build.PARTS + 1))
+
+
+def test_parts_change_the_target(csrc, monkeypatch):
+    before = _build.target()
+    monkeypatch.setattr(_build, "PARTS", _build.PARTS + 1)
+    assert _build.target() != before

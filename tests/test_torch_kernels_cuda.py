@@ -12,7 +12,11 @@ Tolerance: `chip_smoke.tolerance_ratios`, each element within
 whole within 1e-2 relative Frobenius error, the plain version in f32 on
 the same bf16 inputs; the kernels round P and dS to bf16 before their
 second product and write bf16 outputs.  lse within 1e-3 (f32 on both
-sides).  `flash_attention_lse` is held by `chip_smoke.lse_case` with
+sides).  fp16 inputs are held by the same rule (fp16 rounds at 2^-11,
+finer than bf16's 2^-8).  f32 inputs run the f32 kernels, f32 throughout,
+so only the order of the sums differs from the plain version: the factor
+is 1e-4 instead of 2e-2, the whole 1e-5 instead of 1e-2, lse 1e-5
+(`chip_smoke.rule`; PERF.md gives the ratios measured on the card).  `flash_attention_lse` is held by `chip_smoke.lse_case` with
 cotangents on both outputs, and the same kernels given delta where the
 backward needs delta' = delta - dlse (a planted fault) must fail.  The
 unmarked tests check that rule itself on the CPU.
@@ -24,22 +28,27 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FRO, lse_case, ptxas_report, tolerance_ratios
+from chip_smoke import FRO, lse_case, ptxas_report, rule, tolerance_ratios
 from tf_operator_tpu_torch.parallel.ring_attention import ring_hops
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import attention as A
 
 
-def _inputs(t, h, kv_h, d=64, b=2, seed=0, device="cuda"):
+def _inputs(t, h, kv_h, d=64, b=2, seed=0, device="cuda",
+            dtype=torch.bfloat16):
     rng = np.random.RandomState(seed)
     shapes = ((b, h, t, d), (b, kv_h, t, d), (b, kv_h, t, d), (b, h, t, d))
     return [torch.tensor(rng.randn(*s).astype(np.float32), device=device)
-            .bfloat16() for s in shapes]
+            .to(dtype) for s in shapes]
 
 
-def _held(got, ref):
-    worst, rel = tolerance_ratios(got, ref)
-    return worst <= 1.0 and rel <= FRO
+DEFAULT = dict(block_q=128, block_k=128)
+
+
+def _held(got, ref, dtype="bfloat16"):
+    rtol, fro, _ = rule(dtype)
+    worst, rel = tolerance_ratios(got, ref, rtol)
+    return worst <= 1.0 and rel <= fro
 
 
 @pytest.fixture
@@ -146,37 +155,70 @@ def test_ring_rule_rejects_a_ring_without_its_last_shift(causal):
     assert not _held(ring(n - 2), ref)
 
 
-_PTXAS_LOG = """\
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19dq_kernelILi64ELi2EEEv' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_19dq_kernelILi64ELi2EEEv
+_DQ = ("_ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64ELi2ELi128EEEv14CU"
+       "tensorMap_stS2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
+_FWD = ("_ZN12_GLOBAL__N_110fwd_kernelI6__halfLi128ELi1ELi64ELb1EEEv14CUtens"
+        "orMap_stS2_S2_PT_PfiifN2fa4MaskE")
+_DKV32 = ("_ZN12_GLOBAL__N_114dkv_f32_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3"
+          "_iiifN2fa4MaskE")
+_PTXAS_LOG = f"""\
+ptxas info    : Compiling entry function '{_DQ}' for 'sm_90a'
+ptxas info    : Function properties for {_DQ}
     8 bytes stack frame, 8 bytes spill stores, 20 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack size
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110fwd_kernelILi128ELi1EEEv' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_110fwd_kernelILi128ELi1EEEv
+ptxas info    : Compiling entry function '{_FWD}' for 'sm_90a'
+ptxas info    : Function properties for {_FWD}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '{_DKV32}' for 'sm_90a'
+ptxas info    : Function properties for {_DKV32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 190 registers, used 1 barriers
 """
 
 
 def test_ptxas_report_names_each_instantiation_and_its_spills():
     """chip_smoke's build phase reads each kernel instantiation's
     registers and spills from nvcc's -Xptxas=-v output (a report in the
-    card's format) and fails on any spill."""
+    card's format, template arguments mangled as nvcc mangles them), fails
+    on any spill, and holds the instantiations against
+    attention.INSTANTIATED by the last field."""
     assert ptxas_report(_PTXAS_LOG) == [
-        ("dq_kernel<D 64, WG 2>", 168, 8, 20),
-        ("fwd_kernel<D 128, WG 1>", 128, 0, 0)]
+        ("dq_kernel<bfloat16, D 64, rows 128, step 128>", 168, 8, 20,
+         ("dq", "bfloat16", 64, 128, 128)),
+        ("fwd_kernel<float16, D 128, rows 64, step 64, scaled 1>", 128, 0, 0,
+         ("fwd", "float16", 128, 64, 64)),
+        ("dkv_f32_kernel<D 128>", 190, 0, 0,
+         ("dkv", "float32", 128, 64, 32))]
+    assert {r[4] for r in ptxas_report(_PTXAS_LOG)} <= A.instantiations()
 
 
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
-    """The forward kernel takes the row max of the unscaled scores, which
-    is the max of the scaled ones only for a positive scale."""
-    if ok:
-        A._check_scale(scale)
+    """The forward kernel's raw-max route takes only a positive scale (the
+    row max of the raw scores is the max of the scaled ones only then);
+    every other scale goes to the route that scales first
+    (`scales_first`), so the kernels take every scale.  On CPU tensors the
+    wrapper's plain version gives softmax(scale * Q K^T) V for each: at 0
+    the mean of the live values, at NaN NaN."""
+    assert A.scales_first(scale) is (not ok)
+    q, k, v, _ = _inputs(40, 2, 2, d=8, device="cpu", dtype=torch.float32)
+    A._check_cuda(q, k, v)
+    o, lse = A.flash_forward(q, k, v, scale=scale, causal=True, window=None,
+                             sink=0)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    s = s.masked_fill(torch.ones(40, 40, dtype=torch.bool).triu(1),
+                      float("-inf"))
+    want = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, -1), v)
+    if scale != scale:
+        assert torch.isnan(o).all()
     else:
-        with pytest.raises(ValueError, match="positive scale"):
-            A._check_scale(scale)
+        torch.testing.assert_close(o, want)
+        torch.testing.assert_close(lse, torch.logsumexp(s, -1))
+    if scale == 0:
+        counts = torch.arange(1, 41, dtype=torch.float32)[:, None]
+        torch.testing.assert_close(o, v.cumsum(2) / counts)
 
 
 @pytest.mark.cuda
@@ -199,11 +241,11 @@ def test_kernels_match_plain_versions(cuda, t, h, kv_h, causal, window,
     q, k, v, g = _inputs(t, h, kv_h, d)
     opts = dict(scale=0.125, causal=causal, window=window, sink=sink)
     before = A.launches()
-    o, lse = A.flash_forward(q, k, v, block_q=block, **opts)
+    blocks = dict(block_q=block, block_k=block)
+    o, lse = A.flash_forward(q, k, v, **blocks, **opts)
     delta = (g.float() * o.float()).sum(-1)
-    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=block, **opts)
-    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=block,
-                                  **opts)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **blocks, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **blocks, **opts)
     torch.cuda.synchronize()
     assert all(A.launches()[n] == before[n] + 1 for n in before)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
@@ -229,10 +271,10 @@ def test_kernels_at_the_classification_shapes(cuda, b, h, t):
     a head), 12 heads of 64, and each tp rank's 6 of them at tp 2."""
     q, k, v, g = _inputs(t, h, h, b=b)
     opts = dict(scale=0.125, causal=False, window=None, sink=0)
-    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
     delta = (g.float() * o.float()).sum(-1)
-    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
-    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **DEFAULT, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
                                   **opts)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, kf, vf, causal=False, scale=0.125)
@@ -253,10 +295,10 @@ def test_kernels_at_the_tp_local_shapes(cuda, h, kv_h):
     group of 3)."""
     q, k, v, g = _inputs(2048, h, kv_h, b=8)
     opts = dict(scale=0.125, causal=True, window=None, sink=0)
-    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
     delta = (g.float() * o.float()).sum(-1)
-    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
-    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **DEFAULT, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
                                   **opts)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
@@ -267,6 +309,80 @@ def test_kernels_at_the_tp_local_shapes(cuda, h, kv_h):
         assert got.shape == ref.shape and torch.isfinite(got).all()
         assert _held(got, ref), tolerance_ratios(got, ref)
     assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+def _kernels_against_plain(q, k, v, g, blocks, **opts):
+    """Each kernel once (one launch each) against its plain version in f32
+    on the same inputs, by the rule of the inputs' dtype."""
+    dtype = str(q.dtype).removeprefix("torch.")
+    before = A.launches()
+    o, lse = A.flash_forward(q, k, v, **blocks, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **blocks, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **blocks, **opts)
+    torch.cuda.synchronize()
+    assert all(A.launches()[n] == before[n] + 1 for n in before)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    ratios = {}
+    for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
+                           ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.shape == ref.shape and got.dtype == q.dtype
+        assert torch.isfinite(got).all(), name
+        ratios[name] = tolerance_ratios(got, ref, rule(dtype)[0])
+        assert _held(got, ref, dtype), (name, ratios[name])
+    assert float((lse - lse_ref).abs().max()) <= rule(dtype)[2]
+    print(f"{dtype} {tuple(q.shape)} {blocks}: {ratios}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,scale,blocks", [
+    # each dtype at each head-dim class and the padded route
+    ("float16", 64, None, (128, 128)),
+    ("float16", 128, None, (64, 64)),
+    ("float16", 96, None, (128, 128)),
+    ("float16", 100, None, (32, 256)),
+    ("float32", 64, None, (128, 128)),
+    ("float32", 128, None, (128, 128)),
+    ("float32", 100, None, (8, 128)),
+    ("float32", 20, None, (128, 128)),
+    ("bfloat16", 8, None, (128, 128)),
+    ("bfloat16", 32, None, (64, 256)),
+    ("bfloat16", 80, None, (128, 128)),
+    ("bfloat16", 100, None, (64, 64)),
+    ("bfloat16", 120, None, (32, 64)),
+    # scales the raw-max route does not take, at both routes' dtypes
+    ("bfloat16", 64, -0.125, (128, 128)),
+    ("bfloat16", 128, 0.0, (64, 64)),
+    ("float16", 64, -1.0, (128, 256)),
+    ("float32", 64, -0.125, (128, 128)),
+    ("float32", 64, 0.0, (128, 128)),
+    # every tile the env can reach at head_dim 64
+    ("bfloat16", 64, None, (256, 512)),
+    ("bfloat16", 64, None, (8, 128)),
+    ("bfloat16", 64, None, (32, 64)),
+    ("bfloat16", 64, None, (1024, 1024)),
+])
+def test_kernels_take_every_dtype_head_dim_scale_and_tile(cuda, dtype, d,
+                                                          scale, blocks):
+    """Ragged T 1000, GQA 4/2, causal with window 64 and sink 70 (every
+    mask the kernels bound), at the inputs the Pallas kernels also take."""
+    q, k, v, g = _inputs(1000, 4, 2, d=d, dtype=getattr(torch, dtype))
+    _kernels_against_plain(
+        q, k, v, g, dict(block_q=blocks[0], block_k=blocks[1]),
+        scale=d ** -0.5 if scale is None else scale, causal=True, window=64,
+        sink=70)
+
+
+@pytest.mark.cuda
+def test_kernels_take_more_batch_heads_than_a_grid_y(cuda):
+    """B 4400 x H 16 = 70,400 rows of the grid's x (the y dimension, which
+    held batch*heads before, stops at 65,535)."""
+    q, k, v, g = _inputs(64, 16, 16, b=4400)
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=0.125, causal=True,
+                           window=None, sink=0)
 
 
 @pytest.mark.cuda
@@ -326,13 +442,13 @@ def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
     16 keys skipped for the last query tile; m, l and lse untouched) at
     the LM's main-path shape: o fails the tolerance while lse still
     passes."""
-    site = "hopper::wgmma_rs64(acc[h], pa[kk]"
+    site = "hopper::Mma<E>::rs64(acc[h], pa[kk]"
     _faulty_library(tmp_path, monkeypatch, site,
                     "if (it > 0 || kk > 0 || q0 + BM < T) " + site)
 
     q, k, v, _ = _inputs(2048, 12, 12, b=8)
     o, lse = A.flash_forward(q, k, v, scale=0.125, causal=True, window=None,
-                             sink=0, block_q=128)
+                             sink=0, **DEFAULT)
     qf, kf, vf = (x.float() for x in (q, k, v))
     o_ref, lse_ref = A.attention_lse(qf, kf, vf, causal=True, scale=0.125)
     worst, rel = tolerance_ratios(o, o_ref)
@@ -351,14 +467,14 @@ def test_tolerance_rejects_a_dkv_kernel_that_skips_a_query_tile(
     """A dk/dv kernel built with a planted fault (each key tile leaves out
     the dV contribution of the first query tile it visits; dK untouched)
     at the LM's main-path shape: dv fails the tolerance, dk still passes."""
-    site = "hopper::wgmma_rs64(dv_acc[h], pa[kk]"
+    site = "hopper::Mma<E>::rs64(dv_acc[h], pa[kk]"
     _faulty_library(tmp_path, monkeypatch, site, "if (it > 0) " + site)
 
     q, k, v, g = _inputs(2048, 12, 12, b=8)
     opts = dict(scale=0.125, causal=True, window=None, sink=0)
-    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
     delta = (g.float() * o.float()).sum(-1)
-    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
                                   **opts)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
@@ -375,15 +491,15 @@ def test_tolerance_rejects_a_dq_kernel_that_skips_early_keys(
     """A dq kernel built with a planted fault (the dS.K product of the
     first 16 keys skipped for the last query tile) at the LM's main-path
     shape: dq fails the tolerance."""
-    site = "hopper::wgmma_rs64(dq_acc[h], da[kk]"
+    site = "hopper::Mma<E>::rs64(dq_acc[h], da[kk]"
     _faulty_library(tmp_path, monkeypatch, site,
                     "if (it > 0 || kk > 0 || q0 + BM < T) " + site)
 
     q, k, v, g = _inputs(2048, 12, 12, b=8)
     opts = dict(scale=0.125, causal=True, window=None, sink=0)
-    o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
     delta = (g.float() * o.float()).sum(-1)
-    dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128, **opts)
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **DEFAULT, **opts)
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
     worst, rel = tolerance_ratios(dq, dq_ref)
@@ -413,13 +529,16 @@ def test_flash_attention_lse_with_both_cotangents(cuda, b, h, kv_h, t, d,
 
 @pytest.mark.cuda
 def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
-    """No fallback on the card: f32 inputs or head_dim 32 raise."""
+    """No fallback on the card: f64 inputs, mixed dtypes or head_dim 136
+    raise."""
     q, k, v, _ = _inputs(128, 2, 2)
-    with pytest.raises(ValueError, match="bfloat16"):
-        A.flash_attention_lse(q.float(), k.float(), v.float())
-    q32 = torch.zeros(1, 2, 64, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
+        A.flash_attention_lse(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="one dtype"):
+        A.flash_attention_lse(q, k.half(), v)
+    q136 = torch.zeros(1, 2, 64, 136, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim"):
-        A.flash_attention_lse(q32, q32, q32)
+        A.flash_attention_lse(q136, q136, q136)
 
 
 @pytest.mark.cuda
@@ -436,11 +555,11 @@ def test_kernels_repeat_bit_for_bit(cuda, b, h, t, causal):
     opts = dict(scale=0.125, causal=causal, window=None, sink=0)
 
     def run():
-        o, lse = A.flash_forward(q, k, v, block_q=128, **opts)
+        o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
         delta = (g.float() * o.float()).sum(-1)
-        dq = A.flash_backward_dq(q, k, v, g, lse, delta, block_q=128,
+        dq = A.flash_backward_dq(q, k, v, g, lse, delta, **DEFAULT,
                                  **opts)
-        dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, block_k=128,
+        dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
                                       **opts)
         return {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
 

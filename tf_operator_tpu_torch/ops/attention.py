@@ -15,10 +15,13 @@ Dispatch is decided by the tensors' device, outside autograd:
     the forward kernel (saving the per-row logsumexp) and whose backward
     launches the dq and the dk/dv kernels; `flash_attention_lse` returns
     the lse too, through `FlashAttentionLseFn`, whose backward takes a
-    cotangent on it as well.  A CUDA tensor the kernels do not
-    take (dtype other than bf16, head_dim other than 64/128, a block size
-    without an instantiation, non-contiguous, a scale that is not positive)
-    raises; nothing falls back.
+    cotangent on it as well.  The kernels take what the Pallas kernels
+    take, up to head_dim 128: bf16 and fp16 (tensor cores) and f32 (SIMT
+    kernels of its own), any head_dim up to 128 (one that is not a multiple
+    of 8 is zero-padded here and the outputs sliced), any scale, any
+    batch*heads, and any block sizes, which `resolve_tiles` maps onto the
+    instantiated tiles.  A CUDA tensor the kernels do not take (another
+    dtype, head_dim above 128, non-contiguous) raises; nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`) computes its kernel's plain version when handed CPU
@@ -30,8 +33,9 @@ building blocks in `csrc/hopper.cuh`) and are built at first use
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -101,12 +105,15 @@ def _env_block(name: str, multiple: int) -> int:
 
 def default_blocks(block_q, block_k):
     """Resolve block sizes: explicit args win; otherwise the
-    TPUJOB_FLASH_BLOCK_Q/K env (the same contract as the JAX package);
-    otherwise 128.  A bad env value fails here, naming the variable."""
+    TPUJOB_FLASH_BLOCK_Q/K env (the JAX package's contract: a positive
+    multiple of 8 for Q; for K a superset of it, a positive multiple of 64
+    rather than of 128, so that a tuned key tile of 64 can travel through
+    the env; every value JAX accepts is accepted); otherwise 128.  A bad
+    env value fails here, naming the variable."""
     if block_q is None:
         block_q = _env_block("TPUJOB_FLASH_BLOCK_Q", 8)
     if block_k is None:
-        block_k = _env_block("TPUJOB_FLASH_BLOCK_K", 128)
+        block_k = _env_block("TPUJOB_FLASH_BLOCK_K", 64)
     return block_q, block_k
 
 
@@ -194,11 +201,87 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
-HEAD_DIMS = (64, 128)
-# rows per CUDA block the kernels are instantiated for: one or two consumer
-# warpgroups of 64 rows (query rows in the forward and dq, keys in dk/dv);
-# the C interface takes the block as a count of warps
-BLOCK_ROWS = (64, 128)
+# the element types the kernels take, by their code at the C interface
+DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+MAX_HEAD_DIM = 128
+# The tiles the tensor-core kernels are instantiated for, the same table as
+# csrc/flash_attention.cu's dispatchers: per kernel and head-dim class
+# (64 holds head dims up to 64, 128 those up to 128), the values of
+# (rows per block, step of the reduction loop).  The forward and dq take
+# rows from block_q and the key step from block_k; dk/dv takes key rows
+# from block_k and the query step from block_q (the JAX kernels' meaning
+# of the two numbers).
+INSTANTIATED = {
+    "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,))},
+    "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,))},
+    "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,))},
+}
+# the f32 kernels' one tile, for every block size
+F32_TILE = (64, 32)
+
+
+class Tiles(NamedTuple):
+    """(rows per block, step) of each kernel."""
+    fwd: Tuple[int, int]
+    dq: Tuple[int, int]
+    dkv: Tuple[int, int]
+
+
+def head_class(head_dim: int) -> int:
+    """The head-dim class a head dim runs on: the smaller of 64 and 128
+    that holds it."""
+    if not 1 <= head_dim <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash attention kernels take head_dim 1..{MAX_HEAD_DIM}, got "
+            f"{head_dim} (head_dim above 128 is not built yet: ROADMAP B.5)")
+    return 64 if head_dim <= 64 else 128
+
+
+def scales_first(scale: float) -> bool:
+    """Whether the forward kernel scales the scores before their row max
+    (its SCALED instantiation).  The other route takes the max of the raw
+    scores and scales it after, the max of the scaled scores only for a
+    positive scale, so every other scale (negative, 0, NaN) scales first;
+    that route adds a multiply per score, which the positive one, bound by
+    its softmax at head_dim 64, is spared."""
+    return not scale > 0
+
+
+def _pick(request: int, values) -> int:
+    below = [x for x in values if x <= request]
+    return max(below) if below else min(values)
+
+
+@functools.lru_cache(maxsize=None)  # per launch: keep the host's share small
+def resolve_tiles(block_q: int, block_k: int, head_dim: int,
+                  dtype) -> Tiles:
+    """The instantiated tiles a pair of block sizes runs on: for each knob
+    the largest instantiated value <= the request, or the smallest one if
+    none is.  Any pair maps, so every value the env contract takes runs;
+    the default (128, 128) keeps the tiles the kernels were tuned at.  f32
+    has one tile."""
+    if dtype == torch.float32:
+        return Tiles(F32_TILE, F32_TILE, F32_TILE)
+    dc = head_class(head_dim)
+    fwd_rows, fwd_steps = INSTANTIATED["fwd"][dc]
+    dq_rows, dq_steps = INSTANTIATED["dq"][dc]
+    dkv_rows, dkv_steps = INSTANTIATED["dkv"][dc]
+    return Tiles(fwd=(_pick(block_q, fwd_rows), _pick(block_k, fwd_steps)),
+                 dq=(_pick(block_q, dq_rows), _pick(block_k, dq_steps)),
+                 dkv=(_pick(block_k, dkv_rows), _pick(block_q, dkv_steps)))
+
+
+def instantiations() -> set:
+    """Every built kernel as (kernel, dtype, head-dim class, rows, step)."""
+    out = set()
+    for kernel, classes in INSTANTIATED.items():
+        for dc, (rows, steps) in classes.items():
+            for dtype in ("bfloat16", "float16"):
+                out.update((kernel, dtype, dc, r, s) for r in rows
+                           for s in steps)
+            out.add((kernel, "float32", dc) + F32_TILE)
+    return out
+
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -211,9 +294,11 @@ def _library() -> ctypes.CDLL:
         lib = _build.library()
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         mask = [f32, i32, i32, i32, ptr]  # scale, causal, window, sink, stream
-        lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 6 + mask
-        lib.fa_backward_dq.argtypes = [ptr] * 7 + [i32] * 6 + mask
-        lib.fa_backward_dkv.argtypes = [ptr] * 8 + [i32] * 6 + mask
+        # b*h, heads, kv_heads, T, head_dim, dtype, rows, step (and the
+        # forward's route)
+        lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 9 + mask
+        lib.fa_backward_dq.argtypes = [ptr] * 7 + [i32] * 8 + mask
+        lib.fa_backward_dkv.argtypes = [ptr] * 8 + [i32] * 8 + mask
         for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
             fn.restype = i32
         lib.fa_error_string.argtypes = [i32]
@@ -228,20 +313,13 @@ def _check(err: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
 
 
-def _warps(block: int, name: str) -> int:
-    if block not in BLOCK_ROWS:
-        raise ValueError(
-            f"{name}={block} has no CUDA instantiation; the kernels take "
-            f"{BLOCK_ROWS} rows per block")
-    return block // 16
-
-
 def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
-    """Raise on anything the kernels do not take."""
+    """Raise on anything the kernels do not take.  Reads only shapes,
+    dtypes and layouts, so it runs on tensors of any device."""
     b, heads, t, d = q.shape
-    bf16 = [q, k, v] + ([do] if do is not None else [])
+    same = [q, k, v] + ([do] if do is not None else [])
     rows = [x for x in (lse, delta) if x is not None]
-    for x in bf16 + rows:
+    for x in same + rows:
         if x.device != q.device:
             raise ValueError("flash attention inputs must share one device")
         if not x.is_contiguous():
@@ -250,17 +328,15 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
         if x.data_ptr() % 16:
             raise ValueError("flash attention kernels need 16-byte aligned "
                              "tensors")
-    for x in bf16:
-        if x.dtype != torch.bfloat16:
-            raise ValueError(
-                f"flash attention kernels take bfloat16, got {x.dtype}")
+    if q.dtype not in DTYPES or any(x.dtype != q.dtype for x in same):
+        raise ValueError(
+            "flash attention kernels take bfloat16, float16 or float32, one "
+            f"dtype for q, k, v and dO; got {[x.dtype for x in same]}")
     for x in rows:
         if x.dtype != torch.float32 or x.shape != (b, heads, t):
             raise ValueError(f"lse/delta must be float32 [{b}, {heads}, {t}]"
                              f", got {x.dtype} {tuple(x.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(
-            f"flash attention kernels take head_dim in {HEAD_DIMS}, got {d}")
+    head_class(d)
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (t, d):
         raise ValueError(f"k/v shape {tuple(k.shape)} does not match q "
                          f"{tuple(q.shape)}")
@@ -269,16 +345,30 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
                          f"{tuple(q.shape)}")
     if t < 1:
         raise ValueError("flash attention needs seq len >= 1")
-    if b * heads > 65535:
-        raise ValueError(f"batch*heads {b * heads} exceeds the kernels' "
-                         "grid limit of 65535")
+    # the grid: b*heads x row tiles of at least 64 rows
+    if b * heads * -(-t // 64) > 2**31 - 1:
+        raise ValueError(f"batch*heads {b * heads} x seq len {t} exceeds "
+                         "the kernels' grid of 2^31 - 1 blocks of 64 rows")
 
 
-def _check_scale(scale: float) -> None:
-    # the forward kernel takes the row max of the unscaled scores
-    if not scale > 0:
-        raise ValueError(f"flash attention kernels take a positive scale, "
-                         f"got {scale}")
+def _padded(*xs):
+    """The tensors with the head dim zero-padded up to a multiple of 8, the
+    row stride the kernels' TMA needs (16 bytes); zero columns add nothing
+    to Q K^T or dO V^T, and the outputs' extra columns are sliced off
+    (`_unpadded`)."""
+    pad = -xs[0].shape[-1] % 8
+    if not pad:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def _unpadded(x, head_dim: int):
+    return x if x.shape[-1] == head_dim else x[..., :head_dim]
+
+
+def _shape_args(q, k, head_dim: int, tile) -> list:
+    _, heads, t, _ = q.shape
+    return [heads, k.shape[1], t, head_dim, DTYPES[q.dtype], *tile]
 
 
 def _mask_args(scale, causal, window, sink, device):
@@ -288,68 +378,83 @@ def _mask_args(scale, causal, window, sink, device):
 
 def flash_forward(q, k, v, *, scale: float, causal: bool,
                   window: Optional[int], sink: int,
-                  block_q: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`."""
+                  block_q: Optional[int] = None,
+                  block_k: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`.
+    Rows per block from block_q, key step from block_k (`resolve_tiles`)."""
     if q.device.type == "cpu":
         return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
                              scale=scale, window=window, sink=sink)
     _check_cuda(q, k, v)
-    _check_scale(scale)
+    block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    o = torch.empty_like(q)
+    tile = resolve_tiles(block_q, block_k, d, q.dtype).fwd
+    qp, kp, vp = _padded(q, k, v)
+    o = torch.empty_like(qp)
     lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         err = _library().fa_forward(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b * heads, heads, k.shape[1], t, d,
-            _warps(block_q, "block_q"),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b * heads,
+            *_shape_args(q, k, qp.shape[-1], tile), int(scales_first(scale)),
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash forward")
     flash_forward.launches += 1
-    return o, lse
+    return _unpadded(o, d), lse
 
 
 def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
-                      window: Optional[int], sink: int, block_q: int):
-    """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`."""
+                      window: Optional[int], sink: int,
+                      block_q: Optional[int] = None,
+                      block_k: Optional[int] = None):
+    """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`.  Rows per block
+    from block_q, key step from block_k."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                  causal=causal, window=window, sink=sink)
     _check_cuda(q, k, v, do, lse, delta)
+    block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    dq = torch.empty_like(q)
+    tile = resolve_tiles(block_q, block_k, d, q.dtype).dq
+    qp, kp, vp, dop = _padded(q, k, v, do)
+    dq = torch.empty_like(qp)
     with torch.cuda.device(q.device):
         err = _library().fa_backward_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * heads,
-            heads, k.shape[1], t, d, _warps(block_q, "block_q"),
+            *_shape_args(q, k, qp.shape[-1], tile),
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash dq")
     flash_backward_dq.launches += 1
-    return dq
+    return _unpadded(dq, d)
 
 
 def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
                        causal: bool, window: Optional[int], sink: int,
-                       block_k: int):
-    """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`."""
+                       block_q: Optional[int] = None,
+                       block_k: Optional[int] = None):
+    """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`.
+    Key rows per block from block_k, query step from block_q."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal, window=window, sink=sink)
     _check_cuda(q, k, v, do, lse, delta)
+    block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    kv_heads = k.shape[1]
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    tile = resolve_tiles(block_q, block_k, d, q.dtype).dkv
+    qp, kp, vp, dop = _padded(q, k, v, do)
+    dk = torch.empty_like(kp)
+    dv = torch.empty_like(vp)
     with torch.cuda.device(q.device):
         err = _library().fa_backward_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * kv_heads, heads, kv_heads, t, d, _warps(block_k, "block_k"),
+            b * k.shape[1], *_shape_args(q, k, qp.shape[-1], tile),
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash dk/dv")
     flash_backward_dkv.launches += 1
-    return dk, dv
+    return _unpadded(dk, d), _unpadded(dv, d)
 
 
 flash_forward.launches = 0
@@ -375,7 +480,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, block_q, block_k, window, sink):
         o, lse = flash_forward(q, k, v, scale=scale, causal=causal,
-                               window=window, sink=sink, block_q=block_q)
+                               window=window, sink=sink, block_q=block_q,
+                               block_k=block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.opts = dict(scale=scale, causal=causal, window=window, sink=sink)
         ctx.blocks = (block_q, block_k)
@@ -388,9 +494,9 @@ class FlashAttentionFn(torch.autograd.Function):
         g = g.contiguous()
         delta = (g.float() * o.float()).sum(-1)
         dq = flash_backward_dq(q, k, v, g, lse, delta, block_q=block_q,
-                               **ctx.opts)
-        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_k=block_k,
-                                    **ctx.opts)
+                               block_k=block_k, **ctx.opts)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_q=block_q,
+                                    block_k=block_k, **ctx.opts)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -405,7 +511,8 @@ class FlashAttentionLseFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, block_q, block_k):
         o, lse = flash_forward(q, k, v, scale=scale, causal=causal,
-                               window=None, sink=0, block_q=block_q)
+                               window=None, sink=0, block_q=block_q,
+                               block_k=block_k)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.set_materialize_grads(False)
         ctx.opts = dict(scale=scale, causal=causal, window=None, sink=0)
@@ -421,9 +528,9 @@ class FlashAttentionLseFn(torch.autograd.Function):
         if g_lse is not None:
             delta = delta - g_lse.float()
         dq = flash_backward_dq(q, k, v, g, lse, delta, block_q=block_q,
-                               **ctx.opts)
-        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_k=block_k,
-                                    **ctx.opts)
+                               block_k=block_k, **ctx.opts)
+        dk, dv = flash_backward_dkv(q, k, v, g, lse, delta, block_q=block_q,
+                                    block_k=block_k, **ctx.opts)
         return dq, dk, dv, None, None, None, None
 
 

@@ -3,10 +3,45 @@
 // These three kernels compute what the Pallas TPU kernels in
 // tf_operator_tpu/ops/attention.py compute, written for the GPU rather than
 // translated block by block.  Layout at the C boundary: q/o/dq are
-// [B*H, T, D] bf16, k/v/dk/dv are [B*Hkv, T, D] bf16, lse and delta are
-// compact [B*H, T] f32 rows (no lane-replicated row-scalar tiles).
+// [B*H, T, ld], k/v/dk/dv are [B*Hkv, T, ld], all of one element type (bf16,
+// fp16 or f32), lse and delta are compact [B*H, T] f32 rows (no
+// lane-replicated row-scalar tiles).
 //
-// Shared design (all three kernels):
+// What the kernels take (all that the Pallas kernels take, up to head dim
+// 128):
+//   * bf16 and fp16: the tensor-core kernels, templated on the element type
+//     E (wgmma's bf16 or f16 form; P and dS are rounded to E before their
+//     second product, outputs are written in E).  f32: three SIMT kernels
+//     of their own (f32 products and sums, as the Pallas kernels compute in
+//     f32 inside; tf32 wgmma would round the products) behind the same C
+//     entry points.
+//   * Head dims: the tensor-core kernels are built for the head-dim classes
+//     D = 64 and D = 128, and a stored head dim ld runs on the smaller class
+//     that holds it: 8..64 on D 64, 72..128 on D 128.  ld is a multiple of
+//     8 (TMA takes row strides in multiples of 16 bytes; the Python wrapper
+//     pads any other head dim up to the next multiple of 8 and slices the
+//     outputs).  The tensor maps zero-fill the columns past ld, so Q K^T and
+//     dO V^T are unchanged, and the epilogues store only the columns < ld.
+//     The f32 kernels take any ld up to 128.  Above 128 nothing is built
+//     (the dk/dv accumulators would not fit in registers; ROADMAP B.5).
+//   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
+//     The forward takes the row max of the raw scores, which is the max of
+//     the scaled ones only for scale > 0; every other scale (negative, 0,
+//     NaN) takes the forward's SCALED instantiation, which scales the scores
+//     before the mask and the max (the caller picks the route,
+//     ops/attention.py:scales_first; scaled = 0 with a scale that is not
+//     positive returns cudaErrorInvalidValue).
+//   * Any batch*heads: the grid is one dimension of (b*h, row tile) pairs,
+//     up to 2^31 - 1 blocks (grid_tile).
+//   * Tiles follow the JAX kernels' two numbers: the forward and dq take
+//     their rows per block from block_q and their key step from block_k;
+//     dk/dv take its key rows per block from block_k and its query step
+//     from block_q.  The instantiated tiles are listed at the dispatchers
+//     below (ops/attention.py's INSTANTIATED mirrors them, and resolve_tiles
+//     maps any pair of blocks onto them); any other tile returns
+//     cudaErrorInvalidValue.
+//
+// Shared design (the three tensor-core kernels):
 //   * Where the TPU grid walks its reduction axis sequentially with VMEM
 //     scratch, each CUDA block loops over its own reduction range: blocks
 //     run in parallel and share nothing, so no atomics are needed.
@@ -24,17 +59,23 @@
 //     reduction runs along the sequence axis) and feeding P and dS to the
 //     second product from registers.
 //
-// Bounds on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s), at the LM's
-// main-path shape B*H = 96, T = 2048, D = 64, causal, counting two FLOPs per
-// multiply-add and only the causal half of the score matrix:
+// Bounds on an H100 SXM (989 TFLOP/s dense bf16 and fp16, 3.35 TB/s), at
+// the LM's main-path shape B*H = 96, T = 2048, D = 64, causal, counting two
+// FLOPs per multiply-add and only the causal half of the score matrix:
 //   forward  2 products, ~51.5 GFLOP -> ~52 us (bytes ~101 MB -> ~30 us)
 //   dq       3 products, ~77.3 GFLOP -> ~78 us
 //   dk/dv    4 products, ~103 GFLOP  -> ~104 us
 // All three are bound by operations, so the design keeps every product on
 // the tensor cores, keeps the T x T score tile out of device memory, and
 // skips causally dead tiles outright (the loop never reaches them).
+//
+// FA_PART selects a translation unit: ops/_build.py compiles the parts in
+// parallel and links them into one library.  1-4: the forward in bf16 and
+// fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
+// kernels; 10: the C interface; 0 (unset): every part in one unit.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -43,9 +84,15 @@
 
 #include "hopper.cuh"
 
-namespace {
+#ifndef FA_PART
+#define FA_PART 0
+#endif
+#define FA_IN_PART(n) (FA_PART == 0 || FA_PART == (n))
 
 typedef __nv_bfloat16 bf16;
+typedef __half f16;
+
+namespace fa {
 
 // Which (query i, key j) pairs attend: the same predicate as the plain
 // version's mask (causal, sliding window with optional sink prefix) plus
@@ -64,23 +111,113 @@ struct Mask {
   }
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+struct FwdArgs {
+  const void *q, *k, *v;
+  void* o;
+  float* lse;
+  int group;
+  int ld;  // the stored head dim
+  float scale;
+  Mask mk;
+};
+
+struct BwdArgs {
+  const void *q, *k, *v, *dout;
+  const float *lse, *delta;
+  void *dq, *dk, *dv;
+  int heads, kv_heads;
+  int ld;
+  float scale;
+  Mask mk;
+};
+
+// The parts' entry points: each launches the instantiation of its element
+// type for (rows, step) at the head-dim class of a.ld on the caller's
+// stream and returns the launch error (cudaErrorInvalidValue when there is
+// no such instantiation).
+int forward_bf16(int bh, const FwdArgs& a, int rows, int step,
+                 cudaStream_t st);
+int forward_bf16_scaled(int bh, const FwdArgs& a, int rows, int step,
+                        cudaStream_t st);
+int forward_f16(int bh, const FwdArgs& a, int rows, int step,
+                cudaStream_t st);
+int forward_f16_scaled(int bh, const FwdArgs& a, int rows, int step,
+                       cudaStream_t st);
+int forward_f32(int bh, const FwdArgs& a, int rows, int step,
+                cudaStream_t st);
+int dq_bf16(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dq_f16(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dq_f32(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dkv_bf16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dkv_f16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dkv_f32(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
+
+}  // namespace fa
+
+namespace {
+
+using fa::BwdArgs;
+using fa::FwdArgs;
+using fa::Mask;
+
+constexpr int TENSOR_MAP_ERROR = 100000;
+
+// The head-dim class a stored head dim runs on: 64 for 1..64, 128 for
+// 65..128, 0 (none) above.
+__host__ __device__ constexpr int head_class(int ld) {
+  return ld < 1 ? 0 : ld <= 64 ? 64 : ld <= 128 ? 128 : 0;
+}
+
+__host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+
+// Shared memory a block may take when `blocks` blocks share an SM: 227 KB
+// alone, or half of the SM's 228 KB less the 1 KB reserved per block.
+__host__ __device__ constexpr int smem_budget(int blocks) {
+  return blocks == 1 ? 232448 : 115712;
+}
+
+// The element type E of the tensor-core kernels (bf16 or fp16): its tensor
+// map type, and two f32 values rounded to E and packed in 32 bits (a
+// register of an A fragment, or a stored pair of outputs).
+template <typename E>
+struct Elt;
+
+template <>
+struct Elt<bf16> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+template <>
+struct Elt<f16> {
+  static constexpr CUtensorMapDataType MAP = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+};
+
+// Columns c, c + 1 of an output row (c even, so 4-byte aligned).
+template <typename E>
+__device__ __forceinline__ void store2(E* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = Elt<E>::pack(lo, hi);
 }
 
 // The wgmma accumulator layout of m64nN (per thread, warp w of the
 // warpgroup, lane g * 4 + t: d[4j + 2h + e] is row 16w + g + 8h, column
 // 8j + 2t + e) is also the layout of an A operand held in registers, so
-// columns 16kk..16kk+15 of it, rounded to bf16, are the A fragment of k
+// columns 16kk..16kk+15 of it, rounded to E, are the A fragment of k
 // step kk of the next product.
-template <int N>
+template <typename E, int N>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[N],
                                          int kk) {
-  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
-  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
-  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
-  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  a[0] = Elt<E>::pack(d[8 * kk], d[8 * kk + 1]);
+  a[1] = Elt<E>::pack(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = Elt<E>::pack(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = Elt<E>::pack(d[8 * kk + 6], d[8 * kk + 7]);
 }
 
 // Key tiles a query tile [q0, q0 + bm) must visit, in order: `n_sink` sink
@@ -104,8 +241,43 @@ __device__ __forceinline__ void key_tiles(int q0, int bm, const Mask& mk,
   *n_iter = ns + (hi - l0);
 }
 
+// Query tiles [qlo, qhi) of BQ rows that can see the key tile [k0, k0 +
+// bm): from the diagonal (causal) to the last query the window reaches; a
+// tile holding sink keys is seen by every later query, so it keeps the full
+// range.
+template <int BQ>
+__device__ __forceinline__ void query_tiles(int k0, int bm, const Mask& mk,
+                                            int* qlo, int* qhi) {
+  const int n_qt = (mk.T + BQ - 1) / BQ;
+  *qlo = mk.causal ? k0 / BQ : 0;
+  *qhi = n_qt;
+  if (mk.window > 0 && !(mk.sink > 0 && k0 < mk.sink))
+    *qhi = min(n_qt, min(mk.T - 1, k0 + bm - 1 + mk.window - 1) / BQ + 1);
+}
+
 // ---------------------------------------------------------------------------
 // Shared by the kernels.
+
+// The grid: blockIdx.x walks (b*h, row tile) pairs, the n row tiles of one
+// b*h adjacent, so that b*h is bounded only by the 2^31 - 1 blocks of x
+// (y stops at 65,535).  The forward and dq take a b*h's tiles in reverse,
+// longest rows first; that is the order the default tiles were tuned
+// under (b*h fastest, b*h on x and tiles on y, measured 1.7 % slower in dq
+// at the LM's main shape; PERF.md).
+struct GridTile {
+  int bh, tile, n;
+};
+
+__device__ __forceinline__ GridTile grid_tile(int rows, int T) {
+  const int n = (T + rows - 1) / rows;
+  return {(int)blockIdx.x / n, (int)blockIdx.x % n, n};
+}
+
+// Blocks of that grid for bh rows of T; 0 when they pass 2^31 - 1.
+inline unsigned grid_blocks(int bh, int T, int rows) {
+  const long long n = (long long)bh * ((T + rows - 1) / rows);
+  return n > INT_MAX ? 0u : (unsigned)n;
+}
 
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
@@ -182,31 +354,43 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 // interleave one's softmax with the other's products.  At head_dim 64 a
 // block takes the whole SM, which gives its consumers 240 registers and
 // room for 128-key tiles; PERF.md has the variants this was chosen from.
-template <int D, int WG>
+// A tile takes as many stages as shared memory holds, at most the counts
+// chosen for the default tiles (3 at head_dim 64, 2 at 128).
+template <int D, int WG, int BK>
 struct FwdSmem {
   static constexpr int BM = 64 * WG;
-  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
-  static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr int BLOCKS = WG == 2 ? 1 : 2;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int STAGES =
+      cmin(D == 64 ? 3 : 2,
+           (smem_budget(BLOCKS) - Q_BYTES - 1024 - 128) / STAGE_BYTES);
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(STAGES >= 1 && BYTES <= smem_budget(BLOCKS),
+                "forward tile does not fit in shared memory");
 };
 
 // Online softmax of one score tile (the accumulator of S = Q K^T, BK keys
 // from k0) for this thread's two rows: masks the tile unless it is full,
 // updates the running max m (base 2) and this thread's share of the row
 // sums l, leaves p in s, and returns in alpha the factor the output
-// accumulator is to be rescaled by.
-template <int BK>
+// accumulator is to be rescaled by.  SCALED (a scale that is not positive)
+// scales the scores first, so that the row max is that of the scaled
+// scores; otherwise the max is taken of the raw ones and scaled after.
+template <int BK, bool SCALED>
 __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2],
                                                const Mask& mk, int r0,
                                                int row0, int k0, int t,
                                                float sl2) {
+  if (SCALED) {
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) s[x] *= sl2;
+    sl2 = 1.f;
+  }
   if (!tile_full(mk, r0, 64, k0, BK)) {
 #pragma unroll
     for (int x = 0; x < BK / 2; ++x) {
@@ -216,7 +400,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    // row max of the raw scores (the scale is positive), in 4 chains
+    // row max of the raw scores (of the scaled ones on the SCALED route),
+    // in 4 chains
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j)
@@ -245,15 +430,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
   }
 }
 
-template <int D, int WG>
-__global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
+template <typename E, int D, int WG, int BK, bool SCALED>
+__global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG, BK>::BLOCKS)
     fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
-               bf16* __restrict__ o, float* __restrict__ lse, int group,
+               E* __restrict__ o, float* __restrict__ lse, int group, int ld,
                float scale, Mask mk) {
-  using S = FwdSmem<D, WG>;
-  constexpr int BM = S::BM, BK = S::BK, STAGES = S::STAGES;
+  using S = FwdSmem<D, WG, BK>;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sQ = hopper::smem_addr(aligned_smem(smem_raw));
   const uint32_t sKV = sQ + S::Q_BYTES;  // stage s: K, then V
@@ -261,8 +446,9 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
   const uint32_t q_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const GridTile gt = grid_tile(BM, T);
+  const int bh = gt.bh;
+  const int q0 = (gt.n - 1 - gt.tile) * BM;  // longest rows first
   int lo, n_sink, n_iter;
   key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
 
@@ -326,13 +512,13 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      hopper::wgmma_ss(sc, hopper::desc_k(sQw, BM, kk),
-                       hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
     hopper::wg_commit();
     hopper::wg_wait();
     hopper::wg_fence_regs(sc);
 
-    online_softmax<BK>(sc, m, l, alpha, mk, r0, row0, k0, t, sl2);
+    online_softmax<BK, SCALED>(sc, m, l, alpha, mk, r0, row0, k0, t, sl2);
 #pragma unroll
     for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
@@ -340,13 +526,13 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
     }
     uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(pa[kk], sc, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int h = 0; h < D / 64; ++h)
-        hopper::wgmma_rs64(acc[h], pa[kk], hopper::desc_mn(sv, BK, kk, h));
+        hopper::Mma<E>::rs64(acc[h], pa[kk], hopper::desc_mn(sv, BK, kk, h));
     }
     hopper::wg_commit();
     hopper::wg_wait();
@@ -362,14 +548,15 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
     const int i = row0 + 8 * h;
     if (i >= T) continue;
     const float inv = l[h] > 0.f ? 1.f / l[h] : 1.f;
-    bf16* op = o + ((size_t)bh * T + i) * D;
+    E* op = o + ((size_t)bh * T + i) * ld;
 #pragma unroll
     for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(op + dh * 64 + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(acc[dh][4 * j + 2 * h] * inv,
-                                  acc[dh][4 * j + 2 * h + 1] * inv);
+        const int c = dh * 64 + 8 * j + 2 * t;
+        if (c < ld)
+          store2(op + c, acc[dh][4 * j + 2 * h] * inv,
+                 acc[dh][4 * j + 2 * h + 1] * inv);
       }
     }
     if (lse != nullptr && t == 0) {
@@ -404,33 +591,36 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG>::BLOCKS)
 // consumers' 240 registers (232 with two blocks per SM); the element mask
 // takes per-row bounds (mask_tile), since Mask::live on each element made
 // the compiler hold 64 results in registers and spill.  Two consumer
-// warpgroups keep four stages in flight (PERF.md has the variants this was
-// chosen from).
-template <int D, int WG>
+// warpgroups keep up to four stages in flight (PERF.md has the variants
+// this was chosen from).
+template <int D, int WG, int BK>
 struct DqSmem {
   static constexpr int BM = 64 * WG;
-  static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile
   static constexpr int BLOCKS = WG == 2 ? 1 : 2;
-  // two blocks of one warpgroup share an SM's 227 KB
-  static constexpr int STAGES = WG == 2 ? 4 : 2;
   static constexpr int QT_BYTES = BM * D * 2;  // the Q or dO tile
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int RING_OFF = 2 * QT_BYTES;
+  // two blocks of one warpgroup share an SM's 227 KB
+  static constexpr int STAGES =
+      cmin(WG == 2 ? 4 : 2,
+           (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) / STAGE_BYTES);
   static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(STAGES >= 1 && BYTES <= smem_budget(BLOCKS),
+                "dq tile does not fit in shared memory");
 };
 
-template <int D, int WG>
-__global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
+template <typename E, int D, int WG, int BK>
+__global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG, BK>::BLOCKS)
     dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
               const __grid_constant__ CUtensorMap map_do,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int group, float scale, Mask mk) {
-  using S = DqSmem<D, WG>;
-  constexpr int BM = S::BM, BK = S::BK, STAGES = S::STAGES;
+              E* __restrict__ dq, int group, int ld, float scale, Mask mk) {
+  using S = DqSmem<D, WG, BK>;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sQ = hopper::smem_addr(aligned_smem(smem_raw));
   const uint32_t sdO = sQ + S::QT_BYTES;
@@ -439,8 +629,9 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
   const uint32_t q_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;  // longest rows first
+  const GridTile gt = grid_tile(BM, T);
+  const int bh = gt.bh;
+  const int q0 = (gt.n - 1 - gt.tile) * BM;  // longest rows first
   int lo, n_sink, n_iter;
   key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
 
@@ -509,10 +700,10 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      hopper::wgmma_ss(sc, hopper::desc_k(sQw, BM, kk),
-                       hopper::desc_k(sk, BK, kk), kk > 0);
-      hopper::wgmma_ss(dp, hopper::desc_k(sdOw, BM, kk),
-                       hopper::desc_k(sv, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(dp, hopper::desc_k(sdOw, BM, kk),
+                         hopper::desc_k(sv, BK, kk), kk > 0);
     }
     hopper::wg_commit();
     hopper::wg_wait();
@@ -528,14 +719,14 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
       dp[x] = sc[x] * (dp[x] - dl[(x >> 1) & 1]);  // ds
     uint32_t da[BK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a(da[kk], dp, kk);
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(da[kk], dp, kk);
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
       for (int h = 0; h < D / 64; ++h)
-        hopper::wgmma_rs64(dq_acc[h], da[kk],
-                           hopper::desc_mn(sk, BK, kk, h));
+        hopper::Mma<E>::rs64(dq_acc[h], da[kk],
+                             hopper::desc_mn(sk, BK, kk, h));
     }
     hopper::wg_commit();
     hopper::wg_wait();
@@ -548,14 +739,15 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
   for (int h = 0; h < 2; ++h) {
     const int i = row0 + 8 * h;
     if (i >= T) continue;
-    bf16* out = dq + ((size_t)bh * T + i) * D;
+    E* out = dq + ((size_t)bh * T + i) * ld;
 #pragma unroll
     for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        *reinterpret_cast<__nv_bfloat162*>(out + dh * 64 + 8 * j + 2 * t) =
-            __floats2bfloat162_rn(dq_acc[dh][4 * j + 2 * h] * scale,
-                                  dq_acc[dh][4 * j + 2 * h + 1] * scale);
+        const int c = dh * 64 + 8 * j + 2 * t;
+        if (c < ld)
+          store2(out + c, dq_acc[dh][4 * j + 2 * h] * scale,
+                 dq_acc[dh][4 * j + 2 * h + 1] * scale);
       }
     }
   }
@@ -577,35 +769,37 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG>::BLOCKS)
 // full, then dV += P^T dO and dK += dS^T Q with P^T and dS^T from
 // registers and dO, Q read as stored through the transpose bit.  The GQA
 // sum stays inside the block (no atomics, deterministic).  dk is written
-// times scale.  BQ is 32 at head_dim 128 so that the two [64 x 128]
-// accumulators and the two [64 x BQ] score tiles fit in registers.
-// Bound: operations (4 products).
-template <int D, int WG>
+// times scale.  At head_dim 128 the query step is 32 so that the two
+// [64 x 128] accumulators and the two [64 x BQ] score tiles fit in
+// registers.  Bound: operations (4 products).
+template <int D, int WG, int BQ>
 struct DkvSmem {
   static constexpr int BM = 64 * WG;
-  static constexpr int BQ = D == 64 ? 64 : 32;
-  static constexpr int STAGES = 3;
   static constexpr int BLOCKS = WG == 2 ? 1 : 2;
   static constexpr int KV_BYTES = BM * D * 2;  // K or V
   static constexpr int QT_BYTES = BQ * D * 2;  // Q or dO tile
   static constexpr int STAGE_BYTES =
       (2 * QT_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int RING_OFF = 2 * KV_BYTES;
+  static constexpr int STAGES =
+      cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) / STAGE_BYTES);
   static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+  static_assert(STAGES >= 1 && BYTES <= smem_budget(BLOCKS),
+                "dk/dv tile does not fit in shared memory");
 };
 
-template <int D, int WG>
-__global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
+template <typename E, int D, int WG, int BQ>
+__global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
     dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                const __grid_constant__ CUtensorMap map_do,
                const float* __restrict__ lse, const float* __restrict__ delta,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
-               int kv_heads, float scale, Mask mk) {
-  using S = DkvSmem<D, WG>;
-  constexpr int BM = S::BM, BQ = S::BQ, STAGES = S::STAGES;
+               E* __restrict__ dk, E* __restrict__ dv, int heads,
+               int kv_heads, int ld, float scale, Mask mk) {
+  using S = DkvSmem<D, WG, BQ>;
+  constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sK = hopper::smem_addr(smem);
@@ -615,21 +809,14 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
   const uint32_t kv_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
-  const int bkv = blockIdx.y;
-  const int k0 = blockIdx.x * BM;
+  const GridTile gt = grid_tile(BM, T);
+  const int bkv = gt.bh;
+  const int k0 = gt.tile * BM;
   const int group = heads / kv_heads;
   // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
   const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
-
-  // Query tiles that can see this key tile: from the diagonal (causal) to
-  // the last query the window reaches; a tile holding sink keys is seen by
-  // every later query, so it keeps the full range.
-  const int n_qt = (T + BQ - 1) / BQ;
-  const int qlo = mk.causal ? k0 / BQ : 0;
-  int qhi = n_qt;
-  if (mk.window > 0 && !(mk.sink > 0 && k0 < mk.sink)) {
-    qhi = min(n_qt, min(T - 1, k0 + BM - 1 + mk.window - 1) / BQ + 1);
-  }
+  int qlo, qhi;
+  query_tiles<BQ>(k0, BM, mk, &qlo, &qhi);
   const int nq = qhi - qlo;
   const int n_iter = group * nq;
 
@@ -709,10 +896,10 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      hopper::wgmma_ss(sc, hopper::desc_k(sKw, BM, kk),
-                       hopper::desc_k(sq, BQ, kk), kk > 0);
-      hopper::wgmma_ss(dp, hopper::desc_k(sVw, BM, kk),
-                       hopper::desc_k(sdo, BQ, kk), kk > 0);
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sKw, BM, kk),
+                         hopper::desc_k(sq, BQ, kk), kk > 0);
+      hopper::Mma<E>::ss(dp, hopper::desc_k(sVw, BM, kk),
+                         hopper::desc_k(sdo, BQ, kk), kk > 0);
     }
     hopper::wg_commit();
     hopper::wg_wait();
@@ -740,16 +927,18 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      acc_to_a(pa[kk], sc, kk);
-      acc_to_a(da[kk], dp, kk);
+      acc_to_a<E>(pa[kk], sc, kk);
+      acc_to_a<E>(da[kk], dp, kk);
     }
     hopper::wg_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
       for (int h = 0; h < D / 64; ++h) {
-        hopper::wgmma_rs64(dv_acc[h], pa[kk], hopper::desc_mn(sdo, BQ, kk, h));
-        hopper::wgmma_rs64(dk_acc[h], da[kk], hopper::desc_mn(sq, BQ, kk, h));
+        hopper::Mma<E>::rs64(dv_acc[h], pa[kk],
+                             hopper::desc_mn(sdo, BQ, kk, h));
+        hopper::Mma<E>::rs64(dk_acc[h], da[kk],
+                             hopper::desc_mn(sq, BQ, kk, h));
       }
     }
     hopper::wg_commit();
@@ -766,125 +955,589 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG>::BLOCKS)
   for (int h = 0; h < 2; ++h) {
     const int j = key[h];
     if (j >= T) continue;
-    const size_t off = ((size_t)bkv * T + j) * D;
+    const size_t off = ((size_t)bkv * T + j) * ld;
 #pragma unroll
     for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
         const int x = 4 * n + 2 * h;
-        *reinterpret_cast<__nv_bfloat162*>(dk + off + dh * 64 + 8 * n +
-                                           2 * t) =
-            __floats2bfloat162_rn(dk_acc[dh][x] * scale,
-                                  dk_acc[dh][x + 1] * scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + off + dh * 64 + 8 * n +
-                                           2 * t) =
-            __floats2bfloat162_rn(dv_acc[dh][x], dv_acc[dh][x + 1]);
+        const int c = dh * 64 + 8 * n + 2 * t;
+        if (c < ld) {
+          store2(dk + off + c, dk_acc[dh][x] * scale,
+                 dk_acc[dh][x + 1] * scale);
+          store2(dv + off + c, dv_acc[dh][x], dv_acc[dh][x + 1]);
+        }
       }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// Launchers: dynamic shared memory (above 48 KB needs the opt-in), grid
-// (row tiles, b*heads) on the caller's stream; each returns the launch error.
-// Each launcher first encodes its tensor maps (a few microseconds of host
-// time per call); a failed encoding returns TENSOR_MAP_ERROR + its
-// CUresult.
+// Launchers of the tensor-core kernels: dynamic shared memory (above 48 KB
+// needs the opt-in), grid (b*heads, row tiles) on the caller's stream; each
+// returns the launch error.  Each launcher first encodes its tensor maps (a
+// few microseconds of host time per call); a failed encoding returns
+// TENSOR_MAP_ERROR + its CUresult.
 
-constexpr int TENSOR_MAP_ERROR = 100000;
-
-struct FwdArgs {
-  const bf16 *q, *k, *v;
-  bf16* o;
-  float* lse;
-  int group;
-  float scale;
-  Mask mk;
-};
-
-template <int D, int WG>
+template <typename E, int D, int WG, int BK, bool SCALED>
 int fwd(int bh, const FwdArgs& a, cudaStream_t stream) {
-  using S = FwdSmem<D, WG>;
+  using S = FwdSmem<D, WG, BK>;
   const int T = a.mk.T;
-  if (!(a.scale > 0.f)) return (int)cudaErrorInvalidValue;  // max of raw s
+  const CUtensorMapDataType ty = Elt<E>::MAP;
   CUtensorMap map_q, map_k, map_v;
   int e;
-  if ((e = hopper::tile_map(&map_q, a.q, bh, T, D, S::BM)) ||
-      (e = hopper::tile_map(&map_k, a.k, bh / a.group, T, D, S::BK)) ||
-      (e = hopper::tile_map(&map_v, a.v, bh / a.group, T, D, S::BK)))
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / a.group, T, a.ld, BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / a.group, T, a.ld, BK)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = fwd_kernel<D, WG>;
+  auto kernel = fwd_kernel<E, D, WG, BK, SCALED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + S::BM - 1) / S::BM, bh);
+  const unsigned grid = grid_blocks(bh, T, S::BM);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
-      map_q, map_k, map_v, a.o, a.lse, a.group, a.scale, a.mk);
+      map_q, map_k, map_v, static_cast<E*>(a.o), a.lse, a.group, a.ld,
+      a.scale, a.mk);
   return (int)cudaGetLastError();
 }
 
-struct BwdArgs {
-  const bf16 *q, *k, *v, *dout;
-  const float *lse, *delta;
-  bf16 *dq, *dk, *dv;
-  int heads, kv_heads;
-  float scale;
-  Mask mk;
-};
-
-template <int D, int WG>
+template <typename E, int D, int WG, int BK>
 int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
-  using S = DqSmem<D, WG>;
+  using S = DqSmem<D, WG, BK>;
   const int T = a.mk.T;
   const int group = a.heads / a.kv_heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
   CUtensorMap map_q, map_k, map_v, map_do;
   int e;
-  if ((e = hopper::tile_map(&map_q, a.q, bh, T, D, S::BM)) ||
-      (e = hopper::tile_map(&map_k, a.k, bh / group, T, D, S::BK)) ||
-      (e = hopper::tile_map(&map_v, a.v, bh / group, T, D, S::BK)) ||
-      (e = hopper::tile_map(&map_do, a.dout, bh, T, D, S::BM)))
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / group, T, a.ld, BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / group, T, a.ld, BK)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BM)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = dq_kernel<D, WG>;
+  auto kernel = dq_kernel<E, D, WG, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + S::BM - 1) / S::BM, bh);
+  const unsigned grid = grid_blocks(bh, T, S::BM);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
-      map_q, map_k, map_v, map_do, a.lse, a.delta, a.dq, group, a.scale,
-      a.mk);
+      map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dq),
+      group, a.ld, a.scale, a.mk);
   return (int)cudaGetLastError();
 }
 
-template <int D, int WG>
+template <typename E, int D, int WG, int BQ>
 int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
-  using S = DkvSmem<D, WG>;
+  using S = DkvSmem<D, WG, BQ>;
   const int T = a.mk.T;
   const int bh = bkv / a.kv_heads * a.heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
   CUtensorMap map_q, map_k, map_v, map_do;
   int e;
-  if ((e = hopper::tile_map(&map_q, a.q, bh, T, D, S::BQ)) ||
-      (e = hopper::tile_map(&map_k, a.k, bkv, T, D, S::BM)) ||
-      (e = hopper::tile_map(&map_v, a.v, bkv, T, D, S::BM)) ||
-      (e = hopper::tile_map(&map_do, a.dout, bh, T, D, S::BQ)))
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, BQ)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, BQ)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = dkv_kernel<D, WG>;
+  auto kernel = dkv_kernel<E, D, WG, BQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + S::BM - 1) / S::BM, bkv);
+  const unsigned grid = grid_blocks(bkv, T, S::BM);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
   kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
-      map_q, map_k, map_v, map_do, a.lse, a.delta, a.dk, a.dv, a.heads,
-      a.kv_heads, a.scale, a.mk);
+      map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dk),
+      static_cast<E*>(a.dv), a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+// The instantiated tiles of the tensor-core kernels (rows per block, step),
+// by head-dim class; ops/attention.py's INSTANTIATED is the same table.
+//   forward, dq  D 64: rows {64, 128} x key step {64, 128}
+//                D 128: rows {64, 128} x key step {64}
+//   dk/dv        D 64: key rows {64, 128} x query step {32, 64}
+//                D 128: key rows {64, 128} x query step {32}
+// Left out, each for registers: a 256-key step (the forward's spilled 520-
+// 604 bytes under ptxas, with S as 128 f32 a thread, at both row counts;
+// dq's S and dP alone would take 256 registers), dk/dv's 64-query step at
+// head_dim 128 (its two [64 x 128] accumulators and two [64 x 64] score
+// tiles), and a 128-key step at head_dim 128 for dq (S, dP and dQ, 192
+// registers, besides dS's 32) and for the forward, which keeps dq's steps so
+// that one block_k means the same tiles in both and the default pair (128,
+// 128) keeps the tiles the kernels were tuned at.
+template <typename E, bool SCALED>
+int forward_tiles(int bh, const FwdArgs& a, int rows, int step,
+                  cudaStream_t st) {
+  const int dc = a.ld % 8 ? 0 : head_class(a.ld);
+#define FA_FWD(DC, R, K)                  \
+  if (dc == DC && rows == R && step == K) \
+    return fwd<E, DC, R / 64, K, SCALED>(bh, a, st);
+  FA_FWD(64, 64, 64)
+  FA_FWD(64, 64, 128)
+  FA_FWD(64, 128, 64)
+  FA_FWD(64, 128, 128)
+  FA_FWD(128, 64, 64)
+  FA_FWD(128, 128, 64)
+#undef FA_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename E>
+int dq_tiles(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st) {
+  const int dc = a.ld % 8 ? 0 : head_class(a.ld);
+#define FA_DQ(DC, R, K)                 \
+  if (dc == DC && rows == R && step == K) \
+    return dq<E, DC, R / 64, K>(bh, a, st);
+  FA_DQ(64, 64, 64)
+  FA_DQ(64, 64, 128)
+  FA_DQ(64, 128, 64)
+  FA_DQ(64, 128, 128)
+  FA_DQ(128, 64, 64)
+  FA_DQ(128, 128, 64)
+#undef FA_DQ
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename E>
+int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
+              cudaStream_t st) {
+  const int dc = a.ld % 8 ? 0 : head_class(a.ld);
+#define FA_DKV(DC, R, Q)                \
+  if (dc == DC && rows == R && step == Q) \
+    return dkv<E, DC, R / 64, Q>(bkv, a, st);
+  FA_DKV(64, 64, 32)
+  FA_DKV(64, 64, 64)
+  FA_DKV(64, 128, 32)
+  FA_DKV(64, 128, 64)
+  FA_DKV(128, 64, 32)
+  FA_DKV(128, 128, 32)
+#undef FA_DKV
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// f32: one SIMT kernel for each of the three.  The Pallas kernels compute
+// in f32, and tf32 wgmma would round the products to 10-bit mantissas, so
+// these take f32 products and f32 sums on the CUDA cores, one step at a
+// time between two barriers: right, and not tuned.
+//
+// A block of F32_THREADS threads owns F32_ROWS rows (query rows in the
+// forward and dq, key rows in dk/dv) of one b*h (b*kv_head for dk/dv), and
+// walks the same tiles as the tensor-core kernels (key_tiles, query_tiles)
+// F32_STEP keys or queries at a time.  Thread 2r + h works on row r with its
+// partner 2r + 1 - h in the same warp: per step the pair splits the step's
+// columns (thread h takes 2j + h, so the two read neighbouring shared-memory
+// rows) and the output columns (thread h takes [h * DMAX / 2, (h + 1) *
+// DMAX / 2)), and trades the step's p (or ds) with one shuffle.  Tiles are
+// stored with a row stride of DMAX + 1 floats, so the 16 rows a warp reads
+// lie in 16 banks.  The mask is Mask::live on every element, and exp is
+// expf.  Bound: operations on the f32 pipes (67 TFLOP/s on an H100 SXM),
+// far from reached.
+constexpr int F32_ROWS = 64;
+constexpr int F32_STEP = 32;
+constexpr int F32_THREADS = 128;
+
+// Rows [row0, row0 + n) of a [T, ld] f32 slab into a [n][DMAX + 1] tile,
+// with zeros for the rows past T and the columns past ld.
+template <int DMAX>
+__device__ __forceinline__ void f32_load(float* tile,
+                                         const float* __restrict__ src,
+                                         int row0, int n, int T, int ld) {
+  for (int x = threadIdx.x; x < n * DMAX; x += F32_THREADS) {
+    const int r = x / DMAX, c = x % DMAX, i = row0 + r;
+    tile[r * (DMAX + 1) + c] =
+        i < T && c < ld ? src[(size_t)i * ld + c] : 0.f;
+  }
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(F32_THREADS)
+    fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o,
+                   float* __restrict__ lse, int group, int ld, float scale,
+                   Mask mk) {
+  constexpr int SD = DMAX + 1, J = F32_STEP / 2, C = DMAX / 2;
+  extern __shared__ float f32_smem[];
+  float* sQ = f32_smem;             // [F32_ROWS][SD]
+  float* sK = sQ + F32_ROWS * SD;   // [F32_STEP][SD]
+  float* sV = sK + F32_STEP * SD;   // [F32_STEP][SD]
+  const int T = mk.T;
+  const GridTile gt = grid_tile(F32_ROWS, T);
+  const int bh = gt.bh, bkv = bh / group;
+  const int q0 = (gt.n - 1 - gt.tile) * F32_ROWS;
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
+  int lo, n_sink, n_iter;
+  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
+
+  f32_load<DMAX>(sQ, q + (size_t)bh * T * ld, q0, F32_ROWS, T, ld);
+  float m = -INFINITY, l = 0.f, acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
+    __syncthreads();
+    f32_load<DMAX>(sK, k + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
+    f32_load<DMAX>(sV, v + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
+    __syncthreads();
+    float s[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = 0.f;
+    for (int d = 0; d < ld; ++d) {
+      const float qd = sQ[r * SD + d];
+#pragma unroll
+      for (int j = 0; j < J; ++j)
+        s[j] = fmaf(qd, sK[(2 * j + h) * SD + d], s[j]);
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s[j] = mk.live(i, k0 + 2 * j + h) ? s[j] * scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = expf(m - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s[j] = expf(s[j] - m_use);
+      sum += s[j];
+    }
+    l = l * alpha + sum;
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] *= alpha;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float pm = s[j], po = __shfl_xor_sync(0xffffffffu, s[j], 1);
+      const float* vm = sV + (2 * j + h) * SD + h * C;
+      const float* vo = sV + (2 * j + 1 - h) * SD + h * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[c] = fmaf(pm, vm[c], fmaf(po, vo[c], acc[c]));
+    }
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  if (i >= T) return;
+  const float inv = l > 0.f ? 1.f / l : 1.f;
+  float* op = o + ((size_t)bh * T + i) * ld + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (h * C + c < ld) op[c] = acc[c] * inv;
+  if (lse != nullptr && h == 0)
+    lse[(size_t)bh * T + i] = l > 0.f ? m + logf(l) : 0.f;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(F32_THREADS)
+    dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int group, int ld, float scale, Mask mk) {
+  constexpr int SD = DMAX + 1, J = F32_STEP / 2, C = DMAX / 2;
+  extern __shared__ float f32_smem[];
+  float* sQ = f32_smem;              // [F32_ROWS][SD]
+  float* sdO = sQ + F32_ROWS * SD;   // [F32_ROWS][SD]
+  float* sK = sdO + F32_ROWS * SD;   // [F32_STEP][SD]
+  float* sV = sK + F32_STEP * SD;    // [F32_STEP][SD]
+  const int T = mk.T;
+  const GridTile gt = grid_tile(F32_ROWS, T);
+  const int bh = gt.bh, bkv = bh / group;
+  const int q0 = (gt.n - 1 - gt.tile) * F32_ROWS;
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
+  int lo, n_sink, n_iter;
+  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
+
+  f32_load<DMAX>(sQ, q + (size_t)bh * T * ld, q0, F32_ROWS, T, ld);
+  f32_load<DMAX>(sdO, dout + (size_t)bh * T * ld, q0, F32_ROWS, T, ld);
+  const float lse_i = i < T ? lse[(size_t)bh * T + i] : 0.f;
+  const float dl = i < T ? delta[(size_t)bh * T + i] : 0.f;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
+    __syncthreads();
+    f32_load<DMAX>(sK, k + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
+    f32_load<DMAX>(sV, v + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
+    __syncthreads();
+    float s[J], dp[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < ld; ++d) {
+      const float qd = sQ[r * SD + d], gd = sdO[r * SD + d];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s[j] = fmaf(qd, sK[(2 * j + h) * SD + d], s[j]);
+        dp[j] = fmaf(gd, sV[(2 * j + h) * SD + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float p =
+          mk.live(i, k0 + 2 * j + h) ? expf(s[j] * scale - lse_i) : 0.f;
+      s[j] = p * (dp[j] - dl);  // ds
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float dsm = s[j], dso = __shfl_xor_sync(0xffffffffu, s[j], 1);
+      const float* km = sK + (2 * j + h) * SD + h * C;
+      const float* ko = sK + (2 * j + 1 - h) * SD + h * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[c] = fmaf(dsm, km[c], fmaf(dso, ko[c], acc[c]));
+    }
+  }
+  if (i >= T) return;
+  float* out = dq + ((size_t)bh * T + i) * ld + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (h * C + c < ld) out[c] = acc[c] * scale;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(F32_THREADS)
+    dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int heads, int kv_heads, int ld,
+                   float scale, Mask mk) {
+  constexpr int SD = DMAX + 1, J = F32_STEP / 2, C = DMAX / 2;
+  extern __shared__ float f32_smem[];
+  float* sK = f32_smem;              // [F32_ROWS][SD]
+  float* sV = sK + F32_ROWS * SD;    // [F32_ROWS][SD]
+  float* sQ = sV + F32_ROWS * SD;    // [F32_STEP][SD]
+  float* sdO = sQ + F32_STEP * SD;   // [F32_STEP][SD]
+  float* sL = sdO + F32_STEP * SD;   // lse[F32_STEP], delta[F32_STEP]
+  const int T = mk.T;
+  const GridTile gt = grid_tile(F32_ROWS, T);
+  const int bkv = gt.bh, k0 = gt.tile * F32_ROWS;
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, key = k0 + r;
+  const int group = heads / kv_heads;
+  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+  int qlo, qhi;
+  query_tiles<F32_STEP>(k0, F32_ROWS, mk, &qlo, &qhi);
+  const int nq = qhi - qlo, n_iter = group * nq;
+
+  f32_load<DMAX>(sK, k + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
+  f32_load<DMAX>(sV, v + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
+  float dk_acc[C], dv_acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * F32_STEP;
+    __syncthreads();
+    f32_load<DMAX>(sQ, q + (size_t)bh * T * ld, q0, F32_STEP, T, ld);
+    f32_load<DMAX>(sdO, dout + (size_t)bh * T * ld, q0, F32_STEP, T, ld);
+    if (threadIdx.x < F32_STEP) {
+      const int qi = q0 + threadIdx.x;
+      sL[threadIdx.x] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+      sL[F32_STEP + threadIdx.x] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+    }
+    __syncthreads();
+    float s[J], dp[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
+    for (int d = 0; d < ld; ++d) {
+      const float kd = sK[r * SD + d], vd = sV[r * SD + d];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        s[j] = fmaf(kd, sQ[(2 * j + h) * SD + d], s[j]);
+        dp[j] = fmaf(vd, sdO[(2 * j + h) * SD + d], dp[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = 2 * j + h;
+      const float p =
+          mk.live(q0 + c, key) ? expf(s[j] * scale - sL[c]) : 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - sL[F32_STEP + c]);  // ds
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float pm = s[j], po = __shfl_xor_sync(0xffffffffu, s[j], 1);
+      const float dsm = dp[j], dso = __shfl_xor_sync(0xffffffffu, dp[j], 1);
+      const int om = (2 * j + h) * SD + h * C;
+      const int oo = (2 * j + 1 - h) * SD + h * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        dv_acc[c] = fmaf(pm, sdO[om + c], fmaf(po, sdO[oo + c], dv_acc[c]));
+        dk_acc[c] = fmaf(dsm, sQ[om + c], fmaf(dso, sQ[oo + c], dk_acc[c]));
+      }
+    }
+  }
+  if (key >= T) return;
+  const size_t off = ((size_t)bkv * T + key) * ld + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (h * C + c < ld) {
+      dk[off + c] = dk_acc[c] * scale;
+      dv[off + c] = dv_acc[c];
+    }
+  }
+}
+
+// f32 launchers (dynamic shared memory above 48 KB, as above).
+
+template <int DMAX>
+int launch_fwd_f32(int bh, const FwdArgs& a, cudaStream_t st) {
+  const int bytes = (F32_ROWS + 2 * F32_STEP) * (DMAX + 1) * 4;
+  auto kernel = fwd_f32_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = grid_blocks(bh, a.mk.T, F32_ROWS);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_THREADS, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
+      a.group, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_dq_f32(int bh, const BwdArgs& a, cudaStream_t st) {
+  const int bytes = (2 * F32_ROWS + 2 * F32_STEP) * (DMAX + 1) * 4;
+  auto kernel = dq_f32_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = grid_blocks(bh, a.mk.T, F32_ROWS);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_THREADS, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.heads / a.kv_heads, a.ld,
+      a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
+  const int bytes =
+      ((2 * F32_ROWS + 2 * F32_STEP) * (DMAX + 1) + 2 * F32_STEP) * 4;
+  auto kernel = dkv_f32_kernel<DMAX>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = grid_blocks(bkv, a.mk.T, F32_ROWS);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_THREADS, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.heads, a.kv_heads, a.ld, a.scale, a.mk);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // ---------------------------------------------------------------------------
+// The parts.
+
+#if FA_IN_PART(1)
+int fa::forward_bf16(int bh, const FwdArgs& a, int rows, int step,
+                     cudaStream_t st) {
+  return forward_tiles<bf16, false>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(2)
+int fa::forward_bf16_scaled(int bh, const FwdArgs& a, int rows, int step,
+                            cudaStream_t st) {
+  return forward_tiles<bf16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(3)
+int fa::forward_f16(int bh, const FwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  return forward_tiles<f16, false>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(4)
+int fa::forward_f16_scaled(int bh, const FwdArgs& a, int rows, int step,
+                           cudaStream_t st) {
+  return forward_tiles<f16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(5)
+int fa::dq_bf16(int bh, const BwdArgs& a, int rows, int step,
+                cudaStream_t st) {
+  return dq_tiles<bf16>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(6)
+int fa::dq_f16(int bh, const BwdArgs& a, int rows, int step,
+               cudaStream_t st) {
+  return dq_tiles<f16>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(7)
+int fa::dkv_bf16(int bkv, const BwdArgs& a, int rows, int step,
+                 cudaStream_t st) {
+  return dkv_tiles<bf16>(bkv, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(8)
+int fa::dkv_f16(int bkv, const BwdArgs& a, int rows, int step,
+                cudaStream_t st) {
+  return dkv_tiles<f16>(bkv, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(9)
+// the one f32 tile (F32_ROWS, F32_STEP), at head-dim class 64 or 128
+int fa::forward_f32(int bh, const FwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
+  switch (head_class(a.ld)) {
+    case 64: return launch_fwd_f32<64>(bh, a, st);
+    case 128: return launch_fwd_f32<128>(bh, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+int fa::dq_f32(int bh, const BwdArgs& a, int rows, int step,
+               cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
+  switch (head_class(a.ld)) {
+    case 64: return launch_dq_f32<64>(bh, a, st);
+    case 128: return launch_dq_f32<128>(bh, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+int fa::dkv_f32(int bkv, const BwdArgs& a, int rows, int step,
+                cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
+  switch (head_class(a.ld)) {
+    case 64: return launch_dkv_f32<64>(bkv, a, st);
+    case 128: return launch_dkv_f32<128>(bkv, a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+#endif
+
+#if FA_IN_PART(10)
+// ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
-// head_dim in {64, 128} and warps in {4, 8} (rows per block = 16 * warps:
-// one or two consumer warpgroups of 64 rows) are the instantiated shapes;
-// anything else returns cudaErrorInvalidValue.
+// dtype: 0 bf16, 1 fp16, 2 f32 (q, k, v, dO and the outputs alike; lse and
+// delta f32).  head_dim is the stored head dim; rows and step the tile
+// (rows per block, step of the reduction loop); scaled the forward's route.
+// A dtype, head dim or tile that has no instantiation returns
+// cudaErrorInvalidValue.
+
+enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
 extern "C" const char* fa_error_string(int err) {
   static char buf[96];
@@ -898,17 +1551,29 @@ extern "C" const char* fa_error_string(int err) {
 
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           void* lse, int bh, int heads, int kv_heads, int T,
-                          int head_dim, int warps, float scale, int causal,
-                          int window, int sink, void* stream) {
-  FwdArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v),  static_cast<bf16*>(o),
-            static_cast<float*>(lse),     heads / kv_heads,
-            scale,                        Mask{T, causal, window, sink}};
+                          int head_dim, int dtype, int rows, int step,
+                          int scaled, float scale, int causal, int window,
+                          int sink, void* stream) {
+  const FwdArgs a{q,
+                  k,
+                  v,
+                  o,
+                  static_cast<float*>(lse),
+                  heads / kv_heads,
+                  head_dim,
+                  scale,
+                  Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64 && warps == 4) return fwd<64, 1>(bh, a, st);
-  if (head_dim == 64 && warps == 8) return fwd<64, 2>(bh, a, st);
-  if (head_dim == 128 && warps == 4) return fwd<128, 1>(bh, a, st);
-  if (head_dim == 128 && warps == 8) return fwd<128, 2>(bh, a, st);
+  if (!scaled && !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  switch (dtype) {
+    case FA_BF16:
+      return (scaled ? fa::forward_bf16_scaled : fa::forward_bf16)(
+          bh, a, rows, step, st);
+    case FA_F16:
+      return (scaled ? fa::forward_f16_scaled : fa::forward_f16)(
+          bh, a, rows, step, st);
+    case FA_F32: return fa::forward_f32(bh, a, rows, step, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -916,20 +1581,29 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, void* dq_out, int bh,
                               int heads, int kv_heads, int T, int head_dim,
-                              int warps, float scale, int causal, int window,
-                              int sink, void* stream) {
-  BwdArgs a{static_cast<const bf16*>(q),     static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v),     static_cast<const bf16*>(dout),
-            static_cast<const float*>(lse),  static_cast<const float*>(delta),
-            static_cast<bf16*>(dq_out),      nullptr,
-            nullptr,                         heads,
-            kv_heads,                        scale,
-            Mask{T, causal, window, sink}};
+                              int dtype, int rows, int step, float scale,
+                              int causal, int window, int sink,
+                              void* stream) {
+  const BwdArgs a{q,
+                  k,
+                  v,
+                  dout,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  dq_out,
+                  nullptr,
+                  nullptr,
+                  heads,
+                  kv_heads,
+                  head_dim,
+                  scale,
+                  Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64 && warps == 4) return dq<64, 1>(bh, a, st);
-  if (head_dim == 64 && warps == 8) return dq<64, 2>(bh, a, st);
-  if (head_dim == 128 && warps == 4) return dq<128, 1>(bh, a, st);
-  if (head_dim == 128 && warps == 8) return dq<128, 2>(bh, a, st);
+  switch (dtype) {
+    case FA_BF16: return fa::dq_bf16(bh, a, rows, step, st);
+    case FA_F16: return fa::dq_f16(bh, a, rows, step, st);
+    case FA_F32: return fa::dq_f32(bh, a, rows, step, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -937,20 +1611,29 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk_out, void* dv_out,
                                int bkv, int heads, int kv_heads, int T,
-                               int head_dim, int warps, float scale,
-                               int causal, int window, int sink,
+                               int head_dim, int dtype, int rows, int step,
+                               float scale, int causal, int window, int sink,
                                void* stream) {
-  BwdArgs a{static_cast<const bf16*>(q),     static_cast<const bf16*>(k),
-            static_cast<const bf16*>(v),     static_cast<const bf16*>(dout),
-            static_cast<const float*>(lse),  static_cast<const float*>(delta),
-            nullptr,                         static_cast<bf16*>(dk_out),
-            static_cast<bf16*>(dv_out),      heads,
-            kv_heads,                        scale,
-            Mask{T, causal, window, sink}};
+  const BwdArgs a{q,
+                  k,
+                  v,
+                  dout,
+                  static_cast<const float*>(lse),
+                  static_cast<const float*>(delta),
+                  nullptr,
+                  dk_out,
+                  dv_out,
+                  heads,
+                  kv_heads,
+                  head_dim,
+                  scale,
+                  Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64 && warps == 4) return dkv<64, 1>(bkv, a, st);
-  if (head_dim == 64 && warps == 8) return dkv<64, 2>(bkv, a, st);
-  if (head_dim == 128 && warps == 4) return dkv<128, 1>(bkv, a, st);
-  if (head_dim == 128 && warps == 8) return dkv<128, 2>(bkv, a, st);
+  switch (dtype) {
+    case FA_BF16: return fa::dkv_bf16(bkv, a, rows, step, st);
+    case FA_F16: return fa::dkv_f16(bkv, a, rows, step, st);
+    case FA_F32: return fa::dkv_f32(bkv, a, rows, step, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
+#endif

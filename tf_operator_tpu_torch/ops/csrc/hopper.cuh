@@ -3,13 +3,16 @@
 // wgmma products the kernels issue.  Plain PTX through asm volatile; no
 // CUTLASS/CuTe templates, so a build stays a matter of seconds.
 //
-// Shared-memory tiles are 128-byte swizzled: a tile of `rows` x D bf16 is
-// stored as D/64 column blocks of [rows][64], each row one 128-byte line
-// whose 16-byte chunk c sits at chunk c ^ (row % 8) (what TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_128B).  Every column block starts on 1024 bytes.
+// Shared-memory tiles are 128-byte swizzled: a tile of `rows` x D 16-bit
+// elements (bf16 or fp16) is stored as D/64 column blocks of [rows][64],
+// each row one 128-byte line whose 16-byte chunk c sits at chunk c ^ (row %
+// 8) (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B).  Every column block
+// starts on 1024 bytes.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <dlfcn.h>
 #include <stdint.h>
@@ -17,10 +20,14 @@
 namespace hopper {
 
 // ---------------------------------------------------------------------------
-// Tensor maps (host).  A [n, T, D] bf16 tensor is mapped in 3-D so that the
-// zero fill of a box reaching past row T stops at that head's end: rows
-// past T of one head never read the next head's rows, and nothing is
-// padded in memory.  Boxes are 64 columns (one 128-byte line) by `rows`.
+// Tensor maps (host).  A [n, T, ld] tensor of 16-bit elements is mapped in
+// 3-D so that the zero fill of a box reaching past row T stops at that
+// head's end: rows past T of one head never read the next head's rows, and
+// nothing is padded in memory.  Boxes are 64 columns (one 128-byte line) by
+// `rows`.  The stored head dim ld (a multiple of 8: TMA takes row strides
+// in multiples of 16 bytes) may be narrower than the kernel's head-dim
+// class D (64 or 128): the columns of a box past ld are zero-filled too, so
+// a product over them adds nothing.
 
 // cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has
 // already loaded, so it is looked up there rather than linked.
@@ -42,17 +49,17 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Returns 0, or the CUresult (or -1 when the entry point is missing).
-inline int tile_map(CUtensorMap* map, const void* base, int n, int T, int D,
-                    int rows) {
+inline int tile_map(CUtensorMap* map, CUtensorMapDataType type,
+                    const void* base, int n, int T, int ld, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -1;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)T, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)T * D * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)ld, (cuuint64_t)T, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)T * ld * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return (int)fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-                 const_cast<void*>(base), dims, strides, box, elem,
-                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return (int)fn(map, type, 3, const_cast<void*>(base), dims, strides, box,
+                 elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                 CU_TENSOR_MAP_SWIZZLE_128B,
                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
@@ -216,64 +223,77 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 #define HOPPER_F16(d, i) \
   HOPPER_F4(d, i), HOPPER_F4(d, i + 4), HOPPER_F4(d, i + 8), \
       HOPPER_F4(d, i + 12)
+#define HOPPER_F64(d, i) \
+  HOPPER_F16(d, i), HOPPER_F16(d, i + 16), HOPPER_F16(d, i + 32), \
+      HOPPER_F16(d, i + 48)
+#define HOPPER_D16 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15" "}"
+#define HOPPER_D32 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31" "}"
+#define HOPPER_D64 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
+  "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, " \
+  "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, " \
+  "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63" "}"
 
-// d[64 x 32] (+)= A[64 x 16] B[16 x 32], both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_F16(d, 0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
+// The products for one element type E (__nv_bfloat16: "bf16", __half:
+// "f16"); f32 accumulators in both.
+//   ss: d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory,
+//       K-major; N = 2 x the accumulator's length (32, 64 or 128).
+//   rs64: d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the
+//       accumulator layout of a previous product, rounded to E), B from
+//       shared memory MN-major (the transpose bit).
+template <typename E>
+struct Mma;
 
-// d[64 x 64] (+)= A[64 x 16] B[16 x 64], both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
-                                           uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_F16(d, 0), HOPPER_F16(d, 16)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
+#define HOPPER_MMA_SS(N, R, A, B, P, TY, OUTS)                              \
+  static __device__ __forceinline__ void ss(float(&d)[R], uint64_t a,        \
+                                            uint64_t b, int accumulate) {    \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #P ", 0;\n"            \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+                 " " HOPPER_D##R ", %" #A ", %" #B ", p, 1, 1, 0, 0;\n}\n"    \
+                 : OUTS                                                      \
+                 : "l"(a), "l"(b), "r"(accumulate));                         \
+  }
 
-// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a,
-                                         uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, "
-      "0, 0;\n}\n"
-      : HOPPER_F16(d, 0), HOPPER_F16(d, 16), HOPPER_F16(d, 32),
-        HOPPER_F16(d, 48)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
+#define HOPPER_MMA(TY)                                                       \
+  HOPPER_MMA_SS(32, 16, 16, 17, 18, TY, HOPPER_F16(d, 0))                    \
+  HOPPER_MMA_SS(64, 32, 32, 33, 34, TY,                                      \
+                HOPPER_F16(d, 0) HOPPER_COMMA HOPPER_F16(d, 16))             \
+  HOPPER_MMA_SS(128, 64, 64, 65, 66, TY, HOPPER_F64(d, 0))                   \
+  static __device__ __forceinline__ void rs64(float(&d)[32],                 \
+                                              const uint32_t(&a)[4],         \
+                                              uint64_t b) {                  \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                \
+                 "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY     \
+                 " " HOPPER_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"\
+                 : HOPPER_F16(d, 0), HOPPER_F16(d, 16)                       \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                   "r"(1));                                                  \
+  }
 
-// d[64 x 64] += A[64 x 16] B[16 x 64]: A from registers (the accumulator
-// layout of a previous product, rounded to bf16), B from shared memory
-// MN-major (the transpose bit).
-__device__ __forceinline__ void wgmma_rs64(float (&d)[32], const uint32_t (&a)[4],
-                                           uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : HOPPER_F16(d, 0), HOPPER_F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
+#define HOPPER_COMMA ,
+template <>
+struct Mma<__nv_bfloat16> {
+  HOPPER_MMA("bf16")
+};
+template <>
+struct Mma<__half> {
+  HOPPER_MMA("f16")
+};
 
+#undef HOPPER_COMMA
+#undef HOPPER_MMA
+#undef HOPPER_MMA_SS
+#undef HOPPER_D64
+#undef HOPPER_D32
+#undef HOPPER_D16
+#undef HOPPER_F64
 #undef HOPPER_F16
 #undef HOPPER_F4
 

@@ -101,7 +101,8 @@ class _FlashHops(torch.autograd.Function):
         for src, k_blk, v_blk in _live_hops(my_idx, n, causal, blocks):
             o, lse = flash_forward(q, k_blk, v_blk, scale=scale,
                                    causal=causal and src == my_idx,
-                                   window=None, sink=0, block_q=block_q)
+                                   window=None, sink=0, block_q=block_q,
+                                   block_k=block_k)
             # NEG_INF (never -inf) keeps exp(acc - new) finite
             new_lse = torch.logaddexp(acc_lse, lse)
             acc_o.mul_(torch.exp(acc_lse - new_lse)[..., None])
@@ -123,10 +124,11 @@ class _FlashHops(torch.autograd.Function):
             opts = dict(scale=scale, causal=causal and src == my_idx,
                         window=None, sink=0)
             dq += flash_backward_dq(q, k_blk, v_blk, do, lse, delta,
-                                    block_q=block_q, **opts)
+                                    block_q=block_q, block_k=block_k, **opts)
             step = (my_idx - src) % n
             grads[2 * step], grads[2 * step + 1] = flash_backward_dkv(
-                q, k_blk, v_blk, do, lse, delta, block_k=block_k, **opts)
+                q, k_blk, v_blk, do, lse, delta, block_q=block_q,
+                block_k=block_k, **opts)
         return (dq.to(q.dtype), None, None, None, None, *grads)
 
 
