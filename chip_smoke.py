@@ -178,6 +178,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            tokens/s, peak memory, and each kernel's launches held to the
            schedule's count (M x 12 each; 1F1B's forward kernel twice
            that)
+  hlo      the eleventh path: `analysis/hlo.capture_workload` at full
+           width (each workload's own `build` at its defaults) over a
+           one-rank NCCL group with the ZeRO knob (dense at dp 1): one
+           recorded step each of GPT-small (B 8, T 2048), ViT-B/16
+           (B 256), BERT-base (B 32) and ResNet-50 in bf16 (B 256, SGD
+           momentum), each printing its collective signature, the peak
+           (over a plain step, net of what the process held before),
+           resident bytes and the admission lower bound, and the kernels'
+           launches in the recorded step; held: no finding under the
+           card's memory, peak >= the lower bound, half the peak fires
+           hlo-memory-infeasible alone, 12 launches of each kernel in
+           the transformer steps, the gradient all-reduce over a group
+           of 1; then `python -m tf_operator_tpu_torch.analysis --hlo
+           all --devices 1`, its rank on the card, exit 0
 
 The last lines are the card line, one JSON object with every kernel's
 numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
@@ -2886,6 +2900,131 @@ def phase_pipeline(card: str):
               f"before the step) [{card}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the eleventh path: the train step's collective inventory and its rules
+
+# (workload, what its defaults are, each kernel's launches a step)
+HLO_RUNS = (("lm", "GPT-small, B 8, T 2048", 12),
+            ("vit", "ViT-B/16, B 256", 12),
+            ("bert", "BERT-base, B 32, T 128", 12),
+            ("resnet", "ResNet-50 in bf16, B 256, SGD momentum", 0))
+HLO_CLI_LINE = re.compile(r"^(lm|resnet|bert|vit): \d+ collective\(s\) over "
+                          r"1 rank\(s\); (\w+) peak (\d+) B", re.M)
+
+
+def phase_hlo(card: str):
+    """The eleventh path: `analysis/hlo.capture_workload` at full width
+    (each workload's own `build` at its defaults) over a one-rank NCCL
+    group with the ZeRO knob (dense at dp 1: the JAX workload builds no
+    plan there): one recorded step each of GPT-small, ViT-B/16, BERT-base
+    and ResNet-50.  Prints each signature, the peak (`max_memory_allocated`
+    over the recorded step), the resident bytes and the admission lower
+    bound, and the kernels' launches in the recorded step.  Holds: no
+    finding under the card's whole memory; peak >=
+    `admission_peak_lower_bound` (its "never a false positive"); a budget
+    of half the peak fires hlo-memory-infeasible once and nothing else;
+    each kernel launched 12 times in the transformer steps (none in
+    ResNet's); the gradient all-reduce over a group of 1.  Then the CLI,
+    `python -m tf_operator_tpu_torch.analysis --hlo all --devices 1`, as a
+    user runs it: its rank on the card over NCCL, no finding under the
+    card's memory, every capture's peak measured on cuda."""
+    import gc
+
+    import torch
+
+    from tf_operator_tpu_torch.analysis import hlo
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.workloads.runner import WorkloadContext
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    gib = 2 ** 30
+    with one_rank_group({"TPUJOB_ZERO_SHARD_WEIGHT_UPDATE": "1"}):
+        zero = WorkloadContext.from_env().zero_shard_weight_update
+        if not zero:
+            raise RuntimeError("hlo: the ZeRO knob did not reach the "
+                               "workload context")
+        for name, what, launches in HLO_RUNS:
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            cap = hlo.capture_workload(
+                name, 1, zero=zero, device_memory_budget_bytes=total,
+                full_width=True)
+            seconds = time.perf_counter() - t0
+            mem, moments = cap.memory, cap.moments_per_param
+            bound = hlo.admission_peak_lower_bound(
+                cap.n_params, moments_per_param=moments)
+            print(f"hlo {name} ({what}): signature "
+                  f"{json.dumps(hlo.workload_signature(cap), sort_keys=True)}",
+                  flush=True)
+            print(f"hlo {name}: peak {mem.peak_bytes / gib:.3f} GiB, resident "
+                  f"{mem.resident_bytes / gib:.3f} GiB, admission lower bound "
+                  f"{bound / gib:.3f} GiB ({cap.n_params} params x "
+                  f"{8 + 4 * moments} B); peak / bound "
+                  f"{mem.peak_bytes / bound:.3f}; kernel launches in the "
+                  f"recorded step {cap.program.kernel_launches}; "
+                  f"{seconds:.1f} s [{card}]", flush=True)
+            problems = []
+            if mem.device != "cuda":
+                problems.append(f"measured on {mem.device}")
+            findings = hlo.check_capture(cap)
+            if findings:
+                problems.append("findings under the card's "
+                                f"{total} B: {[f.render() for f in findings]}")
+            if not mem.peak_bytes >= mem.resident_bytes >= bound:
+                problems.append(f"peak {mem.peak_bytes} >= resident "
+                                f"{mem.resident_bytes} >= lower bound {bound}"
+                                " does not hold")
+            cap.device_memory_budget_bytes = mem.peak_bytes // 2
+            half = [f.rule for f in hlo.check_capture(cap)]
+            if half != [hlo.RULE_HLO_MEMORY_INFEASIBLE]:
+                problems.append(f"half the peak fired {half}")
+            want = {fn.__name__: launches for fn in A.KERNELS}
+            if cap.program.kernel_launches != want:
+                problems.append(f"launches {cap.program.kernel_launches}, "
+                                f"expected {want}")
+            grads = [op for op in cap.program.by_kind("all-reduce")
+                     if op.group_size == 1
+                     and op.op_name.startswith(
+                         "tf_operator_tpu_torch/parallel/shard.py:")]
+            if not grads:
+                problems.append("no gradient all-reduce over a group of 1 "
+                                f"in {cap.program.collectives}")
+            if cap.plan is not None:
+                problems.append("a ZeRO plan at dp 1")
+            if problems:
+                raise RuntimeError(f"hlo {name}: " + "; ".join(problems))
+            print(f"hlo {name}: no finding under {total / gib:.2f} GiB, peak "
+                  f">= resident >= the admission lower bound, half the peak "
+                  f"fires {half} alone, the gradient all-reduce "
+                  f"{grads[0].result_shapes} over a group of 1 from "
+                  f"{grads[0].op_name}", flush=True)
+            del cap
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    cli = subprocess.run(
+        [sys.executable, "-m", "tf_operator_tpu_torch.analysis", "--hlo",
+         "all", "--devices", "1"], cwd=here, env=dict(env, PYTHONPATH=here),
+        capture_output=True, text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    print(cli.stdout, end="", flush=True)
+    lines = HLO_CLI_LINE.findall(cli.stdout)
+    if (cli.returncode != 0
+            or "0 HLO finding(s) over 4 recorded train step(s)"
+            not in cli.stdout
+            or sorted(n for n, _, _ in lines) != sorted(hlo.TRAIN_WORKLOADS)
+            or any(device != "cuda" for _, device, _ in lines)):
+        raise RuntimeError(f"hlo: the CLI exited {cli.returncode} "
+                           f"(captures {lines}):\n{cli.stdout}\n"
+                           f"{cli.stderr[-4000:]}")
+    print(f"hlo cli: --hlo all --devices 1 exit 0 in {seconds:.1f} s, every "
+          f"capture on cuda, peaks {[int(peak) for _, _, peak in lines]} B "
+          f"[{card}]", flush=True)
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--pod-child"]:
@@ -2968,6 +3107,7 @@ def main(argv=None) -> int:
     timed(phase_decode, card)
     timed(phase_moe, card, args.out_dir)
     timed(phase_pipeline, card)
+    timed(phase_hlo, card)
 
     print(f"every phase passed in {time.perf_counter() - t_start:.1f} s",
           flush=True)

@@ -663,3 +663,48 @@ def test_lookup_table_gradient_repeats_bit_for_bit(cuda):
     torch.testing.assert_close(grads[0][0].double(), want, rtol=1e-5,
                                atol=1e-3)
     assert not grads[0][1].any()
+
+
+@pytest.mark.cuda
+def test_tiny_lm_capture_on_the_card_bounds_and_inventory(cuda):
+    """`analysis/hlo.capture_workload("lm", 1)` over a one-rank NCCL group:
+    peak (max_memory_allocated over the recorded step) >= resident >= the
+    admission lower bound, no finding, each kernel launched once per layer,
+    and the inventory equal to the same capture's over a one-rank gloo
+    group on the CPU."""
+    import torch.distributed as dist
+
+    from chip_smoke import free_port
+    from tf_operator_tpu_torch.analysis import hlo
+
+    caps = {}
+    for backend in ("gloo", "nccl"):
+        if backend == "nccl":
+            torch.cuda.set_device(0)
+        dist.init_process_group(
+            backend, init_method=f"tcp://127.0.0.1:{free_port()}",
+            world_size=1, rank=0)
+        try:
+            caps[backend] = hlo.capture_workload("lm", 1)
+        finally:
+            dist.destroy_process_group()
+    card, cpu = caps["nccl"], caps["gloo"]
+    mem = card.memory
+    bound = hlo.admission_peak_lower_bound(card.n_params,
+                                           moments_per_param=2)
+    print(f"tiny lm on the card: peak {mem.peak_bytes} B, resident "
+          f"{mem.resident_bytes} B, lower bound {bound} B; on the CPU "
+          f"resident {cpu.memory.resident_bytes} B")
+    assert (mem.device, cpu.memory.device) == ("cuda", "cpu")
+    assert mem.peak_bytes >= mem.resident_bytes >= bound
+    assert hlo.check_capture(card) == []
+    assert card.program.kernel_launches == {
+        fn.__name__: 2 for fn in A.KERNELS}
+
+    def inventory(cap):
+        return [(op.kind, op.operand_shapes, op.result_shapes,
+                 op.group_size, op.asynchronous, op.op_name)
+                for op in cap.program.collectives]
+
+    assert inventory(card) == inventory(cpu)
+    assert hlo.workload_signature(card) == hlo.workload_signature(cpu)

@@ -11,7 +11,7 @@ once.
     python tests/torch_dist_worker.py JOB RANK WORLD STORE OUT_DIR
 
 A job is {"kind": "attention" | "lm" | "classify" | "shard" | "decode" |
-"pipeline" | "encoder", "cases": [...]}, saved with torch.save (a case's
+"pipeline" | "encoder" | "hlo", "cases": [...]}, saved with torch.save (a case's
 own "kind" overrides the job's); each case's result goes into the rank's
 result file under the case's name.
 
@@ -443,6 +443,127 @@ REPLICA_LINE = re.compile(r"^replica (\d+) step (\d+) loss (\S+) batch (\w+) "
                           r"params (\w+)$", re.M)
 
 
+def _hlo_summary(cap) -> dict:
+    from tf_operator_tpu_torch.analysis import hlo
+
+    findings = hlo.check_capture(cap)
+    return {
+        "workload": cap.workload,
+        "signature": hlo.workload_signature(cap),
+        "findings": [[f.rule, f.path, f.line, f.message] for f in findings],
+        "plan": cap.plan is not None,
+        "pairs": [["/".join(p.path), list(p.shard_dims), list(p.base_dims),
+                   p.overlap] for p in cap.update_pairs],
+        "ops": [[o.kind, [[d, list(s)] for d, s in o.operand_shapes],
+                 [[d, list(s)] for d, s in o.result_shapes], o.group_size,
+                 o.num_groups, o.asynchronous, o.op_name]
+                for o in cap.program.collectives],
+        "unpaired": cap.program.unpaired_starts,
+    }
+
+
+def _hlo_script(world: int) -> dict:
+    """A scripted sequence of every recorded entry point, sync and async,
+    one async all-reduce never waited on."""
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.analysis import hlo
+    from tf_operator_tpu_torch.parallel.dist import shift
+
+    rank = dist.get_rank()
+    pair, _ = dist.new_subgroups_by_enumeration(
+        [list(range(i, i + 2)) for i in range(0, world, 2)])
+    x = torch.arange(16 * 32, dtype=torch.float32).reshape(16, 32) + rank
+    with hlo.CollectiveRecorder() as rec:
+        dist.all_reduce(x)
+        gathered = torch.empty(16 * world, 32)
+        dist.all_gather_into_tensor(gathered, x, async_op=True).wait()
+        dist.reduce_scatter_tensor(torch.empty(16 // world, 32), x)
+        dist.all_gather([torch.empty(8) for _ in range(world)], torch.ones(8))
+        dist.all_to_all_single(torch.empty(16, 32), x)
+        dist.broadcast(torch.ones(3, dtype=torch.int64), 0)
+        dist.all_reduce(torch.ones(6), group=pair)
+        shift([torch.ones(5)], dist.group.WORLD, 1)
+        buf = torch.empty(2)
+        sent = dist.isend(torch.ones(2), (rank + 1) % world)
+        got = dist.irecv(buf, (rank - 1) % world)
+        sent.wait()
+        got.wait()
+        late = dist.all_reduce(torch.ones(1), async_op=True)
+    unpaired = rec.unpaired_starts
+    late.wait()
+    program = hlo.HloProgram(collectives=tuple(rec.ops), resident=(),
+                             unpaired_starts=unpaired)
+    return {"ops": [[o.kind, [[d, list(s)] for d, s in o.operand_shapes],
+                     [[d, list(s)] for d, s in o.result_shapes],
+                     o.group_size, o.num_groups, o.asynchronous, o.op_name]
+                    for o in rec.ops],
+            "unpaired": unpaired,
+            "signature": hlo.collective_signature(program),
+            "gathered": gathered.sum().item()}
+
+
+def _hlo_error(fn) -> dict:
+    try:
+        fn()
+    except RuntimeError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+def hlo_case(case: dict) -> dict:
+    """`analysis/hlo.py` in this world: a scripted inventory, a workload's
+    or a fixture's capture (checked here, where the anchor files are), or
+    a capture that must raise; the result as one JSON string."""
+    import json
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.analysis import hlo
+
+    world = dist.get_world_size()
+    what = case["what"]
+    if what == "script":
+        out = _hlo_script(world)
+    elif what == "workload":
+        out = _hlo_summary(hlo.capture_workload(
+            case["workload"], world, zero=case["zero"]))
+    elif what == "fixture":
+        out = [_hlo_summary(c)
+               for c in hlo.capture_from_file(case["path"], world)]
+    elif what == "bypass":
+        # an entry point bound before the recording started
+        bound = dist.all_reduce
+
+        def bypass():
+            with hlo.CollectiveRecorder():
+                bound(torch.ones(2))
+        out = _hlo_error(bypass)
+    elif what == "functional":
+        import torch.distributed._functional_collectives as funcol
+
+        def functional():
+            with hlo.CollectiveRecorder():
+                funcol.all_reduce(torch.ones(2), "sum",
+                                  dist.group.WORLD).sum()
+        out = _hlo_error(functional)
+    elif what == "diverge":
+        own = [dist.new_group([r]) for r in range(world)]
+        built = hlo.build_workload("lm")
+        base = built.step
+
+        def step(state, batch):
+            out = base(state, batch)
+            if dist.get_rank() == 1:  # one rank's extra collective
+                dist.all_reduce(torch.ones(3), group=own[1])
+            return out
+        out = _hlo_error(lambda: hlo.capture_program(step, built.state,
+                                                     built.batch))
+    else:
+        raise ValueError(what)
+    return {"json": json.dumps(out)}
+
+
 def run_workload(name: str, native: str, argv) -> int:
     """Workload `name`'s main on `argv`, every rank printing after each step
     `replica RANK step I loss L batch B params P`: its own loss and digests
@@ -519,7 +640,7 @@ def main(job_file, rank, world, store, out_dir) -> None:
         run = {"attention": attention_case, "lm": lm_case,
                "classify": classify_case, "shard": shard_case,
                "decode": decode_case, "pipeline": pipeline_case,
-               "encoder": encoder_case}
+               "encoder": encoder_case, "hlo": hlo_case}
         results = {case["name"]: run[case.get("kind", job["kind"])](case)
                    for case in job["cases"]}
         torch.save(results, Path(out_dir) / f"out_{rank}.pt")

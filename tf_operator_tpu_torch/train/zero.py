@@ -53,8 +53,8 @@ class PlanEntry:
     dim: Optional[int]  # the dim dp shards, None = replicated over dp
     base: tuple  # the param's own (tp/fsdp) spec
     spec: tuple  # base + dp on `dim`: the optimizer state's spec
-    # declares the entry's weight-update collectives overlappable (the
-    # JAX package's HLO lint checks it; nothing here sets it yet)
+    # declares the entry's weight-update collectives overlappable
+    # (`ZeroShardingPlan.with_overlap`; `analysis/hlo.py` checks it)
     overlap: bool = False
 
 
@@ -95,6 +95,19 @@ class ZeroShardingPlan:
                 ],
             },
             separators=(",", ":"),
+        )
+
+    def with_overlap(self) -> "ZeroShardingPlan":
+        """A copy whose sharded entries are marked overlappable: the
+        declaration the `hlo-sync-collective` rule (`analysis/hlo.py`)
+        holds the step's weight-update gathers to."""
+        return dataclasses.replace(
+            self,
+            entries=tuple(
+                dataclasses.replace(e, overlap=True) if e.dim is not None
+                else e
+                for e in self.entries
+            ),
         )
 
     @classmethod

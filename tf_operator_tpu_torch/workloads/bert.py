@@ -24,7 +24,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    from .runner import add_profile_args
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=50)
     parser.add_argument("--batch", type=int, default=32)
@@ -33,12 +35,15 @@ def main(argv=None) -> int:
     parser.add_argument("--layers", type=int, default=12)
     parser.add_argument("--d-model", type=int, default=768)
     parser.add_argument("--log-every", type=int, default=10)
-    from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, pod_say,
-                         process_group, split_batch)
-
     add_profile_args(parser)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    from .runner import (WorkloadContext, apply_forced_platform, plan_mesh,
+                         pod_say, process_group, split_batch)
+
+    args = parser().parse_args(argv)
 
     try:
         device = apply_forced_platform()
@@ -65,42 +70,54 @@ def main(argv=None) -> int:
         return _train(args, ctx, device, mesh, layout)
 
 
-def _train(args, ctx, device, mesh, layout) -> int:
+def build(args, mesh, seed: int = 0):
+    """BERT-base at `args`' widths with two labels, AdamW and the
+    reference's token and label stream (`np.random.RandomState(seed)`),
+    over `mesh` (None: one process); a `runner.WorkloadParts`."""
     import numpy as np
 
     from ..models.transformer import BertEncoder, bert_base_config
-    from ..train.data import prefetch_to_device
     from ..train.optim import adamw
-    from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_rows)
-    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
-                         say, train_state_on_mesh)
+    from ..train.step import classification_loss_fn
+    from .runner import WorkloadParts
 
     cfg = bert_base_config(
         num_layers=args.layers, d_model=args.d_model,
         num_heads=max(1, args.d_model // 64), d_ff=args.d_model * 4,
         max_len=args.seq_len, mesh=mesh)
     model = BertEncoder(cfg, num_labels=2)
-    state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
-                                ctx.zero_shard_weight_update)
-    if state is None:
-        return 2
-    step = make_train_step(classification_loss_fn(model), mesh=mesh)
-
-    rng = np.random.RandomState(ctx.replica_index)
+    rng = np.random.RandomState(seed)
 
     def batches():
         while True:
-            batch = {
+            yield {
                 "x": rng.randint(
                     0, cfg.vocab_size, (args.batch, args.seq_len)
                 ).astype(np.int32),
                 "label": rng.randint(0, 2, args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_rows(batch, state.sharding)
 
+    return WorkloadParts(model=model, tx=adamw(args.lr),
+                  loss=classification_loss_fn(model), batches=batches(),
+                  moments_per_param=2)
+
+
+def _train(args, ctx, device, mesh, layout) -> int:
+    from ..train.data import prefetch_to_device
+    from ..train.step import make_train_step, shard_rows
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
+
+    parts = build(args, mesh, seed=ctx.replica_index)
+    state = train_state_on_mesh(parts.model, parts.tx, device, mesh,
+                                layout, ctx.zero_shard_weight_update)
+    if state is None:
+        return 2
+    step = make_train_step(parts.loss, mesh=mesh)
+    batches = parts.batches if mesh is None else (
+        shard_rows(b, state.sharding) for b in parts.batches)
     run_steps(state, step,
-              same_batch_over_replicas(prefetch_to_device(batches(), device),
+              same_batch_over_replicas(prefetch_to_device(batches, device),
                                        state.sharding),
               steps=args.steps, device=device, log_every=args.log_every,
               profile=ProfileCapture(args.profile_dir, args.profile_start,

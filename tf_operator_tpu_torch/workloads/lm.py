@@ -30,7 +30,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    from .runner import add_profile_args
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=8)
@@ -65,8 +67,6 @@ def main(argv=None) -> int:
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="enable MoE with this many experts")
     parser.add_argument("--moe-aux-weight", type=float, default=0.01)
-    from .runner import add_profile_args
-
     add_profile_args(parser)
     parser.add_argument("--arch", choices=("gpt", "llama"), default="gpt",
                         help="gpt: learned positions + LayerNorm + GELU; "
@@ -96,7 +96,11 @@ def main(argv=None) -> int:
     parser.add_argument("--sample-tokens", type=int, default=0,
                         help="after training, greedily generate this many "
                              "tokens with the KV-cache decode path")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     from .runner import (WorkloadContext, apply_forced_platform, plan_mesh,
                          pod_say)
@@ -145,18 +149,36 @@ def main(argv=None) -> int:
         pod_say(f"--seq-len {args.seq_len} must divide by sp={sp}")
         return 2
 
+    try:
+        cfg, tx = config(args, layout, pod_say)
+    except ValueError as e:
+        pod_say(str(e))
+        return 2
+    from .runner import process_group
+
+    with process_group(ctx, device, layout) as mesh:
+        return _train(args, cfg, tx, device, mesh, layout, zero,
+                      ctx.world, SAMPLE_PROMPT_LEN)
+
+
+def config(args, layout, say):
+    """The model config and the optimizer recipe that `args` ask for,
+    over `layout` (the mesh, or its layout before the group forms);
+    `say` prints the warnings.  Raises ValueError with the line the
+    workload exits 2 on."""
     from ..models.transformer import TransformerConfig
     from ..train.optim import lm_optimizer
 
+    tp = 1 if layout is None else layout.shape.get("tp", 1)
     heads = max(1, args.d_model // 64)
     extra = {}
     d_ff = args.d_model * 4
     if args.arch != "llama" and args.rope_scaling != "none":
         # explicit input is honored or rejected, never silently dropped:
         # only the llama arch uses RoPE, so scaling has nothing to scale
-        pod_say(f"--rope-scaling {args.rope_scaling} requires --arch llama "
-                "(the gpt arch uses learned positions, not RoPE)")
-        return 2
+        raise ValueError(
+            f"--rope-scaling {args.rope_scaling} requires --arch llama "
+            "(the gpt arch uses learned positions, not RoPE)")
     if args.arch == "llama":
         if args.kv_heads:
             kv = args.kv_heads
@@ -171,10 +193,9 @@ def main(argv=None) -> int:
             elif heads % tp == 0 and kv % tp:
                 problem = f"must be divisible by tp={tp}"
             if problem:
-                pod_say(f"--kv-heads {kv} {problem}")
-                return 2
+                raise ValueError(f"--kv-heads {kv} {problem}")
             if heads % tp:
-                pod_say(f"warning: num_heads {heads} not divisible by "
+                say(f"warning: num_heads {heads} not divisible by "
                         f"tp={tp}; attention projections will replicate")
         elif heads % tp:
             # the heads do not shard over tp (the projections replicate),
@@ -182,7 +203,7 @@ def main(argv=None) -> int:
             kv = max(1, heads // 3)
             while heads % kv:
                 kv -= 1
-            pod_say(f"warning: num_heads {heads} not divisible by tp={tp}; "
+            say(f"warning: num_heads {heads} not divisible by tp={tp}; "
                     f"attention projections will replicate")
         else:
             # derived default: largest kv <= heads // 3 that divides heads
@@ -200,8 +221,6 @@ def main(argv=None) -> int:
         # to the 2-matrix GELU MLP at 4*d_model
         d_ff = args.d_model * 8 // 3
     try:
-        # validated against the mesh's layout; the model gets the mesh over
-        # the process group once this process has joined it
         cfg = TransformerConfig(
             vocab_size=args.vocab, num_layers=args.layers,
             num_heads=heads, d_model=args.d_model,
@@ -212,8 +231,7 @@ def main(argv=None) -> int:
             kv_cache_dtype=args.kv_cache_dtype, **extra,
         )
     except ValueError as e:
-        pod_say(f"invalid model config: {e}")
-        return 2
+        raise ValueError(f"invalid model config: {e}") from e
     try:
         tx = lm_optimizer(
             args.lr, schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
@@ -221,13 +239,35 @@ def main(argv=None) -> int:
             grad_clip=args.grad_clip,
         )
     except ValueError as e:
-        pod_say(f"invalid optimizer config: {e}")
-        return 2
-    from .runner import process_group
+        raise ValueError(f"invalid optimizer config: {e}") from e
+    return cfg, tx
 
-    with process_group(ctx, device, layout) as mesh:
-        return _train(args, cfg, tx, device, mesh, layout, zero,
-                      ctx.world, SAMPLE_PROMPT_LEN)
+
+def build(args, mesh, seed: int = 0):
+    """The LM, its optimizer recipe, loss and the synthetic token stream
+    (`train/data.synthetic_tokens(seed)`) that `args` ask for, over `mesh`
+    (or a layout without a group); a `runner.WorkloadParts`.  Raises
+    ValueError as `config` does."""
+    cfg, tx = config(args, mesh, lambda line: None)
+    return _parts(args, cfg, tx, seed)
+
+
+def _parts(args, cfg, tx, seed: int = 0):
+    from ..models.transformer import TransformerLM
+    from ..train.data import synthetic_tokens
+    from ..train.step import lm_loss_fn
+    from .runner import WorkloadParts
+
+    model = TransformerLM(cfg)
+    loss = lm_loss_fn(
+        model,
+        moe_aux_weight=args.moe_aux_weight if args.moe_experts else 0.0,
+        loss_chunk=args.loss_chunk)
+    # every rank draws the same global stream and keeps its shard
+    return WorkloadParts(model=model, tx=tx, loss=loss,
+                  batches=synthetic_tokens(args.batch, args.seq_len + 1,
+                                           args.vocab, seed),
+                  moments_per_param=2)
 
 
 def _train(args, cfg, tx, device, mesh, layout, zero, ranks: int,
@@ -239,16 +279,15 @@ def _train(args, cfg, tx, device, mesh, layout, zero, ranks: int,
     line, as every process of the JAX workload does."""
     import dataclasses
 
-    from ..models.transformer import TransformerLM
     from ..train.data import prefetch_to_device, synthetic_tokens
-    from ..train.step import lm_loss_fn, make_train_step, shard_batch
+    from ..train.step import make_train_step, shard_batch
     from .runner import (ProfileCapture, StepTimer, say,
                          train_state_on_mesh)
 
     if mesh is not None:
         cfg = dataclasses.replace(cfg, mesh=mesh)
-    state = train_state_on_mesh(TransformerLM(cfg), tx, device, mesh, layout,
-                                zero)
+    parts = _parts(args, cfg, tx)
+    state = train_state_on_mesh(parts.model, tx, device, mesh, layout, zero)
     if state is None:
         return 2
     mgr = None
@@ -260,14 +299,9 @@ def _train(args, cfg, tx, device, mesh, layout, zero, ranks: int,
         if mgr.latest_step() is not None:
             say(f"resumed from step {state.step}")
 
-    step = make_train_step(
-        lm_loss_fn(state.model,
-                   moe_aux_weight=(args.moe_aux_weight if args.moe_experts
-                                   else 0.0),
-                   loss_chunk=args.loss_chunk),
-        grad_accum=args.grad_accum, mesh=mesh)
-    # every rank draws the same global stream and keeps its shard
-    batches = synthetic_tokens(args.batch, args.seq_len + 1, args.vocab)
+    step = make_train_step(parts.loss, grad_accum=args.grad_accum,
+                           mesh=mesh)
+    batches = parts.batches
     if mesh is not None:
         batches = (shard_batch(b, state.sharding, args.grad_accum) for b in batches)
     data = prefetch_to_device(batches, device)

@@ -33,7 +33,9 @@ import argparse
 import sys
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    from .runner import add_profile_args
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=256)
@@ -43,12 +45,15 @@ def main(argv=None) -> int:
     parser.add_argument("--depth", type=int, default=50,
                         choices=(18, 34, 50, 101, 152))
     parser.add_argument("--log-every", type=int, default=10)
-    from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, pod_say,
-                         process_group, split_batch)
-
     add_profile_args(parser)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    from .runner import (WorkloadContext, apply_forced_platform, plan_mesh,
+                         pod_say, process_group, split_batch)
+
+    args = parser().parse_args(argv)
 
     try:
         device = apply_forced_platform()
@@ -71,22 +76,29 @@ def main(argv=None) -> int:
                       ctx.zero_shard_weight_update)
 
 
-def _train(args, device, mesh, layout, zero) -> int:
+def _bf16_images(batch):
+    import torch
+
+    return {**batch, "x": batch["x"].to(torch.bfloat16)}
+
+
+def build(args, mesh, seed: int = 0):
+    """ResNet-`args.depth` computing in bf16, its BatchNorm sums over the
+    mesh's data ranks (dp and fsdp), SGD with momentum 0.9 and the image
+    stream (`native_data.images_or_fallback`: f32 on the host, cast to
+    bf16 on the device), over `mesh` (None: one process); a
+    `runner.WorkloadParts`.  Its `batches` holds the native loader's
+    threads until closed."""
     import numpy as np
     import torch
 
     from ..models import resnet as resnet_lib
-    from ..train.data import prefetch_to_device
+    from ..parallel.mesh import data_axes
     from ..train.native_data import images_or_fallback
     from ..train.optim import sgd
-    from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_rows)
-    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
-                         say, train_state_on_mesh)
+    from ..train.step import classification_loss_fn
+    from .runner import WorkloadParts
 
-    from ..parallel.mesh import data_axes
-
-    # BatchNorm's sums over every data rank (dp and fsdp)
     group = None
     if mesh is not None and int(np.prod(
             [mesh.shape[a] for a in data_axes(mesh)], initial=1)) > 1:
@@ -95,19 +107,32 @@ def _train(args, device, mesh, layout, zero) -> int:
             group = torch.distributed.group.WORLD
     model = getattr(resnet_lib, f"ResNet{args.depth}")(
         num_classes=args.num_classes, dtype=torch.bfloat16, bn_group=group)
-    state = train_state_on_mesh(model, sgd(args.lr), device, mesh, layout,
-                                zero)
-    if state is None:
-        return 2
-    step = make_train_step(classification_loss_fn(model), mesh=mesh)
+    return WorkloadParts(
+        model=model, tx=sgd(args.lr), loss=classification_loss_fn(model),
+        batches=images_or_fallback(args.batch, args.image_size,
+                                   args.num_classes, seed),
+        moments_per_param=1, on_device=_bf16_images)
 
-    raw = images_or_fallback(args.batch, args.image_size, args.num_classes)
-    batches = raw if mesh is None else (shard_rows(b, state.sharding)
-                                        for b in raw)
-    data = ({**b, "x": b["x"].to(torch.bfloat16)}
-            for b in same_batch_over_replicas(
-                prefetch_to_device(batches, device), state.sharding))
+
+def _train(args, device, mesh, layout, zero) -> int:
+    from ..train.data import prefetch_to_device
+    from ..train.step import make_train_step, shard_rows
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
+
+    parts = build(args, mesh)
+    raw = parts.batches
     try:
+        state = train_state_on_mesh(parts.model, parts.tx, device, mesh,
+                                    layout, zero)
+        if state is None:
+            return 2
+        step = make_train_step(parts.loss, mesh=mesh)
+        batches = raw if mesh is None else (shard_rows(b, state.sharding)
+                                            for b in raw)
+        data = (parts.on_device(b)
+                for b in same_batch_over_replicas(
+                    prefetch_to_device(batches, device), state.sharding))
         _, elapsed = run_steps(
             state, step, data, steps=args.steps, device=device,
             log_every=args.log_every,

@@ -23,7 +23,7 @@ import sys
 import time
 from datetime import timedelta
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple
 
 from ..api import constants
 
@@ -426,6 +426,28 @@ def same_batch_over_replicas(batches, sharding):
             yield shard_sequence(batch, sharding)
 
     return broadcast()
+
+
+def _as_is(batch):
+    return batch
+
+
+@dataclass
+class WorkloadParts:
+    """What a training workload trains, built from its flags by its
+    `build(args, mesh, seed)`: the model, the optimizer recipe, the loss
+    (`loss(batch) -> (loss, aux)`), the stream of global batches on the
+    host (numpy), what the workload does to a batch once it is on its
+    device, and the moments the optimizer keeps per parameter.  The
+    workload's run and `analysis/hlo`'s capture at the workload's own
+    widths both build from it."""
+
+    model: Any
+    tx: Any
+    loss: Callable
+    batches: Iterator[dict]
+    moments_per_param: int
+    on_device: Callable[[dict], dict] = _as_is
 
 
 def zero_plan_for_workload(model, layout, enabled: bool):

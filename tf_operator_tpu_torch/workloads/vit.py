@@ -25,7 +25,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
+    from .runner import add_profile_args
+
     parser = argparse.ArgumentParser()
     parser.add_argument("--steps", type=int, default=100)
     parser.add_argument("--batch", type=int, default=256)
@@ -36,12 +38,15 @@ def main(argv=None) -> int:
     parser.add_argument("--d-model", type=int, default=768)
     parser.add_argument("--lr", type=float, default=3e-4)
     parser.add_argument("--log-every", type=int, default=10)
-    from .runner import (WorkloadContext, add_profile_args,
-                         apply_forced_platform, plan_mesh, pod_say,
-                         process_group, split_batch)
-
     add_profile_args(parser)
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None) -> int:
+    from .runner import (WorkloadContext, apply_forced_platform, plan_mesh,
+                         pod_say, process_group, split_batch)
+
+    args = parser().parse_args(argv)
 
     try:
         device = apply_forced_platform()
@@ -73,16 +78,17 @@ def main(argv=None) -> int:
         return _train(args, ctx, device, mesh, layout)
 
 
-def _train(args, ctx, device, mesh, layout) -> int:
+def build(args, mesh, seed: int = 0):
+    """The model, AdamW and the reference's batch stream
+    (`np.random.RandomState(seed)` Gaussian images, B x H x W x 3 f32 on
+    the host, and labels) that `args` ask for, over `mesh` (None: one
+    process); a `runner.WorkloadParts`."""
     import numpy as np
 
     from ..models.vit import ViT, vit_base_config
-    from ..train.data import prefetch_to_device
     from ..train.optim import adamw
-    from ..train.step import (classification_loss_fn, make_train_step,
-                              shard_rows)
-    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
-                         say, train_state_on_mesh)
+    from ..train.step import classification_loss_fn
+    from .runner import WorkloadParts
 
     patches = (args.image_size // args.patch_size) ** 2
     heads = max(1, args.d_model // 64)
@@ -91,27 +97,39 @@ def _train(args, ctx, device, mesh, layout) -> int:
         d_ff=4 * args.d_model, max_len=patches + 1, mesh=mesh)
     model = ViT(cfg, num_classes=args.num_classes,
                 patch_size=args.patch_size, image_size=args.image_size)
-    state = train_state_on_mesh(model, adamw(args.lr), device, mesh, layout,
-                                ctx.zero_shard_weight_update)
-    if state is None:
-        return 2
-    step = make_train_step(classification_loss_fn(model), mesh=mesh)
-
-    rng = np.random.RandomState(ctx.replica_index)
+    rng = np.random.RandomState(seed)
 
     def batches():
         while True:
-            batch = {
+            yield {
                 "x": rng.randn(args.batch, args.image_size, args.image_size,
                                3).astype(np.float32),
                 "label": rng.randint(0, args.num_classes,
                                      args.batch).astype(np.int32),
             }
-            yield batch if mesh is None else shard_rows(batch, state.sharding)
 
+    return WorkloadParts(model=model, tx=adamw(args.lr),
+                  loss=classification_loss_fn(model), batches=batches(),
+                  moments_per_param=2)
+
+
+def _train(args, ctx, device, mesh, layout) -> int:
+    from ..train.data import prefetch_to_device
+    from ..train.step import make_train_step, shard_rows
+    from .runner import (ProfileCapture, run_steps, same_batch_over_replicas,
+                         say, train_state_on_mesh)
+
+    parts = build(args, mesh, seed=ctx.replica_index)
+    state = train_state_on_mesh(parts.model, parts.tx, device, mesh,
+                                layout, ctx.zero_shard_weight_update)
+    if state is None:
+        return 2
+    step = make_train_step(parts.loss, mesh=mesh)
+    batches = parts.batches if mesh is None else (
+        shard_rows(b, state.sharding) for b in parts.batches)
     loss, elapsed = run_steps(
         state, step, same_batch_over_replicas(
-            prefetch_to_device(batches(), device), state.sharding),
+            prefetch_to_device(batches, device), state.sharding),
         steps=args.steps, device=device, log_every=args.log_every,
         profile=ProfileCapture(args.profile_dir, args.profile_start,
                                args.profile_steps),
