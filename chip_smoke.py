@@ -15,8 +15,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            main-path shape and at GQA / ragged T / non-causal / window+sink /
            head_dim 128, and since the tenth slice in fp16 and f32, at head
            dims 32, 80 and 100, scales -0.125 and 0, batch*heads 70,400 and
-           blocks (256, 512) and (8, 128), each printing the tiles its
-           blocks resolve to; prints the error against the stated
+           blocks (256, 512) and (8, 128), and since the twelfth slice at
+           head dims 160-256 (Gemma 2B's 8 query heads of 256 over one KV
+           head at B 4, T 2048 in bf16, fp16 and f32; non-causal, window +
+           sink, scale -0.0625, head dims 160 and 250), each printing the
+           tiles its blocks resolve to; prints the error against the stated
            tolerance (f32: RTOL_F32, FRO_F32), the
            kernel's time, the plain version's, the bound, and as a yardstick
            only F.scaled_dot_product_attention's (which the port never calls):
@@ -25,7 +28,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            kernel launched a second time on the same inputs must give the
            same bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
-           class, tile and forward route) against its plain version at a
+           class 64, 128 and 256, tile and forward route) against its plain version at a
            ragged causal shape with a window and a sink;
            `ops/autotune.tune_flash_blocks` in bf16 at GPT-small, ViT-B/16
            and BERT-base, each candidate's fwd+bwd ms and tiles and the
@@ -44,11 +47,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   llama    the llama/GQA arch through the workload (4 layers, 2 steps) with
            the same launch check, and a small model whose logits with the
            kernels agree with the plain attention path on the card
+  gemma    the twelfth path: the llama-style LM at Gemma 2B's attention
+           widths (d_model 2048, 18 layers, 8 query heads of 256 over one
+           KV head, d_ff 5461, vocab 32000; ~0.84 B params) from seeded
+           weights, 6 steps at B 4, T 2048 through the LM workload's train
+           step, loss and AdamW recipe, and 2 more under the profiler: 18
+           launches a step of each kernel (their head-dim class 256),
+           losses finite, step ms, tokens/s, MFU, peak memory, device time
+           by kernel; then 2 layers of it with the kernels against the
+           plain attention path (the logits rule)
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
-           causal and not; GQA 12/4; head_dim 128), against f32 autograd of
-           the plain `attention_lse`; a planted fault (the backward given
+           causal and not; GQA 12/4; head_dim 128; head_dim 256 over GQA
+           8/1), against f32 autograd of the plain `attention_lse`; a planted fault (the backward given
            delta where it needs delta' = delta - dlse) must be rejected
   ring     ring attention's hop loop (`ring_hops`) for every rank of n = 2
            and 4, in one process, the blocks handed over in place of the
@@ -248,10 +260,12 @@ FRO_F32 = 1e-5
 TOL_LSE_F32 = 1e-5
 # ptxas's -v report: each kernel instantiation's entry (its template
 # arguments: element type, head-dim class, warpgroups, step and for the
-# forward its route; DMAX for the f32 kernels), then its spills and its
-# registers at launch
-PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)(_f32)?"
-                         r"_kernelI((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
+# forward its route; DMAX for the f32 kernels; element type and query step
+# for dk/dv at head-dim class 256, whose 64 keys two warpgroups share),
+# then its spills and its registers at launch
+PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
+                         r"(_f32|_split)?_kernelI"
+                         r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
 PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16"}
 PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
@@ -308,12 +322,16 @@ def tolerance_ratios(got, ref, rtol: float = RTOL):
 def ptxas_instantiation(m) -> tuple:
     """(name, (kernel, dtype, head-dim class, rows, step)) of a PTXAS_ENTRY
     match; the second is `attention.instantiations()`'s form."""
-    kernel, f32 = m.group(1), m.group(2)
+    kernel, kind = m.group(1), m.group(2)
     args = [PTXAS_TYPES.get(a.group(0)) or int(a.group(1))
             for a in PTXAS_ARG.finditer(m.group(3))]
-    if f32:
+    if kind == "_f32":
         return (f"{kernel}_f32_kernel<D {args[0]}>",
                 (kernel, "float32", args[0], 64, 32))
+    if kind == "_split":
+        dtype, step = args[:2]
+        return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
+                (kernel, dtype, 256, 64, step))
     dtype, d, wg, step = args[:4]
     name = (f"{kernel}_kernel<{dtype}, D {d}, rows {64 * wg}, step {step}"
             + (f", scaled {args[4]}>" if kernel == "fwd" else ">"))
@@ -481,10 +499,24 @@ CASES = [
     Case("bh70400", 4400, 16, 16, 64, 64, True),
     Case("blocks_256_512", 2, 4, 4, 1000, 64, True, blocks=(256, 512)),
     Case("blocks_8_128", 2, 4, 4, 1000, 64, True, blocks=(8, 128)),
+    # the twelfth slice: head-dim class 256 at Gemma 2B's attention (8
+    # query heads of 256 over one KV head) on the gemma phase's shape (B 4,
+    # T 2048), in fp16 and f32; non-causal, window + sink, a scale that
+    # is not positive, and head dims 160 and 250 (padded to 256)
+    Case("gemma_2b", 4, 8, 1, 2048, 256, True),
+    Case("gemma_2b_fp16", 4, 8, 1, 2048, 256, True, dtype="float16"),
+    Case("gemma_2b_f32", 4, 8, 1, 2048, 256, True, dtype="float32"),
+    Case("d256_noncausal", 2, 8, 1, 1000, 256, False),
+    Case("d256_window_sink", 2, 8, 1, 2048, 256, True, 256, 4),
+    Case("d256_scale_neg", 2, 8, 2, 1000, 256, True, 64, 70, scale=-0.0625,
+         blocks=(64, 64)),
+    Case("d160", 4, 8, 1, 2048, 160, True),
+    Case("d250", 4, 8, 1, 2048, 250, True),
 ]
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
-               "main_fp16", "main_f32", "d32", "d80", "d100")
+               "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
+               "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250")
 
 
 def rule(dtype: str) -> tuple:
@@ -719,10 +751,10 @@ TUNE_REPS = 20
 
 def every_instantiation():
     """Each block pair of the tuner's candidates, in bf16 and fp16 at head
-    dims 64 and 128 (positive and negative scale: both forward routes),
-    and the f32 kernels, against the plain versions at a ragged causal
-    shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300, window
-    64, sink 70); fails unless every instantiation ran."""
+    dims 64, 128 and 256 (positive and negative scale: both forward
+    routes), and the f32 kernels, against the plain versions at a ragged
+    causal shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300,
+    window 64, sink 70); fails unless every instantiation ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -731,9 +763,9 @@ def every_instantiation():
     dev = torch.device("cuda")
     b, h, hkv, t, window, sink = 1, 4, 2, 300, 64, 70
     runs = [(dtype, d, pair, sign) for dtype in ("bfloat16", "float16")
-            for d in (64, 128) for pair in AT.DEFAULT_CANDIDATES
+            for d in (64, 128, 256) for pair in AT.DEFAULT_CANDIDATES
             for sign in (1, -1)]
-    runs += [("float32", d, (128, 128), sign) for d in (64, 128)
+    runs += [("float32", d, (128, 128), sign) for d in (64, 128, 256)
              for sign in (1, -1)]
     ran, worst = set(), {}
     for dtype_name, d, (bq, bk), sign in runs:
@@ -1045,6 +1077,112 @@ def phase_llama():
                   ref, (2, 512, cfg.vocab_size))
 
 
+# the twelfth path: the repo's llama-style block (RoPE, RMSNorm, SwiGLU,
+# GQA) at Gemma 2B's widths (arXiv:2403.08295, Table 1: d_model 2048, 18
+# layers, 8 query heads of 256 over one KV head); d_ff = d_model * 8 // 3
+# as the LM workload sizes its SwiGLU; vocabulary and context the LM's
+GEMMA_2B_ATTN = dict(d_model=2048, num_heads=8, num_kv_heads=1,
+                     num_layers=18, d_ff=2048 * 8 // 3, max_len=2048,
+                     vocab_size=32000)
+GEMMA_BATCH, GEMMA_STEPS = 4, 6
+
+
+def phase_gemma(card: str, out_dir):
+    """The LM at Gemma 2B's attention widths, full depth, through the LM
+    workload's train step, loss, AdamW recipe (its flags' defaults) and
+    token stream: GEMMA_STEPS timed steps at B 4, T 2048 and two more
+    under the profiler, each kernel launched once a layer a step; step ms,
+    tokens/s, MFU, peak memory, the profiled steps' device time by kernel;
+    then the model with the kernels against the same model on the plain
+    attention path at 2 layers."""
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (
+        TransformerLM, llama_style_config)
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.train.data import (prefetch_to_device,
+                                                  synthetic_tokens)
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.step import lm_loss_fn, make_train_step
+    from tf_operator_tpu_torch.workloads import lm
+    from tf_operator_tpu_torch.workloads.runner import (ProfileCapture,
+                                                         StepTimer)
+
+    dev = torch.device("cuda")
+    batch, seq, steps = GEMMA_BATCH, GEMMA_2B_ATTN["max_len"], GEMMA_STEPS
+    cfg = llama_style_config(**GEMMA_2B_ATTN)
+    args = lm.parser().parse_args(["--batch", str(batch), "--steps",
+                                   str(steps)])
+    _, tx = lm.config(args, None, lambda line: None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = TransformerLM(cfg)
+    state = create_train_state(model, tx, seed=0, device=dev)
+    params = sum(p.numel() for p in model.parameters())
+    step = make_train_step(lm_loss_fn(model))
+    data = prefetch_to_device(
+        synthetic_tokens(batch, seq + 1, cfg.vocab_size, 0), dev)
+    timer = StepTimer(dev, 0)
+    losses = []
+    A.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="gemma-profile-") as prof_dir:
+        prof = ProfileCapture(prof_dir, steps, 2)
+        for i in range(steps + 2):
+            prof.step(i)
+            state, metrics = step(state, next(data))
+            losses.append(metrics["loss"])
+            timer.step_done(i)
+            if i == steps - 1:
+                line = timer.line(i, batch * seq, "tokens")
+        prof.close()
+        with open(os.path.join(prof_dir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    peak = torch.cuda.max_memory_allocated()
+    check_launches(cfg.num_layers * (steps + 2), f"gemma-2b attention "
+                   f"widths, {steps + 2} steps of {cfg.num_layers} layers")
+    losses = [float(x) for x in losses]
+    print(f"gemma-2b attention widths ({cfg.num_layers} x {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.d_model // cfg.num_heads} over "
+          f"{cfg.num_kv_heads} KV head, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {params:,} params), B {batch}, T {seq}: "
+          f"losses {losses}", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"gemma-2b attention widths: losses {losses}")
+    m = STEP_TIME.search(line or "")
+    if m is None:
+        raise RuntimeError("gemma-2b attention widths: no step time")
+    ms = float(m.group(1))
+    mfu = model_flops(cfg, batch, seq) / (ms / 1e3) / PEAK_BF16_FLOPS
+    print(f"gemma-2b attention widths step: {ms} ms/step, {m.group(2)} "
+          f"tokens/s, MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s,"
+          f" peak memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    summary = device_profile(events, 2, ms)
+    print(summary, flush=True)
+    write_detail(out_dir, "profile_gemma.txt", f"{card}\n{summary}\n")
+    del state, model, step, data
+    torch.cuda.empty_cache()
+
+    # the model with the kernels against the model on the plain attention
+    # path, same weights and tokens, at 2 layers and the path's T
+    cut = dict(GEMMA_2B_ATTN, num_layers=2)
+    model = TransformerLM(llama_style_config(**cut))
+    model.reset_parameters(torch.Generator().manual_seed(1))
+    model.to(dev)
+    plain = TransformerLM(llama_style_config(**cut, use_flash=False)).to(dev)
+    plain.load_state_dict(model.state_dict())
+    tokens = torch.randint(0, cfg.vocab_size, (2, seq),
+                           generator=torch.Generator().manual_seed(2)).to(dev)
+    A.reset_launches()
+    with torch.no_grad():
+        got = model(tokens)
+    if A.launches()["flash_forward"] != 2:
+        raise RuntimeError(f"gemma-2b logits: launches {A.launches()}")
+    with torch.no_grad():
+        ref = plain(tokens)
+    logits_within("gemma-2b attention widths 2-layer logits, kernels vs "
+                  "plain attention", got, ref, (2, seq, cfg.vocab_size))
+
+
 # ---------------------------------------------------------------------------
 # the second path: flash_attention_lse, ring hops, the distributed step
 
@@ -1056,6 +1194,9 @@ LSE_CASES = [
     ("sp4_full", 8, 12, 12, 512, 64, False),
     ("gqa_full", 8, 12, 4, 1024, 64, False),
     ("d128_causal", 4, 8, 8, 1024, 128, True),
+    # the twelfth slice: Gemma 2B's attention (8 query heads of 256 over one
+    # KV head) through the (o, lse) entry
+    ("d256_gqa8_causal", 4, 8, 1, 1024, 256, True),
 ]
 
 
@@ -3089,6 +3230,7 @@ def main(argv=None) -> int:
     counts, lm_losses = timed(phase_slice, card, args.out_dir)
     timed(phase_autotune, card, lm_losses)
     timed(phase_llama)
+    timed(phase_gemma, card, args.out_dir)
     timed(phase_lse)
     timed(phase_ring, card)
     timed(phase_dist, card)

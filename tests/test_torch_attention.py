@@ -347,8 +347,8 @@ def test_check_cuda_takes_what_the_pallas_kernels_take(dtype, d, b, h):
 
 
 def test_check_cuda_rejects_what_no_kernel_takes():
-    q = torch.empty(1, 2, 64, 136, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 1..128, got 136"):
+    q = torch.empty(1, 2, 64, 264, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1..256, got 264"):
         A._check_cuda(q, q, q)
     q = torch.empty(1, 2, 64, 64, dtype=torch.float64)
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):

@@ -101,7 +101,7 @@ def test_kernel_hash_covers_the_wrapper_and_every_kernel_source(
 def test_a_candidate_that_raises_is_an_error_row(cache):
     """Like the reference, a candidate that raises is recorded, not
     dropped; with none left the result says so."""
-    result = autotune.tune_flash_blocks(1, 2, 64, 136, reps=1,
+    result = autotune.tune_flash_blocks(1, 2, 64, 264, reps=1,
                                         candidates=[(64, 64)])
     assert set(result) == {"error", "table"}
     (row,) = result["table"]
@@ -110,10 +110,11 @@ def test_a_candidate_that_raises_is_an_error_row(cache):
 
 def test_default_candidates_reach_every_instantiation():
     """One pair for each distinct set of resolved tiles at head_dim 64,
-    and every instantiation of the tensor-core kernels reached by one."""
+    and every instantiation of the tensor-core kernels (each head-dim
+    class) reached by one."""
     reached, sets = set(), set()
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128):
+        for d in (64, 128, 256):
             for bq, bk in autotune.DEFAULT_CANDIDATES:
                 tiles = A.resolve_tiles(bq, bk, d, dtype)
                 if d == 64:

@@ -193,6 +193,37 @@ def test_ptxas_report_names_each_instantiation_and_its_spills():
     assert {r[4] for r in ptxas_report(_PTXAS_LOG)} <= A.instantiations()
 
 
+_SPLIT = ("_ZN12_GLOBAL__N_116dkv_split_kernelI6__halfLi32EEEv14CUtensorMap_"
+          "stS2_S2_S2_PKfS4_PT_S6_iiifN2fa4MaskE")
+_FWD256 = ("_ZN12_GLOBAL__N_110fwd_kernelI13__nv_bfloat16Li256ELi2ELi64ELb0EEE"
+           "v14CUtensorMap_stS2_S2_PT_PfiifN2fa4MaskE")
+_DKV256_32 = ("_ZN12_GLOBAL__N_114dkv_f32_kernelILi256EEEvPKfS2_S2_S2_S2_S2_Pf"
+              "S3_iiifN2fa4MaskE")
+
+
+def test_ptxas_report_names_the_head_dim_256_kernels():
+    """The head-dim class 256's kernels in the same report: dk/dv's split
+    kernel (its template arguments are the element type and the query
+    step; its 64 keys are shared by two warpgroups), the forward's 128
+    rows and the f32 dk/dv at DMAX 256, each an instantiation that
+    attention.INSTANTIATED lists."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for name, regs in ((_SPLIT, 168), (_FWD256, 168), (_DKV256_32, 160)))
+    report = ptxas_report(log)
+    assert report == [
+        ("dkv_split_kernel<float16, D 256, rows 64, step 32>", 168, 0, 0,
+         ("dkv", "float16", 256, 64, 32)),
+        ("fwd_kernel<bfloat16, D 256, rows 128, step 64, scaled 0>", 168, 0,
+         0, ("fwd", "bfloat16", 256, 128, 64)),
+        ("dkv_f32_kernel<D 256>", 160, 0, 0,
+         ("dkv", "float32", 256, 64, 32))]
+    assert {r[4] for r in report} <= A.instantiations()
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -377,6 +408,68 @@ def test_kernels_take_every_dtype_head_dim_scale_and_tile(cuda, dtype, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d,scale,blocks", [
+    # each tile of the 256 class in bf16 and fp16, the f32 kernels, both
+    # forward routes, and head dims across the class (250 padded to 256)
+    ("bfloat16", 256, None, (128, 128)),
+    ("bfloat16", 256, None, (64, 64)),
+    ("float16", 256, None, (128, 128)),
+    ("float16", 256, None, (32, 64)),
+    ("float32", 256, None, (128, 128)),
+    ("bfloat16", 256, -0.0625, (128, 128)),
+    ("float16", 256, 0.0, (64, 64)),
+    ("float32", 256, -0.0625, (128, 128)),
+    ("bfloat16", 136, None, (128, 128)),
+    ("bfloat16", 160, None, (64, 64)),
+    ("float16", 192, None, (128, 128)),
+    ("bfloat16", 250, None, (128, 128)),
+    ("float32", 250, None, (128, 128)),
+])
+def test_kernels_take_head_dims_up_to_256(cuda, dtype, d, scale, blocks):
+    """Ragged T 1000, GQA 8:1 (Gemma 2B's 8 query heads over one KV head),
+    causal with window 64 and sink 70, at head dims 129-256: the head-dim
+    class 256 (dk/dv split over two warpgroups; f32 with four threads a
+    row in dk/dv)."""
+    q, k, v, g = _inputs(1000, 8, 1, d=d, b=1, dtype=getattr(torch, dtype))
+    _kernels_against_plain(
+        q, k, v, g, dict(block_q=blocks[0], block_k=blocks[1]),
+        scale=d ** -0.5 if scale is None else scale, causal=True, window=64,
+        sink=70)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "noncausal"])
+def test_kernels_at_gemma_2b_attention_shape(cuda, causal):
+    """Gemma 2B's attention (8 query heads of 256 over one KV head) at T
+    2048, B 1, bf16, on the default blocks: every query head of the group
+    summed into the one KV head's dk/dv."""
+    q, k, v, g = _inputs(2048, 8, 1, d=256, b=1)
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=256 ** -0.5,
+                           causal=causal, window=None, sink=0)
+
+
+@pytest.mark.cuda
+def test_every_head_dim_256_instantiation_holds(cuda):
+    """Each instantiation of the 256 class (bf16, fp16 and f32; every tile
+    INSTANTIATED lists; both forward routes) against its plain version at
+    T 300, GQA 4/2, causal with window 64 and sink 70."""
+    reached = set()
+    for dtype in ("bfloat16", "float16", "float32"):
+        for blocks in ((64, 64), (128, 128)):
+            for scale in (256 ** -0.5, -256 ** -0.5):
+                q, k, v, g = _inputs(300, 4, 2, d=256, b=1,
+                                     dtype=getattr(torch, dtype))
+                _kernels_against_plain(
+                    q, k, v, g, dict(block_q=blocks[0], block_k=blocks[1]),
+                    scale=scale, causal=True, window=64, sink=70)
+                tiles = A.resolve_tiles(*blocks, 256, getattr(torch, dtype))
+                reached.update((kernel, dtype, 256, *getattr(tiles, kernel))
+                               for kernel in ("fwd", "dq", "dkv"))
+    assert reached == {x for x in A.instantiations() if x[2] == 256}
+
+
+@pytest.mark.cuda
 def test_kernels_take_more_batch_heads_than_a_grid_y(cuda):
     """B 4400 x H 16 = 70,400 rows of the grid's x (the y dimension, which
     held batch*heads before, stops at 65,535)."""
@@ -514,6 +607,8 @@ def test_tolerance_rejects_a_dq_kernel_that_skips_early_keys(
     (2, 4, 2, 512, 64, False),
     (2, 4, 4, 200, 128, True),
     (8, 12, 12, 1024, 64, True),
+    (2, 8, 1, 300, 256, True),
+    (2, 8, 1, 256, 200, False),
 ])
 def test_flash_attention_lse_with_both_cotangents(cuda, b, h, kv_h, t, d,
                                                   causal):
@@ -529,16 +624,16 @@ def test_flash_attention_lse_with_both_cotangents(cuda, b, h, kv_h, t, d,
 
 @pytest.mark.cuda
 def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
-    """No fallback on the card: f64 inputs, mixed dtypes or head_dim 136
+    """No fallback on the card: f64 inputs, mixed dtypes or head_dim 264
     raise."""
     q, k, v, _ = _inputs(128, 2, 2)
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         A.flash_attention_lse(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="one dtype"):
         A.flash_attention_lse(q, k.half(), v)
-    q136 = torch.zeros(1, 2, 64, 136, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim"):
-        A.flash_attention_lse(q136, q136, q136)
+    q264 = torch.zeros(1, 2, 64, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 1..256, got 264"):
+        A.flash_attention_lse(q264, q264, q264)
 
 
 @pytest.mark.cuda

@@ -16,12 +16,12 @@ Dispatch is decided by the tensors' device, outside autograd:
     launches the dq and the dk/dv kernels; `flash_attention_lse` returns
     the lse too, through `FlashAttentionLseFn`, whose backward takes a
     cotangent on it as well.  The kernels take what the Pallas kernels
-    take, up to head_dim 128: bf16 and fp16 (tensor cores) and f32 (SIMT
-    kernels of its own), any head_dim up to 128 (one that is not a multiple
+    take, up to head_dim 256: bf16 and fp16 (tensor cores) and f32 (SIMT
+    kernels of its own), any head_dim up to 256 (one that is not a multiple
     of 8 is zero-padded here and the outputs sliced), any scale, any
     batch*heads, and any block sizes, which `resolve_tiles` maps onto the
     instantiated tiles.  A CUDA tensor the kernels do not take (another
-    dtype, head_dim above 128, non-contiguous) raises; nothing falls back.
+    dtype, head_dim above 256, non-contiguous) raises; nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`) computes its kernel's plain version when handed CPU
@@ -203,18 +203,22 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 # the element types the kernels take, by their code at the C interface
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 # The tiles the tensor-core kernels are instantiated for, the same table as
 # csrc/flash_attention.cu's dispatchers: per kernel and head-dim class
-# (64 holds head dims up to 64, 128 those up to 128), the values of
-# (rows per block, step of the reduction loop).  The forward and dq take
-# rows from block_q and the key step from block_k; dk/dv takes key rows
-# from block_k and the query step from block_q (the JAX kernels' meaning
-# of the two numbers).
+# (64 holds head dims up to 64, 128 those up to 128, 256 those up to 256),
+# the values of (rows per block, step of the reduction loop).  The forward
+# and dq take rows from block_q and the key step from block_k; dk/dv takes
+# key rows from block_k and the query step from block_q (the JAX kernels'
+# meaning of the two numbers).  At 256, dk/dv's 64 key rows are shared by
+# two warpgroups, one holding dV and one dK.
 INSTANTIATED = {
-    "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,))},
-    "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,))},
-    "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,))},
+    "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
+            256: ((64, 128), (64,))},
+    "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
+           256: ((64,), (64,))},
+    "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,)),
+            256: ((64,), (32,))},
 }
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
@@ -228,13 +232,13 @@ class Tiles(NamedTuple):
 
 
 def head_class(head_dim: int) -> int:
-    """The head-dim class a head dim runs on: the smaller of 64 and 128
-    that holds it."""
+    """The head-dim class a head dim runs on: the smallest of 64, 128 and
+    256 that holds it."""
     if not 1 <= head_dim <= MAX_HEAD_DIM:
         raise ValueError(
             f"flash attention kernels take head_dim 1..{MAX_HEAD_DIM}, got "
-            f"{head_dim} (head_dim above 128 is not built yet: ROADMAP B.5)")
-    return 64 if head_dim <= 64 else 128
+            f"{head_dim} (head_dim above 256 is not built: ROADMAP B.8)")
+    return next(dc for dc in (64, 128, 256) if head_dim <= dc)
 
 
 def scales_first(scale: float) -> bool:

@@ -35,7 +35,9 @@ from typing import Dict, List, Optional, Tuple
 # the pairs resolve to at head_dim 64 in bf16 and fp16, which reaches every
 # instantiation (ops/attention.py:INSTANTIATED).  block_q 32, 64, 128 give
 # forward/dq rows 64, 64, 128 and dk/dv query steps 32, 64, 64; block_k 64,
-# 128 give forward/dq key steps and dk/dv key rows of 64, 128.
+# 128 give forward/dq key steps and dk/dv key rows of 64, 128.  At head_dim
+# 256 block_q 32 and 64 give forward rows 64 and 128 gives 128; dq (64,
+# 64) and dk/dv (64, 32) have one tile there, which every pair reaches.
 DEFAULT_CANDIDATES: List[Tuple[int, int]] = [
     (bq, bk) for bq in (32, 64, 128) for bk in (64, 128)]
 

@@ -8,7 +8,7 @@
 // lane-replicated row-scalar tiles).
 //
 // What the kernels take (all that the Pallas kernels take, up to head dim
-// 128):
+// 256):
 //   * bf16 and fp16: the tensor-core kernels, templated on the element type
 //     E (wgmma's bf16 or f16 form; P and dS are rounded to E before their
 //     second product, outputs are written in E).  f32: three SIMT kernels
@@ -16,14 +16,16 @@
 //     f32 inside; tf32 wgmma would round the products) behind the same C
 //     entry points.
 //   * Head dims: the tensor-core kernels are built for the head-dim classes
-//     D = 64 and D = 128, and a stored head dim ld runs on the smaller class
-//     that holds it: 8..64 on D 64, 72..128 on D 128.  ld is a multiple of
-//     8 (TMA takes row strides in multiples of 16 bytes; the Python wrapper
-//     pads any other head dim up to the next multiple of 8 and slices the
-//     outputs).  The tensor maps zero-fill the columns past ld, so Q K^T and
-//     dO V^T are unchanged, and the epilogues store only the columns < ld.
-//     The f32 kernels take any ld up to 128.  Above 128 nothing is built
-//     (the dk/dv accumulators would not fit in registers; ROADMAP B.5).
+//     D = 64, 128 and 256, and a stored head dim ld runs on the smallest
+//     class that holds it: 8..64 on D 64, 72..128 on D 128, 136..256 on
+//     D 256.  ld is a multiple of 8 (TMA takes row strides in multiples of
+//     16 bytes; the Python wrapper pads any other head dim up to the next
+//     multiple of 8 and slices the outputs).  The tensor maps zero-fill the
+//     columns past ld (a 64-column box wholly past it included), so Q K^T
+//     and dO V^T are unchanged, and the epilogues store only the columns <
+//     ld.  The f32 kernels take any ld up to 256.  Above 256 nothing is
+//     built (no public model needs it, and each width needs a register plan
+//     of its own; ROADMAP B.8).
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -72,7 +74,10 @@
 // FA_PART selects a translation unit: ops/_build.py compiles the parts in
 // parallel and links them into one library.  1-4: the forward in bf16 and
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
-// kernels; 10: the C interface; 0 (unset): every part in one unit.
+// kernels; 10: the C interface (which sends head-dim class 256 to parts
+// 11-15); 11-12: the forward at D 256 in bf16 and fp16; 13: dq and 14:
+// dk/dv at D 256; 15: the f32 kernels at D 256; 0 (unset): every part in
+// one unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -151,6 +156,27 @@ int dq_f32(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_bf16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_f16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_f32(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
+// the same at head-dim class 256 (parts 11-15)
+int forward_bf16_256(int bh, const FwdArgs& a, int rows, int step,
+                     cudaStream_t st);
+int forward_bf16_scaled_256(int bh, const FwdArgs& a, int rows, int step,
+                            cudaStream_t st);
+int forward_f16_256(int bh, const FwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int forward_f16_scaled_256(int bh, const FwdArgs& a, int rows, int step,
+                           cudaStream_t st);
+int forward_f32_256(int bh, const FwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int dq_bf16_256(int bh, const BwdArgs& a, int rows, int step,
+                cudaStream_t st);
+int dq_f16_256(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dq_f32_256(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dkv_bf16_256(int bkv, const BwdArgs& a, int rows, int step,
+                 cudaStream_t st);
+int dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
+                cudaStream_t st);
+int dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
+                cudaStream_t st);
 
 }  // namespace fa
 
@@ -163,9 +189,9 @@ using fa::Mask;
 constexpr int TENSOR_MAP_ERROR = 100000;
 
 // The head-dim class a stored head dim runs on: 64 for 1..64, 128 for
-// 65..128, 0 (none) above.
+// 65..128, 256 for 129..256, 0 (none) above.
 __host__ __device__ constexpr int head_class(int ld) {
-  return ld < 1 ? 0 : ld <= 64 ? 64 : ld <= 128 ? 128 : 0;
+  return ld < 1 ? 0 : ld <= 64 ? 64 : ld <= 128 ? 128 : ld <= 256 ? 256 : 0;
 }
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
@@ -174,6 +200,15 @@ __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
 // alone, or half of the SM's 228 KB less the 1 KB reserved per block.
 __host__ __device__ constexpr int smem_budget(int blocks) {
   return blocks == 1 ? 232448 : 115712;
+}
+
+// The register plan of a block of `wg` consumer warpgroups: the blocks an
+// SM holds by registers (the launch bound; hopper::reg_consumer).  One
+// warpgroup plans for two blocks whether or not shared memory holds two
+// (at head-dim class 256 it holds one), so its consumers take 232
+// registers from what the producer frees; two warpgroups take 240.
+__host__ __device__ constexpr int reg_blocks(int wg) {
+  return wg == 2 ? 1 : 2;
 }
 
 // The element type E of the tensor-core kernels (bf16 or fp16): its tensor
@@ -355,16 +390,20 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 // block takes the whole SM, which gives its consumers 240 registers and
 // room for 128-key tiles; PERF.md has the variants this was chosen from.
 // A tile takes as many stages as shared memory holds, at most the counts
-// chosen for the default tiles (3 at head_dim 64, 2 at 128).
+// chosen for the default tiles (3 at head_dim 64, 2 at 128).  At head_dim
+// 256 (key step 64 only: a 128-key step doubles S, 64 registers, beside
+// the 128 of the output accumulator, and spills) a block takes the SM's
+// shared memory: 3 stages of 64 KB behind a 32 KB Q tile with one
+// consumer warpgroup, 2 behind 64 KB with two.
 template <int D, int WG, int BK>
 struct FwdSmem {
   static constexpr int BM = 64 * WG;
-  static constexpr int BLOCKS = WG == 2 ? 1 : 2;
+  static constexpr int BLOCKS = WG == 2 || D == 256 ? 1 : 2;
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int STAGES =
-      cmin(D == 64 ? 3 : 2,
+      cmin(D == 128 ? 2 : 3,
            (smem_budget(BLOCKS) - Q_BYTES - 1024 - 128) / STAGE_BYTES);
   static constexpr int BAR_OFF = Q_BYTES + STAGES * STAGE_BYTES;
   static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
@@ -431,7 +470,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
 }
 
 template <typename E, int D, int WG, int BK, bool SCALED>
-__global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG, BK>::BLOCKS)
+__global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
     fwd_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
@@ -482,7 +521,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG, BK>::BLOCKS)
     }
     return;
   }
-  hopper::reg_alloc<hopper::reg_consumer(WG, S::BLOCKS)>();
+  hopper::reg_alloc<hopper::reg_consumer(WG, reg_blocks(WG))>();
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -592,16 +631,19 @@ __global__ void __launch_bounds__(128 * (WG + 1), FwdSmem<D, WG, BK>::BLOCKS)
 // takes per-row bounds (mask_tile), since Mask::live on each element made
 // the compiler hold 64 results in registers and spill.  Two consumer
 // warpgroups keep up to four stages in flight (PERF.md has the variants
-// this was chosen from).
+// this was chosen from).  At head_dim 256 the dQ accumulator alone is 128
+// registers: a 64-key step (S and dP, 32 each, and dS in E, 16) keeps a
+// consumer under its 232, and one warpgroup takes the SM's shared memory
+// (Q and dO 32 KB each, two 64 KB stages).
 template <int D, int WG, int BK>
 struct DqSmem {
   static constexpr int BM = 64 * WG;
-  static constexpr int BLOCKS = WG == 2 ? 1 : 2;
+  static constexpr int BLOCKS = WG == 2 || D == 256 ? 1 : 2;
   static constexpr int QT_BYTES = BM * D * 2;  // the Q or dO tile
   static constexpr int KV_BYTES = BK * D * 2;  // one K or V tile
   static constexpr int STAGE_BYTES = 2 * KV_BYTES;
   static constexpr int RING_OFF = 2 * QT_BYTES;
-  // two blocks of one warpgroup share an SM's 227 KB
+  // two blocks of one warpgroup share an SM's 227 KB (below head_dim 256)
   static constexpr int STAGES =
       cmin(WG == 2 ? 4 : 2,
            (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) / STAGE_BYTES);
@@ -612,7 +654,7 @@ struct DqSmem {
 };
 
 template <typename E, int D, int WG, int BK>
-__global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG, BK>::BLOCKS)
+__global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
     dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
@@ -666,7 +708,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG, BK>::BLOCKS)
     }
     return;
   }
-  hopper::reg_alloc<hopper::reg_consumer(WG, S::BLOCKS)>();
+  hopper::reg_alloc<hopper::reg_consumer(WG, reg_blocks(WG))>();
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
@@ -756,41 +798,155 @@ __global__ void __launch_bounds__(128 * (WG + 1), DqSmem<D, WG, BK>::BLOCKS)
 // ---------------------------------------------------------------------------
 // dk/dv.  Replaces tf_operator_tpu/ops/attention.py:_bwd_dkv_kernel.
 //
-// One block per (key tile of 64 * WG keys, b*kv_head), in the transposed
-// frame (rows are keys): WG consumer warpgroups of 64 keys each and a
-// producer warpgroup, whose first warp loads K and V once and then walks
-// every query head of the GQA group and, for each, the query tiles of BQ
-// rows that can see the key tile, putting each tile's Q, dO, lse (times
-// log2 e) and delta through a ring of STAGES stages (Q and dO by TMA, the
-// two rows by the warp's lanes; 32 arrivals plus the TMA bytes complete a
-// stage).  Per query tile each warpgroup issues S^T = K Q^T and
+// One block per (key tile of BM keys, b*kv_head), in the transposed frame
+// (rows are keys): WG consumer warpgroups and a producer warpgroup, whose
+// first warp loads K and V once and then walks every query head of the GQA
+// group and, for each, the query tiles of BQ rows that can see the key
+// tile, putting each tile's Q, dO, lse (times log2 e) and delta through a
+// ring of STAGES stages (Q and dO by TMA, the two rows by the warp's lanes;
+// 32 arrivals plus the TMA bytes complete a stage; dkv_producer).  The GQA
+// sum stays inside the block (no atomics, deterministic).  dk is written
+// times scale.  Bound: operations (4 products).
+//
+// Head-dim classes 64 and 128 (dkv_kernel): each consumer warpgroup owns
+// 64 keys (BM = 64 * WG).  Per query tile it issues S^T = K Q^T and
 // dP^T = V dO^T (wgmma, K-major as stored), forms p = exp(s - lse) and
 // ds = p (dp - delta) with the element mask only on tiles that are not
 // full, then dV += P^T dO and dK += dS^T Q with P^T and dS^T from
-// registers and dO, Q read as stored through the transpose bit.  The GQA
-// sum stays inside the block (no atomics, deterministic).  dk is written
-// times scale.  At head_dim 128 the query step is 32 so that the two
-// [64 x 128] accumulators and the two [64 x BQ] score tiles fit in
-// registers.  Bound: operations (4 products).
+// registers and dO, Q read as stored through the transpose bit.  At
+// head_dim 128 the query step is 32 so that the two [64 x 128]
+// accumulators and the two [64 x BQ] score tiles fit in registers.
+//
+// Head-dim class 256 (dkv_split_kernel): the two [64 x 256] f32
+// accumulators of one warpgroup would be 256 registers a thread, over the
+// 255 a thread may hold.  So two consumer warpgroups share the same 64 keys
+// and split the accumulators: warpgroup 0 holds dV (128 registers), forms
+// S^T = K Q^T and P^T and issues dV += P^T dO; warpgroup 1 holds dK, forms
+// dP^T = V dO^T, takes P^T from warpgroup 0 through shared memory (f32, in
+// the accumulator layout, so thread i of one reads what thread i of the
+// other wrote; two buffers, each handed over on an mbarrier and handed
+// back on another) to form dS^T, and issues dK += dS^T Q.  Each product is
+// computed once, and each warpgroup issues two of the four.  Splitting the
+// head dim instead (each warpgroup 128 columns of both) would compute S
+// and dP twice (1.5x the operations); a dK accumulator in shared memory
+// (64 KB f32) would add a read and a write of it per query tile.  Query
+// step 32: K, V 32 KB each, P 2 x 8 KB, three stages of 33 KB.
 template <int D, int WG, int BQ>
 struct DkvSmem {
-  static constexpr int BM = 64 * WG;
+  static constexpr bool SPLIT = D == 256;  // dkv_split_kernel's plan
+  static constexpr int DIM = D, STEP = BQ;
+  static constexpr int BM = SPLIT ? 64 : 64 * WG;
   static constexpr int BLOCKS = WG == 2 ? 1 : 2;
   static constexpr int KV_BYTES = BM * D * 2;  // K or V
   static constexpr int QT_BYTES = BQ * D * 2;  // Q or dO tile
   static constexpr int STAGE_BYTES =
       (2 * QT_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
-  static constexpr int RING_OFF = 2 * KV_BYTES;
+  static constexpr int P_OFF = 2 * KV_BYTES;   // SPLIT: P^T, two buffers
+  static constexpr int P_BYTES = SPLIT ? BM * BQ * 4 : 0;  // one buffer
+  static constexpr int RING_OFF = P_OFF + 2 * P_BYTES;
   static constexpr int STAGES =
       cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) / STAGE_BYTES);
   static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
-  static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+  // full[STAGES], empty[STAGES], kv, and SPLIT: p_full[2], p_empty[2]
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (2 * STAGES + (SPLIT ? 5 : 1)) + 1024;
   static_assert(STAGES >= 1 && BYTES <= smem_budget(BLOCKS),
                 "dk/dv tile does not fit in shared memory");
 };
 
+// Where a dk/dv block starts: its key tile, and the query heads and query
+// tiles it walks.
+struct DkvWalk {
+  int bkv, k0, qbase, qlo, nq, n_iter;
+};
+
+template <int BM, int BQ>
+__device__ __forceinline__ DkvWalk dkv_walk(const Mask& mk, int heads,
+                                            int kv_heads) {
+  const GridTile gt = grid_tile(BM, mk.T);
+  DkvWalk w;
+  w.bkv = gt.bh;
+  w.k0 = gt.tile * BM;
+  const int group = heads / kv_heads;
+  // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
+  w.qbase = (w.bkv / kv_heads) * heads + (w.bkv % kv_heads) * group;
+  int qhi;
+  query_tiles<BQ>(w.k0, BM, mk, &w.qlo, &qhi);
+  w.nq = qhi - w.qlo;
+  w.n_iter = group * w.nq;
+  return w;
+}
+
+// The producer warp of a dk/dv block (see above).
+template <typename S>
+__device__ __forceinline__ void dkv_producer(
+    unsigned char* smem, uint32_t sK, const CUtensorMap* map_q,
+    const CUtensorMap* map_k, const CUtensorMap* map_v,
+    const CUtensorMap* map_do, const float* __restrict__ lse,
+    const float* __restrict__ delta, const DkvWalk& w, int T) {
+  constexpr int D = S::DIM, BQ = S::STEP, STAGES = S::STAGES;
+  const uint32_t sV = sK + S::KV_BYTES;
+  const uint32_t ring = sK + S::RING_OFF;
+  const uint32_t bars = sK + S::BAR_OFF;
+  const uint32_t kv_bar = bars + 16 * STAGES;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    hopper::mbar_arrive_tx(kv_bar, 2 * S::KV_BYTES);
+    hopper::tma_tile<D>(sK, map_k, S::BM, w.k0, w.bkv, kv_bar);
+    hopper::tma_tile<D>(sV, map_v, S::BM, w.k0, w.bkv, kv_bar);
+  }
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int s = it % STAGES;
+    if (it >= STAGES)
+      hopper::mbar_wait(bars + 8 * (STAGES + s), (it / STAGES - 1) & 1);
+    const int bh = w.qbase + it / w.nq;
+    const int q0 = (w.qlo + it % w.nq) * BQ;
+    const uint32_t st = ring + s * S::STAGE_BYTES;
+    float* rows = reinterpret_cast<float*>(smem + S::RING_OFF +
+                                           s * S::STAGE_BYTES +
+                                           2 * S::QT_BYTES);
+    for (int c = lane; c < BQ; c += 32) {
+      const int i = q0 + c;
+      const size_t off = (size_t)bh * T + i;
+      rows[c] = i < T ? lse[off] * LOG2E : 0.f;
+      rows[BQ + c] = i < T ? delta[off] : 0.f;
+    }
+    if (lane == 0) {
+      hopper::mbar_arrive_tx(bars + 8 * s, 2 * S::QT_BYTES);
+      hopper::tma_tile<D>(st, map_q, BQ, q0, bh, bars + 8 * s);
+      hopper::tma_tile<D>(st + S::QT_BYTES, map_do, BQ, q0, bh,
+                          bars + 8 * s);
+    } else {
+      hopper::mbar_arrive(bars + 8 * s);
+    }
+  }
+}
+
+// p = exp2(s * scale * log2 e - lse * log2 e) of a [64 keys x BQ queries]
+// score tile (this thread's keys key[0], key[1]; queries q0 + column),
+// zero where the pair does not attend (the element mask only on tiles that
+// are not full).
+template <int BQ>
+__device__ __forceinline__ void dkv_probs(float (&sc)[BQ / 2],
+                                          const float* rows, const Mask& mk,
+                                          int q0, int kr0, const int (&key)[2],
+                                          int t, float sl2) {
+#pragma unroll
+  for (int x = 0; x < BQ / 2; ++x) {
+    const float lse2 = rows[8 * (x >> 2) + 2 * t + (x & 1)];
+    sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2));
+  }
+  if (!tile_full(mk, q0, BQ, kr0, 64)) {
+#pragma unroll
+    for (int x = 0; x < BQ / 2; ++x) {
+      const int i = q0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      if (!mk.live(i, key[(x >> 1) & 1])) sc[x] = 0.f;
+    }
+  }
+}
+
 template <typename E, int D, int WG, int BQ>
-__global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
+__global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
     dkv_kernel(const __grid_constant__ CUtensorMap map_q,
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
@@ -809,16 +965,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
   const uint32_t kv_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
-  const GridTile gt = grid_tile(BM, T);
-  const int bkv = gt.bh;
-  const int k0 = gt.tile * BM;
-  const int group = heads / kv_heads;
-  // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
-  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
-  int qlo, qhi;
-  query_tiles<BQ>(k0, BM, mk, &qlo, &qhi);
-  const int nq = qhi - qlo;
-  const int n_iter = group * nq;
+  const DkvWalk w = dkv_walk<BM, BQ>(mk, heads, kv_heads);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -832,45 +979,16 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
 
   if (threadIdx.x >= WG * 128) {  // producer warpgroup: its first warp
     hopper::reg_dealloc<hopper::PRODUCER_REGS>();
-    if (threadIdx.x >= WG * 128 + 32) return;
-    const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      hopper::mbar_arrive_tx(kv_bar, 2 * S::KV_BYTES);
-      hopper::tma_tile<D>(sK, &map_k, BM, k0, bkv, kv_bar);
-      hopper::tma_tile<D>(sV, &map_v, BM, k0, bkv, kv_bar);
-    }
-    for (int it = 0; it < n_iter; ++it) {
-      const int s = it % STAGES;
-      if (it >= STAGES)
-        hopper::mbar_wait(bars + 8 * (STAGES + s), (it / STAGES - 1) & 1);
-      const int bh = qbase + it / nq;
-      const int q0 = (qlo + it % nq) * BQ;
-      const uint32_t st = ring + s * S::STAGE_BYTES;
-      float* rows = reinterpret_cast<float*>(smem + S::RING_OFF +
-                                             s * S::STAGE_BYTES +
-                                             2 * S::QT_BYTES);
-      for (int c = lane; c < BQ; c += 32) {
-        const int i = q0 + c;
-        const size_t off = (size_t)bh * T + i;
-        rows[c] = i < T ? lse[off] * LOG2E : 0.f;
-        rows[BQ + c] = i < T ? delta[off] : 0.f;
-      }
-      if (lane == 0) {
-        hopper::mbar_arrive_tx(bars + 8 * s, 2 * S::QT_BYTES);
-        hopper::tma_tile<D>(st, &map_q, BQ, q0, bh, bars + 8 * s);
-        hopper::tma_tile<D>(st + S::QT_BYTES, &map_do, BQ, q0, bh,
-                            bars + 8 * s);
-      } else {
-        hopper::mbar_arrive(bars + 8 * s);
-      }
-    }
+    if (threadIdx.x < WG * 128 + 32)
+      dkv_producer<S>(smem, sK, &map_q, &map_k, &map_v, &map_do, lse, delta,
+                      w, T);
     return;
   }
-  hopper::reg_alloc<hopper::reg_consumer(WG, S::BLOCKS)>();
+  hopper::reg_alloc<hopper::reg_consumer(WG, reg_blocks(WG))>();
 
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int kr0 = k0 + 64 * wg;  // this warpgroup's first key
+  const int kr0 = w.k0 + 64 * wg;  // this warpgroup's first key
   const int key[2] = {kr0 + warp * 16 + g, kr0 + warp * 16 + g + 8};
   const uint32_t sKw = sK + wg * 64 * 128, sVw = sV + wg * 64 * 128;
   const float sl2 = scale * LOG2E;
@@ -882,9 +1000,9 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
     for (int i = 0; i < 32; ++i) dk_acc[h][i] = dv_acc[h][i] = 0.f;
 
   hopper::mbar_wait(kv_bar, 0);
-  for (int it = 0; it < n_iter; ++it) {
+  for (int it = 0; it < w.n_iter; ++it) {
     const int s = it % STAGES;
-    const int q0 = (qlo + it % nq) * BQ;
+    const int q0 = (w.qlo + it % w.nq) * BQ;
     const uint32_t sq = ring + s * S::STAGE_BYTES, sdo = sq + S::QT_BYTES;
     const float* rows = reinterpret_cast<const float*>(
         smem + S::RING_OFF + s * S::STAGE_BYTES + 2 * S::QT_BYTES);
@@ -906,18 +1024,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
     hopper::wg_fence_regs(sc);
     hopper::wg_fence_regs(dp);
 
-#pragma unroll
-    for (int x = 0; x < BQ / 2; ++x) {
-      const float lse2 = rows[8 * (x >> 2) + 2 * t + (x & 1)];
-      sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2));
-    }
-    if (!tile_full(mk, q0, BQ, kr0, 64)) {
-#pragma unroll
-      for (int x = 0; x < BQ / 2; ++x) {
-        const int i = q0 + 8 * (x >> 2) + 2 * t + (x & 1);
-        if (!mk.live(i, key[(x >> 1) & 1])) sc[x] = 0.f;
-      }
-    }
+    dkv_probs<BQ>(sc, rows, mk, q0, kr0, key, t, sl2);
 #pragma unroll
     for (int x = 0; x < BQ / 2; ++x) {
       const float dl = rows[BQ + 8 * (x >> 2) + 2 * t + (x & 1)];
@@ -955,7 +1062,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
   for (int h = 0; h < 2; ++h) {
     const int j = key[h];
     if (j >= T) continue;
-    const size_t off = ((size_t)bkv * T + j) * ld;
+    const size_t off = ((size_t)w.bkv * T + j) * ld;
 #pragma unroll
     for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
@@ -967,6 +1074,149 @@ __global__ void __launch_bounds__(128 * (WG + 1), DkvSmem<D, WG, BQ>::BLOCKS)
                  dk_acc[dh][x + 1] * scale);
           store2(dv + off + c, dv_acc[dh][x], dv_acc[dh][x + 1]);
         }
+      }
+    }
+  }
+}
+
+template <typename E, int BQ>
+__global__ void __launch_bounds__(384, reg_blocks(2))
+    dkv_split_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, E* __restrict__ dk,
+                     E* __restrict__ dv, int heads, int kv_heads, int ld,
+                     float scale, Mask mk) {
+  constexpr int D = 256;
+  using S = DkvSmem<D, 2, BQ>;
+  constexpr int STAGES = S::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t sK = hopper::smem_addr(smem);
+  const uint32_t sV = sK + S::KV_BYTES;
+  const uint32_t ring = sK + S::RING_OFF;  // stage: Q, dO, lse2[BQ], delta[BQ]
+  // full[STAGES], empty[STAGES], kv, p_full[2], p_empty[2]
+  const uint32_t bars = sK + S::BAR_OFF;
+  const uint32_t kv_bar = bars + 16 * STAGES;
+  const uint32_t p_full = kv_bar + 8, p_empty = kv_bar + 24;
+
+  const int T = mk.T;
+  const DkvWalk w = dkv_walk<64, BQ>(mk, heads, kv_heads);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bars + 8 * s, 32);
+      hopper::mbar_init(bars + 8 * (STAGES + s), 256);
+    }
+    hopper::mbar_init(kv_bar, 1);
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(p_full + 8 * b, 128);
+      hopper::mbar_init(p_empty + 8 * b, 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: its first warp
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x < 256 + 32)
+      dkv_producer<S>(smem, sK, &map_q, &map_k, &map_v, &map_do, lse, delta,
+                      w, T);
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, reg_blocks(2))>();
+
+  // warpgroup 0: P^T and dV; warpgroup 1: dP^T, dS^T and dK
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int key[2] = {w.k0 + warp * 16 + g, w.k0 + warp * 16 + g + 8};
+  const float sl2 = scale * LOG2E;
+  // this warpgroup's first product reads K (S^T) or V (dP^T) against Q or
+  // dO, its second reads dO (dV) or Q (dK)
+  const uint32_t sA = wg == 0 ? sK : sV;
+
+  float acc[D / 64][32];  // dV in warpgroup 0, dK in warpgroup 1
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+
+  hopper::mbar_wait(kv_bar, 0);
+  for (int it = 0; it < w.n_iter; ++it) {
+    const int s = it % STAGES, b = it & 1;
+    const int q0 = (w.qlo + it % w.nq) * BQ;
+    const uint32_t sq = ring + s * S::STAGE_BYTES, sdo = sq + S::QT_BYTES;
+    const float* rows = reinterpret_cast<const float*>(
+        smem + S::RING_OFF + s * S::STAGE_BYTES + 2 * S::QT_BYTES);
+    float* p_buf =
+        reinterpret_cast<float*>(smem + S::P_OFF + b * S::P_BYTES);
+    hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
+
+    float x[BQ / 2];  // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) x[i] = 0.f;
+    const uint32_t sB = wg == 0 ? sq : sdo;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(x, hopper::desc_k(sA, 64, kk),
+                         hopper::desc_k(sB, BQ, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(x);
+
+    if (wg == 0) {
+      dkv_probs<BQ>(x, rows, mk, q0, w.k0, key, t, sl2);
+      // the buffer's previous P^T (two tiles back) has been read
+      if (it >= 2) hopper::mbar_wait(p_empty + 8 * b, ((it >> 1) - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) p_buf[i * 128 + tid] = x[i];
+      hopper::mbar_arrive(p_full + 8 * b);
+    } else {
+      hopper::mbar_wait(p_full + 8 * b, (it >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const float dl = rows[BQ + 8 * (i >> 2) + 2 * t + (i & 1)];
+        x[i] = p_buf[i * 128 + tid] * (x[i] - dl);
+      }
+      hopper::mbar_arrive(p_empty + 8 * b);
+    }
+
+    uint32_t a[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a<E>(a[kk], x, kk);
+    const uint32_t sC = wg == 0 ? sdo : sq;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(acc[h], a[kk], hopper::desc_mn(sC, BQ, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(acc[h]);
+    hopper::mbar_arrive(bars + 8 * (STAGES + s));
+  }
+
+  E* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = key[h];
+    if (j >= T) continue;
+    const size_t off = ((size_t)w.bkv * T + j) * ld;
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int i = 4 * n + 2 * h;
+        const int c = dh * 64 + 8 * n + 2 * t;
+        if (c < ld)
+          store2(out + off + c, acc[dh][i] * mul, acc[dh][i + 1] * mul);
       }
     }
   }
@@ -1027,6 +1277,15 @@ int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The dk/dv kernel of a tile: dkv_split_kernel at head-dim class 256.
+template <typename E, int D, int WG, int BQ>
+auto dkv_entry() {
+  if constexpr (DkvSmem<D, WG, BQ>::SPLIT)
+    return dkv_split_kernel<E, BQ>;
+  else
+    return dkv_kernel<E, D, WG, BQ>;
+}
+
 template <typename E, int D, int WG, int BQ>
 int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
   using S = DkvSmem<D, WG, BQ>;
@@ -1040,7 +1299,7 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
       (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, S::BM)) ||
       (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, BQ)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = dkv_kernel<E, D, WG, BQ>;
+  auto kernel = dkv_entry<E, D, WG, BQ>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -1054,64 +1313,87 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
 
 // The instantiated tiles of the tensor-core kernels (rows per block, step),
 // by head-dim class; ops/attention.py's INSTANTIATED is the same table.
-//   forward, dq  D 64: rows {64, 128} x key step {64, 128}
+//   forward      D 64: rows {64, 128} x key step {64, 128}
+//                D 128 and D 256: rows {64, 128} x key step {64}
+//   dq           D 64: rows {64, 128} x key step {64, 128}
 //                D 128: rows {64, 128} x key step {64}
+//                D 256: rows {64} x key step {64}
 //   dk/dv        D 64: key rows {64, 128} x query step {32, 64}
 //                D 128: key rows {64, 128} x query step {32}
-// Left out, each for registers: a 256-key step (the forward's spilled 520-
-// 604 bytes under ptxas, with S as 128 f32 a thread, at both row counts;
-// dq's S and dP alone would take 256 registers), dk/dv's 64-query step at
-// head_dim 128 (its two [64 x 128] accumulators and two [64 x 64] score
-// tiles), and a 128-key step at head_dim 128 for dq (S, dP and dQ, 192
-// registers, besides dS's 32) and for the forward, which keeps dq's steps so
-// that one block_k means the same tiles in both and the default pair (128,
-// 128) keeps the tiles the kernels were tuned at.
-template <typename E, bool SCALED>
+//                D 256: key rows {64} x query step {32} (dkv_split_kernel)
+// Left out, each for registers or shared memory: a 256-key step (the
+// forward's spilled 520-604 bytes under ptxas, with S as 128 f32 a thread,
+// at both row counts; dq's S and dP alone would take 256 registers),
+// dk/dv's 64-query step at head_dim 128 (its two [64 x 128] accumulators
+// and two [64 x 64] score tiles), and a 128-key step at head_dim 128 and
+// 256 for dq (S, dP and dQ, 192 registers at 128, besides dS's 32) and for
+// the forward, which keeps dq's steps so that one block_k means the same
+// tiles in both and the default pair (128, 128) keeps the tiles the
+// kernels were tuned at.  At head_dim 256: dq's 128 rows (two warpgroups'
+// Q and dO, 128 KB, leave room for one K/V stage), dk/dv's 128 keys (four
+// consumer warpgroups) and its 64-query step (one stage).
+// WIDE selects head-dim class 256 (parts 11-14), else 64 and 128.
+template <typename E, bool SCALED, bool WIDE>
 int forward_tiles(int bh, const FwdArgs& a, int rows, int step,
                   cudaStream_t st) {
   const int dc = a.ld % 8 ? 0 : head_class(a.ld);
 #define FA_FWD(DC, R, K)                  \
   if (dc == DC && rows == R && step == K) \
     return fwd<E, DC, R / 64, K, SCALED>(bh, a, st);
-  FA_FWD(64, 64, 64)
-  FA_FWD(64, 64, 128)
-  FA_FWD(64, 128, 64)
-  FA_FWD(64, 128, 128)
-  FA_FWD(128, 64, 64)
-  FA_FWD(128, 128, 64)
+  if constexpr (WIDE) {
+    FA_FWD(256, 64, 64)
+    FA_FWD(256, 128, 64)
+  } else {
+    FA_FWD(64, 64, 64)
+    FA_FWD(64, 64, 128)
+    FA_FWD(64, 128, 64)
+    FA_FWD(64, 128, 128)
+    FA_FWD(128, 64, 64)
+    FA_FWD(128, 128, 64)
+  }
 #undef FA_FWD
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename E>
+template <typename E, bool WIDE>
 int dq_tiles(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st) {
   const int dc = a.ld % 8 ? 0 : head_class(a.ld);
 #define FA_DQ(DC, R, K)                 \
   if (dc == DC && rows == R && step == K) \
     return dq<E, DC, R / 64, K>(bh, a, st);
-  FA_DQ(64, 64, 64)
-  FA_DQ(64, 64, 128)
-  FA_DQ(64, 128, 64)
-  FA_DQ(64, 128, 128)
-  FA_DQ(128, 64, 64)
-  FA_DQ(128, 128, 64)
+  if constexpr (WIDE) {
+    FA_DQ(256, 64, 64)
+  } else {
+    FA_DQ(64, 64, 64)
+    FA_DQ(64, 64, 128)
+    FA_DQ(64, 128, 64)
+    FA_DQ(64, 128, 128)
+    FA_DQ(128, 64, 64)
+    FA_DQ(128, 128, 64)
+  }
 #undef FA_DQ
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename E>
+template <typename E, bool WIDE>
 int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
               cudaStream_t st) {
   const int dc = a.ld % 8 ? 0 : head_class(a.ld);
 #define FA_DKV(DC, R, Q)                \
   if (dc == DC && rows == R && step == Q) \
     return dkv<E, DC, R / 64, Q>(bkv, a, st);
-  FA_DKV(64, 64, 32)
-  FA_DKV(64, 64, 64)
-  FA_DKV(64, 128, 32)
-  FA_DKV(64, 128, 64)
-  FA_DKV(128, 64, 32)
-  FA_DKV(128, 128, 32)
+  if constexpr (WIDE) {
+    // 64 keys over two warpgroups (dkv_split_kernel)
+    if (dc == 256 && rows == 64 && step == 32)
+      return dkv<E, 256, 2, 32>(bkv, a, st);
+  } else {
+    FA_DKV(64, 64, 32)
+    FA_DKV(64, 64, 64)
+    FA_DKV(64, 128, 32)
+    FA_DKV(64, 128, 64)
+    FA_DKV(128, 64, 32)
+    FA_DKV(128, 128, 32)
+  }
 #undef FA_DKV
   return (int)cudaErrorInvalidValue;
 }
@@ -1131,20 +1413,30 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
 // rows) and the output columns (thread h takes [h * DMAX / 2, (h + 1) *
 // DMAX / 2)), and trades the step's p (or ds) with one shuffle.  Tiles are
 // stored with a row stride of DMAX + 1 floats, so the 16 rows a warp reads
-// lie in 16 banks.  The mask is Mask::live on every element, and exp is
-// expf.  Bound: operations on the f32 pipes (67 TFLOP/s on an H100 SXM),
-// far from reached.
+// lie in 16 banks.  dk/dv at DMAX 256 gives each row four threads
+// (F32_ROWS * 4 in a block), since its two accumulators would take 256
+// registers a thread at two; thread 4r + h then takes the step's columns
+// 4j + h and a quarter of the output columns.  The mask is Mask::live on
+// every element, and exp is expf.  Bound: operations on the f32 pipes (67
+// TFLOP/s on an H100 SXM), far from reached.  DMAX 256's tiles (64 KB
+// each) take opted-in dynamic shared memory, as every launch here does.
 constexpr int F32_ROWS = 64;
 constexpr int F32_STEP = 32;
 constexpr int F32_THREADS = 128;
 
+// Threads per row of the f32 dk/dv kernel.
+__host__ __device__ constexpr int f32_dkv_lanes(int dmax) {
+  return dmax > 128 ? 4 : 2;
+}
+
 // Rows [row0, row0 + n) of a [T, ld] f32 slab into a [n][DMAX + 1] tile,
-// with zeros for the rows past T and the columns past ld.
-template <int DMAX>
+// with zeros for the rows past T and the columns past ld, by a block of
+// THREADS threads.
+template <int DMAX, int THREADS = F32_THREADS>
 __device__ __forceinline__ void f32_load(float* tile,
                                          const float* __restrict__ src,
                                          int row0, int n, int T, int ld) {
-  for (int x = threadIdx.x; x < n * DMAX; x += F32_THREADS) {
+  for (int x = threadIdx.x; x < n * DMAX; x += THREADS) {
     const int r = x / DMAX, c = x % DMAX, i = row0 + r;
     tile[r * (DMAX + 1) + c] =
         i < T && c < ld ? src[(size_t)i * ld + c] : 0.f;
@@ -1299,7 +1591,7 @@ __global__ void __launch_bounds__(F32_THREADS)
 }
 
 template <int DMAX>
-__global__ void __launch_bounds__(F32_THREADS)
+__global__ void __launch_bounds__(F32_ROWS * f32_dkv_lanes(DMAX))
     dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
                    const float* __restrict__ dout,
@@ -1307,7 +1599,8 @@ __global__ void __launch_bounds__(F32_THREADS)
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int heads, int kv_heads, int ld,
                    float scale, Mask mk) {
-  constexpr int SD = DMAX + 1, J = F32_STEP / 2, C = DMAX / 2;
+  constexpr int L = f32_dkv_lanes(DMAX), THREADS = F32_ROWS * L;
+  constexpr int SD = DMAX + 1, J = F32_STEP / L, C = DMAX / L;
   extern __shared__ float f32_smem[];
   float* sK = f32_smem;              // [F32_ROWS][SD]
   float* sV = sK + F32_ROWS * SD;    // [F32_ROWS][SD]
@@ -1317,23 +1610,26 @@ __global__ void __launch_bounds__(F32_THREADS)
   const int T = mk.T;
   const GridTile gt = grid_tile(F32_ROWS, T);
   const int bkv = gt.bh, k0 = gt.tile * F32_ROWS;
-  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, key = k0 + r;
+  const int r = threadIdx.x / L, h = threadIdx.x % L, key = k0 + r;
+  const int lane0 = (threadIdx.x & 31) - h;  // the row's first lane
   const int group = heads / kv_heads;
   const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
   int qlo, qhi;
   query_tiles<F32_STEP>(k0, F32_ROWS, mk, &qlo, &qhi);
   const int nq = qhi - qlo, n_iter = group * nq;
 
-  f32_load<DMAX>(sK, k + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
-  f32_load<DMAX>(sV, v + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
+  f32_load<DMAX, THREADS>(sK, k + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
+  f32_load<DMAX, THREADS>(sV, v + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
   float dk_acc[C], dv_acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) dk_acc[c] = dv_acc[c] = 0.f;
   for (int it = 0; it < n_iter; ++it) {
     const int bh = qbase + it / nq, q0 = (qlo + it % nq) * F32_STEP;
     __syncthreads();
-    f32_load<DMAX>(sQ, q + (size_t)bh * T * ld, q0, F32_STEP, T, ld);
-    f32_load<DMAX>(sdO, dout + (size_t)bh * T * ld, q0, F32_STEP, T, ld);
+    f32_load<DMAX, THREADS>(sQ, q + (size_t)bh * T * ld, q0, F32_STEP, T,
+                            ld);
+    f32_load<DMAX, THREADS>(sdO, dout + (size_t)bh * T * ld, q0, F32_STEP,
+                            T, ld);
     if (threadIdx.x < F32_STEP) {
       const int qi = q0 + threadIdx.x;
       sL[threadIdx.x] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
@@ -1347,28 +1643,31 @@ __global__ void __launch_bounds__(F32_THREADS)
       const float kd = sK[r * SD + d], vd = sV[r * SD + d];
 #pragma unroll
       for (int j = 0; j < J; ++j) {
-        s[j] = fmaf(kd, sQ[(2 * j + h) * SD + d], s[j]);
-        dp[j] = fmaf(vd, sdO[(2 * j + h) * SD + d], dp[j]);
+        s[j] = fmaf(kd, sQ[(L * j + h) * SD + d], s[j]);
+        dp[j] = fmaf(vd, sdO[(L * j + h) * SD + d], dp[j]);
       }
     }
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const int c = 2 * j + h;
+      const int c = L * j + h;
       const float p =
           mk.live(q0 + c, key) ? expf(s[j] * scale - sL[c]) : 0.f;
       s[j] = p;
       dp[j] = p * (dp[j] - sL[F32_STEP + c]);  // ds
     }
+    // each of the row's L threads hands its columns' p and ds to the others
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      const float pm = s[j], po = __shfl_xor_sync(0xffffffffu, s[j], 1);
-      const float dsm = dp[j], dso = __shfl_xor_sync(0xffffffffu, dp[j], 1);
-      const int om = (2 * j + h) * SD + h * C;
-      const int oo = (2 * j + 1 - h) * SD + h * C;
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        dv_acc[c] = fmaf(pm, sdO[om + c], fmaf(po, sdO[oo + c], dv_acc[c]));
-        dk_acc[c] = fmaf(dsm, sQ[om + c], fmaf(dso, sQ[oo + c], dk_acc[c]));
+      for (int o = 0; o < L; ++o) {
+        const float pm = __shfl_sync(0xffffffffu, s[j], lane0 + o);
+        const float dsm = __shfl_sync(0xffffffffu, dp[j], lane0 + o);
+        const int om = (L * j + o) * SD + h * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dv_acc[c] = fmaf(pm, sdO[om + c], dv_acc[c]);
+          dk_acc[c] = fmaf(dsm, sQ[om + c], dk_acc[c]);
+        }
       }
     }
   }
@@ -1428,7 +1727,7 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = grid_blocks(bkv, a.mk.T, F32_ROWS);
   if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, F32_THREADS, bytes, st>>>(
+  kernel<<<grid, F32_ROWS * f32_dkv_lanes(DMAX), bytes, st>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
@@ -1444,56 +1743,56 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
 #if FA_IN_PART(1)
 int fa::forward_bf16(int bh, const FwdArgs& a, int rows, int step,
                      cudaStream_t st) {
-  return forward_tiles<bf16, false>(bh, a, rows, step, st);
+  return forward_tiles<bf16, false, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(2)
 int fa::forward_bf16_scaled(int bh, const FwdArgs& a, int rows, int step,
                             cudaStream_t st) {
-  return forward_tiles<bf16, true>(bh, a, rows, step, st);
+  return forward_tiles<bf16, true, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(3)
 int fa::forward_f16(int bh, const FwdArgs& a, int rows, int step,
                     cudaStream_t st) {
-  return forward_tiles<f16, false>(bh, a, rows, step, st);
+  return forward_tiles<f16, false, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(4)
 int fa::forward_f16_scaled(int bh, const FwdArgs& a, int rows, int step,
                            cudaStream_t st) {
-  return forward_tiles<f16, true>(bh, a, rows, step, st);
+  return forward_tiles<f16, true, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(5)
 int fa::dq_bf16(int bh, const BwdArgs& a, int rows, int step,
                 cudaStream_t st) {
-  return dq_tiles<bf16>(bh, a, rows, step, st);
+  return dq_tiles<bf16, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(6)
 int fa::dq_f16(int bh, const BwdArgs& a, int rows, int step,
                cudaStream_t st) {
-  return dq_tiles<f16>(bh, a, rows, step, st);
+  return dq_tiles<f16, false>(bh, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(7)
 int fa::dkv_bf16(int bkv, const BwdArgs& a, int rows, int step,
                  cudaStream_t st) {
-  return dkv_tiles<bf16>(bkv, a, rows, step, st);
+  return dkv_tiles<bf16, false>(bkv, a, rows, step, st);
 }
 #endif
 
 #if FA_IN_PART(8)
 int fa::dkv_f16(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st) {
-  return dkv_tiles<f16>(bkv, a, rows, step, st);
+  return dkv_tiles<f16, false>(bkv, a, rows, step, st);
 }
 #endif
 
@@ -1528,6 +1827,72 @@ int fa::dkv_f32(int bkv, const BwdArgs& a, int rows, int step,
 }
 #endif
 
+#if FA_IN_PART(11)
+int fa::forward_bf16_256(int bh, const FwdArgs& a, int rows, int step,
+                         cudaStream_t st) {
+  return forward_tiles<bf16, false, true>(bh, a, rows, step, st);
+}
+int fa::forward_bf16_scaled_256(int bh, const FwdArgs& a, int rows, int step,
+                                cudaStream_t st) {
+  return forward_tiles<bf16, true, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(12)
+int fa::forward_f16_256(int bh, const FwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return forward_tiles<f16, false, true>(bh, a, rows, step, st);
+}
+int fa::forward_f16_scaled_256(int bh, const FwdArgs& a, int rows, int step,
+                               cudaStream_t st) {
+  return forward_tiles<f16, true, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(13)
+int fa::dq_bf16_256(int bh, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  return dq_tiles<bf16, true>(bh, a, rows, step, st);
+}
+int fa::dq_f16_256(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st) {
+  return dq_tiles<f16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(14)
+int fa::dkv_bf16_256(int bkv, const BwdArgs& a, int rows, int step,
+                     cudaStream_t st) {
+  return dkv_tiles<bf16, true>(bkv, a, rows, step, st);
+}
+int fa::dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  return dkv_tiles<f16, true>(bkv, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(15)
+// the one f32 tile at head-dim class 256
+int fa::forward_f32_256(int bh, const FwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
+    return (int)cudaErrorInvalidValue;
+  return launch_fwd_f32<256>(bh, a, st);
+}
+int fa::dq_f32_256(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
+    return (int)cudaErrorInvalidValue;
+  return launch_dq_f32<256>(bh, a, st);
+}
+int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
+    return (int)cudaErrorInvalidValue;
+  return launch_dkv_f32<256>(bkv, a, st);
+}
+#endif
+
 #if FA_IN_PART(10)
 // ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
@@ -1535,7 +1900,8 @@ int fa::dkv_f32(int bkv, const BwdArgs& a, int rows, int step,
 // delta f32).  head_dim is the stored head dim; rows and step the tile
 // (rows per block, step of the reduction loop); scaled the forward's route.
 // A dtype, head dim or tile that has no instantiation returns
-// cudaErrorInvalidValue.
+// cudaErrorInvalidValue.  Head-dim class 256 goes to the parts that build
+// it.
 
 enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
@@ -1565,14 +1931,21 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                   Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!scaled && !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
     case FA_BF16:
-      return (scaled ? fa::forward_bf16_scaled : fa::forward_bf16)(
+      return (wide ? (scaled ? fa::forward_bf16_scaled_256
+                             : fa::forward_bf16_256)
+                   : (scaled ? fa::forward_bf16_scaled : fa::forward_bf16))(
           bh, a, rows, step, st);
     case FA_F16:
-      return (scaled ? fa::forward_f16_scaled : fa::forward_f16)(
+      return (wide ? (scaled ? fa::forward_f16_scaled_256
+                             : fa::forward_f16_256)
+                   : (scaled ? fa::forward_f16_scaled : fa::forward_f16))(
           bh, a, rows, step, st);
-    case FA_F32: return fa::forward_f32(bh, a, rows, step, st);
+    case FA_F32:
+      return (wide ? fa::forward_f32_256 : fa::forward_f32)(bh, a, rows, step,
+                                                            st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1599,10 +1972,14 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                   scale,
                   Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
-    case FA_BF16: return fa::dq_bf16(bh, a, rows, step, st);
-    case FA_F16: return fa::dq_f16(bh, a, rows, step, st);
-    case FA_F32: return fa::dq_f32(bh, a, rows, step, st);
+    case FA_BF16:
+      return (wide ? fa::dq_bf16_256 : fa::dq_bf16)(bh, a, rows, step, st);
+    case FA_F16:
+      return (wide ? fa::dq_f16_256 : fa::dq_f16)(bh, a, rows, step, st);
+    case FA_F32:
+      return (wide ? fa::dq_f32_256 : fa::dq_f32)(bh, a, rows, step, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1629,10 +2006,14 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                   scale,
                   Mask{T, causal, window, sink}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
-    case FA_BF16: return fa::dkv_bf16(bkv, a, rows, step, st);
-    case FA_F16: return fa::dkv_f16(bkv, a, rows, step, st);
-    case FA_F32: return fa::dkv_f32(bkv, a, rows, step, st);
+    case FA_BF16:
+      return (wide ? fa::dkv_bf16_256 : fa::dkv_bf16)(bkv, a, rows, step, st);
+    case FA_F16:
+      return (wide ? fa::dkv_f16_256 : fa::dkv_f16)(bkv, a, rows, step, st);
+    case FA_F32:
+      return (wide ? fa::dkv_f32_256 : fa::dkv_f32)(bkv, a, rows, step, st);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -26,8 +26,9 @@ namespace hopper {
 // nothing is padded in memory.  Boxes are 64 columns (one 128-byte line) by
 // `rows`.  The stored head dim ld (a multiple of 8: TMA takes row strides
 // in multiples of 16 bytes) may be narrower than the kernel's head-dim
-// class D (64 or 128): the columns of a box past ld are zero-filled too, so
-// a product over them adds nothing.
+// class D (64, 128 or 256): the columns of a box past ld are zero-filled
+// too (a box wholly past ld comes back all zeros), so a product over them
+// adds nothing.
 
 // cuTensorMapEncodeTiled lives in libcuda, which the CUDA runtime has
 // already loaded, so it is looked up there rather than linked.
