@@ -18,8 +18,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            blocks (256, 512) and (8, 128), and since the twelfth slice at
            head dims 160-256 (Gemma 2B's 8 query heads of 256 over one KV
            head at B 4, T 2048 in bf16, fp16 and f32; non-causal, window +
-           sink, scale -0.0625, head dims 160 and 250), each printing the
-           tiles its blocks resolve to; prints the error against the stated
+           sink, scale -0.0625, head dims 160 and 250), and since the
+           thirteenth slice 6 query heads over one KV head (dk/dv's query
+           heads split over 5 slices, which do not divide 6) and the sum of
+           dk/dv's slices (`dkv_reduce`, bit for bit its plain version, its
+           time against its bytes), each printing the
+           tiles its blocks resolve to and dk/dv's slices; prints the error
+           against the stated
            tolerance (f32: RTOL_F32, FRO_F32), the
            kernel's time, the plain version's, the bound, and as a yardstick
            only F.scaled_dot_product_attention's (which the port never calls):
@@ -52,10 +57,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            KV head, d_ff 5461, vocab 32000; ~0.84 B params) from seeded
            weights, 6 steps at B 4, T 2048 through the LM workload's train
            step, loss and AdamW recipe, and 2 more under the profiler: 18
-           launches a step of each kernel (their head-dim class 256),
-           losses finite, step ms, tokens/s, MFU, peak memory, device time
-           by kernel; then 2 layers of it with the kernels against the
-           plain attention path (the logits rule)
+           launches a step of each kernel (their head-dim class 256) and,
+           since the thirteenth slice, of the sum of dk/dv's slices where
+           `dkv_splits` splits it, losses finite, step ms, tokens/s, MFU,
+           peak memory, device time by kernel; then 2 layers of it with
+           the kernels against the plain attention path (the logits
+           rule)
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
@@ -233,6 +240,9 @@ REPLACES = {
     "flash_forward": "tf_operator_tpu/ops/attention.py:255",
     "flash_backward_dq": "tf_operator_tpu/ops/attention.py:419",
     "flash_backward_dkv": "tf_operator_tpu/ops/attention.py:485",
+    # the sum of dk/dv's slices: the second pass of dk/dv's port (the
+    # Pallas kernel carries the group's sum in VMEM along its grid)
+    "dkv_reduce": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -261,10 +271,11 @@ TOL_LSE_F32 = 1e-5
 # ptxas's -v report: each kernel instantiation's entry (its template
 # arguments: element type, head-dim class, warpgroups, step and for the
 # forward its route; DMAX for the f32 kernels; element type and query step
-# for dk/dv at head-dim class 256, whose 64 keys two warpgroups share),
+# for dk/dv at head-dim class 256, whose 64 keys two warpgroups share, and
+# the element type for dq there, whose tile is fixed),
 # then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
-                         r"(_f32|_split)?_kernelI"
+                         r"(_f32|_split|_wide)?_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
 PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16"}
@@ -332,6 +343,9 @@ def ptxas_instantiation(m) -> tuple:
         dtype, step = args[:2]
         return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
                 (kernel, dtype, 256, 64, step))
+    if kind == "_wide":  # dq's one tile at head-dim class 256
+        return (f"dq_wide_kernel<{args[0]}, D 256, rows 128, step 64>",
+                (kernel, args[0], 256, 128, 64))
     dtype, d, wg, step = args[:4]
     name = (f"{kernel}_kernel<{dtype}, D {d}, rows {64 * wg}, step {step}"
             + (f", scaled {args[4]}>" if kernel == "fwd" else ">"))
@@ -512,11 +526,14 @@ CASES = [
          blocks=(64, 64)),
     Case("d160", 4, 8, 1, 2048, 160, True),
     Case("d250", 4, 8, 1, 2048, 250, True),
+    # the thirteenth slice: dk/dv's query heads split over slices that do
+    # not divide the group (6 heads over 5 slices at B 1: dkv_splits)
+    Case("d256_gqa6", 1, 6, 1, 2048, 256, True),
 ]
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
-               "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250")
+               "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250", "d256_gqa6")
 
 
 def rule(dtype: str) -> tuple:
@@ -715,7 +732,66 @@ def kernel_case(case, timing: bool):
     return result
 
 
+def case_splits(case) -> int:
+    """The slices dk/dv's wrapper splits a case's query heads into."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    if case.dtype == "float32" or A.head_class(case.d) != 256:
+        return 1
+    return A.dkv_splits(case.b * case.hkv, case.t, case.h // case.hkv,
+                        A.sm_count(torch.device("cuda")))
+
+
+def reduce_case(case) -> dict:
+    """`dkv_reduce` on a workspace of a case's shape (its slices, f32
+    partials drawn from a seed) against `dkv_reduce_plain`: the same bits
+    (both sum the slices in order in f32, then scale and round once); its
+    time, the plain version's, and its bound (bytes: every partial read
+    once, dk and dv written once)."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    dtype = getattr(torch, case.dtype)
+    splits = case_splits(case)
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    ws = torch.randn(2, splits, case.b, case.hkv, case.t, case.d,
+                     generator=gen, device="cuda")
+    scale = case.d ** -0.5
+    got = A.dkv_reduce(ws, scale, dtype)
+    ref = A.dkv_reduce_plain(ws, scale, dtype)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise RuntimeError(f"dkv_reduce at {case.name}'s shape differs from "
+                           "its plain version")
+    err = max(float((g.float() - r.float()).abs().max())
+              for g, r in zip(got, ref))
+    nbytes = ws.numel() * 4 + 2 * got[0].numel() * got[0].element_size()
+
+    def call():
+        return A.dkv_reduce(ws, scale, dtype)
+
+    # the kernel's own time (profiler): back to back, its wrapper's host
+    # time is longer than the kernel
+    res = {"max_abs_err": err, "ms": kernel_device_ms(call,
+                                                      "dkv_reduce_kernel"),
+           "plain_ms": cuda_ms(
+               lambda: A.dkv_reduce_plain(ws, scale, dtype), 3),
+           "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+           "library_ms": None}
+    print(f"  {case.name:11s} dkv_reduce ({splits} slices, {nbytes:,} bytes)"
+          f" equal to its plain version; kernel_ms (device) {res['ms']:.4f}"
+          f" (back to back {cuda_ms(call, 20):.4f}) plain_ms "
+          f"{res['plain_ms']:.4f} bound_ms {res['bound_ms']:.4f} (bytes) "
+          f"bound/kernel {res['bound_ms'] / res['ms']:.3f}", flush=True)
+    return res
+
+
 def phase_kernels():
+    """Every case against its plain versions; returns the main case's
+    numbers and, under "dkv_reduce", the slices' sum at Gemma 2B's shape."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -729,10 +805,13 @@ def phase_kernels():
               f"window={case.window} sink={case.sink} {case.dtype} scale="
               f"{case.d ** -0.5 if case.scale is None else case.scale} blocks"
               f" {case.blocks} -> tiles (rows, step) fwd {tiles.fwd} dq "
-              f"{tiles.dq} dkv {tiles.dkv}", flush=True)
+              f"{tiles.dq} dkv {tiles.dkv}, dk/dv in {case_splits(case)} "
+              "slice(s)", flush=True)
         res = kernel_case(case, case.name in TIMED_CASES)
         if case.name == "main":
-            out = res
+            out = dict(res)
+        if case.name == "gemma_2b":
+            out["dkv_reduce"] = reduce_case(case)
         torch.cuda.empty_cache()
     return out
 
@@ -1140,6 +1219,16 @@ def phase_gemma(card: str, out_dir):
     peak = torch.cuda.max_memory_allocated()
     check_launches(cfg.num_layers * (steps + 2), f"gemma-2b attention "
                    f"widths, {steps + 2} steps of {cfg.num_layers} layers")
+    # the sum of dk/dv's slices runs after each dk/dv launch it splits
+    splits = A.dkv_splits(batch * cfg.num_kv_heads, seq, cfg.num_heads //
+                          cfg.num_kv_heads, A.sm_count(dev))
+    reduce_launches = A.dkv_reduce.launches
+    print(f"gemma-2b attention widths: dk/dv in {splits} slices, dkv_reduce "
+          f"launches {reduce_launches}", flush=True)
+    if reduce_launches != (cfg.num_layers * (steps + 2) if splits > 1
+                           else 0):
+        raise RuntimeError(f"gemma-2b attention widths: dkv_reduce launched "
+                           f"{reduce_launches} times at {splits} slices")
     losses = [float(x) for x in losses]
     print(f"gemma-2b attention widths ({cfg.num_layers} x {cfg.d_model}, "
           f"{cfg.num_heads} heads of {cfg.d_model // cfg.num_heads} over "
@@ -1181,6 +1270,7 @@ def phase_gemma(card: str, out_dir):
         ref = plain(tokens)
     logits_within("gemma-2b attention widths 2-layer logits, kernels vs "
                   "plain attention", got, ref, (2, seq, cfg.vocab_size))
+    return reduce_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1431,6 +1521,14 @@ def profiled_events(fn) -> list:
         prof.export_chrome_trace(path)
         with open(path) as f:
             return device_events(json.load(f)["traceEvents"])
+
+
+def kernel_device_ms(fn, name: str) -> float:
+    """Device time of the kernels whose name holds `name` in one call of
+    fn, from the profiler: for a kernel shorter than its wrapper's host
+    time, where CUDA events around back-to-back calls time the host."""
+    return sum(e["dur"] for e in profiled_events(fn)
+               if name in e["name"]) / 1e3
 
 
 def device_busy(fn):
@@ -3230,7 +3328,8 @@ def main(argv=None) -> int:
     counts, lm_losses = timed(phase_slice, card, args.out_dir)
     timed(phase_autotune, card, lm_losses)
     timed(phase_llama)
-    timed(phase_gemma, card, args.out_dir)
+    counts = dict(counts,
+                  dkv_reduce=timed(phase_gemma, card, args.out_dir))
     timed(phase_lse)
     timed(phase_ring, card)
     timed(phase_dist, card)
@@ -3263,7 +3362,8 @@ def main(argv=None) -> int:
          "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"]}
-        for name in (fn.__name__ for fn in A.KERNELS)]}), flush=True)
+        for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

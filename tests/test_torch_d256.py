@@ -179,7 +179,9 @@ def test_head_class_above_256_raises_naming_the_roadmap_item(d):
 def test_resolve_tiles_maps_every_block_pair_onto_the_256_class():
     """Every (block_q, block_k) the env takes resolves at head dims
     129-256 to an instantiation of the 256 class, in each dtype; (128,
-    128) keeps 128-row forward tiles and dq's and dk/dv's one tile."""
+    128) keeps 128-row forward tiles and dq's and dk/dv's one tile (since
+    the thirteenth slice dq's two warpgroups of 64 rows over a 64-key step
+    and dk/dv's 64-query step)."""
     built = A.instantiations()
     for dtype in (torch.bfloat16, torch.float16, torch.float32):
         name = str(dtype).removeprefix("torch.")
@@ -191,9 +193,9 @@ def test_resolve_tiles_maps_every_block_pair_onto_the_256_class():
                         assert (kernel, name, 256,
                                 *getattr(tiles, kernel)) in built
     assert A.resolve_tiles(128, 128, 256, torch.bfloat16) == A.Tiles(
-        fwd=(128, 64), dq=(64, 64), dkv=(64, 32))
+        fwd=(128, 64), dq=(128, 64), dkv=(64, 64))
     assert A.resolve_tiles(32, 64, 200, torch.float16) == A.Tiles(
-        fwd=(64, 64), dq=(64, 64), dkv=(64, 32))
+        fwd=(64, 64), dq=(128, 64), dkv=(64, 64))
 
 
 @pytest.mark.parametrize("dtype,d", [

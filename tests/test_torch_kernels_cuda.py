@@ -28,7 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import FRO, lse_case, ptxas_report, rule, tolerance_ratios
+from chip_smoke import (CASES, FRO, LSE_CASES, kernel_case, lse_case,
+                        ptxas_report, rule, tolerance_ratios)
 from tf_operator_tpu_torch.parallel.ring_attention import ring_hops
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import attention as A
@@ -193,34 +194,40 @@ def test_ptxas_report_names_each_instantiation_and_its_spills():
     assert {r[4] for r in ptxas_report(_PTXAS_LOG)} <= A.instantiations()
 
 
-_SPLIT = ("_ZN12_GLOBAL__N_116dkv_split_kernelI6__halfLi32EEEv14CUtensorMap_"
-          "stS2_S2_S2_PKfS4_PT_S6_iiifN2fa4MaskE")
+_SPLIT = ("_ZN12_GLOBAL__N_116dkv_split_kernelI6__halfLi64EEEv14CUtensorMap_"
+          "stS2_S2_S2_PKfS4_PT_S6_PfiiiifN2fa4MaskE")
 _FWD256 = ("_ZN12_GLOBAL__N_110fwd_kernelI13__nv_bfloat16Li256ELi2ELi64ELb0EEE"
            "v14CUtensorMap_stS2_S2_PT_PfiifN2fa4MaskE")
 _DKV256_32 = ("_ZN12_GLOBAL__N_114dkv_f32_kernelILi256EEEvPKfS2_S2_S2_S2_S2_Pf"
               "S3_iiifN2fa4MaskE")
+_DQ256 = ("_ZN12_GLOBAL__N_114dq_wide_kernelI13__nv_bfloat16EEv14CUtensorMap"
+          "_stS2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
 
 
 def test_ptxas_report_names_the_head_dim_256_kernels():
     """The head-dim class 256's kernels in the same report: dk/dv's split
     kernel (its template arguments are the element type and the query
     step; its 64 keys are shared by two warpgroups), the forward's 128
-    rows and the f32 dk/dv at DMAX 256, each an instantiation that
+    rows, the f32 dk/dv at DMAX 256 and dq's wide kernel (two warpgroups
+    of 64 rows over a 64-key step), each an instantiation that
     attention.INSTANTIATED lists."""
     log = "".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
         f"ptxas info    : Function properties for {name}\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         f"ptxas info    : Used {regs} registers, used 1 barriers\n"
-        for name, regs in ((_SPLIT, 168), (_FWD256, 168), (_DKV256_32, 160)))
+        for name, regs in ((_SPLIT, 168), (_FWD256, 168), (_DKV256_32, 160),
+                           (_DQ256, 168)))
     report = ptxas_report(log)
     assert report == [
-        ("dkv_split_kernel<float16, D 256, rows 64, step 32>", 168, 0, 0,
-         ("dkv", "float16", 256, 64, 32)),
+        ("dkv_split_kernel<float16, D 256, rows 64, step 64>", 168, 0, 0,
+         ("dkv", "float16", 256, 64, 64)),
         ("fwd_kernel<bfloat16, D 256, rows 128, step 64, scaled 0>", 168, 0,
          0, ("fwd", "bfloat16", 256, 128, 64)),
         ("dkv_f32_kernel<D 256>", 160, 0, 0,
-         ("dkv", "float32", 256, 64, 32))]
+         ("dkv", "float32", 256, 64, 32)),
+        ("dq_wide_kernel<bfloat16, D 256, rows 128, step 64>", 168, 0, 0,
+         ("dq", "bfloat16", 256, 128, 64))]
     assert {r[4] for r in report} <= A.instantiations()
 
 
@@ -469,6 +476,94 @@ def test_every_head_dim_256_instantiation_holds(cuda):
     assert reached == {x for x in A.instantiations() if x[2] == 256}
 
 
+_D256_CASES = [c for c in CASES if c.d > 128 and c.dtype != "float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _D256_CASES, ids=[c.name for c in
+                                                    _D256_CASES])
+def test_kernels_at_chip_smoke_head_dim_256_cases(cuda, case):
+    """chip_smoke's kernel cases of the 256 class in bf16 and fp16 (Gemma
+    2B's shape, non-causal, window + sink, a negative scale over GQA 8/2,
+    head dims 160 and 250, and 6 query heads over one KV head, whose dk/dv
+    splits its heads over 5 slices), each kernel against its plain version
+    and launched twice for the same bits, as the kernels phase runs them."""
+    result = kernel_case(case, timing=False)
+    assert set(result) == {"flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv"}
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_at_chip_smoke_gemma_case(cuda):
+    """The lse phase's case of the 256 class (8 query heads over one KV
+    head, T 1024, causal: dk/dv in 5 slices)."""
+    (case,) = [c for c in LSE_CASES if c[0] == "d256_gqa8_causal"]
+    ratios = lse_case(case)
+    assert max(ratios[key] for key in ("o", "dq", "dk", "dv")) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("h,kv_h", [(8, 1), (12, 4), (6, 1)])
+def test_dkv_holds_at_every_split_of_the_group(cuda, monkeypatch, dtype, h,
+                                               kv_h):
+    """dk/dv at head dim 256 with each KV head's query heads split over
+    every count of slices from 1 (dk and dv written directly) to the group
+    (one head a slice), dividing it or not (8 over 3, 5, 6, 7; 3 over 2; 6
+    over 4 and 5), at ragged T 300 with window 64 and sink 70: within the
+    rule, and one launch of the reduce per split launch; the kernel refuses
+    more slices than heads."""
+    q, k, v, g = _inputs(300, h, kv_h, d=256, b=2,
+                         dtype=getattr(torch, dtype))
+    opts = dict(scale=256 ** -0.5, causal=True, window=64, sink=70)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    refs = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    for splits in range(1, h // kv_h + 1):
+        monkeypatch.setattr(A, "dkv_splits", lambda *args, n=splits: n)
+        before = A.dkv_reduce.launches
+        got = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
+                                   **opts)
+        torch.cuda.synchronize()
+        assert A.dkv_reduce.launches == before + (splits > 1)
+        for name, x, ref in zip(("dk", "dv"), got, refs):
+            assert x.dtype == q.dtype and torch.isfinite(x).all()
+            assert _held(x, ref, dtype), (splits, name,
+                                          tolerance_ratios(x, ref))
+    monkeypatch.setattr(A, "dkv_splits", lambda *args: h // kv_h + 1)
+    with pytest.raises(RuntimeError, match="dk/dv kernel launch failed"):
+        A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT, **opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("splits,shape", [(2, (1, 1, 300, 256)),
+                                          (3, (4, 1, 2048, 256)),
+                                          (8, (2, 2, 64, 136))])
+def test_dkv_reduce_matches_a_plain_f32_sum(cuda, dtype, splits, shape):
+    """The reduce kernel against its plain version (the slices summed in
+    order in f32, dk times scale, one rounding to the element type): the
+    same bits, and within f32 rounding of torch's own sum over the slices;
+    the workspace shapes of Gemma 2B's dk/dv and of small and padded ones."""
+    gen = torch.Generator(device="cuda").manual_seed(splits)
+    ws = torch.randn(2, splits, *shape, generator=gen, device="cuda")
+    dt = getattr(torch, dtype)
+    before = A.dkv_reduce.launches
+    dk, dv = A.dkv_reduce(ws, 0.0625, dt)
+    torch.cuda.synchronize()
+    assert A.dkv_reduce.launches == before + 1
+    want = A.dkv_reduce_plain(ws, 0.0625, dt)
+    assert torch.equal(dk, want[0]) and torch.equal(dv, want[1])
+    total = ws.sum(1)
+    torch.testing.assert_close(dk.float(), (total[0] * 0.0625).to(dt).float(),
+                               rtol=1e-2, atol=1e-5)
+    torch.testing.assert_close(dv.float(), total[1].to(dt).float(),
+                               rtol=1e-2, atol=1e-4)
+    with pytest.raises(ValueError, match="dkv_reduce takes"):
+        A.dkv_reduce(ws, 0.0625, torch.float32)
+
+
 @pytest.mark.cuda
 def test_kernels_take_more_batch_heads_than_a_grid_y(cuda):
     """B 4400 x H 16 = 70,400 rows of the grid's x (the y dimension, which
@@ -637,16 +732,17 @@ def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,t,causal", [(32, 12, 128, False),
-                                          (256, 12, 197, False),
-                                          (8, 12, 2048, True)],
-                         ids=["bert_base", "vit_b16", "gpt_small"])
-def test_kernels_repeat_bit_for_bit(cuda, b, h, t, causal):
+@pytest.mark.parametrize("b,h,kv_h,t,d,causal", [
+    (32, 12, 12, 128, 64, False), (256, 12, 12, 197, 64, False),
+    (8, 12, 12, 2048, 64, True), (4, 8, 1, 2048, 256, True)],
+    ids=["bert_base", "vit_b16", "gpt_small", "gemma_2b"])
+def test_kernels_repeat_bit_for_bit(cuda, b, h, kv_h, t, d, causal):
     """Each kernel run twice on the same inputs gives the same bits: no
     atomics, and no read of shared memory or padding that a launch leaves
     unset.  BERT-base at T 128 is one 128-row tile a head, fewer tiles
-    than the TMA ring has stages."""
-    q, k, v, g = _inputs(t, h, h, b=b)
+    than the TMA ring has stages; at Gemma 2B's shape dk/dv's query heads
+    are split over slices whose f32 partials the reduce sums in order."""
+    q, k, v, g = _inputs(t, h, kv_h, d=d, b=b)
     opts = dict(scale=0.125, causal=causal, window=None, sink=0)
 
     def run():

@@ -24,11 +24,12 @@ Dispatch is decided by the tensors' device, outside autograd:
     dtype, head_dim above 256, non-contiguous) raises; nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
-`flash_backward_dkv`) computes its kernel's plain version when handed CPU
-tensors, and counts, in its `launches` attribute, every time it launches
-its kernel.  The kernels live in `csrc/flash_attention.cu` (with the Hopper
-building blocks in `csrc/hopper.cuh`) and are built at first use
-(`_build.py`).
+`flash_backward_dkv`, and `dkv_reduce`, which sums the slices dk/dv is
+split into at head-dim class 256) computes its kernel's plain version when
+handed CPU tensors, and counts, in its `launches` attribute, every time it
+launches its kernel.  The kernels live in `csrc/flash_attention.cu` (with
+the Hopper building blocks in `csrc/hopper.cuh`) and are built at first
+use (`_build.py`).
 """
 from __future__ import annotations
 
@@ -210,15 +211,17 @@ MAX_HEAD_DIM = 256
 # the values of (rows per block, step of the reduction loop).  The forward
 # and dq take rows from block_q and the key step from block_k; dk/dv takes
 # key rows from block_k and the query step from block_q (the JAX kernels'
-# meaning of the two numbers).  At 256, dk/dv's 64 key rows are shared by
-# two warpgroups, one holding dV and one dK.
+# meaning of the two numbers).  At 256, dq's 128 rows are two warpgroups of
+# 64 over a 64-key step, and dk/dv's 64 key rows are shared by two
+# warpgroups, one holding dV and one dK (its grid split over the query
+# heads: `dkv_splits`).
 INSTANTIATED = {
     "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
             256: ((64, 128), (64,))},
     "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
-           256: ((64,), (64,))},
+           256: ((128,), (64,))},
     "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,)),
-            256: ((64,), (32,))},
+            256: ((64,), (64,))},
 }
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
@@ -275,6 +278,25 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
                  dkv=(_pick(block_k, dkv_rows), _pick(block_q, dkv_steps)))
 
 
+def dkv_splits(bkv: int, t: int, group: int, sms: int) -> int:
+    """How many slices dk/dv splits each KV head's query-head group into
+    at head-dim class 256: one block per (b*kv_head, 64-key tile, slice),
+    the fewest slices that give each of `sms` SMs a block, at most one a
+    query head.  Launched heaviest first, that many already balance the
+    causal walk; more only add f32 partials and blocks (Gemma 2B's
+    attention: 1, 2, 3, 4 and 8 slices measured in PERF.md).  One slice (a
+    group of 1, or a grid already that full) writes dk and dv directly;
+    more write f32 partials that `dkv_reduce` sums.  A slice need not
+    divide the group (6 heads over 5 slices: 1, 1, 1, 1, 2)."""
+    blocks = bkv * -(-t // 64)
+    return max(1, min(group, -(-sms // blocks)))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def instantiations() -> set:
     """Every built kernel as (kernel, dtype, head-dim class, rows, step)."""
     out = set()
@@ -302,8 +324,12 @@ def _library() -> ctypes.CDLL:
         # forward's route)
         lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 9 + mask
         lib.fa_backward_dq.argtypes = [ptr] * 7 + [i32] * 8 + mask
-        lib.fa_backward_dkv.argtypes = [ptr] * 8 + [i32] * 8 + mask
-        for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv):
+        # (dk/dv: and its workspace pointer, and the slices after the step)
+        lib.fa_backward_dkv.argtypes = [ptr] * 9 + [i32] * 9 + mask
+        lib.fa_dkv_reduce.argtypes = [ptr] * 3 + [ctypes.c_longlong, i32,
+                                                  i32, f32, ptr]
+        for fn in (lib.fa_forward, lib.fa_backward_dq, lib.fa_backward_dkv,
+                   lib.fa_dkv_reduce):
             fn.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
@@ -439,36 +465,90 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
                        block_q: Optional[int] = None,
                        block_k: Optional[int] = None):
     """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`.
-    Key rows per block from block_k, query step from block_q."""
+    Key rows per block from block_k, query step from block_q.  At head-dim
+    class 256 in bf16 and fp16 each KV head's query-head group is split
+    into `dkv_splits` slices over the grid; with more than one the kernel
+    writes f32 partials to a workspace that `dkv_reduce` sums."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal, window=window, sink=sink)
     _check_cuda(q, k, v, do, lse, delta)
     block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
+    kv_heads = k.shape[1]
     tile = resolve_tiles(block_q, block_k, d, q.dtype).dkv
     qp, kp, vp, dop = _padded(q, k, v, do)
-    dk = torch.empty_like(kp)
-    dv = torch.empty_like(vp)
+    splits = 1
+    if q.dtype != torch.float32 and head_class(d) == 256:
+        splits = dkv_splits(b * kv_heads, t, heads // kv_heads,
+                            sm_count(q.device))
+    if splits > 1:
+        dk = dv = None
+        ws = torch.empty((2, splits, *kp.shape), device=q.device,
+                         dtype=torch.float32)
+    else:
+        dk, dv, ws = torch.empty_like(kp), torch.empty_like(vp), None
     with torch.cuda.device(q.device):
         err = _library().fa_backward_dkv(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), dop.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * k.shape[1], *_shape_args(q, k, qp.shape[-1], tile),
+            lse.data_ptr(), delta.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in (dk, dv, ws)),
+            b * kv_heads, *_shape_args(q, k, qp.shape[-1], tile), splits,
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash dk/dv")
     flash_backward_dkv.launches += 1
+    if ws is not None:
+        dk, dv = dkv_reduce(ws, scale, q.dtype)
     return _unpadded(dk, d), _unpadded(dv, d)
+
+
+def dkv_reduce_plain(ws, scale: float, dtype):
+    """Plain version of the reduce kernel: (scale * the sum of ws[0]'s
+    slices, the sum of ws[1]'s) in `dtype`, each sum taken in slice order
+    in f32, as the kernel takes it."""
+    dk, dv = ws[0, 0], ws[1, 0]
+    for s in range(1, ws.shape[1]):
+        dk, dv = dk + ws[0, s], dv + ws[1, s]
+    return (dk * scale).to(dtype), dv.to(dtype)
+
+
+def dkv_reduce(ws, scale: float, dtype):
+    """(dk, dv) from dk/dv's f32 slice partials ws [2, splits, ...] (dK's,
+    then dV's): dk = scale * their sum, dv = the sum, in `dtype` (bf16 or
+    fp16).  Replaces no TPU kernel: the Pallas dk/dv kernel carries the GQA
+    group's sum in VMEM scratch along its sequential grid."""
+    if ws.device.type == "cpu":
+        return dkv_reduce_plain(ws, scale, dtype)
+    if (ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() < 3
+            or ws.shape[0] != 2 or ws.shape[1] < 2 or dtype not in DTYPES
+            or dtype == torch.float32 or ws[0, 0].numel() % 4):
+        raise ValueError(
+            "dkv_reduce takes a contiguous f32 [2, splits >= 2, ...] "
+            "workspace of a multiple of 4 elements a slice, into bfloat16 "
+            f"or float16; got {ws.dtype} {tuple(ws.shape)} into {dtype}")
+    dk = torch.empty(ws.shape[2:], device=ws.device, dtype=dtype)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(ws.device):
+        err = _library().fa_dkv_reduce(
+            ws.data_ptr(), dk.data_ptr(), dv.data_ptr(), dk.numel(),
+            ws.shape[1], DTYPES[dtype], ctypes.c_float(scale),
+            torch.cuda.current_stream(ws.device).cuda_stream)
+    _check(err, "dk/dv reduce")
+    dkv_reduce.launches += 1
+    return dk, dv
 
 
 flash_forward.launches = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
+dkv_reduce.launches = 0
+# the three kernels every attention path launches once a call each;
+# dkv_reduce runs besides dk/dv only where it is split (head-dim class 256)
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
 
 
 def reset_launches() -> None:
-    for fn in KERNELS:
+    for fn in KERNELS + (dkv_reduce,):
         fn.launches = 0
 
 

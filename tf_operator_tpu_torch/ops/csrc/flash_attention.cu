@@ -76,8 +76,8 @@
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
 // 11-15); 11-12: the forward at D 256 in bf16 and fp16; 13: dq and 14:
-// dk/dv at D 256; 15: the f32 kernels at D 256; 0 (unset): every part in
-// one unit.
+// dk/dv at D 256 (with the reduction of its slices' partials); 15: the f32
+// kernels at D 256; 0 (unset): every part in one unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -86,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 #include <stdio.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -134,6 +136,11 @@ struct BwdArgs {
   int ld;
   float scale;
   Mask mk;
+  // dk/dv at head-dim class 256: the slices each KV head's query-head group
+  // is split into, and with more than one the f32 workspace [2][splits][b *
+  // kv_heads][T][ld] (dK, then dV) their partials go to; else 1 and null
+  int splits;
+  float* partial;
 };
 
 // The parts' entry points: each launches the instantiation of its element
@@ -177,6 +184,11 @@ int dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st);
 int dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st);
+// the sum of dk/dv's slices (part 14): ws [2][splits][n] f32 -> dk, dv [n]
+int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
+                    int splits, float scale, cudaStream_t st);
+int dkv_reduce_f16(const float* ws, void* dk, void* dv, long long n,
+                   int splits, float scale, cudaStream_t st);
 
 }  // namespace fa
 
@@ -631,10 +643,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
 // takes per-row bounds (mask_tile), since Mask::live on each element made
 // the compiler hold 64 results in registers and spill.  Two consumer
 // warpgroups keep up to four stages in flight (PERF.md has the variants
-// this was chosen from).  At head_dim 256 the dQ accumulator alone is 128
-// registers: a 64-key step (S and dP, 32 each, and dS in E, 16) keeps a
-// consumer under its 232, and one warpgroup takes the SM's shared memory
-// (Q and dO 32 KB each, two 64 KB stages).
+// this was chosen from).  Head-dim class 256 runs dq_wide_kernel (below).
 template <int D, int WG, int BK>
 struct DqSmem {
   static constexpr int BM = 64 * WG;
@@ -795,6 +804,192 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
   }
 }
 
+// dq at head-dim class 256 (dq_wide_kernel): 128 query rows a block in
+// two consumer warpgroups of 64 over 64-key steps, so that every product is
+// m64n64 (an m64n32 product, as a 32-key step gives S and dP, ran dq at
+// 0.261 ms against the one-warpgroup plan's 0.233 at Gemma 2B's shape;
+// PERF.md) and each K/V tile serves 128 rows (half the L2 traffic per
+// product of a 64-row tile).  Q and dO take 128 KB, which leaves room for
+// three 32 KB tiles, not two K/V stages: K keeps a ring of two stages (S
+// and dQ += dS K read it to the tile's end) and V one (only dP = dO V^T
+// reads it, so its stage is handed back mid-tile and refilled while the
+// tile's dQ product and the next tile's S run).  The producer loads K and
+// V tile by tile in the order their stages come free.  Per tile each
+// warpgroup waits for both, issues S and dP, hands V back, forms p and dS
+// in place, and issues dQ += dS K: dq_kernel's loop, whose products ptxas
+// does not serialise.  The two warpgroups take turns to issue (named
+// barriers: S and dP of one, then of the other, then dQ of one, ...), so
+// that one's element work runs under the other's products: 6 % (PERF.md).
+// Registers: dQ 128, S and dP 32 each, dS in E 16, under the consumers'
+// 240.
+struct DqWideSmem {
+  static constexpr int DIM = 256, BM = 128, BK = 64;
+  static constexpr int QT_BYTES = BM * DIM * 2;  // Q or dO
+  static constexpr int KV_BYTES = BK * DIM * 2;  // one K or V tile
+  static constexpr int K_OFF = 2 * QT_BYTES;     // K stages 0 and 1
+  static constexpr int V_OFF = K_OFF + 2 * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + KV_BYTES;
+  // k_full[2], k_empty[2], v_full, v_empty, q
+  static constexpr int BYTES = BAR_OFF + 8 * 7 + 1024;
+  static_assert(BYTES <= smem_budget(1), "dq tile does not fit");
+};
+
+template <typename E>
+__global__ void __launch_bounds__(384, reg_blocks(2))
+    dq_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, E* __restrict__ dq,
+                   int group, int ld, float scale, Mask mk) {
+  using S = DqWideSmem;
+  constexpr int D = S::DIM, BM = S::BM, BK = S::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t sdO = sQ + S::QT_BYTES;
+  const uint32_t sK = sQ + S::K_OFF, sV = sQ + S::V_OFF;
+  const uint32_t bars = sQ + S::BAR_OFF;
+  const uint32_t k_full = bars, k_empty = bars + 16;
+  const uint32_t v_full = bars + 32, v_empty = bars + 40, q_bar = bars + 48;
+
+  const int T = mk.T;
+  const GridTile gt = grid_tile(BM, T);
+  const int bh = gt.bh;
+  const int q0 = (gt.n - 1 - gt.tile) * BM;  // longest rows first
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(k_full + 8 * s, 1);
+      hopper::mbar_init(k_empty + 8 * s, 256);
+    }
+    hopper::mbar_init(v_full, 1);
+    hopper::mbar_init(v_empty, 256);
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      hopper::mbar_arrive_tx(q_bar, 2 * S::QT_BYTES);
+      hopper::tma_tile<D>(sQ, &map_q, BM, q0, bh, q_bar);
+      hopper::tma_tile<D>(sdO, &map_do, BM, q0, bh, q_bar);
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        const int ks = it & 1;
+        // K's stage comes free at the end of tile it - 2, V's mid tile
+        // it - 1
+        if (it >= 2) hopper::mbar_wait(k_empty + 8 * ks, ((it >> 1) - 1) & 1);
+        hopper::mbar_arrive_tx(k_full + 8 * ks, S::KV_BYTES);
+        hopper::tma_tile<D>(sK + ks * S::KV_BYTES, &map_k, BK, k0, bkv,
+                            k_full + 8 * ks);
+        if (it >= 1) hopper::mbar_wait(v_empty, (it - 1) & 1);
+        hopper::mbar_arrive_tx(v_full, S::KV_BYTES);
+        hopper::tma_tile<D>(sV, &map_v, BK, k0, bkv, v_full);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, reg_blocks(2))>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t sQw = sQ + wg * 64 * 128, sdOw = sdO + wg * 64 * 128;
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];  // lse * log2 e and delta of this thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    lse2[h] = i < T ? lse[(size_t)bh * T + i] * LOG2E : 0.f;
+    dl[h] = i < T ? delta[(size_t)bh * T + i] : 0.f;
+  }
+
+  float acc[D / 64][32];
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[h][i] = 0.f;
+  hopper::mbar_wait(q_bar, 0);
+  // the two warpgroups take turns to issue their products (named barriers
+  // 1 and 2, FA3's ping-pong), so that one's exponentials and dS run under
+  // the other's products; warpgroup 0 goes first
+  if (wg == 1) hopper::named_arrive(1, 256);
+  for (int it = 0; it < n_iter; ++it) {
+    const int ks = it & 1;
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    const uint32_t sk = sK + ks * S::KV_BYTES;
+    hopper::mbar_wait(k_full + 8 * ks, (it >> 1) & 1);
+    hopper::mbar_wait(v_full, it & 1);
+
+    float ps[BK / 2], dps[BK / 2];  // S, then P; dP, then dS
+    hopper::named_sync(1 + wg, 256);  // this warpgroup's turn
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      hopper::Mma<E>::ss(ps, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+      hopper::Mma<E>::ss(dps, hopper::desc_k(sdOw, BM, kk),
+                         hopper::desc_k(sV, BK, kk), kk > 0);
+    }
+    hopper::wg_commit();
+    hopper::named_arrive(2 - wg, 256);  // the other's
+    hopper::wg_wait();
+    hopper::wg_fence_regs(ps);
+    hopper::wg_fence_regs(dps);
+    hopper::mbar_arrive(v_empty);
+
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x)
+      ps[x] = exp2_approx(fmaf(ps[x], sl2, -lse2[(x >> 1) & 1]));
+    if (!tile_full(mk, r0, 64, k0, BK)) mask_tile(ps, mk, row0, k0, t);
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x)
+      dps[x] = ps[x] * (dps[x] - dl[(x >> 1) & 1]);  // ds
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(da[kk], dps, kk);
+    hopper::named_sync(1 + wg, 256);  // this warpgroup's turn
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(acc[h], da[kk], hopper::desc_mn(sk, BK, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::named_arrive(2 - wg, 256);  // the other's
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(acc[h]);
+    hopper::mbar_arrive(k_empty + 8 * ks);
+  }
+  if (wg == 0) hopper::named_sync(1, 256);  // warpgroup 1's last turn
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    if (i >= T) continue;
+    E* out = dq + ((size_t)bh * T + i) * ld;
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dh * 64 + 8 * j + 2 * t;
+        if (c < ld)
+          store2(out + c, acc[dh][4 * j + 2 * h] * scale,
+                 acc[dh][4 * j + 2 * h + 1] * scale);
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // dk/dv.  Replaces tf_operator_tpu/ops/attention.py:_bwd_dkv_kernel.
 //
@@ -829,8 +1024,29 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
 // computed once, and each warpgroup issues two of the four.  Splitting the
 // head dim instead (each warpgroup 128 columns of both) would compute S
 // and dP twice (1.5x the operations); a dK accumulator in shared memory
-// (64 KB f32) would add a read and a write of it per query tile.  Query
-// step 32: K, V 32 KB each, P 2 x 8 KB, three stages of 33 KB.
+// (64 KB f32) would add a read and a write of it per query tile.
+//   Query step 64: every product is m64n64, where S^T and dP^T at a
+// 32-query step were m64n32 products, 0.354 ms against 0.290 at Gemma 2B's
+// shape (PERF.md).  K, V 32 KB each, P 2 x 16
+// KB, two stages of Q and dO (64 KB) and the tiles' lse and delta in a
+// ring of their own, copied by the producer warp's lanes with cp.async
+// (completing on the stage's barrier), so that it never waits on a load
+// of its own.  Each warpgroup finishes a tile before the next: keeping the
+// second product in flight under the next tile's element work, with three
+// 32-query stages, measured 1 % (PERF.md).
+//   The grid (dkv_split_walk) is b*kv_heads x key tiles x `splits` slices
+// of each KV head's query-head group (the host's choice,
+// ops/attention.py:dkv_splits; a slice takes heads [s * group / splits,
+// (s + 1) * group / splits)), key tiles slowest: under causal masking key
+// tile kt is seen by T/64 - kt query tiles, so the blocks of the low key
+// tiles, the longest, start first and the short ones fill in behind them
+// (the longest-processing-time order).  One KV head's 8 query heads over
+// B 4, T 2048 were 128 blocks, under one wave on 132 SMs, the first
+// walking 8 x 32 query tiles, twice an SM's balanced share; at 2 slices
+// 256 blocks of at most 4 x 32.  A block walks its heads one by one, each
+// head's query tiles upward.  With one slice it writes dK and dV in E;
+// with more, f32 partials to a workspace [2][splits][b * kv_heads][T][ld],
+// which dkv_reduce_kernel sums in slice order: deterministic, no atomics.
 template <int D, int WG, int BQ>
 struct DkvSmem {
   static constexpr bool SPLIT = D == 256;  // dkv_split_kernel's plan
@@ -839,19 +1055,31 @@ struct DkvSmem {
   static constexpr int BLOCKS = WG == 2 ? 1 : 2;
   static constexpr int KV_BYTES = BM * D * 2;  // K or V
   static constexpr int QT_BYTES = BQ * D * 2;  // Q or dO tile
+  static constexpr int ROWS_BYTES = 2 * BQ * 4;  // a tile's lse and delta
+  // a stage: Q, dO and (below head_dim 256) the tile's rows; SPLIT keeps
+  // the rows in a ring of their own, so that a stage is whole KB
   static constexpr int STAGE_BYTES =
-      (2 * QT_BYTES + 2 * BQ * 4 + 1023) / 1024 * 1024;
+      SPLIT ? 2 * QT_BYTES : (2 * QT_BYTES + ROWS_BYTES + 1023) / 1024 * 1024;
   static constexpr int P_OFF = 2 * KV_BYTES;   // SPLIT: P^T, two buffers
   static constexpr int P_BYTES = SPLIT ? BM * BQ * 4 : 0;  // one buffer
   static constexpr int RING_OFF = P_OFF + 2 * P_BYTES;
   static constexpr int STAGES =
-      cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) / STAGE_BYTES);
-  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+      cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 128) /
+                  (STAGE_BYTES + (SPLIT ? ROWS_BYTES : 0)));
+  static constexpr int ROWS_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = ROWS_OFF + (SPLIT ? STAGES * ROWS_BYTES : 0);
   // full[STAGES], empty[STAGES], kv, and SPLIT: p_full[2], p_empty[2]
   static constexpr int BYTES =
       BAR_OFF + 8 * (2 * STAGES + (SPLIT ? 5 : 1)) + 1024;
   static_assert(STAGES >= 1 && BYTES <= smem_budget(BLOCKS),
                 "dk/dv tile does not fit in shared memory");
+
+  // where stage s keeps its tile's lse (times log2 e below head_dim 256)
+  // and delta, BQ floats each
+  static __device__ __forceinline__ int rows_off(int s) {
+    return SPLIT ? ROWS_OFF + s * ROWS_BYTES
+                 : RING_OFF + s * STAGE_BYTES + 2 * QT_BYTES;
+  }
 };
 
 // Where a dk/dv block starts: its key tile, and the query heads and query
@@ -874,6 +1102,31 @@ __device__ __forceinline__ DkvWalk dkv_walk(const Mask& mk, int heads,
   query_tiles<BQ>(w.k0, BM, mk, &w.qlo, &qhi);
   w.nq = qhi - w.qlo;
   w.n_iter = group * w.nq;
+  return w;
+}
+
+// dkv_split_kernel's block: blockIdx.x walks (key tile, b * kv_head, slice)
+// with slices fastest and key tiles slowest (see above); *slice gets the
+// block's slice.  64 keys a block.
+template <int BQ>
+__device__ __forceinline__ DkvWalk dkv_split_walk(const Mask& mk, int heads,
+                                                  int kv_heads, int splits,
+                                                  int* slice) {
+  const int n_kt = (mk.T + 63) / 64;
+  const int bkv_n = (int)gridDim.x / (n_kt * splits);
+  const int x = (int)blockIdx.x;
+  const int s = x % splits, rest = x / splits;
+  DkvWalk w;
+  w.bkv = rest % bkv_n;
+  w.k0 = rest / bkv_n * 64;
+  const int group = heads / kv_heads;
+  const int h0 = s * group / splits, h1 = (s + 1) * group / splits;
+  w.qbase = (w.bkv / kv_heads) * heads + (w.bkv % kv_heads) * group + h0;
+  int qhi;
+  query_tiles<BQ>(w.k0, 64, mk, &w.qlo, &qhi);
+  w.nq = qhi - w.qlo;
+  w.n_iter = (h1 - h0) * w.nq;
+  *slice = s;
   return w;
 }
 
@@ -902,22 +1155,34 @@ __device__ __forceinline__ void dkv_producer(
     const int bh = w.qbase + it / w.nq;
     const int q0 = (w.qlo + it % w.nq) * BQ;
     const uint32_t st = ring + s * S::STAGE_BYTES;
-    float* rows = reinterpret_cast<float*>(smem + S::RING_OFF +
-                                           s * S::STAGE_BYTES +
-                                           2 * S::QT_BYTES);
-    for (int c = lane; c < BQ; c += 32) {
-      const int i = q0 + c;
-      const size_t off = (size_t)bh * T + i;
-      rows[c] = i < T ? lse[off] * LOG2E : 0.f;
-      rows[BQ + c] = i < T ? delta[off] : 0.f;
+    if constexpr (S::SPLIT) {
+      // the rows by cp.async, raw lse, 0 past T: each lane's arrival
+      // completes when its copies have landed, so the warp goes on to the
+      // next tile without waiting for them (32 such arrivals and lane 0's
+      // below complete the stage)
+      const uint32_t rows = sK + S::rows_off(s);
+      for (int c = lane; c < BQ; c += 32) {
+        const int i = q0 + c;
+        const size_t off = (size_t)bh * T + (i < T ? i : 0);
+        hopper::cp_async4(rows + 4 * c, lse + off, i < T);
+        hopper::cp_async4(rows + 4 * (BQ + c), delta + off, i < T);
+      }
+      hopper::cp_async_mbar_arrive(bars + 8 * s);
+    } else {
+      float* rows = reinterpret_cast<float*>(smem + S::rows_off(s));
+      for (int c = lane; c < BQ; c += 32) {
+        const int i = q0 + c;
+        const size_t off = (size_t)bh * T + i;
+        rows[c] = i < T ? lse[off] * LOG2E : 0.f;
+        rows[BQ + c] = i < T ? delta[off] : 0.f;
+      }
+      if (lane != 0) hopper::mbar_arrive(bars + 8 * s);
     }
     if (lane == 0) {
       hopper::mbar_arrive_tx(bars + 8 * s, 2 * S::QT_BYTES);
       hopper::tma_tile<D>(st, map_q, BQ, q0, bh, bars + 8 * s);
       hopper::tma_tile<D>(st + S::QT_BYTES, map_do, BQ, q0, bh,
                           bars + 8 * s);
-    } else {
-      hopper::mbar_arrive(bars + 8 * s);
     }
   }
 }
@@ -925,15 +1190,17 @@ __device__ __forceinline__ void dkv_producer(
 // p = exp2(s * scale * log2 e - lse * log2 e) of a [64 keys x BQ queries]
 // score tile (this thread's keys key[0], key[1]; queries q0 + column),
 // zero where the pair does not attend (the element mask only on tiles that
-// are not full).
+// are not full).  rows holds lse * lse_mul (lse_mul 1: the rows are stored
+// times log2 e already).
 template <int BQ>
 __device__ __forceinline__ void dkv_probs(float (&sc)[BQ / 2],
                                           const float* rows, const Mask& mk,
                                           int q0, int kr0, const int (&key)[2],
-                                          int t, float sl2) {
+                                          int t, float sl2,
+                                          float lse_mul = 1.f) {
 #pragma unroll
   for (int x = 0; x < BQ / 2; ++x) {
-    const float lse2 = rows[8 * (x >> 2) + 2 * t + (x & 1)];
+    const float lse2 = rows[8 * (x >> 2) + 2 * t + (x & 1)] * lse_mul;
     sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2));
   }
   if (!tile_full(mk, q0, BQ, kr0, 64)) {
@@ -1004,8 +1271,8 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
     const int s = it % STAGES;
     const int q0 = (w.qlo + it % w.nq) * BQ;
     const uint32_t sq = ring + s * S::STAGE_BYTES, sdo = sq + S::QT_BYTES;
-    const float* rows = reinterpret_cast<const float*>(
-        smem + S::RING_OFF + s * S::STAGE_BYTES + 2 * S::QT_BYTES);
+    const float* rows =
+        reinterpret_cast<const float*>(smem + S::rows_off(s));
     hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
 
     float sc[BQ / 2], dp[BQ / 2];
@@ -1087,7 +1354,8 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
                      const __grid_constant__ CUtensorMap map_do,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, E* __restrict__ dk,
-                     E* __restrict__ dv, int heads, int kv_heads, int ld,
+                     E* __restrict__ dv, float* __restrict__ partial,
+                     int heads, int kv_heads, int splits, int ld,
                      float scale, Mask mk) {
   constexpr int D = 256;
   using S = DkvSmem<D, 2, BQ>;
@@ -1096,18 +1364,20 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
   unsigned char* smem = aligned_smem(smem_raw);
   const uint32_t sK = hopper::smem_addr(smem);
   const uint32_t sV = sK + S::KV_BYTES;
-  const uint32_t ring = sK + S::RING_OFF;  // stage: Q, dO, lse2[BQ], delta[BQ]
+  const uint32_t ring = sK + S::RING_OFF;  // stage: Q, dO (rows: rows_off)
   // full[STAGES], empty[STAGES], kv, p_full[2], p_empty[2]
   const uint32_t bars = sK + S::BAR_OFF;
   const uint32_t kv_bar = bars + 16 * STAGES;
   const uint32_t p_full = kv_bar + 8, p_empty = kv_bar + 24;
 
   const int T = mk.T;
-  const DkvWalk w = dkv_walk<64, BQ>(mk, heads, kv_heads);
+  int slice;
+  const DkvWalk w = dkv_split_walk<BQ>(mk, heads, kv_heads, splits, &slice);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      hopper::mbar_init(bars + 8 * s, 32);
+      // the producer's 32 lanes' row copies and lane 0's TMA bytes
+      hopper::mbar_init(bars + 8 * s, 33);
       hopper::mbar_init(bars + 8 * (STAGES + s), 256);
     }
     hopper::mbar_init(kv_bar, 1);
@@ -1148,8 +1418,7 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
     const int s = it % STAGES, b = it & 1;
     const int q0 = (w.qlo + it % w.nq) * BQ;
     const uint32_t sq = ring + s * S::STAGE_BYTES, sdo = sq + S::QT_BYTES;
-    const float* rows = reinterpret_cast<const float*>(
-        smem + S::RING_OFF + s * S::STAGE_BYTES + 2 * S::QT_BYTES);
+    const float* rows = reinterpret_cast<const float*>(smem + S::rows_off(s));
     float* p_buf =
         reinterpret_cast<float*>(smem + S::P_OFF + b * S::P_BYTES);
     hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
@@ -1168,7 +1437,8 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
     hopper::wg_fence_regs(x);
 
     if (wg == 0) {
-      dkv_probs<BQ>(x, rows, mk, q0, w.k0, key, t, sl2);
+      // rows holds the raw lse (the producer copies it as stored)
+      dkv_probs<BQ>(x, rows, mk, q0, w.k0, key, t, sl2, LOG2E);
       // the buffer's previous P^T (two tiles back) has been read
       if (it >= 2) hopper::mbar_wait(p_empty + 8 * b, ((it >> 1) - 1) & 1);
 #pragma unroll
@@ -1202,23 +1472,76 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
     hopper::mbar_arrive(bars + 8 * (STAGES + s));
   }
 
-  E* out = wg == 0 ? dv : dk;
-  const float mul = wg == 0 ? 1.f : scale;
+  // elements of dk (or dv): b*kv_heads x T x ld
+  const size_t n_out =
+      (size_t)(gridDim.x / ((T + 63) / 64 * splits)) * T * ld;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int j = key[h];
     if (j >= T) continue;
     const size_t off = ((size_t)w.bkv * T + j) * ld;
+    if (partial == nullptr) {  // one slice: dK (times scale) and dV in E
+      E* out = wg == 0 ? dv : dk;
+      const float mul = wg == 0 ? 1.f : scale;
 #pragma unroll
-    for (int dh = 0; dh < D / 64; ++dh) {
+      for (int dh = 0; dh < D / 64; ++dh) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const int i = 4 * n + 2 * h;
-        const int c = dh * 64 + 8 * n + 2 * t;
-        if (c < ld)
-          store2(out + off + c, acc[dh][i] * mul, acc[dh][i + 1] * mul);
+        for (int c8 = 0; c8 < 8; ++c8) {
+          const int i = 4 * c8 + 2 * h;
+          const int c = dh * 64 + 8 * c8 + 2 * t;
+          if (c < ld)
+            store2(out + off + c, acc[dh][i] * mul, acc[dh][i + 1] * mul);
+        }
+      }
+    } else {  // this slice's f32 partial: dK at [0][slice], dV at [1][slice]
+      float* out = partial + ((size_t)(wg == 0) * splits + slice) * n_out;
+#pragma unroll
+      for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+        for (int c8 = 0; c8 < 8; ++c8) {
+          const int i = 4 * c8 + 2 * h;
+          const int c = dh * 64 + 8 * c8 + 2 * t;
+          if (c < ld)
+            *reinterpret_cast<float2*>(out + off + c) =
+                make_float2(acc[dh][i], acc[dh][i + 1]);
+        }
       }
     }
+  }
+}
+
+// The sum of dkv_split_kernel's slices: dK = scale * sum_s ws[0][s] and
+// dV = sum_s ws[1][s], each sum taken in slice order (so a launch repeats
+// bit for bit), written in E; n (a multiple of 4) elements each.  Four
+// consecutive elements a thread, in a grid-stride loop.  Bound: bytes (2 *
+// splits * n * 4 read, 2 * n * sizeof(E) written).  It replaces no TPU
+// kernel: the Pallas dk/dv kernel sums a GQA group in VMEM scratch across
+// its sequential grid, which blocks running in parallel cannot share.
+template <typename E>
+__global__ void __launch_bounds__(256)
+    dkv_reduce_kernel(const float* __restrict__ ws, E* __restrict__ dk,
+                      E* __restrict__ dv, long long n, int splits,
+                      float scale) {
+  const long long n4 = n / 4;
+  for (long long i = (long long)blockIdx.x * 256 + threadIdx.x; i < 2 * n4;
+       i += (long long)gridDim.x * 256) {
+    const int which = i >= n4;  // 0: dK, 1: dV
+    const long long j = i - which * n4;
+    const float4* src =
+        reinterpret_cast<const float4*>(ws + (size_t)which * splits * n) + j;
+    float4 sum = src[0];
+    for (int s = 1; s < splits; ++s) {
+      const float4 p = src[(size_t)s * n4];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    const float mul = which ? 1.f : scale;
+    uint2 out;
+    out.x = Elt<E>::pack(sum.x * mul, sum.y * mul);
+    out.y = Elt<E>::pack(sum.z * mul, sum.w * mul);
+    *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * j) = out;
   }
 }
 
@@ -1252,9 +1575,12 @@ int fwd(int bh, const FwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// dq: dq_wide_kernel at head-dim class 256 (its one tile, 128 x 64), else
+// dq_kernel.
 template <typename E, int D, int WG, int BK>
 int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
-  using S = DqSmem<D, WG, BK>;
+  using S = std::conditional_t<D == 256, DqWideSmem, DqSmem<D, WG, BK>>;
+  static_assert(D != 256 || (WG == 2 && BK == 64), "dq's tile at D 256");
   const int T = a.mk.T;
   const int group = a.heads / a.kv_heads;
   const CUtensorMapDataType ty = Elt<E>::MAP;
@@ -1265,7 +1591,12 @@ int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
       (e = hopper::tile_map(&map_v, ty, a.v, bh / group, T, a.ld, BK)) ||
       (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BM)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = dq_kernel<E, D, WG, BK>;
+  auto kernel = [] {
+    if constexpr (D == 256)
+      return dq_wide_kernel<E>;
+    else
+      return dq_kernel<E, D, WG, BK>;
+  }();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
@@ -1277,15 +1608,9 @@ int dq(int bh, const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The dk/dv kernel of a tile: dkv_split_kernel at head-dim class 256.
-template <typename E, int D, int WG, int BQ>
-auto dkv_entry() {
-  if constexpr (DkvSmem<D, WG, BQ>::SPLIT)
-    return dkv_split_kernel<E, BQ>;
-  else
-    return dkv_kernel<E, D, WG, BQ>;
-}
-
+// dk/dv: dkv_split_kernel at head-dim class 256 (its grid: key tiles x
+// b*kv_heads x a.splits slices; a.partial non-null exactly when a.splits >
+// 1), else dkv_kernel (one slice).
 template <typename E, int D, int WG, int BQ>
 int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
   using S = DkvSmem<D, WG, BQ>;
@@ -1299,15 +1624,44 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
       (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, S::BM)) ||
       (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, BQ)))
     return TENSOR_MAP_ERROR + e;
-  auto kernel = dkv_entry<E, D, WG, BQ>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = grid_blocks(bkv, T, S::BM);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
-      map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dk),
-      static_cast<E*>(a.dv), a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+  if constexpr (S::SPLIT) {
+    const long long grid = (long long)bkv * ((T + 63) / 64) * a.splits;
+    if (a.splits < 1 || a.splits > a.heads / a.kv_heads ||
+        (a.splits > 1) != (a.partial != nullptr) || grid > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    auto kernel = dkv_split_kernel<E, BQ>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<(unsigned)grid, 384, S::BYTES, stream>>>(
+        map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dk),
+        static_cast<E*>(a.dv), a.partial, a.heads, a.kv_heads, a.splits,
+        a.ld, a.scale, a.mk);
+  } else {
+    if (a.splits != 1 || a.partial != nullptr)
+      return (int)cudaErrorInvalidValue;
+    auto kernel = dkv_kernel<E, D, WG, BQ>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const unsigned grid = grid_blocks(bkv, T, S::BM);
+    if (grid == 0) return (int)cudaErrorInvalidValue;
+    kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
+        map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dk),
+        static_cast<E*>(a.dv), a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dkv_reduce(const float* ws, void* dk, void* dv, long long n, int splits,
+               float scale, cudaStream_t stream) {
+  if (n % 4 || splits < 2) return (int)cudaErrorInvalidValue;
+  const long long blocks = (2 * (n / 4) + 255) / 256;
+  dkv_reduce_kernel<E><<<(unsigned)(blocks < (1 << 30) ? blocks : 1 << 30),
+                         256, 0, stream>>>(ws, static_cast<E*>(dk),
+                                           static_cast<E*>(dv), n, splits,
+                                           scale);
   return (int)cudaGetLastError();
 }
 
@@ -1317,10 +1671,10 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
 //                D 128 and D 256: rows {64, 128} x key step {64}
 //   dq           D 64: rows {64, 128} x key step {64, 128}
 //                D 128: rows {64, 128} x key step {64}
-//                D 256: rows {64} x key step {64}
+//                D 256: rows {128} x key step {64} (dq_wide_kernel)
 //   dk/dv        D 64: key rows {64, 128} x query step {32, 64}
 //                D 128: key rows {64, 128} x query step {32}
-//                D 256: key rows {64} x query step {32} (dkv_split_kernel)
+//                D 256: key rows {64} x query step {64} (dkv_split_kernel)
 // Left out, each for registers or shared memory: a 256-key step (the
 // forward's spilled 520-604 bytes under ptxas, with S as 128 f32 a thread,
 // at both row counts; dq's S and dP alone would take 256 registers),
@@ -1329,9 +1683,11 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
 // 256 for dq (S, dP and dQ, 192 registers at 128, besides dS's 32) and for
 // the forward, which keeps dq's steps so that one block_k means the same
 // tiles in both and the default pair (128, 128) keeps the tiles the
-// kernels were tuned at.  At head_dim 256: dq's 128 rows (two warpgroups'
-// Q and dO, 128 KB, leave room for one K/V stage), dk/dv's 128 keys (four
-// consumer warpgroups) and its 64-query step (one stage).
+// kernels were tuned at.  At head_dim 256 (PERF.md has the times): dq's
+// 64 rows (one consumer warpgroup) and its 32-key step
+// (m64n32 products), both slower than dq_wide_kernel's tile; dk/dv's 128
+// keys (four consumer warpgroups) and its 32-query step (m64n32 products,
+// the earlier plan).
 // WIDE selects head-dim class 256 (parts 11-14), else 64 and 128.
 template <typename E, bool SCALED, bool WIDE>
 int forward_tiles(int bh, const FwdArgs& a, int rows, int step,
@@ -1362,7 +1718,7 @@ int dq_tiles(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st) {
   if (dc == DC && rows == R && step == K) \
     return dq<E, DC, R / 64, K>(bh, a, st);
   if constexpr (WIDE) {
-    FA_DQ(256, 64, 64)
+    FA_DQ(256, 128, 64)
   } else {
     FA_DQ(64, 64, 64)
     FA_DQ(64, 64, 128)
@@ -1384,8 +1740,8 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
     return dkv<E, DC, R / 64, Q>(bkv, a, st);
   if constexpr (WIDE) {
     // 64 keys over two warpgroups (dkv_split_kernel)
-    if (dc == 256 && rows == 64 && step == 32)
-      return dkv<E, 256, 2, 32>(bkv, a, st);
+    if (dc == 256 && rows == 64 && step == 64)
+      return dkv<E, 256, 2, 64>(bkv, a, st);
   } else {
     FA_DKV(64, 64, 32)
     FA_DKV(64, 64, 64)
@@ -1869,6 +2225,14 @@ int fa::dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
                     cudaStream_t st) {
   return dkv_tiles<f16, true>(bkv, a, rows, step, st);
 }
+int fa::dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
+                        int splits, float scale, cudaStream_t st) {
+  return dkv_reduce<bf16>(ws, dk, dv, n, splits, scale, st);
+}
+int fa::dkv_reduce_f16(const float* ws, void* dk, void* dv, long long n,
+                       int splits, float scale, cudaStream_t st) {
+  return dkv_reduce<f16>(ws, dk, dv, n, splits, scale, st);
+}
 #endif
 
 #if FA_IN_PART(15)
@@ -1970,7 +2334,9 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                   kv_heads,
                   head_dim,
                   scale,
-                  Mask{T, causal, window, sink}};
+                  Mask{T, causal, window, sink},
+                  1,
+                  nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
@@ -1984,12 +2350,18 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
+// dk/dv; at head-dim class 256 in bf16 and fp16 `splits` slices of each
+// KV head's query-head group, and with more than one `partial` (the f32
+// workspace [2][splits][bkv][T][head_dim]) takes their partials, which
+// fa_dkv_reduce sums into dk_out and dv_out; elsewhere splits is 1 and
+// partial null.
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk_out, void* dv_out,
-                               int bkv, int heads, int kv_heads, int T,
-                               int head_dim, int dtype, int rows, int step,
-                               float scale, int causal, int window, int sink,
+                               void* partial, int bkv, int heads,
+                               int kv_heads, int T, int head_dim, int dtype,
+                               int rows, int step, int splits, float scale,
+                               int causal, int window, int sink,
                                void* stream) {
   const BwdArgs a{q,
                   k,
@@ -2004,7 +2376,11 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                   kv_heads,
                   head_dim,
                   scale,
-                  Mask{T, causal, window, sink}};
+                  Mask{T, causal, window, sink},
+                  splits,
+                  static_cast<float*>(partial)};
+  if (splits != 1 && (dtype == FA_F32 || head_class(head_dim) != 256))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
@@ -2014,6 +2390,20 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
       return (wide ? fa::dkv_f16_256 : fa::dkv_f16)(bkv, a, rows, step, st);
     case FA_F32:
       return (wide ? fa::dkv_f32_256 : fa::dkv_f32)(bkv, a, rows, step, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// dk = scale * sum_s ws[0][s], dv = sum_s ws[1][s] in the element type
+// (bf16 or fp16), n elements each (ws: [2][splits][n] f32).
+extern "C" int fa_dkv_reduce(const void* ws, void* dk, void* dv, long long n,
+                             int splits, int dtype, float scale,
+                             void* stream) {
+  const float* w = static_cast<const float*>(ws);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case FA_BF16: return fa::dkv_reduce_bf16(w, dk, dv, n, splits, scale, st);
+    case FA_F16: return fa::dkv_reduce_f16(w, dk, dv, n, splits, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }

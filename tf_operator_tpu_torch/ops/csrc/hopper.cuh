@@ -118,6 +118,23 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// 4 bytes from global src to shared dst without waiting (cp.async), or 4
+// zero bytes when !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// This thread's arrival on `bar`, made when its cp.async copies so far
+// have landed (counted among the barrier's expected arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
 // One box {64 columns from d0, rows from row0, index n} into dst.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          int d0, int row0, int n,
@@ -138,6 +155,16 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
 #pragma unroll
   for (int h = 0; h < D / 64; ++h)
     tma_load(dst + h * rows * 128, map, h * 64, row0, n, bar);
+}
+
+// Named barrier `id` (1-15; 0 is __syncthreads') over `n` threads: sync
+// waits until n threads have arrived (its own warps included), arrive
+// counts this warp's threads and goes on.
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---------------------------------------------------------------------------
