@@ -22,16 +22,19 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            thirteenth slice 6 query heads over one KV head (dk/dv's query
            heads split over 5 slices, which do not divide 6) and the sum of
            dk/dv's slices (`dkv_reduce`, bit for bit its plain version, its
-           time against its bytes), each printing the
+           time against its bytes and, since the fourteenth slice,
+           `ws.sum(1)`'s), each printing the
            tiles its blocks resolve to and dk/dv's slices; prints the error
            against the stated
            tolerance (f32: RTOL_F32, FRO_F32), the
            kernel's time, the plain version's, the bound, and as a yardstick
            only F.scaled_dot_product_attention's (which the port never calls):
            its forward beside the forward kernel, its backward alone
-           (autograd.grad on a retained graph) beside dq + dk/dv; each
-           kernel launched a second time on the same inputs must give the
-           same bits
+           (autograd.grad on a retained graph) beside dq + dk/dv, and since
+           the fourteenth slice, at head dims 129-256, the forward's and
+           SDPA's forward's device time by the profiler; each kernel
+           launched a second time on the same inputs must give the same
+           bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
            class 64, 128 and 256, tile and forward route) against its plain version at a
            ragged causal shape with a window and a sink;
@@ -209,7 +212,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            card's memory, peak >= the lower bound, half the peak fires
            hlo-memory-infeasible alone, 12 launches of each kernel in
            the transformer steps, the gradient all-reduce over a group
-           of 1; then `python -m tf_operator_tpu_torch.analysis --hlo
+           of 1, and since the fourteenth slice the bytes still allocated
+           once the capture is deleted and cuBLAS's workspaces cleared
+           (none); then
+           `python -m tf_operator_tpu_torch.analysis --hlo
            all --devices 1`, its rank on the card, exit 0
 
 The last lines are the card line, one JSON object with every kernel's
@@ -272,7 +278,8 @@ TOL_LSE_F32 = 1e-5
 # arguments: element type, head-dim class, warpgroups, step and for the
 # forward its route; DMAX for the f32 kernels; element type and query step
 # for dk/dv at head-dim class 256, whose 64 keys two warpgroups share, and
-# the element type for dq there, whose tile is fixed),
+# the element type for dq there, whose tile is fixed, and for
+# kernel_variants.py's split-ring forward there, with its route),
 # then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
                          r"(_f32|_split|_wide)?_kernelI"
@@ -343,9 +350,11 @@ def ptxas_instantiation(m) -> tuple:
         dtype, step = args[:2]
         return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
                 (kernel, dtype, 256, 64, step))
-    if kind == "_wide":  # dq's one tile at head-dim class 256
-        return (f"dq_wide_kernel<{args[0]}, D 256, rows 128, step 64>",
-                (kernel, args[0], 256, 128, 64))
+    if kind == "_wide":  # dq's one tile at head-dim class 256, and
+        # kernel_variants.py's split-ring forward over 128 rows there
+        route = f", scaled {args[1]}" if kernel == "fwd" else ""
+        return (f"{kernel}_wide_kernel<{args[0]}, D 256, rows 128, step 64"
+                f"{route}>", (kernel, args[0], 256, 128, 64))
     dtype, d, wg, step = args[:4]
     name = (f"{kernel}_kernel<{dtype}, D {d}, rows {64 * wg}, step {step}"
             + (f", scaled {args[4]}>" if kernel == "fwd" else ">"))
@@ -529,11 +538,19 @@ CASES = [
     # the thirteenth slice: dk/dv's query heads split over slices that do
     # not divide the group (6 heads over 5 slices at B 1: dkv_splits)
     Case("d256_gqa6", 1, 6, 1, 2048, 256, True),
+    # the fourteenth: Gemma 7B's attention widths (16 heads of 256, one KV
+    # head each), whose K and V overflow L2 at B 4, so that the forward
+    # takes its longest-first order over chunks of 4 b*h rows
+    # (attention.fwd_chunk)
+    Case("gemma_7b", 4, 16, 16, 2048, 256, True),
 ]
+# launches the profiler averages a kernel's device time over
+DEVICE_REPS = 10
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
-               "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250", "d256_gqa6")
+               "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250", "d256_gqa6",
+               "gemma_7b")
 
 
 def rule(dtype: str) -> tuple:
@@ -729,6 +746,22 @@ def kernel_case(case, timing: bool):
     print(f"  {name:11s} kernels dq + dk/dv ms {kern_bwd:.4f}; sdpa backward "
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
+    if A.head_class(d) == 256:
+        # the forward kernel's own time and SDPA's forward on the device
+        # (profiler): back to back, a wrapper whose host time outlasts its
+        # kernel times the host, and a stall of the host lands in the mean
+        def reps(fn):
+            return lambda: [fn() for _ in range(DEVICE_REPS)]
+
+        dev_ms = kernel_device_ms(reps(fwd), "fwd_")
+        sdpa_ms = device_busy(reps(sdpa_fwd))[0] / DEVICE_REPS
+        bound = result["flash_forward"]["bound_ms"]
+        result["flash_forward"].update(device_ms=dev_ms, sdpa_device_ms=sdpa_ms)
+        print(f"  {name:11s} flash_forward device_ms {dev_ms:.4f} (profiler, "
+              f"mean of the launches caught of {DEVICE_REPS}; cuda_ms "
+              f"{times['flash_forward'][0]:.4f})"
+              f" bound/kernel {bound / dev_ms:.3f}; sdpa forward device_ms "
+              f"{sdpa_ms:.4f} (yardstick)", flush=True)
     return result
 
 
@@ -748,8 +781,9 @@ def reduce_case(case) -> dict:
     """`dkv_reduce` on a workspace of a case's shape (its slices, f32
     partials drawn from a seed) against `dkv_reduce_plain`: the same bits
     (both sum the slices in order in f32, then scale and round once); its
-    time, the plain version's, and its bound (bytes: every partial read
-    once, dk and dv written once)."""
+    time, the plain version's, its bound (bytes: every partial read once,
+    dk and dv written once), and as a yardstick the device time of
+    `ws.sum(1)` with the scale and the casts."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -773,19 +807,27 @@ def reduce_case(case) -> dict:
     def call():
         return A.dkv_reduce(ws, scale, dtype)
 
+    def library():
+        # yardstick only: ws.sum(1) with the scale and the cast (its sum
+        # over the slices is torch's, not in slice order)
+        total = ws.sum(1)
+        return (total[0] * scale).to(dtype), total[1].to(dtype)
+
     # the kernel's own time (profiler): back to back, its wrapper's host
-    # time is longer than the kernel
+    # time is longer than the kernel; the library's device time alike
     res = {"max_abs_err": err, "ms": kernel_device_ms(call,
                                                       "dkv_reduce_kernel"),
            "plain_ms": cuda_ms(
                lambda: A.dkv_reduce_plain(ws, scale, dtype), 3),
            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-           "library_ms": None}
+           "library_ms": device_busy(library)[0]}
     print(f"  {case.name:11s} dkv_reduce ({splits} slices, {nbytes:,} bytes)"
           f" equal to its plain version; kernel_ms (device) {res['ms']:.4f}"
           f" (back to back {cuda_ms(call, 20):.4f}) plain_ms "
           f"{res['plain_ms']:.4f} bound_ms {res['bound_ms']:.4f} (bytes) "
-          f"bound/kernel {res['bound_ms'] / res['ms']:.3f}", flush=True)
+          f"bound/kernel {res['bound_ms'] / res['ms']:.3f}; ws.sum(1) with "
+          f"the scale and the casts (yardstick) device ms "
+          f"{res['library_ms']:.4f}", flush=True)
     return res
 
 
@@ -1524,11 +1566,19 @@ def profiled_events(fn) -> list:
 
 
 def kernel_device_ms(fn, name: str) -> float:
-    """Device time of the kernels whose name holds `name` in one call of
-    fn, from the profiler: for a kernel shorter than its wrapper's host
-    time, where CUDA events around back-to-back calls time the host."""
-    return sum(e["dur"] for e in profiled_events(fn)
-               if name in e["name"]) / 1e3
+    """Mean device time of a launch of the kernels whose name holds `name`
+    in one call of fn (which may launch them several times), from the
+    profiler: for a kernel shorter than its wrapper's host time, where
+    CUDA events around back-to-back calls time the host.  The profiler
+    drops device events at times, so the mean is over the launches the
+    trace caught, and a trace that caught none is taken again, three
+    times at most."""
+    for _ in range(3):
+        durs = [e["dur"] for e in profiled_events(fn) if name in e["name"]]
+        if durs:
+            return sum(durs) / len(durs) / 1e3
+    raise RuntimeError(f"three profiles of one call saw no kernel named "
+                       f"{name!r}")
 
 
 def device_busy(fn):
@@ -3163,7 +3213,9 @@ def phase_hlo(card: str):
     `admission_peak_lower_bound` (its "never a false positive"); a budget
     of half the peak fires hlo-memory-infeasible once and nothing else;
     each kernel launched 12 times in the transformer steps (none in
-    ResNet's); the gradient all-reduce over a group of 1.  Then the CLI,
+    ResNet's); the gradient all-reduce over a group of 1; a deleted
+    capture leaves nothing allocated once cuBLAS's workspaces are cleared.
+    Then the CLI,
     `python -m tf_operator_tpu_torch.analysis --hlo all --devices 1`, as a
     user runs it: its rank on the card over NCCL, no finding under the
     card's memory, every capture's peak measured on cuda."""
@@ -3185,6 +3237,8 @@ def phase_hlo(card: str):
         for name, what, launches in HLO_RUNS:
             gc.collect()
             torch.cuda.empty_cache()
+            torch._C._cuda_clearCublasWorkspaces()
+            before = torch.cuda.memory_allocated()
             t0 = time.perf_counter()
             cap = hlo.capture_workload(
                 name, 1, zero=zero, device_memory_budget_bytes=total,
@@ -3238,7 +3292,22 @@ def phase_hlo(card: str):
                   f"fires {half} alone, the gradient all-reduce "
                   f"{grads[0].result_shapes} over a group of 1 from "
                   f"{grads[0].op_name}", flush=True)
+            # a deleted capture gives back every byte it took (ROADMAP C.4:
+            # the dispatch counter's module tracker held its parameters and
+            # gradients until the process ended), once cuBLAS has let go of
+            # the workspaces it keeps for each handle and stream (65 MiB
+            # after the process's first matmuls)
+            param_bytes = cap.params_bytes_per_device
             del cap
+            gc.collect()
+            torch._C._cuda_clearCublasWorkspaces()
+            left = torch.cuda.memory_allocated() - before
+            print(f"hlo {name}: {left} B still allocated after the capture is"
+                  f" deleted and cuBLAS's workspaces cleared (its parameters: "
+                  f"{param_bytes} B)", flush=True)
+            if left > 0:
+                raise RuntimeError(f"hlo {name}: a deleted capture keeps "
+                                   f"{left} B allocated")
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -4,6 +4,7 @@ source, on one NVIDIA card.
 
     python3 kernel_variants.py                  # dq at head_dim 64
     python3 kernel_variants.py --d256           # dq and dk/dv at 256
+    python3 kernel_variants.py --d256-fwd       # the forward at 256
     python3 kernel_variants.py --trees DIR ...  # whole trees in turns
 
 Each variant in VARIANTS (D256_VARIANTS with --d256) is a list of (text,
@@ -18,12 +19,21 @@ and dk/dv (its reduce included) at Gemma 2B's attention (B 4, 8 query
 heads of 256 over one KV head, T 2048, causal, bf16) against dq's
 one-warpgroup 64-row plan and dk/dv's 32-query step, and dk/dv (on the D256_SPLITS_ON build) at
 each count of slices of the query heads, beside the host's choice
-(`attention.dkv_splits`), and the reduce alone.  With
---trees: chip_smoke's kernel case gemma_2b (and main) run in each tree
-given (a checkout, e.g. a parent commit unpacked with `git archive` into a
-git-ignored directory), one process per tree per round, in turns.  The
-edits record the designs the kernels were chosen from (PERF.md); a
-kernel's next variants replace them.
+(`attention.dkv_splits`), and the reduce alone.  With --d256-fwd: the
+forward (D256_FWD_VARIANTS: the checked-in grid order against the
+parent's and against all rows in one chunk, and K and V in rings of their
+own at the same order with that design's variants and diagnostics) at
+D256_FWD_SHAPES (Gemma 2B's attention, d256_gqa6, Gemma 7B's widths, a
+window + sink), each timed both ways, CUDA events around 20 back-to-back
+calls and the kernel's own device time (profiler, mean per launch of 10),
+with the host's time per call and SDPA's forward beside it, and the
+card's clocks before and after.  With --trees: chip_smoke's kernel cases
+main and gemma_2b run whole in each tree given (a checkout, e.g. a parent
+commit unpacked with `git archive` into a git-ignored directory), and the
+forward alone, both ways, at every other head-dim-256 case in bf16 and
+fp16, one process per tree per round, in turns.  The edits record the
+designs the kernels were chosen from (PERF.md); a kernel's next variants
+replace them.
 """
 from __future__ import annotations
 
@@ -195,6 +205,462 @@ D256_VARIANTS = {
 D256_SPLITS_ON = "base"
 D256_SPLITS = (1, 2, 3, 4, 8)
 
+# The forward at head-dim class 256 over 128 rows is fwd_kernel with its
+# blocks taken longest first across a chunk's b*h rows (lpt_tile).  FWD_SPLIT
+# is the design it was held against at that order: fwd_wide_kernel, the same
+# loop with K and V in rings of their own (3 and 2 stages of 32 KB behind
+# the 64 KB Q tile, each stage handed back as soon as its one product has
+# read it, K loaded one tile ahead of V).  The split_* variants and the
+# diagnostics are edits on top of it; the diagnostics' outputs are wrong on
+# purpose (each leaves out one part of the work).
+FWD_SPLIT_SRC = """// The forward's epilogue for this thread's two rows: o = acc / l (l = 0 ->
+// 1) in E, the columns < ld, and lse = m ln 2 + log l (0 for a row with no
+// live key).
+template <typename E, int D>
+__device__ __forceinline__ void fwd_store(const float (&acc)[D / 64][32],
+                                          const float (&m)[2], float (&l)[2],
+                                          E* __restrict__ o,
+                                          float* __restrict__ lse, int bh,
+                                          int T, int ld, int row0, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int i = row0 + 8 * h;
+    if (i >= T) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 1.f;
+    E* op = o + ((size_t)bh * T + i) * ld;
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = dh * 64 + 8 * j + 2 * t;
+        if (c < ld)
+          store2(op + c, acc[dh][4 * j + 2 * h] * inv,
+                 acc[dh][4 * j + 2 * h + 1] * inv);
+      }
+    }
+    if (lse != nullptr && t == 0) {
+      lse[(size_t)bh * T + i] = l[h] > 0.f ? m[h] * LN2 + logf(l[h]) : 0.f;
+    }
+  }
+}
+
+
+// K and V in rings of their own
+struct FwdWideSmem {
+  static constexpr int DIM = 256, BM = 128, BK = 64;
+  static constexpr int K_STAGES = 3, V_STAGES = 2;
+  static constexpr int Q_BYTES = BM * DIM * 2;
+  static constexpr int KV_BYTES = BK * DIM * 2;  // one K or V tile
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + K_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + V_STAGES * KV_BYTES;
+  // k_full[K_STAGES], k_empty[K_STAGES], v_full[V_STAGES],
+  // v_empty[V_STAGES], q
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (2 * K_STAGES + 2 * V_STAGES + 1) + 1024;
+  static_assert(BYTES <= smem_budget(1), "forward tile does not fit");
+};
+
+
+template <typename E, bool SCALED>
+__global__ void __launch_bounds__(384, 1)
+    fwd_wide_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    E* __restrict__ o, float* __restrict__ lse, int group,
+                    int ld, float scale, Mask mk, int chunk) {
+  using S = FwdWideSmem;
+  constexpr int D = S::DIM, BM = S::BM, BK = S::BK;
+  constexpr int KS = S::K_STAGES, VS = S::V_STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sQ = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t sK = sQ + S::K_OFF, sV = sQ + S::V_OFF;
+  const uint32_t k_full = sQ + S::BAR_OFF, k_empty = k_full + 8 * KS;
+  const uint32_t v_full = k_empty + 8 * KS, v_empty = v_full + 8 * VS;
+  const uint32_t q_bar = v_empty + 8 * VS;
+
+  const int T = mk.T;
+  const GridTile gt = lpt_tile(BM, T, chunk);
+  const int bh = gt.bh;
+  const int q0 = gt.tile * BM;
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KS; ++s) {
+      hopper::mbar_init(k_full + 8 * s, 1);
+      hopper::mbar_init(k_empty + 8 * s, 256);
+    }
+    for (int s = 0; s < VS; ++s) {
+      hopper::mbar_init(v_full + 8 * s, 1);
+      hopper::mbar_init(v_empty + 8 * s, 256);
+    }
+    hopper::mbar_init(q_bar, 1);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      hopper::mbar_arrive_tx(q_bar, S::Q_BYTES);
+      hopper::tma_tile<D>(sQ, &map_q, BM, q0, bh, q_bar);
+      // tile j of K (V) into its ring's stage, once the product of tile
+      // j - stages has handed that stage back
+      auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                      uint32_t empty, int stages, int j) {
+        const int s = j % stages;
+        if (j >= stages)
+          hopper::mbar_wait(empty + 8 * s, (j / stages - 1) & 1);
+        const int k0 = (j < n_sink ? j : lo + j - n_sink) * BK;
+        hopper::mbar_arrive_tx(full + 8 * s, S::KV_BYTES);
+        hopper::tma_tile<D>(ring + s * S::KV_BYTES, map, BK, k0, bkv,
+                            full + 8 * s);
+      };
+      // K one tile ahead of V
+      if (n_iter > 0) load(&map_k, sK, k_full, k_empty, KS, 0);
+      for (int j = 0; j < n_iter; ++j) {
+        if (j + 1 < n_iter) load(&map_k, sK, k_full, k_empty, KS, j + 1);
+        load(&map_v, sV, v_full, v_empty, VS, j);
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t sQw = sQ + wg * 64 * 128;
+  const float sl2 = scale * LOG2E;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float alpha[2];
+  float o_acc[D / 64][32];
+#pragma unroll
+  for (int h = 0; h < D / 64; ++h)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[h][i] = 0.f;
+  hopper::mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int ks = it % KS, vs = it % VS;
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    const uint32_t sk = sK + ks * S::KV_BYTES, sv = sV + vs * S::KV_BYTES;
+    hopper::mbar_wait(k_full + 8 * ks, (it / KS) & 1);
+
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);
+
+    online_softmax<BK, SCALED>(sc, m, l, alpha, mk, r0, row0, k0, t, sl2);
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) o_acc[dh][x] *= alpha[(x >> 1) & 1];
+    }
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
+    hopper::mbar_wait(v_full + 8 * vs, (it / VS) & 1);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(o_acc[h], pa[kk],
+                             hopper::desc_mn(sv, BK, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(o_acc[h]);
+    hopper::mbar_arrive(v_empty + 8 * vs);
+  }
+  fwd_store<E, D>(o_acc, m, l, o, lse, bh, T, ld, row0, t);
+}
+
+
+// The forward at head-dim class 256 over 128 rows (fwd_wide_kernel).
+template <typename E, bool SCALED>
+int fwd_wide(int bh, const FwdArgs& a, cudaStream_t stream) {
+  using S = FwdWideSmem;
+  const int T = a.mk.T;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / a.group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / a.group, T, a.ld, S::BK)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = fwd_wide_kernel<E, SCALED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = grid_blocks(bh, T, S::BM);
+  if (grid == 0 || a.chunk < 1 || a.chunk > bh)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(map_q, map_k, map_v,
+                                          static_cast<E*>(a.o), a.lse,
+                                          a.group, a.ld, a.scale, a.mk,
+                                          a.chunk);
+  return (int)cudaGetLastError();
+}
+
+
+"""
+DQ_HOST = "// dq: dq_wide_kernel at head-dim class 256 (its one tile, 128 x 64), else"
+FWD_SPLIT = [(DQ_HOST, FWD_SPLIT_SRC + DQ_HOST),
+             ("    FA_FWD(256, 128, 64)\n",
+              """    if (dc == 256 && rows == 128 && step == 64)
+      return fwd_wide<E, SCALED>(bh, a, st);
+""")]
+FWD_LOOP = '''  hopper::mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int ks = it % KS, vs = it % VS;
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    const uint32_t sk = sK + ks * S::KV_BYTES, sv = sV + vs * S::KV_BYTES;
+    hopper::mbar_wait(k_full + 8 * ks, (it / KS) & 1);
+
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);
+
+    online_softmax<BK, SCALED>(sc, m, l, alpha, mk, r0, row0, k0, t, sl2);
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) o_acc[dh][x] *= alpha[(x >> 1) & 1];
+    }
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
+    hopper::mbar_wait(v_full + 8 * vs, (it / VS) & 1);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(o_acc[h], pa[kk],
+                             hopper::desc_mn(sv, BK, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(o_acc[h]);
+    hopper::mbar_arrive(v_empty + 8 * vs);
+  }
+'''
+# S(it + 1) issued ahead of P V(it) inside each warpgroup
+FWD_OVERLAP = '''  hopper::mbar_wait(q_bar, 0);
+  float sc[BK / 2];
+  uint32_t pa[BK / 16][4];
+  {  // S(0) and its softmax
+    hopper::mbar_wait(k_full, 0);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sK, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty);
+    online_softmax<BK, SCALED>(sc, m, l, alpha, mk, r0, row0,
+                               (n_sink > 0 ? 0 : lo) * BK, t, sl2);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
+  }
+  // S(it + 1) issued ahead of P V(it): its softmax runs while P V(it) is in
+  // flight
+  for (int it = 0; it < n_iter - 1; ++it) {
+    const int ks = (it + 1) % KS, vs = it % VS;
+    const int k1 = (it + 1 < n_sink ? it + 1 : lo + it + 1 - n_sink) * BK;
+    const uint32_t sk = sK + ks * S::KV_BYTES, sv = sV + vs * S::KV_BYTES;
+    hopper::mbar_wait(k_full + 8 * ks, ((it + 1) / KS) & 1);
+    hopper::mbar_wait(v_full + 8 * vs, (it / VS) & 1);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(o_acc[h], pa[kk],
+                             hopper::desc_mn(sv, BK, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::wg_wait<1>();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);
+    online_softmax<BK, SCALED>(sc, m, l, alpha, mk, r0, row0, k1, t, sl2);
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(o_acc[h]);
+    hopper::mbar_arrive(v_empty + 8 * vs);
+#pragma unroll
+    for (int dh = 0; dh < D / 64; ++dh) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) o_acc[dh][x] *= alpha[(x >> 1) & 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
+  }
+  {  // P V of the last tile
+    const int vs = (n_iter - 1) % VS;
+    const uint32_t sv = sV + vs * S::KV_BYTES;
+    hopper::mbar_wait(v_full + 8 * vs, ((n_iter - 1) / VS) & 1);
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int h = 0; h < D / 64; ++h)
+        hopper::Mma<E>::rs64(o_acc[h], pa[kk],
+                             hopper::desc_mn(sv, BK, kk, h));
+    }
+    hopper::wg_commit();
+    hopper::wg_wait();
+#pragma unroll
+    for (int h = 0; h < D / 64; ++h) hopper::wg_fence_regs(o_acc[h]);
+    hopper::mbar_arrive(v_empty + 8 * vs);
+  }
+'''
+FWD_LOAD = """        hopper::mbar_arrive_tx(full + 8 * s, S::KV_BYTES);
+        hopper::tma_tile<D>(ring + s * S::KV_BYTES, map, BK, k0, bkv,
+                            full + 8 * s);"""
+D256_FWD_VARIANTS = {
+    # each b*h's row tiles adjacent, longest first (the parent's order)
+    "fwd_bh_major": [("constexpr bool LPT = D == 256 && WG == 2;",
+                      "constexpr bool LPT = false;")],
+    # longest first over all b*h rows, whatever their K and V take of L2
+    "fwd_one_chunk": [("      a.scale, a.mk, a.chunk);",
+                       "      a.scale, a.mk, bh);")],
+    # K and V in rings of their own, at the same order
+    "split_rings": FWD_SPLIT,
+    # K in two stages
+    "split_k2": FWD_SPLIT + [("static constexpr int K_STAGES = 3, V_STAGES = 2;",
+                "static constexpr int K_STAGES = 2, V_STAGES = 2;")],
+    # each b*h's row tiles adjacent, longest first (the parent's order)
+    "split_bh_major": FWD_SPLIT + [("""                                          a.group, a.ld, a.scale, a.mk,
+                                          a.chunk);""", """                                          a.group, a.ld, a.scale, a.mk,
+                                          1);""")],
+    # K and V loaded tile by tile in turn (K not one tile ahead)
+    "split_interleave": FWD_SPLIT + [("""      // K one tile ahead of V
+      if (n_iter > 0) load(&map_k, sK, k_full, k_empty, KS, 0);
+      for (int j = 0; j < n_iter; ++j) {
+        if (j + 1 < n_iter) load(&map_k, sK, k_full, k_empty, KS, j + 1);
+        load(&map_v, sV, v_full, v_empty, VS, j);
+      }""", """      for (int j = 0; j < n_iter; ++j) {
+        load(&map_k, sK, k_full, k_empty, KS, j);
+        load(&map_v, sV, v_full, v_empty, VS, j);
+      }""")],
+    # longest first over all b*h rows, whatever their K and V take of L2
+    "split_one_chunk": FWD_SPLIT + [("""                                          a.group, a.ld, a.scale, a.mk,
+                                          a.chunk);""", """                                          a.group, a.ld, a.scale, a.mk,
+                                          bh);""")],
+    # the warpgroups take turns to issue S (named barriers 1 and 2; P V as
+    # it comes), FA3's ping-pong
+    "split_turns_s": FWD_SPLIT + [
+        ("""  hopper::mbar_wait(q_bar, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int ks = it % KS, vs = it % VS;""", """  hopper::mbar_wait(q_bar, 0);
+  if (wg == 1) hopper::named_arrive(1, 256);  // warpgroup 0 issues first
+  for (int it = 0; it < n_iter; ++it) {
+    const int ks = it % KS, vs = it % VS;"""),
+        ("""    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);""", """    hopper::named_sync(1 + wg, 256);  // this warpgroup's turn
+    hopper::wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::named_arrive(2 - wg, 256);  // the other's
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);"""),
+        ("""    hopper::mbar_arrive(v_empty + 8 * vs);
+  }
+  fwd_store<E, D>(o_acc""", """    hopper::mbar_arrive(v_empty + 8 * vs);
+  }
+  if (wg == 0) hopper::named_sync(1, 256);  // warpgroup 1's last turn
+  fwd_store<E, D>(o_acc""")],
+    # FA3's overlap inside a warpgroup (a second set of S registers)
+    "split_overlap": FWD_SPLIT + [(FWD_LOOP, FWD_OVERLAP)],
+    # diagnostics of the split rings, each leaving out one part of the work (outputs wrong on
+    # purpose): the S product, the P V product, the exponentials (p = the
+    # scaled score less the max), the K and V loads after each stage's
+    # first (the stage reused)
+    "diag_no_s": FWD_SPLIT + [("""    for (int kk = 0; kk < D / 16; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);""", """    for (int kk = 0; kk < 0; ++kk)
+      hopper::Mma<E>::ss(sc, hopper::desc_k(sQw, BM, kk),
+                         hopper::desc_k(sk, BK, kk), kk > 0);
+    hopper::wg_commit();
+    hopper::wg_wait();
+    hopper::wg_fence_regs(sc);
+    hopper::mbar_arrive(k_empty + 8 * ks);""")],
+    "diag_no_pv": FWD_SPLIT + [("""        hopper::Mma<E>::rs64(o_acc[h], pa[kk],
+                             hopper::desc_mn(sv, BK, kk, h));""",
+                    """        asm volatile("" ::"r"(pa[kk][0]), "r"(pa[kk][1]),
+                     "r"(pa[kk][2]), "r"(pa[kk][3]));""")],
+    "diag_no_exp": FWD_SPLIT + [(
+        "const float p = exp2_approx(fmaf(s[4 * j + 2 * h + e], sl2, -m_use));",
+        "const float p = fmaf(s[4 * j + 2 * h + e], sl2, -m_use);")],
+    "diag_no_kv": FWD_SPLIT + [(FWD_LOAD, """        if (j < stages) {
+""" + FWD_LOAD + """
+        } else {
+          hopper::mbar_arrive(full + 8 * s);
+        }""")],
+}
+
+# (name, B, query heads, KV heads, window, sink) of the forward's shapes,
+# T 2048, causal
+D256_FWD_SHAPES = (("gemma_2b", 4, 8, 1, None, 0),
+                   ("d256_gqa6", 1, 6, 1, None, 0),
+                   ("gemma_7b", 4, 16, 16, None, 0),
+                   ("d256_window_sink", 2, 8, 1, 256, 4))
+
 
 def build(name: str, edits, root: Path):
     from tf_operator_tpu_torch.ops import _build
@@ -214,15 +680,15 @@ def build(name: str, edits, root: Path):
     return lib, log
 
 
-def report(name: str, log: str, d256: bool = False) -> None:
+def report(name: str, log: str, kernels=None) -> None:
     """ptxas's registers and spills for the dq kernel's instantiations (with
-    d256: those of dq and dk/dv at head-dim class 256), and every warning
-    or performance note."""
+    `kernels`: those of these kernels at head-dim class 256), and every
+    warning or performance note."""
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance" in line:
             print(f"  {name}: {line.strip()}")
     for inst, regs, stores, loads, key in chip_smoke.ptxas_report(log):
-        if (key[0] in ("dq", "dkv") and key[2] == 256 if d256
+        if (key[0] in kernels and key[2] == 256 if kernels
                 else inst.startswith("dq_kernel")):
             print(f"  {name}: {inst} {regs} registers at launch, {stores} "
                   f"bytes spill stores, {loads} bytes spill loads")
@@ -274,7 +740,7 @@ def main_d256() -> int:
     with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
         for name, edits in [("base", [])] + list(D256_VARIANTS.items()):
             lib, log = build(name, edits, Path(tmp))
-            report(name, log, d256=True)
+            report(name, log, ("dq", "dkv"))
             libs[name] = ctypes.CDLL(str(lib))
         bind(libs["base"])
         o, lse = A.flash_forward(q, k, v, **opts)
@@ -325,23 +791,146 @@ def main_d256() -> int:
     return 0
 
 
+def clocks() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], check=True,
+        capture_output=True, text=True, timeout=60).stdout.strip()
+
+
+def fwd_times(fn, sdpa=None) -> str:
+    """The forward both ways: CUDA events around 20 back-to-back calls, and
+    the kernel's own device time (profiler, mean per launch of 10); the
+    host's time per call (100 calls enqueued, no wait); with `sdpa` its
+    forward's device time."""
+    import time
+
+    import torch
+
+    ev = chip_smoke.cuda_ms(fn, 20)
+    dev = chip_smoke.kernel_device_ms(lambda: [fn() for _ in range(10)],
+                                      "fwd_")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    host = (time.perf_counter() - t0) * 1e4  # us per call
+    torch.cuda.synchronize()
+    out = f"cuda_ms {ev:.4f} device_ms {dev:.4f} host_us {host:.1f}"
+    if sdpa is not None:
+        busy = chip_smoke.device_busy(lambda: [sdpa() for _ in range(10)])
+        out += f" sdpa device_ms {busy[0] / 10:.4f}"
+    return out
+
+
+def main_d256_fwd() -> int:
+    """The forward at D256_FWD_SHAPES for each D256_FWD_VARIANTS build and
+    the base, in turns."""
+    import torch
+    import torch.nn.functional as F
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    calls = {}
+    for name, b, h, hkv, window, sink in D256_FWD_SHAPES:
+        q = torch.randn(b, h, 2048, 256, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn(b, hkv, 2048, 256, generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        opts = dict(scale=256 ** -0.5, causal=True, window=window, sink=sink)
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
+        # SDPA as chip_smoke.kernel_case calls it: causal, or a mask
+        mask = None
+        if window:
+            i = torch.arange(2048, device=dev)
+            mask = ((i[None, :] <= i[:, None]) &
+                    ((i[:, None] - i[None, :] < window) | (i[None, :] < sink)))
+        calls[name] = (
+            lambda q=q, k=k, v=v, opts=opts: A.flash_forward(
+                q, k, v, block_q=128, block_k=128, **opts),
+            lambda q=q, k=k, v=v, mask=mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                scale=256 ** -0.5, enable_gqa=True),
+            ref)
+    print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
+          flush=True)
+    libs = {}
+    with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
+        for name, edits in [("base", [])] + list(D256_FWD_VARIANTS.items()):
+            lib, log = build(name, edits, Path(tmp))
+            report(name, log, ("fwd",))
+            libs[name] = ctypes.CDLL(str(lib))
+        order = list(libs)
+        for r in range(ROUNDS):
+            for name in order if r % 2 == 0 else order[::-1]:
+                bind(libs[name])
+                for shape, (fn, sdpa, ref) in calls.items():
+                    o, lse = fn()
+                    torch.cuda.synchronize()
+                    worst, rel = chip_smoke.tolerance_ratios(o, ref[0])
+                    held = (worst <= 1.0 and rel <= chip_smoke.FRO and float(
+                        (lse - ref[1]).abs().max()) <= chip_smoke.TOL_LSE)
+                    print(f"  round {r} {name:12s} {shape:9s} "
+                          f"{fwd_times(fn, sdpa if name == 'base' else None)}"
+                          f"{'' if held else ' OUTSIDE THE TOLERANCE'}",
+                          flush=True)
+    print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
+          flush=True)
+    return 0
+
+
 TREE_CASES = ("main", "gemma_2b")
+# the forward alone at the other head-dim-256 cases in bf16 and fp16
+TREE_FWD_CASES = ("gemma_2b", "gemma_2b_fp16", "d256_noncausal",
+                  "d256_window_sink", "d256_scale_neg", "d160", "d250",
+                  "d256_gqa6", "gemma_7b")
+# the forward alone at this file's chip_smoke cases (a tree may not have
+# them all)
+TREE_CODE = """\
+import importlib.util
+import chip_smoke as c
+import torch
+spec = importlib.util.spec_from_file_location("timing", {path!r})
+kv = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(kv)
+from tf_operator_tpu_torch.ops import attention as A
+for x in c.CASES:
+    if x.name in {cases!r}:
+        c.kernel_case(x, True)
+for x in map(lambda f: c.Case(*f), {fwd_cases!r}):
+    dtype = getattr(torch, x.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(x.b, n, x.t, x.d, generator=gen,
+                           device="cuda").to(dtype)
+               for n in (x.h, x.hkv, x.hkv))
+    opts = dict(scale=x.d ** -0.5 if x.scale is None else x.scale,
+                causal=x.causal, window=x.window, sink=x.sink,
+                block_q=x.blocks[0], block_k=x.blocks[1])
+    print(f"  {{x.name:11s}} flash_forward alone "
+          f"{{kv.fwd_times(lambda: A.flash_forward(q, k, v, **opts))}}")
+"""
 
 
 def main_trees(trees) -> int:
-    """chip_smoke.kernel_case for TREE_CASES in each tree, in turns, one
-    process per tree per round (each imports its own tree's package and
-    builds its own library)."""
-    code = ("import chip_smoke as c\n"
-            "for x in c.CASES:\n"
-            f"    if x.name in {TREE_CASES!r}: c.kernel_case(x, True)\n")
+    """chip_smoke.kernel_case for TREE_CASES and the forward alone at
+    TREE_FWD_CASES in each tree, in turns, one process per tree per round
+    (each imports its own tree's package and builds its own library; the
+    timing helpers are this file's)."""
+    fwd_cases = [tuple(x) for x in chip_smoke.CASES
+                 if x.name in TREE_FWD_CASES]
+    code = TREE_CODE.format(cases=TREE_CASES, fwd_cases=fwd_cases,
+                            path=str(Path(__file__).resolve()))
     for r in range(ROUNDS):
         for tree in trees if r % 2 == 0 else trees[::-1]:
             print(f"round {r} tree {tree}:", flush=True)
             proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                                   capture_output=True, text=True, check=False)
             for line in proc.stdout.splitlines():
-                if "kernel_ms" in line or "dq + dk/dv" in line:
+                if ("kernel_ms" in line or "dq + dk/dv" in line
+                        or "alone" in line):
                     print(f"  {tree}: {line.strip()}", flush=True)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
@@ -355,6 +944,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--d256", action="store_true",
                         help="dq and dk/dv at head-dim class 256")
+    parser.add_argument("--d256-fwd", action="store_true",
+                        help="the forward at head-dim class 256")
     parser.add_argument("--trees", nargs="+", default=None,
                         help="checkouts to run chip_smoke's cases in, in "
                              "turns")
@@ -368,6 +959,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.d256:
         return main_d256()
+    if args.d256_fwd:
+        return main_d256_fwd()
     from tf_operator_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")

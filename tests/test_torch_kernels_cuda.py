@@ -231,6 +231,25 @@ def test_ptxas_report_names_the_head_dim_256_kernels():
     assert {r[4] for r in report} <= A.instantiations()
 
 
+_FWD_WIDE = ("_ZN12_GLOBAL__N_115fwd_wide_kernelI6__halfLb1EEEv14CUtensorMap_st"
+             "S2_S2_PT_PfiifN2fa4MaskEi")
+
+
+def test_ptxas_report_names_the_wide_forward():
+    """kernel_variants.py's split-ring forward at head-dim class 256 over
+    128 rows (fwd_wide_kernel, templated on the element type and the
+    route): the report names it and gives it the key of the (fwd, 256,
+    128, 64) instantiation it stands in for."""
+    log = (f"ptxas info    : Compiling entry function '{_FWD_WIDE}' for "
+           f"'sm_90a'\nptxas info    : Function properties for {_FWD_WIDE}\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+           "loads\nptxas info    : Used 168 registers, used 3 barriers\n")
+    assert ptxas_report(log) == [
+        ("fwd_wide_kernel<float16, D 256, rows 128, step 64, scaled 1>", 168,
+         0, 0, ("fwd", "float16", 256, 128, 64))]
+    assert ("fwd", "float16", 256, 128, 64) in A.instantiations()
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -494,6 +513,56 @@ def test_kernels_at_chip_smoke_head_dim_256_cases(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", _D256_CASES, ids=[c.name for c in
+                                                    _D256_CASES])
+def test_the_head_dim_256_forward_at_chip_smoke_cases(cuda, case):
+    """The forward alone at each of those cases: o and lse against the
+    plain version by rule(dtype), the same bits from a second launch, and
+    the kernel that ran (profiler) fwd_kernel (over 128 rows its grid
+    longest first across the b*h rows of a chunk, attention.fwd_chunk)."""
+    from chip_smoke import profiled_events
+
+    dtype = getattr(torch, case.dtype)
+    q, k, v, _ = _inputs(case.t, case.h, case.hkv, d=case.d, b=case.b,
+                         dtype=dtype)
+    scale = case.d ** -0.5 if case.scale is None else case.scale
+    opts = dict(scale=scale, causal=case.causal, window=case.window,
+                sink=case.sink)
+    blocks = dict(block_q=case.blocks[0], block_k=case.blocks[1])
+    o, lse = A.flash_forward(q, k, v, **blocks, **opts)
+    again = A.flash_forward(q, k, v, **blocks, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
+    assert _held(o, o_ref, case.dtype), tolerance_ratios(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) <= rule(case.dtype)[2]
+    for _ in range(3):  # the profiler drops a cycle's device events at times
+        names = {e["name"] for e in profiled_events(
+            lambda: A.flash_forward(q, k, v, **blocks, **opts))}
+        if names:
+            break
+    assert any("fwd_kernel" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv_h,causal", [
+    (1, 3, 3, True), (2, 3, 3, False), (1, 6, 2, True), (1, 2, 1, True)],
+    ids=["mha_odd_heads", "mha_noncausal", "group_3", "group_2"])
+def test_the_wide_forward_at_other_groupings(cuda, b, h, kv_h, causal):
+    """The forward over 128 rows beside the chip_smoke cases' groups of 6
+    and 8: one head a KV head (an odd b*h), a group of 3 and of 2, each
+    against its plain version by the kernel rule, at a ragged T."""
+    q, k, v, _ = _inputs(1000, h, kv_h, d=256, b=b)
+    opts = dict(scale=256 ** -0.5, causal=causal, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
+    assert _held(o, o_ref), tolerance_ratios(o, o_ref)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
 def test_flash_attention_lse_at_chip_smoke_gemma_case(cuda):
     """The lse phase's case of the 256 class (8 query heads over one KV
     head, T 1024, causal: dk/dv in 5 slices)."""
@@ -645,6 +714,30 @@ def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
           f"Frobenius {rel:.3e}, max_abs_err {err:.3e} (a limit of 2e-2 * "
           f"max(1, max|o|) would be "
           f"{2e-2 * max(1.0, float(o_ref.abs().max())):.3e})")
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    assert not _held(o, o_ref)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_wide_forward_that_skips_a_late_tile(
+        cuda, tmp_path, monkeypatch):
+    """The forward at head-dim class 256 over 128 rows (its grid longest
+    first) built with the same planted fault (the P.V product of the first
+    16 keys skipped for the last query tile) at Gemma 2B's attention, B 1:
+    o fails the tolerance, lse still passes."""
+    site = "hopper::Mma<E>::rs64(acc[h], pa[kk]"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "if (it > 0 || kk > 0 || q0 + BM < T) " + site)
+
+    q, k, v, _ = _inputs(2048, 8, 1, d=256, b=1)
+    o, lse = A.flash_forward(q, k, v, scale=256 ** -0.5, causal=True,
+                             window=None, sink=0, **DEFAULT)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                     causal=True, scale=256 ** -0.5)
+    worst, rel = tolerance_ratios(o, o_ref)
+    print(f"planted wide forward fault: o worst err/limit {worst:.3f}, "
+          f"relative Frobenius {rel:.3e}")
     assert float((lse - lse_ref).abs().max()) <= 1e-3
     assert not _held(o, o_ref)
 

@@ -21,9 +21,9 @@ The pipeline:
             entry points for the recorded step: kind, operand and result
             shapes and dtypes, bytes, group size, `async_op`, the caller's
             file:line, and the async works never waited on; what the step
-            issued past the wrappers (`CommDebugMode` counts it) makes the
-            capture raise, and so does a rank whose inventory differs from
-            rank 0's;
+            issued past the wrappers (`DispatchedCollectives` counts it)
+            makes the capture raise, and so does a rank whose inventory
+            differs from rank 0's;
   layout    the shape and dtype of every tensor the rank holds after the
             step (parameters, optimizer moments, BatchNorm statistics, the
             batch), the parameters' and moments' carried onto the flax
@@ -72,6 +72,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..workloads.runner import WorkloadParts
 
@@ -190,7 +191,8 @@ _ENTRY_POINTS = {
     "batch_isend_irecv": ("collective-permute", None, None),
 }
 
-# the c10d op CommDebugMode counts for each (it does not count send/recv)
+# the c10d op DispatchedCollectives counts for each (send/recv are not
+# counted)
 _C10D_OPS = {
     "all_reduce": "c10d.allreduce_",
     "reduce_scatter_tensor": "c10d._reduce_scatter_base_",
@@ -199,6 +201,25 @@ _C10D_OPS = {
     "all_to_all_single": "c10d.alltoall_base_",
     "broadcast": "c10d.broadcast_",
 }
+
+# The collective ops a step can dispatch (by namespace, then name), as
+# `torch.distributed.tensor.debug.CommDebugMode` counts them: c10d's, and the
+# functional collectives (the native namespace's ops under the Python
+# one's names).
+_DISPATCHED = {
+    "c10d": {"_allgather_base_", "_reduce_scatter_base_", "allgather_",
+             "allgather_coalesced_", "allgather_into_tensor_coalesced_",
+             "allreduce_", "allreduce_coalesced_", "alltoall_",
+             "alltoall_base_", "broadcast_", "gather_", "scatter_", "reduce_",
+             "reduce_scatter_", "reduce_scatter_tensor_coalesced_"},
+    "c10d_functional": {"all_gather_into_tensor",
+                        "all_gather_into_tensor_coalesced", "all_reduce",
+                        "all_reduce_coalesced", "all_to_all_single",
+                        "broadcast", "reduce_scatter_tensor",
+                        "reduce_scatter_tensor_coalesced"},
+    "_dtensor": {"shard_dim_alltoall"},
+}
+_FUNCTIONAL = ("_c10d_functional", "_c10d_functional_autograd")
 
 _TORCH_DIR = os.path.dirname(os.path.abspath(torch.__file__))
 _REPO_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -241,16 +262,51 @@ class _Waited:
         return getattr(self._work, name)
 
 
+class DispatchedCollectives(TorchDispatchMode):
+    """While active, counts the collective ops the step dispatches, by
+    `str(op)` (`c10d.allreduce_`, ...): what `CommDebugMode` counts,
+    without its module tracker.  That tracker hangs autograd hooks on the
+    step's tensors and keeps each module's parameters in a dict, and the
+    hooks close a cycle through the autograd graph (C++, which `gc` does
+    not see): after a capture the model's parameters and their gradients
+    stayed allocated until the process ended (ROADMAP C.4)."""
+
+    supports_higher_order_operators = True
+
+    def __init__(self) -> None:
+        from torch.distributed.tensor import DTensor
+
+        super().__init__()
+        self.counts: collections.Counter = collections.Counter()
+        self._dtensor = DTensor
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        # a DTensor desugars into plain ops, its collectives among them,
+        # which come back through the mode
+        if any(issubclass(t, self._dtensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        space, _, name = str(func._overloadpacket).rpartition(".")
+        if space in _FUNCTIONAL:
+            space = "c10d_functional"
+        if name in _DISPATCHED.get(space, ()):
+            self.counts[f"{space}.{name}"] += 1
+        return out
+
+
 class CollectiveRecorder:
     """While active, every collective that `torch.distributed`'s entry
     points issue (`_ENTRY_POINTS`) is recorded as a `CollectiveOp`, in
     call order, from whichever thread issued it (autograd's included);
     a call made inside another recorded one (`batch_isend_irecv`'s sends)
     is part of it.  The entry points are restored on exit.  Beside the
-    wrappers `CommDebugMode` counts the c10d ops the step dispatched; on
-    a clean exit any difference between its counts and the wrappers'
-    (a collective that went past them, such as a functional collective or
-    a function bound before the recorder started) raises."""
+    wrappers `DispatchedCollectives` counts the collective ops the step
+    dispatched; on a clean exit any difference between its counts and the
+    wrappers' (a collective that went past them, such as a functional
+    collective or a function bound before the recorder started) raises."""
 
     def __init__(self) -> None:
         self.ops: List[CollectiveOp] = []
@@ -267,7 +323,6 @@ class CollectiveRecorder:
 
     def __enter__(self) -> "CollectiveRecorder":
         from torch.distributed import distributed_c10d as c10d
-        from torch.distributed.tensor.debug import CommDebugMode
 
         if getattr(c10d.all_reduce, "_recorder", None) is not None:
             raise RuntimeError("a CollectiveRecorder is already recording")
@@ -281,7 +336,7 @@ class CollectiveRecorder:
                     if getattr(module, name, None) is original:
                         self._saved.append((module, name, original))
                         setattr(module, name, wrapper)
-            self._comm = CommDebugMode()
+            self._comm = DispatchedCollectives()
             self._comm.__enter__()
         except BaseException:
             self._restore()
@@ -357,12 +412,11 @@ class CollectiveRecorder:
         return wrapped if isinstance(out, list) else wrapped[0]
 
     def _cross_check(self) -> None:
-        seen = collections.Counter(
-            {str(op): n for op, n in self._comm.get_comm_counts().items()})
+        seen = +self._comm.counts
         if seen != self._c10d:
             raise RuntimeError(
                 "collectives went past the recorder's wrappers of "
-                f"torch.distributed: CommDebugMode counted {dict(seen)}, "
+                f"torch.distributed: the dispatch counted {dict(seen)}, "
                 f"the wrappers {dict(self._c10d)} (a functional collective, "
                 "FSDP2's, or an entry point bound before the recording "
                 "started)")
@@ -471,7 +525,7 @@ def capture_program(step, state, batch,
     workload was built (earlier captures' leftovers are not this step's);
     then record the next step: its collectives, the kernels it launched,
     the state after it (`MemoryStats`' resident bytes).  The peak is not
-    read over the recorded step, whose `CommDebugMode` adds its own.
+    read over the recorded step, which the recorder runs.
     Every rank of the group calls it; their inventories must agree
     (`same_inventory`)."""
     from ..ops import attention

@@ -211,8 +211,9 @@ MAX_HEAD_DIM = 256
 # the values of (rows per block, step of the reduction loop).  The forward
 # and dq take rows from block_q and the key step from block_k; dk/dv takes
 # key rows from block_k and the query step from block_q (the JAX kernels'
-# meaning of the two numbers).  At 256, dq's 128 rows are two warpgroups of
-# 64 over a 64-key step, and dk/dv's 64 key rows are shared by two
+# meaning of the two numbers).  At 256, the forward's and dq's 128 rows are
+# two warpgroups of 64 over a 64-key step (the forward's taken longest
+# first: `fwd_chunk`), and dk/dv's 64 key rows are shared by two
 # warpgroups, one holding dV and one dK (its grid split over the query
 # heads: `dkv_splits`).
 INSTANTIATED = {
@@ -297,6 +298,26 @@ def sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def fwd_chunk(bh: int, group: int, t: int, l2_bytes: int) -> int:
+    """How many b*h rows the forward at head-dim class 256 (128-row tiles)
+    takes longest first together: as many whole KV groups as keep the K
+    and V their KV heads read (T x 256 16-bit values each) within a sixth
+    of L2, at least one group, at most all rows.
+    Longest first over every row evens out the causal tail (Gemma 2B's
+    attention: 68 key steps on the busiest SM against 86 with each b*h's
+    tiles adjacent, and all 4 of its KV heads, 8 MB, fit); where K and V
+    do not stay in L2, fewer heads in flight read them from L2 more often
+    (Gemma 7B's widths, 64 KV heads at B 4: a chunk of 4 against 1, 2, 6,
+    12 and 64 measured, PERF.md)."""
+    kv_heads = max(1, l2_bytes // 6 // (2 * t * 256 * 2))
+    return min(bh, kv_heads * group)
+
+
+@functools.lru_cache(maxsize=None)
+def l2_bytes(device) -> int:
+    return torch.cuda.get_device_properties(device).L2_cache_size
+
+
 def instantiations() -> set:
     """Every built kernel as (kernel, dtype, head-dim class, rows, step)."""
     out = set()
@@ -321,8 +342,8 @@ def _library() -> ctypes.CDLL:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         mask = [f32, i32, i32, i32, ptr]  # scale, causal, window, sink, stream
         # b*h, heads, kv_heads, T, head_dim, dtype, rows, step (and the
-        # forward's route)
-        lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 9 + mask
+        # forward's route and chunk)
+        lib.fa_forward.argtypes = [ptr] * 5 + [i32] * 10 + mask
         lib.fa_backward_dq.argtypes = [ptr] * 7 + [i32] * 8 + mask
         # (dk/dv: and its workspace pointer, and the slices after the step)
         lib.fa_backward_dkv.argtypes = [ptr] * 9 + [i32] * 9 + mask
@@ -423,12 +444,13 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
     qp, kp, vp = _padded(q, k, v)
     o = torch.empty_like(qp)
     lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
+    chunk = fwd_chunk(b * heads, heads // k.shape[1], t, l2_bytes(q.device))
     with torch.cuda.device(q.device):
         err = _library().fa_forward(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b * heads,
             *_shape_args(q, k, qp.shape[-1], tile), int(scales_first(scale)),
-            *_mask_args(scale, causal, window, sink, q.device))
+            chunk, *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash forward")
     flash_forward.launches += 1
     return _unpadded(o, d), lse

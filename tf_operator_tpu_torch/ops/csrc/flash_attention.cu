@@ -126,6 +126,9 @@ struct FwdArgs {
   int ld;  // the stored head dim
   float scale;
   Mask mk;
+  // the b*h rows whose row tiles the forward at head-dim class 256 over 128
+  // rows takes longest first together (lpt_tile)
+  int chunk;
 };
 
 struct BwdArgs {
@@ -308,9 +311,10 @@ __device__ __forceinline__ void query_tiles(int k0, int bm, const Mask& mk,
 // The grid: blockIdx.x walks (b*h, row tile) pairs, the n row tiles of one
 // b*h adjacent, so that b*h is bounded only by the 2^31 - 1 blocks of x
 // (y stops at 65,535).  The forward and dq take a b*h's tiles in reverse,
-// longest rows first; that is the order the default tiles were tuned
-// under (b*h fastest, b*h on x and tiles on y, measured 1.7 % slower in dq
-// at the LM's main shape; PERF.md).
+// longest rows first (the forward at head-dim class 256 over 128 rows
+// across b*h rows: lpt_tile, below); that is the order the default tiles
+// were tuned under (b*h fastest, b*h on x and tiles on y, measured 1.7 %
+// slower in dq at the LM's main shape; PERF.md).
 struct GridTile {
   int bh, tile, n;
 };
@@ -318,6 +322,26 @@ struct GridTile {
 __device__ __forceinline__ GridTile grid_tile(int rows, int T) {
   const int n = (T + rows - 1) / rows;
   return {(int)blockIdx.x / n, (int)blockIdx.x % n, n};
+}
+
+// The forward's grid at head-dim class 256 over 128 rows: blockIdx.x walks
+// chunks of `chunk` b*h rows (the host's choice, ops/attention.py:
+// fwd_chunk: as many as keep their K and V within a sixth of L2), and in
+// each chunk the row tiles from the last (the longest under causal
+// masking) down, the chunk's b*h fastest.  With each b*h's tiles adjacent,
+// a head's long tiles started late and the causal tail took 86 key steps
+// on the busiest SM of Gemma 2B's attention against an average of 66 (68
+// longest first; tests/test_torch_fwd_wide.py models both).  Under a
+// window or without causal masking, where the tiles are of about one
+// length, it gains nothing and measured up to 4 % slower (PERF.md).
+// GridTile.tile is the row tile itself.
+__device__ __forceinline__ GridTile lpt_tile(int rows, int T, int chunk) {
+  const int n = (T + rows - 1) / rows;
+  const int bh_n = (int)gridDim.x / n;
+  const int x = (int)blockIdx.x;
+  const int c = x / (chunk * n), r = x % (chunk * n);
+  const int size = min(chunk, bh_n - c * chunk);
+  return {c * chunk + r % size, n - 1 - r / size, n};
 }
 
 // Blocks of that grid for bh rows of T; 0 when they pass 2^31 - 1.
@@ -487,7 +511,7 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
                const __grid_constant__ CUtensorMap map_k,
                const __grid_constant__ CUtensorMap map_v,
                E* __restrict__ o, float* __restrict__ lse, int group, int ld,
-               float scale, Mask mk) {
+               float scale, Mask mk, int chunk) {
   using S = FwdSmem<D, WG, BK>;
   constexpr int BM = S::BM, STAGES = S::STAGES;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -497,9 +521,12 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
   const uint32_t q_bar = bars + 16 * STAGES;
 
   const int T = mk.T;
-  const GridTile gt = grid_tile(BM, T);
+  // longest rows first: across a chunk's b*h rows at head-dim class 256
+  // over 128 rows, else within each b*h
+  constexpr bool LPT = D == 256 && WG == 2;
+  const GridTile gt = LPT ? lpt_tile(BM, T, chunk) : grid_tile(BM, T);
   const int bh = gt.bh;
-  const int q0 = (gt.n - 1 - gt.tile) * BM;  // longest rows first
+  const int q0 = (LPT ? gt.tile : gt.n - 1 - gt.tile) * BM;
   int lo, n_sink, n_iter;
   key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
 
@@ -1568,10 +1595,11 @@ int fwd(int bh, const FwdArgs& a, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
   if (err != cudaSuccess) return (int)err;
   const unsigned grid = grid_blocks(bh, T, S::BM);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
+  if (grid == 0 || a.chunk < 1 || a.chunk > bh)
+    return (int)cudaErrorInvalidValue;
   kernel<<<grid, 128 * (WG + 1), S::BYTES, stream>>>(
       map_q, map_k, map_v, static_cast<E*>(a.o), a.lse, a.group, a.ld,
-      a.scale, a.mk);
+      a.scale, a.mk, a.chunk);
   return (int)cudaGetLastError();
 }
 
@@ -2262,7 +2290,8 @@ int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
 // dtype: 0 bf16, 1 fp16, 2 f32 (q, k, v, dO and the outputs alike; lse and
 // delta f32).  head_dim is the stored head dim; rows and step the tile
-// (rows per block, step of the reduction loop); scaled the forward's route.
+// (rows per block, step of the reduction loop); scaled the forward's route,
+// chunk the b*h rows it takes longest first together (lpt_tile).
 // A dtype, head dim or tile that has no instantiation returns
 // cudaErrorInvalidValue.  Head-dim class 256 goes to the parts that build
 // it.
@@ -2282,8 +2311,8 @@ extern "C" const char* fa_error_string(int err) {
 extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                           void* lse, int bh, int heads, int kv_heads, int T,
                           int head_dim, int dtype, int rows, int step,
-                          int scaled, float scale, int causal, int window,
-                          int sink, void* stream) {
+                          int scaled, int chunk, float scale, int causal,
+                          int window, int sink, void* stream) {
   const FwdArgs a{q,
                   k,
                   v,
@@ -2292,7 +2321,8 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                   heads / kv_heads,
                   head_dim,
                   scale,
-                  Mask{T, causal, window, sink}};
+                  Mask{T, causal, window, sink},
+                  chunk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!scaled && !(scale > 0.f)) return (int)cudaErrorInvalidValue;
   const bool wide = head_class(head_dim) == 256;
