@@ -32,12 +32,17 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            its forward beside the forward kernel, its backward alone
            (autograd.grad on a retained graph) beside dq + dk/dv, and since
            the fourteenth slice, at head dims 129-256, the forward's and
-           SDPA's forward's device time by the profiler; each kernel
+           SDPA's forward's device time by the profiler, and since the
+           fifteenth slice at the encoders' shapes (vit_b16, bert_base and
+           their tp 2 halves, where the forward and dk/dv take the
+           encoders' kernels: attention.short_route) all three kernels'
+           and SDPA's forward's and backward's device time; each kernel
            launched a second time on the same inputs must give the same
            bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
            class 64, 128 and 256, tile and forward route) against its plain version at a
-           ragged causal shape with a window and a sink;
+           ragged causal shape with a window and a sink (since the
+           fifteenth slice also at T 200, the encoders' kernels);
            `ops/autotune.tune_flash_blocks` in bf16 at GPT-small, ViT-B/16
            and BERT-base, each candidate's fwd+bwd ms and tiles and the
            winner against (128, 128), no candidate failing; the caches (a
@@ -101,7 +106,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            batch 256) and
   bert     the BERT workload at BERT-base width (T 128, batch 32): each as
            resnet, plus the kernels' launches (12 per step each, counted
-           from zero just before the run), and the model's logits with the
+           from zero just before the run; since the fifteenth slice every
+           forward and dk/dv launch must be the encoders' kernels', which
+           the kernels line lists apart), and the model's logits with the
            kernels against the same model on the plain attention path;
            for bert one more plain run whose losses, in full precision,
            must equal the workload run's over the 10 steps
@@ -219,7 +226,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            all --devices 1`, its rank on the card, exit 0
 
 The last lines are the card line, one JSON object with every kernel's
-numbers, and `{"ok": true, "device": {...}}`.  With `--out-dir DIR` the
+numbers (`ms` and `library_ms` by CUDA events around back-to-back calls,
+the host inside, for every row; `device_ms` and `library_device_ms` by
+the profiler where measured, else null), and `{"ok": true, "device":
+{...}}`.  With `--out-dir DIR` the
 longer output (compiler report, profile summary) is also written under DIR.
 """
 from __future__ import annotations
@@ -249,6 +259,10 @@ REPLACES = {
     # the sum of dk/dv's slices: the second pass of dk/dv's port (the
     # Pallas kernel carries the group's sum in VMEM along its grid)
     "dkv_reduce": "tf_operator_tpu/ops/attention.py:485",
+    # the encoders' kernels (T <= 256 at head-dim class 64) behind the
+    # forward and dk/dv wrappers
+    "flash_forward_short": "tf_operator_tpu/ops/attention.py:255",
+    "flash_backward_dkv_short": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -279,10 +293,11 @@ TOL_LSE_F32 = 1e-5
 # forward its route; DMAX for the f32 kernels; element type and query step
 # for dk/dv at head-dim class 256, whose 64 keys two warpgroups share, and
 # the element type for dq there, whose tile is fixed, and for
-# kernel_variants.py's split-ring forward there, with its route),
-# then its spills and its registers at launch
+# kernel_variants.py's split-ring forward there, with its route; the
+# element type, and the forward's route, for the encoders' kernels, whose
+# tile is attention.SHORT's), then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
-                         r"(_f32|_split|_wide)?_kernelI"
+                         r"(_f32|_split|_wide|_short)?_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
 PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16"}
@@ -350,6 +365,13 @@ def ptxas_instantiation(m) -> tuple:
         dtype, step = args[:2]
         return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
                 (kernel, dtype, 256, 64, step))
+    if kind == "_short":  # the encoders' kernels (T <= 256 at D 64)
+        from tf_operator_tpu_torch.ops.attention import SHORT
+
+        rows, step = SHORT[kernel]
+        route = f", scaled {args[1]}" if kernel == "fwd" else ""
+        return (f"{kernel}_short_kernel<{args[0]}, D 64, rows {rows}, step "
+                f"{step}{route}>", (kernel, args[0], 64, rows, step))
     if kind == "_wide":  # dq's one tile at head-dim class 256, and
         # kernel_variants.py's split-ring forward over 128 rows there
         route = f", scaled {args[1]}" if kernel == "fwd" else ""
@@ -451,6 +473,22 @@ def step_losses(log: str) -> dict:
             for m in re.finditer(r"^step (\d+) loss (\S+)$", log, re.M)}
 
 
+def check_short_launches(expected: int, what: str) -> dict:
+    """The encoders' kernels behind the forward and dk/dv wrappers
+    (`attention.short_launches`): each launched `expected` times, so that
+    every attention call of the path took them."""
+    from tf_operator_tpu_torch.ops import attention as A
+
+    counts = A.short_launches()
+    print(f"{what}: the encoders' kernels' launches {counts} (expected "
+          f"{expected} each)", flush=True)
+    for name, n in counts.items():
+        if n != expected:
+            raise RuntimeError(f"{what}: the encoders' kernel behind {name} "
+                               f"launched {n} times, expected {expected}")
+    return counts
+
+
 def check_launches(expected: int, what: str) -> dict:
     from tf_operator_tpu_torch.ops import attention as A
 
@@ -546,6 +584,10 @@ CASES = [
 ]
 # launches the profiler averages a kernel's device time over
 DEVICE_REPS = 10
+# the encoders' shapes, where all three kernels (the forward and dk/dv on
+# the encoders' kernels, attention.short_route) and SDPA's forward and
+# backward are also timed by the profiler
+ENCODER_CASES = ("vit_b16", "bert_base", "vit_b16_tp2", "bert_base_tp2")
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
@@ -727,7 +769,6 @@ def kernel_case(case, timing: bool):
     lib_fwd = cuda_ms(sdpa_fwd, reps)
     lib_fwd_bwd = cuda_ms(sdpa_fwd_bwd, reps)
     lib_bwd = cuda_ms(sdpa_bwd, reps)
-    del sdpa_out
     kern_total = sum(k_ms for k_ms, _ in times.values())
     kern_bwd = (times["flash_backward_dq"][0] +
                 times["flash_backward_dkv"][0])
@@ -746,22 +787,35 @@ def kernel_case(case, timing: bool):
     print(f"  {name:11s} kernels dq + dk/dv ms {kern_bwd:.4f}; sdpa backward "
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
-    if A.head_class(d) == 256:
-        # the forward kernel's own time and SDPA's forward on the device
-        # (profiler): back to back, a wrapper whose host time outlasts its
-        # kernel times the host, and a stall of the host lands in the mean
+    if A.head_class(d) == 256 or name in ENCODER_CASES or name == "main":
+        # the kernels' own time and SDPA's on the device (profiler), under
+        # keys of their own (`ms` and `library_ms` stay CUDA events): back
+        # to back, a wrapper whose host time outlasts its kernel times the
+        # host, and a stall of the host lands in the mean.  At head-dim
+        # class 256 the forward, at the main and the encoders' shapes all
+        # three and SDPA's whole backward too
         def reps(fn):
             return lambda: [fn() for _ in range(DEVICE_REPS)]
 
-        dev_ms = kernel_device_ms(reps(fwd), "fwd_")
-        sdpa_ms = device_busy(reps(sdpa_fwd))[0] / DEVICE_REPS
-        bound = result["flash_forward"]["bound_ms"]
-        result["flash_forward"].update(device_ms=dev_ms, sdpa_device_ms=sdpa_ms)
-        print(f"  {name:11s} flash_forward device_ms {dev_ms:.4f} (profiler, "
-              f"mean of the launches caught of {DEVICE_REPS}; cuda_ms "
-              f"{times['flash_forward'][0]:.4f})"
-              f" bound/kernel {bound / dev_ms:.3f}; sdpa forward device_ms "
-              f"{sdpa_ms:.4f} (yardstick)", flush=True)
+        sdpa_ms = {"flash_forward": device_busy(reps(sdpa_fwd))[0]
+                   / DEVICE_REPS}
+        calls = {"flash_forward": (fwd, "fwd_")}
+        if name in ENCODER_CASES or name == "main":
+            sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
+            calls.update(flash_backward_dq=(dq_kernel, "dq_"),
+                         flash_backward_dkv=(dkv_kernel, "dkv_"))
+        for kname, (fn, frag) in calls.items():
+            dev_ms = kernel_device_ms(reps(fn), frag)
+            lib_ms = sdpa_ms.get(kname, sdpa_ms.get("backward"))
+            bound = result[kname]["bound_ms"]
+            result[kname].update(device_ms=dev_ms, library_device_ms=lib_ms)
+            print(f"  {name:11s} {kname} device_ms {dev_ms:.4f} (profiler, "
+                  f"mean of the launches caught of {DEVICE_REPS}; cuda_ms "
+                  f"{times[kname][0]:.4f}) bound_ms {bound:.4f} bound/kernel "
+                  f"{bound / dev_ms:.3f}; sdpa "
+                  f"{'forward' if kname == 'flash_forward' else 'backward'}"
+                  f" device_ms {lib_ms:.4f} (yardstick)", flush=True)
+    del sdpa_out
     return result
 
 
@@ -813,27 +867,39 @@ def reduce_case(case) -> dict:
         total = ws.sum(1)
         return (total[0] * scale).to(dtype), total[1].to(dtype)
 
-    # the kernel's own time (profiler): back to back, its wrapper's host
-    # time is longer than the kernel; the library's device time alike
-    res = {"max_abs_err": err, "ms": kernel_device_ms(call,
-                                                      "dkv_reduce_kernel"),
+    # CUDA events around back-to-back calls, as every kernel's `ms`; and
+    # the kernel's own time (profiler), since its wrapper's host time is
+    # longer than the kernel; the library's device time alike.  Each over
+    # DEVICE_REPS calls: a profile of one launch can miss its only device
+    # event (the mean is over the launches caught)
+    res = {"max_abs_err": err,
+           "ms": cuda_ms(call, 20),
+           "device_ms": kernel_device_ms(
+               lambda: [call() for _ in range(DEVICE_REPS)],
+               "dkv_reduce_kernel"),
            "plain_ms": cuda_ms(
                lambda: A.dkv_reduce_plain(ws, scale, dtype), 3),
            "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
-           "library_ms": device_busy(library)[0]}
+           "library_ms": cuda_ms(library, 20),
+           "library_device_ms": device_busy(
+               lambda: [library() for _ in range(DEVICE_REPS)])[0]
+           / DEVICE_REPS}
     print(f"  {case.name:11s} dkv_reduce ({splits} slices, {nbytes:,} bytes)"
-          f" equal to its plain version; kernel_ms (device) {res['ms']:.4f}"
-          f" (back to back {cuda_ms(call, 20):.4f}) plain_ms "
+          f" equal to its plain version; device_ms {res['device_ms']:.4f}"
+          f" (back to back {res['ms']:.4f}) plain_ms "
           f"{res['plain_ms']:.4f} bound_ms {res['bound_ms']:.4f} (bytes) "
-          f"bound/kernel {res['bound_ms'] / res['ms']:.3f}; ws.sum(1) with "
-          f"the scale and the casts (yardstick) device ms "
-          f"{res['library_ms']:.4f}", flush=True)
+          f"bound/kernel {res['bound_ms'] / res['device_ms']:.3f}; ws.sum(1)"
+          f" with the scale and the casts (yardstick) device_ms "
+          f"{res['library_device_ms']:.4f} (back to back "
+          f"{res['library_ms']:.4f})", flush=True)
     return res
 
 
 def phase_kernels():
     """Every case against its plain versions; returns the main case's
-    numbers and, under "dkv_reduce", the slices' sum at Gemma 2B's shape."""
+    numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, and
+    under "flash_forward_short" and "flash_backward_dkv_short" the
+    encoders' kernels at ViT-B/16's."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -841,7 +907,7 @@ def phase_kernels():
     out = {}
     for case in CASES:
         tiles = A.resolve_tiles(*case.blocks, case.d,
-                                getattr(torch, case.dtype))
+                                getattr(torch, case.dtype), case.t)
         print(f"kernel case {case.name}: B={case.b} H={case.h} "
               f"Hkv={case.hkv} T={case.t} D={case.d} causal={case.causal} "
               f"window={case.window} sink={case.sink} {case.dtype} scale="
@@ -851,7 +917,11 @@ def phase_kernels():
               "slice(s)", flush=True)
         res = kernel_case(case, case.name in TIMED_CASES)
         if case.name == "main":
-            out = dict(res)
+            out.update(res)
+        if case.name == "vit_b16":
+            # the encoders' kernels at ViT-B/16's shape
+            for kname in ("flash_forward", "flash_backward_dkv"):
+                out[f"{kname}_short"] = res[kname]
         if case.name == "gemma_2b":
             out["dkv_reduce"] = reduce_case(case)
         torch.cuda.empty_cache()
@@ -875,21 +945,25 @@ def every_instantiation():
     dims 64, 128 and 256 (positive and negative scale: both forward
     routes), and the f32 kernels, against the plain versions at a ragged
     causal shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300,
-    window 64, sink 70); fails unless every instantiation ran."""
+    window 64, sink 70), and at T 200 in bf16 and fp16 at head dim 64 (the
+    encoders' kernels, attention.short_route, both routes); fails unless
+    every instantiation ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
     from tf_operator_tpu_torch.ops import autotune as AT
 
     dev = torch.device("cuda")
-    b, h, hkv, t, window, sink = 1, 4, 2, 300, 64, 70
-    runs = [(dtype, d, pair, sign) for dtype in ("bfloat16", "float16")
+    b, h, hkv, window, sink = 1, 4, 2, 64, 70
+    runs = [(dtype, d, pair, sign, 300) for dtype in ("bfloat16", "float16")
             for d in (64, 128, 256) for pair in AT.DEFAULT_CANDIDATES
             for sign in (1, -1)]
-    runs += [("float32", d, (128, 128), sign) for d in (64, 128, 256)
+    runs += [("float32", d, (128, 128), sign, 300) for d in (64, 128, 256)
              for sign in (1, -1)]
+    runs += [(dtype, 64, (128, 128), sign, 200)
+             for dtype in ("bfloat16", "float16") for sign in (1, -1)]
     ran, worst = set(), {}
-    for dtype_name, d, (bq, bk), sign in runs:
+    for dtype_name, d, (bq, bk), sign, t in runs:
         dtype = getattr(torch, dtype_name)
         gen = torch.Generator(device=dev).manual_seed(d + bq + bk)
         q, k, v, do = (torch.randn(b, n, t, d, generator=gen, device=dev)
@@ -912,7 +986,7 @@ def every_instantiation():
                     qf, kf, vf, dof, lse, delta, **opts)))}
         rtol, fro, tol_lse = rule(dtype_name)
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
-        what = (f"{dtype_name} D {d} blocks ({bq}, {bk}) scale "
+        what = (f"{dtype_name} D {d} T {t} blocks ({bq}, {bk}) scale "
                 f"{opts['scale']:.4g}")
         for key, ref in refs.items():
             ratio, rel = tolerance_ratios(got[key], ref, rtol)
@@ -925,7 +999,7 @@ def every_instantiation():
         if float((lse - lse_ref).abs().max()) > tol_lse:
             raise RuntimeError(f"instantiation check, {what}: lse outside "
                                f"{tol_lse:g}")
-        tiles = A.resolve_tiles(bq, bk, d, dtype)
+        tiles = A.resolve_tiles(bq, bk, d, dtype, t)
         for kernel in ("fwd", "dq", "dkv"):
             ran.add((kernel, dtype_name, A.head_class(d),
                      *getattr(tiles, kernel)))
@@ -2151,8 +2225,9 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     finite, its step time line read, MFU against PEAK_BF16_FLOPS from
     `flops` per step, peak memory; the kernels' launches counted from zero
     over the run when `launches_per_step`; then two steps profiled through
-    its --profile-dir.  Returns the run's log and every step's loss in
-    full precision."""
+    its --profile-dir.  Returns the run's log, every step's loss in full
+    precision, and for vit and bert the launches of the encoders' kernels
+    over the run (each must be every launch of its wrapper)."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -2163,8 +2238,11 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     with step_losses_kept() as kept:
         log = run_workload(name, argv + ["--steps", str(steps),
                                          "--log-every", "1"])
+    short = {}
     if launches_per_step:
         check_launches(launches_per_step * steps, f"{name} run")
+        short = check_short_launches(launches_per_step * steps,
+                                     f"{name} run")
     peak = torch.cuda.max_memory_allocated()
     losses = step_losses(log)
     if sorted(losses) != list(range(steps)) or not all(
@@ -2190,7 +2268,7 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     summary = device_profile(events, 2, ms)
     print(summary, flush=True)
     write_detail(out_dir, f"profile_{name}.txt", f"{card}\n{summary}\n")
-    return log, [float(x) for x in kept]
+    return log, [float(x) for x in kept], short
 
 
 def phase_resnet(card: str, out_dir):
@@ -2203,7 +2281,7 @@ def phase_resnet(card: str, out_dir):
     probe.reset_parameters(torch.Generator().manual_seed(0))
     flops = 3.0 * batch * conv_dense_flops(probe.cuda(), size)
     del probe
-    log, _ = run_classification(card, out_dir, "resnet", [], 8, flops)
+    log, _, _ = run_classification(card, out_dir, "resnet", [], 8, flops)
     if "image source: native" not in log:
         raise RuntimeError("resnet: the images did not come from the native "
                            "loader")
@@ -2229,7 +2307,8 @@ def phase_resnet(card: str, out_dir):
 
 def phase_encoder(card: str, out_dir, name: str):
     """vit or bert: the workload, then its model on the kernels against the
-    same model on the plain attention path."""
+    same model on the plain attention path; returns the launches of the
+    encoders' kernels over the workload's run."""
     import dataclasses
 
     import torch
@@ -2262,7 +2341,8 @@ def phase_encoder(card: str, out_dir, name: str):
             return torch.randint(0, cfg.vocab_size, (8, seq), generator=g)
         shape = (8, 2)
     flops = encoder_flops(cfg, batch, seq, per_seq)
-    _, first = run_classification(card, out_dir, name, [], steps, flops,
+    _, first, short = run_classification(card, out_dir, name, [], steps,
+                                         flops,
                                   launches_per_step=cfg.num_layers)
 
     g = torch.Generator().manual_seed(6)
@@ -2292,6 +2372,7 @@ def phase_encoder(card: str, out_dir, name: str):
                                f"{second}")
         print(f"bert: two plain runs give equal losses in full precision "
               f"over {steps} steps: {first} [{card}]", flush=True)
+    return short
 
 
 # ---------------------------------------------------------------------------
@@ -3403,7 +3484,9 @@ def main(argv=None) -> int:
     timed(phase_ring, card)
     timed(phase_dist, card)
     timed(phase_resnet, card, args.out_dir)
-    timed(phase_encoder, card, args.out_dir, "vit")
+    # the encoders' kernels: their launches on ViT-B/16's path
+    short = timed(phase_encoder, card, args.out_dir, "vit")
+    counts.update({f"{name}_short": n for name, n in short.items()})
     timed(phase_encoder, card, args.out_dir, "bert")
     timed(phase_shard, card, args.out_dir)
     lm_plain = timed(phase_encoder_mesh, card)
@@ -3430,8 +3513,11 @@ def main(argv=None) -> int:
          "plain_ms": kernels[name]["plain_ms"],
          "bound_ms": kernels[name]["bound_ms"],
          "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"]}
-        for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]]}),
+         "library_ms": kernels[name]["library_ms"],
+         "device_ms": kernels[name].get("device_ms"),
+         "library_device_ms": kernels[name].get("library_device_ms")}
+        for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]
+        + [f"{fn.__name__}_short" for fn in A.SHORT_KERNELS]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

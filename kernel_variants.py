@@ -5,6 +5,7 @@ source, on one NVIDIA card.
     python3 kernel_variants.py                  # dq at head_dim 64
     python3 kernel_variants.py --d256           # dq and dk/dv at 256
     python3 kernel_variants.py --d256-fwd       # the forward at 256
+    python3 kernel_variants.py --encoder [VARIANT ...]  # ViT-B/16, BERT
     python3 kernel_variants.py --trees DIR ...  # whole trees in turns
 
 Each variant in VARIANTS (D256_VARIANTS with --d256) is a list of (text,
@@ -27,13 +28,19 @@ D256_FWD_SHAPES (Gemma 2B's attention, d256_gqa6, Gemma 7B's widths, a
 window + sink), each timed both ways, CUDA events around 20 back-to-back
 calls and the kernel's own device time (profiler, mean per launch of 10),
 with the host's time per call and SDPA's forward beside it, and the
-card's clocks before and after.  With --trees: chip_smoke's kernel cases
-main and gemma_2b run whole in each tree given (a checkout, e.g. a parent
-commit unpacked with `git archive` into a git-ignored directory), and the
-forward alone, both ways, at every other head-dim-256 case in bf16 and
-fp16, one process per tree per round, in turns.  The edits record the
-designs the kernels were chosen from (PERF.md); a kernel's next variants
-replace them.
+card's clocks before and after.  With --encoder: at the encoders' shapes
+(ENCODER_CASES: ViT-B/16 and BERT-base, whole and at tp 2) SDPA's forward
+and whole backward, every tiled tile the wrappers reach at head-dim class
+64 (ENCODER_TILES) on the base build, then the wrappers' route (the
+encoders' forward and dk/dv kernels, dq's tile) for the base and each
+ENCODER_VARIANTS build in turns; every time is the profiler's device time.
+With --trees: each wrapper's device time at chip_smoke's cases main,
+gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
+of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
+too), checked against its plain version, in each tree given (a checkout, e.g. a parent commit unpacked
+with `git archive` into a git-ignored directory), one process per tree
+per round, in turns.  The edits record the designs the kernels were
+chosen from (PERF.md); a kernel's next variants replace them.
 """
 from __future__ import annotations
 
@@ -190,9 +197,17 @@ D256_DKV_ROWS_SYNC = [
       }
       hopper::cp_async_mbar_arrive(bars + 8 * s);
     } else {""", """    {"""),
-    ("""      // the producer's 32 lanes' row copies and lane 0's TMA bytes
+    ("""  const DkvWalk w = dkv_split_walk<BQ>(mk, heads, kv_heads, splits, &slice);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's 32 lanes' row copies and lane 0's TMA bytes
       hopper::mbar_init(bars + 8 * s, 33);""",
-     """      hopper::mbar_init(bars + 8 * s, 32);"""),
+     """  const DkvWalk w = dkv_split_walk<BQ>(mk, heads, kv_heads, splits, &slice);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bars + 8 * s, 32);"""),
     ("""      dkv_probs<BQ>(x, rows, mk, q0, w.k0, key, t, sl2, LOG2E);""",
      """      dkv_probs<BQ>(x, rows, mk, q0, w.k0, key, t, sl2);"""),
 ]
@@ -680,15 +695,15 @@ def build(name: str, edits, root: Path):
     return lib, log
 
 
-def report(name: str, log: str, kernels=None) -> None:
+def report(name: str, log: str, kernels=None, head_class=256) -> None:
     """ptxas's registers and spills for the dq kernel's instantiations (with
-    `kernels`: those of these kernels at head-dim class 256), and every
-    warning or performance note."""
+    `kernels`: those of these kernels at `head_class`), and every warning
+    or performance note."""
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance" in line:
             print(f"  {name}: {line.strip()}")
     for inst, regs, stores, loads, key in chip_smoke.ptxas_report(log):
-        if (key[0] in kernels and key[2] == 256 if kernels
+        if (key[0] in kernels and key[2] == head_class if kernels
                 else inst.startswith("dq_kernel")):
             print(f"  {name}: {inst} {regs} registers at launch, {stores} "
                   f"bytes spill stores, {loads} bytes spill loads")
@@ -882,55 +897,309 @@ def main_d256_fwd() -> int:
     return 0
 
 
-TREE_CASES = ("main", "gemma_2b")
-# the forward alone at the other head-dim-256 cases in bf16 and fp16
-TREE_FWD_CASES = ("gemma_2b", "gemma_2b_fp16", "d256_noncausal",
-                  "d256_window_sink", "d256_scale_neg", "d160", "d250",
-                  "d256_gqa6", "gemma_7b")
-# the forward alone at this file's chip_smoke cases (a tree may not have
-# them all)
+# The encoders' shapes (chip_smoke's cases: ViT-B/16 and BERT-base, each
+# whole and as one tp rank's 6 heads at tp 2; non-causal, bf16, D 64).
+ENCODER_CASES = ("vit_b16", "vit_b16_tp2", "bert_base", "bert_base_tp2")
+# every tile of the tiled kernels the wrapper reaches at head-dim class 64
+# (INSTANTIATED), each timed at the encoders' shapes on the base build
+ENCODER_TILES = {"fwd": [(r, s) for r in (64, 128) for s in (64, 128)],
+                 "dkv": [(r, s) for r in (64, 128) for s in (32, 64)]}
+# The encoders' kernels (fwd_short_kernel, dkv_short_kernel) against
+# variants of their design, as edits of the checked-in source.
+# the forward with two consumer warpgroups (240 registers a thread)
+ENC_WG2 = [("constexpr int SHORT_WGS = 3;", "constexpr int SHORT_WGS = 2;")]
+# whole 128-key steps in the forward and whole 64-query chunks in dk/dv
+# (not the ragged last one cut to 16-row sub-steps)
+ENC_WHOLE = [
+    ("        const int n = cmin(BK, (T - k0 + 15) / 16 * 16);",
+     "        const int n = BK;"),
+    ("            const int nq = cmin(BQ, (T - q0 + 15) / 16 * 16);",
+     "            const int nq = BQ;")]
+# the forward's element mask by Mask::live on each element (in
+# online_softmax, so the tiled forward's too)
+ENC_LIVE = [("""  if (!tile_full(mk, r0, 64, k0, BK))
+    mask_tile(s, mk, row0, k0, t, -INFINITY);
+""", """  if (!tile_full(mk, r0, 64, k0, BK)) {
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+      const int j = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
+      if (!mk.live(row0 + 8 * ((x >> 1) & 1), j)) s[x] = -INFINITY;
+    }
+  }
+""")]
+ENCODER_VARIANTS = {
+    "fwd_wg2": ENC_WG2,
+    # the first build's design (two warpgroups, whole steps, Mask::live)
+    "plain_steps": ENC_WG2 + ENC_WHOLE + ENC_LIVE,
+    "no_trim": ENC_WHOLE,
+    "live_mask": ENC_LIVE,
+    # a warp whose 16 rows (dk/dv: keys) all lie past T skips its softmax
+    "dead_warps": [
+        ("""  float alpha[2];
+  online_softmax<N, SCALED>(sc, m, l, alpha, mk, q0, row0, k0, t, sl2);
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] *= alpha[(x >> 1) & 1];
+""", """  if (q0 + (row0 - q0) / 16 * 16 < mk.T) {
+    float alpha[2];
+    online_softmax<N, SCALED>(sc, m, l, alpha, mk, q0, row0, k0, t, sl2);
+#pragma unroll
+    for (int x = 0; x < 32; ++x) acc[x] *= alpha[(x >> 1) & 1];
+  } else {
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x) sc[x] = 0.f;
+  }
+"""),
+        ("""  dkv_probs<NQ>(sc, rows, mk, q0, kr0, key, t, sl2, LOG2E);
+#pragma unroll
+  for (int x = 0; x < NQ / 2; ++x) {
+    const float dl = rows[BQ + 8 * (x >> 2) + 2 * t + (x & 1)];
+    dp[x] = sc[x] * (dp[x] - dl);
+  }""", """  if (key[0] / 16 * 16 < mk.T) {
+    dkv_probs<NQ>(sc, rows, mk, q0, kr0, key, t, sl2, LOG2E);
+#pragma unroll
+    for (int x = 0; x < NQ / 2; ++x) {
+      const float dl = rows[BQ + 8 * (x >> 2) + 2 * t + (x & 1)];
+      dp[x] = sc[x] * (dp[x] - dl);
+    }
+  } else {
+#pragma unroll
+    for (int x = 0; x < NQ / 2; ++x) sc[x] = dp[x] = 0.f;
+  }""")],
+    # the forward in 64-key steps throughout
+    "fwd_bk64": [("        if (n == BK) {", "        if (false) {")],
+    # diagnostics of the forward, each leaving out one part of its work
+    # (outputs wrong on purpose): the S product, the P V product, the
+    # exponentials, the loads after each stage's first, the O stores
+    "diag_no_s": [("""  for (int kk = 0; kk < 4; ++kk)
+    hopper::Mma<E>::ss(sc, hopper::desc_k(sQr, 64, kk),""",
+                   """  for (int kk = 0; kk < 0; ++kk)
+    hopper::Mma<E>::ss(sc, hopper::desc_k(sQr, 64, kk),""")],
+    "diag_no_pv": [(
+        "    hopper::Mma<E>::rs64(acc, pa[kk], hopper::desc_mn(sv, N, kk, 0));",
+                    """    asm volatile("" ::"r"(pa[kk][0]), "r"(pa[kk][1]),
+                 "r"(pa[kk][2]), "r"(pa[kk][3]));""")],
+    "diag_no_exp": [(
+        "const float p = exp2_approx(fmaf(s[4 * j + 2 * h + e], sl2, -m_use));",
+        "const float p = fmaf(s[4 * j + 2 * h + e], sl2, -m_use);")],
+    "diag_no_loads": [(
+        "        hopper::mbar_arrive_tx(full, (n_rt + 2 * n_kc) * S::CHUNK);",
+        """        if (i >= STAGES) {
+          hopper::mbar_arrive(full);
+          continue;
+        }
+        hopper::mbar_arrive_tx(full, (n_rt + 2 * n_kc) * S::CHUNK);""")],
+    "diag_no_store": [("        hopper::tma_store(&map_o, sO, 0, q0, bh);",
+                       "")],
+}
+# what each variant changes: the kernels its rounds time
+ENCODER_VARIANT_KERNELS = {
+    name: ("fwd", "dkv") if name in ("plain_steps", "no_trim", "dead_warps")
+    else ("fwd",) for name in ENCODER_VARIANTS}
+# the profiler's name fragments of each wrapper's kernels, each timed
+# apart (dk/dv's kernel and, with its heads split, the reduce after it)
+KERNEL_NAMES = {"fwd": ("fwd_",), "dq": ("dq_",),
+                "dkv": ("dkv_kernel", "dkv_split", "dkv_short",
+                        "dkv_reduce")}
+
+
+def device_ms(fn, names, reps: int = 10) -> str:
+    """The mean device time of a launch of each kernel named by one of
+    `names` over `reps` back-to-back calls of fn, as "name device_ms x"
+    joined by " + " (the profiler: a short kernel's wrapper outlasts it on
+    the host, so CUDA events would time the host; the mean is over the
+    launches caught, and a profile that caught none is taken again, three
+    times at most)."""
+    for _ in range(3):
+        events = chip_smoke.profiled_events(
+            lambda: [fn() for _ in range(reps)])
+        durs = {n: [e["dur"] for e in events if n in e["name"]]
+                for n in names}
+        if any(durs.values()):
+            return " + ".join(
+                f"{n.rstrip('_')} device_ms {sum(d) / len(d) / 1e3:.4f}"
+                for n, d in durs.items() if d)
+    raise RuntimeError(f"three profiles saw no kernel named by {names}")
+
+
+def case_calls(A, case):
+    """The three wrappers at a chip_smoke case (its blocks), their plain
+    versions' outputs, and SDPA's forward and backward: {kernel: (call,
+    refs)}, sdpa_fwd, sdpa_bwd."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = getattr(torch, case.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(case.b, n, case.t, case.d, generator=gen,
+                               device="cuda").to(dtype)
+                   for n in (case.h, case.hkv, case.hkv, case.h))
+    scale = case.d ** -0.5 if case.scale is None else case.scale
+    plain = dict(scale=scale, causal=case.causal, window=case.window,
+                 sink=case.sink)
+    opts = dict(plain, block_q=case.blocks[0], block_k=case.blocks[1])
+    o, lse = A.flash_forward(q, k, v, **opts)
+    delta = (do.float() * o.float()).sum(-1)
+    qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    calls = {
+        "fwd": (lambda: A.flash_forward(q, k, v, **opts),
+                A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **plain)),
+        "dq": (lambda: A.flash_backward_dq(q, k, v, do, lse, delta, **opts),
+               (A.backward_dq_plain(qf, kf, vf, dof, lse, delta, **plain),)),
+        "dkv": (lambda: A.flash_backward_dkv(q, k, v, do, lse, delta,
+                                             **opts),
+                A.backward_dkv_plain(qf, kf, vf, dof, lse, delta, **plain))}
+    kw = dict(is_causal=case.causal, scale=scale,
+              enable_gqa=case.hkv != case.h)
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(q, k, v, **kw)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+    return calls, sdpa_fwd, sdpa_bwd
+
+
+def held(got, refs) -> bool:
+    """The kernel's outputs against its plain version's by chip_smoke's
+    rule (the forward's lse by TOL_LSE)."""
+    got = got if isinstance(got, tuple) else (got,)
+    ok = True
+    for i, (x, ref) in enumerate(zip(got, refs)):
+        if x.dim() == 3:  # lse
+            ok &= float((x - ref).abs().max()) <= chip_smoke.TOL_LSE
+        else:
+            worst, rel = chip_smoke.tolerance_ratios(x, ref)
+            ok &= worst <= 1.0 and rel <= chip_smoke.FRO
+    return ok
+
+
+def device_line(A, case, kernels=("fwd", "dq", "dkv")) -> str:
+    """Each wrapper's device time at a case and whether it held against
+    its plain version, as one line."""
+    import torch
+
+    calls, _, _ = case_calls(A, case)
+    parts = []
+    for kernel in kernels:
+        fn, refs = calls[kernel]
+        got = fn()
+        torch.cuda.synchronize()
+        ok = held(got, refs)
+        parts.append(f"{device_ms(fn, KERNEL_NAMES[kernel])}"
+                     f"{'' if ok else ' OUTSIDE THE TOLERANCE'}")
+    return f"{case.name:13s} " + "; ".join(parts)
+
+
+def main_encoder(names) -> int:
+    """The encoders' shapes: the wrappers' route (the forward and dk/dv on
+    the encoders' kernels, dq on its tile) for the base build and each
+    ENCODER_VARIANTS build named (all without names) in turns, by device
+    time; before, on the base build, every tiled tile the wrapper can reach
+    at head-dim class 64 (ENCODER_TILES, through a patched
+    `resolve_tiles`), and SDPA's forward and whole backward."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    cases = [x for x in chip_smoke.CASES if x.name in ENCODER_CASES]
+    resolve = A.resolve_tiles
+    print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
+          flush=True)
+    libs = {}
+    with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
+        variants = [(name, edits) for name, edits in ENCODER_VARIANTS.items()
+                    if not names or name in names]
+        for name, edits in [("base", [])] + variants:
+            lib, log = build(name, edits, Path(tmp))
+            report(name, log, ("fwd", "dkv"), 64)
+            libs[name] = ctypes.CDLL(str(lib))
+        bind(libs["base"])
+        for case in cases:
+            calls, sdpa_fwd, sdpa_bwd = case_calls(A, case)
+            fwd_ms = device_busy_ms(sdpa_fwd)
+            bwd_ms = device_busy_ms(sdpa_bwd)
+            print(f"  {case.name:13s} sdpa forward device_ms {fwd_ms:.4f} "
+                  f"backward (dq, dk, dv) device_ms {bwd_ms:.4f}",
+                  flush=True)
+            for kernel, tiles in ENCODER_TILES.items():
+                fn, refs = calls[kernel]
+                for tile in tiles:
+                    A.resolve_tiles = (
+                        lambda *a, kernel=kernel, tile=tile, **k:
+                        resolve(*a[:4])._replace(**{kernel: tile}))
+                    got = fn()
+                    torch.cuda.synchronize()
+                    ok = held(got, refs)
+                    print(f"  {case.name:13s} tiled tile {tile} "
+                          f"{device_ms(fn, KERNEL_NAMES[kernel])}"
+                          f"{'' if ok else ' OUTSIDE THE TOLERANCE'}",
+                          flush=True)
+                A.resolve_tiles = resolve
+            del calls
+            torch.cuda.empty_cache()
+        order = list(libs)
+        for r in range(ROUNDS):
+            for name in order if r % 2 == 0 else order[::-1]:
+                bind(libs[name])
+                kernels = ENCODER_VARIANT_KERNELS.get(name,
+                                                      ("fwd", "dq", "dkv"))
+                for case in cases:
+                    print(f"  round {r} {name:13s} "
+                          f"{device_line(A, case, kernels)}", flush=True)
+    print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
+          flush=True)
+    return 0
+
+
+def device_busy_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of fn, every kernel it launches, as the
+    mean over `reps` calls (the profiler)."""
+    busy = chip_smoke.device_busy(lambda: [fn() for _ in range(reps)])
+    return busy[0] / reps
+
+
+# whole trees in turns: each wrapper's device time at the main shape, at
+# Gemma 2B's attention and at the encoders' shapes
+TREE_CASES = ("main", "gemma_2b") + ENCODER_CASES
+# and the forward's alone at other cases of its tiled kernel: masked
+# (window + sink, ragged), fp16, head dim 128, and the other head-dim-256
+# cases
+TREE_FWD_CASES = ("main_fp16", "window_sink", "ragged", "d128",
+                  "gemma_2b_fp16", "d256_noncausal", "d256_window_sink",
+                  "d256_scale_neg", "d160", "d250", "d256_gqa6", "gemma_7b")
 TREE_CODE = """\
 import importlib.util
 import chip_smoke as c
-import torch
 spec = importlib.util.spec_from_file_location("timing", {path!r})
 kv = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(kv)
 from tf_operator_tpu_torch.ops import attention as A
-for x in c.CASES:
-    if x.name in {cases!r}:
-        c.kernel_case(x, True)
-for x in map(lambda f: c.Case(*f), {fwd_cases!r}):
-    dtype = getattr(torch, x.dtype)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    q, k, v = (torch.randn(x.b, n, x.t, x.d, generator=gen,
-                           device="cuda").to(dtype)
-               for n in (x.h, x.hkv, x.hkv))
-    opts = dict(scale=x.d ** -0.5 if x.scale is None else x.scale,
-                causal=x.causal, window=x.window, sink=x.sink,
-                block_q=x.blocks[0], block_k=x.blocks[1])
-    print(f"  {{x.name:11s}} flash_forward alone "
-          f"{{kv.fwd_times(lambda: A.flash_forward(q, k, v, **opts))}}")
+for x, kernels in {cases!r}:
+    print("  " + kv.device_line(A, c.Case(*x), kernels), flush=True)
 """
 
 
 def main_trees(trees) -> int:
-    """chip_smoke.kernel_case for TREE_CASES and the forward alone at
-    TREE_FWD_CASES in each tree, in turns, one process per tree per round
+    """Each wrapper's device time at TREE_CASES, and the forward's at
+    TREE_FWD_CASES, in each tree, in turns, one process per tree per round
     (each imports its own tree's package and builds its own library; the
-    timing helpers are this file's)."""
-    fwd_cases = [tuple(x) for x in chip_smoke.CASES
-                 if x.name in TREE_FWD_CASES]
-    code = TREE_CODE.format(cases=TREE_CASES, fwd_cases=fwd_cases,
-                            path=str(Path(__file__).resolve()))
+    timing helpers and the cases are this file's)."""
+    cases = [(tuple(x), ("fwd", "dq", "dkv")) for x in chip_smoke.CASES
+             if x.name in TREE_CASES]
+    cases += [(tuple(x), ("fwd",)) for x in chip_smoke.CASES
+              if x.name in TREE_FWD_CASES]
+    code = TREE_CODE.format(cases=cases, path=str(Path(__file__).resolve()))
     for r in range(ROUNDS):
         for tree in trees if r % 2 == 0 else trees[::-1]:
             print(f"round {r} tree {tree}:", flush=True)
             proc = subprocess.run([sys.executable, "-c", code], cwd=tree,
                                   capture_output=True, text=True, check=False)
             for line in proc.stdout.splitlines():
-                if ("kernel_ms" in line or "dq + dk/dv" in line
-                        or "alone" in line):
+                if "device_ms" in line:
                     print(f"  {tree}: {line.strip()}", flush=True)
             if proc.returncode != 0:
                 print(proc.stdout[-4000:] + proc.stderr[-4000:], flush=True)
@@ -946,6 +1215,11 @@ def main(argv=None) -> int:
                         help="dq and dk/dv at head-dim class 256")
     parser.add_argument("--d256-fwd", action="store_true",
                         help="the forward at head-dim class 256")
+    parser.add_argument("--encoder", nargs="*", default=None,
+                        metavar="VARIANT",
+                        help="the forward and dk/dv at the encoders' shapes "
+                             "against the ENCODER_VARIANTS named (all "
+                             "without names)")
     parser.add_argument("--trees", nargs="+", default=None,
                         help="checkouts to run chip_smoke's cases in, in "
                              "turns")
@@ -961,6 +1235,8 @@ def main(argv=None) -> int:
         return main_d256()
     if args.d256_fwd:
         return main_d256_fwd()
+    if args.encoder is not None:
+        return main_encoder(args.encoder)
     from tf_operator_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")

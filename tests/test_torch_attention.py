@@ -79,6 +79,9 @@ CASES = {
     "window_sink": (256, 16, 2, 2, True, 32, 8, 64, 64),
     "window_sink_ragged": (100, 16, 2, 2, True, 30, 5, 64, 64),
     "window_wider_than_t": (128, 16, 2, 2, True, 500, 0, 64, 64),
+    # ViT-B/16's attention at its ragged length and width (T 197, 64 wide),
+    # non-causal: on the card the encoders' kernels' route
+    "vit_ragged_noncausal": (197, 64, 2, 2, False, None, 0, 128, 128),
 }
 
 

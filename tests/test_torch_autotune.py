@@ -36,8 +36,10 @@ def test_returns_best_and_caches(cache):
     assert result["block_q"] == 64 and result["block_k"] == 64
     assert result["ms"] > 0
     (row,) = result["table"]
-    assert row["tiles"] == {"fwd": [64, 64], "dq": [64, 64],
-                            "dkv": [64, 64]}
+    # at T 64 in bf16 the forward and dk/dv take the encoders' kernels
+    # (attention.short_route), dq the tile the blocks resolve to
+    assert row["tiles"] == {"fwd": [256, 128], "dq": [64, 64],
+                            "dkv": [256, 64]}
     # in-process cache: the same signature returns the same object
     again = autotune.tune_flash_blocks(
         1, 2, 64, 8, reps=1, candidates=[(128, 128), (64, 64)])
@@ -111,7 +113,7 @@ def test_a_candidate_that_raises_is_an_error_row(cache):
 def test_default_candidates_reach_every_instantiation():
     """One pair for each distinct set of resolved tiles at head_dim 64,
     and every instantiation of the tensor-core kernels (each head-dim
-    class) reached by one."""
+    class, and at T <= 256 the encoders' kernels) reached by one."""
     reached, sets = set(), set()
     for dtype in (torch.bfloat16, torch.float16):
         for d in (64, 128, 256):
@@ -119,9 +121,12 @@ def test_default_candidates_reach_every_instantiation():
                 tiles = A.resolve_tiles(bq, bk, d, dtype)
                 if d == 64:
                     sets.add((dtype, tiles))
-                for kernel in ("fwd", "dq", "dkv"):
-                    reached.add((kernel, str(dtype).removeprefix("torch."),
-                                 d, *getattr(tiles, kernel)))
+                for t_tiles in (tiles, A.resolve_tiles(bq, bk, d, dtype,
+                                                       197)):
+                    for kernel in ("fwd", "dq", "dkv"):
+                        reached.add((kernel,
+                                     str(dtype).removeprefix("torch."), d,
+                                     *getattr(t_tiles, kernel)))
     assert len(sets) == 2 * len(autotune.DEFAULT_CANDIDATES)
     assert reached == {x for x in A.instantiations() if x[1] != "float32"}
 

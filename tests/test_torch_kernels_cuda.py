@@ -44,6 +44,10 @@ def _inputs(t, h, kv_h, d=64, b=2, seed=0, device="cuda",
 
 
 DEFAULT = dict(block_q=128, block_k=128)
+# an output that is zero in exact arithmetic, on either side: unit-variance
+# inputs leave rounding of ~1e-7 there (measured on the card), real
+# gradients of ~1e-1
+ZERO_ABS = 1e-4
 
 
 def _held(got, ref, dtype="bfloat16"):
@@ -368,9 +372,13 @@ def test_kernels_at_the_tp_local_shapes(cuda, h, kv_h):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
 
 
-def _kernels_against_plain(q, k, v, g, blocks, **opts):
+def _kernels_against_plain(q, k, v, g, blocks, zero=(), **opts):
     """Each kernel once (one launch each) against its plain version in f32
-    on the same inputs, by the rule of the inputs' dtype."""
+    on the same inputs, by the rule of the inputs' dtype; the outputs named
+    in `zero`, which are zero in exact arithmetic (dq and dk at T 1: a
+    softmax over one key has no gradient), only to within ZERO_ABS of 0 on
+    both sides, since the rule, relative to the reference, would hold each
+    side's rounding against the other's."""
     dtype = str(q.dtype).removeprefix("torch.")
     before = A.launches()
     o, lse = A.flash_forward(q, k, v, **blocks, **opts)
@@ -388,6 +396,10 @@ def _kernels_against_plain(q, k, v, g, blocks, **opts):
                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
         assert got.shape == ref.shape and got.dtype == q.dtype
         assert torch.isfinite(got).all(), name
+        if name in zero:
+            ratios[name] = float(got.float().abs().max())
+            assert max(ratios[name], float(ref.abs().max())) <= ZERO_ABS
+            continue
         ratios[name] = tolerance_ratios(got, ref, rule(dtype)[0])
         assert _held(got, ref, dtype), (name, ratios[name])
     assert float((lse - lse_ref).abs().max()) <= rule(dtype)[2]
@@ -431,6 +443,61 @@ def test_kernels_take_every_dtype_head_dim_scale_and_tile(cuda, dtype, d,
         q, k, v, g, dict(block_q=blocks[0], block_k=blocks[1]),
         scale=d ** -0.5 if scale is None else scale, causal=True, window=64,
         sink=70)
+
+
+# the encoders' route (attention.short_route: head-dim class 64, bf16 and
+# fp16, T <= 256): every T where a 64-row tile or a 128-key step begins or
+# ends, and ViT-B/16's 197
+SHORT_TS = (1, 63, 64, 65, 127, 128, 129, 197, 255, 256)
+SHORT_MASKS = {"noncausal": dict(causal=False, window=None, sink=0),
+               "causal": dict(causal=True, window=None, sink=0),
+               "window_sink": dict(causal=True, window=64, sink=70)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("mask", list(SHORT_MASKS))
+@pytest.mark.parametrize("t", SHORT_TS)
+def test_short_route_matches_plain_versions(cuda, t, mask, dtype):
+    """The encoders' forward and dk/dv kernels (dq on its tile) against
+    their plain versions at GQA 12/4 over two batches, at both forward
+    routes (scale 0.125 and -0.125), with blocks that name other tiles:
+    the route takes the encoders' kernels whatever the blocks."""
+    q, k, v, g = _inputs(t, 12, 4, dtype=getattr(torch, dtype))
+    for scale, blocks in ((0.125, DEFAULT),
+                          (-0.125, dict(block_q=32, block_k=64))):
+        assert A.resolve_tiles(blocks["block_q"], blocks["block_k"], 64,
+                               q.dtype, t)._asdict().items() >= \
+            A.SHORT.items()
+        before = A.short_launches()
+        _kernels_against_plain(q, k, v, g, blocks, scale=scale,
+                               zero=("dq", "dk") if t == 1 else (),
+                               **SHORT_MASKS[mask])
+        assert {n: c - before[n] for n, c in A.short_launches().items()} \
+            == {"flash_forward": 1, "flash_backward_dkv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 20, 32, 40, 64])
+def test_short_route_takes_every_head_dim_of_its_class(cuda, d):
+    """Head dims 8..64 on the encoders' route at ViT's T 197: the TMA
+    boxes' columns past the head dim load as zeros and are not stored (20
+    is padded to 24 by the wrapper)."""
+    q, k, v, g = _inputs(197, 4, 4, d=d)
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=d ** -0.5,
+                           causal=False, window=None, sink=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,kv_h,t", [(1, 1, 1, 200), (3, 4, 1, 256),
+                                        (200, 2, 2, 128)])
+def test_short_route_at_more_and_fewer_heads_than_sms(cuda, b, h, kv_h, t):
+    """The persistent grid with one item (a grid of one block), a GQA
+    group of 4 in each item, and 400 items over the card's SMs (each block
+    walking several, both stages of its ring in turn)."""
+    q, k, v, g = _inputs(t, h, kv_h, b=b)
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=0.125, causal=False,
+                           window=None, sink=0)
 
 
 @pytest.mark.cuda
@@ -719,6 +786,54 @@ def test_tolerance_rejects_a_kernel_that_skips_a_late_tile(cuda, tmp_path,
 
 
 @pytest.mark.cuda
+def test_tolerance_rejects_a_short_forward_that_skips_the_ragged_key_tile(
+        cuda, tmp_path, monkeypatch):
+    """The encoders' forward built with a planted fault (the P.V product of
+    the ragged last key tile, keys 128..196, skipped; m, l and lse
+    untouched) at ViT-B/16's T 197 over 8 x 12 heads: o fails the
+    tolerance while lse still passes."""
+    site = "hopper::Mma<E>::rs64(acc, pa[kk]"
+    _faulty_library(tmp_path, monkeypatch, site, "if (k0 < 128) " + site)
+
+    q, k, v, _ = _inputs(197, 12, 12, b=8)
+    o, lse = A.flash_forward(q, k, v, scale=0.125, causal=False,
+                             window=None, sink=0, **DEFAULT)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, kf, vf, causal=False, scale=0.125)
+    worst, rel = tolerance_ratios(o, o_ref)
+    print(f"planted short forward fault: o worst err/limit {worst:.3f}, "
+          f"relative Frobenius {rel:.3e}")
+    assert A.short_route(64, 197, q.dtype)
+    assert float((lse - lse_ref).abs().max()) <= 1e-3
+    assert not _held(o, o_ref)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_short_dkv_that_skips_the_last_query_chunk(
+        cuda, tmp_path, monkeypatch):
+    """The encoders' dk/dv built with a planted fault (the dV product of
+    the ragged last query chunk, queries 192..196, skipped; dK untouched)
+    at ViT-B/16's T 197: dv fails the tolerance, dk still passes."""
+    site = "hopper::Mma<E>::rs64(dv_acc, pa[kk]"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "if (q0 + NQ <= mk.T) " + site)
+
+    q, k, v, g = _inputs(197, 12, 12, b=8)
+    opts = dict(scale=0.125, causal=False, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
+                                  **opts)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    worst, rel = tolerance_ratios(dv, dv_ref)
+    print(f"planted short dk/dv fault: dv worst err/limit {worst:.3f}, "
+          f"relative Frobenius {rel:.3e}")
+    assert _held(dk, dk_ref), tolerance_ratios(dk, dk_ref)
+    assert not _held(dv, dv_ref)
+
+
+@pytest.mark.cuda
 def test_tolerance_rejects_a_wide_forward_that_skips_a_late_tile(
         cuda, tmp_path, monkeypatch):
     """The forward at head-dim class 256 over 128 rows (its grid longest
@@ -827,14 +942,19 @@ def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,h,kv_h,t,d,causal", [
     (32, 12, 12, 128, 64, False), (256, 12, 12, 197, 64, False),
+    (32, 6, 6, 128, 64, False), (256, 6, 6, 197, 64, False),
+    (8, 12, 4, 200, 64, True),
     (8, 12, 12, 2048, 64, True), (4, 8, 1, 2048, 256, True)],
-    ids=["bert_base", "vit_b16", "gpt_small", "gemma_2b"])
+    ids=["bert_base", "vit_b16", "bert_base_tp2", "vit_b16_tp2",
+         "short_gqa_causal", "gpt_small", "gemma_2b"])
 def test_kernels_repeat_bit_for_bit(cuda, b, h, kv_h, t, d, causal):
     """Each kernel run twice on the same inputs gives the same bits: no
     atomics, and no read of shared memory or padding that a launch leaves
-    unset.  BERT-base at T 128 is one 128-row tile a head, fewer tiles
-    than the TMA ring has stages; at Gemma 2B's shape dk/dv's query heads
-    are split over slices whose f32 partials the reduce sums in order."""
+    unset.  At the encoders' shapes (and a causal GQA one at T 200) the
+    forward and dk/dv take the encoders' kernels, whose persistent blocks
+    walk several heads each through their rings; at Gemma 2B's shape
+    dk/dv's query heads are split over slices whose f32 partials the
+    reduce sums in order."""
     q, k, v, g = _inputs(t, h, kv_h, d=d, b=b)
     opts = dict(scale=0.125, causal=causal, window=None, sink=0)
 

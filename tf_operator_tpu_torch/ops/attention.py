@@ -20,14 +20,18 @@ Dispatch is decided by the tensors' device, outside autograd:
     kernels of its own), any head_dim up to 256 (one that is not a multiple
     of 8 is zero-padded here and the outputs sliced), any scale, any
     batch*heads, and any block sizes, which `resolve_tiles` maps onto the
-    instantiated tiles.  A CUDA tensor the kernels do not take (another
-    dtype, head_dim above 256, non-contiguous) raises; nothing falls back.
+    instantiated tiles; at head dims up to 64 in bf16 and fp16 a sequence
+    of at most 256 takes the encoders' forward and dk/dv kernels whatever
+    the blocks (`short_route`).  A CUDA tensor the kernels do not take
+    (another dtype, head_dim above 256, non-contiguous) raises; nothing
+    falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`, and `dkv_reduce`, which sums the slices dk/dv is
 split into at head-dim class 256) computes its kernel's plain version when
 handed CPU tensors, and counts, in its `launches` attribute, every time it
-launches its kernel.  The kernels live in `csrc/flash_attention.cu` (with
+launches its kernel (and `short_launches`, the launches of the encoders'
+kernels among them).  The kernels live in `csrc/flash_attention.cu` (with
 the Hopper building blocks in `csrc/hopper.cuh`) and are built at first
 use (`_build.py`).
 """
@@ -226,6 +230,14 @@ INSTANTIATED = {
 }
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
+# The encoders' route (`short_route`): at head-dim class 64 in bf16 and
+# fp16 a call of T <= SHORT_T takes the forward and dk/dv kernels that walk
+# whole heads over a persistent grid (csrc: fwd_short_kernel,
+# dkv_short_kernel), whatever its blocks; their one tile each, as (rows,
+# step): a head's up to 256 query rows over 128-key steps, and its up to
+# 256 key rows over 64-query steps.  dq keeps its tiles.
+SHORT_T = 256
+SHORT = {"fwd": (256, 128), "dkv": (256, 64)}
 
 
 class Tiles(NamedTuple):
@@ -260,23 +272,39 @@ def _pick(request: int, values) -> int:
     return max(below) if below else min(values)
 
 
+def short_route(head_dim: int, t: int, dtype) -> bool:
+    """Whether a call takes the encoders' forward and dk/dv kernels: head
+    dims up to 64 (class 64) in bf16 or fp16 at T <= 256, where a head's
+    Q, K and V fit a shared-memory stage and the tiled kernels, a block
+    for every (b*h, row tile), paid their set-up and first loads once for
+    every two key tiles (ViT-B/16 at T 197, BERT-base at T 128: PERF.md
+    §6).  Above 256, at wider heads and in f32, the tiled kernels run."""
+    return (dtype in (torch.bfloat16, torch.float16) and t <= SHORT_T
+            and head_class(head_dim) == 64)
+
+
 @functools.lru_cache(maxsize=None)  # per launch: keep the host's share small
 def resolve_tiles(block_q: int, block_k: int, head_dim: int,
-                  dtype) -> Tiles:
+                  dtype, t: Optional[int] = None) -> Tiles:
     """The instantiated tiles a pair of block sizes runs on: for each knob
     the largest instantiated value <= the request, or the smallest one if
     none is.  Any pair maps, so every value the env contract takes runs;
     the default (128, 128) keeps the tiles the kernels were tuned at.  f32
-    has one tile."""
+    has one tile.  Given the sequence length t, a call on the encoders'
+    route (`short_route`) takes SHORT's tiles for the forward and dk/dv
+    whatever its blocks; without t, the tiled kernels' tiles."""
     if dtype == torch.float32:
         return Tiles(F32_TILE, F32_TILE, F32_TILE)
     dc = head_class(head_dim)
     fwd_rows, fwd_steps = INSTANTIATED["fwd"][dc]
     dq_rows, dq_steps = INSTANTIATED["dq"][dc]
     dkv_rows, dkv_steps = INSTANTIATED["dkv"][dc]
-    return Tiles(fwd=(_pick(block_q, fwd_rows), _pick(block_k, fwd_steps)),
-                 dq=(_pick(block_q, dq_rows), _pick(block_k, dq_steps)),
-                 dkv=(_pick(block_k, dkv_rows), _pick(block_q, dkv_steps)))
+    tiles = Tiles(fwd=(_pick(block_q, fwd_rows), _pick(block_k, fwd_steps)),
+                  dq=(_pick(block_q, dq_rows), _pick(block_k, dq_steps)),
+                  dkv=(_pick(block_k, dkv_rows), _pick(block_q, dkv_steps)))
+    if t is not None and short_route(head_dim, t, dtype):
+        tiles = tiles._replace(**SHORT)
+    return tiles
 
 
 def dkv_splits(bkv: int, t: int, group: int, sms: int) -> int:
@@ -327,6 +355,9 @@ def instantiations() -> set:
                 out.update((kernel, dtype, dc, r, s) for r in rows
                            for s in steps)
             out.add((kernel, "float32", dc) + F32_TILE)
+    for kernel, tile in SHORT.items():
+        out.update((kernel, dtype, 64) + tile
+                   for dtype in ("bfloat16", "float16"))
     return out
 
 
@@ -433,14 +464,15 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
                   block_k: Optional[int] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`.
-    Rows per block from block_q, key step from block_k (`resolve_tiles`)."""
+    Rows per block from block_q, key step from block_k (`resolve_tiles`),
+    or a whole head a work item on the encoders' route (`short_route`)."""
     if q.device.type == "cpu":
         return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
                              scale=scale, window=window, sink=sink)
     _check_cuda(q, k, v)
     block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    tile = resolve_tiles(block_q, block_k, d, q.dtype).fwd
+    tile = resolve_tiles(block_q, block_k, d, q.dtype, t).fwd
     qp, kp, vp = _padded(q, k, v)
     o = torch.empty_like(qp)
     lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
@@ -453,6 +485,7 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
             chunk, *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash forward")
     flash_forward.launches += 1
+    flash_forward.short_launches += tile == SHORT["fwd"]
     return _unpadded(o, d), lse
 
 
@@ -487,7 +520,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
                        block_q: Optional[int] = None,
                        block_k: Optional[int] = None):
     """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`.
-    Key rows per block from block_k, query step from block_q.  At head-dim
+    Key rows per block from block_k, query step from block_q, or a whole KV
+    head a work item on the encoders' route (`short_route`).  At head-dim
     class 256 in bf16 and fp16 each KV head's query-head group is split
     into `dkv_splits` slices over the grid; with more than one the kernel
     writes f32 partials to a workspace that `dkv_reduce` sums."""
@@ -498,7 +532,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
     kv_heads = k.shape[1]
-    tile = resolve_tiles(block_q, block_k, d, q.dtype).dkv
+    tile = resolve_tiles(block_q, block_k, d, q.dtype, t).dkv
     qp, kp, vp, dop = _padded(q, k, v, do)
     splits = 1
     if q.dtype != torch.float32 and head_class(d) == 256:
@@ -519,6 +553,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash dk/dv")
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.short_launches += tile == SHORT["dkv"]
     if ws is not None:
         dk, dv = dkv_reduce(ws, scale, q.dtype)
     return _unpadded(dk, d), _unpadded(dv, d)
@@ -567,15 +602,26 @@ dkv_reduce.launches = 0
 # the three kernels every attention path launches once a call each;
 # dkv_reduce runs besides dk/dv only where it is split (head-dim class 256)
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
+# the wrappers with a second kernel, the encoders' (`short_route`), whose
+# launches `short_launches` counts apart (and `launches` with the rest)
+SHORT_KERNELS = (flash_forward, flash_backward_dkv)
+flash_forward.short_launches = 0
+flash_backward_dkv.short_launches = 0
 
 
 def reset_launches() -> None:
     for fn in KERNELS + (dkv_reduce,):
         fn.launches = 0
+    for fn in SHORT_KERNELS:
+        fn.short_launches = 0
 
 
 def launches() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def short_launches() -> dict:
+    return {fn.__name__: fn.short_launches for fn in SHORT_KERNELS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -185,7 +185,8 @@ def tune_flash_blocks(
         row = {"block_q": bq, "block_k": bk}
         try:
             row["tiles"] = {name: list(tile) for name, tile in
-                            resolve_tiles(bq, bk, d, dtype)._asdict().items()}
+                            resolve_tiles(bq, bk, d, dtype,
+                                          t)._asdict().items()}
             step(bq, bk)  # warm-up (and the first launch's checks)
             ms = timed(lambda bq=bq, bk=bk: step(bq, bk))
             row["ms"] = round(ms, 4)

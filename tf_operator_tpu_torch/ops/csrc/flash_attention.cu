@@ -379,7 +379,8 @@ __device__ __forceinline__ bool tile_full(const Mask& mk, int i0, int ni,
 // costs compares against constants.
 template <int N>
 __device__ __forceinline__ void mask_tile(float (&s)[N], const Mask& mk,
-                                          int row0, int k0, int t) {
+                                          int row0, int k0, int t,
+                                          float fill = 0.f) {
   const int j0 = k0 + 2 * t;
   const int sink = mk.sink - j0;
   int hi[2], lo[2];
@@ -394,7 +395,7 @@ __device__ __forceinline__ void mask_tile(float (&s)[N], const Mask& mk,
 #pragma unroll
   for (int x = 0; x < N; ++x) {
     const int c = 8 * (x >> 2) + (x & 1), h = (x >> 1) & 1;
-    if (!(c <= hi[h] && (c >= lo[h] || c < sink))) s[x] = 0.f;
+    if (!(c <= hi[h] && (c >= lo[h] || c < sink))) s[x] = fill;
   }
 }
 
@@ -454,6 +455,8 @@ struct FwdSmem {
 // accumulator is to be rescaled by.  SCALED (a scale that is not positive)
 // scales the scores first, so that the row max is that of the scaled
 // scores; otherwise the max is taken of the raw ones and scaled after.
+// The mask takes each row's bounds (mask_tile): Mask::live on each element
+// made the encoders' forward 16 % slower (PERF.md).
 template <int BK, bool SCALED>
 __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
                                                float (&m)[2], float (&l)[2],
@@ -466,13 +469,8 @@ __device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
     for (int x = 0; x < BK / 2; ++x) s[x] *= sl2;
     sl2 = 1.f;
   }
-  if (!tile_full(mk, r0, 64, k0, BK)) {
-#pragma unroll
-    for (int x = 0; x < BK / 2; ++x) {
-      const int j = k0 + 8 * (x >> 2) + 2 * t + (x & 1);
-      if (!mk.live(row0 + 8 * ((x >> 1) & 1), j)) s[x] = -INFINITY;
-    }
-  }
+  if (!tile_full(mk, r0, 64, k0, BK))
+    mask_tile(s, mk, row0, k0, t, -INFINITY);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     // row max of the raw scores (of the scaled ones on the SCALED route),
@@ -1573,6 +1571,520 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
+// The encoders' kernels: the forward and dk/dv at head-dim class 64 for T
+// <= 256 (ViT-B/16 at T 197, BERT-base at T 128 and their tp shards; any
+// mask, GQA, both forward routes).  ops/attention.py:short_route sends such
+// a call here whatever its blocks.
+//
+// Bound at these shapes: bytes.  A ViT-B/16 head moves ~101 KB (Q, K, V
+// and O of 197 x 64 bf16, lse) against ~10 MFLOP, 100 FLOP a byte, a third
+// of the card's 295.  The tiled kernels above give each (b*h, 128-row
+// tile) a block of its own, one block an SM: at ViT's shape 6,144 blocks
+// of two key tiles each, every block paying its barrier set-up, its first
+// TMA round trip and its scattered 4-byte epilogue stores with nothing of
+// another block's to overlap them, and each head's K and V read by both of
+// its row tiles' blocks.  Here a persistent grid (one block an SM) walks
+// whole heads (items; block x takes x, x + grid, ...), so that
+//   * each head's K and V are read from device memory once: an item's
+//     Q, K and V (or K and V) sit in shared memory for all its tiles;
+//   * the producer fills a two-item ring (the forward) or a K/V ring of two
+//     items and a ring of query chunks (dk/dv), so the next head's loads
+//     run under the current head's products;
+//   * the outputs leave by TMA stores from shared memory, issued by one
+//     thread of a warpgroup: the consumers go on to the next tile.
+// Every tile is 64 rows (one warpgroup's wgmma M), and the ragged last
+// step is cut to whole 16-row sub-steps (the forward's keys 128..207 at T
+// 197 as 64 + 16, not 128..255; dk/dv's last query chunk 192..207).
+// Measured at ViT-B/16 (PERF.md; kernel_variants.py --encoder): the
+// forward's chain of S, softmax and P V per step, not its bytes, sets its
+// pace (leaving out the loads saved 1 %, any one of S, P V and the
+// exponentials 8-15 %), so it runs three consumer warpgroups, where two
+// read 0.178-0.183 ms against three's 0.153; its element mask by row bounds
+// (Mask::live on each element: +16 %); whole 128-key steps +3.5 % (dk/dv's
+// whole chunks +10 %); 64-key steps throughout +10 %; warps whose rows
+// all lie past T skipping their softmax +4 % (dk/dv +2.5 %).
+
+// A warpgroup's 64 x 64 f32 accumulator (this thread's rows 16 * warp + g
+// + 8h, columns 8j + 2t + e), times mul[h], rounded to E, into a
+// 128-byte-swizzled [64][64] tile at `tile` (the layout its TMA store
+// reads; each row one 128-byte line, 16-byte chunk j at j ^ (row % 8), so
+// a warp's stores fall in 32 banks).
+template <typename E>
+__device__ __forceinline__ void acc_to_smem(uint32_t tile, const float (&d)[32],
+                                            const float (&mul)[2], int warp,
+                                            int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t line = tile + (16 * warp + g + 8 * h) * 128 + 4 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      hopper::st_shared(line + ((j ^ g) << 4),
+                        Elt<E>::pack(d[4 * j + 2 * h] * mul[h],
+                                     d[4 * j + 2 * h + 1] * mul[h]));
+  }
+}
+
+// The forward (fwd_short_kernel).  Replaces
+// tf_operator_tpu/ops/attention.py:_fwd_kernel for T <= 256 at head-dim
+// class 64.  An item is one b*h: its Q, K and V (64-row TMA boxes, zero
+// past T; K and V to whole 128-key tiles) in one of two 96 KB stages.  The
+// block's row tiles, item after item, are dealt to its SHORT_WGS consumer
+// warpgroups in turn; each runs a row tile over its key tiles (key_tiles,
+// 128 keys a step, the ragged one in sub-steps) as fwd_kernel does: S =
+// Q K^T, the base-2 online softmax (online_softmax: the element mask, by
+// row bounds, only on tiles that are not full), O += P V with P from
+// registers.  Its o = acc / l (l = 0 -> 1) goes to a 64-row tile of the
+// warpgroup's own in shared memory and leaves by one TMA store; lse = m +
+// log l (0 for a row with no live key) by the rows' first lanes.
+// The encoders' forward's consumer warpgroups: three (160 registers a
+// thread) keep a third more of the step's chain in flight than two (PERF.md).
+constexpr int SHORT_WGS = 3;
+
+struct FwdShortSmem {
+  static constexpr int D = 64, ROWS = 256, BK = 128;
+  static constexpr int CHUNK = 64 * D * 2;          // 64 rows: 8 KB
+  static constexpr int TILE = ROWS * D * 2;         // Q, K or V of a head
+  static constexpr int STAGE_BYTES = 3 * TILE;      // Q, K, V
+  static constexpr int STAGES = 2;
+  // a 64-row O tile for each consumer warpgroup
+  static constexpr int O_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BAR_OFF = O_OFF + SHORT_WGS * CHUNK;
+  // full[STAGES], empty[STAGES]
+  static constexpr int BYTES = BAR_OFF + 8 * 2 * STAGES + 1024;
+  static_assert(BYTES <= smem_budget(1), "short forward does not fit");
+};
+
+// One key step of N keys from k0 for a warpgroup's 64 rows from q0 (S from
+// the Q rows at sQr and the K rows at sk, P V with the V rows at sv): S =
+// Q K^T, the online softmax, O += P V.
+template <typename E, int N, bool SCALED>
+__device__ __forceinline__ void fwd_short_step(
+    float (&acc)[32], float (&m)[2], float (&l)[2], uint32_t sQr,
+    uint32_t sk, uint32_t sv, const Mask& mk, int q0, int row0, int k0,
+    int t, float sl2) {
+  float sc[N / 2];
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) sc[x] = 0.f;
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    hopper::Mma<E>::ss(sc, hopper::desc_k(sQr, 64, kk),
+                       hopper::desc_k(sk, N, kk), kk > 0);
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(sc);
+
+  float alpha[2];
+  online_softmax<N, SCALED>(sc, m, l, alpha, mk, q0, row0, k0, t, sl2);
+#pragma unroll
+  for (int x = 0; x < 32; ++x) acc[x] *= alpha[(x >> 1) & 1];
+  uint32_t pa[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) acc_to_a<E>(pa[kk], sc, kk);
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::Mma<E>::rs64(acc, pa[kk], hopper::desc_mn(sv, N, kk, 0));
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(acc);
+}
+
+template <typename E, bool SCALED>
+__global__ void __launch_bounds__(128 * (SHORT_WGS + 1), 1)
+    fwd_short_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_o,
+                     float* __restrict__ lse, int bh_n, int group,
+                     float scale, Mask mk) {
+  using S = FwdShortSmem;
+  constexpr int BK = S::BK, STAGES = S::STAGES, WGS = SHORT_WGS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t bars = base + S::BAR_OFF;  // full[STAGES], empty[STAGES]
+  const int T = mk.T;
+  const int n_rt = (T + 63) / 64;         // row tiles (Q's 64-row boxes)
+  const int n_kc = (T + BK - 1) / BK * 2;  // K/V boxes: whole key tiles
+  // this block's items: b*h rows blockIdx.x, + gridDim.x, ...
+  const int items = (bh_n - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(bars + 8 * s, 1);
+      // every consumer warpgroup hands each item's stage back, once its
+      // last product of the item has read it
+      hopper::mbar_init(bars + 8 * (STAGES + s), 128 * WGS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * WGS) {  // producer warpgroup: its first thread
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * WGS) {
+      for (int i = 0; i < items; ++i) {
+        const int s = i % STAGES, bh = blockIdx.x + i * gridDim.x;
+        const uint32_t sQ = base + s * S::STAGE_BYTES, full = bars + 8 * s;
+        if (i >= STAGES)
+          hopper::mbar_wait(bars + 8 * (STAGES + s), (i / STAGES - 1) & 1);
+        hopper::mbar_arrive_tx(full, (n_rt + 2 * n_kc) * S::CHUNK);
+        const int bkv = bh / group;
+        for (int c = 0; c < n_kc; ++c) {
+          if (c < n_rt)
+            hopper::tma_load(sQ + c * S::CHUNK, &map_q, 0, 64 * c, bh, full);
+          hopper::tma_load(sQ + S::TILE + c * S::CHUNK, &map_k, 0, 64 * c,
+                           bkv, full);
+          hopper::tma_load(sQ + 2 * S::TILE + c * S::CHUNK, &map_v, 0,
+                           64 * c, bkv, full);
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(WGS, 1)>();
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t sO = base + S::O_OFF + wg * S::CHUNK;  // its O tile
+  const float sl2 = scale * LOG2E;
+  // The block's row tiles, item by item, are dealt to the warpgroups in
+  // turn (tile u = i * n_rt + r to warpgroup u % WGS).  Each warpgroup
+  // waits for every item's stage and hands every one back, those where it
+  // has no tile included, so that no stage moves on to its next item
+  // before every warpgroup is past this one.
+  for (int i = 0; i < items; ++i) {
+    const int s = i % STAGES, bh = blockIdx.x + i * gridDim.x;
+    const uint32_t sQ = base + s * S::STAGE_BYTES;
+    const uint32_t sK = sQ + S::TILE, sV = sK + S::TILE;
+    const uint32_t empty = bars + 8 * (STAGES + s);
+    hopper::mbar_wait(bars + 8 * s, (i / STAGES) & 1);
+    const int r_first = ((wg - i * n_rt) % WGS + WGS) % WGS;
+    if (r_first >= n_rt) hopper::mbar_arrive(empty);
+    for (int r = r_first; r < n_rt; r += WGS) {
+      const int q0 = 64 * r;
+      const int row0 = q0 + warp * 16 + g;  // this thread's rows: +0, +8
+      const uint32_t sQr = sQ + r * S::CHUNK;
+      int lo, n_sink, n_iter;
+      key_tiles<BK>(q0, 64, mk, &lo, &n_sink, &n_iter);
+      float m[2] = {-INFINITY, -INFINITY};
+      float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+      float acc[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) acc[x] = 0.f;
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        // the keys of this step that exist, in whole 16-key sub-steps
+        const int n = cmin(BK, (T - k0 + 15) / 16 * 16);
+        if (n == BK) {
+          fwd_short_step<E, BK, SCALED>(acc, m, l, sQr, sK + k0 * 128,
+                                        sV + k0 * 128, mk, q0, row0, k0, t,
+                                        sl2);
+          continue;
+        }
+        for (int c = 0; c < n;) {
+          const int kc = k0 + c;
+          const uint32_t sk = sK + kc * 128, sv = sV + kc * 128;
+          if (n - c >= 64) {
+            fwd_short_step<E, 64, SCALED>(acc, m, l, sQr, sk, sv, mk, q0, row0,
+                                          kc, t, sl2);
+            c += 64;
+          } else if (n - c >= 32) {
+            fwd_short_step<E, 32, SCALED>(acc, m, l, sQr, sk, sv, mk, q0, row0,
+                                          kc, t, sl2);
+            c += 32;
+          } else {
+            fwd_short_step<E, 16, SCALED>(acc, m, l, sQr, sk, sv, mk, q0, row0,
+                                          kc, t, sl2);
+            c += 16;
+          }
+        }
+      }
+      // this warpgroup's last tile of the item: the stage is read
+      if (r + WGS >= n_rt) hopper::mbar_arrive(empty);
+
+      float inv[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        inv[h] = l[h] > 0.f ? 1.f / l[h] : 1.f;
+        const int row = row0 + 8 * h;
+        if (lse != nullptr && t == 0 && row < T)
+          lse[(size_t)bh * T + row] = l[h] > 0.f ? m[h] * LN2 + logf(l[h])
+                                                 : 0.f;
+      }
+      // o into this warpgroup's tile once its previous store has read it
+      if (tid == 0) hopper::bulk_wait_read();
+      hopper::named_sync(1 + wg, 128);
+      acc_to_smem<E>(sO, acc, inv, warp, g, t);
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+      if (tid == 0) {
+        hopper::tma_store(&map_o, sO, 0, q0, bh);
+        hopper::bulk_commit();
+      }
+    }
+  }
+  if (tid == 0) hopper::bulk_wait();
+}
+
+// dk/dv (dkv_short_kernel).  Replaces
+// tf_operator_tpu/ops/attention.py:_bwd_dkv_kernel for T <= 256 at
+// head-dim class 64.  An item is one b*kv_head: its K and V (64-row boxes,
+// zero past T) in one of two 64 KB stages.  The item's key tiles of 64 go
+// in passes: in pass p warpgroup w owns key tile 2p + w and holds its dK
+// and dV accumulators (dkv_kernel's registers); the producer warp streams
+// the pass's query chunks (64 queries of each head of the KV head's group
+// that the pass's 128 keys can see, query_tiles) through a ring of
+// STAGES stages: Q and dO by TMA, lse and delta by its lanes' cp.async,
+// all completing on the stage's barrier, which both warpgroups read and
+// hand back.  Per chunk (the ragged last one in 16-query sub-steps), as
+// dkv_kernel: S^T = K Q^T and dP^T = V dO^T, p = exp2(s * scale * log2 e
+// - lse * log2 e) and ds = p (dp - delta) (dkv_probs), dV += P^T dO and dK
+// += dS^T Q.  A pass's dK (times scale) and dV go to the key tile's own K
+// and V rows in shared memory and leave by TMA stores, which the item's
+// stage waits for before it is handed back.  The GQA sum stays in the
+// warpgroup (no atomics, one order: deterministic).  A T <= 128 item is
+// one pass; T 197 two, the second of which gives warpgroup 1 the 5 live
+// keys of 192..255.  Two consumer warpgroups: a third would leave each
+// thread 128 registers, under the 160 of dkv_kernel's accumulators and
+// score tiles.
+struct DkvShortSmem {
+  static constexpr int D = 64, ROWS = 256, BQ = 64;
+  static constexpr int CHUNK = 64 * D * 2;             // 64 rows: 8 KB
+  static constexpr int KV_TILE = ROWS * D * 2;         // K or V of a head
+  static constexpr int KV_STAGE = 2 * KV_TILE;
+  static constexpr int RING_OFF = 2 * KV_STAGE;        // two K/V stages
+  static constexpr int Q_STAGE = 2 * CHUNK;            // Q, dO
+  static constexpr int ROWS_BYTES = 2 * BQ * 4;        // lse, delta
+  static constexpr int STAGES =
+      cmin(6, (smem_budget(1) - RING_OFF - 1024 - 128) /
+                  (Q_STAGE + ROWS_BYTES));
+  static constexpr int ROWS_OFF = RING_OFF + STAGES * Q_STAGE;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * ROWS_BYTES;
+  // full[STAGES], empty[STAGES], kv_full[2], kv_empty[2]
+  static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 4) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= smem_budget(1),
+                "short dk/dv does not fit");
+};
+
+// One query chunk of NQ queries from q0 (Q at sq, dO at sdo, lse and delta
+// at rows) for a warpgroup's 64 keys from kr0 (K at sKt, V at sVt): S^T =
+// K Q^T and dP^T = V dO^T, p and ds, dV += P^T dO and dK += dS^T Q.
+template <typename E, int NQ>
+__device__ __forceinline__ void dkv_short_step(
+    float (&dk_acc)[32], float (&dv_acc)[32], uint32_t sKt, uint32_t sVt,
+    uint32_t sq, uint32_t sdo, const float* rows, const Mask& mk, int q0,
+    int kr0, const int (&key)[2], int t, float sl2) {
+  constexpr int BQ = DkvShortSmem::BQ;  // the rows' stride: lse, then delta
+  float sc[NQ / 2], dp[NQ / 2];
+#pragma unroll
+  for (int x = 0; x < NQ / 2; ++x) sc[x] = dp[x] = 0.f;
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::Mma<E>::ss(sc, hopper::desc_k(sKt, 64, kk),
+                       hopper::desc_k(sq, NQ, kk), kk > 0);
+    hopper::Mma<E>::ss(dp, hopper::desc_k(sVt, 64, kk),
+                       hopper::desc_k(sdo, NQ, kk), kk > 0);
+  }
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(sc);
+  hopper::wg_fence_regs(dp);
+
+  // rows holds the raw lse (copied as stored)
+  dkv_probs<NQ>(sc, rows, mk, q0, kr0, key, t, sl2, LOG2E);
+#pragma unroll
+  for (int x = 0; x < NQ / 2; ++x) {
+    const float dl = rows[BQ + 8 * (x >> 2) + 2 * t + (x & 1)];
+    dp[x] = sc[x] * (dp[x] - dl);
+  }
+  uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < NQ / 16; ++kk) {
+    acc_to_a<E>(pa[kk], sc, kk);
+    acc_to_a<E>(da[kk], dp, kk);
+  }
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < NQ / 16; ++kk) {
+    hopper::Mma<E>::rs64(dv_acc, pa[kk], hopper::desc_mn(sdo, NQ, kk, 0));
+    hopper::Mma<E>::rs64(dk_acc, da[kk], hopper::desc_mn(sq, NQ, kk, 0));
+  }
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(dv_acc);
+  hopper::wg_fence_regs(dk_acc);
+}
+
+template <typename E>
+__global__ void __launch_bounds__(384, 1)
+    dkv_short_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const __grid_constant__ CUtensorMap map_dk,
+                     const __grid_constant__ CUtensorMap map_dv,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, int bkv_n, int heads,
+                     int kv_heads, float scale, Mask mk) {
+  using S = DkvShortSmem;
+  constexpr int BQ = S::BQ, STAGES = S::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t ring = base + S::RING_OFF;  // stage: Q, dO
+  const uint32_t bars = base + S::BAR_OFF;
+  const uint32_t kv_full = bars + 16 * STAGES, kv_empty = kv_full + 16;
+  const int T = mk.T;
+  const int n_kt = (T + 63) / 64;      // key tiles (K/V's 64-row boxes)
+  const int n_pass = (n_kt + 1) / 2;
+  const int group = heads / kv_heads;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's 32 lanes' row copies and lane 0's TMA bytes
+      hopper::mbar_init(bars + 8 * s, 33);
+      hopper::mbar_init(bars + 8 * (STAGES + s), 256);
+    }
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(kv_full + 8 * s, 1);
+      hopper::mbar_init(kv_empty + 8 * s, 256);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: its first warp
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x >= 256 + 32) return;
+    const int lane = threadIdx.x & 31;
+    int n = 0, i = 0;  // chunks and items so far
+    for (int bkv = blockIdx.x; bkv < bkv_n; bkv += gridDim.x, ++i) {
+      const int ks = i & 1;
+      const uint32_t sK = base + ks * S::KV_STAGE;
+      if (i >= 2) hopper::mbar_wait(kv_empty + 8 * ks, ((i >> 1) - 1) & 1);
+      if (lane == 0) {
+        hopper::mbar_arrive_tx(kv_full + 8 * ks, 2 * n_kt * S::CHUNK);
+        for (int c = 0; c < n_kt; ++c) {
+          hopper::tma_load(sK + c * S::CHUNK, &map_k, 0, 64 * c, bkv,
+                           kv_full + 8 * ks);
+          hopper::tma_load(sK + S::KV_TILE + c * S::CHUNK, &map_v, 0, 64 * c,
+                           bkv, kv_full + 8 * ks);
+        }
+      }
+      // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
+      const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+      for (int p = 0; p < n_pass; ++p) {
+        int qlo, qhi;
+        query_tiles<BQ>(128 * p, 128, mk, &qlo, &qhi);
+        for (int hq = 0; hq < group; ++hq) {
+          for (int c = qlo; c < qhi; ++c, ++n) {
+            const int s = n % STAGES, bh = qbase + hq, q0 = BQ * c;
+            if (n >= STAGES)
+              hopper::mbar_wait(bars + 8 * (STAGES + s), (n / STAGES - 1) & 1);
+            const uint32_t rows = base + S::ROWS_OFF + s * S::ROWS_BYTES;
+            for (int x = lane; x < BQ; x += 32) {
+              const int q = q0 + x;
+              const size_t off = (size_t)bh * T + (q < T ? q : 0);
+              hopper::cp_async4(rows + 4 * x, lse + off, q < T);
+              hopper::cp_async4(rows + 4 * (BQ + x), delta + off, q < T);
+            }
+            hopper::cp_async_mbar_arrive(bars + 8 * s);
+            if (lane == 0) {
+              const uint32_t st = ring + s * S::Q_STAGE;
+              hopper::mbar_arrive_tx(bars + 8 * s, S::Q_STAGE);
+              hopper::tma_load(st, &map_q, 0, q0, bh, bars + 8 * s);
+              hopper::tma_load(st + S::CHUNK, &map_do, 0, q0, bh,
+                               bars + 8 * s);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const float sl2 = scale * LOG2E;
+  const float mul[2] = {scale, scale};
+  const float one[2] = {1.f, 1.f};
+  int n = 0, i = 0;
+  for (int bkv = blockIdx.x; bkv < bkv_n; bkv += gridDim.x, ++i) {
+    const int ks = i & 1;
+    const uint32_t sK = base + ks * S::KV_STAGE, sV = sK + S::KV_TILE;
+    hopper::mbar_wait(kv_full + 8 * ks, (i >> 1) & 1);
+    for (int p = 0; p < n_pass; ++p) {
+      const int kt = 2 * p + wg;
+      const bool mine = kt < n_kt;  // warpgroup 1 may have no tile left
+      const int kr0 = 64 * kt;
+      const int key[2] = {kr0 + warp * 16 + g, kr0 + warp * 16 + g + 8};
+      const uint32_t sKt = sK + kt * S::CHUNK, sVt = sV + kt * S::CHUNK;
+      int qlo, qhi;
+      query_tiles<BQ>(128 * p, 128, mk, &qlo, &qhi);
+      float dk_acc[32], dv_acc[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dk_acc[x] = dv_acc[x] = 0.f;
+      for (int hq = 0; hq < group; ++hq) {
+        for (int c = qlo; c < qhi; ++c, ++n) {
+          const int s = n % STAGES, q0 = BQ * c;
+          hopper::mbar_wait(bars + 8 * s, (n / STAGES) & 1);
+          if (mine) {
+            const uint32_t sq = ring + s * S::Q_STAGE, sdo = sq + S::CHUNK;
+            const float* rows = reinterpret_cast<const float*>(
+                smem + S::ROWS_OFF + s * S::ROWS_BYTES);
+            // the chunk's queries that exist, in whole 16-query sub-steps
+            const int nq = cmin(BQ, (T - q0 + 15) / 16 * 16);
+            if (nq == BQ) {
+              dkv_short_step<E, BQ>(dk_acc, dv_acc, sKt, sVt, sq, sdo, rows,
+                                    mk, q0, kr0, key, t, sl2);
+            } else {
+              for (int c = 0; c < nq;) {
+                const uint32_t o = c * 128;
+                if (nq - c >= 32) {
+                  dkv_short_step<E, 32>(dk_acc, dv_acc, sKt, sVt, sq + o,
+                                        sdo + o, rows + c, mk, q0 + c, kr0,
+                                        key, t, sl2);
+                  c += 32;
+                } else {
+                  dkv_short_step<E, 16>(dk_acc, dv_acc, sKt, sVt, sq + o,
+                                        sdo + o, rows + c, mk, q0 + c, kr0,
+                                        key, t, sl2);
+                  c += 16;
+                }
+              }
+            }
+          }
+          hopper::mbar_arrive(bars + 8 * (STAGES + s));
+        }
+      }
+      if (mine) {
+        // dK and dV over the key tile's own K and V rows, which no
+        // product reads any more
+        acc_to_smem<E>(sKt, dk_acc, mul, warp, g, t);
+        acc_to_smem<E>(sVt, dv_acc, one, warp, g, t);
+        hopper::fence_proxy_async();
+        hopper::named_sync(1 + wg, 128);
+        if (tid == 0) {
+          hopper::tma_store(&map_dk, sKt, 0, kr0, bkv);
+          hopper::tma_store(&map_dv, sVt, 0, kr0, bkv);
+          hopper::bulk_commit();
+        }
+      }
+    }
+    // the stores have read the stage before it is handed back
+    if (tid == 0) hopper::bulk_wait_read();
+    hopper::mbar_arrive(kv_empty + 8 * ks);
+  }
+  if (tid == 0) hopper::bulk_wait();
+}
+
+// ---------------------------------------------------------------------------
 // Launchers of the tensor-core kernels: dynamic shared memory (above 48 KB
 // needs the opt-in), grid (b*heads, row tiles) on the caller's stream; each
 // returns the launch error.  Each launcher first encodes its tensor maps (a
@@ -1681,6 +2193,74 @@ int dkv(int bkv, const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The SMs of the current device: the persistent grids' size.
+inline int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+// The encoders' forward: one persistent block an SM (at most one a b*h).
+template <typename E, bool SCALED>
+int fwd_short(int bh, const FwdArgs& a, cudaStream_t stream) {
+  using S = FwdShortSmem;
+  const int T = a.mk.T;
+  if (T > S::ROWS || head_class(a.ld) != S::D)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_o;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / a.group, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / a.group, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_o, ty, a.o, bh, T, a.ld, 64)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = fwd_short_kernel<E, SCALED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = cmin(bh, sm_count());
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 128 * (SHORT_WGS + 1), S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_o, a.lse, bh, a.group, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+// The encoders' dk/dv: one persistent block an SM (at most one a
+// b*kv_head).
+template <typename E>
+int dkv_short(int bkv, const BwdArgs& a, cudaStream_t stream) {
+  using S = DkvShortSmem;
+  const int T = a.mk.T;
+  if (T > S::ROWS || head_class(a.ld) != S::D || a.splits != 1 ||
+      a.partial != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int bh = bkv / a.kv_heads * a.heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do, map_dk, map_dv;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bkv, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_dk, ty, a.dk, bkv, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_dv, ty, a.dv, bkv, T, a.ld, 64)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = dkv_short_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = cmin(bkv, sm_count());
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_do, map_dk, map_dv, a.lse, a.delta, bkv,
+      a.heads, a.kv_heads, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
 template <typename E>
 int dkv_reduce(const float* ws, void* dk, void* dv, long long n, int splits,
                float scale, cudaStream_t stream) {
@@ -1703,6 +2283,9 @@ int dkv_reduce(const float* ws, void* dk, void* dv, long long n, int splits,
 //   dk/dv        D 64: key rows {64, 128} x query step {32, 64}
 //                D 128: key rows {64, 128} x query step {32}
 //                D 256: key rows {64} x query step {64} (dkv_split_kernel)
+// and the encoders' kernels (T <= 256), a whole head a work item:
+//   forward      D 64: rows 256 x key step 128 (fwd_short_kernel)
+//   dk/dv        D 64: key rows 256 x query step 64 (dkv_short_kernel)
 // Left out, each for registers or shared memory: a 256-key step (the
 // forward's spilled 520-604 bytes under ptxas, with S as 128 f32 a thread,
 // at both row counts; dq's S and dP alone would take 256 registers),
@@ -1734,6 +2317,8 @@ int forward_tiles(int bh, const FwdArgs& a, int rows, int step,
     FA_FWD(64, 128, 128)
     FA_FWD(128, 64, 64)
     FA_FWD(128, 128, 64)
+    if (dc == 64 && rows == 256 && step == 128)
+      return fwd_short<E, SCALED>(bh, a, st);
   }
 #undef FA_FWD
   return (int)cudaErrorInvalidValue;
@@ -1777,6 +2362,7 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
     FA_DKV(64, 128, 64)
     FA_DKV(128, 64, 32)
     FA_DKV(128, 128, 32)
+    if (dc == 64 && rows == 256 && step == 64) return dkv_short<E>(bkv, a, st);
   }
 #undef FA_DKV
   return (int)cudaErrorInvalidValue;

@@ -157,6 +157,45 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map,
     tma_load(dst + h * rows * 128, map, h * 64, row0, n, bar);
 }
 
+// One box {64 columns from d0, rows from row0, index n} from src in shared
+// memory to global memory (the tensor map clips what falls past the
+// tensor's edges: rows past T, columns past ld), in this thread's bulk
+// group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int d0, int row0, int n) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(d0), "r"(row0), "r"(n)
+      : "memory");
+}
+
+// Closes this thread's bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's committed stores have read their shared memory
+// (which may then be overwritten).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's committed stores have completed.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's shared-memory writes before later reads of the
+// async proxy (a TMA store of what it wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
 // Named barrier `id` (1-15; 0 is __syncthreads') over `n` threads: sync
 // waits until n threads have arrived (its own warps included), arrive
 // counts this warp's threads and goes on.
@@ -254,6 +293,7 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 #define HOPPER_F64(d, i) \
   HOPPER_F16(d, i), HOPPER_F16(d, i + 16), HOPPER_F16(d, i + 32), \
       HOPPER_F16(d, i + 48)
+#define HOPPER_D8 "{" "%0, %1, %2, %3, %4, %5, %6, %7" "}"
 #define HOPPER_D16 \
   "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
   "%12, %13, %14, %15" "}"
@@ -272,7 +312,7 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 // The products for one element type E (__nv_bfloat16: "bf16", __half:
 // "f16"); f32 accumulators in both.
 //   ss: d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory,
-//       K-major; N = 2 x the accumulator's length (32, 64 or 128).
+//       K-major; N = 2 x the accumulator's length (16, 32, 64 or 128).
 //   rs64: d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the
 //       accumulator layout of a previous product, rounded to E), B from
 //       shared memory MN-major (the transpose bit).
@@ -290,6 +330,8 @@ struct Mma;
   }
 
 #define HOPPER_MMA(TY)                                                       \
+  HOPPER_MMA_SS(16, 8, 8, 9, 10, TY,                                         \
+                HOPPER_F4(d, 0) HOPPER_COMMA HOPPER_F4(d, 4))                \
   HOPPER_MMA_SS(32, 16, 16, 17, 18, TY, HOPPER_F16(d, 0))                    \
   HOPPER_MMA_SS(64, 32, 32, 33, 34, TY,                                      \
                 HOPPER_F16(d, 0) HOPPER_COMMA HOPPER_F16(d, 16))             \
@@ -321,6 +363,7 @@ struct Mma<__half> {
 #undef HOPPER_D64
 #undef HOPPER_D32
 #undef HOPPER_D16
+#undef HOPPER_D8
 #undef HOPPER_F64
 #undef HOPPER_F16
 #undef HOPPER_F4
