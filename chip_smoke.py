@@ -34,15 +34,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            the fourteenth slice, at head dims 129-256, the forward's and
            SDPA's forward's device time by the profiler, and since the
            fifteenth slice at the encoders' shapes (vit_b16, bert_base and
-           their tp 2 halves, where the forward and dk/dv take the
-           encoders' kernels: attention.short_route) all three kernels'
-           and SDPA's forward's and backward's device time; each kernel
+           their tp 2 halves, where the forward and dk/dv, and since the
+           sixteenth slice dq, take the encoders' kernels:
+           attention.short_route) all three kernels' and SDPA's forward's
+           and backward's device time (since the sixteenth slice at
+           gpt_small_tp2 and llama_tp2 too); each kernel
            launched a second time on the same inputs must give the same
            bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
            class 64, 128 and 256, tile and forward route) against its plain version at a
            ragged causal shape with a window and a sink (since the
-           fifteenth slice also at T 200, the encoders' kernels);
+           fifteenth slice also at T 200, the encoders' kernels, dq's
+           since the sixteenth);
            `ops/autotune.tune_flash_blocks` in bf16 at GPT-small, ViT-B/16
            and BERT-base, each candidate's fwd+bwd ms and tiles and the
            winner against (128, 128), no candidate failing; the caches (a
@@ -107,8 +110,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   bert     the BERT workload at BERT-base width (T 128, batch 32): each as
            resnet, plus the kernels' launches (12 per step each, counted
            from zero just before the run; since the fifteenth slice every
-           forward and dk/dv launch must be the encoders' kernels', which
-           the kernels line lists apart), and the model's logits with the
+           forward and dk/dv launch, and since the sixteenth every dq
+           launch, must be the encoders' kernels', which the kernels line
+           lists apart), and the model's logits with the
            kernels against the same model on the plain attention path;
            for bert one more plain run whose losses, in full precision,
            must equal the workload run's over the 10 steps
@@ -260,8 +264,9 @@ REPLACES = {
     # Pallas kernel carries the group's sum in VMEM along its grid)
     "dkv_reduce": "tf_operator_tpu/ops/attention.py:485",
     # the encoders' kernels (T <= 256 at head-dim class 64) behind the
-    # forward and dk/dv wrappers
+    # three wrappers
     "flash_forward_short": "tf_operator_tpu/ops/attention.py:255",
+    "flash_backward_dq_short": "tf_operator_tpu/ops/attention.py:419",
     "flash_backward_dkv_short": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
@@ -474,7 +479,7 @@ def step_losses(log: str) -> dict:
 
 
 def check_short_launches(expected: int, what: str) -> dict:
-    """The encoders' kernels behind the forward and dk/dv wrappers
+    """The encoders' kernels behind the three wrappers
     (`attention.short_launches`): each launched `expected` times, so that
     every attention call of the path took them."""
     from tf_operator_tpu_torch.ops import attention as A
@@ -584,10 +589,13 @@ CASES = [
 ]
 # launches the profiler averages a kernel's device time over
 DEVICE_REPS = 10
-# the encoders' shapes, where all three kernels (the forward and dk/dv on
-# the encoders' kernels, attention.short_route) and SDPA's forward and
-# backward are also timed by the profiler
+# the encoders' shapes, where all three kernels take the encoders' kernels
+# (attention.short_route)
 ENCODER_CASES = ("vit_b16", "bert_base", "vit_b16_tp2", "bert_base_tp2")
+# the cases where all three kernels and SDPA's forward and backward are
+# timed by the profiler: the main shape, the encoders', and since the
+# sixteenth slice the tp 2 shards of GPT-small and llama
+DEVICE_CASES = ("main", "gpt_small_tp2", "llama_tp2") + ENCODER_CASES
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
@@ -787,20 +795,20 @@ def kernel_case(case, timing: bool):
     print(f"  {name:11s} kernels dq + dk/dv ms {kern_bwd:.4f}; sdpa backward "
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
-    if A.head_class(d) == 256 or name in ENCODER_CASES or name == "main":
+    if A.head_class(d) == 256 or name in DEVICE_CASES:
         # the kernels' own time and SDPA's on the device (profiler), under
         # keys of their own (`ms` and `library_ms` stay CUDA events): back
         # to back, a wrapper whose host time outlasts its kernel times the
         # host, and a stall of the host lands in the mean.  At head-dim
-        # class 256 the forward, at the main and the encoders' shapes all
-        # three and SDPA's whole backward too
+        # class 256 the forward, at DEVICE_CASES all three and SDPA's whole
+        # backward too
         def reps(fn):
             return lambda: [fn() for _ in range(DEVICE_REPS)]
 
         sdpa_ms = {"flash_forward": device_busy(reps(sdpa_fwd))[0]
                    / DEVICE_REPS}
         calls = {"flash_forward": (fwd, "fwd_")}
-        if name in ENCODER_CASES or name == "main":
+        if name in DEVICE_CASES:
             sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
             calls.update(flash_backward_dq=(dq_kernel, "dq_"),
                          flash_backward_dkv=(dkv_kernel, "dkv_"))
@@ -898,8 +906,8 @@ def reduce_case(case) -> dict:
 def phase_kernels():
     """Every case against its plain versions; returns the main case's
     numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, and
-    under "flash_forward_short" and "flash_backward_dkv_short" the
-    encoders' kernels at ViT-B/16's."""
+    under "flash_forward_short", "flash_backward_dq_short" and
+    "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -920,8 +928,8 @@ def phase_kernels():
             out.update(res)
         if case.name == "vit_b16":
             # the encoders' kernels at ViT-B/16's shape
-            for kname in ("flash_forward", "flash_backward_dkv"):
-                out[f"{kname}_short"] = res[kname]
+            for fn in A.KERNELS:
+                out[f"{fn.__name__}_short"] = res[fn.__name__]
         if case.name == "gemma_2b":
             out["dkv_reduce"] = reduce_case(case)
         torch.cuda.empty_cache()
@@ -3517,7 +3525,7 @@ def main(argv=None) -> int:
          "device_ms": kernels[name].get("device_ms"),
          "library_device_ms": kernels[name].get("library_device_ms")}
         for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]
-        + [f"{fn.__name__}_short" for fn in A.SHORT_KERNELS]]}),
+        + [f"{fn.__name__}_short" for fn in A.KERNELS]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

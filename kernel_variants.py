@@ -32,7 +32,7 @@ card's clocks before and after.  With --encoder: at the encoders' shapes
 (ENCODER_CASES: ViT-B/16 and BERT-base, whole and at tp 2) SDPA's forward
 and whole backward, every tiled tile the wrappers reach at head-dim class
 64 (ENCODER_TILES) on the base build, then the wrappers' route (the
-encoders' forward and dk/dv kernels, dq's tile) for the base and each
+encoders' forward, dq and dk/dv kernels) for the base and each
 ENCODER_VARIANTS build in turns; every time is the profiler's device time.
 With --trees: each wrapper's device time at chip_smoke's cases main,
 gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
@@ -903,9 +903,11 @@ ENCODER_CASES = ("vit_b16", "vit_b16_tp2", "bert_base", "bert_base_tp2")
 # every tile of the tiled kernels the wrapper reaches at head-dim class 64
 # (INSTANTIATED), each timed at the encoders' shapes on the base build
 ENCODER_TILES = {"fwd": [(r, s) for r in (64, 128) for s in (64, 128)],
+                 "dq": [(r, s) for r in (64, 128) for s in (64, 128)],
                  "dkv": [(r, s) for r in (64, 128) for s in (32, 64)]}
-# The encoders' kernels (fwd_short_kernel, dkv_short_kernel) against
-# variants of their design, as edits of the checked-in source.
+# The encoders' kernels (fwd_short_kernel, dq_short_kernel,
+# dkv_short_kernel) against variants of their design, as edits of the
+# checked-in source.
 # the forward with two consumer warpgroups (240 registers a thread)
 ENC_WG2 = [("constexpr int SHORT_WGS = 3;", "constexpr int SHORT_WGS = 2;")]
 # whole 128-key steps in the forward and whole 64-query chunks in dk/dv
@@ -990,11 +992,33 @@ ENCODER_VARIANTS = {
         hopper::mbar_arrive_tx(full, (n_rt + 2 * n_kc) * S::CHUNK);""")],
     "diag_no_store": [("        hopper::tma_store(&map_o, sO, 0, q0, bh);",
                        "")],
+    # dq with two consumer warpgroups (240 registers a thread) over
+    # 128-key steps
+    "dq_wg2": [("constexpr int DQ_SHORT_WGS = 3;",
+                "constexpr int DQ_SHORT_WGS = 2;")],
+    # diagnostics of dq, each leaving out one part of its work (outputs
+    # wrong on purpose): the exponentials, the dS.K product, every item of
+    # a block after its first (one wave at most: what BERT-base tp 2's
+    # half wave costs)
+    "dq_diag_no_exp": [(
+        """  for (int x = 0; x < N / 2; ++x)
+    sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2[(x >> 1) & 1]));""",
+        """  for (int x = 0; x < N / 2; ++x)
+    sc[x] = fmaf(sc[x], sl2, -lse2[(x >> 1) & 1]);""")],
+    "dq_diag_no_dq": [(
+        "    hopper::Mma<E>::rs64(dq_acc, da[kk], hopper::desc_mn(sk, N, kk, 0));",
+        """    asm volatile("" ::"r"(da[kk][0]), "r"(da[kk][1]),
+                 "r"(da[kk][2]), "r"(da[kk][3]));""")],
+    "dq_diag_one_item": [(
+        """  const int items = (bkv_n - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;""",
+        "  const int items = 1;")],
 }
 # what each variant changes: the kernels its rounds time
 ENCODER_VARIANT_KERNELS = {
     name: ("fwd", "dkv") if name in ("plain_steps", "no_trim", "dead_warps")
-    else ("fwd",) for name in ENCODER_VARIANTS}
+    else ("dq",) if name.startswith("dq_") else ("fwd",)
+    for name in ENCODER_VARIANTS}
 # the profiler's name fragments of each wrapper's kernels, each timed
 # apart (dk/dv's kernel and, with its heads split, the reduce after it)
 KERNEL_NAMES = {"fwd": ("fwd_",), "dq": ("dq_",),
@@ -1095,8 +1119,8 @@ def device_line(A, case, kernels=("fwd", "dq", "dkv")) -> str:
 
 
 def main_encoder(names) -> int:
-    """The encoders' shapes: the wrappers' route (the forward and dk/dv on
-    the encoders' kernels, dq on its tile) for the base build and each
+    """The encoders' shapes: the wrappers' route (the encoders' forward, dq
+    and dk/dv kernels) for the base build and each
     ENCODER_VARIANTS build named (all without names) in turns, by device
     time; before, on the base build, every tiled tile the wrapper can reach
     at head-dim class 64 (ENCODER_TILES, through a patched
@@ -1115,7 +1139,7 @@ def main_encoder(names) -> int:
                     if not names or name in names]
         for name, edits in [("base", [])] + variants:
             lib, log = build(name, edits, Path(tmp))
-            report(name, log, ("fwd", "dkv"), 64)
+            report(name, log, ("fwd", "dq", "dkv"), 64)
             libs[name] = ctypes.CDLL(str(lib))
         bind(libs["base"])
         for case in cases:

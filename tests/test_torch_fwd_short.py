@@ -248,11 +248,12 @@ def test_dkv_streams_each_pass_once(t, passes, chunks):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("t", [197, 256, 257, 2048])
 def test_route_rule_for_every_block_request(t, dtype):
-    """At head-dim class 64 the forward and dk/dv take the encoders'
+    """At head-dim class 64 the forward, dq and dk/dv take the encoders'
     kernels (SHORT's tiles) at T <= 256 whatever blocks the env contract
-    accepts (block_q a positive multiple of 8, block_k of 64), dq keeps
-    the tile the blocks resolve to, and above 256 every kernel takes the
-    tiled kernels' tiles, as without T; each tile is built."""
+    accepts (block_q a positive multiple of 8, block_k of 64; until the
+    encoders' dq, dq kept the tile the blocks resolve to), and above 256
+    every kernel takes the tiled kernels' tiles, as without T; each tile is
+    built."""
     built = A.instantiations()
     name = str(dtype).removeprefix("torch.")
     for bq, bk in itertools.product(range(8, 520, 8), range(64, 1088, 64)):
@@ -260,6 +261,7 @@ def test_route_rule_for_every_block_request(t, dtype):
         got = A.resolve_tiles(bq, bk, 64, dtype, t)
         if t <= A.SHORT_T:
             assert got == tiled._replace(**A.SHORT)
+            assert got == A.Tiles(**A.SHORT)
         else:
             assert got == tiled
         for kernel in ("fwd", "dq", "dkv"):
@@ -274,10 +276,11 @@ def test_route_rule_for_every_block_request(t, dtype):
 ])
 def test_route_rule_by_class_length_and_dtype(d, dtype, t, short):
     """Only head-dim class 64 in bf16 and fp16 at T <= 256 takes the
-    encoders' kernels; f32 keeps its one tile."""
+    encoders' kernels, all three; f32 keeps its one tile."""
     assert A.short_route(d, t, dtype) is short
     tiles = A.resolve_tiles(128, 128, d, dtype, t)
     assert (tiles.fwd == A.SHORT["fwd"]) is short
+    assert (tiles.dq == A.SHORT["dq"]) is short
     assert (tiles.dkv == A.SHORT["dkv"]) is short
 
 
@@ -285,22 +288,26 @@ _FWD_SHORT = ("_ZN12_GLOBAL__N_116fwd_short_kernelI13__nv_bfloat16Lb1EEEv14"
               "CUtensorMap_stS2_S2_S2_PfiifN2fa4MaskE")
 _DKV_SHORT = ("_ZN12_GLOBAL__N_116dkv_short_kernelI6__halfEEv14CUtensorMap_stS"
               "2_S2_S2_S2_S2_PKfS4_iiifN2fa4MaskE")
+_DQ_SHORT = ("_ZN12_GLOBAL__N_115dq_short_kernelI13__nv_bfloat16EEv14CUtensorMa"
+             "p_stS2_S2_S2_S2_PKfS4_iiifN2fa4MaskE")
 
 
 def test_ptxas_report_names_the_encoders_kernels():
-    """chip_smoke's build phase reads the encoders' kernels in nvcc's
-    -Xptxas=-v report (template arguments: the element type, and the
-    forward's route) under the keys of SHORT's tiles, which
-    attention.instantiations() lists."""
+    """chip_smoke's build phase reads the encoders' kernels (the
+    forward, dk/dv and dq) in nvcc's -Xptxas=-v report (template
+    arguments: the element type, and the forward's route) under the keys
+    of SHORT's tiles, which attention.instantiations() lists."""
     log = "".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
         f"ptxas info    : Function properties for {name}\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
         "ptxas info    : Used 128 registers, used 4 barriers\n"
-        for name in (_FWD_SHORT, _DKV_SHORT))
+        for name in (_FWD_SHORT, _DKV_SHORT, _DQ_SHORT))
     assert chip_smoke.ptxas_report(log) == [
         ("fwd_short_kernel<bfloat16, D 64, rows 256, step 128, scaled 1>",
          128, 0, 0, ("fwd", "bfloat16", 64, 256, 128)),
         ("dkv_short_kernel<float16, D 64, rows 256, step 64>", 128, 0, 0,
-         ("dkv", "float16", 64, 256, 64))]
+         ("dkv", "float16", 64, 256, 64)),
+        ("dq_short_kernel<bfloat16, D 64, rows 256, step 64>", 128, 0, 0,
+         ("dq", "bfloat16", 64, 256, 64))]
     assert {r[4] for r in chip_smoke.ptxas_report(log)} <= A.instantiations()

@@ -372,21 +372,29 @@ def test_kernels_at_the_tp_local_shapes(cuda, h, kv_h):
     assert float((lse - lse_ref).abs().max()) <= 1e-3
 
 
-def _kernels_against_plain(q, k, v, g, blocks, zero=(), **opts):
+def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
+                           **opts):
     """Each kernel once (one launch each) against its plain version in f32
     on the same inputs, by the rule of the inputs' dtype; the outputs named
     in `zero`, which are zero in exact arithmetic (dq and dk at T 1: a
     softmax over one key has no gradient), only to within ZERO_ABS of 0 on
     both sides, since the rule, relative to the reference, would hold each
-    side's rounding against the other's."""
+    side's rounding against the other's.  With `short`, each launch must
+    have been the encoders' kernel's (`attention.short_launches`)."""
     dtype = str(q.dtype).removeprefix("torch.")
     before = A.launches()
+    short_before = A.short_launches()
     o, lse = A.flash_forward(q, k, v, **blocks, **opts)
     delta = (g.float() * o.float()).sum(-1)
     dq = A.flash_backward_dq(q, k, v, g, lse, delta, **blocks, **opts)
     dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **blocks, **opts)
     torch.cuda.synchronize()
     assert all(A.launches()[n] == before[n] + 1 for n in before)
+    if short:
+        assert {n: c - short_before[n]
+                for n, c in A.short_launches().items()} == {
+            "flash_forward": 1, "flash_backward_dq": 1,
+            "flash_backward_dkv": 1}
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
     dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
@@ -459,22 +467,18 @@ SHORT_MASKS = {"noncausal": dict(causal=False, window=None, sink=0),
 @pytest.mark.parametrize("mask", list(SHORT_MASKS))
 @pytest.mark.parametrize("t", SHORT_TS)
 def test_short_route_matches_plain_versions(cuda, t, mask, dtype):
-    """The encoders' forward and dk/dv kernels (dq on its tile) against
-    their plain versions at GQA 12/4 over two batches, at both forward
-    routes (scale 0.125 and -0.125), with blocks that name other tiles:
-    the route takes the encoders' kernels whatever the blocks."""
+    """The encoders' forward, dq and dk/dv kernels against their plain
+    versions at GQA 12/4 over two batches, at both forward routes (scale
+    0.125 and -0.125), with blocks that name other tiles: the route takes
+    the encoders' kernels whatever the blocks."""
     q, k, v, g = _inputs(t, 12, 4, dtype=getattr(torch, dtype))
     for scale, blocks in ((0.125, DEFAULT),
                           (-0.125, dict(block_q=32, block_k=64))):
         assert A.resolve_tiles(blocks["block_q"], blocks["block_k"], 64,
-                               q.dtype, t)._asdict().items() >= \
-            A.SHORT.items()
-        before = A.short_launches()
+                               q.dtype, t) == A.Tiles(**A.SHORT)
         _kernels_against_plain(q, k, v, g, blocks, scale=scale,
                                zero=("dq", "dk") if t == 1 else (),
-                               **SHORT_MASKS[mask])
-        assert {n: c - before[n] for n, c in A.short_launches().items()} \
-            == {"flash_forward": 1, "flash_backward_dkv": 1}
+                               short=True, **SHORT_MASKS[mask])
 
 
 @pytest.mark.cuda
@@ -485,7 +489,7 @@ def test_short_route_takes_every_head_dim_of_its_class(cuda, d):
     is padded to 24 by the wrapper)."""
     q, k, v, g = _inputs(197, 4, 4, d=d)
     _kernels_against_plain(q, k, v, g, DEFAULT, scale=d ** -0.5,
-                           causal=False, window=None, sink=0)
+                           causal=False, window=None, sink=0, short=True)
 
 
 @pytest.mark.cuda
@@ -497,7 +501,20 @@ def test_short_route_at_more_and_fewer_heads_than_sms(cuda, b, h, kv_h, t):
     walking several, both stages of its ring in turn)."""
     q, k, v, g = _inputs(t, h, kv_h, b=b)
     _kernels_against_plain(q, k, v, g, DEFAULT, scale=0.125, causal=False,
-                           window=None, sink=0)
+                           window=None, sink=0, short=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("scale", [0.0, -1.0, 1.0])
+def test_short_route_takes_any_scale(cuda, scale, dtype):
+    """Scales 0 (dq and dk exactly zero, held exactly), -1 and 1 on the
+    encoders' route at T 197, causal with a window and a sink over GQA
+    12/4: p = exp(s * scale - lse) at any scale in dq and dk/dv, and the
+    forward's route that scales the scores first."""
+    q, k, v, g = _inputs(197, 12, 4, dtype=getattr(torch, dtype))
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=scale, causal=True,
+                           window=64, sink=70, short=True)
 
 
 @pytest.mark.cuda
@@ -834,6 +851,36 @@ def test_tolerance_rejects_a_short_dkv_that_skips_the_last_query_chunk(
 
 
 @pytest.mark.cuda
+def test_tolerance_rejects_a_short_dq_that_skips_the_ragged_key_tile(
+        cuda, tmp_path, monkeypatch):
+    """The encoders' dq built with a planted fault (the dS.K product of
+    the ragged key tile's last sub-step, keys 192..196, skipped) at
+    ViT-B/16's T 197 over 8 x 12 heads: dq fails the tolerance while dk
+    and dv (another kernel) still pass."""
+    site = "hopper::Mma<E>::rs64(dq_acc, da[kk]"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "if (k0 + N <= mk.T) " + site)
+
+    q, k, v, g = _inputs(197, 12, 12, b=8)
+    opts = dict(scale=0.125, causal=False, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, **DEFAULT, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+    before = A.short_launches()["flash_backward_dq"]
+    dq = A.flash_backward_dq(q, k, v, g, lse, delta, **DEFAULT, **opts)
+    dk, dv = A.flash_backward_dkv(q, k, v, g, lse, delta, **DEFAULT,
+                                  **opts)
+    assert A.short_launches()["flash_backward_dq"] == before + 1
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    worst, rel = tolerance_ratios(dq, dq_ref)
+    print(f"planted short dq fault: dq worst err/limit {worst:.3f}, "
+          f"relative Frobenius {rel:.3e}")
+    assert _held(dk, dk_ref) and _held(dv, dv_ref)
+    assert not _held(dq, dq_ref)
+
+
+@pytest.mark.cuda
 def test_tolerance_rejects_a_wide_forward_that_skips_a_late_tile(
         cuda, tmp_path, monkeypatch):
     """The forward at head-dim class 256 over 128 rows (its grid longest
@@ -950,9 +997,10 @@ def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
 def test_kernels_repeat_bit_for_bit(cuda, b, h, kv_h, t, d, causal):
     """Each kernel run twice on the same inputs gives the same bits: no
     atomics, and no read of shared memory or padding that a launch leaves
-    unset.  At the encoders' shapes (and a causal GQA one at T 200) the
-    forward and dk/dv take the encoders' kernels, whose persistent blocks
-    walk several heads each through their rings; at Gemma 2B's shape
+    unset.  At the encoders' shapes (and a causal GQA one at T 200) all
+    three take the encoders' kernels, whose persistent blocks walk several
+    heads each through their rings (dq's rows each written once by one
+    warpgroup, no atomics); at Gemma 2B's shape
     dk/dv's query heads are split over slices whose f32 partials the
     reduce sums in order."""
     q, k, v, g = _inputs(t, h, kv_h, d=d, b=b)

@@ -21,10 +21,10 @@ Dispatch is decided by the tensors' device, outside autograd:
     of 8 is zero-padded here and the outputs sliced), any scale, any
     batch*heads, and any block sizes, which `resolve_tiles` maps onto the
     instantiated tiles; at head dims up to 64 in bf16 and fp16 a sequence
-    of at most 256 takes the encoders' forward and dk/dv kernels whatever
-    the blocks (`short_route`).  A CUDA tensor the kernels do not take
-    (another dtype, head_dim above 256, non-contiguous) raises; nothing
-    falls back.
+    of at most 256 takes the encoders' forward, dq and dk/dv kernels
+    whatever the blocks (`short_route`).  A CUDA tensor the kernels do not
+    take (another dtype, head_dim above 256, non-contiguous) raises;
+    nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`, and `dkv_reduce`, which sums the slices dk/dv is
@@ -210,7 +210,8 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 MAX_HEAD_DIM = 256
 # The tiles the tensor-core kernels are instantiated for, the same table as
-# csrc/flash_attention.cu's dispatchers: per kernel and head-dim class
+# csrc/flash_attention.cu's dispatchers (the encoders' kernels' tiles are
+# SHORT's, below): per kernel and head-dim class
 # (64 holds head dims up to 64, 128 those up to 128, 256 those up to 256),
 # the values of (rows per block, step of the reduction loop).  The forward
 # and dq take rows from block_q and the key step from block_k; dk/dv takes
@@ -231,13 +232,14 @@ INSTANTIATED = {
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
 # The encoders' route (`short_route`): at head-dim class 64 in bf16 and
-# fp16 a call of T <= SHORT_T takes the forward and dk/dv kernels that walk
-# whole heads over a persistent grid (csrc: fwd_short_kernel,
-# dkv_short_kernel), whatever its blocks; their one tile each, as (rows,
-# step): a head's up to 256 query rows over 128-key steps, and its up to
-# 256 key rows over 64-query steps.  dq keeps its tiles.
+# fp16 a call of T <= SHORT_T takes the forward, dq and dk/dv kernels that
+# walk whole heads over a persistent grid (csrc: fwd_short_kernel,
+# dq_short_kernel, dkv_short_kernel), whatever its blocks; their one tile
+# each, as (rows, step): a head's up to 256 query rows over 128-key steps
+# (the forward) or 64-key steps (dq), and its up to 256 key rows over
+# 64-query steps (dk/dv).
 SHORT_T = 256
-SHORT = {"fwd": (256, 128), "dkv": (256, 64)}
+SHORT = {"fwd": (256, 128), "dq": (256, 64), "dkv": (256, 64)}
 
 
 class Tiles(NamedTuple):
@@ -273,11 +275,11 @@ def _pick(request: int, values) -> int:
 
 
 def short_route(head_dim: int, t: int, dtype) -> bool:
-    """Whether a call takes the encoders' forward and dk/dv kernels: head
-    dims up to 64 (class 64) in bf16 or fp16 at T <= 256, where a head's
-    Q, K and V fit a shared-memory stage and the tiled kernels, a block
-    for every (b*h, row tile), paid their set-up and first loads once for
-    every two key tiles (ViT-B/16 at T 197, BERT-base at T 128: PERF.md
+    """Whether a call takes the encoders' forward, dq and dk/dv kernels:
+    head dims up to 64 (class 64) in bf16 or fp16 at T <= 256, where a
+    head's Q, K and V fit a shared-memory stage and the tiled kernels, a
+    block for every (b*h, row tile), paid their set-up and first loads once
+    for every two key tiles (ViT-B/16 at T 197, BERT-base at T 128: PERF.md
     §6).  Above 256, at wider heads and in f32, the tiled kernels run."""
     return (dtype in (torch.bfloat16, torch.float16) and t <= SHORT_T
             and head_class(head_dim) == 64)
@@ -291,7 +293,7 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
     none is.  Any pair maps, so every value the env contract takes runs;
     the default (128, 128) keeps the tiles the kernels were tuned at.  f32
     has one tile.  Given the sequence length t, a call on the encoders'
-    route (`short_route`) takes SHORT's tiles for the forward and dk/dv
+    route (`short_route`) takes SHORT's tiles for all three kernels
     whatever its blocks; without t, the tiled kernels' tiles."""
     if dtype == torch.float32:
         return Tiles(F32_TILE, F32_TILE, F32_TILE)
@@ -494,14 +496,15 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                       block_q: Optional[int] = None,
                       block_k: Optional[int] = None):
     """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`.  Rows per block
-    from block_q, key step from block_k."""
+    from block_q, key step from block_k, or a whole KV head's query heads a
+    work item on the encoders' route (`short_route`)."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                  causal=causal, window=window, sink=sink)
     _check_cuda(q, k, v, do, lse, delta)
     block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    tile = resolve_tiles(block_q, block_k, d, q.dtype).dq
+    tile = resolve_tiles(block_q, block_k, d, q.dtype, t).dq
     qp, kp, vp, dop = _padded(q, k, v, do)
     dq = torch.empty_like(qp)
     with torch.cuda.device(q.device):
@@ -512,6 +515,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
             *_mask_args(scale, causal, window, sink, q.device))
     _check(err, "flash dq")
     flash_backward_dq.launches += 1
+    flash_backward_dq.short_launches += tile == SHORT["dq"]
     return _unpadded(dq, d)
 
 
@@ -595,25 +599,22 @@ def dkv_reduce(ws, scale: float, dtype):
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
-dkv_reduce.launches = 0
 # the three kernels every attention path launches once a call each;
-# dkv_reduce runs besides dk/dv only where it is split (head-dim class 256)
+# dkv_reduce runs besides dk/dv only where it is split (head-dim class 256).
+# Each of the three has a second kernel, the encoders' (`short_route`),
+# whose launches `short_launches` counts apart (and `launches` with the
+# rest).
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
-# the wrappers with a second kernel, the encoders' (`short_route`), whose
-# launches `short_launches` counts apart (and `launches` with the rest)
-SHORT_KERNELS = (flash_forward, flash_backward_dkv)
-flash_forward.short_launches = 0
-flash_backward_dkv.short_launches = 0
 
 
 def reset_launches() -> None:
     for fn in KERNELS + (dkv_reduce,):
         fn.launches = 0
-    for fn in SHORT_KERNELS:
+    for fn in KERNELS:
         fn.short_launches = 0
+
+
+reset_launches()
 
 
 def launches() -> dict:
@@ -621,7 +622,7 @@ def launches() -> dict:
 
 
 def short_launches() -> dict:
-    return {fn.__name__: fn.short_launches for fn in SHORT_KERNELS}
+    return {fn.__name__: fn.short_launches for fn in KERNELS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

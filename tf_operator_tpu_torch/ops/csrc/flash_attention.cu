@@ -210,6 +210,9 @@ __host__ __device__ constexpr int head_class(int ld) {
 }
 
 __host__ __device__ constexpr int cmin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ constexpr int cgcd(int a, int b) {
+  return b ? cgcd(b, a % b) : a;
+}
 
 // Shared memory a block may take when `blocks` blocks share an SM: 227 KB
 // alone, or half of the SM's 228 KB less the 1 KB reserved per block.
@@ -668,7 +671,8 @@ __global__ void __launch_bounds__(128 * (WG + 1), reg_blocks(WG))
 // takes per-row bounds (mask_tile), since Mask::live on each element made
 // the compiler hold 64 results in registers and spill.  Two consumer
 // warpgroups keep up to four stages in flight (PERF.md has the variants
-// this was chosen from).  Head-dim class 256 runs dq_wide_kernel (below).
+// this was chosen from).  Head-dim class 256 runs dq_wide_kernel (below),
+// and T <= 256 at class 64 the encoders' dq_short_kernel.
 template <int D, int WG, int BK>
 struct DqSmem {
   static constexpr int BM = 64 * WG;
@@ -1571,8 +1575,8 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// The encoders' kernels: the forward and dk/dv at head-dim class 64 for T
-// <= 256 (ViT-B/16 at T 197, BERT-base at T 128 and their tp shards; any
+// The encoders' kernels: the forward, dq and dk/dv at head-dim class 64 for
+// T <= 256 (ViT-B/16 at T 197, BERT-base at T 128 and their tp shards; any
 // mask, GQA, both forward routes).  ops/attention.py:short_route sends such
 // a call here whatever its blocks.
 //
@@ -1588,8 +1592,8 @@ __global__ void __launch_bounds__(256)
 //   * each head's K and V are read from device memory once: an item's
 //     Q, K and V (or K and V) sit in shared memory for all its tiles;
 //   * the producer fills a two-item ring (the forward) or a K/V ring of two
-//     items and a ring of query chunks (dk/dv), so the next head's loads
-//     run under the current head's products;
+//     items and a ring of query chunks (dq, dk/dv), so the next head's
+//     loads run under the current head's products;
 //   * the outputs leave by TMA stores from shared memory, issued by one
 //     thread of a warpgroup: the consumers go on to the next tile.
 // Every tile is 64 rows (one warpgroup's wgmma M), and the ragged last
@@ -1870,6 +1874,47 @@ struct DkvShortSmem {
                 "short dk/dv does not fit");
 };
 
+// The producer warp's loads of the encoders' dq and dk/dv (S: their
+// shared-memory plan).  short_kv_load: an item's K and V, n_kt 64-row boxes
+// each, into the K/V stage at sK, on bar (lane 0 only).
+template <typename S>
+__device__ __forceinline__ void short_kv_load(uint32_t sK,
+                                              const CUtensorMap* map_k,
+                                              const CUtensorMap* map_v,
+                                              int n_kt, int bkv, uint32_t bar) {
+  hopper::mbar_arrive_tx(bar, 2 * n_kt * S::CHUNK);
+  for (int c = 0; c < n_kt; ++c) {
+    hopper::tma_load(sK + c * S::CHUNK, map_k, 0, 64 * c, bkv, bar);
+    hopper::tma_load(sK + S::KV_TILE + c * S::CHUNK, map_v, 0, 64 * c, bkv,
+                     bar);
+  }
+}
+
+// short_chunk_load: a query chunk (BQ rows from q0 of b*h row bh) into
+// ring stage s, completing on full: its lse and delta (raw, 0 past T) by
+// the warp's lanes' cp.async, each lane's arrival made when its copies
+// have landed (32 of the barrier's 33), and its Q and dO by lane 0's TMA.
+template <typename S>
+__device__ __forceinline__ void short_chunk_load(
+    uint32_t base, int s, const CUtensorMap* map_q, const CUtensorMap* map_do,
+    const float* __restrict__ lse, const float* __restrict__ delta, int bh,
+    int q0, int T, int lane, uint32_t full) {
+  const uint32_t rows = base + S::ROWS_OFF + s * S::ROWS_BYTES;
+  for (int x = lane; x < S::BQ; x += 32) {
+    const int q = q0 + x;
+    const size_t off = (size_t)bh * T + (q < T ? q : 0);
+    hopper::cp_async4(rows + 4 * x, lse + off, q < T);
+    hopper::cp_async4(rows + 4 * (S::BQ + x), delta + off, q < T);
+  }
+  hopper::cp_async_mbar_arrive(full);
+  if (lane == 0) {
+    const uint32_t st = base + S::RING_OFF + s * S::Q_STAGE;
+    hopper::mbar_arrive_tx(full, S::Q_STAGE);
+    hopper::tma_load(st, map_q, 0, q0, bh, full);
+    hopper::tma_load(st + S::CHUNK, map_do, 0, q0, bh, full);
+  }
+}
+
 // One query chunk of NQ queries from q0 (Q at sq, dO at sdo, lse and delta
 // at rows) for a warpgroup's 64 keys from kr0 (K at sKt, V at sVt): S^T =
 // K Q^T and dP^T = V dO^T, p and ds, dV += P^T dO and dK += dS^T Q.
@@ -1965,17 +2010,10 @@ __global__ void __launch_bounds__(384, 1)
     int n = 0, i = 0;  // chunks and items so far
     for (int bkv = blockIdx.x; bkv < bkv_n; bkv += gridDim.x, ++i) {
       const int ks = i & 1;
-      const uint32_t sK = base + ks * S::KV_STAGE;
       if (i >= 2) hopper::mbar_wait(kv_empty + 8 * ks, ((i >> 1) - 1) & 1);
-      if (lane == 0) {
-        hopper::mbar_arrive_tx(kv_full + 8 * ks, 2 * n_kt * S::CHUNK);
-        for (int c = 0; c < n_kt; ++c) {
-          hopper::tma_load(sK + c * S::CHUNK, &map_k, 0, 64 * c, bkv,
-                           kv_full + 8 * ks);
-          hopper::tma_load(sK + S::KV_TILE + c * S::CHUNK, &map_v, 0, 64 * c,
-                           bkv, kv_full + 8 * ks);
-        }
-      }
+      if (lane == 0)
+        short_kv_load<S>(base + ks * S::KV_STAGE, &map_k, &map_v, n_kt, bkv,
+                         kv_full + 8 * ks);
       // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
       const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
       for (int p = 0; p < n_pass; ++p) {
@@ -1986,21 +2024,8 @@ __global__ void __launch_bounds__(384, 1)
             const int s = n % STAGES, bh = qbase + hq, q0 = BQ * c;
             if (n >= STAGES)
               hopper::mbar_wait(bars + 8 * (STAGES + s), (n / STAGES - 1) & 1);
-            const uint32_t rows = base + S::ROWS_OFF + s * S::ROWS_BYTES;
-            for (int x = lane; x < BQ; x += 32) {
-              const int q = q0 + x;
-              const size_t off = (size_t)bh * T + (q < T ? q : 0);
-              hopper::cp_async4(rows + 4 * x, lse + off, q < T);
-              hopper::cp_async4(rows + 4 * (BQ + x), delta + off, q < T);
-            }
-            hopper::cp_async_mbar_arrive(bars + 8 * s);
-            if (lane == 0) {
-              const uint32_t st = ring + s * S::Q_STAGE;
-              hopper::mbar_arrive_tx(bars + 8 * s, S::Q_STAGE);
-              hopper::tma_load(st, &map_q, 0, q0, bh, bars + 8 * s);
-              hopper::tma_load(st + S::CHUNK, &map_do, 0, q0, bh,
-                               bars + 8 * s);
-            }
+            short_chunk_load<S>(base, s, &map_q, &map_do, lse, delta, bh, q0,
+                                T, lane, bars + 8 * s);
           }
         }
       }
@@ -2079,6 +2104,256 @@ __global__ void __launch_bounds__(384, 1)
     }
     // the stores have read the stage before it is handed back
     if (tid == 0) hopper::bulk_wait_read();
+    hopper::mbar_arrive(kv_empty + 8 * ks);
+  }
+  if (tid == 0) hopper::bulk_wait();
+}
+
+// dq (dq_short_kernel).  Replaces
+// tf_operator_tpu/ops/attention.py:_bwd_dq_kernel for T <= 256 at head-dim
+// class 64.  An item is one b*kv_head: its K and V (64-row boxes, zero
+// past T) in one of two 64 KB stages, as in dkv_short_kernel.  The producer
+// warp then streams the item's query chunks (64 rows of each head of the
+// KV head's group, head by head) through a ring of STAGES stages: Q and dO
+// by TMA, lse and delta by its lanes' cp.async, all completing on one
+// full barrier.  The block's chunks, item after item, are dealt to its
+// DQ_SHORT_WGS consumer warpgroups in turn (chunk n of the block to
+// warpgroup n % WGS), and the warpgroup that takes a chunk alone reads it
+// and hands its stage back.  Per chunk, over its key steps (key_tiles, BK
+// keys a step, the ragged one in 16-key sub-steps), as dq_kernel: S = Q
+// K^T and dP = dO V^T, p = exp2(s * scale * log2 e - lse * log2 e) and ds =
+// p (dp - delta) with the element mask by row bounds (mask_tile) only on
+// steps that are not full, and dQ += dS K with dS from registers and the
+// same K rows read through the descriptor's transpose bit.  dQ (times
+// scale) goes to a 64-row tile of the warpgroup's own and leaves by one TMA
+// store: each dq row is written once, with no atomics (deterministic).
+// Every item's K/V stage is waited for and handed back by every
+// warpgroup, those with no chunk of it included.  A stage has a full
+// barrier for each warpgroup, whose phases count that warpgroup's chunks
+// in the stage: with one barrier a stage for all three, the warpgroup
+// taking chunk n had not waited for chunk n - STAGES, the stage's previous
+// one, whose load may land after that of chunk n - WGS (loads complete in
+// any order), and the parity wait then passed a phase early (a build
+// without dQ's product, whose loads queue, trapped so;
+// tests/test_torch_dq_short.py models both).  The consumer
+// warpgroups: three, whose 160 registers a thread hold S and dP at 64-key
+// steps (32 floats each) beside dQ (32), measured 9 % faster at ViT-B/16
+// than two at 128-key steps (240 registers; PERF.md), as the forward's
+// third warpgroup was: more of the step's chain in flight.
+constexpr int DQ_SHORT_WGS = 3;
+
+struct DqShortSmem {
+  static constexpr int D = 64, ROWS = 256, BQ = 64;
+  static constexpr int WGS = DQ_SHORT_WGS;
+  static constexpr int BK = WGS == 2 ? 128 : 64;     // the key step
+  static constexpr int CHUNK = 64 * D * 2;            // 64 rows: 8 KB
+  static constexpr int KV_TILE = ROWS * D * 2;        // K or V of a head
+  static constexpr int KV_STAGE = 2 * KV_TILE;
+  static constexpr int O_OFF = 2 * KV_STAGE;          // two K/V stages
+  static constexpr int RING_OFF = O_OFF + WGS * CHUNK;  // a dQ tile a wg
+  static constexpr int Q_STAGE = 2 * CHUNK;           // Q, dO
+  static constexpr int ROWS_BYTES = 2 * BQ * 4;       // lse, delta
+  static constexpr int STAGES =
+      cmin(6, (smem_budget(1) - RING_OFF - 1024 - 256) /
+                  (Q_STAGE + ROWS_BYTES));
+  // the stages one warpgroup's chunks cycle through
+  static constexpr int PERIOD = STAGES / cgcd(WGS, STAGES);
+  static constexpr int ROWS_OFF = RING_OFF + STAGES * Q_STAGE;
+  static constexpr int BAR_OFF = ROWS_OFF + STAGES * ROWS_BYTES;
+  // full[STAGES][WGS], empty[STAGES], kv_full[2], kv_empty[2]
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (STAGES * WGS + STAGES + 4) + 1024;
+  // each warpgroup a chunk in flight
+  static_assert(STAGES >= WGS && BYTES <= smem_budget(1),
+                "short dq does not fit");
+};
+
+// One key step of N keys from k0 (K at sk, V at sv) for a warpgroup's 64
+// query rows from q0 (Q at sq, dO at sdo; this thread's rows row0 and
+// row0 + 8, their lse times log2 e in lse2 and their delta in dl): S = Q
+// K^T and dP = dO V^T, p and ds, dQ += dS K.
+template <typename E, int N>
+__device__ __forceinline__ void dq_short_step(
+    float (&dq_acc)[32], uint32_t sq, uint32_t sdo, uint32_t sk, uint32_t sv,
+    const float (&lse2)[2], const float (&dl)[2], const Mask& mk, int q0,
+    int row0, int k0, int t, float sl2) {
+  float sc[N / 2], dp[N / 2];
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) sc[x] = dp[x] = 0.f;
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hopper::Mma<E>::ss(sc, hopper::desc_k(sq, 64, kk),
+                       hopper::desc_k(sk, N, kk), kk > 0);
+    hopper::Mma<E>::ss(dp, hopper::desc_k(sdo, 64, kk),
+                       hopper::desc_k(sv, N, kk), kk > 0);
+  }
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(sc);
+  hopper::wg_fence_regs(dp);
+
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x)
+    sc[x] = exp2_approx(fmaf(sc[x], sl2, -lse2[(x >> 1) & 1]));
+  if (!tile_full(mk, q0, 64, k0, N)) mask_tile(sc, mk, row0, k0, t);
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x)
+    dp[x] = sc[x] * (dp[x] - dl[(x >> 1) & 1]);  // ds
+  uint32_t da[N / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) acc_to_a<E>(da[kk], dp, kk);
+  hopper::wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk)
+    hopper::Mma<E>::rs64(dq_acc, da[kk], hopper::desc_mn(sk, N, kk, 0));
+  hopper::wg_commit();
+  hopper::wg_wait();
+  hopper::wg_fence_regs(dq_acc);
+}
+
+template <typename E>
+__global__ void __launch_bounds__(128 * (DQ_SHORT_WGS + 1), 1)
+    dq_short_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const __grid_constant__ CUtensorMap map_dq,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, int bkv_n, int heads,
+                    int kv_heads, float scale, Mask mk) {
+  using S = DqShortSmem;
+  constexpr int BQ = S::BQ, BK = S::BK, STAGES = S::STAGES, WGS = S::WGS;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t ring = base + S::RING_OFF;  // stage: Q, dO
+  // the full barriers: stage s's of warpgroup w at s * WGS + w
+  const uint32_t bars = base + S::BAR_OFF;
+  const uint32_t empty = bars + 8 * STAGES * WGS;
+  const uint32_t kv_full = empty + 8 * STAGES, kv_empty = kv_full + 16;
+  const int T = mk.T;
+  const int n_kt = (T + 63) / 64;      // K/V's 64-row boxes
+  const int n_qc = (T + BQ - 1) / BQ;  // a head's query chunks
+  const int group = heads / kv_heads;
+  const int nc = group * n_qc;         // an item's chunks
+  // this block's items: b*kv_head rows blockIdx.x, + gridDim.x, ...
+  const int items = (bkv_n - (int)blockIdx.x + (int)gridDim.x - 1) /
+                    (int)gridDim.x;
+
+  if (threadIdx.x == 0) {
+    // the producer's 32 lanes' row copies and lane 0's TMA bytes
+    for (int b = 0; b < STAGES * WGS; ++b)
+      hopper::mbar_init(bars + 8 * b, 33);
+    // the one warpgroup that takes the stage's chunk
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(empty + 8 * s, 128);
+    for (int s = 0; s < 2; ++s) {
+      hopper::mbar_init(kv_full + 8 * s, 1);
+      hopper::mbar_init(kv_empty + 8 * s, 128 * WGS);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * WGS) {  // producer warpgroup: its first warp
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x >= 128 * WGS + 32) return;
+    const int lane = threadIdx.x & 31;
+    int n = 0;  // chunks so far
+    for (int i = 0; i < items; ++i) {
+      const int ks = i & 1, bkv = blockIdx.x + i * gridDim.x;
+      if (i >= 2) hopper::mbar_wait(kv_empty + 8 * ks, ((i >> 1) - 1) & 1);
+      if (lane == 0)
+        short_kv_load<S>(base + ks * S::KV_STAGE, &map_k, &map_v, n_kt, bkv,
+                         kv_full + 8 * ks);
+      // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
+      const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+      for (int u = 0; u < nc; ++u, ++n) {
+        const int s = n % STAGES, bh = qbase + u / n_qc, q0 = BQ * (u % n_qc);
+        if (n >= STAGES)
+          hopper::mbar_wait(empty + 8 * s, (n / STAGES - 1) & 1);
+        // onto the full barrier of the stage of chunk n's warpgroup
+        short_chunk_load<S>(base, s, &map_q, &map_do, lse, delta, bh, q0, T,
+                            lane, bars + 8 * (s * WGS + n % WGS));
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(WGS, 1)>();
+
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t sO = base + S::O_OFF + wg * S::CHUNK;  // its dQ tile
+  const float sl2 = scale * LOG2E;
+  const float mul[2] = {scale, scale};
+  for (int i = 0; i < items; ++i) {
+    const int ks = i & 1, bkv = blockIdx.x + i * gridDim.x;
+    const uint32_t sK = base + ks * S::KV_STAGE, sV = sK + S::KV_TILE;
+    const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+    hopper::mbar_wait(kv_full + 8 * ks, (i >> 1) & 1);
+    // this warpgroup's chunks of the item: the block's chunk n = i * nc + u
+    // goes to warpgroup n % WGS
+    for (int u = ((wg - i * nc) % WGS + WGS) % WGS; u < nc; u += WGS) {
+      const int n = i * nc + u, s = n % STAGES;
+      const int bh = qbase + u / n_qc, q0 = BQ * (u % n_qc);
+      const int row0 = q0 + warp * 16 + g;  // this thread's rows: +0, +8
+      const uint32_t sq = ring + s * S::Q_STAGE, sdo = sq + S::CHUNK;
+      const float* rows = reinterpret_cast<const float*>(
+          smem + S::ROWS_OFF + s * S::ROWS_BYTES);
+      // this warpgroup's (n / WGS / PERIOD)-th chunk in the stage
+      hopper::mbar_wait(bars + 8 * (s * WGS + wg), (n / WGS / S::PERIOD) & 1);
+      float lse2[2], dl[2];  // the rows hold the raw lse, 0 past T
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lse2[h] = rows[row0 - q0 + 8 * h] * LOG2E;
+        dl[h] = rows[BQ + row0 - q0 + 8 * h];
+      }
+      int lo, n_sink, n_iter;
+      key_tiles<BK>(q0, BQ, mk, &lo, &n_sink, &n_iter);
+      float dq_acc[32];
+#pragma unroll
+      for (int x = 0; x < 32; ++x) dq_acc[x] = 0.f;
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        // the keys of this step that exist, in whole 16-key sub-steps
+        const int n_keys = cmin(BK, (T - k0 + 15) / 16 * 16);
+        if (n_keys == BK) {
+          dq_short_step<E, BK>(dq_acc, sq, sdo, sK + k0 * 128, sV + k0 * 128,
+                               lse2, dl, mk, q0, row0, k0, t, sl2);
+          continue;
+        }
+        for (int c = 0; c < n_keys;) {
+          const int kc = k0 + c;
+          const uint32_t sk = sK + kc * 128, sv = sV + kc * 128;
+          if (n_keys - c >= 64) {
+            dq_short_step<E, 64>(dq_acc, sq, sdo, sk, sv, lse2, dl, mk, q0,
+                                 row0, kc, t, sl2);
+            c += 64;
+          } else if (n_keys - c >= 32) {
+            dq_short_step<E, 32>(dq_acc, sq, sdo, sk, sv, lse2, dl, mk, q0,
+                                 row0, kc, t, sl2);
+            c += 32;
+          } else {
+            dq_short_step<E, 16>(dq_acc, sq, sdo, sk, sv, lse2, dl, mk, q0,
+                                 row0, kc, t, sl2);
+            c += 16;
+          }
+        }
+      }
+      // every product has read the chunk's Q and dO
+      hopper::mbar_arrive(empty + 8 * s);
+
+      // dQ into this warpgroup's tile once its previous store has read it
+      if (tid == 0) hopper::bulk_wait_read();
+      hopper::named_sync(1 + wg, 128);
+      acc_to_smem<E>(sO, dq_acc, mul, warp, g, t);
+      hopper::fence_proxy_async();
+      hopper::named_sync(1 + wg, 128);
+      if (tid == 0) {
+        hopper::tma_store(&map_dq, sO, 0, q0, bh);
+        hopper::bulk_commit();
+      }
+    }
     hopper::mbar_arrive(kv_empty + 8 * ks);
   }
   if (tid == 0) hopper::bulk_wait();
@@ -2261,6 +2536,35 @@ int dkv_short(int bkv, const BwdArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The encoders' dq: one persistent block an SM (at most one a b*kv_head).
+template <typename E>
+int dq_short(int bh, const BwdArgs& a, cudaStream_t stream) {
+  using S = DqShortSmem;
+  const int T = a.mk.T;
+  if (T > S::ROWS || head_class(a.ld) != S::D)
+    return (int)cudaErrorInvalidValue;
+  const int bkv = bh / a.heads * a.kv_heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do, map_dq;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bkv, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, 64)) ||
+      (e = hopper::tile_map(&map_dq, ty, a.dq, bh, T, a.ld, 64)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = dq_short_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = cmin(bkv, sm_count());
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 128 * (S::WGS + 1), S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_do, map_dq, a.lse, a.delta, bkv, a.heads,
+      a.kv_heads, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
 template <typename E>
 int dkv_reduce(const float* ws, void* dk, void* dv, long long n, int splits,
                float scale, cudaStream_t stream) {
@@ -2285,6 +2589,8 @@ int dkv_reduce(const float* ws, void* dk, void* dv, long long n, int splits,
 //                D 256: key rows {64} x query step {64} (dkv_split_kernel)
 // and the encoders' kernels (T <= 256), a whole head a work item:
 //   forward      D 64: rows 256 x key step 128 (fwd_short_kernel)
+//   dq           D 64: rows 256 x key step 64 (dq_short_kernel; a whole
+//                KV head's query heads an item)
 //   dk/dv        D 64: key rows 256 x query step 64 (dkv_short_kernel)
 // Left out, each for registers or shared memory: a 256-key step (the
 // forward's spilled 520-604 bytes under ptxas, with S as 128 f32 a thread,
@@ -2339,6 +2645,7 @@ int dq_tiles(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st) {
     FA_DQ(64, 128, 128)
     FA_DQ(128, 64, 64)
     FA_DQ(128, 128, 64)
+    if (dc == 64 && rows == 256 && step == 64) return dq_short<E>(bh, a, st);
   }
 #undef FA_DQ
   return (int)cudaErrorInvalidValue;
