@@ -38,7 +38,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            sixteenth slice dq, take the encoders' kernels:
            attention.short_route) all three kernels' and SDPA's forward's
            and backward's device time (since the sixteenth slice at
-           gpt_small_tp2 and llama_tp2 too); each kernel
+           gpt_small_tp2 and llama_tp2 too); since the seventeenth slice
+           at head dims above 256, the sliced kernels (attention.SLICED):
+           4 query heads of 512 over one KV head at B 4, T 2048 in bf16,
+           fp16 and f32 (d512_mqa), head dims 264, 300 (padded to 304),
+           384 non-causal, 512 with window + sink and at scale -0.0625
+           with GQA 8/2, and 1024, all three kernels' device time and
+           SDPA's beside the kernel SDPA ran (its backend); each kernel
            launched a second time on the same inputs must give the same
            bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
@@ -74,6 +80,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            peak memory, device time by kernel; then 2 layers of it with
            the kernels against the plain attention path (the logits
            rule)
+  wide_head the seventeenth slice: the same at Gemma 2B's widths with its 8
+           query heads of 256 regrouped into 4 of 512 over one KV head
+           (~0.86 B params; no public model has these widths): 6 + 2
+           steps, 18 launches a step of each kernel, every one the sliced
+           kernels' (head dims above 256), losses finite and falling (as
+           the gemma phase's since then), step ms, tokens/s, MFU, peak
+           memory, device time by kernel; 2 layers of it against the plain
+           attention path
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
@@ -268,6 +282,10 @@ REPLACES = {
     "flash_forward_short": "tf_operator_tpu/ops/attention.py:255",
     "flash_backward_dq_short": "tf_operator_tpu/ops/attention.py:419",
     "flash_backward_dkv_short": "tf_operator_tpu/ops/attention.py:485",
+    # the sliced kernels (head dims above 256) behind the three wrappers
+    "flash_forward_sliced": "tf_operator_tpu/ops/attention.py:255",
+    "flash_backward_dq_sliced": "tf_operator_tpu/ops/attention.py:419",
+    "flash_backward_dkv_sliced": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -300,9 +318,12 @@ TOL_LSE_F32 = 1e-5
 # the element type for dq there, whose tile is fixed, and for
 # kernel_variants.py's split-ring forward there, with its route; the
 # element type, and the forward's route, for the encoders' kernels, whose
-# tile is attention.SHORT's), then its spills and its registers at launch
+# tile is attention.SHORT's, and for the sliced kernels above head dim
+# 256, whose tile is INSTANTIATED[...][SLICED]'s; the slice width for the
+# sliced f32 kernels), then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
-                         r"(_f32|_split|_wide|_short)?_kernelI"
+                         r"(_f32|_split|_wide|_short|_sliced_f32|_sliced)?"
+                         r"_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
 PTXAS_TYPES = {"13__nv_bfloat16": "bfloat16", "6__half": "float16"}
@@ -377,6 +398,16 @@ def ptxas_instantiation(m) -> tuple:
         route = f", scaled {args[1]}" if kernel == "fwd" else ""
         return (f"{kernel}_short_kernel<{args[0]}, D 64, rows {rows}, step "
                 f"{step}{route}>", (kernel, args[0], 64, rows, step))
+    if kind in ("_sliced", "_sliced_f32"):  # head dims above 256
+        from tf_operator_tpu_torch.ops.attention import INSTANTIATED, SLICED
+
+        if kind == "_sliced_f32":
+            return (f"{kernel}_sliced_f32_kernel<slice {args[0]}>",
+                    (kernel, "float32", SLICED, 64, 32))
+        (rows,), (step,) = INSTANTIATED[kernel][SLICED]
+        route = f", scaled {args[1]}" if kernel == "fwd" else ""
+        return (f"{kernel}_sliced_kernel<{args[0]}, rows {rows}, step "
+                f"{step}{route}>", (kernel, args[0], SLICED, rows, step))
     if kind == "_wide":  # dq's one tile at head-dim class 256, and
         # kernel_variants.py's split-ring forward over 128 rows there
         route = f", scaled {args[1]}" if kernel == "fwd" else ""
@@ -478,18 +509,22 @@ def step_losses(log: str) -> dict:
             for m in re.finditer(r"^step (\d+) loss (\S+)$", log, re.M)}
 
 
-def check_short_launches(expected: int, what: str) -> dict:
-    """The encoders' kernels behind the three wrappers
-    (`attention.short_launches`): each launched `expected` times, so that
-    every attention call of the path took them."""
+ROUTES = {"short": "the encoders' kernels", "sliced": "the sliced kernels"}
+
+
+def check_route_launches(route: str, expected: int, what: str) -> dict:
+    """The kernels of one route behind the three wrappers (the encoders',
+    `attention.short_launches`, or the sliced kernels of head dims above
+    256, `attention.sliced_launches`): each launched `expected` times, so
+    that every attention call of the path took them."""
     from tf_operator_tpu_torch.ops import attention as A
 
-    counts = A.short_launches()
-    print(f"{what}: the encoders' kernels' launches {counts} (expected "
+    counts = getattr(A, f"{route}_launches")()
+    print(f"{what}: {ROUTES[route]}' launches {counts} (expected "
           f"{expected} each)", flush=True)
     for name, n in counts.items():
         if n != expected:
-            raise RuntimeError(f"{what}: the encoders' kernel behind {name} "
+            raise RuntimeError(f"{what}: {ROUTES[route][:-1]} behind {name} "
                                f"launched {n} times, expected {expected}")
     return counts
 
@@ -586,6 +621,21 @@ CASES = [
     # takes its longest-first order over chunks of 4 b*h rows
     # (attention.fwd_chunk)
     Case("gemma_7b", 4, 16, 16, 2048, 256, True),
+    # the seventeenth: head dims above 256 (the sliced kernels) at the
+    # wide_head phase's attention, 4 query heads of 512 over one KV head at
+    # B 4, T 2048, in bf16, fp16 and f32; head dims 264 and 300 (padded to
+    # 304: a last slice of one or two 64-column blocks), 384 non-causal,
+    # 512 with window + sink and at a negative scale with GQA 8/2, and 1024
+    # (four slices)
+    Case("d512_mqa", 4, 4, 1, 2048, 512, True),
+    Case("d512_mqa_fp16", 4, 4, 1, 2048, 512, True, dtype="float16"),
+    Case("d512_mqa_f32", 4, 4, 1, 2048, 512, True, dtype="float32"),
+    Case("d264", 2, 4, 1, 1000, 264, True),
+    Case("d300", 2, 4, 2, 1000, 300, True),
+    Case("d384_noncausal", 2, 4, 1, 1000, 384, False),
+    Case("d512_window_sink", 2, 4, 1, 2048, 512, True, 256, 4),
+    Case("d512_scale_neg", 1, 8, 2, 1000, 512, True, 64, 70, scale=-0.0625),
+    Case("d1024", 1, 2, 1, 300, 1024, True),
 ]
 # launches the profiler averages a kernel's device time over
 DEVICE_REPS = 10
@@ -600,7 +650,7 @@ TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
                "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250", "d256_gqa6",
-               "gemma_7b")
+               "gemma_7b", "d512_mqa", "d512_mqa_fp16", "d512_mqa_f32")
 
 
 def rule(dtype: str) -> tuple:
@@ -795,20 +845,33 @@ def kernel_case(case, timing: bool):
     print(f"  {name:11s} kernels dq + dk/dv ms {kern_bwd:.4f}; sdpa backward "
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
-    if A.head_class(d) == 256 or name in DEVICE_CASES:
+    sliced = A.head_class(d) == A.SLICED
+    if A.head_class(d) in (256, A.SLICED) or name in DEVICE_CASES:
         # the kernels' own time and SDPA's on the device (profiler), under
         # keys of their own (`ms` and `library_ms` stay CUDA events): back
         # to back, a wrapper whose host time outlasts its kernel times the
         # host, and a stall of the host lands in the mean.  At head-dim
-        # class 256 the forward, at DEVICE_CASES all three and SDPA's whole
-        # backward too
+        # class 256 the forward, at DEVICE_CASES and above head dim 256 all
+        # three and SDPA's whole backward too
         def reps(fn):
             return lambda: [fn() for _ in range(DEVICE_REPS)]
 
         sdpa_ms = {"flash_forward": device_busy(reps(sdpa_fwd))[0]
                    / DEVICE_REPS}
         calls = {"flash_forward": (fwd, "fwd_")}
-        if name in DEVICE_CASES:
+        if sliced:
+            # SDPA's flash backend stops at head dim 256: the kernel its
+            # dispatcher ran instead (the longest one of each call), which
+            # the kernels line gives beside library_ms
+            backend = {"flash_forward": sdpa_kernel(sdpa_fwd),
+                       "backward": sdpa_kernel(sdpa_bwd)}
+            print(f"  {name:11s} sdpa (yardstick) ran "
+                  f"{backend['flash_forward']!r} (forward), "
+                  f"{backend['backward']!r} (backward)", flush=True)
+            for kname in result:
+                result[kname]["library_backend"] = backend.get(
+                    kname, backend["backward"])
+        if name in DEVICE_CASES or sliced:
             sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
             calls.update(flash_backward_dq=(dq_kernel, "dq_"),
                          flash_backward_dkv=(dkv_kernel, "dkv_"))
@@ -825,6 +888,15 @@ def kernel_case(case, timing: bool):
                   f" device_ms {lib_ms:.4f} (yardstick)", flush=True)
     del sdpa_out
     return result
+
+
+def sdpa_kernel(fn) -> str:
+    """The name of the device kernel that takes the most time in one call
+    of fn (the profiler's): which of SDPA's backends ran."""
+    by_name = {}
+    for e in profiled_events(fn):
+        by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+    return max(by_name, key=by_name.get)[:120] if by_name else "none"
 
 
 def case_splits(case) -> int:
@@ -905,9 +977,10 @@ def reduce_case(case) -> dict:
 
 def phase_kernels():
     """Every case against its plain versions; returns the main case's
-    numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, and
-    under "flash_forward_short", "flash_backward_dq_short" and
-    "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's."""
+    numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, under
+    "flash_forward_short", "flash_backward_dq_short" and
+    "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, and
+    under the "_sliced" names the sliced kernels at d512_mqa's."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -923,9 +996,23 @@ def phase_kernels():
               f" {case.blocks} -> tiles (rows, step) fwd {tiles.fwd} dq "
               f"{tiles.dq} dkv {tiles.dkv}, dk/dv in {case_splits(case)} "
               "slice(s)", flush=True)
+        before = A.launches(), A.sliced_launches()
         res = kernel_case(case, case.name in TIMED_CASES)
+        if A.head_class(case.d) == A.SLICED:
+            # every launch of the case above head dim 256 was the sliced
+            # kernels'
+            ran = {n: c - before[0][n] for n, c in A.launches().items()}
+            sliced = {n: c - before[1][n]
+                      for n, c in A.sliced_launches().items()}
+            if sliced != ran or not all(ran.values()):
+                raise RuntimeError(f"kernel case {case.name}: launches {ran}"
+                                   f", of the sliced kernels {sliced}")
         if case.name == "main":
             out.update(res)
+        if case.name == "d512_mqa":
+            # the sliced kernels at the wide_head phase's attention
+            for fn in A.KERNELS:
+                out[f"{fn.__name__}_sliced"] = res[fn.__name__]
         if case.name == "vit_b16":
             # the encoders' kernels at ViT-B/16's shape
             for fn in A.KERNELS:
@@ -953,9 +1040,10 @@ def every_instantiation():
     dims 64, 128 and 256 (positive and negative scale: both forward
     routes), and the f32 kernels, against the plain versions at a ragged
     causal shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300,
-    window 64, sink 70), and at T 200 in bf16 and fp16 at head dim 64 (the
-    encoders' kernels, attention.short_route, both routes); fails unless
-    every instantiation ran."""
+    window 64, sink 70), at T 200 in bf16 and fp16 at head dim 64 (the
+    encoders' kernels, attention.short_route, both routes), and at head dim
+    300 in each dtype (the sliced kernels, both routes); fails unless every
+    instantiation ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -970,6 +1058,11 @@ def every_instantiation():
              for sign in (1, -1)]
     runs += [(dtype, 64, (128, 128), sign, 200)
              for dtype in ("bfloat16", "float16") for sign in (1, -1)]
+    # the sliced kernels (head dims above 256: one tile each, whatever the
+    # blocks), at head dim 300 in two slices
+    runs += [(dtype, 300, (128, 128), sign, 300)
+             for dtype in ("bfloat16", "float16", "float32")
+             for sign in (1, -1)]
     ran, worst = set(), {}
     for dtype_name, d, (bq, bk), sign, t in runs:
         dtype = getattr(torch, dtype_name)
@@ -1290,14 +1383,17 @@ GEMMA_2B_ATTN = dict(d_model=2048, num_heads=8, num_kv_heads=1,
 GEMMA_BATCH, GEMMA_STEPS = 4, 6
 
 
-def phase_gemma(card: str, out_dir):
-    """The LM at Gemma 2B's attention widths, full depth, through the LM
+def lm_at_widths(card: str, out_dir, label: str, widths: dict, detail: str,
+                 check):
+    """The llama-style LM at `widths`, full depth, through the LM
     workload's train step, loss, AdamW recipe (its flags' defaults) and
     token stream: GEMMA_STEPS timed steps at B 4, T 2048 and two more
-    under the profiler, each kernel launched once a layer a step; step ms,
-    tokens/s, MFU, peak memory, the profiled steps' device time by kernel;
-    then the model with the kernels against the same model on the plain
-    attention path at 2 layers."""
+    under the profiler, each kernel launched once a layer a step
+    (`check(cfg, steps)` then holds what else the path launched; its
+    result is returned), losses finite and falling; step ms, tokens/s,
+    MFU, peak memory, the profiled steps' device time by kernel (also
+    written to `detail` under out_dir); then the model with the kernels
+    against the same model on the plain attention path at 2 layers."""
     import torch
 
     from tf_operator_tpu_torch.models.transformer import (
@@ -1312,8 +1408,8 @@ def phase_gemma(card: str, out_dir):
                                                          StepTimer)
 
     dev = torch.device("cuda")
-    batch, seq, steps = GEMMA_BATCH, GEMMA_2B_ATTN["max_len"], GEMMA_STEPS
-    cfg = llama_style_config(**GEMMA_2B_ATTN)
+    batch, seq, steps = GEMMA_BATCH, widths["max_len"], GEMMA_STEPS
+    cfg = llama_style_config(**widths)
     args = lm.parser().parse_args(["--batch", str(batch), "--steps",
                                    str(steps)])
     _, tx = lm.config(args, None, lambda line: None)
@@ -1341,43 +1437,37 @@ def phase_gemma(card: str, out_dir):
         with open(os.path.join(prof_dir, "trace.json")) as f:
             events = json.load(f)["traceEvents"]
     peak = torch.cuda.max_memory_allocated()
-    check_launches(cfg.num_layers * (steps + 2), f"gemma-2b attention "
-                   f"widths, {steps + 2} steps of {cfg.num_layers} layers")
-    # the sum of dk/dv's slices runs after each dk/dv launch it splits
-    splits = A.dkv_splits(batch * cfg.num_kv_heads, seq, cfg.num_heads //
-                          cfg.num_kv_heads, A.sm_count(dev))
-    reduce_launches = A.dkv_reduce.launches
-    print(f"gemma-2b attention widths: dk/dv in {splits} slices, dkv_reduce "
-          f"launches {reduce_launches}", flush=True)
-    if reduce_launches != (cfg.num_layers * (steps + 2) if splits > 1
-                           else 0):
-        raise RuntimeError(f"gemma-2b attention widths: dkv_reduce launched "
-                           f"{reduce_launches} times at {splits} slices")
+    check_launches(cfg.num_layers * (steps + 2), f"{label}, {steps + 2} "
+                   f"steps of {cfg.num_layers} layers")
+    checked = check(cfg, steps + 2)
     losses = [float(x) for x in losses]
-    print(f"gemma-2b attention widths ({cfg.num_layers} x {cfg.d_model}, "
+    print(f"{label} ({cfg.num_layers} x {cfg.d_model}, "
           f"{cfg.num_heads} heads of {cfg.d_model // cfg.num_heads} over "
           f"{cfg.num_kv_heads} KV head, d_ff {cfg.d_ff}, vocab "
           f"{cfg.vocab_size}; {params:,} params), B {batch}, T {seq}: "
           f"losses {losses}", flush=True)
-    if not all(math.isfinite(x) for x in losses):
-        raise RuntimeError(f"gemma-2b attention widths: losses {losses}")
+    # finite, and falling: the last two steps' mean below the first two's
+    # (the seeded stream's uniform tokens leave a slow fall over 8 steps)
+    if not (all(math.isfinite(x) for x in losses)
+            and sum(losses[-2:]) < sum(losses[:2])):
+        raise RuntimeError(f"{label}: losses {losses}")
     m = STEP_TIME.search(line or "")
     if m is None:
-        raise RuntimeError("gemma-2b attention widths: no step time")
+        raise RuntimeError(f"{label}: no step time")
     ms = float(m.group(1))
     mfu = model_flops(cfg, batch, seq) / (ms / 1e3) / PEAK_BF16_FLOPS
-    print(f"gemma-2b attention widths step: {ms} ms/step, {m.group(2)} "
+    print(f"{label} step: {ms} ms/step, {m.group(2)} "
           f"tokens/s, MFU {mfu:.4f} of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s,"
           f" peak memory {peak / 2**30:.2f} GiB [{card}]", flush=True)
     summary = device_profile(events, 2, ms)
     print(summary, flush=True)
-    write_detail(out_dir, "profile_gemma.txt", f"{card}\n{summary}\n")
+    write_detail(out_dir, detail, f"{card}\n{summary}\n")
     del state, model, step, data
     torch.cuda.empty_cache()
 
     # the model with the kernels against the model on the plain attention
     # path, same weights and tokens, at 2 layers and the path's T
-    cut = dict(GEMMA_2B_ATTN, num_layers=2)
+    cut = dict(widths, num_layers=2)
     model = TransformerLM(llama_style_config(**cut))
     model.reset_parameters(torch.Generator().manual_seed(1))
     model.to(dev)
@@ -1389,12 +1479,55 @@ def phase_gemma(card: str, out_dir):
     with torch.no_grad():
         got = model(tokens)
     if A.launches()["flash_forward"] != 2:
-        raise RuntimeError(f"gemma-2b logits: launches {A.launches()}")
+        raise RuntimeError(f"{label} logits: launches {A.launches()}")
     with torch.no_grad():
         ref = plain(tokens)
-    logits_within("gemma-2b attention widths 2-layer logits, kernels vs "
-                  "plain attention", got, ref, (2, seq, cfg.vocab_size))
-    return reduce_launches
+    logits_within(f"{label} 2-layer logits, kernels vs plain attention", got,
+                  ref, (2, seq, cfg.vocab_size))
+    return checked
+
+
+def phase_gemma(card: str, out_dir):
+    """The LM at Gemma 2B's attention widths (`lm_at_widths`), whose dk/dv
+    the sum of its slices follows where `dkv_splits` splits it; returns
+    that sum's launches."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    def check(cfg, steps):
+        # the sum of dk/dv's slices runs after each dk/dv launch it splits
+        splits = A.dkv_splits(GEMMA_BATCH * cfg.num_kv_heads, cfg.max_len,
+                              cfg.num_heads // cfg.num_kv_heads,
+                              A.sm_count(torch.device("cuda")))
+        n = A.dkv_reduce.launches
+        print(f"gemma-2b attention widths: dk/dv in {splits} slices, "
+              f"dkv_reduce launches {n}", flush=True)
+        if n != (cfg.num_layers * steps if splits > 1 else 0):
+            raise RuntimeError(f"gemma-2b attention widths: dkv_reduce "
+                               f"launched {n} times at {splits} slices")
+        return n
+
+    return lm_at_widths(card, out_dir, "gemma-2b attention widths",
+                        GEMMA_2B_ATTN, "profile_gemma.txt", check)
+
+
+# the seventeenth path: Gemma 2B's block (GEMMA_2B_ATTN) with its 8 query
+# heads of 256 regrouped into 4 of 512 over the one KV head (no public
+# model has these widths; its attention FLOPs equal Gemma 2B's, and the K
+# and V projections are twice as wide): head_dim 512, the sliced kernels
+WIDE_HEAD_ATTN = dict(GEMMA_2B_ATTN, num_heads=4)
+
+
+def phase_wide_head(card: str, out_dir):
+    """The LM at WIDE_HEAD_ATTN (`lm_at_widths`), every kernel launch the
+    sliced kernels'; returns their launches."""
+    def check(cfg, steps):
+        return check_route_launches("sliced", cfg.num_layers * steps,
+                                    "wide-head attention widths")
+
+    return lm_at_widths(card, out_dir, "wide-head (4 x 512) attention widths",
+                        WIDE_HEAD_ATTN, "profile_wide_head.txt", check)
 
 
 # ---------------------------------------------------------------------------
@@ -1411,6 +1544,10 @@ LSE_CASES = [
     # the twelfth slice: Gemma 2B's attention (8 query heads of 256 over one
     # KV head) through the (o, lse) entry
     ("d256_gqa8_causal", 4, 8, 1, 1024, 256, True),
+    # the seventeenth slice: the wide_head phase's attention (4 query heads
+    # of 512 over one KV head) through the (o, lse) entry: the sliced
+    # kernels
+    ("d512_gqa4_causal", 4, 4, 1, 1024, 512, True),
 ]
 
 
@@ -2249,7 +2386,7 @@ def run_classification(card: str, out_dir, name: str, argv, steps: int,
     short = {}
     if launches_per_step:
         check_launches(launches_per_step * steps, f"{name} run")
-        short = check_short_launches(launches_per_step * steps,
+        short = check_route_launches("short", launches_per_step * steps,
                                      f"{name} run")
     peak = torch.cuda.max_memory_allocated()
     losses = step_losses(log)
@@ -3488,6 +3625,9 @@ def main(argv=None) -> int:
     timed(phase_llama)
     counts = dict(counts,
                   dkv_reduce=timed(phase_gemma, card, args.out_dir))
+    # the sliced kernels: their launches on the wide-head LM's path
+    sliced = timed(phase_wide_head, card, args.out_dir)
+    counts.update({f"{name}_sliced": n for name, n in sliced.items()})
     timed(phase_lse)
     timed(phase_ring, card)
     timed(phase_dist, card)
@@ -3523,9 +3663,11 @@ def main(argv=None) -> int:
          "bound_by": kernels[name]["bound_by"],
          "library_ms": kernels[name]["library_ms"],
          "device_ms": kernels[name].get("device_ms"),
-         "library_device_ms": kernels[name].get("library_device_ms")}
+         "library_device_ms": kernels[name].get("library_device_ms"),
+         "library_backend": kernels[name].get("library_backend")}
         for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]
-        + [f"{fn.__name__}_short" for fn in A.KERNELS]]}),
+        + [f"{fn.__name__}_{route}" for route in ROUTES
+           for fn in A.KERNELS]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,6 +6,7 @@ source, on one NVIDIA card.
     python3 kernel_variants.py --d256           # dq and dk/dv at 256
     python3 kernel_variants.py --d256-fwd       # the forward at 256
     python3 kernel_variants.py --encoder [VARIANT ...]  # ViT-B/16, BERT
+    python3 kernel_variants.py --sliced [VARIANT ...]   # head dims > 256
     python3 kernel_variants.py --trees DIR ...  # whole trees in turns
 
 Each variant in VARIANTS (D256_VARIANTS with --d256) is a list of (text,
@@ -34,6 +35,9 @@ and whole backward, every tiled tile the wrappers reach at head-dim class
 64 (ENCODER_TILES) on the base build, then the wrappers' route (the
 encoders' forward, dq and dk/dv kernels) for the base and each
 ENCODER_VARIANTS build in turns; every time is the profiler's device time.
+With --sliced: the same for the sliced kernels of head dims above 256 at
+SLICED_CASES against SLICED_VARIANTS (diagnostics of what sets their
+pace).
 With --trees: each wrapper's device time at chip_smoke's cases main,
 gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
 of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
@@ -1023,7 +1027,7 @@ ENCODER_VARIANT_KERNELS = {
 # apart (dk/dv's kernel and, with its heads split, the reduce after it)
 KERNEL_NAMES = {"fwd": ("fwd_",), "dq": ("dq_",),
                 "dkv": ("dkv_kernel", "dkv_split", "dkv_short",
-                        "dkv_reduce")}
+                        "dkv_reduce", "dkv_sliced")}
 
 
 def device_ms(fn, names, reps: int = 10) -> str:
@@ -1179,6 +1183,111 @@ def main_encoder(names) -> int:
     return 0
 
 
+# Above head dim 256 (the sliced kernels): diagnostics of what sets their
+# pace at chip_smoke's d512_mqa (4 query heads of 512 over one KV head, B
+# 4, T 2048, causal, bf16).  Each reads an operand from device memory (L2)
+# at the first step of a block's walk only and leaves the stale stages
+# after it, so its outputs are wrong on purpose: what it saves is what
+# re-reading that operand at every step costs.
+SLICED_CASES = ("d512_mqa",)
+SLICED_FWD_LOADS = """          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
+          hopper::tma_load(at + S::Q_BYTES, &map_k, 64 * c, k0, bkv,
+                           rg.full(s));
+        }
+        for (int b = 0; b < nb; ++b) {
+          const int s = rg.put(S::K_BYTES);
+          hopper::tma_load(ring + s * S::STAGE_BYTES, &map_v, 64 * (cb + b),
+                           k0, bkv, rg.full(s));"""
+SLICED_VARIANTS = {
+    # the forward's Q chunks (16 KB of a chunk's 24 KB) at the first key
+    # step only
+    "fwd_q_once": [(SLICED_FWD_LOADS, SLICED_FWD_LOADS.replace(
+        "rg.put(S::STAGE_BYTES);", "rg.put(it == 0 ? S::STAGE_BYTES "
+        ": S::K_BYTES);").replace(
+        "hopper::tma_load(at, &map_q", "if (it == 0) hopper::tma_load("
+        "at, &map_q"))],
+    # no load after the first key step: the products, the softmax and the
+    # ring's waits alone
+    "fwd_no_loads": [(SLICED_FWD_LOADS, SLICED_FWD_LOADS.replace(
+        "rg.put(S::STAGE_BYTES);", "rg.put(it == 0 ? S::STAGE_BYTES : 0);")
+        .replace("rg.put(S::K_BYTES);", "rg.put(it == 0 ? S::K_BYTES : 0);")
+        .replace("hopper::tma_load(", "if (it == 0) hopper::tma_load("))],
+    # dq's Q and dO chunks (32 KB of a chunk's 48) at the first key step
+    # only
+    "dq_qdo_once": [("""          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
+          hopper::tma_load(at + S::QT_BYTES, &map_do, 64 * c, q0, bh,
+                           rg.full(s));""", """          const int s = rg.put(it == 0 ? S::STAGE_BYTES
+                                       : 2 * S::KV_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          if (it == 0) {
+            hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
+            hopper::tma_load(at + S::QT_BYTES, &map_do, 64 * c, q0, bh,
+                             rg.full(s));
+          }""")],
+    # dk/dv's K and V chunks (the block's own keys: 16 KB of a chunk's 32)
+    # at the first query step only
+    "dkv_kv_once": [("""          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_k, 64 * c, k0, bkv, rg.full(s));
+          hopper::tma_load(at + S::BOX, &map_v, 64 * c, k0, bkv, rg.full(s));""",
+                     """          const int s = rg.put(it == 0 ? S::STAGE_BYTES
+                                       : 2 * S::BOX);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          if (it == 0) {
+            hopper::tma_load(at, &map_k, 64 * c, k0, bkv, rg.full(s));
+            hopper::tma_load(at + S::BOX, &map_v, 64 * c, k0, bkv,
+                             rg.full(s));
+          }""")],
+}
+SLICED_VARIANT_KERNELS = {name: (name.split("_")[0],)
+                          for name in SLICED_VARIANTS}
+
+
+def main_sliced(names) -> int:
+    """The sliced kernels at SLICED_CASES: SDPA's forward and whole
+    backward on the base build, then each wrapper's device time for the
+    base build and each SLICED_VARIANTS build named (all without names) in
+    turns."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    cases = [x for x in chip_smoke.CASES if x.name in SLICED_CASES]
+    print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
+          flush=True)
+    libs = {}
+    with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
+        variants = [(name, edits) for name, edits in SLICED_VARIANTS.items()
+                    if not names or name in names]
+        for name, edits in [("base", [])] + variants:
+            lib, log = build(name, edits, Path(tmp))
+            report(name, log, ("fwd", "dq", "dkv"), A.SLICED)
+            libs[name] = ctypes.CDLL(str(lib))
+        bind(libs["base"])
+        for case in cases:
+            _, sdpa_fwd, sdpa_bwd = case_calls(A, case)
+            print(f"  {case.name:13s} sdpa forward device_ms "
+                  f"{device_busy_ms(sdpa_fwd):.4f} backward (dq, dk, dv) "
+                  f"device_ms {device_busy_ms(sdpa_bwd):.4f}", flush=True)
+            torch.cuda.empty_cache()
+        order = list(libs)
+        for r in range(ROUNDS):
+            for name in order if r % 2 == 0 else order[::-1]:
+                bind(libs[name])
+                kernels = SLICED_VARIANT_KERNELS.get(name,
+                                                     ("fwd", "dq", "dkv"))
+                for case in cases:
+                    print(f"  round {r} {name:13s} "
+                          f"{device_line(A, case, kernels)}", flush=True)
+    print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
+          flush=True)
+    return 0
+
+
 def device_busy_ms(fn, reps: int = 10) -> float:
     """Device time of one call of fn, every kernel it launches, as the
     mean over `reps` calls (the profiler)."""
@@ -1244,6 +1353,11 @@ def main(argv=None) -> int:
                         help="the forward and dk/dv at the encoders' shapes "
                              "against the ENCODER_VARIANTS named (all "
                              "without names)")
+    parser.add_argument("--sliced", nargs="*", default=None,
+                        metavar="VARIANT",
+                        help="the sliced kernels (head dims above 256) "
+                             "against the SLICED_VARIANTS named (all "
+                             "without names)")
     parser.add_argument("--trees", nargs="+", default=None,
                         help="checkouts to run chip_smoke's cases in, in "
                              "turns")
@@ -1261,6 +1375,8 @@ def main(argv=None) -> int:
         return main_d256_fwd()
     if args.encoder is not None:
         return main_encoder(args.encoder)
+    if args.sliced is not None:
+        return main_sliced(args.sliced)
     from tf_operator_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")

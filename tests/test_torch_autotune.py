@@ -103,7 +103,7 @@ def test_kernel_hash_covers_the_wrapper_and_every_kernel_source(
 def test_a_candidate_that_raises_is_an_error_row(cache):
     """Like the reference, a candidate that raises is recorded, not
     dropped; with none left the result says so."""
-    result = autotune.tune_flash_blocks(1, 2, 64, 264, reps=1,
+    result = autotune.tune_flash_blocks(1, 2, 64, 0, reps=1,
                                         candidates=[(64, 64)])
     assert set(result) == {"error", "table"}
     (row,) = result["table"]
@@ -113,10 +113,11 @@ def test_a_candidate_that_raises_is_an_error_row(cache):
 def test_default_candidates_reach_every_instantiation():
     """One pair for each distinct set of resolved tiles at head_dim 64,
     and every instantiation of the tensor-core kernels (each head-dim
-    class, and at T <= 256 the encoders' kernels) reached by one."""
+    class, the sliced kernels above 256, and at T <= 256 the encoders'
+    kernels) reached by one."""
     reached, sets = set(), set()
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128, 256):
+        for d in (64, 128, 256, 512):
             for bq, bk in autotune.DEFAULT_CANDIDATES:
                 tiles = A.resolve_tiles(bq, bk, d, dtype)
                 if d == 64:
@@ -125,7 +126,8 @@ def test_default_candidates_reach_every_instantiation():
                                                        197)):
                     for kernel in ("fwd", "dq", "dkv"):
                         reached.add((kernel,
-                                     str(dtype).removeprefix("torch."), d,
+                                     str(dtype).removeprefix("torch."),
+                                     A.head_class(d),
                                      *getattr(t_tiles, kernel)))
     assert len(sets) == 2 * len(autotune.DEFAULT_CANDIDATES)
     assert reached == {x for x in A.instantiations() if x[1] != "float32"}

@@ -170,9 +170,9 @@ def test_head_class_holds_every_head_dim_up_to_256(d, want):
     assert A.head_class(d) == want
 
 
-@pytest.mark.parametrize("d", [0, 257, 264, 512])
-def test_head_class_above_256_raises_naming_the_roadmap_item(d):
-    with pytest.raises(ValueError, match=r"head_dim 1\.\.256.*ROADMAP B\.8"):
+@pytest.mark.parametrize("d", [0])
+def test_head_class_below_1_raises(d):
+    with pytest.raises(ValueError, match=r"head_dim >= 1"):
         A.head_class(d)
 
 

@@ -254,6 +254,37 @@ def test_ptxas_report_names_the_wide_forward():
     assert ("fwd", "float16", 256, 128, 64) in A.instantiations()
 
 
+_FWD_SLICED = ("_ZN12_GLOBAL__N_117fwd_sliced_kernelI13__nv_bfloat16Lb0EEEv"
+               "14CUtensorMap_stS2_S2_PT_PfiifN2fa4MaskE")
+_DQ_SLICED = ("_ZN12_GLOBAL__N_116dq_sliced_kernelI6__halfEEv14CUtensorMap_st"
+              "S2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
+_DKV_SLICED_F32 = ("_ZN12_GLOBAL__N_121dkv_sliced_f32_kernelILi128EEEvPKfS2_"
+                   "S2_S2_S2_S2_PfS3_iiifN2fa4MaskE")
+
+
+def test_ptxas_report_names_the_sliced_kernels():
+    """The sliced kernels of head dims above 256 in the same report (their
+    template arguments: the element type and, for the forward, its route;
+    the slice width for the f32 kernels: 128 in dk/dv), each keyed as the
+    SLICED instantiation attention.INSTANTIATED lists."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for name, regs in ((_FWD_SLICED, 168), (_DQ_SLICED, 168),
+                           (_DKV_SLICED_F32, 200)))
+    report = ptxas_report(log)
+    assert report == [
+        ("fwd_sliced_kernel<bfloat16, rows 128, step 64, scaled 0>", 168, 0,
+         0, ("fwd", "bfloat16", A.SLICED, 128, 64)),
+        ("dq_sliced_kernel<float16, rows 128, step 64>", 168, 0, 0,
+         ("dq", "float16", A.SLICED, 128, 64)),
+        ("dkv_sliced_f32_kernel<slice 128>", 200, 0, 0,
+         ("dkv", "float32", A.SLICED, 64, 32))]
+    assert {r[4] for r in report} <= A.instantiations()
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -380,10 +411,13 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
     softmax over one key has no gradient), only to within ZERO_ABS of 0 on
     both sides, since the rule, relative to the reference, would hold each
     side's rounding against the other's.  With `short`, each launch must
-    have been the encoders' kernel's (`attention.short_launches`)."""
+    have been the encoders' kernel's (`attention.short_launches`); above
+    head dim 256 each must have been the sliced kernels'
+    (`attention.sliced_launches`)."""
     dtype = str(q.dtype).removeprefix("torch.")
     before = A.launches()
     short_before = A.short_launches()
+    sliced_before = A.sliced_launches()
     o, lse = A.flash_forward(q, k, v, **blocks, **opts)
     delta = (g.float() * o.float()).sum(-1)
     dq = A.flash_backward_dq(q, k, v, g, lse, delta, **blocks, **opts)
@@ -395,6 +429,9 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
                 for n, c in A.short_launches().items()} == {
             "flash_forward": 1, "flash_backward_dq": 1,
             "flash_backward_dkv": 1}
+    assert {n: c - sliced_before[n]
+            for n, c in A.sliced_launches().items()} == {
+        n: int(q.shape[-1] > 256) for n in before}
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
     dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
@@ -579,7 +616,8 @@ def test_every_head_dim_256_instantiation_holds(cuda):
     assert reached == {x for x in A.instantiations() if x[2] == 256}
 
 
-_D256_CASES = [c for c in CASES if c.d > 128 and c.dtype != "float32"]
+_D256_CASES = [c for c in CASES
+               if 128 < c.d <= 256 and c.dtype != "float32"]
 
 
 @pytest.mark.cuda
@@ -651,6 +689,65 @@ def test_flash_attention_lse_at_chip_smoke_gemma_case(cuda):
     """The lse phase's case of the 256 class (8 query heads over one KV
     head, T 1024, causal: dk/dv in 5 slices)."""
     (case,) = [c for c in LSE_CASES if c[0] == "d256_gqa8_causal"]
+    ratios = lse_case(case)
+    assert max(ratios[key] for key in ("o", "dq", "dk", "dv")) <= 1.0
+
+
+# above head dim 256: the sliced kernels (attention.SLICED), each dtype
+# at head dims 264 (a last slice of one 64-column block), 512 and 1024
+# (four slices)
+_SLICED_DTYPES = [("bfloat16", 264), ("bfloat16", 512), ("float16", 512),
+                  ("float32", 512), ("bfloat16", 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [None, 0.0, -1.0],
+                         ids=["scale_default", "scale_0", "scale_-1"])
+@pytest.mark.parametrize("dtype,d", _SLICED_DTYPES,
+                         ids=[f"{t}_d{d}" for t, d in _SLICED_DTYPES])
+def test_sliced_kernels_match_plain_versions(cuda, dtype, d, scale):
+    """The sliced forward, dq and dk/dv (every launch theirs) against
+    their plain versions at ragged T 300, GQA 4/2, causal with window 64
+    and sink 70, at d ** -0.5, 0 (dq and dk zero: held exactly) and -1
+    (the forward's scaled route); the blocks map onto their one tile."""
+    q, k, v, g = _inputs(300, 4, 2, d=d, b=1, dtype=getattr(torch, dtype))
+    _kernels_against_plain(
+        q, k, v, g, DEFAULT, scale=d ** -0.5 if scale is None else scale,
+        causal=True, window=64, sink=70)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "noncausal"])
+def test_sliced_kernels_at_the_wide_head_attention(cuda, causal):
+    """The wide_head phase's attention (4 query heads of 512 over one KV
+    head) at T 2048, B 1, bf16: every query head of the group summed into
+    the one KV head's dk/dv inside each block."""
+    q, k, v, g = _inputs(2048, 4, 1, d=512, b=1)
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=512 ** -0.5,
+                           causal=causal, window=None, sink=0)
+
+
+_SLICED_CASES = [c for c in CASES if c.d > 256 and c.dtype != "float32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SLICED_CASES,
+                         ids=[c.name for c in _SLICED_CASES])
+def test_kernels_at_chip_smoke_sliced_cases(cuda, case):
+    """chip_smoke's kernel cases above head dim 256 in bf16 and fp16, each
+    kernel against its plain version and launched twice for the same
+    bits, as the kernels phase runs them."""
+    result = kernel_case(case, timing=False)
+    assert set(result) == {"flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv"}
+
+
+@pytest.mark.cuda
+def test_flash_attention_lse_at_chip_smoke_wide_head_case(cuda):
+    """The lse phase's case above head dim 256 (4 query heads of 512 over
+    one KV head, T 1024, causal)."""
+    (case,) = [c for c in LSE_CASES if c[0] == "d512_gqa4_causal"]
     ratios = lse_case(case)
     assert max(ratios[key] for key in ("o", "dq", "dk", "dv")) <= 1.0
 
@@ -905,6 +1002,31 @@ def test_tolerance_rejects_a_wide_forward_that_skips_a_late_tile(
 
 
 @pytest.mark.cuda
+def test_tolerance_rejects_a_sliced_forward_that_skips_the_last_chunk(
+        cuda, tmp_path, monkeypatch):
+    """The sliced forward built with a planted fault (S = Q K^T summed
+    over every 64-column chunk of the head dim but the last) at the wide
+    head attention, B 1, T 1024: o and lse both fail."""
+    site = ("hopper::Mma<E>::ss(s_tile, hopper::desc_k(at + wg * 64 * 128, "
+            "64, kk),\n                           hopper::desc_k(at + "
+            "S::Q_BYTES, BK, kk),")
+    _faulty_library(tmp_path, monkeypatch, site, "if (c + 1 < nc) " + site)
+
+    q, k, v, _ = _inputs(1024, 4, 1, d=512, b=1)
+    o, lse = A.flash_forward(q, k, v, scale=512 ** -0.5, causal=True,
+                             window=None, sink=0, **DEFAULT)
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
+                                     causal=True, scale=512 ** -0.5)
+    worst, rel = tolerance_ratios(o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    print(f"planted sliced forward fault: o worst err/limit {worst:.3f}, "
+          f"relative Frobenius {rel:.3e}; lse max_abs_err {lse_err:.3e}")
+    assert not _held(o, o_ref)
+    assert lse_err > 1e-3
+
+
+@pytest.mark.cuda
 def test_tolerance_rejects_a_dkv_kernel_that_skips_a_query_tile(
         cuda, tmp_path, monkeypatch):
     """A dk/dv kernel built with a planted fault (each key tile leaves out
@@ -974,16 +1096,21 @@ def test_flash_attention_lse_with_both_cotangents(cuda, b, h, kv_h, t, d,
 
 @pytest.mark.cuda
 def test_flash_attention_lse_raises_on_what_the_kernels_do_not_take(cuda):
-    """No fallback on the card: f64 inputs, mixed dtypes or head_dim 264
-    raise."""
+    """No fallback on the card: f64 inputs, mixed dtypes or a
+    non-contiguous q raise; head_dim 264 (which raised until the sliced
+    kernels were built) launches the sliced forward."""
     q, k, v, _ = _inputs(128, 2, 2)
     with pytest.raises(ValueError, match="bfloat16, float16 or float32"):
         A.flash_attention_lse(q.double(), k.double(), v.double())
     with pytest.raises(ValueError, match="one dtype"):
         A.flash_attention_lse(q, k.half(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_attention_lse(q.transpose(2, 3).contiguous().transpose(2, 3),
+                              k, v)
+    before = A.sliced_launches()["flash_forward"]
     q264 = torch.zeros(1, 2, 64, 264, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 1..256, got 264"):
-        A.flash_attention_lse(q264, q264, q264)
+    A.flash_attention_lse(q264, q264, q264)
+    assert A.sliced_launches()["flash_forward"] == before + 1
 
 
 @pytest.mark.cuda

@@ -16,24 +16,24 @@ Dispatch is decided by the tensors' device, outside autograd:
     launches the dq and the dk/dv kernels; `flash_attention_lse` returns
     the lse too, through `FlashAttentionLseFn`, whose backward takes a
     cotangent on it as well.  The kernels take what the Pallas kernels
-    take, up to head_dim 256: bf16 and fp16 (tensor cores) and f32 (SIMT
-    kernels of its own), any head_dim up to 256 (one that is not a multiple
-    of 8 is zero-padded here and the outputs sliced), any scale, any
-    batch*heads, and any block sizes, which `resolve_tiles` maps onto the
-    instantiated tiles; at head dims up to 64 in bf16 and fp16 a sequence
-    of at most 256 takes the encoders' forward, dq and dk/dv kernels
-    whatever the blocks (`short_route`).  A CUDA tensor the kernels do not
-    take (another dtype, head_dim above 256, non-contiguous) raises;
-    nothing falls back.
+    take: bf16 and fp16 (tensor cores) and f32 (SIMT kernels of its own),
+    any head_dim (one that is not a multiple of 8 is zero-padded here and
+    the outputs sliced; above 256 the sliced kernels, `SLICED`, take it),
+    any scale, any batch*heads, and any block sizes, which `resolve_tiles`
+    maps onto the instantiated tiles; at head dims up to 64 in bf16 and
+    fp16 a sequence of at most 256 takes the encoders' forward, dq and
+    dk/dv kernels whatever the blocks (`short_route`).  A CUDA tensor the
+    kernels do not take (another dtype, non-contiguous, a grid past 2^31 - 1
+    blocks) raises; nothing falls back.
 
 Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 `flash_backward_dkv`, and `dkv_reduce`, which sums the slices dk/dv is
 split into at head-dim class 256) computes its kernel's plain version when
 handed CPU tensors, and counts, in its `launches` attribute, every time it
 launches its kernel (and `short_launches`, the launches of the encoders'
-kernels among them).  The kernels live in `csrc/flash_attention.cu` (with
-the Hopper building blocks in `csrc/hopper.cuh`) and are built at first
-use (`_build.py`).
+kernels among them, and `sliced_launches`, those of the sliced kernels).
+The kernels live in `csrc/flash_attention.cu` (with the Hopper building
+blocks in `csrc/hopper.cuh`) and are built at first use (`_build.py`).
 """
 from __future__ import annotations
 
@@ -208,26 +208,36 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 
 # the element types the kernels take, by their code at the C interface
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
-MAX_HEAD_DIM = 256
+# The "class" of every head dim above 256, which has no compile-time head
+# dim: the sliced kernels (csrc: fwd_sliced_kernel, dq_sliced_kernel,
+# dkv_sliced_kernel and their f32 counterparts), each of whose blocks
+# writes one SLICE-column slice of its outputs and streams the head dim
+# through shared memory in 64-column chunks, so that no head dim is too
+# wide for them.
+SLICED = 0
+SLICE = 256
 # The tiles the tensor-core kernels are instantiated for, the same table as
 # csrc/flash_attention.cu's dispatchers (the encoders' kernels' tiles are
 # SHORT's, below): per kernel and head-dim class
-# (64 holds head dims up to 64, 128 those up to 128, 256 those up to 256),
-# the values of (rows per block, step of the reduction loop).  The forward
-# and dq take rows from block_q and the key step from block_k; dk/dv takes
-# key rows from block_k and the query step from block_q (the JAX kernels'
-# meaning of the two numbers).  At 256, the forward's and dq's 128 rows are
+# (64 holds head dims up to 64, 128 those up to 128, 256 those up to 256,
+# SLICED every one above), the values of (rows per block, step of the
+# reduction loop).  The forward and dq take rows from block_q and the key
+# step from block_k; dk/dv takes key rows from block_k and the query step
+# from block_q (the JAX kernels' meaning of the two numbers).  At 256, the forward's and dq's 128 rows are
 # two warpgroups of 64 over a 64-key step (the forward's taken longest
 # first: `fwd_chunk`), and dk/dv's 64 key rows are shared by two
 # warpgroups, one holding dV and one dK (its grid split over the query
-# heads: `dkv_splits`).
+# heads: `dkv_splits`).  SLICED has one tile each, the 256 class's default
+# plan: 128 rows in two warpgroups over 64-key steps (the forward, dq), 64
+# keys shared by two warpgroups over 64-query steps (dk/dv, which walks
+# each KV head's query-head group inside the block).
 INSTANTIATED = {
     "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
-            256: ((64, 128), (64,))},
+            256: ((64, 128), (64,)), SLICED: ((128,), (64,))},
     "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
-           256: ((128,), (64,))},
+           256: ((128,), (64,)), SLICED: ((128,), (64,))},
     "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,)),
-            256: ((64,), (64,))},
+            256: ((64,), (64,)), SLICED: ((64,), (64,))},
 }
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
@@ -251,12 +261,17 @@ class Tiles(NamedTuple):
 
 def head_class(head_dim: int) -> int:
     """The head-dim class a head dim runs on: the smallest of 64, 128 and
-    256 that holds it."""
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
+    256 that holds it, and SLICED above 256."""
+    if head_dim < 1:
         raise ValueError(
-            f"flash attention kernels take head_dim 1..{MAX_HEAD_DIM}, got "
-            f"{head_dim} (head_dim above 256 is not built: ROADMAP B.8)")
-    return next(dc for dc in (64, 128, 256) if head_dim <= dc)
+            f"flash attention kernels take head_dim >= 1, got {head_dim}")
+    return next((dc for dc in (64, 128, 256) if head_dim <= dc), SLICED)
+
+
+def n_slices(head_dim: int) -> int:
+    """The column slices of SLICE the sliced kernels cut a head dim's
+    outputs into (its blocks per row tile); 1 at the classes."""
+    return -(-head_dim // SLICE)
 
 
 def scales_first(scale: float) -> bool:
@@ -430,9 +445,11 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
     if t < 1:
         raise ValueError("flash attention needs seq len >= 1")
     # the grid: b*heads x row tiles of at least 64 rows
-    if b * heads * -(-t // 64) > 2**31 - 1:
-        raise ValueError(f"batch*heads {b * heads} x seq len {t} exceeds "
-                         "the kernels' grid of 2^31 - 1 blocks of 64 rows")
+    # (and above head_dim 256 one block per column slice of each tile)
+    if b * heads * -(-t // 64) * n_slices(d) > 2**31 - 1:
+        raise ValueError(f"batch*heads {b * heads} x seq len {t} x "
+                         f"{n_slices(d)} column slice(s) exceeds the kernels'"
+                         " grid of 2^31 - 1 blocks of 64 rows")
 
 
 def _padded(*xs):
@@ -467,7 +484,8 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`.
     Rows per block from block_q, key step from block_k (`resolve_tiles`),
-    or a whole head a work item on the encoders' route (`short_route`)."""
+    or a whole head a work item on the encoders' route (`short_route`), or
+    above head_dim 256 a 256-column slice of a row tile a block."""
     if q.device.type == "cpu":
         return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
                              scale=scale, window=window, sink=sink)
@@ -488,6 +506,7 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
     _check(err, "flash forward")
     flash_forward.launches += 1
     flash_forward.short_launches += tile == SHORT["fwd"]
+    flash_forward.sliced_launches += head_class(d) == SLICED
     return _unpadded(o, d), lse
 
 
@@ -497,7 +516,8 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
                       block_k: Optional[int] = None):
     """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`.  Rows per block
     from block_q, key step from block_k, or a whole KV head's query heads a
-    work item on the encoders' route (`short_route`)."""
+    work item on the encoders' route (`short_route`), or above head_dim 256
+    a 256-column slice of a row tile a block."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                  causal=causal, window=window, sink=sink)
@@ -516,6 +536,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     _check(err, "flash dq")
     flash_backward_dq.launches += 1
     flash_backward_dq.short_launches += tile == SHORT["dq"]
+    flash_backward_dq.sliced_launches += head_class(d) == SLICED
     return _unpadded(dq, d)
 
 
@@ -528,7 +549,9 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     head a work item on the encoders' route (`short_route`).  At head-dim
     class 256 in bf16 and fp16 each KV head's query-head group is split
     into `dkv_splits` slices over the grid; with more than one the kernel
-    writes f32 partials to a workspace that `dkv_reduce` sums."""
+    writes f32 partials to a workspace that `dkv_reduce` sums.  Above
+    head_dim 256 a block takes a 256-column slice of a key tile's dk and dv
+    and walks the whole group itself."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal, window=window, sink=sink)
@@ -558,6 +581,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     _check(err, "flash dk/dv")
     flash_backward_dkv.launches += 1
     flash_backward_dkv.short_launches += tile == SHORT["dkv"]
+    flash_backward_dkv.sliced_launches += head_class(d) == SLICED
     if ws is not None:
         dk, dv = dkv_reduce(ws, scale, q.dtype)
     return _unpadded(dk, d), _unpadded(dv, d)
@@ -602,8 +626,9 @@ def dkv_reduce(ws, scale: float, dtype):
 # the three kernels every attention path launches once a call each;
 # dkv_reduce runs besides dk/dv only where it is split (head-dim class 256).
 # Each of the three has a second kernel, the encoders' (`short_route`),
-# whose launches `short_launches` counts apart (and `launches` with the
-# rest).
+# whose launches `short_launches` counts apart, and a third, the sliced
+# kernel of head dims above 256, counted apart in `sliced_launches` (and
+# `launches` counts them all).
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
 
 
@@ -612,6 +637,7 @@ def reset_launches() -> None:
         fn.launches = 0
     for fn in KERNELS:
         fn.short_launches = 0
+        fn.sliced_launches = 0
 
 
 reset_launches()
@@ -623,6 +649,10 @@ def launches() -> dict:
 
 def short_launches() -> dict:
     return {fn.__name__: fn.short_launches for fn in KERNELS}
+
+
+def sliced_launches() -> dict:
+    return {fn.__name__: fn.sliced_launches for fn in KERNELS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

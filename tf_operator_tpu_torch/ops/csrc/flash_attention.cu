@@ -7,12 +7,11 @@
 // fp16 or f32), lse and delta are compact [B*H, T] f32 rows (no
 // lane-replicated row-scalar tiles).
 //
-// What the kernels take (all that the Pallas kernels take, up to head dim
-// 256):
+// What the kernels take (all that the Pallas kernels take):
 //   * bf16 and fp16: the tensor-core kernels, templated on the element type
 //     E (wgmma's bf16 or f16 form; P and dS are rounded to E before their
-//     second product, outputs are written in E).  f32: three SIMT kernels
-//     of their own (f32 products and sums, as the Pallas kernels compute in
+//     second product, outputs are written in E).  f32: SIMT kernels of
+//     their own (f32 products and sums, as the Pallas kernels compute in
 //     f32 inside; tf32 wgmma would round the products) behind the same C
 //     entry points.
 //   * Head dims: the tensor-core kernels are built for the head-dim classes
@@ -23,9 +22,11 @@
 //     multiple of 8 and slices the outputs).  The tensor maps zero-fill the
 //     columns past ld (a 64-column box wholly past it included), so Q K^T
 //     and dO V^T are unchanged, and the epilogues store only the columns <
-//     ld.  The f32 kernels take any ld up to 256.  Above 256 nothing is
-//     built (no public model needs it, and each width needs a register plan
-//     of its own; ROADMAP B.8).
+//     ld.  The f32 kernels take any ld up to 256 on DMAX 64, 128 or 256.
+//     Every ld above 256 runs on the sliced kernels (below: each block one
+//     256-column slice of the outputs, the head dim streamed through shared
+//     memory in 64-column chunks), in bf16, fp16 and f32, with no bound of
+//     their own on ld.
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -75,9 +76,11 @@
 // parallel and links them into one library.  1-4: the forward in bf16 and
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
-// 11-15); 11-12: the forward at D 256 in bf16 and fp16; 13: dq and 14:
-// dk/dv at D 256 (with the reduction of its slices' partials); 15: the f32
-// kernels at D 256; 0 (unset): every part in one unit.
+// 11-15 and head dims above 256 to parts 16-20); 11-12: the forward at
+// D 256 in bf16 and fp16; 13: dq and 14: dk/dv at D 256 (with the
+// reduction of its slices' partials); 15: the f32 kernels at D 256; 16-17:
+// the sliced forward in bf16 and fp16; 18: the sliced dq and 19: dk/dv;
+// 20: the sliced f32 kernels; 0 (unset): every part in one unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -187,6 +190,29 @@ int dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st);
 int dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st);
+// the sliced kernels, every head dim above 256 (parts 16-20)
+int forward_bf16_sliced(int bh, const FwdArgs& a, int rows, int step,
+                        cudaStream_t st);
+int forward_bf16_scaled_sliced(int bh, const FwdArgs& a, int rows, int step,
+                               cudaStream_t st);
+int forward_f16_sliced(int bh, const FwdArgs& a, int rows, int step,
+                       cudaStream_t st);
+int forward_f16_scaled_sliced(int bh, const FwdArgs& a, int rows, int step,
+                              cudaStream_t st);
+int forward_f32_sliced(int bh, const FwdArgs& a, int rows, int step,
+                       cudaStream_t st);
+int dq_bf16_sliced(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st);
+int dq_f16_sliced(int bh, const BwdArgs& a, int rows, int step,
+                  cudaStream_t st);
+int dq_f32_sliced(int bh, const BwdArgs& a, int rows, int step,
+                  cudaStream_t st);
+int dkv_bf16_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int dkv_f16_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st);
+int dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st);
 // the sum of dk/dv's slices (part 14): ws [2][splits][n] f32 -> dk, dv [n]
 int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
                     int splits, float scale, cudaStream_t st);
@@ -204,7 +230,7 @@ using fa::Mask;
 constexpr int TENSOR_MAP_ERROR = 100000;
 
 // The head-dim class a stored head dim runs on: 64 for 1..64, 128 for
-// 65..128, 256 for 129..256, 0 (none) above.
+// 65..128, 256 for 129..256, 0 above (no class: the sliced kernels).
 __host__ __device__ constexpr int head_class(int ld) {
   return ld < 1 ? 0 : ld <= 64 ? 64 : ld <= 128 ? 128 : ld <= 256 ? 256 : 0;
 }
@@ -3012,6 +3038,1123 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Head dims above 256: the sliced kernels.  They replace the same three
+// Pallas kernels (tf_operator_tpu/ops/attention.py:_fwd_kernel,
+// _bwd_dq_kernel, _bwd_dkv_kernel), which take any head dim, at every
+// stored head dim ld > 256: fwd_sliced_kernel, dq_sliced_kernel and
+// dkv_sliced_kernel in bf16 and fp16, and their f32 counterparts.
+//
+// Where the plans above stop: a warpgroup's 64-row f32 accumulator over W
+// columns takes W/2 registers a thread (255 at most), wgmma's N is at most
+// 256, and a 64-row bf16 tile of Q or a 64-key tile of K takes 128 * ld
+// bytes of shared memory (64 KB at ld 512, 128 KB at 1024).  So:
+//   * Each block produces one column slice of its outputs, SLICE (256)
+//     columns wide: the grid is (b*h or b*kv_head, row tile, slice), the
+//     slices of a row tile adjacent, so that they read the same tiles from
+//     L2 together.  The last slice of a head dim that is not a multiple of
+//     256 neither loads nor multiplies its 64-column blocks that lie wholly
+//     past ld.  Each element of o, dq, dk and dv is written by one block.
+//   * The contractions over the head dim (S = Q K^T and dP = dO V^T, or
+//     their transposes in dk/dv) stream through a ring of shared-memory
+//     stages, one 64-column chunk of each operand a stage (one TMA box
+//     each): no buffer grows with ld.  The second products (P V, dS K,
+//     P^T dO, dS^T Q) then stream their slice's 64-column blocks of V, K,
+//     dO or Q through the same ring.  The producer warp walks the same
+//     sequence of stages as the consumers (SlicedRing), and a consumer
+//     hands a stage back once the products that read it have completed,
+//     with one group of products left in flight.
+//   * Every slice of a row tile recomputes S (and dP): at ld 512 in two
+//     slices 1.5x the forward's products, 1.67x dq's and 1.5x dk/dv's.  In
+//     return each block keeps the class-256 kernels' register plan (an
+//     output accumulator of 128 registers a thread beside 64-key or
+//     64-query score tiles) and nothing is summed across blocks.  The
+//     slices sum S in the same order from the same inputs, so each slice's
+//     row max and row sum are the same bits, and slice 0 writes lse.
+//   * dk/dv walks each KV head's query-head group inside the block, in
+//     order (no atomics, no workspace: dkv_splits and dkv_reduce stay at
+//     head-dim class 256); its slices and key tiles give the grid its
+//     blocks.
+// Bound: operations, as above (2, 3 and 4 products).  These are the simple
+// kernels, at 0.18-0.23 of that bound on an H100: they read the streamed
+// chunks from L2 again at every key (or query) step, but reading an operand
+// once per block saved only 2-5 % in the forward and dk/dv and 21 % in dq
+// (kernel_variants.py --sliced); what sets their pace is the chain of one
+// chunk's small products (4 k-steps of m64n64 a warpgroup), its stage's
+// wait, and one group of products in flight (PERF.md has their times).
+constexpr int SLICE = 256;
+
+__host__ __device__ constexpr int ceil_div(int a, int b) {
+  return (a + b - 1) / b;
+}
+
+// The slices of a stored head dim ld (> 256).
+inline int n_slices(int ld) { return ceil_div(ld, SLICE); }
+
+// A block of the sliced forward and dq (and of the f32 kernels): blockIdx.x
+// walks (b*h, row tile, slice), slices fastest, each b*h's row tiles from
+// the last (the longest under causal masking) down.  tile is the row tile.
+struct SliceTile {
+  int bh, tile, slice;
+};
+
+__device__ __forceinline__ SliceTile slice_tile(int rows, int T, int ns) {
+  const int n = (T + rows - 1) / rows;
+  const int x = (int)blockIdx.x / ns;
+  return {x / n, n - 1 - x % n, (int)blockIdx.x % ns};
+}
+
+// Blocks of a sliced grid of n (b*h or b*kv_head) rows; 0 when they pass
+// 2^31 - 1.
+inline unsigned slice_blocks(int n, int T, int rows, int ns) {
+  const long long b = (long long)n * ((T + rows - 1) / rows) * ns;
+  return b > INT_MAX ? 0u : (unsigned)b;
+}
+
+// The ring of a sliced kernel: STAGES stages, full[STAGES] (the producer's
+// arrival with the stage's TMA bytes) and empty[STAGES] (every consumer
+// thread's) mbarriers at `bars`.  The producer and the consumers each keep
+// one, counting the items (stages' fills) they have passed; both walk the
+// same items in the same order.
+template <int STAGES>
+struct SlicedRing {
+  uint32_t bars;
+  int n;
+
+  __device__ __forceinline__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ __forceinline__ uint32_t empty(int s) const {
+    return bars + 8 * (STAGES + s);
+  }
+  // (thread 0) the barriers, `consumers` threads handing each stage back
+  __device__ __forceinline__ void init(int consumers) const {
+    for (int s = 0; s < STAGES; ++s) {
+      hopper::mbar_init(full(s), 1);
+      hopper::mbar_init(empty(s), consumers);
+    }
+  }
+  // (producer) the next item's stage, once handed back; announces `bytes`
+  __device__ __forceinline__ int put(uint32_t bytes) {
+    const int s = n % STAGES;
+    if (n >= STAGES) hopper::mbar_wait(empty(s), (n / STAGES - 1) & 1);
+    hopper::mbar_arrive_tx(full(s), bytes);
+    ++n;
+    return s;
+  }
+  // (consumers) the next item's stage, once filled
+  __device__ __forceinline__ int take() {
+    const int s = n % STAGES;
+    hopper::mbar_wait(full(s), (n / STAGES) & 1);
+    ++n;
+    return s;
+  }
+  // (consumers) after committing the products of the item just taken: the
+  // previous item's products complete and its stage goes back (none for the
+  // first item of a phase)
+  __device__ __forceinline__ void issued(bool first) {
+    if (first) return;
+    hopper::wg_wait<1>();
+    hopper::mbar_arrive(empty((n - 2) % STAGES));
+  }
+  // (consumers) the end of a phase: every product completes and the last
+  // item's stage goes back
+  __device__ __forceinline__ void drain() {
+    hopper::wg_wait<0>();
+    hopper::mbar_arrive(empty((n - 1) % STAGES));
+  }
+};
+
+// fwd_sliced_kernel: 128 query rows a block in two consumer warpgroups of
+// 64, 64-key steps in key_tiles' order.  Per key step the producer fills
+// one stage per 64-column chunk of the head dim (the chunk of the 128-row
+// Q tile, 16 KB, and of the K tile, 8 KB), then one per 64-column block of
+// the slice's V columns (8 KB).  Each warpgroup accumulates S = Q K^T over
+// the chunks, runs online_softmax (the class kernels' own), and adds P V
+// into its [64 x 256] output accumulator, one column block a stage.
+struct FwdSlicedSmem {
+  static constexpr int BM = 128, BK = 64;
+  static constexpr int Q_BYTES = BM * 128;  // a 64-column chunk of Q
+  static constexpr int K_BYTES = BK * 128;  // of K, or a column block of V
+  static constexpr int STAGE_BYTES = Q_BYTES + K_BYTES;
+  static constexpr int STAGES = 8;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;
+  static_assert(BYTES <= smem_budget(1), "sliced forward does not fit");
+};
+
+template <typename E, bool SCALED>
+__global__ void __launch_bounds__(384, 1)
+    fwd_sliced_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      E* __restrict__ o, float* __restrict__ lse, int group,
+                      int ld, float scale, Mask mk) {
+  using S = FwdSlicedSmem;
+  constexpr int BM = S::BM, BK = S::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = hopper::smem_addr(aligned_smem(smem_raw));
+  SlicedRing<S::STAGES> rg{ring + S::BAR_OFF, 0};
+
+  const int T = mk.T;
+  const int nc = ceil_div(ld, 64);  // the head dim's 64-column chunks
+  const SliceTile st = slice_tile(BM, T, ceil_div(nc, 4));
+  const int bh = st.bh, q0 = st.tile * BM;
+  const int cb = 4 * st.slice;      // the slice's first column block
+  const int nb = min(4, nc - cb);   // and its blocks within ld
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    rg.init(256);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        for (int c = 0; c < nc; ++c) {
+          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
+          hopper::tma_load(at + S::Q_BYTES, &map_k, 64 * c, k0, bkv,
+                           rg.full(s));
+        }
+        for (int b = 0; b < nb; ++b) {
+          const int s = rg.put(S::K_BYTES);
+          hopper::tma_load(ring + s * S::STAGE_BYTES, &map_v, 64 * (cb + b),
+                           k0, bkv, rg.full(s));
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * LOG2E;
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+  float alpha[2];
+  float o_acc[4][32];  // the slice's four 64-column blocks
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o_acc[b][i] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    float s_tile[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s_tile[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Mma<E>::ss(s_tile, hopper::desc_k(at + wg * 64 * 128, 64, kk),
+                           hopper::desc_k(at + S::Q_BYTES, BK, kk),
+                           c > 0 || kk > 0);
+      hopper::wg_commit();
+      rg.issued(c == 0);
+    }
+    rg.drain();
+    hopper::wg_fence_regs(s_tile);
+
+    online_softmax<BK, SCALED>(s_tile, m, l, alpha, mk, r0, row0, k0, t, sl2);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int x = 0; x < 32; ++x) o_acc[b][x] *= alpha[(x >> 1) & 1];
+    }
+    uint32_t p_frag[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(p_frag[kk], s_tile, kk);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b < nb) {
+        const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::Mma<E>::rs64(o_acc[b], p_frag[kk],
+                               hopper::desc_mn(at, BK, kk, 0));
+        hopper::wg_commit();
+        rg.issued(b == 0);
+      }
+    }
+    rg.drain();
+#pragma unroll
+    for (int b = 0; b < 4; ++b) hopper::wg_fence_regs(o_acc[b]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    const int i = row0 + 8 * h;
+    if (i >= T) continue;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 1.f;
+    E* op = o + ((size_t)bh * T + i) * ld;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * (cb + b) + 8 * j + 2 * t;
+        if (c < ld)
+          store2(op + c, o_acc[b][4 * j + 2 * h] * inv,
+                 o_acc[b][4 * j + 2 * h + 1] * inv);
+      }
+    }
+    if (st.slice == 0 && lse != nullptr && t == 0)
+      lse[(size_t)bh * T + i] = l[h] > 0.f ? m[h] * LN2 + logf(l[h]) : 0.f;
+  }
+}
+
+// dq_sliced_kernel: 128 query rows a block in two consumer warpgroups of
+// 64, 64-key steps in key_tiles' order.  Per key step the producer fills
+// one stage per 64-column chunk of the head dim (the chunks of the 128-row
+// Q and dO tiles, 16 KB each, and of the K and V tiles, 8 KB each), then
+// one per 64-column block of the slice's K columns.  Each warpgroup
+// accumulates S = Q K^T and dP = dO V^T over the chunks, forms p and ds as
+// dq_kernel does, and adds dS K into its [64 x 256] dq accumulator, one
+// column block a stage.
+struct DqSlicedSmem {
+  static constexpr int BM = 128, BK = 64;
+  static constexpr int QT_BYTES = BM * 128;  // a chunk of Q or dO
+  static constexpr int KV_BYTES = BK * 128;  // a chunk of K or V
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES + 2 * KV_BYTES;
+  static constexpr int STAGES = 4;
+  static constexpr int BAR_OFF = STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BAR_OFF + 16 * STAGES + 1024;
+  static_assert(BYTES <= smem_budget(1), "sliced dq does not fit");
+};
+
+template <typename E>
+__global__ void __launch_bounds__(384, 1)
+    dq_sliced_kernel(const __grid_constant__ CUtensorMap map_q,
+                     const __grid_constant__ CUtensorMap map_k,
+                     const __grid_constant__ CUtensorMap map_v,
+                     const __grid_constant__ CUtensorMap map_do,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, E* __restrict__ dq,
+                     int group, int ld, float scale, Mask mk) {
+  using S = DqSlicedSmem;
+  constexpr int BM = S::BM, BK = S::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t ring = hopper::smem_addr(aligned_smem(smem_raw));
+  SlicedRing<S::STAGES> rg{ring + S::BAR_OFF, 0};
+
+  const int T = mk.T;
+  const int nc = ceil_div(ld, 64);
+  const SliceTile st = slice_tile(BM, T, ceil_div(nc, 4));
+  const int bh = st.bh, q0 = st.tile * BM;
+  const int cb = 4 * st.slice, nb = min(4, nc - cb);
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    rg.init(256);
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        for (int c = 0; c < nc; ++c) {
+          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
+          hopper::tma_load(at + S::QT_BYTES, &map_do, 64 * c, q0, bh,
+                           rg.full(s));
+          hopper::tma_load(at + 2 * S::QT_BYTES, &map_k, 64 * c, k0, bkv,
+                           rg.full(s));
+          hopper::tma_load(at + 2 * S::QT_BYTES + S::KV_BYTES, &map_v,
+                           64 * c, k0, bkv, rg.full(s));
+        }
+        for (int b = 0; b < nb; ++b) {
+          const int s = rg.put(S::KV_BYTES);
+          hopper::tma_load(ring + s * S::STAGE_BYTES, &map_k, 64 * (cb + b),
+                           k0, bkv, rg.full(s));
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 64 * wg;  // this warpgroup's first row
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * LOG2E;
+  float lse2[2], dl[2];  // lse * log2 e and delta of this thread's rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    lse2[h] = i < T ? lse[(size_t)bh * T + i] * LOG2E : 0.f;
+    dl[h] = i < T ? delta[(size_t)bh * T + i] : 0.f;
+  }
+
+  float dq_part[4][32];  // the slice's four 64-column blocks
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_part[b][i] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+    float s_tile[BK / 2], dp_tile[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s_tile[i] = dp_tile[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+      const uint32_t kv = at + 2 * S::QT_BYTES;
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hopper::Mma<E>::ss(s_tile, hopper::desc_k(at + wg * 64 * 128, 64, kk),
+                           hopper::desc_k(kv, BK, kk), c > 0 || kk > 0);
+        hopper::Mma<E>::ss(
+            dp_tile, hopper::desc_k(at + S::QT_BYTES + wg * 64 * 128, 64, kk),
+            hopper::desc_k(kv + S::KV_BYTES, BK, kk), c > 0 || kk > 0);
+      }
+      hopper::wg_commit();
+      rg.issued(c == 0);
+    }
+    rg.drain();
+    hopper::wg_fence_regs(s_tile);
+    hopper::wg_fence_regs(dp_tile);
+
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x)
+      s_tile[x] = exp2_approx(fmaf(s_tile[x], sl2, -lse2[(x >> 1) & 1]));
+    if (!tile_full(mk, r0, 64, k0, BK)) mask_tile(s_tile, mk, row0, k0, t);
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x)
+      dp_tile[x] = s_tile[x] * (dp_tile[x] - dl[(x >> 1) & 1]);  // ds
+    uint32_t ds_frag[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(ds_frag[kk], dp_tile, kk);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b < nb) {
+        const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          hopper::Mma<E>::rs64(dq_part[b], ds_frag[kk],
+                               hopper::desc_mn(at, BK, kk, 0));
+        hopper::wg_commit();
+        rg.issued(b == 0);
+      }
+    }
+    rg.drain();
+#pragma unroll
+    for (int b = 0; b < 4; ++b) hopper::wg_fence_regs(dq_part[b]);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    if (i >= T) continue;
+    E* out = dq + ((size_t)bh * T + i) * ld;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * (cb + b) + 8 * j + 2 * t;
+        if (c < ld)
+          store2(out + c, dq_part[b][4 * j + 2 * h] * scale,
+                 dq_part[b][4 * j + 2 * h + 1] * scale);
+      }
+    }
+  }
+}
+
+// dkv_sliced_kernel: 64 keys a block (the transposed frame, as
+// dkv_split_kernel), whose two consumer warpgroups split the products as
+// that kernel does: warpgroup 0 forms S^T = K Q^T and P^T and holds the
+// slice of dV (+= P^T dO), warpgroup 1 forms dP^T = V dO^T, takes P^T
+// through shared memory (f32 in the accumulator layout, two buffers handed
+// over and back on mbarriers) to form dS^T, and holds the slice of dK (+=
+// dS^T Q).  The block walks each query head of its KV head's group and,
+// for each, the 64-query tiles that see its keys; per query tile the
+// producer fills one stage per 64-column chunk of the head dim (the chunks
+// of K, V, Q and dO, 8 KB each), then one per 64-column block of the
+// slice's dO and Q columns.  Each warpgroup reads its query rows' lse or
+// delta from device memory itself.  The grid is (key tile, b*kv_head,
+// slice), key tiles slowest, so that under causal masking the blocks of
+// the low key tiles, which walk the most query tiles, start first.
+struct DkvSlicedSmem {
+  static constexpr int BM = 64, BQ = 64;
+  static constexpr int BOX = 64 * 128;  // one 64 x 64 box
+  static constexpr int STAGE_BYTES = 4 * BOX;
+  static constexpr int STAGES = 5;
+  static constexpr int P_OFF = STAGES * STAGE_BYTES;  // P^T, two buffers
+  static constexpr int P_BYTES = BM * BQ * 4;
+  static constexpr int BAR_OFF = P_OFF + 2 * P_BYTES;
+  // full[STAGES], empty[STAGES], p_full[2], p_empty[2]
+  static constexpr int BYTES = BAR_OFF + 8 * (2 * STAGES + 4) + 1024;
+  static_assert(BYTES <= smem_budget(1), "sliced dk/dv does not fit");
+};
+
+template <typename E>
+__global__ void __launch_bounds__(384, 1)
+    dkv_sliced_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, E* __restrict__ dk,
+                      E* __restrict__ dv, int heads, int kv_heads, int ld,
+                      float scale, Mask mk) {
+  using S = DkvSlicedSmem;
+  constexpr int BQ = S::BQ;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t ring = hopper::smem_addr(smem);
+  SlicedRing<S::STAGES> rg{ring + S::BAR_OFF, 0};
+  const uint32_t p_full = ring + S::BAR_OFF + 16 * S::STAGES;
+  const uint32_t p_empty = p_full + 16;
+
+  const int T = mk.T;
+  const int nc = ceil_div(ld, 64);
+  const int ns = ceil_div(nc, 4), n_kt = (T + 63) / 64;
+  const int x = (int)blockIdx.x;
+  const int slice = x % ns, rest = x / ns;
+  const int bkv_n = (int)gridDim.x / (n_kt * ns);
+  const int bkv = rest % bkv_n, k0 = rest / bkv_n * 64;
+  const int cb = 4 * slice, nb = min(4, nc - cb);
+  const int group = heads / kv_heads;
+  // query rows of kv row b: (b / Hkv) * H + (b % Hkv) * group + member
+  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+  int qlo, qhi;
+  query_tiles<BQ>(k0, 64, mk, &qlo, &qhi);
+  const int nq = qhi - qlo, n_iter = group * nq;
+
+  if (threadIdx.x == 0) {
+    rg.init(256);
+    for (int b = 0; b < 2; ++b) {
+      hopper::mbar_init(p_full + 8 * b, 128);
+      hopper::mbar_init(p_empty + 8 * b, 128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      for (int it = 0; it < n_iter; ++it) {
+        const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+        for (int c = 0; c < nc; ++c) {
+          const int s = rg.put(S::STAGE_BYTES);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_k, 64 * c, k0, bkv, rg.full(s));
+          hopper::tma_load(at + S::BOX, &map_v, 64 * c, k0, bkv, rg.full(s));
+          hopper::tma_load(at + 2 * S::BOX, &map_q, 64 * c, q0, bh,
+                           rg.full(s));
+          hopper::tma_load(at + 3 * S::BOX, &map_do, 64 * c, q0, bh,
+                           rg.full(s));
+        }
+        for (int b = 0; b < nb; ++b) {
+          const int s = rg.put(2 * S::BOX);
+          const uint32_t at = ring + s * S::STAGE_BYTES;
+          hopper::tma_load(at, &map_do, 64 * (cb + b), q0, bh, rg.full(s));
+          hopper::tma_load(at + S::BOX, &map_q, 64 * (cb + b), q0, bh,
+                           rg.full(s));
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+  // warpgroup 0: P^T and dV; warpgroup 1: dP^T, dS^T and dK
+  const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  const float sl2 = scale * LOG2E;
+  // this warpgroup's operands in a chunk's stage (K against Q, or V
+  // against dO) and in a column block's (dO for dV, Q for dK); its row
+  // scalars (lse or delta)
+  const uint32_t a_off = wg == 0 ? 0 : S::BOX, b_off = a_off + 2 * S::BOX;
+  const uint32_t c_off = wg == 0 ? 0 : S::BOX;
+  const float* row_src = wg == 0 ? lse : delta;
+
+  float kv_part[4][32];  // dV (warpgroup 0) or dK (1): the slice's blocks
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) kv_part[b][i] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+    const int pb = it & 1;
+    float* p_buf = reinterpret_cast<float*>(smem + S::P_OFF + pb * S::P_BYTES);
+    // the row scalars of this thread's query columns q0 + 8j + 2t + e
+    float rowv[BQ / 4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = q0 + 8 * j + 2 * t + e;
+        rowv[2 * j + e] = i < T ? row_src[(size_t)bh * T + i] : 0.f;
+      }
+    }
+    float st_tile[BQ / 2];  // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) st_tile[i] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        hopper::Mma<E>::ss(st_tile, hopper::desc_k(at + a_off, 64, kk),
+                           hopper::desc_k(at + b_off, BQ, kk),
+                           c > 0 || kk > 0);
+      hopper::wg_commit();
+      rg.issued(c == 0);
+    }
+    rg.drain();
+    hopper::wg_fence_regs(st_tile);
+
+    if (wg == 0) {
+      const bool full = tile_full(mk, q0, BQ, k0, 64);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) {
+        const int col = 2 * (i >> 2) + (i & 1);
+        const float p = exp2_approx(
+            fmaf(st_tile[i], sl2, -rowv[col] * LOG2E));
+        const int q = q0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        st_tile[i] = full || mk.live(q, key[(i >> 1) & 1]) ? p : 0.f;
+      }
+      // the buffer's previous P^T (two tiles back) has been read
+      if (it >= 2) hopper::mbar_wait(p_empty + 8 * pb, ((it >> 1) - 1) & 1);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i) p_buf[i * 128 + tid] = st_tile[i];
+      hopper::mbar_arrive(p_full + 8 * pb);
+    } else {
+      hopper::mbar_wait(p_full + 8 * pb, (it >> 1) & 1);
+#pragma unroll
+      for (int i = 0; i < BQ / 2; ++i)
+        st_tile[i] = p_buf[i * 128 + tid] *
+                     (st_tile[i] - rowv[2 * (i >> 2) + (i & 1)]);
+      hopper::mbar_arrive(p_empty + 8 * pb);
+    }
+
+    uint32_t a_frag[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a<E>(a_frag[kk], st_tile, kk);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (b < nb) {
+        const uint32_t at = ring + rg.take() * S::STAGE_BYTES;
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          hopper::Mma<E>::rs64(kv_part[b], a_frag[kk],
+                               hopper::desc_mn(at + c_off, BQ, kk, 0));
+        hopper::wg_commit();
+        rg.issued(b == 0);
+      }
+    }
+    rg.drain();
+#pragma unroll
+    for (int b = 0; b < 4; ++b) hopper::wg_fence_regs(kv_part[b]);
+  }
+
+  E* out = wg == 0 ? dv : dk;
+  const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int j = key[h];
+    if (j >= T) continue;
+    const size_t off = ((size_t)bkv * T + j) * ld;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+#pragma unroll
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const int i = 4 * c8 + 2 * h;
+        const int c = 64 * (cb + b) + 8 * c8 + 2 * t;
+        if (c < ld)
+          store2(out + off + c, kv_part[b][i] * mul,
+                 kv_part[b][i + 1] * mul);
+      }
+    }
+  }
+}
+
+// The sliced f32 kernels: the f32 kernels above with the head dim streamed
+// F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles for the
+// contractions, and each block one SW-column slice of the outputs, whose
+// rows of V, K, dO or Q it loads into [rows][SW + 1] tiles for the second
+// products: the same grid and sums as the tensor-core sliced kernels, f32
+// products and sums on the CUDA cores, the thread plan of the f32 kernels
+// at DMAX SW (two threads a row; four in dk/dv, whose slices are
+// F32_DKV_SLICE wide: its two accumulators over 256 columns, 128 registers
+// of a thread's 255, spilled 228 bytes beside the chunked contraction).
+constexpr int F32_CHUNK = 64;
+constexpr int F32_DKV_SLICE = 128;
+
+// Rows [row0, row0 + n) x columns [c0, c0 + W) of a [T, ld] f32 slab into
+// an [n][W + 1] tile, zeros past T and past ld, by a block of THREADS.
+template <int W, int THREADS>
+__device__ __forceinline__ void f32_load_cols(float* tile,
+                                              const float* __restrict__ src,
+                                              int row0, int n, int c0, int T,
+                                              int ld) {
+  for (int x = threadIdx.x; x < n * W; x += THREADS) {
+    const int r = x / W, c = x % W, i = row0 + r, col = c0 + c;
+    tile[r * (W + 1) + c] =
+        i < T && col < ld ? src[(size_t)i * ld + col] : 0.f;
+  }
+}
+
+template <int SW>
+__global__ void __launch_bounds__(F32_THREADS)
+    fwd_sliced_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v, float* __restrict__ o,
+                          float* __restrict__ lse, int group, int ld,
+                          float scale, Mask mk) {
+  constexpr int CD = F32_CHUNK + 1, SD = SW + 1, J = F32_STEP / 2;
+  constexpr int C = SW / 2;
+  extern __shared__ float f32_smem[];
+  float* sQ = f32_smem;               // [F32_ROWS][CD]
+  float* sK = sQ + F32_ROWS * CD;     // [F32_STEP][CD]
+  float* sV = sK + F32_STEP * CD;     // [F32_STEP][SD]
+  const int T = mk.T;
+  const SliceTile st = slice_tile(F32_ROWS, T, ceil_div(ld, SW));
+  const int bh = st.bh, bkv = bh / group;
+  const int q0 = st.tile * F32_ROWS, c0 = st.slice * SW;
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
+  const float* qh = q + (size_t)bh * T * ld;
+  const float* kh = k + (size_t)bkv * T * ld;
+  const float* vh = v + (size_t)bkv * T * ld;
+  int lo, n_sink, n_iter;
+  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
+
+  float m = -INFINITY, l = 0.f, acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
+    float s[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = 0.f;
+    for (int d0 = 0; d0 < ld; d0 += F32_CHUNK) {
+      __syncthreads();
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sQ, qh, q0, F32_ROWS, d0, T, ld);
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sK, kh, k0, F32_STEP, d0, T, ld);
+      __syncthreads();
+      const int n = min(F32_CHUNK, ld - d0);
+      for (int d = 0; d < n; ++d) {
+        const float qd = sQ[r * CD + d];
+#pragma unroll
+        for (int j = 0; j < J; ++j)
+          s[j] = fmaf(qd, sK[(2 * j + h) * CD + d], s[j]);
+      }
+    }
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s[j] = mk.live(i, k0 + 2 * j + h) ? s[j] * scale : -INFINITY;
+      mx = fmaxf(mx, s[j]);
+    }
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    const float m_new = fmaxf(m, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float alpha = expf(m - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      s[j] = expf(s[j] - m_use);
+      sum += s[j];
+    }
+    l = l * alpha + sum;
+    m = m_new;
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[c] *= alpha;
+    __syncthreads();
+    f32_load_cols<SW, F32_THREADS>(sV, vh, k0, F32_STEP, c0, T, ld);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float pm = s[j], po = __shfl_xor_sync(0xffffffffu, s[j], 1);
+      const float* vm = sV + (2 * j + h) * SD + h * C;
+      const float* vo = sV + (2 * j + 1 - h) * SD + h * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[c] = fmaf(pm, vm[c], fmaf(po, vo[c], acc[c]));
+    }
+  }
+  l += __shfl_xor_sync(0xffffffffu, l, 1);
+  if (i >= T) return;
+  const float inv = l > 0.f ? 1.f / l : 1.f;
+  float* op = o + ((size_t)bh * T + i) * ld + c0 + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c0 + h * C + c < ld) op[c] = acc[c] * inv;
+  if (st.slice == 0 && lse != nullptr && h == 0)
+    lse[(size_t)bh * T + i] = l > 0.f ? m + logf(l) : 0.f;
+}
+
+template <int SW>
+__global__ void __launch_bounds__(F32_THREADS)
+    dq_sliced_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dq, int group, int ld,
+                         float scale, Mask mk) {
+  constexpr int CD = F32_CHUNK + 1, SD = SW + 1, J = F32_STEP / 2;
+  constexpr int C = SW / 2;
+  extern __shared__ float f32_smem[];
+  float* sQ = f32_smem;               // [F32_ROWS][CD]
+  float* sdO = sQ + F32_ROWS * CD;    // [F32_ROWS][CD]
+  float* sK = sdO + F32_ROWS * CD;    // [F32_STEP][CD]
+  float* sV = sK + F32_STEP * CD;     // [F32_STEP][CD]
+  float* sKs = sV + F32_STEP * CD;    // [F32_STEP][SD]: the slice's K
+  const int T = mk.T;
+  const SliceTile st = slice_tile(F32_ROWS, T, ceil_div(ld, SW));
+  const int bh = st.bh, bkv = bh / group;
+  const int q0 = st.tile * F32_ROWS, c0 = st.slice * SW;
+  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
+  const float* qh = q + (size_t)bh * T * ld;
+  const float* gh = dout + (size_t)bh * T * ld;
+  const float* kh = k + (size_t)bkv * T * ld;
+  const float* vh = v + (size_t)bkv * T * ld;
+  int lo, n_sink, n_iter;
+  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
+
+  const float lse_i = i < T ? lse[(size_t)bh * T + i] : 0.f;
+  const float dl = i < T ? delta[(size_t)bh * T + i] : 0.f;
+  float acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
+    float s[J], dp[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < ld; d0 += F32_CHUNK) {
+      __syncthreads();
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sQ, qh, q0, F32_ROWS, d0, T, ld);
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sdO, gh, q0, F32_ROWS, d0, T,
+                                            ld);
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sK, kh, k0, F32_STEP, d0, T, ld);
+      f32_load_cols<F32_CHUNK, F32_THREADS>(sV, vh, k0, F32_STEP, d0, T, ld);
+      __syncthreads();
+      const int n = min(F32_CHUNK, ld - d0);
+      for (int d = 0; d < n; ++d) {
+        const float qd = sQ[r * CD + d], gd = sdO[r * CD + d];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          s[j] = fmaf(qd, sK[(2 * j + h) * CD + d], s[j]);
+          dp[j] = fmaf(gd, sV[(2 * j + h) * CD + d], dp[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float p =
+          mk.live(i, k0 + 2 * j + h) ? expf(s[j] * scale - lse_i) : 0.f;
+      s[j] = p * (dp[j] - dl);  // ds
+    }
+    __syncthreads();
+    f32_load_cols<SW, F32_THREADS>(sKs, kh, k0, F32_STEP, c0, T, ld);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float dsm = s[j], dso = __shfl_xor_sync(0xffffffffu, s[j], 1);
+      const float* km = sKs + (2 * j + h) * SD + h * C;
+      const float* ko = sKs + (2 * j + 1 - h) * SD + h * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        acc[c] = fmaf(dsm, km[c], fmaf(dso, ko[c], acc[c]));
+    }
+  }
+  if (i >= T) return;
+  float* out = dq + ((size_t)bh * T + i) * ld + c0 + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (c0 + h * C + c < ld) out[c] = acc[c] * scale;
+}
+
+// dk/dv in f32, four threads a key row (f32_dkv_lanes at DMAX 256); the
+// grid as the f32 forward's, a key tile for a row tile, with SW-column
+// slices (F32_DKV_SLICE).
+template <int SW>
+__global__ void __launch_bounds__(F32_ROWS * 4)
+    dkv_sliced_f32_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          int heads, int kv_heads, int ld, float scale,
+                          Mask mk) {
+  constexpr int L = 4, THREADS = F32_ROWS * L;
+  constexpr int CD = F32_CHUNK + 1, SD = SW + 1, J = F32_STEP / L;
+  constexpr int C = SW / L;
+  extern __shared__ float f32_smem[];
+  float* sK = f32_smem;               // [F32_ROWS][CD]
+  float* sV = sK + F32_ROWS * CD;     // [F32_ROWS][CD]
+  float* sQ = sV + F32_ROWS * CD;     // [F32_STEP][CD]
+  float* sdO = sQ + F32_STEP * CD;    // [F32_STEP][CD]
+  float* sQs = sdO + F32_STEP * CD;   // [F32_STEP][SD]: the slice's Q
+  float* sdOs = sQs + F32_STEP * SD;  // [F32_STEP][SD]: and dO
+  float* sL = sdOs + F32_STEP * SD;   // lse[F32_STEP], delta[F32_STEP]
+  const int T = mk.T;
+  const SliceTile st = slice_tile(F32_ROWS, T, ceil_div(ld, SW));
+  const int bkv = st.bh, k0 = st.tile * F32_ROWS, c0 = st.slice * SW;
+  const int r = threadIdx.x / L, h = threadIdx.x % L, key = k0 + r;
+  const int lane0 = (threadIdx.x & 31) - h;  // the row's first lane
+  const int group = heads / kv_heads;
+  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+  const float* kh = k + (size_t)bkv * T * ld;
+  const float* vh = v + (size_t)bkv * T * ld;
+  int qlo, qhi;
+  query_tiles<F32_STEP>(k0, F32_ROWS, mk, &qlo, &qhi);
+  const int nq = qhi - qlo, n_iter = group * nq;
+
+  float dk_acc[C], dv_acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int it = 0; it < n_iter; ++it) {
+    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * F32_STEP;
+    const float* qh = q + (size_t)bh * T * ld;
+    const float* gh = dout + (size_t)bh * T * ld;
+    float s[J], dp[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
+    for (int d0 = 0; d0 < ld; d0 += F32_CHUNK) {
+      __syncthreads();
+      f32_load_cols<F32_CHUNK, THREADS>(sK, kh, k0, F32_ROWS, d0, T, ld);
+      f32_load_cols<F32_CHUNK, THREADS>(sV, vh, k0, F32_ROWS, d0, T, ld);
+      f32_load_cols<F32_CHUNK, THREADS>(sQ, qh, q0, F32_STEP, d0, T, ld);
+      f32_load_cols<F32_CHUNK, THREADS>(sdO, gh, q0, F32_STEP, d0, T, ld);
+      if (d0 == 0 && threadIdx.x < F32_STEP) {
+        const int qi = q0 + threadIdx.x;
+        sL[threadIdx.x] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
+        sL[F32_STEP + threadIdx.x] =
+            qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+      }
+      __syncthreads();
+      const int n = min(F32_CHUNK, ld - d0);
+      for (int d = 0; d < n; ++d) {
+        const float kd = sK[r * CD + d], vd = sV[r * CD + d];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          s[j] = fmaf(kd, sQ[(L * j + h) * CD + d], s[j]);
+          dp[j] = fmaf(vd, sdO[(L * j + h) * CD + d], dp[j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = L * j + h;
+      const float p =
+          mk.live(q0 + c, key) ? expf(s[j] * scale - sL[c]) : 0.f;
+      s[j] = p;
+      dp[j] = p * (dp[j] - sL[F32_STEP + c]);  // ds
+    }
+    __syncthreads();
+    f32_load_cols<SW, THREADS>(sQs, qh, q0, F32_STEP, c0, T, ld);
+    f32_load_cols<SW, THREADS>(sdOs, gh, q0, F32_STEP, c0, T, ld);
+    __syncthreads();
+    // each of the row's L threads hands its columns' p and ds to the others
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+#pragma unroll
+      for (int w = 0; w < L; ++w) {
+        const float pm = __shfl_sync(0xffffffffu, s[j], lane0 + w);
+        const float dsm = __shfl_sync(0xffffffffu, dp[j], lane0 + w);
+        const int om = (L * j + w) * SD + h * C;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          dv_acc[c] = fmaf(pm, sdOs[om + c], dv_acc[c]);
+          dk_acc[c] = fmaf(dsm, sQs[om + c], dk_acc[c]);
+        }
+      }
+    }
+  }
+  if (key >= T) return;
+  const size_t off = ((size_t)bkv * T + key) * ld + c0 + h * C;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (c0 + h * C + c < ld) {
+      dk[off + c] = dk_acc[c] * scale;
+      dv[off + c] = dv_acc[c];
+    }
+  }
+}
+
+// Launchers of the sliced kernels.  Their one tile each (rows per block,
+// step): the forward and dq (128, 64), dk/dv (64, 64), the f32 kernels
+// (F32_ROWS, F32_STEP); any other, or ld <= 256 (and for the tensor-core
+// kernels an ld that is not a multiple of 8), returns
+// cudaErrorInvalidValue.
+
+template <typename E, bool SCALED>
+int fwd_sliced(int bh, const FwdArgs& a, int rows, int step,
+               cudaStream_t stream) {
+  using S = FwdSlicedSmem;
+  const int T = a.mk.T;
+  if (rows != S::BM || step != S::BK || a.ld <= SLICE || a.ld % 8)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / a.group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / a.group, T, a.ld, S::BK)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = fwd_sliced_kernel<E, SCALED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bh, T, S::BM, n_slices(a.ld));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(map_q, map_k, map_v,
+                                          static_cast<E*>(a.o), a.lse,
+                                          a.group, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dq_sliced(int bh, const BwdArgs& a, int rows, int step,
+              cudaStream_t stream) {
+  using S = DqSlicedSmem;
+  const int T = a.mk.T;
+  if (rows != S::BM || step != S::BK || a.ld <= SLICE || a.ld % 8)
+    return (int)cudaErrorInvalidValue;
+  const int group = a.heads / a.kv_heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BM)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = dq_sliced_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bh, T, S::BM, n_slices(a.ld));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dq),
+      group, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <typename E>
+int dkv_sliced(int bkv, const BwdArgs& a, int rows, int step,
+               cudaStream_t stream) {
+  using S = DkvSlicedSmem;
+  const int T = a.mk.T;
+  if (rows != S::BM || step != S::BQ || a.ld <= SLICE || a.ld % 8 ||
+      a.splits != 1 || a.partial != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int bh = bkv / a.kv_heads * a.heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BQ)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BQ)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = dkv_sliced_kernel<E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bkv, T, S::BM, n_slices(a.ld));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(
+      map_q, map_k, map_v, map_do, a.lse, a.delta, static_cast<E*>(a.dk),
+      static_cast<E*>(a.dv), a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <int SW>
+int launch_fwd_sliced_f32(int bh, const FwdArgs& a, int rows, int step,
+                          cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || a.ld <= SW)
+    return (int)cudaErrorInvalidValue;
+  const int bytes =
+      ((F32_ROWS + F32_STEP) * (F32_CHUNK + 1) + F32_STEP * (SW + 1)) * 4;
+  auto kernel = fwd_sliced_f32_kernel<SW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bh, a.mk.T, F32_ROWS, ceil_div(a.ld, SW));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_THREADS, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.lse,
+      a.group, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <int SW>
+int launch_dq_sliced_f32(int bh, const BwdArgs& a, int rows, int step,
+                         cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || a.ld <= SW)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = ((2 * F32_ROWS + 2 * F32_STEP) * (F32_CHUNK + 1) +
+                     F32_STEP * (SW + 1)) * 4;
+  auto kernel = dq_sliced_f32_kernel<SW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bh, a.mk.T, F32_ROWS, ceil_div(a.ld, SW));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_THREADS, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.heads / a.kv_heads, a.ld,
+      a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
+template <int SW>
+int launch_dkv_sliced_f32(int bkv, const BwdArgs& a, int rows, int step,
+                          cudaStream_t st) {
+  if (rows != F32_ROWS || step != F32_STEP || a.ld <= SW ||
+      a.splits != 1 || a.partial != nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int bytes = ((2 * F32_ROWS + 2 * F32_STEP) * (F32_CHUNK + 1) +
+                     2 * F32_STEP * (SW + 1) + 2 * F32_STEP) * 4;
+  auto kernel = dkv_sliced_f32_kernel<SW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bkv, a.mk.T, F32_ROWS, ceil_div(a.ld, SW));
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, F32_ROWS * 4, bytes, st>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -3178,6 +4321,65 @@ int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
 }
 #endif
 
+#if FA_IN_PART(16)
+int fa::forward_bf16_sliced(int bh, const FwdArgs& a, int rows, int step,
+                            cudaStream_t st) {
+  return fwd_sliced<bf16, false>(bh, a, rows, step, st);
+}
+int fa::forward_bf16_scaled_sliced(int bh, const FwdArgs& a, int rows,
+                                   int step, cudaStream_t st) {
+  return fwd_sliced<bf16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(17)
+int fa::forward_f16_sliced(int bh, const FwdArgs& a, int rows, int step,
+                           cudaStream_t st) {
+  return fwd_sliced<f16, false>(bh, a, rows, step, st);
+}
+int fa::forward_f16_scaled_sliced(int bh, const FwdArgs& a, int rows,
+                                  int step, cudaStream_t st) {
+  return fwd_sliced<f16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(18)
+int fa::dq_bf16_sliced(int bh, const BwdArgs& a, int rows, int step,
+                       cudaStream_t st) {
+  return dq_sliced<bf16>(bh, a, rows, step, st);
+}
+int fa::dq_f16_sliced(int bh, const BwdArgs& a, int rows, int step,
+                      cudaStream_t st) {
+  return dq_sliced<f16>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(19)
+int fa::dkv_bf16_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return dkv_sliced<bf16>(bkv, a, rows, step, st);
+}
+int fa::dkv_f16_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                       cudaStream_t st) {
+  return dkv_sliced<f16>(bkv, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(20)
+int fa::forward_f32_sliced(int bh, const FwdArgs& a, int rows, int step,
+                           cudaStream_t st) {
+  return launch_fwd_sliced_f32<SLICE>(bh, a, rows, step, st);
+}
+int fa::dq_f32_sliced(int bh, const BwdArgs& a, int rows, int step,
+                      cudaStream_t st) {
+  return launch_dq_sliced_f32<SLICE>(bh, a, rows, step, st);
+}
+int fa::dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
+                       cudaStream_t st) {
+  return launch_dkv_sliced_f32<F32_DKV_SLICE>(bkv, a, rows, step, st);
+}
+#endif
+
 #if FA_IN_PART(10)
 // ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
@@ -3187,7 +4389,7 @@ int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
 // chunk the b*h rows it takes longest first together (lpt_tile).
 // A dtype, head dim or tile that has no instantiation returns
 // cudaErrorInvalidValue.  Head-dim class 256 goes to the parts that build
-// it.
+// it, and every head dim above 256 to the sliced kernels' parts.
 
 enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
@@ -3218,6 +4420,19 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                   chunk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!scaled && !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  if (head_dim > SLICE) {
+    switch (dtype) {
+      case FA_BF16:
+        return (scaled ? fa::forward_bf16_scaled_sliced
+                       : fa::forward_bf16_sliced)(bh, a, rows, step, st);
+      case FA_F16:
+        return (scaled ? fa::forward_f16_scaled_sliced
+                       : fa::forward_f16_sliced)(bh, a, rows, step, st);
+      case FA_F32:
+        return fa::forward_f32_sliced(bh, a, rows, step, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
     case FA_BF16:
@@ -3261,6 +4476,14 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                   1,
                   nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim > SLICE) {
+    switch (dtype) {
+      case FA_BF16: return fa::dq_bf16_sliced(bh, a, rows, step, st);
+      case FA_F16: return fa::dq_f16_sliced(bh, a, rows, step, st);
+      case FA_F32: return fa::dq_f32_sliced(bh, a, rows, step, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
     case FA_BF16:
@@ -3276,8 +4499,8 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
 // dk/dv; at head-dim class 256 in bf16 and fp16 `splits` slices of each
 // KV head's query-head group, and with more than one `partial` (the f32
 // workspace [2][splits][bkv][T][head_dim]) takes their partials, which
-// fa_dkv_reduce sums into dk_out and dv_out; elsewhere splits is 1 and
-// partial null.
+// fa_dkv_reduce sums into dk_out and dv_out; elsewhere (the sliced kernels
+// too: they walk the group in the block) splits is 1 and partial null.
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk_out, void* dv_out,
@@ -3305,6 +4528,14 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
   if (splits != 1 && (dtype == FA_F32 || head_class(head_dim) != 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim > SLICE) {
+    switch (dtype) {
+      case FA_BF16: return fa::dkv_bf16_sliced(bkv, a, rows, step, st);
+      case FA_F16: return fa::dkv_f16_sliced(bkv, a, rows, step, st);
+      case FA_F32: return fa::dkv_f32_sliced(bkv, a, rows, step, st);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
     case FA_BF16:
