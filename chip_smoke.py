@@ -9,7 +9,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            the source, all at once), prints the build time and each
            instantiation's registers and spills (ptxas), and fails if any
            instantiation spills or the built instantiations are not
-           attention.INSTANTIATED's
+           attention.INSTANTIATED's; prints each cluster kernel's shared
+           memory beside a block's 232,448 bytes and the clusters the card
+           holds at once (cudaOccupancyMaxActiveClusters)
   kernels  each hand-written kernel (flash forward, dq, dk/dv) against its
            plain PyTorch version in f32 on the same inputs, at the LM's
            main-path shape and at GQA / ragged T / non-causal / window+sink /
@@ -44,7 +46,14 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            fp16 and f32 (d512_mqa), head dims 264, 300 (padded to 304),
            384 non-causal, 512 with window + sink and at scale -0.0625
            with GQA 8/2, and 1024, all three kernels' device time and
-           SDPA's beside the kernel SDPA ran (its backend); each kernel
+           SDPA's beside the kernel SDPA ran (its backend); since the
+           eighteenth slice dq and dk/dv there on the cluster kernels
+           (attention.cluster_route: every launch theirs, the count
+           checked per case), SDPA timed also under its memory-efficient
+           backend with K and V expanded to the query heads as views (the
+           kernels line's library_ms where it runs; its math path under
+           library_math_ms), and head dim 2112 (above the cluster's reach:
+           the sliced dq and dk/dv, no cluster launch); each kernel
            launched a second time on the same inputs must give the same
            bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
@@ -84,10 +93,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            query heads of 256 regrouped into 4 of 512 over one KV head
            (~0.86 B params; no public model has these widths): 6 + 2
            steps, 18 launches a step of each kernel, every one the sliced
-           kernels' (head dims above 256), losses finite and falling (as
-           the gemma phase's since then), step ms, tokens/s, MFU, peak
-           memory, device time by kernel; 2 layers of it against the plain
-           attention path
+           kernels' (head dims above 256) and since the eighteenth slice
+           every dq and dk/dv launch the cluster kernels', losses finite
+           and falling (as the gemma phase's since then), step ms,
+           tokens/s, MFU, peak memory, device time by kernel; 2 layers of
+           it against the plain attention path; then the LM with one head
+           of 2112 (2 layers, B 1, T 1024, 2 steps), above the cluster's
+           reach, whose dq and dk/dv launches are the sliced kernels'
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
@@ -286,6 +298,9 @@ REPLACES = {
     "flash_forward_sliced": "tf_operator_tpu/ops/attention.py:255",
     "flash_backward_dq_sliced": "tf_operator_tpu/ops/attention.py:419",
     "flash_backward_dkv_sliced": "tf_operator_tpu/ops/attention.py:485",
+    # the cluster kernels (dq and dk/dv up to attention.CLUSTER_LD)
+    "flash_backward_dq_cluster": "tf_operator_tpu/ops/attention.py:419",
+    "flash_backward_dkv_cluster": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -320,9 +335,12 @@ TOL_LSE_F32 = 1e-5
 # element type, and the forward's route, for the encoders' kernels, whose
 # tile is attention.SHORT's, and for the sliced kernels above head dim
 # 256, whose tile is INSTANTIATED[...][SLICED]'s; the slice width for the
-# sliced f32 kernels), then its spills and its registers at launch
+# sliced f32 kernels; the element type and the slices (the cluster's
+# blocks) for the cluster kernels, whose tile is
+# INSTANTIATED[...][CLUSTER]'s), then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
-                         r"(_f32|_split|_wide|_short|_sliced_f32|_sliced)?"
+                         r"(_f32|_split|_wide|_short|_sliced_f32|_sliced"
+                         r"|_cluster)?"
                          r"_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
@@ -398,6 +416,12 @@ def ptxas_instantiation(m) -> tuple:
         route = f", scaled {args[1]}" if kernel == "fwd" else ""
         return (f"{kernel}_short_kernel<{args[0]}, D 64, rows {rows}, step "
                 f"{step}{route}>", (kernel, args[0], 64, rows, step))
+    if kind == "_cluster":  # dq and dk/dv up to attention.CLUSTER_LD
+        from tf_operator_tpu_torch.ops.attention import CLUSTER, INSTANTIATED
+
+        (rows,), (step,) = INSTANTIATED[kernel][CLUSTER]
+        return (f"{kernel}_cluster_kernel<{args[0]}, {args[1]} slices, rows "
+                f"{rows}, step {step}>", (kernel, args[0], CLUSTER, rows, step))
     if kind in ("_sliced", "_sliced_f32"):  # head dims above 256
         from tf_operator_tpu_torch.ops.attention import INSTANTIATED, SLICED
 
@@ -636,6 +660,10 @@ CASES = [
     Case("d512_window_sink", 2, 4, 1, 2048, 512, True, 256, 4),
     Case("d512_scale_neg", 1, 8, 2, 1000, 512, True, 64, 70, scale=-0.0625),
     Case("d1024", 1, 2, 1, 300, 1024, True),
+    # the eighteenth: dq and dk/dv take the cluster kernels at every case
+    # above, in bf16 and fp16; above the cluster's reach (attention.
+    # CLUSTER_LD, 1024) the sliced ones still run (nine slices)
+    Case("d2112", 1, 2, 1, 300, 2112, True),
 ]
 # launches the profiler averages a kernel's device time over
 DEVICE_REPS = 10
@@ -650,7 +678,8 @@ TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
                "gemma_2b_fp16", "gemma_2b_f32", "d160", "d250", "d256_gqa6",
-               "gemma_7b", "d512_mqa", "d512_mqa_fp16", "d512_mqa_f32")
+               "gemma_7b", "d512_mqa", "d512_mqa_fp16", "d512_mqa_f32",
+               "d2112")
 
 
 def rule(dtype: str) -> tuple:
@@ -846,6 +875,27 @@ def kernel_case(case, timing: bool):
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
     sliced = A.head_class(d) == A.SLICED
+    if sliced:
+        # SDPA's default dispatch takes its math path above head dim 256
+        # (f32 GEMMs; with enable_gqa always): the yardstick is its
+        # memory-efficient backend, K and V expanded to the query heads as
+        # views, where it runs; the math path's times stay beside it
+        eff = sdpa_efficient(q, k, v, do, sdpa_kw)
+        if isinstance(eff, str):
+            print(f"  {name:11s} sdpa memory-efficient backend {eff}",
+                  flush=True)
+        else:
+            eff_ms = {"flash_forward": cuda_ms(eff[0], reps),
+                      "backward": cuda_ms(eff[1], reps)}
+            for kname in result:
+                math_ms = result[kname]["library_ms"]
+                result[kname].update(
+                    library_ms=eff_ms.get(kname, eff_ms["backward"]),
+                    library_math_ms=math_ms)
+            print(f"  {name:11s} sdpa memory-efficient (K, V expanded) fwd "
+                  f"ms {eff_ms['flash_forward']:.4f} backward ms "
+                  f"{eff_ms['backward']:.4f}; the math path's {lib_fwd:.4f}"
+                  f" / {lib_bwd:.4f} (yardstick)", flush=True)
     if A.head_class(d) in (256, A.SLICED) or name in DEVICE_CASES:
         # the kernels' own time and SDPA's on the device (profiler), under
         # keys of their own (`ms` and `library_ms` stay CUDA events): back
@@ -861,18 +911,40 @@ def kernel_case(case, timing: bool):
         calls = {"flash_forward": (fwd, "fwd_")}
         if sliced:
             # SDPA's flash backend stops at head dim 256: the kernel its
-            # dispatcher ran instead (the longest one of each call), which
-            # the kernels line gives beside library_ms
+            # dispatcher ran instead (the longest one of each call), and
+            # the memory-efficient backend's, which the kernels line gives
+            # beside library_ms (the math path's under library_math_*)
             backend = {"flash_forward": sdpa_kernel(sdpa_fwd),
                        "backward": sdpa_kernel(sdpa_bwd)}
             print(f"  {name:11s} sdpa (yardstick) ran "
                   f"{backend['flash_forward']!r} (forward), "
                   f"{backend['backward']!r} (backward)", flush=True)
+            if not isinstance(eff, str):
+                math_dev = {"flash_forward": sdpa_ms["flash_forward"],
+                            "backward": device_busy(reps(sdpa_bwd))[0]
+                            / DEVICE_REPS}
+                sdpa_ms = {"flash_forward": device_busy(reps(eff[0]))[0]
+                           / DEVICE_REPS,
+                           "backward": device_busy(reps(eff[1]))[0]
+                           / DEVICE_REPS}
+                backend = {"flash_forward": sdpa_kernel(eff[0]),
+                           "backward": sdpa_kernel(eff[1])}
+                print(f"  {name:11s} sdpa memory-efficient ran "
+                      f"{backend['flash_forward']!r} (forward), "
+                      f"{backend['backward']!r} (backward); device_ms "
+                      f"{sdpa_ms['flash_forward']:.4f} / "
+                      f"{sdpa_ms['backward']:.4f} against the math path's "
+                      f"{math_dev['flash_forward']:.4f} / "
+                      f"{math_dev['backward']:.4f}", flush=True)
+                for kname in result:
+                    result[kname]["library_math_device_ms"] = math_dev.get(
+                        kname, math_dev["backward"])
             for kname in result:
                 result[kname]["library_backend"] = backend.get(
                     kname, backend["backward"])
-        if name in DEVICE_CASES or sliced:
+        if (name in DEVICE_CASES or sliced) and "backward" not in sdpa_ms:
             sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
+        if name in DEVICE_CASES or sliced:
             calls.update(flash_backward_dq=(dq_kernel, "dq_"),
                          flash_backward_dkv=(dkv_kernel, "dkv_"))
         for kname, (fn, frag) in calls.items():
@@ -888,6 +960,39 @@ def kernel_case(case, timing: bool):
                   f" device_ms {lib_ms:.4f} (yardstick)", flush=True)
     del sdpa_out
     return result
+
+
+def sdpa_efficient(q, k, v, do, sdpa_kw):
+    """SDPA's forward and whole backward (autograd.grad on a retained
+    graph) under its memory-efficient backend, K and V expanded to the
+    query heads as views (no enable_gqa, which sends the dispatcher to the
+    math path): (forward call, backward call), or the backend's refusal as
+    a string.  A yardstick only: the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel as backend
+
+    b, h, t, d = q.shape
+    group = h // k.shape[1]
+    kx, vx = (x[:, :, None].expand(-1, -1, group, -1, -1).reshape(b, h, t, d)
+              if group > 1 else x for x in (k, v))
+    kw = {key: val for key, val in sdpa_kw.items() if key != "enable_gqa"}
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, kx, vx))
+    try:
+        with backend(SDPBackend.EFFICIENT_ATTENTION):
+            out = F.scaled_dot_product_attention(qg, kg, vg, **kw)
+        torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+    except RuntimeError as e:
+        return f"refused: {str(e).splitlines()[0][:200]}"
+
+    def fwd():
+        with torch.no_grad(), backend(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(q, kx, vx, **kw)
+
+    def bwd():
+        return torch.autograd.grad(out, (qg, kg, vg), do, retain_graph=True)
+
+    return fwd, bwd
 
 
 def sdpa_kernel(fn) -> str:
@@ -979,8 +1084,12 @@ def phase_kernels():
     """Every case against its plain versions; returns the main case's
     numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, under
     "flash_forward_short", "flash_backward_dq_short" and
-    "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, and
-    under the "_sliced" names the sliced kernels at d512_mqa's."""
+    "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, under
+    "flash_forward_sliced" the sliced forward at d512_mqa's, under
+    "flash_backward_dq_cluster" and "flash_backward_dkv_cluster" the
+    cluster kernels there, and under "flash_backward_dq_sliced" and
+    "flash_backward_dkv_sliced" the sliced ones above the cluster's reach
+    (d2112)."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -996,22 +1105,36 @@ def phase_kernels():
               f" {case.blocks} -> tiles (rows, step) fwd {tiles.fwd} dq "
               f"{tiles.dq} dkv {tiles.dkv}, dk/dv in {case_splits(case)} "
               "slice(s)", flush=True)
-        before = A.launches(), A.sliced_launches()
+        before = A.launches(), A.sliced_launches(), A.cluster_launches()
         res = kernel_case(case, case.name in TIMED_CASES)
         if A.head_class(case.d) == A.SLICED:
             # every launch of the case above head dim 256 was the sliced
-            # kernels'
+            # kernels', and dq's and dk/dv's on the cluster route the
+            # cluster kernels' (none elsewhere)
             ran = {n: c - before[0][n] for n, c in A.launches().items()}
             sliced = {n: c - before[1][n]
                       for n, c in A.sliced_launches().items()}
-            if sliced != ran or not all(ran.values()):
+            cluster = {n: c - before[2][n]
+                       for n, c in A.cluster_launches().items()}
+            on_route = A.cluster_route(case.d, getattr(torch, case.dtype))
+            if (sliced != ran or not all(ran.values())
+                    or cluster != {n: ran[n] * on_route for n in cluster}):
                 raise RuntimeError(f"kernel case {case.name}: launches {ran}"
-                                   f", of the sliced kernels {sliced}")
+                                   f", of the sliced kernels {sliced}, of "
+                                   f"the cluster kernels {cluster}")
+            print(f"  {case.name:11s} launches {ran}, the cluster kernels' "
+                  f"{cluster}", flush=True)
         if case.name == "main":
             out.update(res)
         if case.name == "d512_mqa":
-            # the sliced kernels at the wide_head phase's attention
-            for fn in A.KERNELS:
+            # the sliced forward and the cluster dq and dk/dv at the
+            # wide_head phase's attention
+            out["flash_forward_sliced"] = res["flash_forward"]
+            for fn in A.CLUSTER_KERNELS:
+                out[f"{fn.__name__}_cluster"] = res[fn.__name__]
+        if case.name == "d2112":
+            # dq and dk/dv above the cluster's reach
+            for fn in A.CLUSTER_KERNELS:
                 out[f"{fn.__name__}_sliced"] = res[fn.__name__]
         if case.name == "vit_b16":
             # the encoders' kernels at ViT-B/16's shape
@@ -1042,7 +1165,10 @@ def every_instantiation():
     causal shape with a window and a sink (B 1, H 4 over 2 KV heads, T 300,
     window 64, sink 70), at T 200 in bf16 and fp16 at head dim 64 (the
     encoders' kernels, attention.short_route, both routes), and at head dim
-    300 in each dtype (the sliced kernels, both routes); fails unless every
+    300 in each dtype (the sliced kernels, both routes; dq and dk/dv in
+    bf16 and fp16 on the cluster kernels, which head dims 600 and 1000 hold
+    at three and four slices), and at 1096 in bf16 and fp16 (dq and dk/dv
+    on the sliced kernels above the cluster's reach); fails unless every
     instantiation ran."""
     import torch
 
@@ -1063,6 +1189,10 @@ def every_instantiation():
     runs += [(dtype, 300, (128, 128), sign, 300)
              for dtype in ("bfloat16", "float16", "float32")
              for sign in (1, -1)]
+    # the cluster kernels at three and four slices, and the sliced dq and
+    # dk/dv above the cluster's reach (five slices)
+    runs += [(dtype, d, (128, 128), 1, 300)
+             for dtype in ("bfloat16", "float16") for d in (600, 1000, 1096)]
     ran, worst = set(), {}
     for dtype_name, d, (bq, bk), sign, t in runs:
         dtype = getattr(torch, dtype_name)
@@ -1102,8 +1232,9 @@ def every_instantiation():
                                f"{tol_lse:g}")
         tiles = A.resolve_tiles(bq, bk, d, dtype, t)
         for kernel in ("fwd", "dq", "dkv"):
-            ran.add((kernel, dtype_name, A.head_class(d),
-                     *getattr(tiles, kernel)))
+            route = (A.CLUSTER if kernel != "fwd" and A.cluster_route(d, dtype)
+                     else A.head_class(d))
+            ran.add((kernel, dtype_name, route, *getattr(tiles, kernel)))
     missing = A.instantiations() - ran
     print(f"autotune: every instantiation ({len(ran)} of "
           f"{len(A.instantiations())}, both forward routes) held against "
@@ -1521,13 +1652,92 @@ WIDE_HEAD_ATTN = dict(GEMMA_2B_ATTN, num_heads=4)
 
 def phase_wide_head(card: str, out_dir):
     """The LM at WIDE_HEAD_ATTN (`lm_at_widths`), every kernel launch the
-    sliced kernels'; returns their launches."""
-    def check(cfg, steps):
-        return check_route_launches("sliced", cfg.num_layers * steps,
-                                    "wide-head attention widths")
+    sliced kernels' and every dq and dk/dv launch the cluster kernels';
+    then the LM above the cluster's reach (`beyond_cluster_lm`).  Returns
+    the launches: the sliced forward's and the cluster kernels' on the
+    wide-head path, and the sliced dq's and dk/dv's beyond the reach."""
+    from tf_operator_tpu_torch.ops import attention as A
 
-    return lm_at_widths(card, out_dir, "wide-head (4 x 512) attention widths",
-                        WIDE_HEAD_ATTN, "profile_wide_head.txt", check)
+    def check(cfg, steps):
+        sliced = check_route_launches("sliced", cfg.num_layers * steps,
+                                      "wide-head attention widths")
+        cluster = A.cluster_launches()
+        print(f"wide-head attention widths: the cluster kernels' launches "
+              f"{cluster} (expected {cfg.num_layers * steps} each)",
+              flush=True)
+        if cluster != {n: cfg.num_layers * steps for n in cluster}:
+            raise RuntimeError("wide-head attention widths: a dq or dk/dv "
+                               f"launch was not the cluster kernel's: "
+                               f"{cluster}")
+        return {"flash_forward_sliced": sliced["flash_forward"],
+                **{f"{n}_cluster": c for n, c in cluster.items()}}
+
+    counts = lm_at_widths(card, out_dir,
+                          "wide-head (4 x 512) attention widths",
+                          WIDE_HEAD_ATTN, "profile_wide_head.txt", check)
+    counts.update(beyond_cluster_lm(card))
+    return counts
+
+
+# the LM with one head of BEYOND_HEAD_DIM over one KV head, above the
+# cluster kernels' reach (attention.CLUSTER_LD), so that dq and dk/dv take
+# the sliced kernels (nine slices); 2 layers, B 1, T 1024, 2 steps: no
+# public model has such heads, the path holds the kernels there
+BEYOND_HEAD_DIM = 2112
+BEYOND_ATTN = dict(d_model=BEYOND_HEAD_DIM, num_heads=1, num_kv_heads=1,
+                   num_layers=2, d_ff=BEYOND_HEAD_DIM * 8 // 3, max_len=1024,
+                   vocab_size=32000)
+BEYOND_STEPS = 2
+
+
+def beyond_cluster_lm(card: str) -> dict:
+    """The llama-style LM at BEYOND_ATTN through the LM workload's train
+    step, loss and AdamW recipe, BEYOND_STEPS steps at B 1: each kernel
+    launched once a layer a step, dq's and dk/dv's the sliced kernels' (no
+    cluster kernel), losses finite.  Returns the sliced dq's and dk/dv's
+    launches."""
+    import torch
+
+    from tf_operator_tpu_torch.models.transformer import (
+        TransformerLM, llama_style_config)
+    from tf_operator_tpu_torch.ops import attention as A
+    from tf_operator_tpu_torch.train.data import (prefetch_to_device,
+                                                  synthetic_tokens)
+    from tf_operator_tpu_torch.train.state import create_train_state
+    from tf_operator_tpu_torch.train.step import lm_loss_fn, make_train_step
+    from tf_operator_tpu_torch.workloads import lm
+
+    dev = torch.device("cuda")
+    cfg = llama_style_config(**BEYOND_ATTN)
+    args = lm.parser().parse_args(["--batch", "1", "--steps",
+                                   str(BEYOND_STEPS)])
+    _, tx = lm.config(args, None, lambda line: None)
+    model = TransformerLM(cfg)
+    state = create_train_state(model, tx, seed=0, device=dev)
+    step = make_train_step(lm_loss_fn(model))
+    data = prefetch_to_device(
+        synthetic_tokens(1, cfg.max_len + 1, cfg.vocab_size, 0), dev)
+    A.reset_launches()
+    losses = []
+    for _ in range(BEYOND_STEPS):
+        state, metrics = step(state, next(data))
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    n = cfg.num_layers * BEYOND_STEPS
+    what = (f"beyond the cluster's reach (head dim {BEYOND_HEAD_DIM}, "
+            f"{cfg.num_layers} layers, B 1, T {cfg.max_len})")
+    check_launches(n, what)
+    sliced = check_route_launches("sliced", n, what)
+    cluster = A.cluster_launches()
+    print(f"{what}: losses {losses}; the cluster kernels' launches {cluster}"
+          f" (expected 0) [{card}]", flush=True)
+    if any(cluster.values()) or not all(math.isfinite(x) for x in losses):
+        raise RuntimeError(f"{what}: cluster launches {cluster}, losses "
+                           f"{losses}")
+    del state, model, step, data
+    torch.cuda.empty_cache()
+    return {f"{fn.__name__}_sliced": sliced[fn.__name__]
+            for fn in A.CLUSTER_KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1546,7 +1756,7 @@ LSE_CASES = [
     ("d256_gqa8_causal", 4, 8, 1, 1024, 256, True),
     # the seventeenth slice: the wide_head phase's attention (4 query heads
     # of 512 over one KV head) through the (o, lse) entry: the sliced
-    # kernels
+    # forward, and since the eighteenth the cluster dq and dk/dv
     ("d512_gqa4_causal", 4, 4, 1, 1024, 512, True),
 ]
 
@@ -1581,12 +1791,17 @@ def lse_case(case):
     dlse = randn(b, h, t)
     scale = d ** -0.5
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-    before = A.launches()
+    before, cluster = A.launches(), A.cluster_launches()
     o, lse = A.flash_attention_lse(*leaves, causal)
     torch.autograd.backward((o, lse), (do, dlse))
     after = A.launches()
-    if any(after[n] != before[n] + 1 for n in after):
-        raise RuntimeError(f"lse case {name}: launches {before} -> {after}")
+    on_route = A.cluster_route(d, q.dtype)
+    if (any(after[n] != before[n] + 1 for n in after)
+            or any(c != cluster[n] + on_route
+                   for n, c in A.cluster_launches().items())):
+        raise RuntimeError(f"lse case {name}: launches {before} -> {after}, "
+                           f"the cluster kernels' {cluster} -> "
+                           f"{A.cluster_launches()}")
     got = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
            "dv": leaves[2].grad}
 
@@ -3610,6 +3825,18 @@ def main(argv=None) -> int:
                 f"only {sorted(A.instantiations() - built)}")
         print(f"build: {len(report)} kernels, the {len(built)} "
               "instantiations attention.INSTANTIATED lists", flush=True)
+    # the cluster kernels: each one's shared memory against a block's 227
+    # KB, and the clusters the card holds at once
+    for kernel in ("dq", "dkv"):
+        for dtype in (torch.bfloat16, torch.float16):
+            for d in (512, 768, 1024):
+                smem, clusters = A.cluster_info(kernel, dtype, d)
+                print(f"  {kernel}_cluster_kernel<{str(dtype)[6:]}, "
+                      f"{A.n_slices(d)} slices>: {smem:,} bytes of shared "
+                      f"memory of a block's 232,448; "
+                      f"cudaOccupancyMaxActiveClusters {clusters} (clusters"
+                      f" of {A.n_slices(d)} blocks at one block an SM)",
+                      flush=True)
 
     def timed(phase, *phase_args):
         t0 = time.perf_counter()
@@ -3625,9 +3852,9 @@ def main(argv=None) -> int:
     timed(phase_llama)
     counts = dict(counts,
                   dkv_reduce=timed(phase_gemma, card, args.out_dir))
-    # the sliced kernels: their launches on the wide-head LM's path
-    sliced = timed(phase_wide_head, card, args.out_dir)
-    counts.update({f"{name}_sliced": n for name, n in sliced.items()})
+    # the sliced forward and the cluster kernels: their launches on the
+    # wide-head LM's path; the sliced dq and dk/dv above the cluster's reach
+    counts.update(timed(phase_wide_head, card, args.out_dir))
     timed(phase_lse)
     timed(phase_ring, card)
     timed(phase_dist, card)
@@ -3664,10 +3891,14 @@ def main(argv=None) -> int:
          "library_ms": kernels[name]["library_ms"],
          "device_ms": kernels[name].get("device_ms"),
          "library_device_ms": kernels[name].get("library_device_ms"),
-         "library_backend": kernels[name].get("library_backend")}
+         "library_backend": kernels[name].get("library_backend"),
+         "library_math_ms": kernels[name].get("library_math_ms"),
+         "library_math_device_ms": kernels[name].get(
+             "library_math_device_ms")}
         for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]
         + [f"{fn.__name__}_{route}" for route in ROUTES
-           for fn in A.KERNELS]]}),
+           for fn in A.KERNELS]
+        + [f"{fn.__name__}_cluster" for fn in A.CLUSTER_KERNELS]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

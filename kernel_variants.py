@@ -35,9 +35,11 @@ and whole backward, every tiled tile the wrappers reach at head-dim class
 64 (ENCODER_TILES) on the base build, then the wrappers' route (the
 encoders' forward, dq and dk/dv kernels) for the base and each
 ENCODER_VARIANTS build in turns; every time is the profiler's device time.
-With --sliced: the same for the sliced kernels of head dims above 256 at
-SLICED_CASES against SLICED_VARIANTS (diagnostics of what sets their
-pace).
+With --sliced: the same for the kernels of head dims above 256 at
+SLICED_CASES (the sliced forward, the cluster dq and dk/dv) against
+SLICED_VARIANTS: the parent's sliced dq and dk/dv in the same build, and
+diagnostics of what sets their pace (SDPA's memory-efficient backend
+beside its default dispatch).
 With --trees: each wrapper's device time at chip_smoke's cases main,
 gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
 of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
@@ -701,13 +703,14 @@ def build(name: str, edits, root: Path):
 
 def report(name: str, log: str, kernels=None, head_class=256) -> None:
     """ptxas's registers and spills for the dq kernel's instantiations (with
-    `kernels`: those of these kernels at `head_class`), and every warning
-    or performance note."""
+    `kernels`: those of these kernels at `head_class`, one class or a
+    tuple of them), and every warning or performance note."""
+    classes = head_class if isinstance(head_class, tuple) else (head_class,)
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance" in line:
             print(f"  {name}: {line.strip()}")
     for inst, regs, stores, loads, key in chip_smoke.ptxas_report(log):
-        if (key[0] in kernels and key[2] == head_class if kernels
+        if (key[0] in kernels and key[2] in classes if kernels
                 else inst.startswith("dq_kernel")):
             print(f"  {name}: {inst} {regs} registers at launch, {stores} "
                   f"bytes spill stores, {loads} bytes spill loads")
@@ -1027,7 +1030,7 @@ ENCODER_VARIANT_KERNELS = {
 # apart (dk/dv's kernel and, with its heads split, the reduce after it)
 KERNEL_NAMES = {"fwd": ("fwd_",), "dq": ("dq_",),
                 "dkv": ("dkv_kernel", "dkv_split", "dkv_short",
-                        "dkv_reduce", "dkv_sliced")}
+                        "dkv_reduce", "dkv_sliced", "dkv_cluster")}
 
 
 def device_ms(fn, names, reps: int = 10) -> str:
@@ -1183,12 +1186,19 @@ def main_encoder(names) -> int:
     return 0
 
 
-# Above head dim 256 (the sliced kernels): diagnostics of what sets their
-# pace at chip_smoke's d512_mqa (4 query heads of 512 over one KV head, B
-# 4, T 2048, causal, bf16).  Each reads an operand from device memory (L2)
-# at the first step of a block's walk only and leaves the stale stages
-# after it, so its outputs are wrong on purpose: what it saves is what
-# re-reading that operand at every step costs.
+# Above head dim 256 at chip_smoke's d512_mqa (4 query heads of 512 over
+# one KV head, B 4, T 2048, causal, bf16).  The forward's diagnostics read
+# an operand from device memory (L2) at the first step of a block's walk
+# only and leave the stale stages after it, so their outputs are wrong on
+# purpose: what one saves is what re-reading that operand at every step
+# costs.  dq and dk/dv run on the cluster kernels there; "sliced" routes
+# them to the sliced kernels of the same build instead (the parent's
+# design: the cluster's reach cut to 256, attention.CLUSTER_LD with it),
+# and three diagnostics, wrong on purpose too, show what the SM-to-SM sum
+# and the loads cost: "no_exchange" sums each block's own partial only (no
+# store to a partner, no wait), "exchange_only" issues no product (the
+# loads, the exchange, the exponentials and the stores alone),
+# "loads_once" loads the ring's slots at a block's first step only.
 SLICED_CASES = ("d512_mqa",)
 SLICED_FWD_LOADS = """          const int s = rg.put(S::STAGE_BYTES);
           const uint32_t at = ring + s * S::STAGE_BYTES;
@@ -1200,6 +1210,15 @@ SLICED_FWD_LOADS = """          const int s = rg.put(S::STAGE_BYTES);
           const int s = rg.put(S::K_BYTES);
           hopper::tma_load(ring + s * S::STAGE_BYTES, &map_v, 64 * (cb + b),
                            k0, bkv, rg.full(s));"""
+CLUSTER_REACH = "constexpr int CLUSTER_REACH = 1024;"
+# the cluster dk/dv's and dq's ring loads (Q's and dO's slices, V's and
+# K's)
+CLUSTER_LOADS = ["""          const uint32_t at = rg.put(n, 0, S::OPND);
+          for (int b = 0; b < 4; ++b)
+            hopper::tma_load(at + b * BOX, o == 0 ? &map_q : &map_do,""",
+                 """          const uint32_t at = rg.put(n, 0, S::OPND);
+          for (int b = 0; b < 4; ++b)
+            hopper::tma_load(at + b * BOX, o == 0 ? &map_v : &map_k,"""]
 SLICED_VARIANTS = {
     # the forward's Q chunks (16 KB of a chunk's 24 KB) at the first key
     # step only
@@ -1214,44 +1233,38 @@ SLICED_VARIANTS = {
         "rg.put(S::STAGE_BYTES);", "rg.put(it == 0 ? S::STAGE_BYTES : 0);")
         .replace("rg.put(S::K_BYTES);", "rg.put(it == 0 ? S::K_BYTES : 0);")
         .replace("hopper::tma_load(", "if (it == 0) hopper::tma_load("))],
-    # dq's Q and dO chunks (32 KB of a chunk's 48) at the first key step
-    # only
-    "dq_qdo_once": [("""          const int s = rg.put(S::STAGE_BYTES);
-          const uint32_t at = ring + s * S::STAGE_BYTES;
-          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
-          hopper::tma_load(at + S::QT_BYTES, &map_do, 64 * c, q0, bh,
-                           rg.full(s));""", """          const int s = rg.put(it == 0 ? S::STAGE_BYTES
-                                       : 2 * S::KV_BYTES);
-          const uint32_t at = ring + s * S::STAGE_BYTES;
-          if (it == 0) {
-            hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
-            hopper::tma_load(at + S::QT_BYTES, &map_do, 64 * c, q0, bh,
-                             rg.full(s));
-          }""")],
-    # dk/dv's K and V chunks (the block's own keys: 16 KB of a chunk's 32)
-    # at the first query step only
-    "dkv_kv_once": [("""          const int s = rg.put(S::STAGE_BYTES);
-          const uint32_t at = ring + s * S::STAGE_BYTES;
-          hopper::tma_load(at, &map_k, 64 * c, k0, bkv, rg.full(s));
-          hopper::tma_load(at + S::BOX, &map_v, 64 * c, k0, bkv, rg.full(s));""",
-                     """          const int s = rg.put(it == 0 ? S::STAGE_BYTES
-                                       : 2 * S::BOX);
-          const uint32_t at = ring + s * S::STAGE_BYTES;
-          if (it == 0) {
-            hopper::tma_load(at, &map_k, 64 * c, k0, bkv, rg.full(s));
-            hopper::tma_load(at + S::BOX, &map_v, 64 * c, k0, bkv,
-                             rg.full(s));
-          }""")],
+    # dq and dk/dv on the sliced kernels (the parent's)
+    "sliced": [(CLUSTER_REACH, CLUSTER_REACH.replace("1024", "256"))],
+    # the cluster kernels without the exchange, and without the products
+    "no_exchange": [("constexpr bool CLUSTER_EXCHANGE = true;",
+                     "constexpr bool CLUSTER_EXCHANGE = false;")],
+    "exchange_only": [("constexpr bool CLUSTER_PRODUCTS = true;",
+                       "constexpr bool CLUSTER_PRODUCTS = false;")],
+    # the cluster kernels' ring loads at a block's first step only (the
+    # later steps read stale slots): what the loads' waits cost
+    "loads_once": [(CLUSTER_LOADS[0], CLUSTER_LOADS[0].replace(
+        "rg.put(n, 0, S::OPND);", "rg.put(n, 0, it == 0 ? S::OPND : 0);")
+        .replace("            hopper::tma_load(", "            if (it == 0) "
+                 "hopper::tma_load(")),
+        (CLUSTER_LOADS[1], CLUSTER_LOADS[1].replace(
+            "rg.put(n, 0, S::OPND);", "rg.put(n, 0, it == 0 ? S::OPND : 0);")
+         .replace("            hopper::tma_load(", "            if (it == 0) "
+                  "hopper::tma_load("))],
 }
-SLICED_VARIANT_KERNELS = {name: (name.split("_")[0],)
-                          for name in SLICED_VARIANTS}
+SLICED_VARIANT_KERNELS = {"fwd_q_once": ("fwd",), "fwd_no_loads": ("fwd",),
+                          "sliced": ("dq", "dkv"), "no_exchange": ("dq", "dkv"),
+                          "exchange_only": ("dq", "dkv"),
+                          "loads_once": ("dq", "dkv")}
+# the cluster's reach a variant's wrappers must route by (its build's
+# CLUSTER_REACH)
+SLICED_VARIANT_REACH = {"sliced": 256}
 
 
 def main_sliced(names) -> int:
-    """The sliced kernels at SLICED_CASES: SDPA's forward and whole
-    backward on the base build, then each wrapper's device time for the
-    base build and each SLICED_VARIANTS build named (all without names) in
-    turns."""
+    """The sliced and cluster kernels at SLICED_CASES: SDPA's forward and
+    whole backward (its default dispatch and its memory-efficient backend)
+    on the base build, then each wrapper's device time for the base build
+    and each SLICED_VARIANTS build named (all without names) in turns."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1260,12 +1273,13 @@ def main_sliced(names) -> int:
     print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
           flush=True)
     libs = {}
+    reach = A.CLUSTER_LD
     with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
         variants = [(name, edits) for name, edits in SLICED_VARIANTS.items()
                     if not names or name in names]
         for name, edits in [("base", [])] + variants:
             lib, log = build(name, edits, Path(tmp))
-            report(name, log, ("fwd", "dq", "dkv"), A.SLICED)
+            report(name, log, ("fwd", "dq", "dkv"), (A.SLICED, A.CLUSTER))
             libs[name] = ctypes.CDLL(str(lib))
         bind(libs["base"])
         for case in cases:
@@ -1273,16 +1287,39 @@ def main_sliced(names) -> int:
             print(f"  {case.name:13s} sdpa forward device_ms "
                   f"{device_busy_ms(sdpa_fwd):.4f} backward (dq, dk, dv) "
                   f"device_ms {device_busy_ms(sdpa_bwd):.4f}", flush=True)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v, do = (torch.randn(case.b, n, case.t, case.d,
+                                       generator=gen, device="cuda")
+                           .to(getattr(torch, case.dtype))
+                           for n in (case.h, case.hkv, case.hkv, case.h))
+            eff = chip_smoke.sdpa_efficient(q, k, v, do, dict(
+                is_causal=case.causal, scale=case.d ** -0.5
+                if case.scale is None else case.scale))
+            if isinstance(eff, str):
+                print(f"  {case.name:13s} sdpa memory-efficient {eff}",
+                      flush=True)
+            else:
+                print(f"  {case.name:13s} sdpa memory-efficient (K, V "
+                      f"expanded) forward device_ms "
+                      f"{device_busy_ms(eff[0]):.4f} backward device_ms "
+                      f"{device_busy_ms(eff[1]):.4f}; ran "
+                      f"{chip_smoke.sdpa_kernel(eff[0])!r}, "
+                      f"{chip_smoke.sdpa_kernel(eff[1])!r}", flush=True)
+            del eff, q, k, v, do
             torch.cuda.empty_cache()
         order = list(libs)
         for r in range(ROUNDS):
             for name in order if r % 2 == 0 else order[::-1]:
                 bind(libs[name])
+                A.CLUSTER_LD = SLICED_VARIANT_REACH.get(name, reach)
+                A.resolve_tiles.cache_clear()
                 kernels = SLICED_VARIANT_KERNELS.get(name,
                                                      ("fwd", "dq", "dkv"))
                 for case in cases:
                     print(f"  round {r} {name:13s} "
                           f"{device_line(A, case, kernels)}", flush=True)
+        A.CLUSTER_LD = reach
+        A.resolve_tiles.cache_clear()
     print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
           flush=True)
     return 0

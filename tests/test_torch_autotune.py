@@ -113,11 +113,12 @@ def test_a_candidate_that_raises_is_an_error_row(cache):
 def test_default_candidates_reach_every_instantiation():
     """One pair for each distinct set of resolved tiles at head_dim 64,
     and every instantiation of the tensor-core kernels (each head-dim
-    class, the sliced kernels above 256, and at T <= 256 the encoders'
-    kernels) reached by one."""
+    class, the sliced kernels above 256, the cluster dq and dk/dv up to
+    head dim 1024 and the sliced ones above it, and at T <= 256 the
+    encoders' kernels) reached by one."""
     reached, sets = set(), set()
     for dtype in (torch.bfloat16, torch.float16):
-        for d in (64, 128, 256, 512):
+        for d in (64, 128, 256, 512, 2112):
             for bq, bk in autotune.DEFAULT_CANDIDATES:
                 tiles = A.resolve_tiles(bq, bk, d, dtype)
                 if d == 64:
@@ -125,10 +126,12 @@ def test_default_candidates_reach_every_instantiation():
                 for t_tiles in (tiles, A.resolve_tiles(bq, bk, d, dtype,
                                                        197)):
                     for kernel in ("fwd", "dq", "dkv"):
+                        route = (A.CLUSTER if kernel != "fwd"
+                                 and A.cluster_route(d, dtype)
+                                 else A.head_class(d))
                         reached.add((kernel,
                                      str(dtype).removeprefix("torch."),
-                                     A.head_class(d),
-                                     *getattr(t_tiles, kernel)))
+                                     route, *getattr(t_tiles, kernel)))
     assert len(sets) == 2 * len(autotune.DEFAULT_CANDIDATES)
     assert reached == {x for x in A.instantiations() if x[1] != "float32"}
 

@@ -285,6 +285,35 @@ def test_ptxas_report_names_the_sliced_kernels():
     assert {r[4] for r in report} <= A.instantiations()
 
 
+_DQ_CLUSTER = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0605655217"
+               "dq_cluster_kernelI13__nv_bfloat16Li2EEEv14CUtensorMap_stS2_"
+               "S2_S2_PKfS4_PT_iifN2fa4MaskE")
+_DKV_CLUSTER = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0605655218"
+                "dkv_cluster_kernelI6__halfLi4EEEv14CUtensorMap_stS2_S2_S2_"
+                "PKfS4_PT_S6_iiifN2fa4MaskE")
+
+
+def test_ptxas_report_names_the_cluster_kernels():
+    """The cluster kernels in the same report (their template arguments:
+    the element type and the slices, the cluster's blocks), each keyed as
+    the CLUSTER instantiation attention.INSTANTIATED lists, a spill
+    reported as it stands."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+        "spill loads\n"
+        f"ptxas info    : Used 168 registers, used 2 barriers\n"
+        for name, spill in ((_DQ_CLUSTER, 0), (_DKV_CLUSTER, 4)))
+    report = ptxas_report(log)
+    assert report == [
+        ("dq_cluster_kernel<bfloat16, 2 slices, rows 64, step 64>", 168, 0,
+         0, ("dq", "bfloat16", A.CLUSTER, 64, 64)),
+        ("dkv_cluster_kernel<float16, 4 slices, rows 64, step 64>", 168, 4,
+         4, ("dkv", "float16", A.CLUSTER, 64, 64))]
+    assert {r[4] for r in report} <= A.instantiations()
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -737,10 +766,15 @@ _SLICED_CASES = [c for c in CASES if c.d > 256 and c.dtype != "float32"]
 def test_kernels_at_chip_smoke_sliced_cases(cuda, case):
     """chip_smoke's kernel cases above head dim 256 in bf16 and fp16, each
     kernel against its plain version and launched twice for the same
-    bits, as the kernels phase runs them."""
-    result = kernel_case(case, timing=False)
+    bits, as the kernels phase runs them; every dq and dk/dv launch the
+    cluster kernels' up to CLUSTER_LD (d512_mqa, the wide_head phase's
+    attention, among them), none above (d2112)."""
+    result, ran, cluster = _launched(lambda: kernel_case(case, timing=False))
     assert set(result) == {"flash_forward", "flash_backward_dq",
                            "flash_backward_dkv"}
+    on_route = A.cluster_route(case.d, getattr(torch, case.dtype))
+    assert all(n >= 2 for n in ran.values())
+    assert cluster == {n: c * on_route for n, c in ran.items()}
 
 
 @pytest.mark.cuda
@@ -750,6 +784,96 @@ def test_flash_attention_lse_at_chip_smoke_wide_head_case(cuda):
     (case,) = [c for c in LSE_CASES if c[0] == "d512_gqa4_causal"]
     ratios = lse_case(case)
     assert max(ratios[key] for key in ("o", "dq", "dk", "dv")) <= 1.0
+
+
+def _launched(fn):
+    """(fn(), dq's and dk/dv's launches in it, the cluster kernels')."""
+    before, cluster = A.launches(), A.cluster_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {n: A.launches()[n] - before[n] for n in cluster},
+            {n: c - cluster[n] for n, c in A.cluster_launches().items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_cluster_kernels_repeat_bit_for_bit_at_d512_mqa(cuda, dtype):
+    """Two runs of dq and of dk/dv at the wide_head phase's attention (B 4,
+    4 query heads of 512 over one KV head, T 2048, causal) give the same
+    bits: each sum is taken in one order by one block (no atomics)."""
+    q, k, v, g = _inputs(2048, 4, 1, d=512, b=4, dtype=getattr(torch, dtype))
+    opts = dict(scale=512 ** -0.5, causal=True, window=None, sink=0,
+                **DEFAULT)
+    o, lse = A.flash_forward(q, k, v, **opts)
+    delta = (g.float() * o.float()).sum(-1)
+
+    def run():
+        return (A.flash_backward_dq(q, k, v, g, lse, delta, **opts),
+                *A.flash_backward_dkv(q, k, v, g, lse, delta, **opts))
+
+    first, ran, cluster = _launched(run)
+    second = run()
+    torch.cuda.synchronize()
+    assert ran == cluster == {"flash_backward_dq": 1,
+                              "flash_backward_dkv": 1}
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_cluster_kernels_build_without_spills(cuda, tmp_path):
+    """ptxas's report of a build: every cluster kernel (dq and dk/dv, bf16
+    and fp16, two to four slices) is there and spills nothing."""
+    log = _build.build_log or _build.nvcc(_build.SOURCE,
+                                          tmp_path / "libfa.so")
+    cluster = [r for r in ptxas_report(log) if "_cluster_" in r[0]]
+    print("\n".join(f"{r[0]}: {r[1]} registers at launch, {r[2]}/{r[3]} "
+                    "bytes spilled" for r in cluster))
+    assert len(cluster) == 2 * 2 * 3
+    assert all(r[2] == r[3] == 0 for r in cluster)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_cluster_without_a_partners_partial(
+        cuda, tmp_path, monkeypatch):
+    """The cluster kernels built with a planted fault (the owner of each
+    tile's first 16 rows leaves slice 1's partial out of its sum of S and
+    dP, or S^T and dP^T) at two slices: dq, dk and dv fail the
+    tolerance."""
+    site = "v[e] = s == 0 ? x : v[e] + x;"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "v[e] = s == 0 ? x : s == 1 && w == 0 ? v[e] : v[e] + x;")
+    q, k, v, g = _inputs(512, 4, 1, d=512, b=1)
+    opts = dict(scale=512 ** -0.5, causal=True, window=None, sink=0)
+    o, lse = A.flash_forward(q, k, v, **opts, **DEFAULT)
+    delta = (g.float() * o.float()).sum(-1)
+    (dq, dk, dv), _, cluster = _launched(lambda: (
+        A.flash_backward_dq(q, k, v, g, lse, delta, **opts, **DEFAULT),
+        *A.flash_backward_dkv(q, k, v, g, lse, delta, **opts, **DEFAULT)))
+    assert all(n == 1 for n in cluster.values())
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    refs = (A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts),
+            *A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts))
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        worst, rel = tolerance_ratios(got, ref)
+        print(f"planted cluster fault: {name} worst err/limit {worst:.1f}, "
+              f"relative Frobenius {rel:.3e}")
+        assert not _held(got, ref), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_dq_and_dkv_above_the_cluster_reach_take_the_sliced_kernels(
+        cuda, dtype):
+    """Head dim 2112 (nine slices, above CLUSTER_LD): dq and dk/dv run on
+    the sliced kernels (no cluster launch) and hold against their plain
+    versions."""
+    q, k, v, g = _inputs(300, 2, 1, d=2112, b=1, dtype=getattr(torch, dtype))
+    _, ran, cluster = _launched(lambda: _kernels_against_plain(
+        q, k, v, g, DEFAULT, scale=2112 ** -0.5, causal=True, window=None,
+        sink=0))
+    assert ran == {"flash_backward_dq": 1, "flash_backward_dkv": 1}
+    assert cluster == {"flash_backward_dq": 0, "flash_backward_dkv": 0}
 
 
 @pytest.mark.cuda

@@ -183,22 +183,29 @@ def test_head_class_raises_only_below_1(d):
 
 def test_resolve_tiles_maps_every_block_pair_onto_the_sliced_tiles():
     """Every (block_q, block_k) the env takes resolves above head dim 256
-    to the sliced kernels' one tile in each dtype (f32: its own), an
-    instantiation attention.INSTANTIATED lists, whatever T."""
+    to the sliced kernels' one tile in each dtype (f32: its own), dq's and
+    dk/dv's in bf16 and fp16 up to CLUSTER_LD to the cluster kernels' one
+    tile, an instantiation attention.INSTANTIATED lists, whatever T."""
     built = A.instantiations()
     want = {torch.bfloat16: A.Tiles((128, 64), (128, 64), (64, 64)),
             torch.float16: A.Tiles((128, 64), (128, 64), (64, 64)),
             torch.float32: A.Tiles((64, 32), (64, 32), (64, 32))}
-    for dtype, tiles_want in want.items():
+    for dtype, sliced in want.items():
         name = str(dtype).removeprefix("torch.")
         for d in (257, 304, 512, 4096):
+            cluster = A.cluster_route(d, dtype)
+            assert cluster == (dtype != torch.float32 and d <= 1024)
+            tiles_want = (sliced._replace(dq=(64, 64), dkv=(64, 64))
+                          if cluster else sliced)
             for bq in range(8, 1025, 40):
                 for bk in range(64, 1025, 64):
                     for t in (None, 100, 2048):
                         tiles = A.resolve_tiles(bq, bk, d, dtype, t)
                         assert tiles == tiles_want
                         for kernel in ("fwd", "dq", "dkv"):
-                            assert (kernel, name, A.SLICED,
+                            route = (A.CLUSTER if cluster and kernel != "fwd"
+                                     else A.SLICED)
+                            assert (kernel, name, route,
                                     *getattr(tiles, kernel)) in built
     assert not A.short_route(512, 100, torch.bfloat16)
 
@@ -244,16 +251,22 @@ def test_padded_head_dims_above_256_stay_sliced():
 
 
 def test_sliced_launch_counters_reset_and_skip_the_plain_path():
-    """`sliced_launches` has one counter per wrapper, `reset_launches`
-    zeroes it with the others, and the plain path (CPU tensors) counts
+    """`sliced_launches` has one counter per wrapper and
+    `cluster_launches` one for dq and one for dk/dv, `reset_launches`
+    zeroes them with the others, and the plain path (CPU tensors) counts
     nothing."""
     saved = {fn: (fn.launches, fn.short_launches, fn.sliced_launches)
              for fn in A.KERNELS}
+    cluster = {fn: fn.cluster_launches for fn in A.CLUSTER_KERNELS}
     try:
         for fn in A.KERNELS:
             fn.sliced_launches = 7
+        for fn in A.CLUSTER_KERNELS:
+            fn.cluster_launches = 5
         A.reset_launches()
         assert A.sliced_launches() == {fn.__name__: 0 for fn in A.KERNELS}
+        assert A.cluster_launches() == {fn.__name__: 0
+                                        for fn in A.CLUSTER_KERNELS}
         q, k, v, g = (torch.tensor(x) for x in
                       inputs(16, d=300, b=1, h=2, kv_h=1, seed=1))
         opts = dict(scale=0.1, causal=True, window=None, sink=0)
@@ -263,10 +276,13 @@ def test_sliced_launch_counters_reset_and_skip_the_plain_path():
         A.flash_backward_dkv(q, k, v, g, lse, delta, **opts)
         assert A.sliced_launches() == A.launches() == {
             fn.__name__: 0 for fn in A.KERNELS}
+        assert not any(A.cluster_launches().values())
     finally:
         for fn, (n, short, sliced) in saved.items():
             fn.launches, fn.short_launches, fn.sliced_launches = (
                 n, short, sliced)
+        for fn, n in cluster.items():
+            fn.cluster_launches = n
 
 
 # ---------------------------------------------------------------------------

@@ -8,9 +8,10 @@ in fp16, each of its two routes apart, dq and dk/dv in each, the f32
 kernels, the C interface, and apart from these the head-dim class 256: its
 forward in bf16 and in fp16, its dq, its dk/dv, its f32 kernels; and the
 sliced kernels of every head dim above 256: their forward in bf16 and in
-fp16, their dq, their dk/dv, their f32 kernels), compiled by one `nvcc`
-each, all started together, and linked into one library, so a build takes
-about as long as its largest part.  The library is built at
+fp16, their dq, their dk/dv, their f32 kernels; and the cluster kernels
+of dq and dk/dv up to head dim 1024, each in bf16 and in fp16), compiled
+by one `nvcc` each, all started together, and linked into one library, so
+a build takes about as long as its largest part.  The library is built at
 first use, from the sources in this checkout only, into `ops/_build/`
 (git-ignored), under a name keyed by a hash of the flags, the parts and
 every file under `ops/csrc/`, so an edited kernel or header is rebuilt and
@@ -35,7 +36,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-diag-suppress", "177")
 # the translation units of flash_attention.cu (its FA_PART values)
-PARTS = 20
+PARTS = 24
 
 # nvcc's output (the ptxas register/spill report of every part) when this
 # process built the library; None when it was already built

@@ -216,6 +216,17 @@ DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # wide for them.
 SLICED = 0
 SLICE = 256
+# The cluster route: above head dim 256 up to CLUSTER_LD (two to four
+# slices) in bf16 and fp16, dq and dk/dv take the cluster kernels (csrc:
+# dq_cluster_kernel, dkv_cluster_kernel, whose CLUSTER_REACH is the same
+# bound), chosen by the stored head dim alone (`cluster_route`): the blocks
+# of one row or key tile's slices form a thread-block cluster that splits
+# the head dim's contraction, sums the partial S and dP across its blocks
+# in slice order, and so computes them once, where the sliced kernels
+# recompute them in every slice.  Above the reach (and in f32) the sliced
+# kernels run.  CLUSTER is the route's key in INSTANTIATED.
+CLUSTER_LD = 1024
+CLUSTER = -1
 # The tiles the tensor-core kernels are instantiated for, the same table as
 # csrc/flash_attention.cu's dispatchers (the encoders' kernels' tiles are
 # SHORT's, below): per kernel and head-dim class
@@ -230,14 +241,19 @@ SLICE = 256
 # heads: `dkv_splits`).  SLICED has one tile each, the 256 class's default
 # plan: 128 rows in two warpgroups over 64-key steps (the forward, dq), 64
 # keys shared by two warpgroups over 64-query steps (dk/dv, which walks
-# each KV head's query-head group inside the block).
+# each KV head's query-head group inside the block).  CLUSTER (bf16 and
+# fp16 only) has one tile each: 64 rows whose two warpgroups take the
+# 64-key steps in turns (dq), 64 keys shared by two warpgroups over
+# 64-query steps (dk/dv).
 INSTANTIATED = {
     "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
             256: ((64, 128), (64,)), SLICED: ((128,), (64,))},
     "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
-           256: ((128,), (64,)), SLICED: ((128,), (64,))},
+           256: ((128,), (64,)), SLICED: ((128,), (64,)),
+           CLUSTER: ((64,), (64,))},
     "dkv": {64: ((64, 128), (32, 64)), 128: ((64, 128), (32,)),
-            256: ((64,), (64,)), SLICED: ((64,), (64,))},
+            256: ((64,), (64,)), SLICED: ((64,), (64,)),
+            CLUSTER: ((64,), (64,))},
 }
 # the f32 kernels' one tile, for every block size
 F32_TILE = (64, 32)
@@ -272,6 +288,15 @@ def n_slices(head_dim: int) -> int:
     """The column slices of SLICE the sliced kernels cut a head dim's
     outputs into (its blocks per row tile); 1 at the classes."""
     return -(-head_dim // SLICE)
+
+
+def cluster_route(head_dim: int, dtype) -> bool:
+    """Whether dq and dk/dv take the cluster kernels: bf16 or fp16 at a
+    head dim above 256 up to CLUSTER_LD (the stored head dim, a multiple of
+    8, has the same bound).  Their cluster is `n_slices(head_dim)` blocks,
+    one per slice."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and SLICE < head_dim <= CLUSTER_LD)
 
 
 def scales_first(scale: float) -> bool:
@@ -309,7 +334,8 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
     the default (128, 128) keeps the tiles the kernels were tuned at.  f32
     has one tile.  Given the sequence length t, a call on the encoders'
     route (`short_route`) takes SHORT's tiles for all three kernels
-    whatever its blocks; without t, the tiled kernels' tiles."""
+    whatever its blocks; without t, the tiled kernels' tiles.  On the
+    cluster route (`cluster_route`) dq and dk/dv take CLUSTER's tiles."""
     if dtype == torch.float32:
         return Tiles(F32_TILE, F32_TILE, F32_TILE)
     dc = head_class(head_dim)
@@ -321,6 +347,11 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
                   dkv=(_pick(block_k, dkv_rows), _pick(block_q, dkv_steps)))
     if t is not None and short_route(head_dim, t, dtype):
         tiles = tiles._replace(**SHORT)
+    if cluster_route(head_dim, dtype):
+        (dq_rows,), (dq_step,) = INSTANTIATED["dq"][CLUSTER]
+        (dkv_rows,), (dkv_step,) = INSTANTIATED["dkv"][CLUSTER]
+        tiles = tiles._replace(dq=(dq_rows, dq_step),
+                               dkv=(dkv_rows, dkv_step))
     return tiles
 
 
@@ -371,7 +402,8 @@ def instantiations() -> set:
             for dtype in ("bfloat16", "float16"):
                 out.update((kernel, dtype, dc, r, s) for r in rows
                            for s in steps)
-            out.add((kernel, "float32", dc) + F32_TILE)
+            if dc != CLUSTER:
+                out.add((kernel, "float32", dc) + F32_TILE)
     for kernel, tile in SHORT.items():
         out.update((kernel, dtype, 64) + tile
                    for dtype in ("bfloat16", "float16"))
@@ -402,6 +434,8 @@ def _library() -> ctypes.CDLL:
             fn.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
+        lib.fa_cluster_info.argtypes = [i32, i32, i32, ptr, ptr]
+        lib.fa_cluster_info.restype = i32
         _lib = lib
     return _lib
 
@@ -410,6 +444,20 @@ def _check(err: int, name: str) -> None:
     if err:
         msg = _library().fa_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+def cluster_info(kernel: str, dtype, head_dim: int) -> Tuple[int, int]:
+    """(shared-memory bytes a block takes, clusters the card holds at
+    once: cudaOccupancyMaxActiveClusters) of the cluster kernel of
+    `kernel` ("dq" or "dkv") at a head dim on the cluster route."""
+    if not cluster_route(head_dim, dtype) or head_dim % 8:
+        raise ValueError(f"no cluster kernel at head_dim {head_dim}, "
+                         f"{dtype}")
+    smem, clusters = ctypes.c_int(), ctypes.c_int()
+    _check(_library().fa_cluster_info(
+        {"dq": 0, "dkv": 1}[kernel], DTYPES[dtype], head_dim,
+        ctypes.byref(smem), ctypes.byref(clusters)), f"{kernel} cluster info")
+    return smem.value, clusters.value
 
 
 def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
@@ -445,7 +493,9 @@ def _check_cuda(q, k, v, do=None, lse=None, delta=None) -> None:
     if t < 1:
         raise ValueError("flash attention needs seq len >= 1")
     # the grid: b*heads x row tiles of at least 64 rows
-    # (and above head_dim 256 one block per column slice of each tile)
+    # (and above head_dim 256 one block per column slice of each tile; on
+    # the cluster route the slices of a tile are one cluster, so the grid
+    # is whole clusters)
     if b * heads * -(-t // 64) * n_slices(d) > 2**31 - 1:
         raise ValueError(f"batch*heads {b * heads} x seq len {t} x "
                          f"{n_slices(d)} column slice(s) exceeds the kernels'"
@@ -517,7 +567,9 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     """dq [B, H, T, D].  Replaces the TPU `_bwd_dq_kernel`.  Rows per block
     from block_q, key step from block_k, or a whole KV head's query heads a
     work item on the encoders' route (`short_route`), or above head_dim 256
-    a 256-column slice of a row tile a block."""
+    a 256-column slice of a row tile a block: up to CLUSTER_LD in bf16 and
+    fp16 (`cluster_route`) the cluster kernel's 64 rows, the slices of a
+    row tile one cluster."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                  causal=causal, window=window, sink=sink)
@@ -537,6 +589,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     flash_backward_dq.launches += 1
     flash_backward_dq.short_launches += tile == SHORT["dq"]
     flash_backward_dq.sliced_launches += head_class(d) == SLICED
+    flash_backward_dq.cluster_launches += cluster_route(d, q.dtype)
     return _unpadded(dq, d)
 
 
@@ -551,7 +604,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     into `dkv_splits` slices over the grid; with more than one the kernel
     writes f32 partials to a workspace that `dkv_reduce` sums.  Above
     head_dim 256 a block takes a 256-column slice of a key tile's dk and dv
-    and walks the whole group itself."""
+    and walks the whole group itself; up to CLUSTER_LD in bf16 and fp16
+    (`cluster_route`) the slices of a key tile are one cluster."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal, window=window, sink=sink)
@@ -582,6 +636,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     flash_backward_dkv.launches += 1
     flash_backward_dkv.short_launches += tile == SHORT["dkv"]
     flash_backward_dkv.sliced_launches += head_class(d) == SLICED
+    flash_backward_dkv.cluster_launches += cluster_route(d, q.dtype)
     if ws is not None:
         dk, dv = dkv_reduce(ws, scale, q.dtype)
     return _unpadded(dk, d), _unpadded(dv, d)
@@ -628,8 +683,11 @@ def dkv_reduce(ws, scale: float, dtype):
 # Each of the three has a second kernel, the encoders' (`short_route`),
 # whose launches `short_launches` counts apart, and a third, the sliced
 # kernel of head dims above 256, counted apart in `sliced_launches` (and
-# `launches` counts them all).
+# `launches` counts them all).  Of those, dq's and dk/dv's launches on the
+# cluster route (`cluster_route`) are the cluster kernels', counted again
+# in `cluster_launches`.
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
+CLUSTER_KERNELS = (flash_backward_dq, flash_backward_dkv)
 
 
 def reset_launches() -> None:
@@ -638,6 +696,8 @@ def reset_launches() -> None:
     for fn in KERNELS:
         fn.short_launches = 0
         fn.sliced_launches = 0
+    for fn in CLUSTER_KERNELS:
+        fn.cluster_launches = 0
 
 
 reset_launches()
@@ -653,6 +713,10 @@ def short_launches() -> dict:
 
 def sliced_launches() -> dict:
     return {fn.__name__: fn.sliced_launches for fn in KERNELS}
+
+
+def cluster_launches() -> dict:
+    return {fn.__name__: fn.cluster_launches for fn in CLUSTER_KERNELS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

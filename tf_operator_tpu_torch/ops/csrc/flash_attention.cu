@@ -26,7 +26,10 @@
 //     Every ld above 256 runs on the sliced kernels (below: each block one
 //     256-column slice of the outputs, the head dim streamed through shared
 //     memory in 64-column chunks), in bf16, fp16 and f32, with no bound of
-//     their own on ld.
+//     their own on ld; but dq and dk/dv in bf16 and fp16 up to ld
+//     CLUSTER_REACH (1024) run on the cluster kernels (below: the blocks
+//     of a row or key tile's slices form a thread-block cluster that splits
+//     the head dim's contraction and sums S and dP across its blocks).
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -76,11 +79,14 @@
 // parallel and links them into one library.  1-4: the forward in bf16 and
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
-// 11-15 and head dims above 256 to parts 16-20); 11-12: the forward at
+// 11-15, head dims above 256 to parts 16-20, and dq's and dk/dv's up to
+// CLUSTER_REACH in bf16 and fp16 to parts 21-24); 11-12: the forward at
 // D 256 in bf16 and fp16; 13: dq and 14: dk/dv at D 256 (with the
 // reduction of its slices' partials); 15: the f32 kernels at D 256; 16-17:
 // the sliced forward in bf16 and fp16; 18: the sliced dq and 19: dk/dv;
-// 20: the sliced f32 kernels; 0 (unset): every part in one unit.
+// 20: the sliced f32 kernels; 21-22: the cluster dq in bf16 and fp16;
+// 23-24: the cluster dk/dv in bf16 and fp16; 0 (unset): every part in one
+// unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -213,6 +219,20 @@ int dkv_f16_sliced(int bkv, const BwdArgs& a, int rows, int step,
                    cudaStream_t st);
 int dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
                    cudaStream_t st);
+// the cluster kernels, head dims 257..CLUSTER_REACH in bf16 and fp16
+// (parts 21-24), and each one's shared memory and clusters at once
+int dq_bf16_cluster(int bh, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int dq_f16_cluster(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st);
+int dkv_bf16_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                     cudaStream_t st);
+int dkv_f16_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int dq_bf16_cluster_info(int ld, int* smem, int* clusters);
+int dq_f16_cluster_info(int ld, int* smem, int* clusters);
+int dkv_bf16_cluster_info(int ld, int* smem, int* clusters);
+int dkv_f16_cluster_info(int ld, int* smem, int* clusters);
 // the sum of dk/dv's slices (part 14): ws [2][splits][n] f32 -> dk, dv [n]
 int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
                     int splits, float scale, cudaStream_t st);
@@ -3044,7 +3064,11 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
 // Pallas kernels (tf_operator_tpu/ops/attention.py:_fwd_kernel,
 // _bwd_dq_kernel, _bwd_dkv_kernel), which take any head dim, at every
 // stored head dim ld > 256: fwd_sliced_kernel, dq_sliced_kernel and
-// dkv_sliced_kernel in bf16 and fp16, and their f32 counterparts.
+// dkv_sliced_kernel in bf16 and fp16, and their f32 counterparts.  In bf16
+// and fp16, dq and dk/dv up to ld CLUSTER_REACH run on the cluster kernels
+// below them instead, which split the contraction across a cluster of the
+// slices' blocks rather than recompute it in each; dq_sliced_kernel and
+// dkv_sliced_kernel take the head dims above that reach.
 //
 // Where the plans above stop: a warpgroup's 64-row f32 accumulator over W
 // columns takes W/2 registers a thread (255 at most), wgmma's N is at most
@@ -3080,9 +3104,11 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
 // kernels, at 0.18-0.23 of that bound on an H100: they read the streamed
 // chunks from L2 again at every key (or query) step, but reading an operand
 // once per block saved only 2-5 % in the forward and dk/dv and 21 % in dq
-// (kernel_variants.py --sliced); what sets their pace is the chain of one
-// chunk's small products (4 k-steps of m64n64 a warpgroup), its stage's
-// wait, and one group of products in flight (PERF.md has their times).
+// (kernel_variants.py --sliced); what sets their pace is the recomputed S
+// and dP, the chain of one chunk's small products (4 k-steps of m64n64 a
+// warpgroup), its stage's wait, and one group of products in flight
+// (PERF.md has their times).  The cluster kernels answer the first two for
+// dq and dk/dv.
 constexpr int SLICE = 256;
 
 __host__ __device__ constexpr int ceil_div(int a, int b) {
@@ -3694,6 +3720,875 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster kernels: dq and dk/dv at stored head dims 257..CLUSTER_REACH
+// (two to four slices) in bf16 and fp16, dq_cluster_kernel and
+// dkv_cluster_kernel.  They replace the same Pallas kernels
+// (tf_operator_tpu/ops/attention.py:_bwd_dq_kernel, _bwd_dkv_kernel) there;
+// above the reach, and in f32, the sliced kernels above run.
+//
+// The sliced kernels recompute the full-width S and dP in every slice.
+// Here the blocks of one row tile (dq) or key tile (dk/dv), one per slice,
+// form a thread-block cluster of NS = n_slices(ld) blocks on neighbouring
+// SMs, and split the head dim's contraction instead:
+//   * Block r (its cluster rank, which is its slice) holds its slice of
+//     every operand in shared memory and contracts over those 256 columns
+//     only: a partial S and dP (in dk/dv S^T and dP^T), 64 x 64 f32 each.
+//   * The partials are summed across the cluster in one fixed order:
+//     block r owns the 16-row warps w of each 64-row tile with w * NS / 4
+//     == r (cl_owner).  The other blocks store their partials of those
+//     rows into its shared memory (reduce-scatter: st.async, whose bytes
+//     complete a phase of the owner's mbarrier, as a TMA load's do; the
+//     reader announces the bytes it expects); it sums the NS partials in
+//     slice order in f32, forms P and dS from the sum, and stores the
+//     rows' A fragments of the second product (P^T or dS^T or dS rounded
+//     to E: half the bytes of the sums) into every other block's shared
+//     memory (all-gather, the same way).  So every block multiplies the
+//     same bits, and nothing is summed with atomics.
+//   * Each block then accumulates its own slice of the outputs over the
+//     slice's 256 columns as m64n256 products from one shared-memory stage.
+// At ld 512 the products are what the bound counts (from 1.5x in dk/dv and
+// 1.67x in dq), each contraction is 256 columns deep, and a step reads its
+// slice's operand blocks once, for both products.  A block stores into a
+// partner's exchange buffer only after the partner's last reader of it
+// has answered: the owner's next all-gather follows the non-owners' next
+// partials, which follow their reading of the last all-gather; where dq
+// keeps two steps' buffers (two slices) a non-owner sends its next
+// partial before this step's fragments come back, into the other buffer
+// (tests/test_torch_sliced_cluster.py models both under random
+// interleavings).  A cluster barrier after the mbarriers' init and before
+// exit keeps every remote store inside the partners' lifetime.
+// Bound: operations (3 products in dq, 4 in dk/dv).  At ld 512 on an H100
+// they run at 0.24 (dq) and 0.26 (dk/dv) of it, 6 % and 13 % under the
+// sliced kernels: without the exchange (kernel_variants.py --sliced
+// no_exchange) they take 0.31 and 0.41 ms, with the exchange and no
+// product 0.31 and 0.33, so each step's chain (contraction, sum,
+// exponentials, the warpgroups' hand-over, products) sets the pace, and
+// the exchange adds about a quarter (PERF.md has the times).
+constexpr int CLUSTER_REACH = 1024;
+
+// Diagnostics for kernel_variants.py only (both true in every build the
+// wrappers load): without CLUSTER_EXCHANGE each block takes its own
+// partial for the whole sum (no SM-to-SM traffic; wrong outputs); without
+// CLUSTER_PRODUCTS no product is issued (the loads and the exchange alone;
+// wrong outputs).
+constexpr bool CLUSTER_EXCHANGE = true;
+constexpr bool CLUSTER_PRODUCTS = true;
+
+// The block of a cluster of ns that owns warp w's rows; the first warp
+// block r owns and how many.
+__host__ __device__ constexpr int cl_owner(int w, int ns) {
+  return w * ns / 4;
+}
+__host__ __device__ constexpr int cl_first(int r, int ns) {
+  return (4 * r + ns - 1) / ns;
+}
+__host__ __device__ constexpr int cl_owned(int r, int ns) {
+  return cl_first(r + 1, ns) - cl_first(r, ns);
+}
+__host__ __device__ constexpr int cl_max_owned(int ns) {
+  int m = 0;
+  for (int r = 0; r < ns; ++r) m = cl_owned(r, ns) > m ? cl_owned(r, ns) : m;
+  return m;
+}
+__host__ __device__ constexpr int cl_min_owned(int ns) {
+  int m = 4;
+  for (int r = 0; r < ns; ++r) m = cl_owned(r, ns) < m ? cl_owned(r, ns) : m;
+  return m;
+}
+
+// One warp's share of a tile in an exchange buffer: a lane's 32 f32 values
+// (a partial) or 16 registers of A fragments, as 16-byte groups q at q *
+// 512 + lane * 16 (each warp's store one contiguous 512 bytes).
+constexpr int CL_F32_CHUNK = 32 * 32 * 4;
+constexpr int CL_FRAG_CHUNK = 32 * 16 * 4;
+
+// A tile's exchange area in each block: the reduce-scatter's buffers (one
+// chunk per owned warp and other block) and the all-gather's (one chunk
+// per warp another block owns).
+template <int NS>
+struct ClusterX {
+  static constexpr int RS_BYTES = (NS - 1) * cl_max_owned(NS) * CL_F32_CHUNK;
+  static constexpr int AG_BYTES = (4 - cl_min_owned(NS)) * CL_FRAG_CHUNK;
+};
+
+__device__ __forceinline__ void ld_shared4(uint32_t addr, uint32_t (&v)[4]) {
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint32_t a,
+                                           uint32_t b, uint32_t c,
+                                           uint32_t d) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(a), "r"(b), "r"(c), "r"(d)
+               : "memory");
+}
+
+// (owner, rank r) Waits for the other blocks' partials of warp w's rows
+// (their reduce-scatter into `rs`, whose bytes complete `bar`'s phase)
+// and sums all NS partials in slice order, this block's own (`part`)
+// among them, into part.
+template <int NS>
+__device__ __forceinline__ void cl_sum(float (&part)[32], uint32_t rs,
+                                       uint32_t bar, int w, int lane, int r,
+                                       uint32_t parity) {
+  if (lane == 0) hopper::mbar_arrive_tx(bar, (NS - 1) * CL_F32_CHUNK);
+  hopper::mbar_wait_cluster(bar, parity);
+  const uint32_t base =
+      rs + (w - cl_first(r, NS)) * (NS - 1) * CL_F32_CHUNK + lane * 16;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    float v[4];
+    // (rolled at four slices: unrolled there, the sources' addresses and
+    // loads spilled; unrolled below, where rolled cost a fifth of the
+    // kernels' time at two)
+#pragma unroll(NS < 4 ? NS : 1)
+    for (int s = 0; s < NS; ++s) {
+      // slice s's partial: this block's own, or source s's chunk (the
+      // chunks skip rank r)
+      uint32_t in[4];
+      if (s != r) ld_shared4(base + (s - (s > r)) * CL_F32_CHUNK + q * 512, in);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = s == r ? part[4 * q + e] : __uint_as_float(in[e]);
+        v[e] = s == 0 ? x : v[e] + x;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[4 * q + e] = v[e];
+  }
+}
+
+// (not the owner) Stores this thread's partial of warp w's rows into the
+// owner's reduce-scatter buffer `rs`, each store's bytes counted on the
+// owner's `bar` for the warp.
+template <int NS>
+__device__ __forceinline__ void cl_send(const float (&part)[32], uint32_t rs,
+                                        uint32_t bar, int w, int lane,
+                                        int r) {
+  const int o = cl_owner(w, NS);
+  const uint32_t dst = hopper::mapa(
+      rs + ((w - cl_first(o, NS)) * (NS - 1) + r - (r > o)) * CL_F32_CHUNK +
+          lane * 16,
+      o);
+  const uint32_t at = hopper::mapa(bar, o);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    hopper::st_async(dst + q * 512, __float_as_uint(part[4 * q]),
+                     __float_as_uint(part[4 * q + 1]),
+                     __float_as_uint(part[4 * q + 2]),
+                     __float_as_uint(part[4 * q + 3]), at);
+}
+
+// The all-gather slot of warp w's rows in the buffer of rank r.
+template <int NS>
+__device__ __forceinline__ int cl_ag_slot(int w, int r) {
+  return w < cl_first(r, NS) ? w : w - cl_owned(r, NS);
+}
+
+// (owner) Stores warp w's A fragments into every other block's all-gather
+// buffer `ag`, each store's bytes counted on that block's `bar` for the
+// warp.
+template <int NS>
+__device__ __forceinline__ void cl_give(const uint32_t (&frag)[4][4],
+                                        uint32_t ag, uint32_t bar, int w,
+                                        int lane, int r) {
+  // (rolled at four slices, as cl_sum's)
+#pragma unroll(NS < 4 ? NS : 1)
+  for (int s = 0; s < NS; ++s) {
+    if (s == r) continue;
+    const uint32_t dst = hopper::mapa(
+        ag + cl_ag_slot<NS>(w, s) * CL_FRAG_CHUNK + lane * 16, s);
+    const uint32_t at = hopper::mapa(bar, s);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      hopper::st_async(dst + kk * 512, frag[kk][0], frag[kk][1], frag[kk][2],
+                       frag[kk][3], at);
+  }
+}
+
+// (not the owner) Waits for the owner's A fragments of warp w's rows in
+// this block's all-gather buffer `ag` (with `announce`, its lane 0 posts
+// the bytes `bar`'s phase expects: one warp does, where two read) and
+// reads them.
+template <int NS>
+__device__ __forceinline__ void cl_take(uint32_t (&frag)[4][4], uint32_t ag,
+                                        uint32_t bar, int w, int lane, int r,
+                                        uint32_t parity, bool announce) {
+  if (announce && lane == 0) hopper::mbar_arrive_tx(bar, CL_FRAG_CHUNK);
+  hopper::mbar_wait_cluster(bar, parity);
+  const uint32_t src = ag + cl_ag_slot<NS>(w, r) * CL_FRAG_CHUNK + lane * 16;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) ld_shared4(src + kk * 512, frag[kk]);
+}
+
+// The exchange barriers of one tile: a reduce-scatter barrier per warp
+// and an all-gather barrier per warp, 8 barriers at `bars`, each phase
+// one arrival (the reader's, announcing the bytes) and the bytes the
+// other blocks store.
+__device__ __forceinline__ void cl_init_bars(uint32_t bars) {
+  for (int w = 0; w < 8; ++w) hopper::mbar_init(bars + 8 * w, 1);
+}
+
+// The ring of a cluster kernel: SLOTS slots of one operand's 256-column
+// slice (64 rows, four 64-column boxes, 32 KB), filled in item order, item
+// n in slot n % SLOTS.  An item is for one of G groups of consumers: the
+// producer's arrival (with the item's bytes) completes that group's full
+// barrier of the slot, full[SLOTS][G], and `consumers` threads hand the
+// slot back on empty[SLOTS].  A consumer keeps a phase bit for each slot
+// of its group's (`phases`), so that a group that skips the other group's
+// items never waits on a phase it is more than one ahead of; the producer
+// waits for every item's slot in order.
+template <int SLOTS, int G>
+struct ClusterRing {
+  uint32_t base, bars;
+  static constexpr int OPND = 4 * 64 * 128;
+  static constexpr int BARS = SLOTS * (G + 1);
+
+  __device__ __forceinline__ uint32_t full(int n, int grp) const {
+    return bars + 8 * ((n % SLOTS) * G + grp);
+  }
+  __device__ __forceinline__ uint32_t empty(int n) const {
+    return bars + 8 * (SLOTS * G + n % SLOTS);
+  }
+  __device__ __forceinline__ uint32_t slot(int n) const {
+    return base + (n % SLOTS) * OPND;
+  }
+  __device__ __forceinline__ void init(int consumers) const {
+    for (int s = 0; s < SLOTS; ++s) {
+      for (int grp = 0; grp < G; ++grp) hopper::mbar_init(full(s, grp), 1);
+      hopper::mbar_init(empty(s), consumers);
+    }
+  }
+  // (producer) item n's slot once handed back, announcing `bytes` to
+  // group grp
+  __device__ __forceinline__ uint32_t put(int n, int grp,
+                                          uint32_t bytes) const {
+    if (n >= SLOTS) hopper::mbar_wait(empty(n), (n / SLOTS - 1) & 1);
+    hopper::mbar_arrive_tx(full(n, grp), bytes);
+    return slot(n);
+  }
+  // (group grp) item n's slot once filled
+  __device__ __forceinline__ uint32_t take(int n, int grp,
+                                           uint32_t& phases) const {
+    const int s = n % SLOTS;
+    hopper::mbar_wait(full(n, grp), (phases >> s) & 1);
+    phases ^= 1u << s;
+    return slot(n);
+  }
+  __device__ __forceinline__ void give(int n) const {
+    hopper::mbar_arrive(empty(n));
+  }
+};
+
+// The slots a cluster kernel's ring gets: as many as the block's shared
+// memory holds after `fixed` bytes and `bars` mbarriers besides the ring's,
+// at most 4.
+__host__ __device__ constexpr int cluster_slots(int fixed, int bars) {
+  return cmin(4, (smem_budget(1) - fixed - 1024 - 8 * bars) /
+                     ClusterRing<1, 1>::OPND);
+}
+
+// dkv_cluster_kernel: 64 keys a block (the transposed frame), warpgroup 0
+// forming S^T and holding dV's slice, warpgroup 1 forming dP^T and holding
+// dK's, as dkv_sliced_kernel; the block walks its KV head's query-head
+// group and each head's 64-query tiles in order.  Its K and V slices stay
+// in shared memory; per query tile the producer fills one slot with Q's
+// slice and one with dO's.  Warpgroup 0 contracts K Q^T, warpgroup 1 V
+// dO^T over the slice; each tile is summed across the cluster; the owner
+// of a warp's rows forms P^T (warpgroup 0), hands it to warpgroup 1
+// through shared memory (f32, its owned warps' rows only) to form dS^T,
+// and gives out the rows' fragments; then dV += P^T dO (dO's slot) and dK
+// += dS^T Q (Q's slot), m64n256 each; with four slots the next tile's
+// contraction runs while this tile's fragments are handed out.  Every
+// slot holds a whole slice:
+// its boxes past ld come back zero, so the last slice of a head dim that
+// is not a multiple of 256 runs the same products.  Grid:
+// dkv_sliced_kernel's (key tile, b*kv_head, slice), slices fastest, one
+// cluster per (key tile, b*kv_head).
+template <int NS>
+struct DkvClusterSmem {
+  static constexpr int BM = 64, BQ = 64;
+  static constexpr int BOX = 64 * 128;
+  static constexpr int OPND = 4 * BOX;  // a 64-row slice of one operand
+  static constexpr int X_BYTES =
+      ClusterX<NS>::RS_BYTES + ClusterX<NS>::AG_BYTES;
+  static constexpr int X_OFF = 2 * OPND;  // K's and V's slices first
+  static constexpr int P_OFF = X_OFF + 2 * X_BYTES;  // S^T's, dP^T's area
+  static constexpr int P_BYTES = cl_max_owned(NS) * CL_F32_CHUNK;
+  static constexpr int RING_OFF = P_OFF + P_BYTES;
+  // kv_full; ring full/empty; S^T's and dP^T's exchange bars; p_full[4],
+  // p_empty[4]
+  static constexpr int SLOTS = cluster_slots(RING_OFF, 1 + 8 + 16 + 8);
+  using Ring = ClusterRing<SLOTS, 1>;
+  static constexpr int BAR_OFF = RING_OFF + SLOTS * OPND;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + Ring::BARS + 16 + 8) + 1024;
+  static_assert(SLOTS >= 2 && BYTES <= smem_budget(1),
+                "cluster dk/dv does not fit");
+};
+
+template <typename E, int NS>
+__global__ void __launch_bounds__(384, 1)
+    dkv_cluster_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, E* __restrict__ dk,
+                       E* __restrict__ dv, int heads, int kv_heads, int ld,
+                       float scale, Mask mk) {
+  using S = DkvClusterSmem<NS>;
+  constexpr int BQ = S::BQ, BOX = S::BOX;
+  // with two tiles' slots in the ring the next tile's contraction is
+  // issued before this tile's products; with fewer it would wait for
+  // their slots, so it follows them
+  constexpr bool AHEAD = S::SLOTS >= 4;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t bars = base + S::BAR_OFF;
+  const uint32_t kv_full = bars;
+  const typename S::Ring rg{base + S::RING_OFF, bars + 8};
+  const uint32_t x_bars = bars + 8 * (1 + S::Ring::BARS);  // [2][8]
+  const uint32_t p_full = x_bars + 8 * 16, p_empty = p_full + 32;
+
+  const int T = mk.T;
+  const int n_kt = (T + 63) / 64;
+  const int x = (int)blockIdx.x;
+  const int slice = x % NS, rest = x / NS;
+  const int bkv_n = (int)gridDim.x / (n_kt * NS);
+  const int bkv = rest % bkv_n, k0 = rest / bkv_n * 64;
+  const int cb = 4 * slice;
+  const int group = heads / kv_heads;
+  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
+  int qlo, qhi;
+  query_tiles<BQ>(k0, 64, mk, &qlo, &qhi);
+  const int nq = qhi - qlo, n_iter = group * nq;
+  const int r = (int)hopper::cluster_rank();
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_full, 1);
+    rg.init(256);
+    cl_init_bars(x_bars);
+    cl_init_bars(x_bars + 64);
+    for (int w = 0; w < 4; ++w) {
+      hopper::mbar_init(p_full + 8 * w, 32);
+      hopper::mbar_init(p_empty + 8 * w, 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  // no partner arrives on a barrier before it is initialised
+  hopper::cluster_sync();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      hopper::mbar_arrive_tx(kv_full, 2 * S::OPND);
+      for (int b = 0; b < 4; ++b) {
+        hopper::tma_load(base + b * BOX, &map_k, 64 * (cb + b), k0, bkv,
+                         kv_full);
+        hopper::tma_load(base + S::OPND + b * BOX, &map_v, 64 * (cb + b), k0,
+                         bkv, kv_full);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+        for (int o = 0; o < 2; ++o) {  // Q's slice, then dO's
+          const int n = 2 * it + o;
+          const uint32_t at = rg.put(n, 0, S::OPND);
+          for (int b = 0; b < 4; ++b)
+            hopper::tma_load(at + b * BOX, o == 0 ? &map_q : &map_do,
+                             64 * (cb + b), q0, bh, rg.full(n, 0));
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+    // warpgroup 0: S^T, P^T and dV; warpgroup 1: dP^T, dS^T and dK; each
+    // warpgroup's code apart (wg a constant), so that neither holds what
+    // only the other needs
+    auto consumer = [&](auto wg_c) {
+      constexpr int wg = decltype(wg_c)::value;
+      const int tid = threadIdx.x & 127;
+      const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+      const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+      const float sl2 = scale * LOG2E;
+      const bool own = !CLUSTER_EXCHANGE || cl_owner(warp, NS) == r;
+      // this warpgroup's contraction operand (K or V), its tile's exchange
+      // area and bars, its row scalars (lse or delta)
+      const uint32_t a_tile = base + wg * S::OPND;
+      const uint32_t rs = base + S::X_OFF + wg * S::X_BYTES;
+      const uint32_t ag = rs + ClusterX<NS>::RS_BYTES;
+      const uint32_t rs_bar = x_bars + 64 * wg + 8 * warp;
+      const uint32_t ag_bar = rs_bar + 32;
+      const int ow = CLUSTER_EXCHANGE ? warp - cl_first(r, NS)
+                                      : warp % cl_max_owned(NS);
+      const uint32_t p_at = base + S::P_OFF + ow * CL_F32_CHUNK + lane * 16;
+      const float* row_src = wg == 0 ? lse : delta;
+
+      float acc[128];  // dV (warpgroup 0) or dK (1): the slice's 256 columns
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      float st[BQ / 2];  // S^T, then P^T (wg 0); dP^T, then dS^T (wg 1)
+      uint32_t phases = 0;
+      hopper::mbar_wait(kv_full, 0);
+
+      // the contraction of query tile `it` over the slice (Q's item for
+      // warpgroup 0, dO's for 1)
+      auto contract = [&](int it) {
+        const uint32_t b_tile = rg.take(2 * it + wg, 0, phases);
+        hopper::wg_fence();
+        // a rolled loop over the column blocks: the block's resident K or V
+        // slice would otherwise keep 16 descriptors in registers beside dV's
+        // or dK's 128
+#pragma unroll 1
+        for (int cb4 = 0; cb4 < 16; cb4 += 4) {
+#pragma unroll
+          for (int kk = cb4; kk < cb4 + 4; ++kk)
+            if (CLUSTER_PRODUCTS)
+              hopper::Mma<E>::ss(st, hopper::desc_k(a_tile, 64, kk),
+                                 hopper::desc_k(b_tile, BQ, kk), kk > 0);
+        }
+        hopper::wg_commit();
+      };
+
+      if (n_iter > 0) contract(0);
+      for (int it = 0; it < n_iter; ++it) {
+        const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+        // the owner's row scalars (lse or delta) of queries q0 + 2 lane +
+        // e, loaded under the contraction; the thread's query columns q0 +
+        // 8j + 2t + e are lane 4j + t's
+        float rv[2];
+        if (own) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = q0 + 2 * lane + e;
+            rv[e] = i < T ? row_src[(size_t)bh * T + i] : 0.f;
+          }
+        }
+        // this tile's contraction (ahead: and the last tile's products)
+        hopper::wg_wait<0>();
+        hopper::wg_fence_regs(st);
+        if (AHEAD && it > 0) {
+          rg.give(2 * it - 2);
+          rg.give(2 * it - 1);
+        }
+        if (!CLUSTER_PRODUCTS) {
+#pragma unroll
+          for (int i = 0; i < BQ / 2; ++i) st[i] = 0.f;
+        }
+        const uint32_t parity = it & 1;
+        uint32_t frag[BQ / 16][4];
+        if (own) {
+          if (CLUSTER_EXCHANGE)
+            cl_sum<NS>(st, rs, rs_bar, warp, lane, r, parity);
+          if (wg == 0) {
+            const bool full = tile_full(mk, q0, BQ, k0, 64);
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float l2 =
+                    __shfl_sync(0xffffffffu, rv[e], 4 * j + t) * LOG2E;
+                const int q = q0 + 8 * j + 2 * t + e;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                  const int i = 4 * j + 2 * h + e;
+                  const float p = exp2_approx(fmaf(st[i], sl2, -l2));
+                  st[i] = full || mk.live(q, key[h]) ? p : 0.f;
+                }
+              }
+            }
+            // warpgroup 1 has read the previous P^T
+            if (it >= 1) hopper::mbar_wait(p_empty + 8 * warp, (it - 1) & 1);
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+              st_shared4(p_at + q * 512, __float_as_uint(st[4 * q]),
+                         __float_as_uint(st[4 * q + 1]),
+                         __float_as_uint(st[4 * q + 2]),
+                         __float_as_uint(st[4 * q + 3]));
+            hopper::mbar_arrive(p_full + 8 * warp);
+          } else {
+            hopper::mbar_wait(p_full + 8 * warp, parity);
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              uint32_t p[4];  // elements 4j + 2h + e
+              ld_shared4(p_at + j * 512, p);
+              const float dl[2] = {__shfl_sync(0xffffffffu, rv[0], 4 * j + t),
+                                   __shfl_sync(0xffffffffu, rv[1], 4 * j + t)};
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                st[4 * j + x] =
+                    __uint_as_float(p[x]) * (st[4 * j + x] - dl[x & 1]);
+            }
+            hopper::mbar_arrive(p_empty + 8 * warp);
+          }
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) acc_to_a<E>(frag[kk], st, kk);
+        } else if (CLUSTER_EXCHANGE) {
+          cl_send<NS>(st, rs, rs_bar, warp, lane, r);
+        }
+        // ahead: the next tile's contraction runs while this tile's
+        // fragments are handed out
+        if (AHEAD && it + 1 < n_iter) contract(it + 1);
+        if (own) {
+          if (CLUSTER_EXCHANGE) cl_give<NS>(frag, ag, ag_bar, warp, lane, r);
+        } else if (CLUSTER_EXCHANGE) {
+          cl_take<NS>(frag, ag, ag_bar, warp, lane, r, parity, true);
+        }
+
+        // dV += P^T dO (dO's item), dK += dS^T Q (Q's item)
+        const uint32_t c_tile = rg.take(2 * it + 1 - wg, 0, phases);
+        hopper::wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          if (CLUSTER_PRODUCTS)
+            hopper::Mma<E>::rs256(acc, frag[kk],
+                                  hopper::desc_mn_wide(c_tile, BQ, kk));
+        hopper::wg_commit();
+        if (!AHEAD) {
+          hopper::wg_wait<0>();
+          rg.give(2 * it);
+          rg.give(2 * it + 1);
+          if (it + 1 < n_iter) contract(it + 1);
+        }
+      }
+      hopper::wg_wait<0>();
+      if (AHEAD && n_iter > 0) {
+        rg.give(2 * n_iter - 2);
+        rg.give(2 * n_iter - 1);
+      }
+      hopper::wg_fence_regs(acc);
+
+      E* out = wg == 0 ? dv : dk;
+      const float mul = wg == 0 ? 1.f : scale;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = key[h];
+        if (j >= T) continue;
+        const size_t off = ((size_t)bkv * T + j) * ld;
+#pragma unroll
+        for (int c8 = 0; c8 < 32; ++c8) {
+          const int i = 4 * c8 + 2 * h;
+          const int c = SLICE * slice + 8 * c8 + 2 * t;
+          if (c < ld) store2(out + off + c, acc[i] * mul, acc[i + 1] * mul);
+        }
+      }
+    };
+    if (threadIdx.x < 128)
+      consumer(std::integral_constant<int, 0>{});
+    else
+      consumer(std::integral_constant<int, 1>{});
+  }
+  // no block exits while a partner may still store or arrive into it
+  hopper::cluster_sync();
+}
+
+// dq_cluster_kernel: 64 query rows a block, the dk/dv kernel's plan in
+// the row frame: warpgroup 0 forms S = Q K^T and holds dq's first 128
+// columns of the slice, warpgroup 1 forms dP = dO V^T and holds the other
+// 128.  The Q and dO slices stay in shared memory; per 64-key step (in
+// key_tiles' order) the producer fills one slot with V's slice and one
+// with K's.  Each tile is summed across the cluster; the owner of a
+// warp's rows forms p (warpgroup 0) and hands it to warpgroup 1 through
+// shared memory (f32) to form ds as dq_kernel does, whose fragments go to
+// warpgroup 0 through shared memory and to the other blocks (one
+// all-gather area that both warpgroups read); then each warpgroup adds dS
+// K over its half of the slice, m64n128.  The two hand-overs take turns,
+// so neither buffer needs a barrier back: warpgroup 0 writes the next p
+// only after it has read ds, which warpgroup 1 wrote after reading p.  The
+// next step's contraction is issued once this step's partials are summed
+// or sent, and runs while the fragments are handed out (V's slot goes
+// back at its contraction, so the ring never waits on the products).
+// Every slot holds a whole slice, its boxes past ld zero, as in
+// dkv_cluster_kernel.  Grid: dq_sliced_kernel's (b*h, row tile, slice)
+// over 64-row tiles, one cluster per (b*h, row tile).
+// 64 rows and not dq_sliced_kernel's 128: the two warpgroups' Q and dO
+// slices (128 KB) leave no room for two K and V slots beside the exchange;
+// and each warpgroup holds half of the slice's columns, not one of two
+// warpgroups taking the key steps in turns with the whole slice each,
+// because that plan's 128 accumulator registers beside S and dP spilled.
+template <int NS>
+struct DqClusterSmem {
+  static constexpr int BM = 64, BK = 64;
+  static constexpr int BOX = 64 * 128;
+  static constexpr int OPND = 4 * BOX;
+  static constexpr int RS_BYTES = ClusterX<NS>::RS_BYTES;
+  // one step's exchange: S's and dP's reduce-scatter, dS's all-gather
+  static constexpr int X_STEP = 2 * RS_BYTES + ClusterX<NS>::AG_BYTES;
+  // p (f32) and ds's fragments of the owned warps, warpgroup to warpgroup
+  static constexpr int HAND = cl_max_owned(NS) * (CL_F32_CHUNK + CL_FRAG_CHUNK);
+  // qd_full; ring full/empty; [2 buffers][S, dP][8] exchange bars;
+  // p_full[4], ds_full[4]
+  static constexpr int N_BARS = 1 + 8 + 32 + 8;
+  // two steps' exchange buffers where they leave three slots (two
+  // slices): the next step's partial goes out before this step's
+  // fragments come back
+  static constexpr bool DB =
+      cluster_slots(2 * OPND + 2 * X_STEP + HAND, N_BARS) >= 3;
+  static constexpr int X_OFF = 2 * OPND;  // Q's and dO's slices first
+  static constexpr int P_OFF = X_OFF + (DB ? 2 : 1) * X_STEP;
+  static constexpr int DS_OFF = P_OFF + cl_max_owned(NS) * CL_F32_CHUNK;
+  static constexpr int RING_OFF = X_OFF + (DB ? 2 : 1) * X_STEP + HAND;
+  static constexpr int SLOTS = cluster_slots(RING_OFF, N_BARS);
+  using Ring = ClusterRing<SLOTS, 1>;
+  static constexpr int BAR_OFF = RING_OFF + SLOTS * OPND;
+  static constexpr int BYTES =
+      BAR_OFF + 8 * (N_BARS - 8 + Ring::BARS) + 1024;
+  static_assert(SLOTS >= 3 && BYTES <= smem_budget(1),
+                "cluster dq does not fit");
+};
+
+template <typename E, int NS>
+__global__ void __launch_bounds__(384, 1)
+    dq_cluster_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const __grid_constant__ CUtensorMap map_do,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, E* __restrict__ dq,
+                      int group, int ld, float scale, Mask mk) {
+  using S = DqClusterSmem<NS>;
+  constexpr int BM = S::BM, BK = S::BK, BOX = S::BOX;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t bars = base + S::BAR_OFF;
+  const uint32_t qd_full = bars;
+  const typename S::Ring rg{base + S::RING_OFF, bars + 8};
+  const uint32_t x_bars = bars + 8 * (1 + S::Ring::BARS);  // [2][2][8]
+  const uint32_t p_full = x_bars + 8 * 32, ds_full = p_full + 32;
+
+  const int T = mk.T;
+  const SliceTile tl = slice_tile(BM, T, NS);
+  const int bh = tl.bh, q0 = tl.tile * BM;
+  const int cb = 4 * tl.slice;
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+  const int r = (int)hopper::cluster_rank();
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(qd_full, 1);
+    rg.init(256);
+    for (int x = 0; x < 4; ++x) cl_init_bars(x_bars + 64 * x);
+    for (int w = 0; w < 4; ++w) {
+      hopper::mbar_init(p_full + 8 * w, 32);
+      hopper::mbar_init(ds_full + 8 * w, 32);
+    }
+    hopper::mbar_init_fence();
+  }
+  // no partner arrives on a barrier before it is initialised
+  hopper::cluster_sync();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    hopper::reg_dealloc<hopper::PRODUCER_REGS>();
+    if (threadIdx.x == 256) {
+      const int bkv = bh / group;
+      hopper::mbar_arrive_tx(qd_full, 2 * S::OPND);
+      for (int b = 0; b < 4; ++b) {
+        hopper::tma_load(base + b * BOX, &map_q, 64 * (cb + b), q0, bh,
+                         qd_full);
+        hopper::tma_load(base + S::OPND + b * BOX, &map_do, 64 * (cb + b),
+                         q0, bh, qd_full);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        for (int o = 0; o < 2; ++o) {  // V's slice, then K's
+          const int n = 2 * it + o;
+          const uint32_t at = rg.put(n, 0, S::OPND);
+          for (int b = 0; b < 4; ++b)
+            hopper::tma_load(at + b * BOX, o == 0 ? &map_v : &map_k,
+                             64 * (cb + b), k0, bkv, rg.full(n, 0));
+        }
+      }
+    }
+  } else {
+    hopper::reg_alloc<hopper::reg_consumer(2, 1)>();
+
+    // warpgroup 0: S, p and dq's first half; warpgroup 1: dP, ds and the
+    // second half
+    const int wg = threadIdx.x >> 7, tid = threadIdx.x & 127;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, +8
+    const float sl2 = scale * LOG2E;
+    const bool own = !CLUSTER_EXCHANGE || cl_owner(warp, NS) == r;
+    // this warpgroup's contraction operand (Q or dO); in exchange buffer b
+    // (the step's parity with two, else 0) its tile's reduce-scatter area
+    // and bars, the all-gather's (dP's tile's bars)
+    const uint32_t a_tile = base + wg * S::OPND;
+    auto rs = [&](int b) {
+      return base + S::X_OFF + b * S::X_STEP + wg * S::RS_BYTES;
+    };
+    auto ag = [&](int b) {
+      return base + S::X_OFF + b * S::X_STEP + 2 * S::RS_BYTES;
+    };
+    auto rs_bar = [&](int b) {
+      return x_bars + 128 * b + 64 * wg + 8 * warp;
+    };
+    auto ag_bar = [&](int b) { return x_bars + 128 * b + 96 + 8 * warp; };
+    // a buffer's barrier completes once every two steps with two
+    auto buf = [&](int it) { return S::DB ? it & 1 : 0; };
+    auto xpar = [&](int it) { return S::DB ? (it >> 1) & 1 : it & 1; };
+    const int ow =
+        CLUSTER_EXCHANGE ? warp - cl_first(r, NS) : warp % cl_max_owned(NS);
+    const uint32_t p_at = base + S::P_OFF + ow * CL_F32_CHUNK + lane * 16;
+    const uint32_t ds_at = base + S::DS_OFF + ow * CL_FRAG_CHUNK + lane * 16;
+    // lse * log2 e (warpgroup 0) or delta (1) of this thread's rows
+    float rowv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 8 * h;
+      rowv[h] = i >= T ? 0.f
+                : wg == 0 ? lse[(size_t)bh * T + i] * LOG2E
+                          : delta[(size_t)bh * T + i];
+    }
+
+    float acc[64];  // dq over this warpgroup's half of the slice
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float st[BK / 2];  // S, then p (wg 0); dP, then ds (wg 1)
+    uint32_t phases = 0;
+    hopper::mbar_wait(qd_full, 0);
+
+    // the contraction of key step `it` over the slice (Q K^T for
+    // warpgroup 0, dO V^T for 1); warpgroup 0 hands V's slot back at once,
+    // warpgroup 1 once its contraction completes
+    auto contract = [&](int it) {
+      const uint32_t v_tile = rg.take(2 * it, 0, phases);
+      const uint32_t k_tile = rg.take(2 * it + 1, 0, phases);
+      if (wg == 0) rg.give(2 * it);
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 16; ++kk)
+        if (CLUSTER_PRODUCTS)
+          hopper::Mma<E>::ss(st, hopper::desc_k(a_tile, 64, kk),
+                             hopper::desc_k(wg == 0 ? k_tile : v_tile, BK,
+                                            kk),
+                             kk > 0);
+      hopper::wg_commit();
+    };
+
+    // The step's exchange: the owner of a warp's rows sums its partials,
+    // forms p and ds and gives out ds's fragments; the others send their
+    // partials and take the fragments.  With two exchange buffers a
+    // non-owner sends the next step's partial as soon as it is formed,
+    // before this step's fragments come back (with one, after).
+    if (n_iter > 0) {
+      contract(0);
+      hopper::wg_wait<0>();
+      hopper::wg_fence_regs(st);
+      if (wg == 1) rg.give(0);
+      if (!own && CLUSTER_EXCHANGE)
+        cl_send<NS>(st, rs(0), rs_bar(0), warp, lane, r);
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+      const int b = buf(it);
+      // the last step's products are done; its K's slot goes back
+      hopper::wg_wait<0>();
+      if (it > 0) rg.give(2 * it - 1);
+      const bool next = it + 1 < n_iter;
+      uint32_t frag[BK / 16][4];
+      if (own) {
+        if (!CLUSTER_PRODUCTS) {
+#pragma unroll
+          for (int i = 0; i < BK / 2; ++i) st[i] = 0.f;
+        }
+        if (CLUSTER_EXCHANGE)
+          cl_sum<NS>(st, rs(b), rs_bar(b), warp, lane, r, xpar(it));
+        if (wg == 0) {
+#pragma unroll
+          for (int x = 0; x < BK / 2; ++x)
+            st[x] = exp2_approx(fmaf(st[x], sl2, -rowv[(x >> 1) & 1]));
+          if (!tile_full(mk, q0, 64, k0, BK)) mask_tile(st, mk, row0, k0, t);
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            st_shared4(p_at + q * 512, __float_as_uint(st[4 * q]),
+                       __float_as_uint(st[4 * q + 1]),
+                       __float_as_uint(st[4 * q + 2]),
+                       __float_as_uint(st[4 * q + 3]));
+          hopper::mbar_arrive(p_full + 8 * warp);
+        } else {
+          hopper::mbar_wait(p_full + 8 * warp, it & 1);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            uint32_t pv[4];
+            ld_shared4(p_at + q * 512, pv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int x = 4 * q + e;
+              st[x] = __uint_as_float(pv[e]) * (st[x] - rowv[(x >> 1) & 1]);
+            }
+          }
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk) acc_to_a<E>(frag[kk], st, kk);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            st_shared4(ds_at + kk * 512, frag[kk][0], frag[kk][1],
+                       frag[kk][2], frag[kk][3]);
+          hopper::mbar_arrive(ds_full + 8 * warp);
+        }
+      }
+      // the next step's contraction, while this step's fragments are
+      // handed out
+      if (next) {
+        contract(it + 1);
+        hopper::wg_wait<0>();
+        hopper::wg_fence_regs(st);
+        if (wg == 1) rg.give(2 * it + 2);  // V's slot
+        if (S::DB && !own && CLUSTER_EXCHANGE)
+          cl_send<NS>(st, rs(buf(it + 1)), rs_bar(buf(it + 1)), warp, lane,
+                      r);
+      }
+      if (own) {
+        if (wg == 0) {  // ds's fragments from warpgroup 1
+          hopper::mbar_wait(ds_full + 8 * warp, it & 1);
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            ld_shared4(ds_at + kk * 512, frag[kk]);
+        } else if (CLUSTER_EXCHANGE) {
+          cl_give<NS>(frag, ag(b), ag_bar(b), warp, lane, r);
+        }
+      } else if (CLUSTER_EXCHANGE) {
+        cl_take<NS>(frag, ag(b), ag_bar(b), warp, lane, r, xpar(it),
+                    wg == 1);
+        if (!S::DB && next)
+          cl_send<NS>(st, rs(0), rs_bar(0), warp, lane, r);
+      }
+
+      // dq's half += dS K (K's slot, this warpgroup's two column blocks)
+      const uint32_t k_tile = rg.slot(2 * it + 1);
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        if (CLUSTER_PRODUCTS)
+          hopper::Mma<E>::rs128(
+              acc, frag[kk],
+              hopper::desc_mn_wide(k_tile + wg * 2 * BOX, BK, kk));
+      hopper::wg_commit();
+    }
+    hopper::wg_wait<0>();
+    if (n_iter > 0) rg.give(2 * n_iter - 1);
+    hopper::wg_fence_regs(acc);
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = row0 + 8 * h;
+      if (i >= T) continue;
+      E* out = dq + ((size_t)bh * T + i) * ld;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = SLICE * tl.slice + 128 * wg + 8 * j + 2 * t;
+        if (c < ld)
+          store2(out + c, acc[4 * j + 2 * h] * scale,
+                 acc[4 * j + 2 * h + 1] * scale);
+      }
+    }
+  }
+  // no block exits while a partner may still store or arrive into it
+  hopper::cluster_sync();
+}
+
 // The sliced f32 kernels: the f32 kernels above with the head dim streamed
 // F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles for the
 // contractions, and each block one SW-column slice of the outputs, whose
@@ -4155,6 +5050,152 @@ int launch_dkv_sliced_f32(int bkv, const BwdArgs& a, int rows, int step,
   return (int)cudaGetLastError();
 }
 
+// Launchers of the cluster kernels.  Their one tile each is (64, 64): dq's
+// 64 rows over 64-key steps, dk/dv's 64 keys over 64-query steps.  Any
+// other tile, or an ld outside (256, CLUSTER_REACH] or not a multiple of
+// 8, returns cudaErrorInvalidValue; a cluster launch the card refuses (a
+// cluster it cannot place, too much shared memory) returns its error.
+
+template <typename... P, typename... A>
+int cluster_launch(void (*kernel)(P...), unsigned grid, int ns, int bytes,
+                   cudaStream_t stream, A&&... args) {
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<A&&>(args)...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The clusters of ns blocks the card holds at once of a kernel taking
+// `bytes` of shared memory (cudaOccupancyMaxActiveClusters).
+template <typename... P>
+int cluster_occupancy(void (*kernel)(P...), int ns, int bytes,
+                      int* clusters) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ns);
+  cfg.blockDim = dim3(384);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+}
+
+inline bool cluster_tile(const BwdArgs& a, int rows, int step) {
+  return rows == 64 && step == 64 && a.ld > SLICE &&
+         a.ld <= CLUSTER_REACH && a.ld % 8 == 0;
+}
+
+template <typename E, int NS>
+int dq_cluster_ns(int bh, const BwdArgs& a, cudaStream_t stream) {
+  using S = DqClusterSmem<NS>;
+  const int T = a.mk.T;
+  const int group = a.heads / a.kv_heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BM)))
+    return TENSOR_MAP_ERROR + e;
+  return cluster_launch(dq_cluster_kernel<E, NS>,
+                        slice_blocks(bh, T, S::BM, NS), NS, S::BYTES, stream,
+                        map_q, map_k, map_v, map_do, a.lse, a.delta,
+                        static_cast<E*>(a.dq), group, a.ld, a.scale, a.mk);
+}
+
+template <typename E>
+int dq_cluster(int bh, const BwdArgs& a, int rows, int step,
+               cudaStream_t stream) {
+  if (!cluster_tile(a, rows, step)) return (int)cudaErrorInvalidValue;
+  switch (n_slices(a.ld)) {
+    case 2: return dq_cluster_ns<E, 2>(bh, a, stream);
+    case 3: return dq_cluster_ns<E, 3>(bh, a, stream);
+    case 4: return dq_cluster_ns<E, 4>(bh, a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename E, int NS>
+int dkv_cluster_ns(int bkv, const BwdArgs& a, cudaStream_t stream) {
+  using S = DkvClusterSmem<NS>;
+  const int T = a.mk.T;
+  const int bh = bkv / a.kv_heads * a.heads;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BQ)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bkv, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_do, ty, a.dout, bh, T, a.ld, S::BQ)))
+    return TENSOR_MAP_ERROR + e;
+  return cluster_launch(dkv_cluster_kernel<E, NS>,
+                        slice_blocks(bkv, T, S::BM, NS), NS, S::BYTES, stream,
+                        map_q, map_k, map_v, map_do, a.lse, a.delta,
+                        static_cast<E*>(a.dk), static_cast<E*>(a.dv),
+                        a.heads, a.kv_heads, a.ld, a.scale, a.mk);
+}
+
+template <typename E>
+int dkv_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                cudaStream_t stream) {
+  if (!cluster_tile(a, rows, step) || a.splits != 1 || a.partial != nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (n_slices(a.ld)) {
+    case 2: return dkv_cluster_ns<E, 2>(bkv, a, stream);
+    case 3: return dkv_cluster_ns<E, 3>(bkv, a, stream);
+    case 4: return dkv_cluster_ns<E, 4>(bkv, a, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// A cluster kernel's shared memory and the clusters the card holds at
+// once, at the slices of ld.
+template <typename E, bool DQ>
+int cluster_info(int ld, int* smem, int* clusters) {
+  if (ld <= SLICE || ld > CLUSTER_REACH) return (int)cudaErrorInvalidValue;
+  switch (n_slices(ld)) {
+#define FA_CLUSTER_INFO(NS)                                                  \
+  case NS:                                                                   \
+    if constexpr (DQ) {                                                      \
+      *smem = DqClusterSmem<NS>::BYTES;                                      \
+      return cluster_occupancy(dq_cluster_kernel<E, NS>, NS, *smem,          \
+                               clusters);                                    \
+    } else {                                                                 \
+      *smem = DkvClusterSmem<NS>::BYTES;                                     \
+      return cluster_occupancy(dkv_cluster_kernel<E, NS>, NS, *smem,         \
+                               clusters);                                    \
+    }
+    FA_CLUSTER_INFO(2)
+    FA_CLUSTER_INFO(3)
+    FA_CLUSTER_INFO(4)
+#undef FA_CLUSTER_INFO
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -4380,6 +5421,46 @@ int fa::dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
 }
 #endif
 
+#if FA_IN_PART(21)
+int fa::dq_bf16_cluster(int bh, const BwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return dq_cluster<bf16>(bh, a, rows, step, st);
+}
+int fa::dq_bf16_cluster_info(int ld, int* smem, int* clusters) {
+  return cluster_info<bf16, true>(ld, smem, clusters);
+}
+#endif
+
+#if FA_IN_PART(22)
+int fa::dq_f16_cluster(int bh, const BwdArgs& a, int rows, int step,
+                       cudaStream_t st) {
+  return dq_cluster<f16>(bh, a, rows, step, st);
+}
+int fa::dq_f16_cluster_info(int ld, int* smem, int* clusters) {
+  return cluster_info<f16, true>(ld, smem, clusters);
+}
+#endif
+
+#if FA_IN_PART(23)
+int fa::dkv_bf16_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                         cudaStream_t st) {
+  return dkv_cluster<bf16>(bkv, a, rows, step, st);
+}
+int fa::dkv_bf16_cluster_info(int ld, int* smem, int* clusters) {
+  return cluster_info<bf16, false>(ld, smem, clusters);
+}
+#endif
+
+#if FA_IN_PART(24)
+int fa::dkv_f16_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return dkv_cluster<f16>(bkv, a, rows, step, st);
+}
+int fa::dkv_f16_cluster_info(int ld, int* smem, int* clusters) {
+  return cluster_info<f16, false>(ld, smem, clusters);
+}
+#endif
+
 #if FA_IN_PART(10)
 // ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
@@ -4389,7 +5470,9 @@ int fa::dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
 // chunk the b*h rows it takes longest first together (lpt_tile).
 // A dtype, head dim or tile that has no instantiation returns
 // cudaErrorInvalidValue.  Head-dim class 256 goes to the parts that build
-// it, and every head dim above 256 to the sliced kernels' parts.
+// it, and every head dim above 256 to the sliced kernels' parts, but for
+// dq and dk/dv in bf16 and fp16 up to CLUSTER_REACH, which go to the
+// cluster kernels' (ops/attention.py:CLUSTER_LD is the same bound).
 
 enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
@@ -4476,6 +5559,12 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                   1,
                   nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim > SLICE && head_dim <= CLUSTER_REACH) {
+    switch (dtype) {
+      case FA_BF16: return fa::dq_bf16_cluster(bh, a, rows, step, st);
+      case FA_F16: return fa::dq_f16_cluster(bh, a, rows, step, st);
+    }
+  }
   if (head_dim > SLICE) {
     switch (dtype) {
       case FA_BF16: return fa::dq_bf16_sliced(bh, a, rows, step, st);
@@ -4528,6 +5617,12 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
   if (splits != 1 && (dtype == FA_F32 || head_class(head_dim) != 256))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim > SLICE && head_dim <= CLUSTER_REACH) {
+    switch (dtype) {
+      case FA_BF16: return fa::dkv_bf16_cluster(bkv, a, rows, step, st);
+      case FA_F16: return fa::dkv_f16_cluster(bkv, a, rows, step, st);
+    }
+  }
   if (head_dim > SLICE) {
     switch (dtype) {
       case FA_BF16: return fa::dkv_bf16_sliced(bkv, a, rows, step, st);
@@ -4544,6 +5639,20 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
       return (wide ? fa::dkv_f16_256 : fa::dkv_f16)(bkv, a, rows, step, st);
     case FA_F32:
       return (wide ? fa::dkv_f32_256 : fa::dkv_f32)(bkv, a, rows, step, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The shared memory (bytes) a cluster kernel takes at a head dim, and the
+// clusters of its n_slices blocks the card holds at once: kernel 0 dq, 1
+// dk/dv; dtype bf16 or fp16.
+extern "C" int fa_cluster_info(int kernel, int dtype, int head_dim,
+                               int* smem, int* clusters) {
+  switch (kernel * 2 + dtype) {
+    case 0: return fa::dq_bf16_cluster_info(head_dim, smem, clusters);
+    case 1: return fa::dq_f16_cluster_info(head_dim, smem, clusters);
+    case 2: return fa::dkv_bf16_cluster_info(head_dim, smem, clusters);
+    case 3: return fa::dkv_f16_cluster_info(head_dim, smem, clusters);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -118,6 +118,81 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Thread-block clusters: the blocks of a cluster run together on
+// neighbouring SMs and reach each other's shared memory.  A block writes
+// into a partner's buffer with asynchronous stores to the partner's
+// address (mapa) whose bytes complete a phase of the partner's mbarrier;
+// the partner, which announced the bytes it expects, waits on its own
+// mbarrier and reads the buffer as local shared memory.
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of the local shared-memory address `addr`
+// in the block of cluster rank `rank`.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+// 16 bytes to another block's shared memory (a shared::cluster address
+// from mapa) without waiting, their arrival counted on that block's
+// mbarrier `bar` (also from mapa) as 16 bytes of its phase's transaction
+// count: the block that owns the barrier announces the bytes it expects
+// (mbar_arrive_tx) and, once the phase completes, reads them (no fence,
+// as with a TMA load).
+__device__ __forceinline__ void st_async(uint32_t addr, uint32_t a,
+                                         uint32_t b, uint32_t c, uint32_t d,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "r"(a), "r"(b), "r"(c), "r"(d), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait for a phase completed by other blocks' stores: acquires at
+// cluster scope.  Traps as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done = 0;
+  long long start = 0;
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (start == 0) {
+      start = clock64();
+    } else if (clock64() - start > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// Every thread of every block of the cluster: none passes until all have
+// arrived (their earlier shared-memory writes, remote ones included,
+// released to the others).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
 // 4 bytes from global src to shared dst without waiting (cp.async), or 4
 // zero bytes when !valid (src is then not read).
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
@@ -265,6 +340,18 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int rows, int kk,
   return desc(tile + h * rows * 128 + kk * 16 * 128);
 }
 
+// MN-major operand read whole across its column blocks (B of an m64n128
+// or m64n256 product: K, dO or Q over half or all of a slice's 256
+// columns): k step kk (16 rows) of a tile whose 64-column blocks lie rows
+// * 128 bytes apart, which the leading byte offset carries.
+__device__ __forceinline__ uint64_t desc_mn_wide(uint32_t tile, int rows,
+                                                 int kk) {
+  const uint32_t addr = tile + kk * 16 * 128;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((rows * 128) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -293,6 +380,7 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 #define HOPPER_F64(d, i) \
   HOPPER_F16(d, i), HOPPER_F16(d, i + 16), HOPPER_F16(d, i + 32), \
       HOPPER_F16(d, i + 48)
+#define HOPPER_F128(d, i) HOPPER_F64(d, i), HOPPER_F64(d, i + 64)
 #define HOPPER_D8 "{" "%0, %1, %2, %3, %4, %5, %6, %7" "}"
 #define HOPPER_D16 \
   "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, " \
@@ -309,6 +397,19 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
   "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
   "%60, %61, %62, %63" "}"
 
+#define HOPPER_D128 \
+  "{" "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, " \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, " \
+  "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, " \
+  "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, " \
+  "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
+  "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, " \
+  "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, " \
+  "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, " \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, " \
+  "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, " \
+  "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127" "}"
+
 // The products for one element type E (__nv_bfloat16: "bf16", __half:
 // "f16"); f32 accumulators in both.
 //   ss: d[64 x N] (+)= A[64 x 16] B[16 x N], both from shared memory,
@@ -316,6 +417,8 @@ __device__ __forceinline__ void wg_fence_regs(float (&d)[N]) {
 //   rs64: d[64 x 64] += A[64 x 16] B[16 x 64], A from registers (the
 //       accumulator layout of a previous product, rounded to E), B from
 //       shared memory MN-major (the transpose bit).
+//   rs128, rs256: the same over N = 128 or 256 (B's descriptor from
+//       desc_mn_wide).
 template <typename E>
 struct Mma;
 
@@ -345,6 +448,27 @@ struct Mma;
                  : HOPPER_F16(d, 0), HOPPER_F16(d, 16)                       \
                  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
                    "r"(1));                                                  \
+  }                                                                          \
+  static __device__ __forceinline__ void rs128(float(&d)[64],                \
+                                               const uint32_t(&a)[4],        \
+                                               uint64_t b) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"               \
+                 "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY    \
+                 " " HOPPER_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"\
+                 : HOPPER_F64(d, 0)                                          \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                   "r"(1));                                                  \
+  }                                                                          \
+  static __device__ __forceinline__ void rs256(float(&d)[128],               \
+                                               const uint32_t(&a)[4],        \
+                                               uint64_t b) {                 \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"              \
+                 "wgmma.mma_async.sync.aligned.m64n256k16.f32." TY "." TY    \
+                 " " HOPPER_D128                                             \
+                 ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"       \
+                 : HOPPER_F128(d, 0)                                         \
+                 : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),       \
+                   "r"(1));                                                  \
   }
 
 #define HOPPER_COMMA ,
@@ -360,10 +484,12 @@ struct Mma<__half> {
 #undef HOPPER_COMMA
 #undef HOPPER_MMA
 #undef HOPPER_MMA_SS
+#undef HOPPER_D128
 #undef HOPPER_D64
 #undef HOPPER_D32
 #undef HOPPER_D16
 #undef HOPPER_D8
+#undef HOPPER_F128
 #undef HOPPER_F64
 #undef HOPPER_F16
 #undef HOPPER_F4
