@@ -53,9 +53,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            backend with K and V expanded to the query heads as views (the
            kernels line's library_ms where it runs; its math path under
            library_math_ms), and head dim 2112 (above the cluster's reach:
-           the sliced dq and dk/dv, no cluster launch); each kernel
-           launched a second time on the same inputs must give the same
-           bits
+           the sliced dq and dk/dv, no cluster launch); since the
+           nineteenth slice the forward up to head dim 512 in bf16 and fp16
+           on the pair kernel (attention.pair_route: every launch its, the
+           count checked per case; d1024 and d2112 on the sliced forward,
+           whose kernels-line row is d2112's); each kernel launched a
+           second time on the same inputs must give the same bits
   autotune the tenth slice: every instantiation (each dtype, head-dim
            class 64, 128 and 256, tile and forward route) against its plain version at a
            ragged causal shape with a window and a sink (since the
@@ -94,12 +97,13 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            (~0.86 B params; no public model has these widths): 6 + 2
            steps, 18 launches a step of each kernel, every one the sliced
            kernels' (head dims above 256) and since the eighteenth slice
-           every dq and dk/dv launch the cluster kernels', losses finite
+           every dq and dk/dv launch the cluster kernels' and since the
+           nineteenth every forward launch the pair kernel's, losses finite
            and falling (as the gemma phase's since then), step ms,
            tokens/s, MFU, peak memory, device time by kernel; 2 layers of
            it against the plain attention path; then the LM with one head
-           of 2112 (2 layers, B 1, T 1024, 2 steps), above the cluster's
-           reach, whose dq and dk/dv launches are the sliced kernels'
+           of 2112 (2 layers, B 1, T 1024, 2 steps), above the pair's and
+           the cluster's reach, whose launches are the sliced kernels'
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
@@ -301,6 +305,8 @@ REPLACES = {
     # the cluster kernels (dq and dk/dv up to attention.CLUSTER_LD)
     "flash_backward_dq_cluster": "tf_operator_tpu/ops/attention.py:419",
     "flash_backward_dkv_cluster": "tf_operator_tpu/ops/attention.py:485",
+    # the pair forward (up to attention.PAIR_LD)
+    "flash_forward_pair": "tf_operator_tpu/ops/attention.py:255",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -337,10 +343,12 @@ TOL_LSE_F32 = 1e-5
 # 256, whose tile is INSTANTIATED[...][SLICED]'s; the slice width for the
 # sliced f32 kernels; the element type and the slices (the cluster's
 # blocks) for the cluster kernels, whose tile is
-# INSTANTIATED[...][CLUSTER]'s), then its spills and its registers at launch
+# INSTANTIATED[...][CLUSTER]'s; the element type and the route for the pair
+# forward, whose tile is INSTANTIATED["fwd"][PAIR]'s), then its spills and
+# its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
                          r"(_f32|_split|_wide|_short|_sliced_f32|_sliced"
-                         r"|_cluster)?"
+                         r"|_cluster|_pair)?"
                          r"_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
@@ -422,6 +430,12 @@ def ptxas_instantiation(m) -> tuple:
         (rows,), (step,) = INSTANTIATED[kernel][CLUSTER]
         return (f"{kernel}_cluster_kernel<{args[0]}, {args[1]} slices, rows "
                 f"{rows}, step {step}>", (kernel, args[0], CLUSTER, rows, step))
+    if kind == "_pair":  # the forward up to attention.PAIR_LD
+        from tf_operator_tpu_torch.ops.attention import INSTANTIATED, PAIR
+
+        (rows,), (step,) = INSTANTIATED[kernel][PAIR]
+        return (f"fwd_pair_kernel<{args[0]}, rows {rows}, step {step}, scaled"
+                f" {args[1]}>", (kernel, args[0], PAIR, rows, step))
     if kind in ("_sliced", "_sliced_f32"):  # head dims above 256
         from tf_operator_tpu_torch.ops.attention import INSTANTIATED, SLICED
 
@@ -1085,19 +1099,19 @@ def phase_kernels():
     numbers, under "dkv_reduce" the slices' sum at Gemma 2B's shape, under
     "flash_forward_short", "flash_backward_dq_short" and
     "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, under
-    "flash_forward_sliced" the sliced forward at d512_mqa's, under
+    "flash_forward_pair" the pair forward at d512_mqa's, under
     "flash_backward_dq_cluster" and "flash_backward_dkv_cluster" the
-    cluster kernels there, and under "flash_backward_dq_sliced" and
-    "flash_backward_dkv_sliced" the sliced ones above the cluster's reach
-    (d2112)."""
+    cluster kernels there, and under "flash_forward_sliced",
+    "flash_backward_dq_sliced" and "flash_backward_dkv_sliced" the sliced
+    ones above the pair's and the cluster's reach (d2112)."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
 
     out = {}
     for case in CASES:
-        tiles = A.resolve_tiles(*case.blocks, case.d,
-                                getattr(torch, case.dtype), case.t)
+        tiles = A.launch_tiles(*case.blocks, case.d,
+                               getattr(torch, case.dtype), case.t)
         print(f"kernel case {case.name}: B={case.b} H={case.h} "
               f"Hkv={case.hkv} T={case.t} D={case.d} causal={case.causal} "
               f"window={case.window} sink={case.sink} {case.dtype} scale="
@@ -1105,36 +1119,45 @@ def phase_kernels():
               f" {case.blocks} -> tiles (rows, step) fwd {tiles.fwd} dq "
               f"{tiles.dq} dkv {tiles.dkv}, dk/dv in {case_splits(case)} "
               "slice(s)", flush=True)
-        before = A.launches(), A.sliced_launches(), A.cluster_launches()
+        before = (A.launches(), A.sliced_launches(), A.cluster_launches(),
+                  A.pair_launches())
         res = kernel_case(case, case.name in TIMED_CASES)
         if A.head_class(case.d) == A.SLICED:
-            # every launch of the case above head dim 256 was the sliced
-            # kernels', and dq's and dk/dv's on the cluster route the
-            # cluster kernels' (none elsewhere)
+            # every launch of the case above head dim 256 was the kernels'
+            # of head dims above 256, dq's and dk/dv's on the cluster route
+            # the cluster kernels' and the forward's on the pair route the
+            # pair kernel's (none elsewhere)
             ran = {n: c - before[0][n] for n, c in A.launches().items()}
             sliced = {n: c - before[1][n]
                       for n, c in A.sliced_launches().items()}
             cluster = {n: c - before[2][n]
                        for n, c in A.cluster_launches().items()}
-            on_route = A.cluster_route(case.d, getattr(torch, case.dtype))
+            pair = {n: c - before[3][n]
+                    for n, c in A.pair_launches().items()}
+            dtype = getattr(torch, case.dtype)
+            on_route = A.cluster_route(case.d, dtype)
+            on_pair = A.pair_route(case.d, dtype)
             if (sliced != ran or not all(ran.values())
-                    or cluster != {n: ran[n] * on_route for n in cluster}):
+                    or cluster != {n: ran[n] * on_route for n in cluster}
+                    or pair != {n: ran[n] * on_pair for n in pair}):
                 raise RuntimeError(f"kernel case {case.name}: launches {ran}"
                                    f", of the sliced kernels {sliced}, of "
-                                   f"the cluster kernels {cluster}")
+                                   f"the cluster kernels {cluster}, of the "
+                                   f"pair forward {pair}")
             print(f"  {case.name:11s} launches {ran}, the cluster kernels' "
-                  f"{cluster}", flush=True)
+                  f"{cluster}, the pair forward's {pair}", flush=True)
         if case.name == "main":
             out.update(res)
         if case.name == "d512_mqa":
-            # the sliced forward and the cluster dq and dk/dv at the
+            # the pair forward and the cluster dq and dk/dv at the
             # wide_head phase's attention
-            out["flash_forward_sliced"] = res["flash_forward"]
+            out["flash_forward_pair"] = res["flash_forward"]
             for fn in A.CLUSTER_KERNELS:
                 out[f"{fn.__name__}_cluster"] = res[fn.__name__]
         if case.name == "d2112":
-            # dq and dk/dv above the cluster's reach
-            for fn in A.CLUSTER_KERNELS:
+            # the forward, dq and dk/dv above the pair's and the cluster's
+            # reach
+            for fn in A.KERNELS:
                 out[f"{fn.__name__}_sliced"] = res[fn.__name__]
         if case.name == "vit_b16":
             # the encoders' kernels at ViT-B/16's shape
@@ -1167,9 +1190,10 @@ def every_instantiation():
     encoders' kernels, attention.short_route, both routes), and at head dim
     300 in each dtype (the sliced kernels, both routes; dq and dk/dv in
     bf16 and fp16 on the cluster kernels, which head dims 600 and 1000 hold
-    at three and four slices), and at 1096 in bf16 and fp16 (dq and dk/dv
-    on the sliced kernels above the cluster's reach); fails unless every
-    instantiation ran."""
+    at three and four slices, and the forward in bf16 and fp16 on the pair
+    kernel, whose reach 600 passes: the sliced forward there, both routes),
+    and at 1096 in bf16 and fp16 (dq and dk/dv on the sliced kernels above
+    the cluster's reach); fails unless every instantiation ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1190,9 +1214,12 @@ def every_instantiation():
              for dtype in ("bfloat16", "float16", "float32")
              for sign in (1, -1)]
     # the cluster kernels at three and four slices, and the sliced dq and
-    # dk/dv above the cluster's reach (five slices)
+    # dk/dv above the cluster's reach (five slices); the sliced forward in
+    # bf16 and fp16 above the pair's reach, both routes
     runs += [(dtype, d, (128, 128), 1, 300)
              for dtype in ("bfloat16", "float16") for d in (600, 1000, 1096)]
+    runs += [(dtype, 600, (128, 128), -1, 300)
+             for dtype in ("bfloat16", "float16")]
     ran, worst = set(), {}
     for dtype_name, d, (bq, bk), sign, t in runs:
         dtype = getattr(torch, dtype_name)
@@ -1230,9 +1257,10 @@ def every_instantiation():
         if float((lse - lse_ref).abs().max()) > tol_lse:
             raise RuntimeError(f"instantiation check, {what}: lse outside "
                                f"{tol_lse:g}")
-        tiles = A.resolve_tiles(bq, bk, d, dtype, t)
+        tiles = A.launch_tiles(bq, bk, d, dtype, t)
         for kernel in ("fwd", "dq", "dkv"):
             route = (A.CLUSTER if kernel != "fwd" and A.cluster_route(d, dtype)
+                     else A.PAIR if kernel == "fwd" and A.pair_route(d, dtype)
                      else A.head_class(d))
             ran.add((kernel, dtype_name, route, *getattr(tiles, kernel)))
     missing = A.instantiations() - ran
@@ -1652,15 +1680,22 @@ WIDE_HEAD_ATTN = dict(GEMMA_2B_ATTN, num_heads=4)
 
 def phase_wide_head(card: str, out_dir):
     """The LM at WIDE_HEAD_ATTN (`lm_at_widths`), every kernel launch the
-    sliced kernels' and every dq and dk/dv launch the cluster kernels';
-    then the LM above the cluster's reach (`beyond_cluster_lm`).  Returns
-    the launches: the sliced forward's and the cluster kernels' on the
-    wide-head path, and the sliced dq's and dk/dv's beyond the reach."""
+    kernels' of head dims above 256, every forward launch the pair
+    kernel's and every dq and dk/dv launch the cluster kernels'; then the
+    LM above the pair's and the cluster's reach (`beyond_cluster_lm`).
+    Returns the launches: the pair forward's and the cluster kernels' on
+    the wide-head path, and the sliced kernels' beyond the reach."""
     from tf_operator_tpu_torch.ops import attention as A
 
     def check(cfg, steps):
-        sliced = check_route_launches("sliced", cfg.num_layers * steps,
-                                      "wide-head attention widths")
+        check_route_launches("sliced", cfg.num_layers * steps,
+                             "wide-head attention widths")
+        pair = A.pair_launches()
+        print(f"wide-head attention widths: the pair forward's launches "
+              f"{pair} (expected {cfg.num_layers * steps})", flush=True)
+        if pair != {n: cfg.num_layers * steps for n in pair}:
+            raise RuntimeError("wide-head attention widths: a forward "
+                               f"launch was not the pair kernel's: {pair}")
         cluster = A.cluster_launches()
         print(f"wide-head attention widths: the cluster kernels' launches "
               f"{cluster} (expected {cfg.num_layers * steps} each)",
@@ -1669,7 +1704,7 @@ def phase_wide_head(card: str, out_dir):
             raise RuntimeError("wide-head attention widths: a dq or dk/dv "
                                f"launch was not the cluster kernel's: "
                                f"{cluster}")
-        return {"flash_forward_sliced": sliced["flash_forward"],
+        return {"flash_forward_pair": pair["flash_forward"],
                 **{f"{n}_cluster": c for n, c in cluster.items()}}
 
     counts = lm_at_widths(card, out_dir,
@@ -1680,9 +1715,10 @@ def phase_wide_head(card: str, out_dir):
 
 
 # the LM with one head of BEYOND_HEAD_DIM over one KV head, above the
-# cluster kernels' reach (attention.CLUSTER_LD), so that dq and dk/dv take
-# the sliced kernels (nine slices); 2 layers, B 1, T 1024, 2 steps: no
-# public model has such heads, the path holds the kernels there
+# pair forward's and the cluster kernels' reach (attention.PAIR_LD,
+# CLUSTER_LD), so that all three take the sliced kernels (nine slices); 2
+# layers, B 1, T 1024, 2 steps: no public model has such heads, the path
+# holds the kernels there
 BEYOND_HEAD_DIM = 2112
 BEYOND_ATTN = dict(d_model=BEYOND_HEAD_DIM, num_heads=1, num_kv_heads=1,
                    num_layers=2, d_ff=BEYOND_HEAD_DIM * 8 // 3, max_len=1024,
@@ -1693,9 +1729,9 @@ BEYOND_STEPS = 2
 def beyond_cluster_lm(card: str) -> dict:
     """The llama-style LM at BEYOND_ATTN through the LM workload's train
     step, loss and AdamW recipe, BEYOND_STEPS steps at B 1: each kernel
-    launched once a layer a step, dq's and dk/dv's the sliced kernels' (no
-    cluster kernel), losses finite.  Returns the sliced dq's and dk/dv's
-    launches."""
+    launched once a layer a step, every one the sliced kernels' (no pair
+    forward, no cluster kernel), losses finite.  Returns the sliced
+    kernels' launches."""
     import torch
 
     from tf_operator_tpu_torch.models.transformer import (
@@ -1728,16 +1764,17 @@ def beyond_cluster_lm(card: str) -> dict:
             f"{cfg.num_layers} layers, B 1, T {cfg.max_len})")
     check_launches(n, what)
     sliced = check_route_launches("sliced", n, what)
-    cluster = A.cluster_launches()
+    cluster, pair = A.cluster_launches(), A.pair_launches()
     print(f"{what}: losses {losses}; the cluster kernels' launches {cluster}"
-          f" (expected 0) [{card}]", flush=True)
-    if any(cluster.values()) or not all(math.isfinite(x) for x in losses):
-        raise RuntimeError(f"{what}: cluster launches {cluster}, losses "
-                           f"{losses}")
+          f", the pair forward's {pair} (expected 0) [{card}]", flush=True)
+    if (any(cluster.values()) or any(pair.values())
+            or not all(math.isfinite(x) for x in losses)):
+        raise RuntimeError(f"{what}: cluster launches {cluster}, pair "
+                           f"launches {pair}, losses {losses}")
     del state, model, step, data
     torch.cuda.empty_cache()
     return {f"{fn.__name__}_sliced": sliced[fn.__name__]
-            for fn in A.CLUSTER_KERNELS}
+            for fn in A.KERNELS}
 
 
 # ---------------------------------------------------------------------------
@@ -1756,7 +1793,8 @@ LSE_CASES = [
     ("d256_gqa8_causal", 4, 8, 1, 1024, 256, True),
     # the seventeenth slice: the wide_head phase's attention (4 query heads
     # of 512 over one KV head) through the (o, lse) entry: the sliced
-    # forward, and since the eighteenth the cluster dq and dk/dv
+    # forward (since the nineteenth the pair forward), and since the
+    # eighteenth the cluster dq and dk/dv
     ("d512_gqa4_causal", 4, 4, 1, 1024, 512, True),
 ]
 
@@ -1792,16 +1830,21 @@ def lse_case(case):
     scale = d ** -0.5
     leaves = [x.detach().requires_grad_() for x in (q, k, v)]
     before, cluster = A.launches(), A.cluster_launches()
+    pair = A.pair_launches()
     o, lse = A.flash_attention_lse(*leaves, causal)
     torch.autograd.backward((o, lse), (do, dlse))
     after = A.launches()
     on_route = A.cluster_route(d, q.dtype)
+    on_pair = A.pair_route(d, q.dtype)
     if (any(after[n] != before[n] + 1 for n in after)
             or any(c != cluster[n] + on_route
-                   for n, c in A.cluster_launches().items())):
+                   for n, c in A.cluster_launches().items())
+            or any(c != pair[n] + on_pair
+                   for n, c in A.pair_launches().items())):
         raise RuntimeError(f"lse case {name}: launches {before} -> {after}, "
                            f"the cluster kernels' {cluster} -> "
-                           f"{A.cluster_launches()}")
+                           f"{A.cluster_launches()}, the pair forward's "
+                           f"{pair} -> {A.pair_launches()}")
     got = {"o": o.detach(), "dq": leaves[0].grad, "dk": leaves[1].grad,
            "dv": leaves[2].grad}
 
@@ -3852,8 +3895,9 @@ def main(argv=None) -> int:
     timed(phase_llama)
     counts = dict(counts,
                   dkv_reduce=timed(phase_gemma, card, args.out_dir))
-    # the sliced forward and the cluster kernels: their launches on the
-    # wide-head LM's path; the sliced dq and dk/dv above the cluster's reach
+    # the pair forward and the cluster kernels: their launches on the
+    # wide-head LM's path; the sliced kernels above the pair's and the
+    # cluster's reach
     counts.update(timed(phase_wide_head, card, args.out_dir))
     timed(phase_lse)
     timed(phase_ring, card)
@@ -3898,7 +3942,8 @@ def main(argv=None) -> int:
         for name in [fn.__name__ for fn in A.KERNELS] + ["dkv_reduce"]
         + [f"{fn.__name__}_{route}" for route in ROUTES
            for fn in A.KERNELS]
-        + [f"{fn.__name__}_cluster" for fn in A.CLUSTER_KERNELS]]}),
+        + [f"{fn.__name__}_cluster" for fn in A.CLUSTER_KERNELS]
+        + [f"{fn.__name__}_pair" for fn in A.PAIR_KERNELS]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

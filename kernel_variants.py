@@ -36,10 +36,10 @@ and whole backward, every tiled tile the wrappers reach at head-dim class
 encoders' forward, dq and dk/dv kernels) for the base and each
 ENCODER_VARIANTS build in turns; every time is the profiler's device time.
 With --sliced: the same for the kernels of head dims above 256 at
-SLICED_CASES (the sliced forward, the cluster dq and dk/dv) against
-SLICED_VARIANTS: the parent's sliced dq and dk/dv in the same build, and
-diagnostics of what sets their pace (SDPA's memory-efficient backend
-beside its default dispatch).
+SLICED_CASES (the pair forward, the cluster dq and dk/dv) against
+SLICED_VARIANTS: the parent's sliced forward, dq and dk/dv in the same
+build, and diagnostics of what sets their pace (SDPA's memory-efficient
+backend beside its default dispatch).
 With --trees: each wrapper's device time at chip_smoke's cases main,
 gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
 of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
@@ -1187,30 +1187,25 @@ def main_encoder(names) -> int:
 
 
 # Above head dim 256 at chip_smoke's d512_mqa (4 query heads of 512 over
-# one KV head, B 4, T 2048, causal, bf16).  The forward's diagnostics read
-# an operand from device memory (L2) at the first step of a block's walk
-# only and leave the stale stages after it, so their outputs are wrong on
-# purpose: what one saves is what re-reading that operand at every step
-# costs.  dq and dk/dv run on the cluster kernels there; "sliced" routes
-# them to the sliced kernels of the same build instead (the parent's
-# design: the cluster's reach cut to 256, attention.CLUSTER_LD with it),
-# and three diagnostics, wrong on purpose too, show what the SM-to-SM sum
-# and the loads cost: "no_exchange" sums each block's own partial only (no
-# store to a partner, no wait), "exchange_only" issues no product (the
-# loads, the exchange, the exponentials and the stores alone),
-# "loads_once" loads the ring's slots at a block's first step only.
+# one KV head, B 4, T 2048, causal, bf16).  The forward runs on the pair
+# kernel there; "fwd_sliced" routes it to the sliced forward of the same
+# build instead (the parent's design: the pair's reach cut to 256,
+# attention.PAIR_LD with it), and four diagnostics, wrong on purpose, show
+# what each link of a step's chain costs: "pair_no_exchange" takes each
+# warpgroup's own partial for the whole S (no store, no barrier, no read),
+# "pair_no_loads" fills the rings at a block's first key step only (the
+# later steps read stale stages), "pair_no_products" issues no product,
+# "pair_no_softmax" takes S as P (no exponentials, no rescale).  dq and dk/dv run on the cluster kernels
+# there; "sliced" routes them to the sliced kernels of the same build
+# instead (the cluster's reach cut to 256, attention.CLUSTER_LD with it),
+# and three diagnostics show what the SM-to-SM sum and the loads cost:
+# "no_exchange" sums each block's own partial only (no store to a partner,
+# no wait), "exchange_only" issues no product (the loads, the exchange,
+# the exponentials and the stores alone), "loads_once" loads the ring's
+# slots at a block's first step only.
 SLICED_CASES = ("d512_mqa",)
-SLICED_FWD_LOADS = """          const int s = rg.put(S::STAGE_BYTES);
-          const uint32_t at = ring + s * S::STAGE_BYTES;
-          hopper::tma_load(at, &map_q, 64 * c, q0, bh, rg.full(s));
-          hopper::tma_load(at + S::Q_BYTES, &map_k, 64 * c, k0, bkv,
-                           rg.full(s));
-        }
-        for (int b = 0; b < nb; ++b) {
-          const int s = rg.put(S::K_BYTES);
-          hopper::tma_load(ring + s * S::STAGE_BYTES, &map_v, 64 * (cb + b),
-                           k0, bkv, rg.full(s));"""
 CLUSTER_REACH = "constexpr int CLUSTER_REACH = 1024;"
+PAIR_REACH = "constexpr int PAIR_REACH = 512;"
 # the cluster dk/dv's and dq's ring loads (Q's and dO's slices, V's and
 # K's)
 CLUSTER_LOADS = ["""          const uint32_t at = rg.put(n, 0, S::OPND);
@@ -1219,20 +1214,100 @@ CLUSTER_LOADS = ["""          const uint32_t at = rg.put(n, 0, S::OPND);
                  """          const uint32_t at = rg.put(n, 0, S::OPND);
           for (int b = 0; b < 4; ++b)
             hopper::tma_load(at + b * BOX, o == 0 ? &map_v : &map_k,"""]
+# the pair forward's contraction at the head of a key step, and the end
+# of its P V
+PAIR_CONTRACT = """    for (int it = 0; it < n_iter; ++it) {
+      const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+      float s_tile[BK / 2];
+      if (!PAIR_PRODUCTS)
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s_tile[i] = 0.f;
+      // the contraction over this warpgroup's chunks, one group over the
+      // K slab
+      const int ks = rg.take();
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * CN * PAIR_PRODUCTS; ++kk)
+        hopper::Mma<E>::ss(s_tile, hopper::desc_k(q_tile, BM, kk),
+                           hopper::desc_k(ring + ks * S::SLAB, BK, kk),
+                           kk > 0);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::mbar_arrive(rg.empty(ks));
+      hopper::wg_fence_regs(s_tile);
+"""
+PAIR_AHEAD = """    float s_tile[BK / 2];
+    if (!PAIR_PRODUCTS)
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s_tile[i] = 0.f;
+    auto contract = [&]() {
+      const int ks = rg.take();
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * CN * PAIR_PRODUCTS; ++kk)
+        hopper::Mma<E>::ss(s_tile, hopper::desc_k(q_tile, BM, kk),
+                           hopper::desc_k(ring + ks * S::SLAB, BK, kk),
+                           kk > 0);
+      hopper::wg_commit();
+      return ks;
+    };
+    int ks = n_iter > 0 ? contract() : 0;
+    for (int it = 0; it < n_iter; ++it) {
+      const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+      hopper::wg_wait<0>();
+      hopper::mbar_arrive(rg.empty(ks));
+      hopper::wg_fence_regs(s_tile);
+"""
+PAIR_PV_END = """      if (PAIR_PRODUCTS) pair_pv<E, CN>(o_acc, p_frag, ring + vs * S::SLAB);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::mbar_arrive(rg.empty(vs));
+"""
+PAIR_LOOP_END = """      for (int b = 0; b < 4; ++b) hopper::wg_fence_regs(o_acc[b]);
+    }
+"""
+PAIR_PRODUCER_END = """                             bkv, rg.full(s));
+        }
+      }
+"""
 SLICED_VARIANTS = {
-    # the forward's Q chunks (16 KB of a chunk's 24 KB) at the first key
-    # step only
-    "fwd_q_once": [(SLICED_FWD_LOADS, SLICED_FWD_LOADS.replace(
-        "rg.put(S::STAGE_BYTES);", "rg.put(it == 0 ? S::STAGE_BYTES "
-        ": S::K_BYTES);").replace(
-        "hopper::tma_load(at, &map_q", "if (it == 0) hopper::tma_load("
-        "at, &map_q"))],
-    # no load after the first key step: the products, the softmax and the
-    # ring's waits alone
-    "fwd_no_loads": [(SLICED_FWD_LOADS, SLICED_FWD_LOADS.replace(
-        "rg.put(S::STAGE_BYTES);", "rg.put(it == 0 ? S::STAGE_BYTES : 0);")
-        .replace("rg.put(S::K_BYTES);", "rg.put(it == 0 ? S::K_BYTES : 0);")
-        .replace("hopper::tma_load(", "if (it == 0) hopper::tma_load("))],
+    # the next key step's contraction issued behind this step's P V, in a
+    # branch at the last step
+    "pair_ahead": [(PAIR_CONTRACT, PAIR_AHEAD),
+                   (PAIR_PV_END, PAIR_PV_END.replace(
+                       """      hopper::wg_wait<0>();
+""", """      if (it + 1 < n_iter) {
+        ks = contract();
+        hopper::wg_wait<1>();
+      } else {
+        hopper::wg_wait<0>();
+      }
+"""))],
+    # the same with no branch: after the last step the producer hands over
+    # one more K slab, never loaded, whose products are thrown away
+    "pair_ahead_phantom": [
+        (PAIR_CONTRACT, PAIR_AHEAD),
+        (PAIR_PV_END, PAIR_PV_END.replace("""      hopper::wg_wait<0>();
+""", """      ks = contract();
+      hopper::wg_wait<1>();
+""")),
+        (PAIR_LOOP_END, PAIR_LOOP_END + """    hopper::wg_wait<0>();
+"""),
+        (PAIR_PRODUCER_END, PAIR_PRODUCER_END + """      if (n_iter > 0) rg.put(0);
+""")],
+    # the forward on the sliced kernel (the parent's)
+    "fwd_sliced": [(PAIR_REACH, PAIR_REACH.replace("512", "256"))],
+    # the pair forward without the exchange, and without the loads after a
+    # block's first key step
+    "pair_no_exchange": [("constexpr bool PAIR_EXCHANGE = true;",
+                          "constexpr bool PAIR_EXCHANGE = false;")],
+    "pair_no_loads": [("constexpr bool PAIR_LOADS = true;",
+                       "constexpr bool PAIR_LOADS = false;")],
+    # ... and without its products, and without its softmax
+    "pair_no_products": [("constexpr bool PAIR_PRODUCTS = true;",
+                          "constexpr bool PAIR_PRODUCTS = false;")],
+    "pair_no_softmax": [("constexpr bool PAIR_SOFTMAX = true;",
+                         "constexpr bool PAIR_SOFTMAX = false;")],
     # dq and dk/dv on the sliced kernels (the parent's)
     "sliced": [(CLUSTER_REACH, CLUSTER_REACH.replace("1024", "256"))],
     # the cluster kernels without the exchange, and without the products
@@ -1251,13 +1326,17 @@ SLICED_VARIANTS = {
          .replace("            hopper::tma_load(", "            if (it == 0) "
                   "hopper::tma_load("))],
 }
-SLICED_VARIANT_KERNELS = {"fwd_q_once": ("fwd",), "fwd_no_loads": ("fwd",),
-                          "sliced": ("dq", "dkv"), "no_exchange": ("dq", "dkv"),
-                          "exchange_only": ("dq", "dkv"),
-                          "loads_once": ("dq", "dkv")}
-# the cluster's reach a variant's wrappers must route by (its build's
-# CLUSTER_REACH)
-SLICED_VARIANT_REACH = {"sliced": 256}
+SLICED_VARIANT_KERNELS = {
+    "fwd_sliced": ("fwd",), "pair_no_exchange": ("fwd",),
+    "pair_no_loads": ("fwd",), "pair_no_products": ("fwd",),
+    "pair_ahead": ("fwd",), "pair_ahead_phantom": ("fwd",),
+    "pair_no_softmax": ("fwd",), "sliced": ("dq", "dkv"),
+    "no_exchange": ("dq", "dkv"), "exchange_only": ("dq", "dkv"),
+    "loads_once": ("dq", "dkv")}
+# the routes' bounds a variant's wrappers must route by (its build's
+# PAIR_REACH and CLUSTER_REACH)
+SLICED_VARIANT_BOUNDS = {"fwd_sliced": {"PAIR_LD": 256},
+                         "sliced": {"CLUSTER_LD": 256}}
 
 
 def main_sliced(names) -> int:
@@ -1273,13 +1352,14 @@ def main_sliced(names) -> int:
     print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
           flush=True)
     libs = {}
-    reach = A.CLUSTER_LD
+    bounds = {"PAIR_LD": A.PAIR_LD, "CLUSTER_LD": A.CLUSTER_LD}
     with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
         variants = [(name, edits) for name, edits in SLICED_VARIANTS.items()
                     if not names or name in names]
         for name, edits in [("base", [])] + variants:
             lib, log = build(name, edits, Path(tmp))
-            report(name, log, ("fwd", "dq", "dkv"), (A.SLICED, A.CLUSTER))
+            report(name, log, ("fwd", "dq", "dkv"),
+                   (A.SLICED, A.CLUSTER, A.PAIR))
             libs[name] = ctypes.CDLL(str(lib))
         bind(libs["base"])
         for case in cases:
@@ -1311,14 +1391,17 @@ def main_sliced(names) -> int:
         for r in range(ROUNDS):
             for name in order if r % 2 == 0 else order[::-1]:
                 bind(libs[name])
-                A.CLUSTER_LD = SLICED_VARIANT_REACH.get(name, reach)
+                for key, value in dict(
+                        bounds, **SLICED_VARIANT_BOUNDS.get(name, {})).items():
+                    setattr(A, key, value)
                 A.resolve_tiles.cache_clear()
                 kernels = SLICED_VARIANT_KERNELS.get(name,
                                                      ("fwd", "dq", "dkv"))
                 for case in cases:
                     print(f"  round {r} {name:13s} "
                           f"{device_line(A, case, kernels)}", flush=True)
-        A.CLUSTER_LD = reach
+        for key, value in bounds.items():
+            setattr(A, key, value)
         A.resolve_tiles.cache_clear()
     print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
           flush=True)

@@ -114,7 +114,8 @@ def test_default_candidates_reach_every_instantiation():
     """One pair for each distinct set of resolved tiles at head_dim 64,
     and every instantiation of the tensor-core kernels (each head-dim
     class, the sliced kernels above 256, the cluster dq and dk/dv up to
-    head dim 1024 and the sliced ones above it, and at T <= 256 the
+    head dim 1024 and the sliced ones above it, the pair forward up to
+    head dim 512 and the sliced one above it, and at T <= 256 the
     encoders' kernels) reached by one."""
     reached, sets = set(), set()
     for dtype in (torch.bfloat16, torch.float16):
@@ -123,11 +124,13 @@ def test_default_candidates_reach_every_instantiation():
                 tiles = A.resolve_tiles(bq, bk, d, dtype)
                 if d == 64:
                     sets.add((dtype, tiles))
-                for t_tiles in (tiles, A.resolve_tiles(bq, bk, d, dtype,
-                                                       197)):
+                for t in (None, 197):
+                    t_tiles = A.launch_tiles(bq, bk, d, dtype, t)
                     for kernel in ("fwd", "dq", "dkv"):
                         route = (A.CLUSTER if kernel != "fwd"
                                  and A.cluster_route(d, dtype)
+                                 else A.PAIR if kernel == "fwd"
+                                 and A.pair_route(d, dtype)
                                  else A.head_class(d))
                         reached.add((kernel,
                                      str(dtype).removeprefix("torch."),

@@ -314,6 +314,31 @@ def test_ptxas_report_names_the_cluster_kernels():
     assert {r[4] for r in report} <= A.instantiations()
 
 
+_FWD_PAIR = ("_ZN51_GLOBAL__N__d6002ca6_18_flash_attention_cu_183a6efc15"
+             "fwd_pair_kernelI{}Lb{}EEEv14CUtensorMap_stS2_S2_PT_PfiifN2fa4"
+             "MaskE")
+
+
+def test_ptxas_report_names_the_pair_forward():
+    """The pair forward in the same report (its template arguments: the
+    element type and the route), each keyed as the PAIR instantiation
+    attention.INSTANTIATED lists."""
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 5 barriers\n"
+        for name in (_FWD_PAIR.format("13__nv_bfloat16", 1),
+                     _FWD_PAIR.format("6__half", 0)))
+    report = ptxas_report(log)
+    assert report == [
+        ("fwd_pair_kernel<bfloat16, rows 64, step 64, scaled 1>", 168, 0, 0,
+         ("fwd", "bfloat16", A.PAIR, 64, 64)),
+        ("fwd_pair_kernel<float16, rows 64, step 64, scaled 0>", 168, 0, 0,
+         ("fwd", "float16", A.PAIR, 64, 64))]
+    assert {r[4] for r in report} <= A.instantiations()
+
+
 @pytest.mark.parametrize("scale,ok", [(0.125, True), (0.0, False),
                                       (-0.125, False), (float("nan"), False)])
 def test_the_kernels_take_only_a_positive_scale(scale, ok):
@@ -878,6 +903,75 @@ def test_dq_and_dkv_above_the_cluster_reach_take_the_sliced_kernels(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_pair_forward_repeats_bit_for_bit_at_d512_mqa(cuda, dtype):
+    """Two runs of the forward at the wide_head phase's attention (B 4, 4
+    query heads of 512 over one KV head, T 2048, causal) are the pair
+    kernel's (`attention.pair_launches`) and give the same bits: both
+    warpgroups sum warpgroup 0's partial S + warpgroup 1's."""
+    q, k, v, _ = _inputs(2048, 4, 1, d=512, b=4, dtype=getattr(torch, dtype))
+    opts = dict(scale=512 ** -0.5, causal=True, window=None, sink=0,
+                **DEFAULT)
+    before = A.pair_launches()["flash_forward"]
+    first = A.flash_forward(q, k, v, **opts)
+    second = A.flash_forward(q, k, v, **opts)
+    torch.cuda.synchronize()
+    assert A.pair_launches()["flash_forward"] == before + 2
+    for name, a, b in zip(("o", "lse"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 520), ("float16", 1024),
+                                     ("float32", 512)])
+def test_forward_off_the_pair_route_takes_the_sliced_kernel(cuda, dtype, d):
+    """Above PAIR_LD, and in f32, the forward runs on the sliced kernels
+    (no pair launch) and holds against its plain version."""
+    q, k, v, g = _inputs(300, 4, 2, d=d, b=1, dtype=getattr(torch, dtype))
+    before = A.pair_launches()
+    _kernels_against_plain(q, k, v, g, DEFAULT, scale=d ** -0.5, causal=True,
+                           window=64, sink=70)
+    assert A.pair_launches() == before
+
+
+@pytest.mark.cuda
+def test_pair_forward_builds_without_spills(cuda, tmp_path):
+    """ptxas's report of a build: the pair forward (bf16 and fp16, both
+    scale routes) is there and spills nothing."""
+    log = _build.build_log or _build.nvcc(_build.SOURCE,
+                                          tmp_path / "libfa.so")
+    pair = [r for r in ptxas_report(log) if r[4][2] == A.PAIR]
+    print("\n".join(f"{r[0]}: {r[1]} registers at launch, {r[2]}/{r[3]} "
+                    "bytes spilled" for r in pair))
+    assert len(pair) == 2 * 2
+    assert all(r[2] == r[3] == 0 for r in pair)
+
+
+@pytest.mark.cuda
+def test_tolerance_rejects_a_pair_without_the_other_partial(
+        cuda, tmp_path, monkeypatch):
+    """The pair forward built with a planted fault (warpgroup 0's first
+    warp leaves warpgroup 1's partial S out of its sum, rows 0-15 of each
+    tile) at head dim 512: o and lse fail the tolerance."""
+    site = "v = wg == 0 ? v + x : x + v;"
+    _faulty_library(tmp_path, monkeypatch, site,
+                    "v = wg == 0 ? v + (warp == 0 ? 0.f : x) : x + v;")
+    q, k, v, _ = _inputs(512, 4, 1, d=512, b=1)
+    opts = dict(scale=512 ** -0.5, causal=True, window=None, sink=0)
+    before = A.pair_launches()["flash_forward"]
+    o, lse = A.flash_forward(q, k, v, **opts, **DEFAULT)
+    torch.cuda.synchronize()
+    assert A.pair_launches()["flash_forward"] == before + 1
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
+    worst, rel = tolerance_ratios(o, o_ref)
+    lse_err = float((lse - lse_ref).abs().max())
+    print(f"planted pair fault: o worst err/limit {worst:.1f}, relative "
+          f"Frobenius {rel:.3e}; lse max_abs_err {lse_err:.3e}")
+    assert not _held(o, o_ref) and lse_err > 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
 @pytest.mark.parametrize("h,kv_h", [(8, 1), (12, 4), (6, 1)])
 def test_dkv_holds_at_every_split_of_the_group(cuda, monkeypatch, dtype, h,
                                                kv_h):
@@ -1129,19 +1223,22 @@ def test_tolerance_rejects_a_wide_forward_that_skips_a_late_tile(
 def test_tolerance_rejects_a_sliced_forward_that_skips_the_last_chunk(
         cuda, tmp_path, monkeypatch):
     """The sliced forward built with a planted fault (S = Q K^T summed
-    over every 64-column chunk of the head dim but the last) at the wide
-    head attention, B 1, T 1024: o and lse both fail."""
+    over every 64-column chunk of the head dim but the last) at 4 query
+    heads of 1024 over one KV head (above the pair forward's reach, where
+    the sliced forward runs), B 1, T 1024: o and lse both fail."""
     site = ("hopper::Mma<E>::ss(s_tile, hopper::desc_k(at + wg * 64 * 128, "
             "64, kk),\n                           hopper::desc_k(at + "
             "S::Q_BYTES, BK, kk),")
     _faulty_library(tmp_path, monkeypatch, site, "if (c + 1 < nc) " + site)
 
-    q, k, v, _ = _inputs(1024, 4, 1, d=512, b=1)
-    o, lse = A.flash_forward(q, k, v, scale=512 ** -0.5, causal=True,
+    q, k, v, _ = _inputs(1024, 4, 1, d=1024, b=1)
+    pair = A.pair_launches()
+    o, lse = A.flash_forward(q, k, v, scale=1024 ** -0.5, causal=True,
                              window=None, sink=0, **DEFAULT)
+    assert A.pair_launches() == pair
     qf, kf, vf = (x.float() for x in (q, k, v))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
-                                     causal=True, scale=512 ** -0.5)
+                                     causal=True, scale=1024 ** -0.5)
     worst, rel = tolerance_ratios(o, o_ref)
     lse_err = float((lse - lse_ref).abs().max())
     print(f"planted sliced forward fault: o worst err/limit {worst:.3f}, "

@@ -31,7 +31,9 @@ Each kernel wrapper (`flash_forward`, `flash_backward_dq`,
 split into at head-dim class 256) computes its kernel's plain version when
 handed CPU tensors, and counts, in its `launches` attribute, every time it
 launches its kernel (and `short_launches`, the launches of the encoders'
-kernels among them, and `sliced_launches`, those of the sliced kernels).
+kernels among them, `sliced_launches`, those of the kernels above head
+dim 256, and of those `cluster_launches`, the cluster dq's and dk/dv's,
+and `pair_launches`, the pair forward's).
 The kernels live in `csrc/flash_attention.cu` (with the Hopper building
 blocks in `csrc/hopper.cuh`) and are built at first use (`_build.py`).
 """
@@ -227,6 +229,18 @@ SLICE = 256
 # kernels run.  CLUSTER is the route's key in INSTANTIATED.
 CLUSTER_LD = 1024
 CLUSTER = -1
+# The pair route: above head dim 256 up to PAIR_LD in bf16 and fp16 the
+# forward takes the pair kernel (csrc: fwd_pair_kernel, whose PAIR_REACH is
+# the same bound), chosen by the stored head dim alone (`pair_route`): one
+# block a 64-row tile, whose two consumer warpgroups split the head dim,
+# each contracting its half into a partial S and adding the other's
+# through shared memory, so S is computed once, where the sliced forward
+# recomputes it in every slice.  Above the reach (and in f32) the sliced
+# forward runs.  PAIR is the route's key in INSTANTIATED; `resolve_tiles`
+# keeps the sliced forward's tile there and `launch_tiles` gives the
+# tiles the kernels launch.
+PAIR_LD = 512
+PAIR = -2
 # The tiles the tensor-core kernels are instantiated for, the same table as
 # csrc/flash_attention.cu's dispatchers (the encoders' kernels' tiles are
 # SHORT's, below): per kernel and head-dim class
@@ -244,10 +258,12 @@ CLUSTER = -1
 # each KV head's query-head group inside the block).  CLUSTER (bf16 and
 # fp16 only) has one tile each: 64 rows whose two warpgroups take the
 # 64-key steps in turns (dq), 64 keys shared by two warpgroups over
-# 64-query steps (dk/dv).
+# 64-query steps (dk/dv).  PAIR (the forward, bf16 and fp16 only) has
+# one tile: 64 rows over 64-key steps.
 INSTANTIATED = {
     "fwd": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
-            256: ((64, 128), (64,)), SLICED: ((128,), (64,))},
+            256: ((64, 128), (64,)), SLICED: ((128,), (64,)),
+            PAIR: ((64,), (64,))},
     "dq": {64: ((64, 128), (64, 128)), 128: ((64, 128), (64,)),
            256: ((128,), (64,)), SLICED: ((128,), (64,)),
            CLUSTER: ((64,), (64,))},
@@ -297,6 +313,14 @@ def cluster_route(head_dim: int, dtype) -> bool:
     one per slice."""
     return (dtype in (torch.bfloat16, torch.float16)
             and SLICE < head_dim <= CLUSTER_LD)
+
+
+def pair_route(head_dim: int, dtype) -> bool:
+    """Whether the forward takes the pair kernel: bf16 or fp16 at a head
+    dim above 256 up to PAIR_LD (the stored head dim, a multiple of 8, has
+    the same bound)."""
+    return (dtype in (torch.bfloat16, torch.float16)
+            and SLICE < head_dim <= PAIR_LD)
 
 
 def scales_first(scale: float) -> bool:
@@ -355,6 +379,17 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
     return tiles
 
 
+def launch_tiles(block_q: int, block_k: int, head_dim: int, dtype,
+                 t: Optional[int] = None) -> Tiles:
+    """The tiles the three kernels launch: `resolve_tiles`', but the pair
+    kernel's one tile for the forward on the pair route (`pair_route`)."""
+    tiles = resolve_tiles(block_q, block_k, head_dim, dtype, t)
+    if pair_route(head_dim, dtype):
+        (rows,), (step,) = INSTANTIATED["fwd"][PAIR]
+        tiles = tiles._replace(fwd=(rows, step))
+    return tiles
+
+
 def dkv_splits(bkv: int, t: int, group: int, sms: int) -> int:
     """How many slices dk/dv splits each KV head's query-head group into
     at head-dim class 256: one block per (b*kv_head, 64-key tile, slice),
@@ -402,7 +437,7 @@ def instantiations() -> set:
             for dtype in ("bfloat16", "float16"):
                 out.update((kernel, dtype, dc, r, s) for r in rows
                            for s in steps)
-            if dc != CLUSTER:
+            if dc not in (CLUSTER, PAIR):
                 out.add((kernel, "float32", dc) + F32_TILE)
     for kernel, tile in SHORT.items():
         out.update((kernel, dtype, 64) + tile
@@ -535,14 +570,16 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
     """(o [B, H, T, D], lse [B, H, T] f32).  Replaces the TPU `_fwd_kernel`.
     Rows per block from block_q, key step from block_k (`resolve_tiles`),
     or a whole head a work item on the encoders' route (`short_route`), or
-    above head_dim 256 a 256-column slice of a row tile a block."""
+    above head_dim 256 a 256-column slice of a row tile a block, but up to
+    PAIR_LD in bf16 and fp16 (`pair_route`) a 64-row tile, the head dim
+    split between the block's two warpgroups (`launch_tiles`)."""
     if q.device.type == "cpu":
         return attention_lse(q, *repeat_kv(q, k, v), causal=causal,
                              scale=scale, window=window, sink=sink)
     _check_cuda(q, k, v)
     block_q, block_k = default_blocks(block_q, block_k)
     b, heads, t, d = q.shape
-    tile = resolve_tiles(block_q, block_k, d, q.dtype, t).fwd
+    tile = launch_tiles(block_q, block_k, d, q.dtype, t).fwd
     qp, kp, vp = _padded(q, k, v)
     o = torch.empty_like(qp)
     lse = torch.empty((b, heads, t), device=q.device, dtype=torch.float32)
@@ -557,6 +594,7 @@ def flash_forward(q, k, v, *, scale: float, causal: bool,
     flash_forward.launches += 1
     flash_forward.short_launches += tile == SHORT["fwd"]
     flash_forward.sliced_launches += head_class(d) == SLICED
+    flash_forward.pair_launches += pair_route(d, q.dtype)
     return _unpadded(o, d), lse
 
 
@@ -685,9 +723,11 @@ def dkv_reduce(ws, scale: float, dtype):
 # kernel of head dims above 256, counted apart in `sliced_launches` (and
 # `launches` counts them all).  Of those, dq's and dk/dv's launches on the
 # cluster route (`cluster_route`) are the cluster kernels', counted again
-# in `cluster_launches`.
+# in `cluster_launches`, and the forward's on the pair route
+# (`pair_route`) are the pair kernel's, counted again in `pair_launches`.
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
 CLUSTER_KERNELS = (flash_backward_dq, flash_backward_dkv)
+PAIR_KERNELS = (flash_forward,)
 
 
 def reset_launches() -> None:
@@ -698,6 +738,8 @@ def reset_launches() -> None:
         fn.sliced_launches = 0
     for fn in CLUSTER_KERNELS:
         fn.cluster_launches = 0
+    for fn in PAIR_KERNELS:
+        fn.pair_launches = 0
 
 
 reset_launches()
@@ -717,6 +759,10 @@ def sliced_launches() -> dict:
 
 def cluster_launches() -> dict:
     return {fn.__name__: fn.cluster_launches for fn in CLUSTER_KERNELS}
+
+
+def pair_launches() -> dict:
+    return {fn.__name__: fn.pair_launches for fn in PAIR_KERNELS}
 
 
 class FlashAttentionFn(torch.autograd.Function):

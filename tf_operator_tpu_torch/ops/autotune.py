@@ -139,7 +139,7 @@ def tune_flash_blocks(
     (in-process and in the optional JSON file)."""
     import torch
 
-    from .attention import flash_attention, resolve_tiles
+    from .attention import flash_attention, launch_tiles
 
     dtype = dtype or torch.bfloat16
     kv_h = kv_h or h
@@ -185,8 +185,8 @@ def tune_flash_blocks(
         row = {"block_q": bq, "block_k": bk}
         try:
             row["tiles"] = {name: list(tile) for name, tile in
-                            resolve_tiles(bq, bk, d, dtype,
-                                          t)._asdict().items()}
+                            launch_tiles(bq, bk, d, dtype,
+                                         t)._asdict().items()}
             step(bq, bk)  # warm-up (and the first launch's checks)
             ms = timed(lambda bq=bq, bk=bk: step(bq, bk))
             row["ms"] = round(ms, 4)

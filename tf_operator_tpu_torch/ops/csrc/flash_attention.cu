@@ -29,7 +29,10 @@
 //     their own on ld; but dq and dk/dv in bf16 and fp16 up to ld
 //     CLUSTER_REACH (1024) run on the cluster kernels (below: the blocks
 //     of a row or key tile's slices form a thread-block cluster that splits
-//     the head dim's contraction and sums S and dP across its blocks).
+//     the head dim's contraction and sums S and dP across its blocks), and
+//     the forward in bf16 and fp16 up to ld PAIR_REACH (512) on the pair
+//     forward (below: a block's two consumer warpgroups split the head dim
+//     and sum their partial S through shared memory).
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -80,13 +83,14 @@
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
 // 11-15, head dims above 256 to parts 16-20, and dq's and dk/dv's up to
-// CLUSTER_REACH in bf16 and fp16 to parts 21-24); 11-12: the forward at
+// CLUSTER_REACH in bf16 and fp16 to parts 21-24, and the forward's up to
+// PAIR_REACH in bf16 and fp16 to parts 25-26); 11-12: the forward at
 // D 256 in bf16 and fp16; 13: dq and 14: dk/dv at D 256 (with the
 // reduction of its slices' partials); 15: the f32 kernels at D 256; 16-17:
 // the sliced forward in bf16 and fp16; 18: the sliced dq and 19: dk/dv;
 // 20: the sliced f32 kernels; 21-22: the cluster dq in bf16 and fp16;
-// 23-24: the cluster dk/dv in bf16 and fp16; 0 (unset): every part in one
-// unit.
+// 23-24: the cluster dk/dv in bf16 and fp16; 25-26: the pair forward in
+// bf16 and fp16; 0 (unset): every part in one unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -233,6 +237,16 @@ int dq_bf16_cluster_info(int ld, int* smem, int* clusters);
 int dq_f16_cluster_info(int ld, int* smem, int* clusters);
 int dkv_bf16_cluster_info(int ld, int* smem, int* clusters);
 int dkv_f16_cluster_info(int ld, int* smem, int* clusters);
+// the pair forward, head dims 257..PAIR_REACH in bf16 and fp16 (parts
+// 25-26)
+int forward_bf16_pair(int bh, const FwdArgs& a, int rows, int step,
+                      cudaStream_t st);
+int forward_bf16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
+                             cudaStream_t st);
+int forward_f16_pair(int bh, const FwdArgs& a, int rows, int step,
+                     cudaStream_t st);
+int forward_f16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
+                            cudaStream_t st);
 // the sum of dk/dv's slices (part 14): ws [2][splits][n] f32 -> dk, dv [n]
 int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
                     int splits, float scale, cudaStream_t st);
@@ -4589,6 +4603,325 @@ __global__ void __launch_bounds__(384, 1)
   hopper::cluster_sync();
 }
 
+// ---------------------------------------------------------------------------
+// The pair forward: head dims 257..PAIR_REACH in bf16 and fp16,
+// fwd_pair_kernel.  It replaces tf_operator_tpu/ops/attention.py:_fwd_kernel
+// there; above the reach, and in f32, fwd_sliced_kernel and its f32
+// counterpart run.
+//
+// fwd_sliced_kernel writes one 256-column slice of O a block, so every
+// slice's block of a row tile contracts S over the whole head dim: at ld
+// 512, 1.5x the bound's products.  Here one block takes a 64-row tile and
+// the whole head dim, and its two consumer warpgroups split the head dim's
+// 64-column chunks: warpgroup 0 the first ceil(nc / 2), warpgroup 1 the
+// rest (at most 4 each up to the reach, so an output accumulator stays at
+// 128 registers a thread).  The same half serves twice:
+//   * each warpgroup contracts Q K^T over its chunks into a partial S [64 x
+//     64] f32 and passes it through shared memory a 32-column half at a
+//     time: stores the half into its buffer of that half, meets the same
+//     warp of the other warpgroup at a named barrier (one per warp pair,
+//     64 threads) and reads the other's.  The two warpgroups' accumulator
+//     layouts are the same, so each thread reads the other's partial of
+//     its own elements and adds warpgroup 0's + warpgroup 1's: both hold
+//     the same bits, and both run online_softmax to the same m, l and P;
+//   * each warpgroup adds P V over its own V column blocks into its output
+//     accumulator, P from registers, as one m64n256 product a 16-key step
+//     at four blocks (m64n128, + m64n64, below), and writes those columns
+//     of O (warpgroup 0 writes lse).
+// So each element of S is computed once, and the products are the
+// bound's.  Q's 64 x ld tile is loaded once and stays (each warpgroup's
+// chunks on a barrier of its own).  Each warpgroup streams a key step's K
+// chunks and then its V column blocks as two 32 KB slabs (their 64-column
+// boxes 8 KB apart, one ring item each) through a ring of two slots,
+// filled by a producer thread of its own: the next step's K slab loads
+// while this step's V slab is in use, and a step waits on two items.  A
+// warpgroup writes a half's buffer again a step later only after the
+// barrier of the other half, which the other warpgroup reaches only after
+// it has read the first, so one barrier a half is the whole exchange
+// (tests/test_torch_fwd_pair.py models it and the rings under random
+// interleavings).  The grid is fwd_sliced_kernel's with one slice: (b*h,
+// row tile), each b*h's tiles from the last (the longest under causal
+// masking) down.
+// Bound: operations (2 products), 0.0695 ms at the wide_head path's d512_mqa
+// on an H100, where the kernel runs at 0.32 of it, 29 % under
+// fwd_sliced_kernel.  The same split over 8 KB ring stages, a wait for
+// each chunk and m64n64 P V products ran level with fwd_sliced_kernel, and
+// issuing the next step's contraction behind this step's P V (with a
+// branch at the last step, or a last K slab never loaded) was 2-14 %
+// slower than this.  Without its products the kernel still takes 0.69 of
+// its time, without the exchange 0.79, without the softmax 0.78 (PERF.md
+// has the times and the designs tried): the two warpgroups walk each
+// step's chain in lockstep, so that neither's exchange and softmax hide
+// under the other's products.
+constexpr int PAIR_REACH = 512;
+
+// Diagnostics for kernel_variants.py only (all true in every build the
+// wrappers load; each one false gives wrong outputs): without
+// PAIR_EXCHANGE each warpgroup takes its own partial for the whole S (no
+// exchange); without PAIR_LOADS the rings are filled at a block's first
+// key step only (later steps read stale stages); without PAIR_PRODUCTS no
+// product is issued; without PAIR_SOFTMAX P is S as it stands (no
+// exponentials, no rescale).
+constexpr bool PAIR_EXCHANGE = true;
+constexpr bool PAIR_LOADS = true;
+constexpr bool PAIR_PRODUCTS = true;
+constexpr bool PAIR_SOFTMAX = true;
+
+// Shared memory (bytes; of a block's 232,448): Q's resident tile, up to 8
+// chunks of 64 rows x 64 columns (65,536); the exchange buffers, two per
+// warpgroup of one 32-column half of a partial S each, 64 x 32 f32 (4 x
+// 8,192); each warpgroup's ring of two 32 KB slots, a key step's K chunks
+// (a slab) or V column blocks in each, their 64-column boxes 8 KB apart
+// (2 x 65,536); the mbarriers (Q's two, then each ring's full and empty)
+// and 1 KB of alignment slack: 230,480 in all.
+struct FwdPairSmem {
+  static constexpr int BM = 64, BK = 64;
+  static constexpr int CHUNK = 64 * 128;  // 64 rows of one 64-column chunk
+  static constexpr int Q_BYTES = PAIR_REACH / 64 * CHUNK;
+  static constexpr int X_BYTES = 64 * 32 * 4;  // a half's partial S
+  static constexpr int X_OFF = Q_BYTES;        // [warpgroup][half]
+  static constexpr int SLAB = 4 * CHUNK;       // a warpgroup's chunks
+  static constexpr int STAGES = 2;             // a warpgroup's ring
+  static constexpr int RING_OFF = X_OFF + 4 * X_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + 2 * STAGES * SLAB;
+  static constexpr int BYTES = BAR_OFF + 8 * (2 + 4 * STAGES) + 1024;
+  static_assert(BYTES <= smem_budget(1), "pair forward does not fit");
+};
+
+// The block's registers: its producer threads keep 40 (at the other
+// kernels' 24 the producer's walk over two slabs of up to four boxes
+// spilled), each consumer 232 (not 240).
+constexpr int PAIR_PRODUCER_REGS = 40;
+constexpr int PAIR_CONSUMER_REGS = 232;
+static_assert(PAIR_PRODUCER_REGS + 2 * PAIR_CONSUMER_REGS ==
+                  3 * hopper::reg_base(2, 1),
+              "pair forward's register split");
+
+// Warpgroup w's chunks of nc: [first, first + count).
+__host__ __device__ constexpr int pair_first(int w, int nc) {
+  return w == 0 ? 0 : (nc + 1) / 2;
+}
+__host__ __device__ constexpr int pair_count(int w, int nc) {
+  return w == 0 ? (nc + 1) / 2 : nc - (nc + 1) / 2;
+}
+
+// Warpgroup w's ring.
+__device__ __forceinline__ SlicedRing<FwdPairSmem::STAGES> pair_ring(
+    uint32_t base, int w) {
+  using S = FwdPairSmem;
+  return {base + S::BAR_OFF + 16 + w * 16 * S::STAGES, 0};
+}
+
+// P V over CN column blocks of a V slab whose 64-column blocks lie CHUNK
+// apart: m64n256 at four blocks, m64n128 (+ m64n64) below.
+template <typename E, int CN>
+__device__ __forceinline__ void pair_pv(float (&o_acc)[4][32],
+                                        const uint32_t (&p_frag)[4][4],
+                                        uint32_t slab) {
+  using S = FwdPairSmem;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (CN == 4) {
+      hopper::Mma<E>::rs256(reinterpret_cast<float(&)[128]>(o_acc),
+                            p_frag[kk], hopper::desc_mn_wide(slab, 64, kk));
+    } else {
+      hopper::Mma<E>::rs128(reinterpret_cast<float(&)[64]>(o_acc),
+                            p_frag[kk], hopper::desc_mn_wide(slab, 64, kk));
+      if constexpr (CN == 3)
+        hopper::Mma<E>::rs64(o_acc[2], p_frag[kk],
+                             hopper::desc_mn(slab + 2 * S::CHUNK, 64, kk, 0));
+    }
+  }
+}
+
+template <typename E, bool SCALED>
+__global__ void __launch_bounds__(384, 1)
+    fwd_pair_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    E* __restrict__ o, float* __restrict__ lse, int group,
+                    int ld, float scale, Mask mk) {
+  using S = FwdPairSmem;
+  constexpr int BM = S::BM, BK = S::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = hopper::smem_addr(aligned_smem(smem_raw));
+  const uint32_t q_full = base + S::BAR_OFF;  // [warpgroup]
+
+  const int T = mk.T;
+  const int nc = ceil_div(ld, 64);  // the head dim's 64-column chunks
+  const SliceTile st = slice_tile(BM, T, 1);
+  const int bh = st.bh, q0 = st.tile * BM;
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+
+  if (threadIdx.x == 0) {
+    for (int w = 0; w < 2; ++w) {
+      hopper::mbar_init(q_full + 8 * w, 1);
+      pair_ring(base, w).init(128);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: warp w feeds warpgroup w
+    hopper::reg_dealloc<PAIR_PRODUCER_REGS>();
+    const int w = (threadIdx.x - 256) >> 5;
+    if (w < 2 && (threadIdx.x & 31) == 0) {
+      const int c0 = pair_first(w, nc), cn = pair_count(w, nc);
+      const int bkv = bh / group;
+      hopper::mbar_arrive_tx(q_full + 8 * w, cn * S::CHUNK);
+      for (int c = c0; c < c0 + cn; ++c)
+        hopper::tma_load(base + c * S::CHUNK, &map_q, 64 * c, q0, bh,
+                         q_full + 8 * w);
+      SlicedRing<S::STAGES> rg = pair_ring(base, w);
+      const uint32_t ring = base + S::RING_OFF + w * S::STAGES * S::SLAB;
+      for (int it = 0; it < n_iter; ++it) {
+        const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+        const bool load = PAIR_LOADS || it == 0;
+        // the step's K slab, then its V slab
+        for (int x = 0; x < 2; ++x) {
+          const int s = rg.put(load ? cn * S::CHUNK : 0);
+          for (int c = 0; load && c < cn; ++c)
+            hopper::tma_load(ring + s * S::SLAB + c * S::CHUNK,
+                             x == 0 ? &map_k : &map_v, 64 * (c0 + c), k0,
+                             bkv, rg.full(s));
+        }
+      }
+    }
+    return;
+  }
+  hopper::reg_alloc<PAIR_CONSUMER_REGS>();
+
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const float sl2 = scale * LOG2E;
+  const int c0 = pair_first(wg, nc), cn = pair_count(wg, nc);
+  SlicedRing<S::STAGES> rg = pair_ring(base, wg);
+  const uint32_t ring = base + S::RING_OFF + wg * S::STAGES * S::SLAB;
+  const uint32_t q_tile = base + c0 * S::CHUNK;  // this warpgroup's Q
+  // this thread's 16 values of a half's partial in an exchange buffer: its
+  // warp's 2 KB, 16-byte group q at q * 512 + lane * 16 (each warp's store
+  // one contiguous 512 bytes), in its own warpgroup's buffers and the
+  // other's
+  const uint32_t x_own =
+      base + S::X_OFF + wg * 2 * S::X_BYTES + warp * 2048 + lane * 16;
+  const uint32_t x_other =
+      base + S::X_OFF + (1 - wg) * 2 * S::X_BYTES + warp * 2048 + lane * 16;
+  hopper::mbar_wait(q_full + 8 * wg, 0);
+
+  // The body at CN chunks (2..4, known at compile time, so that the P V
+  // product's width is).
+  auto run = [&](auto count) {
+    constexpr int CN = decltype(count)::value;
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+    float alpha[2];
+    float o_acc[4][32];  // this warpgroup's 64-column blocks (CN of them)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o_acc[b][i] = 0.f;
+    for (int it = 0; it < n_iter; ++it) {
+      const int k0 = (it < n_sink ? it : lo + it - n_sink) * BK;
+      float s_tile[BK / 2];
+      if (!PAIR_PRODUCTS)
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) s_tile[i] = 0.f;
+      // the contraction over this warpgroup's chunks, one group over the
+      // K slab
+      const int ks = rg.take();
+      hopper::wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4 * CN * PAIR_PRODUCTS; ++kk)
+        hopper::Mma<E>::ss(s_tile, hopper::desc_k(q_tile, BM, kk),
+                           hopper::desc_k(ring + ks * S::SLAB, BK, kk),
+                           kk > 0);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::mbar_arrive(rg.empty(ks));
+      hopper::wg_fence_regs(s_tile);
+
+      // the partial S through the exchange buffers, a 32-column half at a
+      // time: each stored, the other warpgroup's same warp met, its half
+      // added (warpgroup 0's + warpgroup 1's in both)
+#pragma unroll
+      for (int h = 0; h < 2 * PAIR_EXCHANGE; ++h) {
+        const uint32_t at = h * S::X_BYTES;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          st_shared4(x_own + at + q * 512,
+                     __float_as_uint(s_tile[16 * h + 4 * q]),
+                     __float_as_uint(s_tile[16 * h + 4 * q + 1]),
+                     __float_as_uint(s_tile[16 * h + 4 * q + 2]),
+                     __float_as_uint(s_tile[16 * h + 4 * q + 3]));
+        hopper::named_sync(1 + warp, 64);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          uint32_t in[4];
+          ld_shared4(x_other + at + q * 512, in);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float& v = s_tile[16 * h + 4 * q + e];
+            const float x = __uint_as_float(in[e]);
+            v = wg == 0 ? v + x : x + v;
+          }
+        }
+      }
+
+      if (PAIR_SOFTMAX) {
+        online_softmax<BK, SCALED>(s_tile, m, l, alpha, mk, q0, row0, k0, t,
+                                   sl2);
+#pragma unroll
+        for (int b = 0; b < CN; ++b) {
+#pragma unroll
+          for (int x = 0; x < 32; ++x) o_acc[b][x] *= alpha[(x >> 1) & 1];
+        }
+      }
+      uint32_t p_frag[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        acc_to_a<E>(p_frag[kk], s_tile, kk);
+      // P V over this warpgroup's column blocks, one group over the V slab
+      const int vs = rg.take();
+      hopper::wg_fence();
+      if (PAIR_PRODUCTS) pair_pv<E, CN>(o_acc, p_frag, ring + vs * S::SLAB);
+      hopper::wg_commit();
+      hopper::wg_wait<0>();
+      hopper::mbar_arrive(rg.empty(vs));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) hopper::wg_fence_regs(o_acc[b]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+      const int i = row0 + 8 * h;
+      if (i >= T) continue;
+      const float inv = l[h] > 0.f ? 1.f / l[h] : 1.f;
+      E* op = o + ((size_t)bh * T + i) * ld;
+#pragma unroll
+      for (int b = 0; b < CN; ++b) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 64 * (c0 + b) + 8 * j + 2 * t;
+          if (c < ld)
+            store2(op + c, o_acc[b][4 * j + 2 * h] * inv,
+                   o_acc[b][4 * j + 2 * h + 1] * inv);
+        }
+      }
+      if (wg == 0 && lse != nullptr && t == 0)
+        lse[(size_t)bh * T + i] = l[h] > 0.f ? m[h] * LN2 + logf(l[h]) : 0.f;
+    }
+  };
+  switch (cn) {
+    case 2: run(std::integral_constant<int, 2>()); break;
+    case 3: run(std::integral_constant<int, 3>()); break;
+    default: run(std::integral_constant<int, 4>()); break;
+  }
+}
+
 // The sliced f32 kernels: the f32 kernels above with the head dim streamed
 // F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles for the
 // contractions, and each block one SW-column slice of the outputs, whose
@@ -5196,6 +5529,36 @@ int cluster_info(int ld, int* smem, int* clusters) {
   return (int)cudaErrorInvalidValue;
 }
 
+// Launcher of the pair forward.  Its one tile is (64, 64); any other, or
+// an ld outside (256, PAIR_REACH] or not a multiple of 8, returns
+// cudaErrorInvalidValue.
+template <typename E, bool SCALED>
+int fwd_pair(int bh, const FwdArgs& a, int rows, int step,
+             cudaStream_t stream) {
+  using S = FwdPairSmem;
+  const int T = a.mk.T;
+  if (rows != S::BM || step != S::BK || a.ld <= SLICE || a.ld > PAIR_REACH ||
+      a.ld % 8)
+    return (int)cudaErrorInvalidValue;
+  const CUtensorMapDataType ty = Elt<E>::MAP;
+  CUtensorMap map_q, map_k, map_v;
+  int e;
+  if ((e = hopper::tile_map(&map_q, ty, a.q, bh, T, a.ld, S::BM)) ||
+      (e = hopper::tile_map(&map_k, ty, a.k, bh / a.group, T, a.ld, S::BK)) ||
+      (e = hopper::tile_map(&map_v, ty, a.v, bh / a.group, T, a.ld, S::BK)))
+    return TENSOR_MAP_ERROR + e;
+  auto kernel = fwd_pair_kernel<E, SCALED>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = slice_blocks(bh, T, S::BM, 1);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<grid, 384, S::BYTES, stream>>>(map_q, map_k, map_v,
+                                          static_cast<E*>(a.o), a.lse,
+                                          a.group, a.ld, a.scale, a.mk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -5461,6 +5824,28 @@ int fa::dkv_f16_cluster_info(int ld, int* smem, int* clusters) {
 }
 #endif
 
+#if FA_IN_PART(25)
+int fa::forward_bf16_pair(int bh, const FwdArgs& a, int rows, int step,
+                          cudaStream_t st) {
+  return fwd_pair<bf16, false>(bh, a, rows, step, st);
+}
+int fa::forward_bf16_scaled_pair(int bh, const FwdArgs& a, int rows,
+                                 int step, cudaStream_t st) {
+  return fwd_pair<bf16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(26)
+int fa::forward_f16_pair(int bh, const FwdArgs& a, int rows, int step,
+                         cudaStream_t st) {
+  return fwd_pair<f16, false>(bh, a, rows, step, st);
+}
+int fa::forward_f16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
+                                cudaStream_t st) {
+  return fwd_pair<f16, true>(bh, a, rows, step, st);
+}
+#endif
+
 #if FA_IN_PART(10)
 // ---------------------------------------------------------------------------
 // C interface, bound with ctypes (tf_operator_tpu_torch/ops/attention.py).
@@ -5472,7 +5857,9 @@ int fa::dkv_f16_cluster_info(int ld, int* smem, int* clusters) {
 // cudaErrorInvalidValue.  Head-dim class 256 goes to the parts that build
 // it, and every head dim above 256 to the sliced kernels' parts, but for
 // dq and dk/dv in bf16 and fp16 up to CLUSTER_REACH, which go to the
-// cluster kernels' (ops/attention.py:CLUSTER_LD is the same bound).
+// cluster kernels' (ops/attention.py:CLUSTER_LD is the same bound), and
+// the forward in bf16 and fp16 up to PAIR_REACH, which goes to the pair
+// forward's (ops/attention.py:PAIR_LD).
 
 enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
@@ -5503,6 +5890,16 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v, void* o,
                   chunk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (!scaled && !(scale > 0.f)) return (int)cudaErrorInvalidValue;
+  if (head_dim > SLICE && head_dim <= PAIR_REACH) {
+    switch (dtype) {
+      case FA_BF16:
+        return (scaled ? fa::forward_bf16_scaled_pair
+                       : fa::forward_bf16_pair)(bh, a, rows, step, st);
+      case FA_F16:
+        return (scaled ? fa::forward_f16_scaled_pair
+                       : fa::forward_f16_pair)(bh, a, rows, step, st);
+    }
+  }
   if (head_dim > SLICE) {
     switch (dtype) {
       case FA_BF16:
