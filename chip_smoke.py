@@ -284,6 +284,10 @@ from typing import NamedTuple, Optional, Tuple
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 and fp16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
+# f32 products on the tensor cores in three TF32 passes (f32 dk/dv:
+# csrc/tf32.cuh): three products at the TF32 rate for each f32 one
+TF32_PASSES = 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SOURCE = "tf_operator_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {
@@ -307,6 +311,10 @@ REPLACES = {
     "flash_backward_dkv_cluster": "tf_operator_tpu/ops/attention.py:485",
     # the pair forward (up to attention.PAIR_LD)
     "flash_forward_pair": "tf_operator_tpu/ops/attention.py:255",
+    # f32 dk/dv on the tensor cores (dkv_tf32_kernel, every f32 launch): at
+    # the head-dim classes, and on its cluster above 256
+    "flash_backward_dkv_tf32": "tf_operator_tpu/ops/attention.py:485",
+    "flash_backward_dkv_tf32_cluster": "tf_operator_tpu/ops/attention.py:485",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -325,10 +333,13 @@ FRO = 1e-2
 TOL_LSE = 1e-3
 # fp16 inputs are held by the same rule (fp16 rounds P, dS and the outputs
 # with a unit roundoff of 2^-11, finer than bf16's).  f32 inputs run the f32
-# kernels (f32 products and sums, expf): against the plain version in f32
-# only the order of the sums differs, so the rule's factor shrinks from
-# RTOL to RTOL_F32 and the whole from FRO to FRO_F32, and lse to
-# TOL_LSE_F32.
+# kernels (f32 products and sums, expf; dk/dv's products in three TF32
+# passes): against the plain version in f32 only the order of the sums
+# differs, so the rule's factor shrinks from RTOL to RTOL_F32 and the whole
+# from FRO to FRO_F32, and lse to TOL_LSE_F32 (one TF32 pass leaves it:
+# tests/test_torch_f32_dkv.py).  At large logits (scale -1) plain f32's
+# own order of sums leaves the rule against the exact result, so the
+# card's tests hold f32 dk/dv against the plain version in f64.
 RTOL_F32 = 1e-4
 FRO_F32 = 1e-5
 TOL_LSE_F32 = 1e-5
@@ -344,11 +355,13 @@ TOL_LSE_F32 = 1e-5
 # sliced f32 kernels; the element type and the slices (the cluster's
 # blocks) for the cluster kernels, whose tile is
 # INSTANTIATED[...][CLUSTER]'s; the element type and the route for the pair
-# forward, whose tile is INSTANTIATED["fwd"][PAIR]'s), then its spills and
-# its registers at launch
+# forward, whose tile is INSTANTIATED["fwd"][PAIR]'s; the columns a block
+# takes and whether it is a cluster's or a streamed slice's for f32 dk/dv
+# on the tensor cores, whose tile is attention.F32_DKV's), then its spills
+# and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
                          r"(_f32|_split|_wide|_short|_sliced_f32|_sliced"
-                         r"|_cluster|_pair)?"
+                         r"|_cluster|_pair|_tf32)?"
                          r"_kernelI"
                          r"((?:13__nv_bfloat16|6__half|L[ib]\d+E)+)E")
 PTXAS_ARG = re.compile(r"13__nv_bfloat16|6__half|L[ib](\d+)E")
@@ -413,6 +426,16 @@ def ptxas_instantiation(m) -> tuple:
     if kind == "_f32":
         return (f"{kernel}_f32_kernel<D {args[0]}>",
                 (kernel, "float32", args[0], 64, 32))
+    if kind == "_tf32":  # f32 dk/dv on the tensor cores
+        from tf_operator_tpu_torch.ops.attention import (CLUSTER, F32_DKV,
+                                                         SLICED)
+
+        cols, clustered, streamed = args[:3]
+        route = CLUSTER if clustered else SLICED if streamed else cols
+        what = ("cluster" if clustered else "streamed slices" if streamed
+                else f"D {cols}")
+        return (f"dkv_tf32_kernel<{what}>",
+                (kernel, "float32", route, *F32_DKV[route]))
     if kind == "_split":
         dtype, step = args[:2]
         return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
@@ -685,9 +708,12 @@ DEVICE_REPS = 10
 # (attention.short_route)
 ENCODER_CASES = ("vit_b16", "bert_base", "vit_b16_tp2", "bert_base_tp2")
 # the cases where all three kernels and SDPA's forward and backward are
-# timed by the profiler: the main shape, the encoders', and since the
-# sixteenth slice the tp 2 shards of GPT-small and llama
-DEVICE_CASES = ("main", "gpt_small_tp2", "llama_tp2") + ENCODER_CASES
+# timed by the profiler: the main shape, the encoders', since the
+# sixteenth slice the tp 2 shards of GPT-small and llama, and the f32 main
+# shape and Gemma 2B's attention in f32, where dk/dv runs on the tensor
+# cores (d512_mqa_f32, above head dim 256, is timed so too)
+DEVICE_CASES = ("main", "gpt_small_tp2", "llama_tp2", "main_f32",
+                "gemma_2b_f32") + ENCODER_CASES
 TIMED_CASES = ("main", "gqa", "window_sink", "d128", "vit_b16", "bert_base",
                "gpt_small_tp2", "llama_tp2", "vit_b16_tp2", "bert_base_tp2",
                "main_fp16", "main_f32", "d32", "d80", "d100", "gemma_2b",
@@ -818,12 +844,20 @@ def kernel_case(case, timing: bool):
         "flash_backward_dkv": (4, (2 * b * h * t * d + 4 * b * hkv * t * d)
                                * elt + 2 * rows * 4),
     }
+    tf32 = dtype == torch.float32  # dk/dv on the tensor cores
     result = {}
     for kname, (products, nbytes) in work.items():
         flops = 2.0 * products * pairs * d
         t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+        simt_ms = None
+        if tf32 and kname == "flash_backward_dkv":
+            # f32 products on the tensor cores in three TF32 passes: the
+            # least time is theirs; the f32 pipes' (67 TFLOP/s) beside it
+            simt_ms = max(t_ops, t_bytes) * 1e3
+            t_ops = TF32_PASSES * flops / PEAK_TF32_FLOPS
         result[kname] = {
             "bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_simt_ms": simt_ms,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "max_abs_err": max(errs[x] for x in {
                 "flash_forward": ("o", "lse"),
@@ -889,7 +923,10 @@ def kernel_case(case, timing: bool):
           f"alone (yardstick, dq+dk+dv in one call) ms {lib_bwd:.4f}",
           flush=True)
     sliced = A.head_class(d) == A.SLICED
-    if sliced:
+    # the memory-efficient backend as the yardstick above head dim 256 and
+    # in f32 (every f32 case: one backend for all of them)
+    efficient = sliced or dtype == torch.float32
+    if efficient:
         # SDPA's default dispatch takes its math path above head dim 256
         # (f32 GEMMs; with enable_gqa always): the yardstick is its
         # memory-efficient backend, K and V expanded to the query heads as
@@ -923,7 +960,7 @@ def kernel_case(case, timing: bool):
         sdpa_ms = {"flash_forward": device_busy(reps(sdpa_fwd))[0]
                    / DEVICE_REPS}
         calls = {"flash_forward": (fwd, "fwd_")}
-        if sliced:
+        if efficient and (sliced or name in DEVICE_CASES):
             # SDPA's flash backend stops at head dim 256: the kernel its
             # dispatcher ran instead (the longest one of each call), and
             # the memory-efficient backend's, which the kernels line gives
@@ -959,8 +996,10 @@ def kernel_case(case, timing: bool):
         if (name in DEVICE_CASES or sliced) and "backward" not in sdpa_ms:
             sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
         if name in DEVICE_CASES or sliced:
+            # dk/dv's own kernel (not the reduce after a split: apart, below)
             calls.update(flash_backward_dq=(dq_kernel, "dq_"),
-                         flash_backward_dkv=(dkv_kernel, "dkv_"))
+                         flash_backward_dkv=(dkv_kernel, "dkv_tf32" if tf32
+                                             else "dkv_"))
         for kname, (fn, frag) in calls.items():
             dev_ms = kernel_device_ms(reps(fn), frag)
             lib_ms = sdpa_ms.get(kname, sdpa_ms.get("backward"))
@@ -972,6 +1011,9 @@ def kernel_case(case, timing: bool):
                   f"{bound / dev_ms:.3f}; sdpa "
                   f"{'forward' if kname == 'flash_forward' else 'backward'}"
                   f" device_ms {lib_ms:.4f} (yardstick)", flush=True)
+        if tf32 and "flash_backward_dkv" in calls:
+            r = result["flash_backward_dkv"]
+            tf32_line(name, r, case_splits(case), dkv_kernel)
     del sdpa_out
     return result
 
@@ -1018,13 +1060,48 @@ def sdpa_kernel(fn) -> str:
     return max(by_name, key=by_name.get)[:120] if by_name else "none"
 
 
+def tf32_line(name, r, splits, dkv_kernel):
+    """Prints f32 dk/dv on the tensor cores at a case: its device time
+    (the profiler's, its own kernel; the reduce of a split apart) against
+    both bounds, the three TF32 passes' on the tensor cores and the f32
+    pipes', and the launches of f32 dk/dv (all of them the tensor-core
+    kernel's) in one call; records the reduce's device time and the
+    launches in r."""
+    from tf_operator_tpu_torch.ops import attention as A
+
+    before = A.launches()["flash_backward_dkv"]
+    dkv_kernel()
+    launched = A.launches()["flash_backward_dkv"] - before
+    dev = r["device_ms"]
+    reduce = ""
+    if splits > 1:
+        r["reduce_device_ms"] = kernel_device_ms(
+            lambda: [dkv_kernel() for _ in range(DEVICE_REPS)],
+            "dkv_reduce_kernel")
+        reduce = (f"; its {splits} splits' reduce device_ms "
+                  f"{r['reduce_device_ms']:.4f}")
+    r["launches_a_call"] = launched
+    print(f"  {name:11s} dkv_tf32_kernel device_ms {dev:.4f}: three-pass "
+          f"bound {r['bound_ms']:.4f} ms (tensor cores, 3 x TF32 at "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) share "
+          f"{r['bound_ms'] / dev:.3f}, f32-pipe bound "
+          f"{r['bound_simt_ms']:.4f} ms ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)"
+          f" share {r['bound_simt_ms'] / dev:.3f}; sdpa backward device_ms "
+          f"{r['library_device_ms']:.4f} ({r.get('library_backend', 'its '
+          'default dispatch')!r}); launches +{launched} a call{reduce}",
+          flush=True)
+    if launched != 1:
+        raise RuntimeError(f"kernel case {name}: f32 dk/dv launched the "
+                           f"tensor-core kernel {launched} times a call")
+
+
 def case_splits(case) -> int:
     """The slices dk/dv's wrapper splits a case's query heads into."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
 
-    if case.dtype == "float32" or A.head_class(case.d) != 256:
+    if A.head_class(case.d) != 256:
         return 1
     return A.dkv_splits(case.b * case.hkv, case.t, case.h // case.hkv,
                         A.sm_count(torch.device("cuda")))
@@ -1101,7 +1178,9 @@ def phase_kernels():
     "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, under
     "flash_forward_pair" the pair forward at d512_mqa's, under
     "flash_backward_dq_cluster" and "flash_backward_dkv_cluster" the
-    cluster kernels there, and under "flash_forward_sliced",
+    cluster kernels there, under "flash_backward_dkv_tf32" and
+    "flash_backward_dkv_tf32_cluster" f32 dk/dv on the tensor cores at
+    main_f32's and d512_mqa_f32's, and under "flash_forward_sliced",
     "flash_backward_dq_sliced" and "flash_backward_dkv_sliced" the sliced
     ones above the pair's and the cluster's reach (d2112)."""
     import torch
@@ -1165,6 +1244,14 @@ def phase_kernels():
                 out[f"{fn.__name__}_short"] = res[fn.__name__]
         if case.name == "gemma_2b":
             out["dkv_reduce"] = reduce_case(case)
+        if case.name == "gemma_2b_f32":
+            # the reduce into f32 (the same bits as its plain version)
+            reduce_case(case)
+        if case.name in ("main_f32", "d512_mqa_f32"):
+            # f32 dk/dv on the tensor cores at a head-dim class and on its
+            # cluster
+            key = "_cluster" if A.head_class(case.d) == A.SLICED else ""
+            out[f"flash_backward_dkv_tf32{key}"] = res["flash_backward_dkv"]
         torch.cuda.empty_cache()
     return out
 
@@ -1193,7 +1280,10 @@ def every_instantiation():
     at three and four slices, and the forward in bf16 and fp16 on the pair
     kernel, whose reach 600 passes: the sliced forward there, both routes),
     and at 1096 in bf16 and fp16 (dq and dk/dv on the sliced kernels above
-    the cluster's reach); fails unless every instantiation ran."""
+    the cluster's reach), and in f32 at head dims 1000 and 2048 (f32 dk/dv
+    on the tensor cores at four and eight slices, its reach) and 2056
+    (above it, its streamed slices); fails unless every instantiation
+    ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1220,6 +1310,8 @@ def every_instantiation():
              for dtype in ("bfloat16", "float16") for d in (600, 1000, 1096)]
     runs += [(dtype, 600, (128, 128), -1, 300)
              for dtype in ("bfloat16", "float16")]
+    # f32 dk/dv's cluster at four and eight slices, and above its reach
+    runs += [("float32", d, (128, 128), 1, 300) for d in (1000, 2048, 2056)]
     ran, worst = set(), {}
     for dtype_name, d, (bq, bk), sign, t in runs:
         dtype = getattr(torch, dtype_name)
@@ -1259,10 +1351,8 @@ def every_instantiation():
                                f"{tol_lse:g}")
         tiles = A.launch_tiles(bq, bk, d, dtype, t)
         for kernel in ("fwd", "dq", "dkv"):
-            route = (A.CLUSTER if kernel != "fwd" and A.cluster_route(d, dtype)
-                     else A.PAIR if kernel == "fwd" and A.pair_route(d, dtype)
-                     else A.head_class(d))
-            ran.add((kernel, dtype_name, route, *getattr(tiles, kernel)))
+            ran.add((kernel, dtype_name, A.route(kernel, d, dtype),
+                     *getattr(tiles, kernel)))
     missing = A.instantiations() - ran
     print(f"autotune: every instantiation ({len(ran)} of "
           f"{len(A.instantiations())}, both forward routes) held against "
@@ -1908,6 +1998,76 @@ def phase_lse():
               f"T={case[4]} D={case[5]} causal={case[6]}", flush=True)
         lse_case(case)
         torch.cuda.empty_cache()
+
+
+# the f32 path: the public op on f32 tensors at the kernels phase's f32
+# cases (no workload computes in f32)
+F32_PATH_CASES = ("main_f32", "gemma_2b_f32", "d512_mqa_f32")
+
+
+def phase_f32() -> dict:
+    """`flash_attention` on f32 tensors, forward and backward under
+    autograd, at F32_PATH_CASES: the launch counts set to 0 just before
+    each call and read just after (each kernel once; every f32 dk/dv
+    launch is the tensor-core kernel's); the gradients held by the f32
+    rule against the plain versions of the backward kernels given the
+    forward kernel's o and lse (as the kernels phase holds them: where a
+    gradient is zero in exact arithmetic, as dq's first row, the autograd
+    of the plain attention rounds otherwise), and within FRO_F32 of the
+    plain attention's under autograd as a whole.  Returns the launches of
+    f32 dk/dv on the tensor cores at the head-dim classes and on its
+    cluster."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    counts = {"flash_backward_dkv_tf32": 0,
+              "flash_backward_dkv_tf32_cluster": 0}
+    rtol, fro, _ = rule("float32")
+    for case in (c for c in CASES if c.name in F32_PATH_CASES):
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q, do = (torch.randn(case.b, case.h, case.t, case.d, generator=gen,
+                             device="cuda") for _ in range(2))
+        k, v = (torch.randn(case.b, case.hkv, case.t, case.d, generator=gen,
+                            device="cuda") for _ in range(2))
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        A.reset_launches()
+        A.flash_attention(*leaves, causal=case.causal).backward(do)
+        torch.cuda.synchronize()
+        ran = A.launches()
+        if any(n != 1 for n in ran.values()):
+            raise RuntimeError(f"f32 {case.name}: launches {ran}")
+        key = "_cluster" if A.head_class(case.d) == A.SLICED else ""
+        counts[f"flash_backward_dkv_tf32{key}"] += ran["flash_backward_dkv"]
+        opts = dict(scale=case.d ** -0.5, causal=case.causal, window=None,
+                    sink=0)
+        o, lse = A.flash_forward(q, k, v, **opts)
+        delta = (do * o).sum(-1)
+        plain = (A.backward_dq_plain(q, k, v, do, lse, delta, **opts),
+                 *A.backward_dkv_plain(q, k, v, do, lse, delta, **opts))
+        refs = [x.detach().requires_grad_() for x in (q, k, v)]
+        A.attention(refs[0], *A.repeat_kv(*refs), **opts).backward(do)
+        worst = {}
+        for label, got, ref, auto in zip(("dq", "dk", "dv"), leaves, plain,
+                                          refs):
+            ratio, rel = tolerance_ratios(got.grad, ref, rtol)
+            rel_auto = tolerance_ratios(got.grad, auto.grad, rtol)[1]
+            worst[label] = (ratio, rel, rel_auto)
+            if not (ratio <= 1.0 and rel <= fro and rel_auto <= fro
+                    and torch.isfinite(got.grad).all()):
+                raise RuntimeError(f"f32 {case.name}: {label} worst "
+                                   f"err/limit {ratio:.3f}, relative "
+                                   f"Frobenius {rel:.3e} ({rel_auto:.3e} "
+                                   "against autograd)")
+        print(f"f32 {case.name}: flash_attention fwd + bwd on f32 tensors, "
+              f"launches {ran}; against the plain "
+              "versions: " + ", ".join(
+                  f"{label} worst err/limit {r:.3f} Frobenius {f:.2e} "
+                  f"(against the plain attention's autograd {a:.2e})"
+                  for label, (r, f, a) in worst.items()), flush=True)
+        del q, k, v, do, leaves, refs, o, lse, delta, plain
+        torch.cuda.empty_cache()
+    return counts
 
 
 RING_CASES = [
@@ -3899,6 +4059,8 @@ def main(argv=None) -> int:
     # wide-head LM's path; the sliced kernels above the pair's and the
     # cluster's reach
     counts.update(timed(phase_wide_head, card, args.out_dir))
+    # f32 dk/dv on the tensor cores: its launches on the f32 path
+    counts.update(timed(phase_f32))
     timed(phase_lse)
     timed(phase_ring, card)
     timed(phase_dist, card)
@@ -3943,7 +4105,8 @@ def main(argv=None) -> int:
         + [f"{fn.__name__}_{route}" for route in ROUTES
            for fn in A.KERNELS]
         + [f"{fn.__name__}_cluster" for fn in A.CLUSTER_KERNELS]
-        + [f"{fn.__name__}_pair" for fn in A.PAIR_KERNELS]]}),
+        + [f"{fn.__name__}_pair" for fn in A.PAIR_KERNELS]
+        + [f"flash_backward_dkv_tf32{key}" for key in ("", "_cluster")]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ source, on one NVIDIA card.
     python3 kernel_variants.py --encoder [VARIANT ...]  # ViT-B/16, BERT
     python3 kernel_variants.py --sliced [VARIANT ...]   # head dims > 256
     python3 kernel_variants.py --trees DIR ...  # whole trees in turns
+    python3 kernel_variants.py --f32 [--parent DIR] [VARIANT ...]  # f32 dk/dv
 
 Each variant in VARIANTS (D256_VARIANTS with --d256) is a list of (text,
 replacement) edits to ops/csrc/flash_attention.cu (each text must occur
@@ -45,8 +46,17 @@ gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
 of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
 too), checked against its plain version, in each tree given (a checkout, e.g. a parent commit unpacked
 with `git archive` into a git-ignored directory), one process per tree
-per round, in turns.  The edits record the designs the kernels were
-chosen from (PERF.md); a kernel's next variants replace them.
+per round, in turns.  With --f32: f32 dk/dv on the tensor cores
+(dkv_tf32_kernel) at chip_smoke's f32 cases (F32_CASES) by device time,
+checked against its plain version by the f32 rule, for the base build and
+each F32_VARIANTS build (diagnostics of what its time is made of) in
+turns, and with --parent DIR the parent's f32 dk/dv (its SIMT kernels)
+from that checkout in the same turns, beside SDPA's f32 backward (its
+default dispatch and its memory-efficient backend); before the times,
+each build's dk and dv at large logits (F32_LARGE: scale -1) against the
+plain version in f64, beside plain f32's.  The edits record
+the designs the kernels were chosen from (PERF.md); a kernel's next
+variants replace them.
 """
 from __future__ import annotations
 
@@ -689,13 +699,17 @@ def build(name: str, edits, root: Path):
     csrc = root / name
     shutil.copytree(_build.CSRC, csrc)
     source = csrc / _build.SOURCE.name
-    src = source.read_text()
+    # each edit's text occurs once in all of csrc (the source or a header)
+    texts = {p: p.read_text() for p in csrc.iterdir() if p.is_file()}
     for old, new in edits:
-        if src.count(old) != 1:
+        where = [p for p, src in texts.items() if old in src]
+        count = sum(texts[p].count(old) for p in where)
+        if count != 1:
             raise RuntimeError(f"variant {name}: an edit's text occurs "
-                               f"{src.count(old)} times")
-        src = src.replace(old, new)
-    source.write_text(src)
+                               f"{count} times")
+        texts[where[0]] = texts[where[0]].replace(old, new)
+    for p, src in texts.items():
+        p.write_text(src)
     lib = root / f"lib-{name}.so"
     log = _build.nvcc(source, lib)
     return lib, log
@@ -1030,7 +1044,8 @@ ENCODER_VARIANT_KERNELS = {
 # apart (dk/dv's kernel and, with its heads split, the reduce after it)
 KERNEL_NAMES = {"fwd": ("fwd_",), "dq": ("dq_",),
                 "dkv": ("dkv_kernel", "dkv_split", "dkv_short",
-                        "dkv_reduce", "dkv_sliced", "dkv_cluster")}
+                        "dkv_reduce", "dkv_sliced", "dkv_cluster",
+                        "dkv_tf32", "dkv_f32")}
 
 
 def device_ms(fn, names, reps: int = 10) -> str:
@@ -1094,17 +1109,18 @@ def case_calls(A, case):
     return calls, sdpa_fwd, sdpa_bwd
 
 
-def held(got, refs) -> bool:
+def held(got, refs, dtype: str = "bfloat16") -> bool:
     """The kernel's outputs against its plain version's by chip_smoke's
-    rule (the forward's lse by TOL_LSE)."""
+    rule for inputs of `dtype` (the forward's lse by its lse tolerance)."""
+    rtol, fro, tol_lse = chip_smoke.rule(dtype)
     got = got if isinstance(got, tuple) else (got,)
     ok = True
     for i, (x, ref) in enumerate(zip(got, refs)):
         if x.dim() == 3:  # lse
-            ok &= float((x - ref).abs().max()) <= chip_smoke.TOL_LSE
+            ok &= float((x - ref).abs().max()) <= tol_lse
         else:
-            worst, rel = chip_smoke.tolerance_ratios(x, ref)
-            ok &= worst <= 1.0 and rel <= chip_smoke.FRO
+            worst, rel = chip_smoke.tolerance_ratios(x, ref, rtol)
+            ok &= worst <= 1.0 and rel <= fro
     return ok
 
 
@@ -1119,7 +1135,7 @@ def device_line(A, case, kernels=("fwd", "dq", "dkv")) -> str:
         fn, refs = calls[kernel]
         got = fn()
         torch.cuda.synchronize()
-        ok = held(got, refs)
+        ok = held(got, refs, case.dtype)
         parts.append(f"{device_ms(fn, KERNEL_NAMES[kernel])}"
                      f"{'' if ok else ' OUTSIDE THE TOLERANCE'}")
     return f"{case.name:13s} " + "; ".join(parts)
@@ -1460,6 +1476,170 @@ def main_trees(trees) -> int:
     return 0
 
 
+# f32 dk/dv on the tensor cores: the cases, and the diagnostics of what
+# its time is made of (each leaves one part out, so its outputs are wrong,
+# but for one_pass, which computes every product in one TF32 pass: the
+# planted fault the f32 rule must catch)
+F32_CASES = ("main_f32", "gemma_2b_f32", "d512_mqa_f32")
+F32_MMA = """\
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));"""
+# each product one FMA of its operands on the CUDA cores (every load and
+# split kept): what the tensor cores' products cost
+F32_NO_MMA = """\
+  d[0] = fmaf(__uint_as_float(a[0] ^ a[1]), __uint_as_float(b0), d[0]);
+  d[1] = fmaf(__uint_as_float(a[2] ^ a[3]), __uint_as_float(b1), d[1]);"""
+F32_VARIANTS = {
+    "no_mma": [(F32_MMA, F32_NO_MMA)],
+    # lo passed to the products unrounded (the tensor cores read a TF32
+    # operand's top 19 bits, so lo is cut rather than rounded): what the
+    # split's rounding of lo costs
+    "lo_trunc": [("    s.lo[i] = to_tf32(x[i] - __uint_as_float(s.hi[i]));",
+                  "    s.lo[i] = __float_as_uint(x[i] - __uint_as_float(s.hi[i]));")],
+    "no_second": [("constexpr bool TF32_SECOND = true;",
+                   "constexpr bool TF32_SECOND = false;")],
+    "one_pass": [("constexpr int TF32_PASSES = 3;",
+                  "constexpr int TF32_PASSES = 1;")],
+    "no_exchange": [("constexpr bool TF32_EXCHANGE = true;",
+                     "constexpr bool TF32_EXCHANGE = false;")],
+    # each 32-column block of a contraction added to the step's sum in f32
+    # without the compensation (tf32::kahan): what it costs, and what it
+    # holds at large logits
+    "no_kahan": [("        tf32::kahan(st[j], sc[j], part[j]);",
+                  "        tf32::promote(st[j], part[j]);")],
+}
+# large logits (scale -1: logits of standard deviation sqrt(d)) at the
+# card's test of the sliced kernels (T 300, 4 query heads over 2 KV heads,
+# causal with window 64 and sink 70), by head dim: the classes, the
+# cluster at 2, 4 and 8 slices, and beyond its reach
+F32_LARGE = (64, 128, 256, 512, 1000, 2048, 2112)
+# the cases a diagnostic changes (the exchange runs above head dim 256)
+F32_VARIANT_CASES = {"no_exchange": ("d512_mqa_f32",)}
+F32_TREE_CODE = """\
+import importlib.util
+import chip_smoke as c
+spec = importlib.util.spec_from_file_location("timing", {path!r})
+kv = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(kv)
+from tf_operator_tpu_torch.ops import attention as A
+for x in {cases!r}:
+    print("  " + kv.device_line(A, c.Case(*x), ("dkv",)), flush=True)
+"""
+
+
+def f32_large_logits(name) -> None:
+    """f32 dk/dv of the bound build at F32_LARGE against the plain version
+    in f64 (lse and delta the f32 forward's), beside plain f32 against the
+    same: (worst err/limit, relative Frobenius) of dk and of dv."""
+    import numpy as np
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    rtol = chip_smoke.RTOL_F32
+    for d in F32_LARGE:
+        rng = np.random.RandomState(0)
+        q, k, v, g = (torch.tensor(rng.randn(1, n, 300, d).astype(
+            np.float32), device="cuda") for n in (4, 2, 2, 4))
+        opts = dict(scale=-1.0, causal=True, window=64, sink=70)
+        o, lse = A.flash_forward(q, k, v, **opts)
+        delta = (g * o).sum(-1)
+        got = A.flash_backward_dkv(q, k, v, g, lse, delta, **opts)
+        plain = A.backward_dkv_plain(q, k, v, g, lse, delta, **opts)
+        exact = A.backward_dkv_plain(
+            *(x.double() for x in (q, k, v, g, lse, delta)), **opts)
+
+        def ratios(xs):
+            return "; ".join(
+                f"{n} {w:.3f} {f:.2e}" for n, (w, f) in zip(
+                    ("dk", "dv"), (chip_smoke.tolerance_ratios(x, e, rtol)
+                                   for x, e in zip(xs, exact))))
+        print(f"  {name:13s} scale -1 D {d:4d} against f64: kernel "
+              f"{ratios(got)} | plain f32 {ratios(plain)}", flush=True)
+
+
+def main_f32(names, parent) -> int:
+    """f32 dk/dv at F32_CASES: SDPA's f32 backward (default dispatch and
+    memory-efficient backend, with the kernel each ran) on the base build,
+    then the device time of dk/dv for the base build, each F32_VARIANTS
+    build named (all without names) and, given a parent checkout, the
+    parent's (a process of its own, its own package and library), in
+    turns."""
+    import torch
+
+    from tf_operator_tpu_torch.ops import attention as A
+
+    cases = [x for x in chip_smoke.CASES if x.name in F32_CASES]
+    print(f"clocks (sm, max sm, power, temperature) before: {clocks()}",
+          flush=True)
+    libs = {}
+    with tempfile.TemporaryDirectory(prefix="kernel-variants-") as tmp:
+        variants = [(name, edits) for name, edits in F32_VARIANTS.items()
+                    if not names or name in names]
+        for name, edits in [("base", [])] + variants:
+            lib, log = build(name, edits, Path(tmp))
+            report(name, log, ("dkv",), (64, 128, 256, A.CLUSTER))
+            libs[name] = ctypes.CDLL(str(lib))
+        for name in libs:
+            if name in ("base", "no_kahan"):
+                bind(libs[name])
+                f32_large_logits(name)
+        bind(libs["base"])
+        for case in cases:
+            _, sdpa_fwd, sdpa_bwd = case_calls(A, case)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            q, k, v, do = (torch.randn(case.b, n, case.t, case.d,
+                                       generator=gen, device="cuda")
+                           for n in (case.h, case.hkv, case.hkv, case.h))
+            eff = chip_smoke.sdpa_efficient(q, k, v, do, dict(
+                is_causal=case.causal, scale=case.d ** -0.5))
+            line = (f"  {case.name:13s} sdpa f32 backward (dq, dk, dv) "
+                    f"device_ms {device_busy_ms(sdpa_bwd):.4f} ran "
+                    f"{chip_smoke.sdpa_kernel(sdpa_bwd)!r}")
+            if isinstance(eff, str):
+                line += f"; memory-efficient {eff}"
+            else:
+                line += (f"; memory-efficient (K, V expanded) device_ms "
+                         f"{device_busy_ms(eff[1]):.4f} ran "
+                         f"{chip_smoke.sdpa_kernel(eff[1])!r}")
+            print(line, flush=True)
+            del eff, q, k, v, do
+            torch.cuda.empty_cache()
+        order = list(libs) + (["parent"] if parent else [])
+        code = F32_TREE_CODE.format(cases=[tuple(x) for x in cases],
+                                    path=str(Path(__file__).resolve()))
+        for r in range(ROUNDS):
+            for name in order if r % 2 == 0 else order[::-1]:
+                if name == "parent":
+                    proc = subprocess.run([sys.executable, "-c", code],
+                                          cwd=parent, capture_output=True,
+                                          text=True, check=False)
+                    for line in proc.stdout.splitlines():
+                        if "device_ms" in line:
+                            print(f"  round {r} parent        "
+                                  f"{line.strip()}", flush=True)
+                    if proc.returncode != 0:
+                        print(proc.stdout[-4000:] + proc.stderr[-4000:],
+                              flush=True)
+                        return proc.returncode
+                    continue
+                bind(libs[name])
+                for case in cases:
+                    if case.name not in F32_VARIANT_CASES.get(name,
+                                                              F32_CASES):
+                        continue
+                    try:
+                        line = device_line(A, case, ("dkv",))
+                    except RuntimeError as e:  # a profile that caught none
+                        line = f"{case.name:13s} {e}"
+                    print(f"  round {r} {name:13s} {line}", flush=True)
+    print(f"clocks (sm, max sm, power, temperature) after: {clocks()}",
+          flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -1481,6 +1661,12 @@ def main(argv=None) -> int:
     parser.add_argument("--trees", nargs="+", default=None,
                         help="checkouts to run chip_smoke's cases in, in "
                              "turns")
+    parser.add_argument("--f32", nargs="*", default=None, metavar="VARIANT",
+                        help="f32 dk/dv at the f32 cases against the "
+                             "F32_VARIANTS named (all without names)")
+    parser.add_argument("--parent", default=None,
+                        help="with --f32: a checkout whose f32 dk/dv is "
+                             "timed in the same turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available", file=sys.stderr)
@@ -1497,6 +1683,8 @@ def main(argv=None) -> int:
         return main_encoder(args.encoder)
     if args.sliced is not None:
         return main_sliced(args.sliced)
+    if args.f32 is not None:
+        return main_f32(args.f32, args.parent)
     from tf_operator_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")

@@ -164,8 +164,9 @@ _DQ = ("_ZN12_GLOBAL__N_19dq_kernelI13__nv_bfloat16Li64ELi2ELi128EEEv14CU"
        "tensorMap_stS2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
 _FWD = ("_ZN12_GLOBAL__N_110fwd_kernelI6__halfLi128ELi1ELi64ELb1EEEv14CUtens"
         "orMap_stS2_S2_PT_PfiifN2fa4MaskE")
-_DKV32 = ("_ZN12_GLOBAL__N_114dkv_f32_kernelILi128EEEvPKfS2_S2_S2_S2_S2_PfS3"
-          "_iiifN2fa4MaskE")
+_DKV32 = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0a3d1bee15"
+          "dkv_tf32_kernelILi128ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_"
+          "S3_S3_S3_S3_PfS4_S4_iiiifN2fa4MaskE")
 _PTXAS_LOG = f"""\
 ptxas info    : Compiling entry function '{_DQ}' for 'sm_90a'
 ptxas info    : Function properties for {_DQ}
@@ -193,7 +194,7 @@ def test_ptxas_report_names_each_instantiation_and_its_spills():
          ("dq", "bfloat16", 64, 128, 128)),
         ("fwd_kernel<float16, D 128, rows 64, step 64, scaled 1>", 128, 0, 0,
          ("fwd", "float16", 128, 64, 64)),
-        ("dkv_f32_kernel<D 128>", 190, 0, 0,
+        ("dkv_tf32_kernel<D 128>", 190, 0, 0,
          ("dkv", "float32", 128, 64, 32))]
     assert {r[4] for r in ptxas_report(_PTXAS_LOG)} <= A.instantiations()
 
@@ -202,8 +203,9 @@ _SPLIT = ("_ZN12_GLOBAL__N_116dkv_split_kernelI6__halfLi64EEEv14CUtensorMap_"
           "stS2_S2_S2_PKfS4_PT_S6_PfiiiifN2fa4MaskE")
 _FWD256 = ("_ZN12_GLOBAL__N_110fwd_kernelI13__nv_bfloat16Li256ELi2ELi64ELb0EEE"
            "v14CUtensorMap_stS2_S2_PT_PfiifN2fa4MaskE")
-_DKV256_32 = ("_ZN12_GLOBAL__N_114dkv_f32_kernelILi256EEEvPKfS2_S2_S2_S2_S2_Pf"
-              "S3_iiifN2fa4MaskE")
+_DKV256_32 = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_e115676f15"
+              "dkv_tf32_kernelILi256ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_"
+              "PKfS3_S3_S3_S3_S3_PfS4_S4_iiiifN2fa4MaskE")
 _DQ256 = ("_ZN12_GLOBAL__N_114dq_wide_kernelI13__nv_bfloat16EEv14CUtensorMap"
           "_stS2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
 
@@ -212,8 +214,9 @@ def test_ptxas_report_names_the_head_dim_256_kernels():
     """The head-dim class 256's kernels in the same report: dk/dv's split
     kernel (its template arguments are the element type and the query
     step; its 64 keys are shared by two warpgroups), the forward's 128
-    rows, the f32 dk/dv at DMAX 256 and dq's wide kernel (two warpgroups
-    of 64 rows over a 64-key step), each an instantiation that
+    rows, the f32 dk/dv on the tensor cores at 256 columns a block (its
+    16-query step, attention.F32_DKV) and dq's wide kernel (two
+    warpgroups of 64 rows over a 64-key step), each an instantiation that
     attention.INSTANTIATED lists."""
     log = "".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
@@ -228,8 +231,8 @@ def test_ptxas_report_names_the_head_dim_256_kernels():
          ("dkv", "float16", 256, 64, 64)),
         ("fwd_kernel<bfloat16, D 256, rows 128, step 64, scaled 0>", 168, 0,
          0, ("fwd", "bfloat16", 256, 128, 64)),
-        ("dkv_f32_kernel<D 256>", 160, 0, 0,
-         ("dkv", "float32", 256, 64, 32)),
+        ("dkv_tf32_kernel<D 256>", 160, 0, 0,
+         ("dkv", "float32", 256, 64, 16)),
         ("dq_wide_kernel<bfloat16, D 256, rows 128, step 64>", 168, 0, 0,
          ("dq", "bfloat16", 256, 128, 64))]
     assert {r[4] for r in report} <= A.instantiations()
@@ -258,15 +261,17 @@ _FWD_SLICED = ("_ZN12_GLOBAL__N_117fwd_sliced_kernelI13__nv_bfloat16Lb0EEEv"
                "14CUtensorMap_stS2_S2_PT_PfiifN2fa4MaskE")
 _DQ_SLICED = ("_ZN12_GLOBAL__N_116dq_sliced_kernelI6__halfEEv14CUtensorMap_st"
               "S2_S2_S2_PKfS4_PT_iifN2fa4MaskE")
-_DKV_SLICED_F32 = ("_ZN12_GLOBAL__N_121dkv_sliced_f32_kernelILi128EEEvPKfS2_"
-                   "S2_S2_S2_S2_PfS3_iiifN2fa4MaskE")
+_DKV_SLICED_F32 = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0a3d1b"
+                   "ee15dkv_tf32_kernelILi256ELb0ELb1EEEv14CUtensorMap_stS1_"
+                   "S1_S1_PKfS3_S3_S3_S3_S3_PfS4_S4_iiiifN2fa4MaskE")
 
 
 def test_ptxas_report_names_the_sliced_kernels():
     """The sliced kernels of head dims above 256 in the same report (their
     template arguments: the element type and, for the forward, its route;
-    the slice width for the f32 kernels: 128 in dk/dv), each keyed as the
-    SLICED instantiation attention.INSTANTIATED lists."""
+    for f32 dk/dv, on the tensor cores, the slice width and its streamed
+    route), each keyed as the SLICED instantiation attention.INSTANTIATED
+    lists."""
     log = "".join(
         f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
         f"ptxas info    : Function properties for {name}\n"
@@ -280,8 +285,8 @@ def test_ptxas_report_names_the_sliced_kernels():
          0, ("fwd", "bfloat16", A.SLICED, 128, 64)),
         ("dq_sliced_kernel<float16, rows 128, step 64>", 168, 0, 0,
          ("dq", "float16", A.SLICED, 128, 64)),
-        ("dkv_sliced_f32_kernel<slice 128>", 200, 0, 0,
-         ("dkv", "float32", A.SLICED, 64, 32))]
+        ("dkv_tf32_kernel<streamed slices>", 200, 0, 0,
+         ("dkv", "float32", A.SLICED, 64, 16))]
     assert {r[4] for r in report} <= A.instantiations()
 
 
@@ -467,7 +472,10 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
     side's rounding against the other's.  With `short`, each launch must
     have been the encoders' kernel's (`attention.short_launches`); above
     head dim 256 each must have been the sliced kernels'
-    (`attention.sliced_launches`)."""
+    (`attention.sliced_launches`).  f32 dk/dv, whose products the tensor
+    cores sum in an order of their own, is held against the plain version
+    in f64: at large logits plain f32's own rounding leaves the f32 rule
+    against the exact result (tests/test_torch_f32_dkv.py)."""
     dtype = str(q.dtype).removeprefix("torch.")
     before = A.launches()
     short_before = A.short_launches()
@@ -489,7 +497,9 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
     dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
-    dk_ref, dv_ref = A.backward_dkv_plain(qf, kf, vf, gf, lse, delta, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(
+        *(x.double() if dtype == "float32" else x
+          for x in (qf, kf, vf, gf, lse, delta)), **opts)
     ratios = {}
     for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
@@ -971,7 +981,7 @@ def test_tolerance_rejects_a_pair_without_the_other_partial(
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("h,kv_h", [(8, 1), (12, 4), (6, 1)])
 def test_dkv_holds_at_every_split_of_the_group(cuda, monkeypatch, dtype, h,
                                                kv_h):
@@ -1005,7 +1015,7 @@ def test_dkv_holds_at_every_split_of_the_group(cuda, monkeypatch, dtype, h,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
 @pytest.mark.parametrize("splits,shape", [(2, (1, 1, 300, 256)),
                                           (3, (4, 1, 2048, 256)),
                                           (8, (2, 2, 64, 136))])
@@ -1029,7 +1039,108 @@ def test_dkv_reduce_matches_a_plain_f32_sum(cuda, dtype, splits, shape):
     torch.testing.assert_close(dv.float(), total[1].to(dt).float(),
                                rtol=1e-2, atol=1e-4)
     with pytest.raises(ValueError, match="dkv_reduce takes"):
-        A.dkv_reduce(ws, 0.0625, torch.float32)
+        A.dkv_reduce(ws, 0.0625, torch.float64)
+
+
+# ---------------------------------------------------------------------------
+# f32 dk/dv on the tensor cores (dkv_tf32_kernel, every f32 launch)
+
+_F32_CASES = [c for c in CASES if c.dtype == "float32"]
+
+
+def _f32_dkv(q, k, v, g, **opts):
+    """(dk, dv) of two launches of f32 dk/dv on the same inputs, their
+    plain version's in f64, and the launches among the two."""
+    o, lse = A.flash_forward(q, k, v, **opts, **DEFAULT)
+    delta = (g * o).sum(-1)
+    before = A.launches()["flash_backward_dkv"]
+    first = A.flash_backward_dkv(q, k, v, g, lse, delta, **opts, **DEFAULT)
+    second = A.flash_backward_dkv(q, k, v, g, lse, delta, **opts, **DEFAULT)
+    torch.cuda.synchronize()
+    launched = A.launches()["flash_backward_dkv"] - before
+    refs = A.backward_dkv_plain(
+        *(x.double() for x in (q, k, v, g, lse, delta)), **opts)
+    return first, second, refs, launched
+
+
+@pytest.mark.cuda
+def test_f32_dkv_holds_at_every_f32_instantiation(cuda):
+    """f32 dk/dv at every head dim of chip_smoke.every_instantiation's f32
+    runs (T 300, B 1, 4 query heads over 2 KV heads, causal with window 64
+    and sink 70; both signs of the scale at the classes and at 300): on
+    the tensor-core kernel up to TF32_LD (classes 64, 128, 256 with its
+    heads split, its cluster at 2, 4 and 8 slices) and its streamed slices
+    above (2056), each against its plain version in f64 by the f32 rule,
+    two launches the same bits; every f32 dk/dv instantiation reached."""
+    reached = set()
+    for d, sign in [(64, 1), (64, -1), (128, 1), (128, -1), (256, 1),
+                    (256, -1), (300, 1), (300, -1), (1000, 1), (2048, 1),
+                    (2056, 1)]:
+        q, k, v, g = _inputs(300, 4, 2, d=d, b=1, seed=d,
+                             dtype=torch.float32)
+        first, second, refs, launched = _f32_dkv(
+            q, k, v, g, scale=sign * d ** -0.5, causal=True, window=64,
+            sink=70)
+        assert launched == 2
+        for name, a, b, ref in zip(("dk", "dv"), first, second, refs):
+            assert torch.equal(a, b), (d, name)
+            assert _held(a, ref, "float32"), (
+                d, sign, name, tolerance_ratios(a, ref, rule("float32")[0]))
+        tiles = A.resolve_tiles(128, 128, d, torch.float32, 300)
+        reached.add(("dkv", "float32", A.route("dkv", d, torch.float32),
+                     *tiles.dkv))
+    assert reached == {x for x in A.instantiations()
+                       if x[:2] == ("dkv", "float32")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _F32_CASES, ids=[c.name for c in
+                                                   _F32_CASES])
+def test_f32_dkv_at_chip_smoke_f32_cases(cuda, case):
+    """chip_smoke's f32 kernel cases (main_f32, gemma_2b_f32 with its
+    query heads split, d512_mqa_f32 on the cluster), each kernel against
+    its plain version by the f32 rule and launched twice for the same bits
+    as the kernels phase runs them; dk/dv on the tensor cores."""
+    before = A.launches()["flash_backward_dkv"]
+    result = kernel_case(case, timing=False)
+    assert set(result) == {"flash_forward", "flash_backward_dq",
+                           "flash_backward_dkv"}
+    assert A.launches()["flash_backward_dkv"] == before + 2
+
+
+@pytest.mark.cuda
+def test_f32_dkv_builds_without_spills(cuda, tmp_path):
+    """ptxas's report of a build: f32 dk/dv on the tensor cores (the three
+    head-dim classes, the cluster and the streamed slices) is there and
+    spills nothing."""
+    log = _build.build_log or _build.nvcc(_build.SOURCE,
+                                          tmp_path / "libfa.so")
+    tf32 = [r for r in ptxas_report(log) if r[0].startswith("dkv_tf32")]
+    print("\n".join(f"{r[0]}: {r[1]} registers at launch, {r[2]}/{r[3]} "
+                    "bytes spilled" for r in tf32))
+    assert {r[4][2] for r in tf32} == {64, 128, 256, A.CLUSTER, A.SLICED}
+    assert all(r[2] == r[3] == 0 for r in tf32)
+
+
+@pytest.mark.cuda
+def test_f32_rule_rejects_dkv_in_one_tf32_pass(cuda, tmp_path, monkeypatch):
+    """f32 dk/dv built with a planted fault, every product in one TF32
+    pass (kernel_variants.py's one_pass edit): dk and dv leave the f32
+    rule at head dims 64 (class 64), 256 (split) and 512 (the cluster)."""
+    from kernel_variants import F32_VARIANTS
+
+    (site, fault), = F32_VARIANTS["one_pass"]
+    _faulty_library(tmp_path, monkeypatch, site, fault)
+    for h, kv_h, d in ((4, 4, 64), (8, 1, 256), (4, 1, 512)):
+        q, k, v, g = _inputs(1024, h, kv_h, d=d, b=1, dtype=torch.float32)
+        first, _, refs, launched = _f32_dkv(q, k, v, g, scale=d ** -0.5,
+                                            causal=True, window=None, sink=0)
+        assert launched == 2
+        for name, got, ref in zip(("dk", "dv"), first, refs):
+            worst, rel = tolerance_ratios(got, ref, rule("float32")[0])
+            print(f"one TF32 pass at D {d}: {name} worst err/limit "
+                  f"{worst:.1f}, relative Frobenius {rel:.3e}")
+            assert not _held(got, ref, "float32"), (d, name)
 
 
 @pytest.mark.cuda

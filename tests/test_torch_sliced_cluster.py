@@ -212,19 +212,26 @@ def test_cluster_plan_without_a_partners_partial_fails(name, pallas_grads):
 def test_cluster_route_by_head_dim(d, dtype):
     """dq and dk/dv take the cluster kernels (CLUSTER's tiles, one
     cluster of n_slices blocks) at head dims 257..CLUSTER_LD in bf16 and
-    fp16, the sliced kernels above and in f32; the forward stays on the
-    sliced kernel; every tile they resolve to is built."""
+    fp16, the sliced kernels above and in f32, but f32 dk/dv, which takes
+    its tensor-core kernel's cluster up to TF32_LD (and its streamed
+    slices above); the forward stays on the sliced kernel; every tile they
+    resolve to is built."""
     on = d <= A.CLUSTER_LD and dtype != torch.float32
     assert A.cluster_route(d, dtype) == on
+    tf32 = dtype == torch.float32 and d <= A.TF32_LD
     tiles = A.resolve_tiles(128, 128, d, dtype, 2048)
     name = str(dtype).removeprefix("torch.")
     built = A.instantiations()
     for kernel in ("fwd", "dq", "dkv"):
-        route = A.CLUSTER if on and kernel != "fwd" else A.SLICED
+        route = (A.CLUSTER if (on and kernel != "fwd"
+                               or tf32 and kernel == "dkv") else A.SLICED)
         assert (kernel, name, route, *getattr(tiles, kernel)) in built
     if on:
         assert tiles.dq == tiles.dkv == (64, 64)
         assert 2 <= A.n_slices(d) <= 4
+    elif tf32:
+        assert tiles.dkv == A.F32_DKV[A.CLUSTER] == (64, 16)
+        assert tiles == A.resolve_tiles(128, 128, 2112, dtype, 2048)
     else:
         assert tiles == A.resolve_tiles(128, 128, 2112, dtype, 2048)
 

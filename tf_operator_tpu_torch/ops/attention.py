@@ -16,7 +16,8 @@ Dispatch is decided by the tensors' device, outside autograd:
     launches the dq and the dk/dv kernels; `flash_attention_lse` returns
     the lse too, through `FlashAttentionLseFn`, whose backward takes a
     cotangent on it as well.  The kernels take what the Pallas kernels
-    take: bf16 and fp16 (tensor cores) and f32 (SIMT kernels of its own),
+    take: bf16 and fp16 (tensor cores) and f32 (the forward and dq on SIMT
+    kernels of their own, dk/dv on the tensor cores in three TF32 passes),
     any head_dim (one that is not a multiple of 8 is zero-padded here and
     the outputs sliced; above 256 the sliced kernels, `SLICED`, take it),
     any scale, any batch*heads, and any block sizes, which `resolve_tiles`
@@ -33,7 +34,8 @@ handed CPU tensors, and counts, in its `launches` attribute, every time it
 launches its kernel (and `short_launches`, the launches of the encoders'
 kernels among them, `sliced_launches`, those of the kernels above head
 dim 256, and of those `cluster_launches`, the cluster dq's and dk/dv's,
-and `pair_launches`, the pair forward's).
+and `pair_launches`, the pair forward's; f32 dk/dv launches only its
+kernel on the tensor cores, so its `launches` are that kernel's).
 The kernels live in `csrc/flash_attention.cu` (with the Hopper building
 blocks in `csrc/hopper.cuh`) and are built at first use (`_build.py`).
 """
@@ -125,14 +127,21 @@ def default_blocks(block_q, block_k):
 
 
 # ---------------------------------------------------------------------------
-# plain versions (CPU path, and the card's reference in chip_smoke.py)
+# plain versions (CPU path, and the card's reference in chip_smoke.py):
+# in f32, or in f64 given f64 tensors (the exact reference f32 dk/dv is
+# held against in the card's tests)
+
+
+def _wide(x):
+    """x in the plain versions' precision: f32, or f64 as it is."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def _scores(q, k, scale: float, causal: bool, window: Optional[int],
             sink: int):
     """Masked f32 scores [B, H, Tq, Tk] (masked entries at NEG_INF); k at
     q's head count."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    logits = torch.einsum("bhqd,bhkd->bhqk", _wide(q), _wide(k)) * scale
     if causal:
         t_q, t_k = logits.shape[-2:]
         rows = torch.arange(t_q, device=q.device)[:, None]
@@ -174,9 +183,9 @@ def _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window, sink):
     """p = exp(s - lse) and ds = p (dO V^T - delta), in f32, from the
     forward's lse: what the two backward kernels rebuild tile by tile."""
     s = _scores(q, kw, scale, causal, window, sink)
-    p = torch.exp(s - lse[..., None].float())
-    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), vw.float())
-    return p, p * (dp - delta[..., None].float())
+    p = torch.exp(s - _wide(lse)[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", _wide(do), _wide(vw))
+    return p, p * (dp - _wide(delta)[..., None])
 
 
 def backward_dq_plain(q, k, v, do, lse, delta, *, scale: float,
@@ -185,7 +194,7 @@ def backward_dq_plain(q, k, v, do, lse, delta, *, scale: float,
     kw, vw = repeat_kv(q, k, v)
     _, ds = _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window,
                           sink)
-    return (torch.einsum("bhqk,bhkd->bhqd", ds, kw.float()) * scale).to(
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, _wide(kw)) * scale).to(
         q.dtype)
 
 
@@ -196,8 +205,8 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
     kw, vw = repeat_kv(q, k, v)
     p, ds = _probs_and_ds(q, kw, vw, do, lse, delta, scale, causal, window,
                           sink)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _wide(q)) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, _wide(do))
     b, kv_heads, t, d = k.shape
     group = q.shape[1] // kv_heads
     dk = dk.reshape(b, kv_heads, group, t, d).sum(2)
@@ -271,8 +280,21 @@ INSTANTIATED = {
             256: ((64,), (64,)), SLICED: ((64,), (64,)),
             CLUSTER: ((64,), (64,))},
 }
-# the f32 kernels' one tile, for every block size
+# the f32 forward's and dq's one tile, for every block size
 F32_TILE = (64, 32)
+# f32 dk/dv runs on the tensor cores in three TF32 passes at every head
+# dim (csrc: dkv_tf32_kernel): 64 keys a block (two warpgroups over
+# them, one forming S^T, P^T and dV, the other dP^T, dS^T and dK), over
+# query steps of 32 at head-dim classes 64 and 128 and of 16 at 256 (where
+# K, V and two stages of Q and dO fill the SM's shared memory) and above
+# 256, where up to head dim TF32_LD (csrc's TF32_REACH) the blocks of a
+# key tile's 256-column slices form a cluster that splits the contraction
+# and sums S^T and dP^T across its blocks in slice order, so each is
+# computed once, and above it each slice's block contracts the whole head
+# dim itself.  Its tile by route (`route`), for every block size:
+TF32_LD = 2048
+F32_DKV = {64: (64, 32), 128: (64, 32), 256: (64, 16), CLUSTER: (64, 16),
+           SLICED: (64, 16)}
 # The encoders' route (`short_route`): at head-dim class 64 in bf16 and
 # fp16 a call of T <= SHORT_T takes the forward, dq and dk/dv kernels that
 # walk whole heads over a persistent grid (csrc: fwd_short_kernel,
@@ -323,6 +345,22 @@ def pair_route(head_dim: int, dtype) -> bool:
             and SLICE < head_dim <= PAIR_LD)
 
 
+def route(kernel: str, head_dim: int, dtype) -> int:
+    """The key of INSTANTIATED (and of `instantiations()`) whose kernel a
+    call of `kernel` ("fwd", "dq" or "dkv") launches: CLUSTER on the
+    cluster routes (`cluster_route`, and f32 dk/dv above head dim 256 up to
+    TF32_LD), PAIR on the pair route, else the head-dim class (SLICED above
+    256)."""
+    if kernel != "fwd" and cluster_route(head_dim, dtype):
+        return CLUSTER
+    if (kernel == "dkv" and dtype == torch.float32
+            and SLICE < head_dim <= TF32_LD):
+        return CLUSTER
+    if kernel == "fwd" and pair_route(head_dim, dtype):
+        return PAIR
+    return head_class(head_dim)
+
+
 def scales_first(scale: float) -> bool:
     """Whether the forward kernel scales the scores before their row max
     (its SCALED instantiation).  The other route takes the max of the raw
@@ -356,12 +394,14 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
     the largest instantiated value <= the request, or the smallest one if
     none is.  Any pair maps, so every value the env contract takes runs;
     the default (128, 128) keeps the tiles the kernels were tuned at.  f32
-    has one tile.  Given the sequence length t, a call on the encoders'
+    has one tile a kernel and route (dk/dv's: F32_DKV).  Given the
+    sequence length t, a call on the encoders'
     route (`short_route`) takes SHORT's tiles for all three kernels
     whatever its blocks; without t, the tiled kernels' tiles.  On the
     cluster route (`cluster_route`) dq and dk/dv take CLUSTER's tiles."""
     if dtype == torch.float32:
-        return Tiles(F32_TILE, F32_TILE, F32_TILE)
+        return Tiles(F32_TILE, F32_TILE,
+                     F32_DKV[route("dkv", head_dim, dtype)])
     dc = head_class(head_dim)
     fwd_rows, fwd_steps = INSTANTIATED["fwd"][dc]
     dq_rows, dq_steps = INSTANTIATED["dq"][dc]
@@ -392,7 +432,8 @@ def launch_tiles(block_q: int, block_k: int, head_dim: int, dtype,
 
 def dkv_splits(bkv: int, t: int, group: int, sms: int) -> int:
     """How many slices dk/dv splits each KV head's query-head group into
-    at head-dim class 256: one block per (b*kv_head, 64-key tile, slice),
+    at head-dim class 256 (every dtype): one block per (b*kv_head, 64-key
+    tile, slice),
     the fewest slices that give each of `sms` SMs a block, at most one a
     query head.  Launched heaviest first, that many already balance the
     causal walk; more only add f32 partials and blocks (Gemma 2B's
@@ -437,8 +478,9 @@ def instantiations() -> set:
             for dtype in ("bfloat16", "float16"):
                 out.update((kernel, dtype, dc, r, s) for r in rows
                            for s in steps)
-            if dc not in (CLUSTER, PAIR):
+            if kernel != "dkv" and dc not in (CLUSTER, PAIR):
                 out.add((kernel, "float32", dc) + F32_TILE)
+    out.update(("dkv", "float32", key) + tile for key, tile in F32_DKV.items())
     for kernel, tile in SHORT.items():
         out.update((kernel, dtype, 64) + tile
                    for dtype in ("bfloat16", "float16"))
@@ -638,12 +680,14 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     """(dk, dv) at k's head count.  Replaces the TPU `_bwd_dkv_kernel`.
     Key rows per block from block_k, query step from block_q, or a whole KV
     head a work item on the encoders' route (`short_route`).  At head-dim
-    class 256 in bf16 and fp16 each KV head's query-head group is split
-    into `dkv_splits` slices over the grid; with more than one the kernel
-    writes f32 partials to a workspace that `dkv_reduce` sums.  Above
-    head_dim 256 a block takes a 256-column slice of a key tile's dk and dv
-    and walks the whole group itself; up to CLUSTER_LD in bf16 and fp16
-    (`cluster_route`) the slices of a key tile are one cluster."""
+    class 256 each KV head's query-head group is split into `dkv_splits`
+    slices over the grid; with more than one the kernel writes f32
+    partials to a workspace that `dkv_reduce` sums.
+    Above head_dim 256 a block takes a 256-column slice of a key tile's dk
+    and dv and walks the whole group itself; up to CLUSTER_LD in bf16 and
+    fp16 (`cluster_route`), and up to TF32_LD in f32, the slices of a key
+    tile are one cluster.  f32 runs on the tensor cores in three TF32
+    passes at every head dim."""
     if q.device.type == "cpu":
         return backward_dkv_plain(q, k, v, do, lse, delta, scale=scale,
                                   causal=causal, window=window, sink=sink)
@@ -654,7 +698,7 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     tile = resolve_tiles(block_q, block_k, d, q.dtype, t).dkv
     qp, kp, vp, dop = _padded(q, k, v, do)
     splits = 1
-    if q.dtype != torch.float32 and head_class(d) == 256:
+    if head_class(d) == 256:
         splits = dkv_splits(b * kv_heads, t, heads // kv_heads,
                             sm_count(q.device))
     if splits > 1:
@@ -692,18 +736,19 @@ def dkv_reduce_plain(ws, scale: float, dtype):
 
 def dkv_reduce(ws, scale: float, dtype):
     """(dk, dv) from dk/dv's f32 slice partials ws [2, splits, ...] (dK's,
-    then dV's): dk = scale * their sum, dv = the sum, in `dtype` (bf16 or
-    fp16).  Replaces no TPU kernel: the Pallas dk/dv kernel carries the GQA
+    then dV's): dk = scale * their sum, dv = the sum, in `dtype` (bf16,
+    fp16 or f32).  Replaces no TPU kernel: the Pallas dk/dv kernel carries the GQA
     group's sum in VMEM scratch along its sequential grid."""
     if ws.device.type == "cpu":
         return dkv_reduce_plain(ws, scale, dtype)
     if (ws.dtype != torch.float32 or not ws.is_contiguous() or ws.dim() < 3
             or ws.shape[0] != 2 or ws.shape[1] < 2 or dtype not in DTYPES
-            or dtype == torch.float32 or ws[0, 0].numel() % 4):
+            or ws[0, 0].numel() % 4):
         raise ValueError(
             "dkv_reduce takes a contiguous f32 [2, splits >= 2, ...] "
-            "workspace of a multiple of 4 elements a slice, into bfloat16 "
-            f"or float16; got {ws.dtype} {tuple(ws.shape)} into {dtype}")
+            "workspace of a multiple of 4 elements a slice, into bfloat16, "
+            f"float16 or float32; got {ws.dtype} {tuple(ws.shape)} into "
+            f"{dtype}")
     dk = torch.empty(ws.shape[2:], device=ws.device, dtype=dtype)
     dv = torch.empty_like(dk)
     with torch.cuda.device(ws.device):
@@ -725,6 +770,7 @@ def dkv_reduce(ws, scale: float, dtype):
 # cluster route (`cluster_route`) are the cluster kernels', counted again
 # in `cluster_launches`, and the forward's on the pair route
 # (`pair_route`) are the pair kernel's, counted again in `pair_launches`.
+# dk/dv's in f32 are all the tensor-core kernel's (dkv_tf32_kernel).
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
 CLUSTER_KERNELS = (flash_backward_dq, flash_backward_dkv)
 PAIR_KERNELS = (flash_forward,)

@@ -10,10 +10,11 @@
 // What the kernels take (all that the Pallas kernels take):
 //   * bf16 and fp16: the tensor-core kernels, templated on the element type
 //     E (wgmma's bf16 or f16 form; P and dS are rounded to E before their
-//     second product, outputs are written in E).  f32: SIMT kernels of
-//     their own (f32 products and sums, as the Pallas kernels compute in
-//     f32 inside; tf32 wgmma would round the products) behind the same C
-//     entry points.
+//     second product, outputs are written in E).  f32: behind the same C
+//     entry points, the forward and dq on SIMT kernels of their own (f32
+//     products and sums, as the Pallas kernels compute in f32 inside; one
+//     TF32 pass would round the products), dk/dv on the tensor cores in
+//     three TF32 passes (dkv_tf32_kernel, tf32.cuh).
 //   * Head dims: the tensor-core kernels are built for the head-dim classes
 //     D = 64, 128 and 256, and a stored head dim ld runs on the smallest
 //     class that holds it: 8..64 on D 64, 72..128 on D 128, 136..256 on
@@ -22,7 +23,8 @@
 //     multiple of 8 and slices the outputs).  The tensor maps zero-fill the
 //     columns past ld (a 64-column box wholly past it included), so Q K^T
 //     and dO V^T are unchanged, and the epilogues store only the columns <
-//     ld.  The f32 kernels take any ld up to 256 on DMAX 64, 128 or 256.
+//     ld.  The f32 kernels take any ld up to 256 on DMAX 64, 128 or 256
+//     (dk/dv: on 64, 128 or 256 columns a block).
 //     Every ld above 256 runs on the sliced kernels (below: each block one
 //     256-column slice of the outputs, the head dim streamed through shared
 //     memory in 64-column chunks), in bf16, fp16 and f32, with no bound of
@@ -32,7 +34,10 @@
 //     the head dim's contraction and sums S and dP across its blocks), and
 //     the forward in bf16 and fp16 up to ld PAIR_REACH (512) on the pair
 //     forward (below: a block's two consumer warpgroups split the head dim
-//     and sum their partial S through shared memory).
+//     and sum their partial S through shared memory), and dk/dv in f32 up
+//     to ld TF32_REACH (2048) on dkv_tf32_kernel's clusters (the same
+//     split of the contraction across a key tile's slices; above it a
+//     block for each slice contracts the whole head dim).
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -83,14 +88,16 @@
 // fp16, each route apart; 5-6: dq, 7-8: dk/dv in bf16 and fp16; 9: the f32
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
 // 11-15, head dims above 256 to parts 16-20, and dq's and dk/dv's up to
-// CLUSTER_REACH in bf16 and fp16 to parts 21-24, and the forward's up to
-// PAIR_REACH in bf16 and fp16 to parts 25-26); 11-12: the forward at
+// CLUSTER_REACH in bf16 and fp16 to parts 21-24, the forward's up to
+// PAIR_REACH in bf16 and fp16 to parts 25-26, and dk/dv's up to
+// TF32_REACH in f32 to part 27); 11-12: the forward at
 // D 256 in bf16 and fp16; 13: dq and 14: dk/dv at D 256 (with the
 // reduction of its slices' partials); 15: the f32 kernels at D 256; 16-17:
 // the sliced forward in bf16 and fp16; 18: the sliced dq and 19: dk/dv;
 // 20: the sliced f32 kernels; 21-22: the cluster dq in bf16 and fp16;
 // 23-24: the cluster dk/dv in bf16 and fp16; 25-26: the pair forward in
-// bf16 and fp16; 0 (unset): every part in one unit.
+// bf16 and fp16; 27: the f32 dk/dv's cluster; 0 (unset): every part in one
+// unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -103,6 +110,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 #ifndef FA_PART
 #define FA_PART 0
@@ -247,10 +255,17 @@ int forward_f16_pair(int bh, const FwdArgs& a, int rows, int step,
                      cudaStream_t st);
 int forward_f16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
                             cudaStream_t st);
-// the sum of dk/dv's slices (part 14): ws [2][splits][n] f32 -> dk, dv [n]
+// f32 dk/dv on the tensor cores over a cluster of the slices of head dims
+// 257..TF32_REACH (part 27)
+int dkv_f32_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+// the sum of dk/dv's slices (parts 14 and 15): ws [2][splits][n] f32 -> dk,
+// dv [n]
 int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
                     int splits, float scale, cudaStream_t st);
 int dkv_reduce_f16(const float* ws, void* dk, void* dv, long long n,
+                   int splits, float scale, cudaStream_t st);
+int dkv_reduce_f32(const float* ws, void* dk, void* dv, long long n,
                    int splits, float scale, cudaStream_t st);
 
 }  // namespace fa
@@ -1601,7 +1616,8 @@ __global__ void __launch_bounds__(384, reg_blocks(2))
 
 // The sum of dkv_split_kernel's slices: dK = scale * sum_s ws[0][s] and
 // dV = sum_s ws[1][s], each sum taken in slice order (so a launch repeats
-// bit for bit), written in E; n (a multiple of 4) elements each.  Four
+// bit for bit), written in E (bf16, fp16 or f32); n (a multiple of 4)
+// elements each.  Four
 // consecutive elements a thread, in a grid-stride loop.  Bound: bytes (2 *
 // splits * n * 4 read, 2 * n * sizeof(E) written).  It replaces no TPU
 // kernel: the Pallas dk/dv kernel sums a GQA group in VMEM scratch across
@@ -1627,10 +1643,15 @@ __global__ void __launch_bounds__(256)
       sum.w += p.w;
     }
     const float mul = which ? 1.f : scale;
-    uint2 out;
-    out.x = Elt<E>::pack(sum.x * mul, sum.y * mul);
-    out.y = Elt<E>::pack(sum.z * mul, sum.w * mul);
-    *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * j) = out;
+    if constexpr (std::is_same_v<E, float>) {
+      *reinterpret_cast<float4*>((which ? dv : dk) + 4 * j) =
+          make_float4(sum.x * mul, sum.y * mul, sum.z * mul, sum.w * mul);
+    } else {
+      uint2 out;
+      out.x = Elt<E>::pack(sum.x * mul, sum.y * mul);
+      out.y = Elt<E>::pack(sum.z * mul, sum.w * mul);
+      *reinterpret_cast<uint2*>((which ? dv : dk) + 4 * j) = out;
+    }
   }
 }
 
@@ -2736,35 +2757,28 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
 }
 
 // ---------------------------------------------------------------------------
-// f32: one SIMT kernel for each of the three.  The Pallas kernels compute
-// in f32, and tf32 wgmma would round the products to 10-bit mantissas, so
-// these take f32 products and f32 sums on the CUDA cores, one step at a
-// time between two barriers: right, and not tuned.
+// f32: SIMT kernels of the forward and dq.  The Pallas kernels compute in
+// f32, and one TF32 pass on the tensor cores would round the products to
+// 10-bit mantissas, so these take f32 products and f32 sums on the CUDA
+// cores, one step at a time between two barriers: right, and not tuned.
+// (dk/dv in f32 runs on the tensor cores in three TF32 passes:
+// dkv_tf32_kernel, below the sliced kernels.)
 //
-// A block of F32_THREADS threads owns F32_ROWS rows (query rows in the
-// forward and dq, key rows in dk/dv) of one b*h (b*kv_head for dk/dv), and
-// walks the same tiles as the tensor-core kernels (key_tiles, query_tiles)
-// F32_STEP keys or queries at a time.  Thread 2r + h works on row r with its
-// partner 2r + 1 - h in the same warp: per step the pair splits the step's
-// columns (thread h takes 2j + h, so the two read neighbouring shared-memory
-// rows) and the output columns (thread h takes [h * DMAX / 2, (h + 1) *
-// DMAX / 2)), and trades the step's p (or ds) with one shuffle.  Tiles are
-// stored with a row stride of DMAX + 1 floats, so the 16 rows a warp reads
-// lie in 16 banks.  dk/dv at DMAX 256 gives each row four threads
-// (F32_ROWS * 4 in a block), since its two accumulators would take 256
-// registers a thread at two; thread 4r + h then takes the step's columns
-// 4j + h and a quarter of the output columns.  The mask is Mask::live on
-// every element, and exp is expf.  Bound: operations on the f32 pipes (67
-// TFLOP/s on an H100 SXM), far from reached.  DMAX 256's tiles (64 KB
-// each) take opted-in dynamic shared memory, as every launch here does.
+// A block of F32_THREADS threads owns F32_ROWS query rows of one b*h, and
+// walks the same tiles as the tensor-core kernels (key_tiles) F32_STEP keys
+// at a time.  Thread 2r + h works on row r with its partner 2r + 1 - h in
+// the same warp: per step the pair splits the step's columns (thread h
+// takes 2j + h, so the two read neighbouring shared-memory rows) and the
+// output columns (thread h takes [h * DMAX / 2, (h + 1) * DMAX / 2)), and
+// trades the step's p (or ds) with one shuffle.  Tiles are stored with a
+// row stride of DMAX + 1 floats, so the 16 rows a warp reads lie in 16
+// banks.  The mask is Mask::live on every element, and exp is expf.
+// Bound: operations on the f32 pipes (67 TFLOP/s on an H100 SXM), far from
+// reached.  DMAX 256's tiles (64 KB each) take opted-in dynamic shared
+// memory, as every launch here does.
 constexpr int F32_ROWS = 64;
 constexpr int F32_STEP = 32;
 constexpr int F32_THREADS = 128;
-
-// Threads per row of the f32 dk/dv kernel.
-__host__ __device__ constexpr int f32_dkv_lanes(int dmax) {
-  return dmax > 128 ? 4 : 2;
-}
 
 // Rows [row0, row0 + n) of a [T, ld] f32 slab into a [n][DMAX + 1] tile,
 // with zeros for the rows past T and the columns past ld, by a block of
@@ -2927,98 +2941,6 @@ __global__ void __launch_bounds__(F32_THREADS)
     if (h * C + c < ld) out[c] = acc[c] * scale;
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(F32_ROWS * f32_dkv_lanes(DMAX))
-    dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, int heads, int kv_heads, int ld,
-                   float scale, Mask mk) {
-  constexpr int L = f32_dkv_lanes(DMAX), THREADS = F32_ROWS * L;
-  constexpr int SD = DMAX + 1, J = F32_STEP / L, C = DMAX / L;
-  extern __shared__ float f32_smem[];
-  float* sK = f32_smem;              // [F32_ROWS][SD]
-  float* sV = sK + F32_ROWS * SD;    // [F32_ROWS][SD]
-  float* sQ = sV + F32_ROWS * SD;    // [F32_STEP][SD]
-  float* sdO = sQ + F32_STEP * SD;   // [F32_STEP][SD]
-  float* sL = sdO + F32_STEP * SD;   // lse[F32_STEP], delta[F32_STEP]
-  const int T = mk.T;
-  const GridTile gt = grid_tile(F32_ROWS, T);
-  const int bkv = gt.bh, k0 = gt.tile * F32_ROWS;
-  const int r = threadIdx.x / L, h = threadIdx.x % L, key = k0 + r;
-  const int lane0 = (threadIdx.x & 31) - h;  // the row's first lane
-  const int group = heads / kv_heads;
-  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
-  int qlo, qhi;
-  query_tiles<F32_STEP>(k0, F32_ROWS, mk, &qlo, &qhi);
-  const int nq = qhi - qlo, n_iter = group * nq;
-
-  f32_load<DMAX, THREADS>(sK, k + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
-  f32_load<DMAX, THREADS>(sV, v + (size_t)bkv * T * ld, k0, F32_ROWS, T, ld);
-  float dk_acc[C], dv_acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dk_acc[c] = dv_acc[c] = 0.f;
-  for (int it = 0; it < n_iter; ++it) {
-    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * F32_STEP;
-    __syncthreads();
-    f32_load<DMAX, THREADS>(sQ, q + (size_t)bh * T * ld, q0, F32_STEP, T,
-                            ld);
-    f32_load<DMAX, THREADS>(sdO, dout + (size_t)bh * T * ld, q0, F32_STEP,
-                            T, ld);
-    if (threadIdx.x < F32_STEP) {
-      const int qi = q0 + threadIdx.x;
-      sL[threadIdx.x] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-      sL[F32_STEP + threadIdx.x] = qi < T ? delta[(size_t)bh * T + qi] : 0.f;
-    }
-    __syncthreads();
-    float s[J], dp[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < ld; ++d) {
-      const float kd = sK[r * SD + d], vd = sV[r * SD + d];
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        s[j] = fmaf(kd, sQ[(L * j + h) * SD + d], s[j]);
-        dp[j] = fmaf(vd, sdO[(L * j + h) * SD + d], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = L * j + h;
-      const float p =
-          mk.live(q0 + c, key) ? expf(s[j] * scale - sL[c]) : 0.f;
-      s[j] = p;
-      dp[j] = p * (dp[j] - sL[F32_STEP + c]);  // ds
-    }
-    // each of the row's L threads hands its columns' p and ds to the others
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-#pragma unroll
-      for (int o = 0; o < L; ++o) {
-        const float pm = __shfl_sync(0xffffffffu, s[j], lane0 + o);
-        const float dsm = __shfl_sync(0xffffffffu, dp[j], lane0 + o);
-        const int om = (L * j + o) * SD + h * C;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dv_acc[c] = fmaf(pm, sdO[om + c], dv_acc[c]);
-          dk_acc[c] = fmaf(dsm, sQ[om + c], dk_acc[c]);
-        }
-      }
-    }
-  }
-  if (key >= T) return;
-  const size_t off = ((size_t)bkv * T + key) * ld + h * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (h * C + c < ld) {
-      dk[off + c] = dk_acc[c] * scale;
-      dv[off + c] = dv_acc[c];
-    }
-  }
-}
-
 // f32 launchers (dynamic shared memory above 48 KB, as above).
 
 template <int DMAX>
@@ -3054,24 +2976,6 @@ int launch_dq_f32(int bh, const BwdArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
-  const int bytes =
-      ((2 * F32_ROWS + 2 * F32_STEP) * (DMAX + 1) + 2 * F32_STEP) * 4;
-  auto kernel = dkv_f32_kernel<DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = grid_blocks(bkv, a.mk.T, F32_ROWS);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, F32_ROWS * f32_dkv_lanes(DMAX), bytes, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.heads, a.kv_heads, a.ld, a.scale, a.mk);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // Head dims above 256: the sliced kernels.  They replace the same three
@@ -3082,7 +2986,9 @@ int launch_dkv_f32(int bkv, const BwdArgs& a, cudaStream_t st) {
 // and fp16, dq and dk/dv up to ld CLUSTER_REACH run on the cluster kernels
 // below them instead, which split the contraction across a cluster of the
 // slices' blocks rather than recompute it in each; dq_sliced_kernel and
-// dkv_sliced_kernel take the head dims above that reach.
+// dkv_sliced_kernel take the head dims above that reach.  In f32, dk/dv
+// runs on dkv_tf32_kernel (below): up to ld TF32_REACH on its clusters,
+// above it a block for each slice that contracts the whole head dim.
 //
 // Where the plans above stop: a warpgroup's 64-row f32 accumulator over W
 // columns takes W/2 registers a thread (255 at most), wgmma's N is at most
@@ -3739,7 +3645,8 @@ __global__ void __launch_bounds__(384, 1)
 // (two to four slices) in bf16 and fp16, dq_cluster_kernel and
 // dkv_cluster_kernel.  They replace the same Pallas kernels
 // (tf_operator_tpu/ops/attention.py:_bwd_dq_kernel, _bwd_dkv_kernel) there;
-// above the reach, and in f32, the sliced kernels above run.
+// above the reach, and in f32, the sliced kernels above run (but f32
+// dk/dv up to TF32_REACH: dkv_tf32_kernel).
 //
 // The sliced kernels recompute the full-width S and dP in every slice.
 // Here the blocks of one row tile (dq) or key tile (dk/dv), one per slice,
@@ -4922,17 +4829,14 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// The sliced f32 kernels: the f32 kernels above with the head dim streamed
-// F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles for the
-// contractions, and each block one SW-column slice of the outputs, whose
-// rows of V, K, dO or Q it loads into [rows][SW + 1] tiles for the second
+// The sliced f32 forward and dq: the f32 kernels above with the head dim
+// streamed F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles
+// for the contractions, and each block one SW-column slice of the outputs,
+// whose rows of V or K it loads into [rows][SW + 1] tiles for the second
 // products: the same grid and sums as the tensor-core sliced kernels, f32
 // products and sums on the CUDA cores, the thread plan of the f32 kernels
-// at DMAX SW (two threads a row; four in dk/dv, whose slices are
-// F32_DKV_SLICE wide: its two accumulators over 256 columns, 128 registers
-// of a thread's 255, spilled 228 bytes beside the chunked contraction).
+// at DMAX SW (two threads a row).  (dk/dv in f32 runs on dkv_tf32_kernel.)
 constexpr int F32_CHUNK = 64;
-constexpr int F32_DKV_SLICE = 128;
 
 // Rows [row0, row0 + n) x columns [c0, c0 + W) of a [T, ld] f32 slab into
 // an [n][W + 1] tile, zeros past T and past ld, by a block of THREADS.
@@ -5121,114 +5025,526 @@ __global__ void __launch_bounds__(F32_THREADS)
     if (c0 + h * C + c < ld) out[c] = acc[c] * scale;
 }
 
-// dk/dv in f32, four threads a key row (f32_dkv_lanes at DMAX 256); the
-// grid as the f32 forward's, a key tile for a row tile, with SW-column
-// slices (F32_DKV_SLICE).
-template <int SW>
-__global__ void __launch_bounds__(F32_ROWS * 4)
-    dkv_sliced_f32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv,
-                          int heads, int kv_heads, int ld, float scale,
-                          Mask mk) {
-  constexpr int L = 4, THREADS = F32_ROWS * L;
-  constexpr int CD = F32_CHUNK + 1, SD = SW + 1, J = F32_STEP / L;
-  constexpr int C = SW / L;
-  extern __shared__ float f32_smem[];
-  float* sK = f32_smem;               // [F32_ROWS][CD]
-  float* sV = sK + F32_ROWS * CD;     // [F32_ROWS][CD]
-  float* sQ = sV + F32_ROWS * CD;     // [F32_STEP][CD]
-  float* sdO = sQ + F32_STEP * CD;    // [F32_STEP][CD]
-  float* sQs = sdO + F32_STEP * CD;   // [F32_STEP][SD]: the slice's Q
-  float* sdOs = sQs + F32_STEP * SD;  // [F32_STEP][SD]: and dO
-  float* sL = sdOs + F32_STEP * SD;   // lse[F32_STEP], delta[F32_STEP]
-  const int T = mk.T;
-  const SliceTile st = slice_tile(F32_ROWS, T, ceil_div(ld, SW));
-  const int bkv = st.bh, k0 = st.tile * F32_ROWS, c0 = st.slice * SW;
-  const int r = threadIdx.x / L, h = threadIdx.x % L, key = k0 + r;
-  const int lane0 = (threadIdx.x & 31) - h;  // the row's first lane
-  const int group = heads / kv_heads;
-  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group;
-  const float* kh = k + (size_t)bkv * T * ld;
-  const float* vh = v + (size_t)bkv * T * ld;
-  int qlo, qhi;
-  query_tiles<F32_STEP>(k0, F32_ROWS, mk, &qlo, &qhi);
-  const int nq = qhi - qlo, n_iter = group * nq;
+// ---------------------------------------------------------------------------
+// f32 dk/dv on the tensor cores: dkv_tf32_kernel.  Replaces
+// tf_operator_tpu/ops/attention.py:_bwd_dkv_kernel in f32 at every head
+// dim: dv = sum p^T dO and dk = scale * sum ds^T Q over the GQA
+// group, p = exp(scale * s - lse) (expf), ds = p (dp - delta), every mask,
+// any scale.
+//
+// Every product is mma.sync m16n8k8 in three TF32 passes (tf32.cuh): f32
+// tiles in shared memory, each fragment split in registers into its TF32
+// halves, lo * hi and hi * lo added before hi * hi, f32 accumulators; each
+// short chain of products (a 32-column block of a contraction, a query
+// step of a second product) summed apart and added to the long sum in f32
+// (tf32::promote: one long chain into an accumulator left the rule), a
+// contraction's blocks and the cluster's partials by the compensated sum
+// (tf32::kahan: at large logits, scale -1 at head dim 512, dk left the
+// rule by its f32 sum of 16 blocks); the f32 rule (chip_smoke.RTOL_F32,
+// FRO_F32) holds against the plain version in f64 up to head dim 512 at
+// scale -1 (above it, dk reaches 1.1 to 2.1 of the limit, where plain f32
+// reaches 8 to 18: PERF.md) and at the usual scales everywhere, where one
+// pass misses it by some 40x.  Not wgmma: its TF32 form takes both
+// operands K-major in shared memory, and dV = P^T dO and dK = dS^T Q
+// contract over the queries, across dO's and Q's stored rows, which would
+// need transposed (and, for three passes, split) copies of both; mma.sync
+// reads its fragments from one f32 copy in either orientation.
+//
+// A block: 64 keys of one b*kv_head and SW columns of the head dim (SW 64,
+// 128 or 256: the head-dim classes; above 256, one 256-column slice), 8
+// warps in two warpgroups over the same keys, warp w4 of each holding keys
+// 16 w4 .. 16 w4 + 15.  Warpgroup 0 forms S^T = K Q^T, P^T, and holds dV;
+// warpgroup 1 forms dP^T = V dO^T and dS^T, and holds dK (dk/dv_split's
+// plan: each product once, two of the four a warpgroup).  K and V (the
+// block's columns) stay in shared memory; per query step of BQ queries
+// (BQ = 32, 16 at SW 256) thread 0 keeps Q and dO in a ring of STAGES
+// stages (TMA, 32-column boxes, zero past T and past ld; a stage is
+// refilled after the block's barrier at the end of the step that read it,
+// so the next steps' loads run under this step's products).  A query step:
+//   * the contraction over the block's columns (S^T or dP^T, 16 keys x BQ
+//     a warp, m16n8 tiles; the 32-column blocks wholly past ld skipped);
+//   * above 256, the slices of a key tile are one thread-block cluster:
+//     each block's partials (its columns' S^T and dP^T) go to shared memory,
+//     the cluster meets at its barrier, and every block sums all the
+//     partials in slice order (its own and, through distributed shared
+//     memory, its partners'), so each forms the same S^T and dP^T once
+//     for all the slices (two buffers, one barrier a step: a block writes
+//     a buffer again two steps later, after every partner has passed the
+//     barrier that follows its last read of it); above TF32_REACH (nine
+//     slices and more, past a portable cluster's eight blocks) each block
+//     of a slice contracts the whole head dim itself (STREAM: no K or V
+//     resident, every 32-column chunk of K, V, Q and dO through two
+//     buffers by cp.async, the next chunk's loads under this one's
+//     products), (n + 1) / 2 times the products over n slices;
+//   * warpgroup 0 forms P^T in its accumulators (the element mask only on
+//     tiles that are not full) and hands it to warpgroup 1 through shared
+//     memory (each thread the elements it holds, so thread i of one reads
+//     what thread i of the other wrote: 16-byte stores and loads, no
+//     re-layout), which forms dS^T;
+//   * dV += P^T dO and dK += dS^T Q over the block's columns: A is the
+//     accumulator of the step's first product as it stands (the permuted k
+//     index, tf32.cuh), B read down dO's or Q's columns.
+// The blocks walk dkv_split_kernel's grid: (key tile, b*kv_head, split of
+// the query-head group, slice), slices fastest, key tiles slowest, so the
+// longest causal walks start first.  At SW 256 the host may split each
+// group's query heads (ops/attention.py:dkv_splits), and then the blocks
+// write f32 partials that dkv_reduce_kernel sums in slice order.  Outputs
+// are f32, dk times scale.
+// Bound: operations, 3 TF32 passes of 4 products at 495 TFLOP/s dense
+// (the card's TF32 rate; 165 TFLOP/s of three-pass products).  Measured
+// at 0.18-0.27 of it on an H100 (PERF.md): the products are about a fifth
+// of the time; the fragments' loads and TF32 splits (each B value split
+// by the four warps of its warpgroup) the rest, which more warps (two
+// pairs of warpgroups over column halves at 256) did not move.
+// Registers: a warp's [16 x SW] accumulator is SW / 2 a thread (128 at SW
+// 256, beside the step's 16 x BQ score tile); at SW 64 two blocks share an
+// SM.  Shared memory: K, V (64 x SW f32 each), P^T, the ring, and above 256
+// the two partial buffers or (STREAM, in place of K and V) the two chunk
+// buffers (DkvTf32Smem).
+constexpr int TF32_REACH = 2048;  // the cluster's reach: 8 slices
 
-  float dk_acc[C], dv_acc[C];
+// Diagnostics for kernel_variants.py only (the values below in every build
+// the wrappers load): TF32_PASSES 1 takes one TF32 pass (the planted fault
+// the f32 rule must catch); without TF32_SECOND no second product is
+// issued; without TF32_EXCHANGE a block of a cluster takes its own partial
+// for the whole sum (no SM-to-SM traffic).  The last two give wrong
+// outputs.
+constexpr int TF32_PASSES = 3;
+constexpr bool TF32_SECOND = true;
+constexpr bool TF32_EXCHANGE = true;
+
+template <int SW, bool CL, bool STREAM = false>
+struct DkvTf32Smem {
+  static constexpr int BM = 64, BQ = SW == 256 ? 16 : 32;
+  static constexpr int BLOCKS = SW == 64 ? 2 : 1;
+  // each pass in a sum of its own (tf32::mma3's three sums): at two blocks
+  // an SM (128 registers a thread) they spilled, so one sum there
+  static constexpr bool CHAINS = BLOCKS == 1;
+  // a contraction's 32-column blocks added by the compensated sum
+  // (tf32::kahan): at 64 columns (two blocks at most, little to
+  // compensate) its registers spilled
+  static constexpr bool COMPENSATED = SW > 64;
+  // K or V (STREAM: none resident)
+  static constexpr int KV_BYTES = STREAM ? 0 : BM * SW * 4;
+  static constexpr int QT_BYTES = BQ * SW * 4;   // Q or dO of a step
+  static constexpr int STAGE_BYTES = 2 * QT_BYTES;
+  static constexpr int P_OFF = 2 * KV_BYTES;     // P^T: [4][BQ / 8][32] x 16 B
+  static constexpr int P_BYTES = BM * BQ * 4;
+  static constexpr int X_OFF = P_OFF + P_BYTES;  // partials: [2][8][BQ / 8][32] x 16 B
+  static constexpr int X_BYTES = CL ? 2 * 2 * BM * BQ * 4 : 0;
+  // STREAM: two buffers of one 32-column chunk of K, V, Q and dO (rows in
+  // that order, 128 bytes each, swizzled as TMA would)
+  static constexpr int CHUNK_BYTES = (2 * BM + 2 * BQ) * 128;
+  static constexpr int C_OFF = X_OFF + X_BYTES;
+  static constexpr int C_BYTES = STREAM ? 2 * CHUNK_BYTES : 0;
+  static constexpr int RING_OFF = C_OFF + C_BYTES;
+  static constexpr int STAGES =
+      cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 64) / STAGE_BYTES);
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  // full[STAGES], kv
+  static constexpr int BYTES = BAR_OFF + 8 * (STAGES + 1) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= smem_budget(BLOCKS),
+                "f32 dk/dv does not fit in shared memory");
+  static_assert(KV_BYTES % 1024 == 0 && (BQ * 128) % 1024 == 0 &&
+                    P_BYTES % 1024 == 0 && CHUNK_BYTES % 1024 == 0,
+                "the swizzled tiles start on 1024 bytes");
+};
+
+template <int SW, bool CL, bool STREAM>
+__global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
+    dkv_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v,
+                    const __grid_constant__ CUtensorMap map_do,
+                    const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, float* __restrict__ partial,
+                    int heads, int kv_heads, int splits, int ld, float scale,
+                    Mask mk) {
+  using S = DkvTf32Smem<SW, CL, STREAM>;
+  constexpr int BM = S::BM, BQ = S::BQ, STAGES = S::STAGES;
+  constexpr int NJ = BQ / 8, NT = SW / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t bars = base + S::BAR_OFF;  // full[STAGES], kv
+  const uint32_t kv_bar = bars + 8 * STAGES;
+
+  // the block: (key tile, b*kv_head, split, slice), slices fastest
+  const int T = mk.T;
+  const int ns = CL       ? (int)tf32::cluster_size()
+                 : STREAM ? (ld + SW - 1) / SW
+                          : 1;
+  const int n_kt = (T + BM - 1) / BM;
+  const int x = (int)blockIdx.x;
+  const int slice = x % ns, sp = x / ns % splits, rest = x / ns / splits;
+  const int bkv_n = (int)gridDim.x / (n_kt * splits * ns);
+  const int bkv = rest % bkv_n, k0 = rest / bkv_n * BM;
+  const int group = heads / kv_heads;
+  const int h0 = sp * group / splits, h1 = (sp + 1) * group / splits;
+  const int qbase = (bkv / kv_heads) * heads + (bkv % kv_heads) * group + h0;
+  int qlo, qhi;
+  query_tiles<BQ>(k0, BM, mk, &qlo, &qhi);
+  const int nq = qhi - qlo, n_iter = (h1 - h0) * nq;
+  const int c0 = slice * SW;  // the block's first column
+  // its 32-column blocks that hold a column < ld
+  const int nblk = cmin(SW / 32, (ld - c0 + 31) / 32);
+
+  // (thread 0) step it's Q and dO into stage it % STAGES
+  const CUtensorMap* mq = &map_q;
+  const CUtensorMap* mdo = &map_do;
+  auto load_step = [=](int it) {
+    const int s = it % STAGES;
+    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+    const uint32_t st = base + S::RING_OFF + s * S::STAGE_BYTES;
+    const uint32_t bar = bars + 8 * s;
+    hopper::mbar_arrive_tx(bar, 2 * nblk * BQ * 128);
+    for (int b = 0; b < nblk; ++b) {
+      hopper::tma_load(st + b * BQ * 128, mq, c0 + 32 * b, q0, bh, bar);
+      hopper::tma_load(st + S::QT_BYTES + b * BQ * 128, mdo, c0 + 32 * b,
+                       q0, bh, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(bars + 8 * s, 1);
+    hopper::mbar_init(kv_bar, 1);
+    hopper::mbar_init_fence();
+    // (STREAM: K and V come by the chunk, below; the phase completes empty)
+    hopper::mbar_arrive_tx(kv_bar, STREAM ? 0 : 2 * nblk * BM * 128);
+    for (int b = 0; b < (STREAM ? 0 : nblk); ++b) {
+      hopper::tma_load(base + b * BM * 128, &map_k, c0 + 32 * b, k0, bkv,
+                       kv_bar);
+      hopper::tma_load(base + S::KV_BYTES + b * BM * 128, &map_v,
+                       c0 + 32 * b, k0, bkv, kv_bar);
+    }
+    for (int it = 0; it < cmin(STAGES, n_iter); ++it) load_step(it);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, w4 = warp & 3;
+  const int key[2] = {k0 + 16 * w4 + g, k0 + 16 * w4 + g + 8};
+  // this warpgroup's contraction operand (K or V) from its warp's first row
+  const float* a_rows = reinterpret_cast<const float*>(smem) +
+                        wg * (BM * SW) + (16 * w4 + g) * 32;
+  const float* row_src = wg == 0 ? lse : delta;
+  int ro[8], co[4][2];
 #pragma unroll
-  for (int c = 0; c < C; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  for (int ch = 0; ch < 8; ++ch) ro[ch] = tf32::row_off(ch, g, t);
+#pragma unroll
+  for (int c4 = 0; c4 < 4; ++c4) {
+    co[c4][0] = tf32::col_off(c4, 0, g, t);
+    co[c4][1] = tf32::col_off(c4, 1, g, t);
+  }
+  // this thread's P^T slot and partial slot (16 bytes a lane)
+  float4* p_slot = reinterpret_cast<float4*>(smem + S::P_OFF) +
+                   w4 * NJ * 32 + lane;
+  float4* x_slot = reinterpret_cast<float4*>(smem + S::X_OFF) +
+                   warp * NJ * 32 + lane;
+
+  // (STREAM, every thread) chunk b (columns 32 b ..) of K and V (this key
+  // tile) and of Q and dO (query step q0 of head bh) into buffer b % 2,
+  // as TMA's 128-byte swizzle lays a 32-column box out, zeros past T and
+  // past ld
+  auto load_chunk = [&](int b, int q0, int bh) {
+    const uint32_t dst = base + S::C_OFF + (b & 1) * S::CHUNK_BYTES;
+    for (int i = threadIdx.x; i < (2 * BM + 2 * BQ) * 8; i += 256) {
+      const int row = i >> 3, c4 = i & 7, c = 32 * b + 4 * c4;
+      const bool kv_row = row < 2 * BM;
+      const int r = kv_row ? row % BM : (row - 2 * BM) % BQ;
+      const int i0 = kv_row ? k0 + r : q0 + r;
+      const float* src =
+          kv_row ? (row < BM ? k : v) + ((size_t)bkv * T + i0) * ld
+                 : (row < 2 * BM + BQ ? q : dout) + ((size_t)bh * T + i0) * ld;
+      const bool valid = i0 < T && c < ld;
+      tf32::cp_async16(dst + row * 128 + ((c4 ^ (row & 7)) << 4),
+                       valid ? src + c : k, valid);
+    }
+    tf32::cp_async_commit();
+  };
+
+  float acc[NT][4];  // dV (warpgroup 0) or dK (1): keys x the SW columns
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  hopper::mbar_wait(kv_bar, 0);
+
   for (int it = 0; it < n_iter; ++it) {
-    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * F32_STEP;
-    const float* qh = q + (size_t)bh * T * ld;
-    const float* gh = dout + (size_t)bh * T * ld;
-    float s[J], dp[J];
+    const int s = it % STAGES;
+    const int bh = qbase + it / nq, q0 = (qlo + it % nq) * BQ;
+    // the row scalars (lse or delta) of this thread's queries q0 + 8j + 2t
+    // + e, loaded under the contraction
+    float rv[NJ][2];
 #pragma unroll
-    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < ld; d0 += F32_CHUNK) {
-      __syncthreads();
-      f32_load_cols<F32_CHUNK, THREADS>(sK, kh, k0, F32_ROWS, d0, T, ld);
-      f32_load_cols<F32_CHUNK, THREADS>(sV, vh, k0, F32_ROWS, d0, T, ld);
-      f32_load_cols<F32_CHUNK, THREADS>(sQ, qh, q0, F32_STEP, d0, T, ld);
-      f32_load_cols<F32_CHUNK, THREADS>(sdO, gh, q0, F32_STEP, d0, T, ld);
-      if (d0 == 0 && threadIdx.x < F32_STEP) {
-        const int qi = q0 + threadIdx.x;
-        sL[threadIdx.x] = qi < T ? lse[(size_t)bh * T + qi] : 0.f;
-        sL[F32_STEP + threadIdx.x] =
-            qi < T ? delta[(size_t)bh * T + qi] : 0.f;
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = q0 + 8 * j + 2 * t + e;
+        rv[j][e] = i < T ? row_src[(size_t)bh * T + i] : 0.f;
       }
-      __syncthreads();
-      const int n = min(F32_CHUNK, ld - d0);
-      for (int d = 0; d < n; ++d) {
-        const float kd = sK[r * CD + d], vd = sV[r * CD + d];
+    hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
+    const float* stage = reinterpret_cast<const float*>(
+        smem + S::RING_OFF + s * S::STAGE_BYTES);
+    // the contraction's B (Q or dO) from row g, the second product's (dO
+    // or Q)
+    const float* b_rows = stage + wg * (BQ * SW) + g * 32;
+    const float* c_tile = stage + (1 - wg) * (BQ * SW);
+
+    // S^T (warpgroup 0) or dP^T (1): 16 keys x BQ queries over the columns,
+    // each 32-column block's sum added by the compensated sum above 64
+    // columns (sc its compensation, tf32::kahan)
+    float st[NJ][4], sc[NJ][4];
 #pragma unroll
-        for (int j = 0; j < J; ++j) {
-          s[j] = fmaf(kd, sQ[(L * j + h) * CD + d], s[j]);
-          dp[j] = fmaf(vd, sdO[(L * j + h) * CD + d], dp[j]);
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
+    // one 32-column block of the contraction, A's rows (K or V) from ab
+    // and B's (Q or dO) from bb
+    auto contract_block = [&](const float* ab, const float* bb) {
+      // the block's 32 columns in sums of their own (one a pass above 64
+      // columns a block), added to the step's in f32 (tf32::kahan above 64
+      // columns, tf32::promote at 64)
+      float part[NJ][4] = {}, part_lh[NJ][4] = {}, part_hl[NJ][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int o0 = ro[2 * kk], o1 = ro[2 * kk + 1];
+        const float a[4] = {ab[o0], ab[8 * 32 + o0], ab[o1], ab[8 * 32 + o1]};
+        const tf32::Split<4> as = tf32::split(a);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float bv[2] = {bb[j * 8 * 32 + o0], bb[j * 8 * 32 + o1]};
+          if constexpr (S::CHAINS)
+            tf32::mma3<TF32_PASSES>(part_lh[j], part_hl[j], part[j], as,
+                                    tf32::split(bv));
+          else
+            tf32::mma3<TF32_PASSES>(part[j], as, tf32::split(bv));
         }
       }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if constexpr (S::CHAINS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            part[j][i] += part_lh[j][i] + part_hl[j][i];
+        }
+        if constexpr (S::COMPENSATED)
+          tf32::kahan(st[j], sc[j], part[j]);
+        else
+          tf32::promote(st[j], part[j]);
+      }
+    };
+    if constexpr (STREAM) {
+      // every column of the head dim, a chunk at a time through the two
+      // buffers, the next chunk's loads in flight under this one's products
+      const int n_all = (ld + 31) / 32;
+      load_chunk(0, q0, bh);
+#pragma unroll 1
+      for (int b = 0; b < n_all; ++b) {
+        if (b + 1 < n_all) {
+          load_chunk(b + 1, q0, bh);
+          tf32::cp_async_wait<1>();
+        } else {
+          tf32::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* chunk = reinterpret_cast<const float*>(
+            smem + S::C_OFF + (b & 1) * S::CHUNK_BYTES);
+        contract_block(chunk + wg * (BM * 32) + (16 * w4 + g) * 32,
+                       chunk + 2 * BM * 32 + wg * (BQ * 32) + g * 32);
+        // every warp is done with this buffer before the chunk after next
+        // is loaded into it
+        __syncthreads();
+      }
+    } else {
+#pragma unroll 1
+      for (int b = 0; b < nblk; ++b)
+        contract_block(a_rows + b * (BM * 32), b_rows + b * (BQ * 32));
     }
+    if constexpr (S::COMPENSATED) {
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int c = L * j + h;
-      const float p =
-          mk.live(q0 + c, key) ? expf(s[j] * scale - sL[c]) : 0.f;
-      s[j] = p;
-      dp[j] = p * (dp[j] - sL[F32_STEP + c]);  // ds
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[j][i] -= sc[j][i];
     }
-    __syncthreads();
-    f32_load_cols<SW, THREADS>(sQs, qh, q0, F32_STEP, c0, T, ld);
-    f32_load_cols<SW, THREADS>(sdOs, gh, q0, F32_STEP, c0, T, ld);
-    __syncthreads();
-    // each of the row's L threads hands its columns' p and ds to the others
+
+    if (CL && TF32_EXCHANGE) {
+      // this block's partial out, the cluster's barrier, then every slice's
+      // partial summed in slice order
+      float4* mine = x_slot + (it & 1) * (8 * NJ * 32);
 #pragma unroll
-    for (int j = 0; j < J; ++j) {
+      for (int j = 0; j < NJ; ++j)
+        mine[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+      hopper::cluster_sync();
+      const uint32_t at = hopper::smem_addr(mine);
 #pragma unroll
-      for (int w = 0; w < L; ++w) {
-        const float pm = __shfl_sync(0xffffffffu, s[j], lane0 + w);
-        const float dsm = __shfl_sync(0xffffffffu, dp[j], lane0 + w);
-        const int om = (L * j + w) * SD + h * C;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          dv_acc[c] = fmaf(pm, sdOs[om + c], dv_acc[c]);
-          dk_acc[c] = fmaf(dsm, sQs[om + c], dk_acc[c]);
+        for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
+      for (int r = 0; r < ns; ++r) {
+        const uint32_t src = hopper::mapa(at, r);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 v = tf32::ld_cluster4(src + j * 32 * 16);
+          const float x[4] = {v.x, v.y, v.z, v.w};
+          tf32::kahan(st[j], sc[j], x);
         }
       }
-    }
-  }
-  if (key >= T) return;
-  const size_t off = ((size_t)bkv * T + key) * ld + c0 + h * C;
 #pragma unroll
-  for (int c = 0; c < C; ++c) {
-    if (c0 + h * C + c < ld) {
-      dk[off + c] = dk_acc[c] * scale;
-      dv[off + c] = dv_acc[c];
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[j][i] -= sc[j][i];
+    }
+
+    if (wg == 0) {
+      // P^T, handed to warpgroup 1
+      const bool full = tile_full(mk, q0, BQ, k0, BM);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = i & 1, q = q0 + 8 * j + 2 * t + e;
+          const float p = expf(st[j][i] * scale - rv[j][e]);
+          st[j][i] = full || mk.live(q, key[i >> 1]) ? p : 0.f;
+        }
+        p_slot[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+      }
+      hopper::named_arrive(1, 256);
+    } else {
+      // dS^T = P^T (dP^T - delta)
+      hopper::named_sync(1, 256);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 p = p_slot[j * 32];
+        st[j][0] = p.x * (st[j][0] - rv[j][0]);
+        st[j][1] = p.y * (st[j][1] - rv[j][1]);
+        st[j][2] = p.z * (st[j][2] - rv[j][0]);
+        st[j][3] = p.w * (st[j][3] - rv[j][1]);
+      }
+    }
+
+    // dV += P^T dO or dK += dS^T Q: k step j is queries 8j .. 8j + 7, k = t
+    // and t + 4 being queries 8j + 2t and 8j + 2t + 1 (the accumulator's
+    // columns of this thread)
+    if (TF32_SECOND) {
+      tf32::Split<4> as[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float a[4] = {st[j][0], st[j][2], st[j][1], st[j][3]};
+        as[j] = tf32::split(a);
+      }
+      // each m16n8 tile's sum over the step in sums of its own (one a pass
+      // above 64 columns a block), added to the accumulator in f32
+      // (tf32::promote)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt / 4 >= nblk) continue;  // columns wholly past ld
+        const float* cb = c_tile + (nt / 4) * (BQ * 32);
+        float part[4] = {}, part_lh[4] = {}, part_hl[4] = {};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float bv[2] = {cb[j * 8 * 32 + co[nt % 4][0]],
+                               cb[j * 8 * 32 + co[nt % 4][1]]};
+          if constexpr (S::CHAINS)
+            tf32::mma3<TF32_PASSES>(part_lh, part_hl, part, as[j],
+                                    tf32::split(bv));
+          else
+            tf32::mma3<TF32_PASSES>(part, as[j], tf32::split(bv));
+        }
+        if constexpr (S::CHAINS)
+          tf32::promote(acc[nt], part_lh, part_hl, part);
+        else
+          tf32::promote(acc[nt], part);
+      }
+    }
+    // every warp is done with stage s (and warpgroup 1 with P^T): refill
+    __syncthreads();
+    if (threadIdx.x == 0 && it + STAGES < n_iter) load_step(it + STAGES);
+  }
+  // no block exits while a partner may still read its partials
+  if (CL) hopper::cluster_sync();
+
+  // dV (warpgroup 0) and dK (1): f32, or f32 partials of this split
+  const int which = wg == 0 ? 1 : 0;  // the workspace's order: dK, dV
+  float* out = splits > 1
+                   ? partial + (((size_t)which * splits + sp) * bkv_n + bkv) *
+                                   T * ld
+                   : (wg == 0 ? dv : dk) + (size_t)bkv * T * ld;
+  const float mul = wg == 1 && splits == 1 ? scale : 1.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key[h] >= T) continue;
+    float* row = out + (size_t)key[h] * ld + c0;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = 8 * nt + 2 * t;
+      if (c0 + c < ld)
+        *reinterpret_cast<float2*>(row + c) =
+            make_float2(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
     }
   }
+}
+
+// Launcher of dkv_tf32_kernel: CL the cluster of ld's slices (an ld in
+// (256, TF32_REACH]), STREAM a block for each slice (an ld above
+// TF32_REACH), else head-dim class SW.  Its one tile is (64, BQ); any other
+// tile, an ld outside the route or not a multiple of 8, or splits that are
+// not 1..group with a workspace exactly when more than one returns
+// cudaErrorInvalidValue; a cluster launch the card refuses returns its
+// error.
+template <int SW, bool CL, bool STREAM = false>
+int dkv_tf32(int bkv, const BwdArgs& a, int rows, int step,
+             cudaStream_t stream) {
+  using S = DkvTf32Smem<SW, CL, STREAM>;
+  const int T = a.mk.T;
+  const int ns = CL || STREAM ? n_slices(a.ld) : 1;
+  const bool route = CL       ? a.ld > SLICE && a.ld <= TF32_REACH
+                     : STREAM ? a.ld > TF32_REACH
+                              : head_class(a.ld) == SW;
+  if (rows != S::BM || step != S::BQ || a.ld % 8 || !route ||
+      a.splits < 1 || a.splits > a.heads / a.kv_heads ||
+      (a.splits > 1) != (a.partial != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int bh = bkv / a.kv_heads * a.heads;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = tf32::tile_map(&map_q, a.q, bh, T, a.ld, S::BQ)) ||
+      (e = tf32::tile_map(&map_k, a.k, bkv, T, a.ld, S::BM)) ||
+      (e = tf32::tile_map(&map_v, a.v, bkv, T, a.ld, S::BM)) ||
+      (e = tf32::tile_map(&map_do, a.dout, bh, T, a.ld, S::BQ)))
+    return TENSOR_MAP_ERROR + e;
+  const long long grid =
+      (long long)bkv * ceil_div(T, S::BM) * a.splits * ns;
+  if (grid < 1 || grid > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = dkv_tf32_kernel<SW, CL, STREAM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = S::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, map_q, map_k, map_v, map_do,
+                           static_cast<const float*>(a.q),
+                           static_cast<const float*>(a.k),
+                           static_cast<const float*>(a.v),
+                           static_cast<const float*>(a.dout), a.lse,
+                           a.delta, static_cast<float*>(a.dk),
+                           static_cast<float*>(a.dv), a.partial, a.heads,
+                           a.kv_heads, a.splits, a.ld, a.scale, a.mk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 // Launchers of the sliced kernels.  Their one tile each (rows per block,
@@ -5358,28 +5674,6 @@ int launch_dq_sliced_f32(int bh, const BwdArgs& a, int rows, int step,
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.lse, a.delta, static_cast<float*>(a.dq), a.heads / a.kv_heads, a.ld,
       a.scale, a.mk);
-  return (int)cudaGetLastError();
-}
-
-template <int SW>
-int launch_dkv_sliced_f32(int bkv, const BwdArgs& a, int rows, int step,
-                          cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP || a.ld <= SW ||
-      a.splits != 1 || a.partial != nullptr)
-    return (int)cudaErrorInvalidValue;
-  const int bytes = ((2 * F32_ROWS + 2 * F32_STEP) * (F32_CHUNK + 1) +
-                     2 * F32_STEP * (SW + 1) + 2 * F32_STEP) * 4;
-  auto kernel = dkv_sliced_f32_kernel<SW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = slice_blocks(bkv, a.mk.T, F32_ROWS, ceil_div(a.ld, SW));
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, F32_ROWS * 4, bytes, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
-      a.heads, a.kv_heads, a.ld, a.scale, a.mk);
   return (int)cudaGetLastError();
 }
 
@@ -5621,7 +5915,8 @@ int fa::dkv_f16(int bkv, const BwdArgs& a, int rows, int step,
 #endif
 
 #if FA_IN_PART(9)
-// the one f32 tile (F32_ROWS, F32_STEP), at head-dim class 64 or 128
+// the forward's and dq's one f32 tile (F32_ROWS, F32_STEP), at head-dim
+// class 64 or 128
 int fa::forward_f32(int bh, const FwdArgs& a, int rows, int step,
                     cudaStream_t st) {
   if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
@@ -5640,12 +5935,12 @@ int fa::dq_f32(int bh, const BwdArgs& a, int rows, int step,
   }
   return (int)cudaErrorInvalidValue;
 }
+// dk/dv: dkv_tf32_kernel's tile at head-dim class 64 or 128
 int fa::dkv_f32(int bkv, const BwdArgs& a, int rows, int step,
                 cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
   switch (head_class(a.ld)) {
-    case 64: return launch_dkv_f32<64>(bkv, a, st);
-    case 128: return launch_dkv_f32<128>(bkv, a, st);
+    case 64: return dkv_tf32<64, false>(bkv, a, rows, step, st);
+    case 128: return dkv_tf32<128, false>(bkv, a, rows, step, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -5704,7 +5999,9 @@ int fa::dkv_reduce_f16(const float* ws, void* dk, void* dv, long long n,
 #endif
 
 #if FA_IN_PART(15)
-// the one f32 tile at head-dim class 256
+// the forward's and dq's one f32 tile at head-dim class 256, and dk/dv's
+// (dkv_tf32_kernel, its query heads split as the host asks) with the sum
+// of its splits' partials
 int fa::forward_f32_256(int bh, const FwdArgs& a, int rows, int step,
                         cudaStream_t st) {
   if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
@@ -5719,9 +6016,11 @@ int fa::dq_f32_256(int bh, const BwdArgs& a, int rows, int step,
 }
 int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
                     cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
-    return (int)cudaErrorInvalidValue;
-  return launch_dkv_f32<256>(bkv, a, st);
+  return dkv_tf32<256, false>(bkv, a, rows, step, st);
+}
+int fa::dkv_reduce_f32(const float* ws, void* dk, void* dv, long long n,
+                       int splits, float scale, cudaStream_t st) {
+  return dkv_reduce<float>(ws, dk, dv, n, splits, scale, st);
 }
 #endif
 
@@ -5780,7 +6079,7 @@ int fa::dq_f32_sliced(int bh, const BwdArgs& a, int rows, int step,
 }
 int fa::dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
                        cudaStream_t st) {
-  return launch_dkv_sliced_f32<F32_DKV_SLICE>(bkv, a, rows, step, st);
+  return dkv_tf32<SLICE, false, true>(bkv, a, rows, step, st);
 }
 #endif
 
@@ -5843,6 +6142,13 @@ int fa::forward_f16_pair(int bh, const FwdArgs& a, int rows, int step,
 int fa::forward_f16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
                                 cudaStream_t st) {
   return fwd_pair<f16, true>(bh, a, rows, step, st);
+}
+#endif
+
+#if FA_IN_PART(27)
+int fa::dkv_f32_cluster(int bkv, const BwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return dkv_tf32<SLICE, true>(bkv, a, rows, step, st);
 }
 #endif
 
@@ -5982,11 +6288,13 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// dk/dv; at head-dim class 256 in bf16 and fp16 `splits` slices of each
-// KV head's query-head group, and with more than one `partial` (the f32
-// workspace [2][splits][bkv][T][head_dim]) takes their partials, which
-// fa_dkv_reduce sums into dk_out and dv_out; elsewhere (the sliced kernels
-// too: they walk the group in the block) splits is 1 and partial null.
+// dk/dv; at head-dim class 256 `splits` slices of each KV head's
+// query-head group, and with more than one `partial` (the f32 workspace
+// [2][splits][bkv][T][head_dim]) takes their partials, which fa_dkv_reduce
+// sums into dk_out and dv_out; elsewhere (the sliced and cluster kernels
+// too: they walk the group in the block) splits is 1 and partial null.  In
+// f32 head dims 257..TF32_REACH go to dkv_tf32_kernel's cluster (part
+// 27), and those above to its streamed slices (part 20).
 extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, void* dk_out, void* dv_out,
@@ -6011,9 +6319,11 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
                   Mask{T, causal, window, sink},
                   splits,
                   static_cast<float*>(partial)};
-  if (splits != 1 && (dtype == FA_F32 || head_class(head_dim) != 256))
+  if (splits != 1 && head_class(head_dim) != 256)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == FA_F32 && head_dim > SLICE && head_dim <= TF32_REACH)
+    return fa::dkv_f32_cluster(bkv, a, rows, step, st);
   if (head_dim > SLICE && head_dim <= CLUSTER_REACH) {
     switch (dtype) {
       case FA_BF16: return fa::dkv_bf16_cluster(bkv, a, rows, step, st);
@@ -6055,7 +6365,7 @@ extern "C" int fa_cluster_info(int kernel, int dtype, int head_dim,
 }
 
 // dk = scale * sum_s ws[0][s], dv = sum_s ws[1][s] in the element type
-// (bf16 or fp16), n elements each (ws: [2][splits][n] f32).
+// (bf16, fp16 or f32), n elements each (ws: [2][splits][n] f32).
 extern "C" int fa_dkv_reduce(const void* ws, void* dk, void* dv, long long n,
                              int splits, int dtype, float scale,
                              void* stream) {
@@ -6064,6 +6374,7 @@ extern "C" int fa_dkv_reduce(const void* ws, void* dk, void* dv, long long n,
   switch (dtype) {
     case FA_BF16: return fa::dkv_reduce_bf16(w, dk, dv, n, splits, scale, st);
     case FA_F16: return fa::dkv_reduce_f16(w, dk, dv, n, splits, scale, st);
+    case FA_F32: return fa::dkv_reduce_f32(w, dk, dv, n, splits, scale, st);
   }
   return (int)cudaErrorInvalidValue;
 }
