@@ -104,6 +104,12 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
            it against the plain attention path; then the LM with one head
            of 2112 (2 layers, B 1, T 1024, 2 steps), above the pair's and
            the cluster's reach, whose launches are the sliced kernels'
+  f32      `flash_attention` on f32 tensors (no workload computes in f32)
+           at main_f32, gemma_2b_f32 and d512_mqa_f32, forward and
+           backward under autograd, each kernel launched once (f32 dq and
+           dk/dv on the tensor cores, on their clusters at d512_mqa_f32),
+           the gradients against the plain versions in f64 by the f32
+           rule and against the plain attention's autograd as a whole
   lse      `flash_attention_lse` (the kernels through their (o, lse) entry)
            forward and backward with cotangents on both outputs, at ring-hop
            shapes of GPT-small (T 1024 = 2048 / sp 2, T 512 = 2048 / sp 4;
@@ -285,7 +291,7 @@ from typing import NamedTuple, Optional, Tuple
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 and fp16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12   # H100 SXM dense TF32 on the tensor cores
-# f32 products on the tensor cores in three TF32 passes (f32 dk/dv:
+# f32 products on the tensor cores in three TF32 passes (f32 dq and dk/dv:
 # csrc/tf32.cuh): three products at the TF32 rate for each f32 one
 TF32_PASSES = 3
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -315,6 +321,10 @@ REPLACES = {
     # the head-dim classes, and on its cluster above 256
     "flash_backward_dkv_tf32": "tf_operator_tpu/ops/attention.py:485",
     "flash_backward_dkv_tf32_cluster": "tf_operator_tpu/ops/attention.py:485",
+    # f32 dq on the tensor cores (dq_tf32_kernel, every f32 launch): the
+    # same two routes
+    "flash_backward_dq_tf32": "tf_operator_tpu/ops/attention.py:419",
+    "flash_backward_dq_tf32_cluster": "tf_operator_tpu/ops/attention.py:419",
 }
 # Kernel against plain version, held per element and as a whole:
 #   |got - ref| <= RTOL * (|ref| + rms(row of ref) + 0.05 * rms(ref))
@@ -333,19 +343,20 @@ FRO = 1e-2
 TOL_LSE = 1e-3
 # fp16 inputs are held by the same rule (fp16 rounds P, dS and the outputs
 # with a unit roundoff of 2^-11, finer than bf16's).  f32 inputs run the f32
-# kernels (f32 products and sums, expf; dk/dv's products in three TF32
-# passes): against the plain version in f32 only the order of the sums
+# kernels (f32 products and sums, expf; dq's and dk/dv's products in three
+# TF32 passes): against the plain version only the order of the sums
 # differs, so the rule's factor shrinks from RTOL to RTOL_F32 and the whole
 # from FRO to FRO_F32, and lse to TOL_LSE_F32 (one TF32 pass leaves it:
-# tests/test_torch_f32_dkv.py).  At large logits (scale -1) plain f32's
-# own order of sums leaves the rule against the exact result, so the
-# card's tests hold f32 dk/dv against the plain version in f64.
+# tests/test_torch_f32_dkv.py, tests/test_torch_f32_dq.py).  At large
+# logits (scale -1) plain f32's own order of sums leaves the rule against
+# the exact result, so f32 dq and dk/dv are held against the plain version
+# in f64 (the exact result, rounded to f32).
 RTOL_F32 = 1e-4
 FRO_F32 = 1e-5
 TOL_LSE_F32 = 1e-5
 # ptxas's -v report: each kernel instantiation's entry (its template
 # arguments: element type, head-dim class, warpgroups, step and for the
-# forward its route; DMAX for the f32 kernels; element type and query step
+# forward its route; DMAX for the f32 forward; element type and query step
 # for dk/dv at head-dim class 256, whose 64 keys two warpgroups share, and
 # the element type for dq there, whose tile is fixed, and for
 # kernel_variants.py's split-ring forward there, with its route; the
@@ -356,9 +367,9 @@ TOL_LSE_F32 = 1e-5
 # blocks) for the cluster kernels, whose tile is
 # INSTANTIATED[...][CLUSTER]'s; the element type and the route for the pair
 # forward, whose tile is INSTANTIATED["fwd"][PAIR]'s; the columns a block
-# takes and whether it is a cluster's or a streamed slice's for f32 dk/dv
-# on the tensor cores, whose tile is attention.F32_DKV's), then its spills
-# and its registers at launch
+# takes and whether it is a cluster's or a streamed slice's for f32 dq and
+# dk/dv on the tensor cores, whose tiles are attention.F32_DQ's and
+# F32_DKV's), then its spills and its registers at launch
 PTXAS_ENTRY = re.compile(r"Compiling entry function '\S*?(fwd|dq|dkv)"
                          r"(_f32|_split|_wide|_short|_sliced_f32|_sliced"
                          r"|_cluster|_pair|_tf32)?"
@@ -426,16 +437,17 @@ def ptxas_instantiation(m) -> tuple:
     if kind == "_f32":
         return (f"{kernel}_f32_kernel<D {args[0]}>",
                 (kernel, "float32", args[0], 64, 32))
-    if kind == "_tf32":  # f32 dk/dv on the tensor cores
+    if kind == "_tf32":  # f32 dq and dk/dv on the tensor cores
         from tf_operator_tpu_torch.ops.attention import (CLUSTER, F32_DKV,
-                                                         SLICED)
+                                                         F32_DQ, SLICED)
 
         cols, clustered, streamed = args[:3]
         route = CLUSTER if clustered else SLICED if streamed else cols
         what = ("cluster" if clustered else "streamed slices" if streamed
                 else f"D {cols}")
-        return (f"dkv_tf32_kernel<{what}>",
-                (kernel, "float32", route, *F32_DKV[route]))
+        tiles = F32_DQ if kernel == "dq" else F32_DKV
+        return (f"{kernel}_tf32_kernel<{what}>",
+                (kernel, "float32", route, *tiles[route]))
     if kind == "_split":
         dtype, step = args[:2]
         return (f"dkv_split_kernel<{dtype}, D 256, rows 64, step {step}>",
@@ -804,8 +816,17 @@ def kernel_case(case, timing: bool):
                                     **plain_opts)
 
     o_ref, lse_ref = fwd_plain()
-    dq_ref = dq_plain()
-    dk_ref, dv_ref = dkv_plain()
+    if dtype == torch.float32:
+        # f32 dq and dk/dv against the plain version in f64: the exact
+        # result, rounded to f32 by the rule (at large logits plain f32's
+        # own order of sums leaves the rule against it)
+        exact = [x.double() for x in (qf, kf, vf, dof, lse, delta)]
+        dq_ref = A.backward_dq_plain(*exact, **plain_opts)
+        dk_ref, dv_ref = A.backward_dkv_plain(*exact, **plain_opts)
+        del exact
+    else:
+        dq_ref = dq_plain()
+        dk_ref, dv_ref = dkv_plain()
 
     errs = {}
     for label, got, ref in (("o", o, o_ref), ("lse", lse, lse_ref),
@@ -844,13 +865,13 @@ def kernel_case(case, timing: bool):
         "flash_backward_dkv": (4, (2 * b * h * t * d + 4 * b * hkv * t * d)
                                * elt + 2 * rows * 4),
     }
-    tf32 = dtype == torch.float32  # dk/dv on the tensor cores
+    tf32 = dtype == torch.float32  # dq and dk/dv on the tensor cores
     result = {}
     for kname, (products, nbytes) in work.items():
         flops = 2.0 * products * pairs * d
         t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
         simt_ms = None
-        if tf32 and kname == "flash_backward_dkv":
+        if tf32 and kname != "flash_forward":
             # f32 products on the tensor cores in three TF32 passes: the
             # least time is theirs; the f32 pipes' (67 TFLOP/s) beside it
             simt_ms = max(t_ops, t_bytes) * 1e3
@@ -997,7 +1018,8 @@ def kernel_case(case, timing: bool):
             sdpa_ms["backward"] = device_busy(reps(sdpa_bwd))[0] / DEVICE_REPS
         if name in DEVICE_CASES or sliced:
             # dk/dv's own kernel (not the reduce after a split: apart, below)
-            calls.update(flash_backward_dq=(dq_kernel, "dq_"),
+            calls.update(flash_backward_dq=(dq_kernel, "dq_tf32" if tf32
+                                            else "dq_"),
                          flash_backward_dkv=(dkv_kernel, "dkv_tf32" if tf32
                                              else "dkv_"))
         for kname, (fn, frag) in calls.items():
@@ -1012,8 +1034,9 @@ def kernel_case(case, timing: bool):
                   f"{'forward' if kname == 'flash_forward' else 'backward'}"
                   f" device_ms {lib_ms:.4f} (yardstick)", flush=True)
         if tf32 and "flash_backward_dkv" in calls:
-            r = result["flash_backward_dkv"]
-            tf32_line(name, r, case_splits(case), dkv_kernel)
+            for kname, fn in (("flash_backward_dq", dq_kernel),
+                              ("flash_backward_dkv", dkv_kernel)):
+                tf32_line(name, kname, result[kname], case_splits(case), fn)
     del sdpa_out
     return result
 
@@ -1060,30 +1083,31 @@ def sdpa_kernel(fn) -> str:
     return max(by_name, key=by_name.get)[:120] if by_name else "none"
 
 
-def tf32_line(name, r, splits, dkv_kernel):
-    """Prints f32 dk/dv on the tensor cores at a case: its device time
-    (the profiler's, its own kernel; the reduce of a split apart) against
-    both bounds, the three TF32 passes' on the tensor cores and the f32
-    pipes', and the launches of f32 dk/dv (all of them the tensor-core
-    kernel's) in one call; records the reduce's device time and the
-    launches in r."""
+def tf32_line(name, kname, r, splits, call):
+    """Prints f32 dq or dk/dv (`kname`, its wrapper's `call`) on the tensor
+    cores at a case: its device time (the profiler's, its own kernel; the
+    reduce of dk/dv's split apart) against both bounds, the three TF32
+    passes' on the tensor cores and the f32 pipes', and its launches (all
+    of them the tensor-core kernel's) in one call; records the reduce's
+    device time and the launches in r."""
     from tf_operator_tpu_torch.ops import attention as A
 
-    before = A.launches()["flash_backward_dkv"]
-    dkv_kernel()
-    launched = A.launches()["flash_backward_dkv"] - before
+    before = A.launches()[kname]
+    call()
+    launched = A.launches()[kname] - before
     dev = r["device_ms"]
     reduce = ""
-    if splits > 1:
+    if kname == "flash_backward_dkv" and splits > 1:
         r["reduce_device_ms"] = kernel_device_ms(
-            lambda: [dkv_kernel() for _ in range(DEVICE_REPS)],
+            lambda: [call() for _ in range(DEVICE_REPS)],
             "dkv_reduce_kernel")
         reduce = (f"; its {splits} splits' reduce device_ms "
                   f"{r['reduce_device_ms']:.4f}")
     r["launches_a_call"] = launched
-    print(f"  {name:11s} dkv_tf32_kernel device_ms {dev:.4f}: three-pass "
-          f"bound {r['bound_ms']:.4f} ms (tensor cores, 3 x TF32 at "
-          f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) share "
+    kernel = "dq" if kname == "flash_backward_dq" else "dkv"
+    print(f"  {name:11s} {kernel}_tf32_kernel device_ms {dev:.4f}: "
+          f"three-pass bound {r['bound_ms']:.4f} ms (tensor cores, 3 x TF32 "
+          f"at {PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s) share "
           f"{r['bound_ms'] / dev:.3f}, f32-pipe bound "
           f"{r['bound_simt_ms']:.4f} ms ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s)"
           f" share {r['bound_simt_ms'] / dev:.3f}; sdpa backward device_ms "
@@ -1091,7 +1115,7 @@ def tf32_line(name, r, splits, dkv_kernel):
           'default dispatch')!r}); launches +{launched} a call{reduce}",
           flush=True)
     if launched != 1:
-        raise RuntimeError(f"kernel case {name}: f32 dk/dv launched the "
+        raise RuntimeError(f"kernel case {name}: f32 {kernel} launched the "
                            f"tensor-core kernel {launched} times a call")
 
 
@@ -1178,9 +1202,10 @@ def phase_kernels():
     "flash_backward_dkv_short" the encoders' kernels at ViT-B/16's, under
     "flash_forward_pair" the pair forward at d512_mqa's, under
     "flash_backward_dq_cluster" and "flash_backward_dkv_cluster" the
-    cluster kernels there, under "flash_backward_dkv_tf32" and
-    "flash_backward_dkv_tf32_cluster" f32 dk/dv on the tensor cores at
-    main_f32's and d512_mqa_f32's, and under "flash_forward_sliced",
+    cluster kernels there, under "flash_backward_dq_tf32",
+    "flash_backward_dkv_tf32" and their "_cluster" rows f32 dq and dk/dv on
+    the tensor cores at main_f32's and d512_mqa_f32's, and under
+    "flash_forward_sliced",
     "flash_backward_dq_sliced" and "flash_backward_dkv_sliced" the sliced
     ones above the pair's and the cluster's reach (d2112)."""
     import torch
@@ -1203,9 +1228,10 @@ def phase_kernels():
         res = kernel_case(case, case.name in TIMED_CASES)
         if A.head_class(case.d) == A.SLICED:
             # every launch of the case above head dim 256 was the kernels'
-            # of head dims above 256, dq's and dk/dv's on the cluster route
-            # the cluster kernels' and the forward's on the pair route the
-            # pair kernel's (none elsewhere)
+            # of head dims above 256, dq's and dk/dv's on their CLUSTER
+            # route (the cluster kernels in bf16 and fp16, the tensor-core
+            # kernels' clusters in f32) a cluster's and the forward's on the
+            # pair route the pair kernel's (none elsewhere)
             ran = {n: c - before[0][n] for n, c in A.launches().items()}
             sliced = {n: c - before[1][n]
                       for n, c in A.sliced_launches().items()}
@@ -1214,10 +1240,12 @@ def phase_kernels():
             pair = {n: c - before[3][n]
                     for n, c in A.pair_launches().items()}
             dtype = getattr(torch, case.dtype)
-            on_route = A.cluster_route(case.d, dtype)
+            on_route = {n: A.route(kind, case.d, dtype) == A.CLUSTER
+                        for n, kind in (("flash_backward_dq", "dq"),
+                                        ("flash_backward_dkv", "dkv"))}
             on_pair = A.pair_route(case.d, dtype)
             if (sliced != ran or not all(ran.values())
-                    or cluster != {n: ran[n] * on_route for n in cluster}
+                    or cluster != {n: ran[n] * on_route[n] for n in cluster}
                     or pair != {n: ran[n] * on_pair for n in pair}):
                 raise RuntimeError(f"kernel case {case.name}: launches {ran}"
                                    f", of the sliced kernels {sliced}, of "
@@ -1248,10 +1276,11 @@ def phase_kernels():
             # the reduce into f32 (the same bits as its plain version)
             reduce_case(case)
         if case.name in ("main_f32", "d512_mqa_f32"):
-            # f32 dk/dv on the tensor cores at a head-dim class and on its
-            # cluster
+            # f32 dq and dk/dv on the tensor cores at a head-dim class and
+            # on their clusters
             key = "_cluster" if A.head_class(case.d) == A.SLICED else ""
-            out[f"flash_backward_dkv_tf32{key}"] = res["flash_backward_dkv"]
+            for fn in A.CLUSTER_KERNELS:
+                out[f"{fn.__name__}_tf32{key}"] = res[fn.__name__]
         torch.cuda.empty_cache()
     return out
 
@@ -1282,8 +1311,8 @@ def every_instantiation():
     and at 1096 in bf16 and fp16 (dq and dk/dv on the sliced kernels above
     the cluster's reach), and in f32 at head dims 1000 and 2048 (f32 dk/dv
     on the tensor cores at four and eight slices, its reach) and 2056
-    (above it, its streamed slices); fails unless every instantiation
-    ran."""
+    (above it, its streamed slices), f32 dq and dk/dv against the plain
+    version in f64; fails unless every instantiation ran."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1329,11 +1358,13 @@ def every_instantiation():
         qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
         o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf),
                                          **opts)
-        refs = {"o": o_ref,
-                "dq": A.backward_dq_plain(qf, kf, vf, dof, lse, delta,
-                                          **opts),
-                **dict(zip(("dk", "dv"), A.backward_dkv_plain(
-                    qf, kf, vf, dof, lse, delta, **opts)))}
+        # f32 dq and dk/dv against the plain version in f64 (as in
+        # kernel_case)
+        bwd = [x.double() if dtype == torch.float32 else x
+               for x in (qf, kf, vf, dof, lse, delta)]
+        refs = {"o": o_ref, "dq": A.backward_dq_plain(*bwd, **opts),
+                **dict(zip(("dk", "dv"), A.backward_dkv_plain(*bwd,
+                                                              **opts)))}
         rtol, fro, tol_lse = rule(dtype_name)
         got = {"o": o, "dq": dq, "dk": dk, "dv": dv}
         what = (f"{dtype_name} D {d} T {t} blocks ({bq}, {bk}) scale "
@@ -2008,21 +2039,21 @@ F32_PATH_CASES = ("main_f32", "gemma_2b_f32", "d512_mqa_f32")
 def phase_f32() -> dict:
     """`flash_attention` on f32 tensors, forward and backward under
     autograd, at F32_PATH_CASES: the launch counts set to 0 just before
-    each call and read just after (each kernel once; every f32 dk/dv
-    launch is the tensor-core kernel's); the gradients held by the f32
-    rule against the plain versions of the backward kernels given the
-    forward kernel's o and lse (as the kernels phase holds them: where a
-    gradient is zero in exact arithmetic, as dq's first row, the autograd
-    of the plain attention rounds otherwise), and within FRO_F32 of the
-    plain attention's under autograd as a whole.  Returns the launches of
-    f32 dk/dv on the tensor cores at the head-dim classes and on its
-    cluster."""
+    each call and read just after (each kernel once; every f32 dq and
+    dk/dv launch is the tensor-core kernels'); the gradients held by the
+    f32 rule against the plain versions of the backward kernels in f64
+    given the forward kernel's o and lse (as the kernels phase holds them:
+    where a gradient is zero in exact arithmetic, as dq's first row, the
+    autograd of the plain attention rounds otherwise), and within FRO_F32
+    of the plain attention's under autograd as a whole.  Returns the
+    launches of f32 dq and dk/dv on the tensor cores at the head-dim
+    classes and on their clusters."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
 
-    counts = {"flash_backward_dkv_tf32": 0,
-              "flash_backward_dkv_tf32_cluster": 0}
+    counts = {f"{fn.__name__}_tf32{key}": 0 for fn in A.CLUSTER_KERNELS
+              for key in ("", "_cluster")}
     rtol, fro, _ = rule("float32")
     for case in (c for c in CASES if c.name in F32_PATH_CASES):
         gen = torch.Generator(device="cuda").manual_seed(6)
@@ -2038,13 +2069,16 @@ def phase_f32() -> dict:
         if any(n != 1 for n in ran.values()):
             raise RuntimeError(f"f32 {case.name}: launches {ran}")
         key = "_cluster" if A.head_class(case.d) == A.SLICED else ""
-        counts[f"flash_backward_dkv_tf32{key}"] += ran["flash_backward_dkv"]
+        for fn in A.CLUSTER_KERNELS:
+            counts[f"{fn.__name__}_tf32{key}"] += ran[fn.__name__]
         opts = dict(scale=case.d ** -0.5, causal=case.causal, window=None,
                     sink=0)
         o, lse = A.flash_forward(q, k, v, **opts)
         delta = (do * o).sum(-1)
-        plain = (A.backward_dq_plain(q, k, v, do, lse, delta, **opts),
-                 *A.backward_dkv_plain(q, k, v, do, lse, delta, **opts))
+        exact = [x.double() for x in (q, k, v, do, lse, delta)]
+        plain = (A.backward_dq_plain(*exact, **opts),
+                 *A.backward_dkv_plain(*exact, **opts))
+        del exact
         refs = [x.detach().requires_grad_() for x in (q, k, v)]
         A.attention(refs[0], *A.repeat_kv(*refs), **opts).backward(do)
         worst = {}
@@ -2060,8 +2094,8 @@ def phase_f32() -> dict:
                                    f"Frobenius {rel:.3e} ({rel_auto:.3e} "
                                    "against autograd)")
         print(f"f32 {case.name}: flash_attention fwd + bwd on f32 tensors, "
-              f"launches {ran}; against the plain "
-              "versions: " + ", ".join(
+              f"launches {ran}; against the plain versions in f64: "
+              + ", ".join(
                   f"{label} worst err/limit {r:.3f} Frobenius {f:.2e} "
                   f"(against the plain attention's autograd {a:.2e})"
                   for label, (r, f, a) in worst.items()), flush=True)
@@ -4028,13 +4062,17 @@ def main(argv=None) -> int:
                 f"only {sorted(A.instantiations() - built)}")
         print(f"build: {len(report)} kernels, the {len(built)} "
               "instantiations attention.INSTANTIATED lists", flush=True)
-    # the cluster kernels: each one's shared memory against a block's 227
-    # KB, and the clusters the card holds at once
+    # the cluster kernels (in f32 the tensor-core kernels' clusters): each
+    # one's shared memory against a block's 227 KB, and the clusters the
+    # card holds at once
     for kernel in ("dq", "dkv"):
-        for dtype in (torch.bfloat16, torch.float16):
-            for d in (512, 768, 1024):
+        for dtype, dims, name in (
+                (torch.bfloat16, (512, 768, 1024), "cluster"),
+                (torch.float16, (512, 768, 1024), "cluster"),
+                (torch.float32, (512, 1024, 2048), "tf32")):
+            for d in dims:
                 smem, clusters = A.cluster_info(kernel, dtype, d)
-                print(f"  {kernel}_cluster_kernel<{str(dtype)[6:]}, "
+                print(f"  {kernel}_{name}_kernel<{str(dtype)[6:]}, "
                       f"{A.n_slices(d)} slices>: {smem:,} bytes of shared "
                       f"memory of a block's 232,448; "
                       f"cudaOccupancyMaxActiveClusters {clusters} (clusters"
@@ -4059,7 +4097,7 @@ def main(argv=None) -> int:
     # wide-head LM's path; the sliced kernels above the pair's and the
     # cluster's reach
     counts.update(timed(phase_wide_head, card, args.out_dir))
-    # f32 dk/dv on the tensor cores: its launches on the f32 path
+    # f32 dq and dk/dv on the tensor cores: their launches on the f32 path
     counts.update(timed(phase_f32))
     timed(phase_lse)
     timed(phase_ring, card)
@@ -4106,7 +4144,8 @@ def main(argv=None) -> int:
            for fn in A.KERNELS]
         + [f"{fn.__name__}_cluster" for fn in A.CLUSTER_KERNELS]
         + [f"{fn.__name__}_pair" for fn in A.PAIR_KERNELS]
-        + [f"flash_backward_dkv_tf32{key}" for key in ("", "_cluster")]]}),
+        + [f"{fn.__name__}_tf32{key}" for fn in A.CLUSTER_KERNELS
+           for key in ("", "_cluster")]]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

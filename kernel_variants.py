@@ -8,7 +8,7 @@ source, on one NVIDIA card.
     python3 kernel_variants.py --encoder [VARIANT ...]  # ViT-B/16, BERT
     python3 kernel_variants.py --sliced [VARIANT ...]   # head dims > 256
     python3 kernel_variants.py --trees DIR ...  # whole trees in turns
-    python3 kernel_variants.py --f32 [--parent DIR] [VARIANT ...]  # f32 dk/dv
+    python3 kernel_variants.py --f32 [VARIANT ...] [--parent DIR]  # f32
 
 Each variant in VARIANTS (D256_VARIANTS with --d256) is a list of (text,
 replacement) edits to ops/csrc/flash_attention.cu (each text must occur
@@ -46,15 +46,15 @@ gemma_2b and the encoders' (TREE_CASES), and the forward's at other cases
 of its tiled kernel (TREE_FWD_CASES), each kernel apart (dk/dv's reduce
 too), checked against its plain version, in each tree given (a checkout, e.g. a parent commit unpacked
 with `git archive` into a git-ignored directory), one process per tree
-per round, in turns.  With --f32: f32 dk/dv on the tensor cores
-(dkv_tf32_kernel) at chip_smoke's f32 cases (F32_CASES) by device time,
-checked against its plain version by the f32 rule, for the base build and
-each F32_VARIANTS build (diagnostics of what its time is made of) in
-turns, and with --parent DIR the parent's f32 dk/dv (its SIMT kernels)
+per round, in turns.  With --f32: f32 dq and dk/dv on the tensor cores
+(dq_tf32_kernel, dkv_tf32_kernel) at chip_smoke's f32 cases (F32_CASES) by
+device time, checked against their plain versions by the f32 rule, for
+the base build and each F32_VARIANTS build (diagnostics of what their time
+is made of) in turns, and with --parent DIR the parent's f32 dq and dk/dv
 from that checkout in the same turns, beside SDPA's f32 backward (its
 default dispatch and its memory-efficient backend); before the times,
-each build's dk and dv at large logits (F32_LARGE: scale -1) against the
-plain version in f64, beside plain f32's.  The edits record
+each build's dq, dk and dv at large logits (F32_LARGE: scale -1) against
+the plain version in f64, beside plain f32's.  The edits record
 the designs the kernels were chosen from (PERF.md); a kernel's next
 variants replace them.
 """
@@ -715,15 +715,19 @@ def build(name: str, edits, root: Path):
     return lib, log
 
 
-def report(name: str, log: str, kernels=None, head_class=256) -> None:
+def report(name: str, log: str, kernels=None, head_class=256,
+           dtype=None) -> None:
     """ptxas's registers and spills for the dq kernel's instantiations (with
     `kernels`: those of these kernels at `head_class`, one class or a
-    tuple of them), and every warning or performance note."""
+    tuple of them, and of `dtype` when given), and every warning or
+    performance note."""
     classes = head_class if isinstance(head_class, tuple) else (head_class,)
     for line in log.splitlines():
         if "warning" in line.lower() or "Performance" in line:
             print(f"  {name}: {line.strip()}")
     for inst, regs, stores, loads, key in chip_smoke.ptxas_report(log):
+        if dtype is not None and key[1] != dtype:
+            continue
         if (key[0] in kernels and key[2] in classes if kernels
                 else inst.startswith("dq_kernel")):
             print(f"  {name}: {inst} {regs} registers at launch, {stores} "
@@ -1086,14 +1090,17 @@ def case_calls(A, case):
     o, lse = A.flash_forward(q, k, v, **opts)
     delta = (do.float() * o.float()).sum(-1)
     qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
+    # f32 dq and dk/dv against the plain version in f64 (chip_smoke's rule)
+    bwd = [x.double() if dtype == torch.float32 else x
+           for x in (qf, kf, vf, dof, lse, delta)]
     calls = {
         "fwd": (lambda: A.flash_forward(q, k, v, **opts),
                 A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **plain)),
         "dq": (lambda: A.flash_backward_dq(q, k, v, do, lse, delta, **opts),
-               (A.backward_dq_plain(qf, kf, vf, dof, lse, delta, **plain),)),
+               (A.backward_dq_plain(*bwd, **plain),)),
         "dkv": (lambda: A.flash_backward_dkv(q, k, v, do, lse, delta,
                                              **opts),
-                A.backward_dkv_plain(qf, kf, vf, dof, lse, delta, **plain))}
+                A.backward_dkv_plain(*bwd, **plain))}
     kw = dict(is_causal=case.causal, scale=scale,
               enable_gqa=case.hkv != case.h)
     qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1109,9 +1116,10 @@ def case_calls(A, case):
     return calls, sdpa_fwd, sdpa_bwd
 
 
-def held(got, refs, dtype: str = "bfloat16") -> bool:
+def held(got, refs, dtype: str = "bfloat16", worst=None) -> bool:
     """The kernel's outputs against its plain version's by chip_smoke's
-    rule for inputs of `dtype` (the forward's lse by its lse tolerance)."""
+    rule for inputs of `dtype` (the forward's lse by its lse tolerance);
+    each output's worst err/limit appended to `worst` when given."""
     rtol, fro, tol_lse = chip_smoke.rule(dtype)
     got = got if isinstance(got, tuple) else (got,)
     ok = True
@@ -1119,14 +1127,16 @@ def held(got, refs, dtype: str = "bfloat16") -> bool:
         if x.dim() == 3:  # lse
             ok &= float((x - ref).abs().max()) <= tol_lse
         else:
-            worst, rel = chip_smoke.tolerance_ratios(x, ref, rtol)
-            ok &= worst <= 1.0 and rel <= fro
+            ratio, rel = chip_smoke.tolerance_ratios(x, ref, rtol)
+            ok &= ratio <= 1.0 and rel <= fro
+            if worst is not None:
+                worst.append(ratio)
     return ok
 
 
 def device_line(A, case, kernels=("fwd", "dq", "dkv")) -> str:
     """Each wrapper's device time at a case and whether it held against
-    its plain version, as one line."""
+    its plain version (with its outputs' worst err/limit), as one line."""
     import torch
 
     calls, _, _ = case_calls(A, case)
@@ -1135,8 +1145,10 @@ def device_line(A, case, kernels=("fwd", "dq", "dkv")) -> str:
         fn, refs = calls[kernel]
         got = fn()
         torch.cuda.synchronize()
-        ok = held(got, refs, case.dtype)
-        parts.append(f"{device_ms(fn, KERNEL_NAMES[kernel])}"
+        worst = []
+        ok = held(got, refs, case.dtype, worst)
+        parts.append(f"{device_ms(fn, KERNEL_NAMES[kernel])} (worst "
+                     f"{'/'.join(f'{w:.3f}' for w in worst)})"
                      f"{'' if ok else ' OUTSIDE THE TOLERANCE'}")
     return f"{case.name:13s} " + "; ".join(parts)
 
@@ -1476,10 +1488,11 @@ def main_trees(trees) -> int:
     return 0
 
 
-# f32 dk/dv on the tensor cores: the cases, and the diagnostics of what
-# its time is made of (each leaves one part out, so its outputs are wrong,
-# but for one_pass, which computes every product in one TF32 pass: the
-# planted fault the f32 rule must catch)
+# f32 dq and dk/dv on the tensor cores: the cases, and the diagnostics of
+# what their time is made of (each edit reaches both kernels and leaves one
+# part out, so its outputs are wrong, but for one_pass, which computes
+# every product in one TF32 pass: the planted fault the f32 rule must
+# catch)
 F32_CASES = ("main_f32", "gemma_2b_f32", "d512_mqa_f32")
 F32_MMA = """\
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
@@ -1507,8 +1520,18 @@ F32_VARIANTS = {
     # each 32-column block of a contraction added to the step's sum in f32
     # without the compensation (tf32::kahan): what it costs, and what it
     # holds at large logits
-    "no_kahan": [("        tf32::kahan(st[j], sc[j], part[j]);",
-                  "        tf32::promote(st[j], part[j]);")],
+    "no_kahan": [("      tf32::kahan(st[j], sc[j], part[j]);",
+                  "      tf32::promote(st[j], part[j]);")],
+    # dq without its heavy elements' compensated dP (the code left out,
+    # the tensor cores' dP everywhere): what the refinement costs, and what
+    # it holds at large logits
+    "no_refine": [("      if (heavy) {", "      if (false && heavy) {")],
+    # the refinement's dot product out of line, or its branch marked
+    # unlikely: what its code costs where it never runs
+    "refine_noinline": [("__device__ __forceinline__ float tf32_dp_less(",
+                         "__device__ __noinline__ float tf32_dp_less(")],
+    "refine_expect": [("      if (heavy) {",
+                       "      if (__builtin_expect(heavy != 0, 0)) {")],
 }
 # large logits (scale -1: logits of standard deviation sqrt(d)) at the
 # card's test of the sliced kernels (T 300, 4 query heads over 2 KV heads,
@@ -1525,14 +1548,15 @@ kv = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(kv)
 from tf_operator_tpu_torch.ops import attention as A
 for x in {cases!r}:
-    print("  " + kv.device_line(A, c.Case(*x), ("dkv",)), flush=True)
+    print("  " + kv.device_line(A, c.Case(*x), ("dq", "dkv")), flush=True)
 """
 
 
 def f32_large_logits(name) -> None:
-    """f32 dk/dv of the bound build at F32_LARGE against the plain version
-    in f64 (lse and delta the f32 forward's), beside plain f32 against the
-    same: (worst err/limit, relative Frobenius) of dk and of dv."""
+    """f32 dq and dk/dv of the bound build at F32_LARGE against the plain
+    version in f64 (lse and delta the f32 forward's), beside plain f32
+    against the same: (worst err/limit, relative Frobenius) of dq, dk and
+    dv."""
     import numpy as np
     import torch
 
@@ -1546,27 +1570,31 @@ def f32_large_logits(name) -> None:
         opts = dict(scale=-1.0, causal=True, window=64, sink=70)
         o, lse = A.flash_forward(q, k, v, **opts)
         delta = (g * o).sum(-1)
-        got = A.flash_backward_dkv(q, k, v, g, lse, delta, **opts)
-        plain = A.backward_dkv_plain(q, k, v, g, lse, delta, **opts)
-        exact = A.backward_dkv_plain(
-            *(x.double() for x in (q, k, v, g, lse, delta)), **opts)
+        got = (A.flash_backward_dq(q, k, v, g, lse, delta, **opts),
+               *A.flash_backward_dkv(q, k, v, g, lse, delta, **opts))
+        plain = (A.backward_dq_plain(q, k, v, g, lse, delta, **opts),
+                 *A.backward_dkv_plain(q, k, v, g, lse, delta, **opts))
+        wide = [x.double() for x in (q, k, v, g, lse, delta)]
+        exact = (A.backward_dq_plain(*wide, **opts),
+                 *A.backward_dkv_plain(*wide, **opts))
 
         def ratios(xs):
             return "; ".join(
                 f"{n} {w:.3f} {f:.2e}" for n, (w, f) in zip(
-                    ("dk", "dv"), (chip_smoke.tolerance_ratios(x, e, rtol)
-                                   for x, e in zip(xs, exact))))
+                    ("dq", "dk", "dv"),
+                    (chip_smoke.tolerance_ratios(x, e, rtol)
+                     for x, e in zip(xs, exact))))
         print(f"  {name:13s} scale -1 D {d:4d} against f64: kernel "
               f"{ratios(got)} | plain f32 {ratios(plain)}", flush=True)
 
 
 def main_f32(names, parent) -> int:
-    """f32 dk/dv at F32_CASES: SDPA's f32 backward (default dispatch and
-    memory-efficient backend, with the kernel each ran) on the base build,
-    then the device time of dk/dv for the base build, each F32_VARIANTS
-    build named (all without names) and, given a parent checkout, the
-    parent's (a process of its own, its own package and library), in
-    turns."""
+    """f32 dq and dk/dv at F32_CASES: SDPA's f32 backward (default
+    dispatch and memory-efficient backend, with the kernel each ran) on
+    the base build, then the device time of dq and of dk/dv for the base
+    build, each F32_VARIANTS build named (all without names) and, given a
+    parent checkout, the parent's (a process of its own, its own package
+    and library), in turns."""
     import torch
 
     from tf_operator_tpu_torch.ops import attention as A
@@ -1580,10 +1608,11 @@ def main_f32(names, parent) -> int:
                     if not names or name in names]
         for name, edits in [("base", [])] + variants:
             lib, log = build(name, edits, Path(tmp))
-            report(name, log, ("dkv",), (64, 128, 256, A.CLUSTER))
+            report(name, log, ("dq", "dkv"),
+                   (64, 128, 256, A.CLUSTER, A.SLICED), "float32")
             libs[name] = ctypes.CDLL(str(lib))
         for name in libs:
-            if name in ("base", "no_kahan"):
+            if name in ("base", "no_kahan", "no_refine"):
                 bind(libs[name])
                 f32_large_logits(name)
         bind(libs["base"])
@@ -1631,7 +1660,7 @@ def main_f32(names, parent) -> int:
                                                               F32_CASES):
                         continue
                     try:
-                        line = device_line(A, case, ("dkv",))
+                        line = device_line(A, case, ("dq", "dkv"))
                     except RuntimeError as e:  # a profile that caught none
                         line = f"{case.name:13s} {e}"
                     print(f"  round {r} {name:13s} {line}", flush=True)
@@ -1662,11 +1691,11 @@ def main(argv=None) -> int:
                         help="checkouts to run chip_smoke's cases in, in "
                              "turns")
     parser.add_argument("--f32", nargs="*", default=None, metavar="VARIANT",
-                        help="f32 dk/dv at the f32 cases against the "
+                        help="f32 dq and dk/dv at the f32 cases against the "
                              "F32_VARIANTS named (all without names)")
     parser.add_argument("--parent", default=None,
-                        help="with --f32: a checkout whose f32 dk/dv is "
-                             "timed in the same turns")
+                        help="with --f32: a checkout whose f32 dq and dk/dv "
+                             "are timed in the same turns")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device is available", file=sys.stderr)

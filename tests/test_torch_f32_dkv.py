@@ -484,18 +484,19 @@ def test_the_shared_memory_plan_fits(cols, clustered, streamed):
                                1024, 2048, 2049, 2112, 4096])
 def test_the_route_goes_by_dtype_and_head_dim(d, dtype):
     """f32 dk/dv takes the tensor-core kernel at every head dim (its
-    cluster above 256 up to TF32_LD, its streamed slices above); bf16 and
-    fp16 keep their routes; the forward and dq keep theirs; every tile
-    resolved is built."""
+    cluster above 256 up to TF32_LD, its streamed slices above), and so
+    does f32 dq (the same routes, its tiles F32_DQ's); bf16 and fp16 keep
+    their routes; the forward keeps its; every tile resolved is built."""
     on = dtype == torch.float32 and d <= A.TF32_LD
     ld = d + -d % 8
     tiles = A.launch_tiles(128, 128, ld, dtype, 2048)
     route = A.route("dkv", ld, dtype)
     if dtype == torch.float32:
         want = (A.CLUSTER if on and ld > A.SLICE else A.head_class(ld))
-        assert route == want
+        assert route == want == A.route("dq", ld, dtype)
         assert tiles.dkv == A.F32_DKV[want]
-        assert tiles.fwd == tiles.dq == A.F32_TILE
+        assert tiles.dq == A.F32_DQ[want]
+        assert tiles.fwd == A.F32_TILE
     else:
         assert route == (A.CLUSTER if A.cluster_route(ld, dtype)
                          else A.head_class(ld))

@@ -167,6 +167,9 @@ _FWD = ("_ZN12_GLOBAL__N_110fwd_kernelI6__halfLi128ELi1ELi64ELb1EEEv14CUtens"
 _DKV32 = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0a3d1bee15"
           "dkv_tf32_kernelILi128ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_"
           "S3_S3_S3_S3_PfS4_S4_iiiifN2fa4MaskE")
+_DQ32 = ("_ZN51_GLOBAL__N__fdabf354_18_flash_attention_cu_0a3d1bee14"
+         "dq_tf32_kernelILi64ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_PKfS3_S3_"
+         "S3_S3_S3_PfiifN2fa4MaskE")
 _PTXAS_LOG = f"""\
 ptxas info    : Compiling entry function '{_DQ}' for 'sm_90a'
 ptxas info    : Function properties for {_DQ}
@@ -180,6 +183,10 @@ ptxas info    : Compiling entry function '{_DKV32}' for 'sm_90a'
 ptxas info    : Function properties for {_DKV32}
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 190 registers, used 1 barriers
+ptxas info    : Compiling entry function '{_DQ32}' for 'sm_90a'
+ptxas info    : Function properties for {_DQ32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 3 barriers
 """
 
 
@@ -195,8 +202,33 @@ def test_ptxas_report_names_each_instantiation_and_its_spills():
         ("fwd_kernel<float16, D 128, rows 64, step 64, scaled 1>", 128, 0, 0,
          ("fwd", "float16", 128, 64, 64)),
         ("dkv_tf32_kernel<D 128>", 190, 0, 0,
-         ("dkv", "float32", 128, 64, 32))]
+         ("dkv", "float32", 128, 64, 32)),
+        ("dq_tf32_kernel<D 64>", 126, 0, 0, ("dq", "float32", 64, 64, 32))]
     assert {r[4] for r in ptxas_report(_PTXAS_LOG)} <= A.instantiations()
+
+
+def test_ptxas_report_names_f32_dq_on_the_tensor_cores():
+    """f32 dq on the tensor cores (dq_tf32_kernel; its template arguments:
+    the columns a block takes, whether it is a cluster's, whether it
+    streams the head dim) at head-dim class 256, on its cluster and in its
+    streamed slices: each keyed as the instantiation attention.F32_DQ
+    gives that route, a spill reported as it stands."""
+    name = _DQ32.replace("ILi64ELb0ELb0E", "ILi{}ELb{}ELb{}E")
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name.format(*args)}' "
+        "for 'sm_90a'\nptxas info    : Function properties for x\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes"
+        " spill loads\nptxas info    : Used 168 registers, used 3 barriers\n"
+        for args, spill in (((256, 0, 0), 0), ((256, 1, 0), 4),
+                            ((256, 0, 1), 0)))
+    report = ptxas_report(log)
+    assert report == [
+        ("dq_tf32_kernel<D 256>", 168, 0, 0, ("dq", "float32", 256, 64, 16)),
+        ("dq_tf32_kernel<cluster>", 168, 4, 4,
+         ("dq", "float32", A.CLUSTER, 64, 16)),
+        ("dq_tf32_kernel<streamed slices>", 168, 0, 0,
+         ("dq", "float32", A.SLICED, 64, 16))]
+    assert {r[4] for r in report} <= A.instantiations()
 
 
 _SPLIT = ("_ZN12_GLOBAL__N_116dkv_split_kernelI6__halfLi64EEEv14CUtensorMap_"
@@ -472,10 +504,11 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
     side's rounding against the other's.  With `short`, each launch must
     have been the encoders' kernel's (`attention.short_launches`); above
     head dim 256 each must have been the sliced kernels'
-    (`attention.sliced_launches`).  f32 dk/dv, whose products the tensor
-    cores sum in an order of their own, is held against the plain version
-    in f64: at large logits plain f32's own rounding leaves the f32 rule
-    against the exact result (tests/test_torch_f32_dkv.py)."""
+    (`attention.sliced_launches`).  f32 dq and dk/dv, whose products the
+    tensor cores sum in an order of their own, are held against the plain
+    version in f64: at large logits plain f32's own rounding leaves the f32
+    rule against the exact result (tests/test_torch_f32_dkv.py,
+    tests/test_torch_f32_dq.py)."""
     dtype = str(q.dtype).removeprefix("torch.")
     before = A.launches()
     short_before = A.short_launches()
@@ -496,10 +529,10 @@ def _kernels_against_plain(q, k, v, g, blocks, zero=(), short=False,
         n: int(q.shape[-1] > 256) for n in before}
     qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
     o_ref, lse_ref = A.attention_lse(qf, *A.repeat_kv(qf, kf, vf), **opts)
-    dq_ref = A.backward_dq_plain(qf, kf, vf, gf, lse, delta, **opts)
-    dk_ref, dv_ref = A.backward_dkv_plain(
-        *(x.double() if dtype == "float32" else x
-          for x in (qf, kf, vf, gf, lse, delta)), **opts)
+    ref_in = [x.double() if dtype == "float32" else x
+              for x in (qf, kf, vf, gf, lse, delta)]
+    dq_ref = A.backward_dq_plain(*ref_in, **opts)
+    dk_ref, dv_ref = A.backward_dkv_plain(*ref_in, **opts)
     ratios = {}
     for name, got, ref in (("o", o, o_ref), ("dq", dq, dq_ref),
                            ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
@@ -1099,13 +1132,15 @@ def test_f32_dkv_holds_at_every_f32_instantiation(cuda):
 def test_f32_dkv_at_chip_smoke_f32_cases(cuda, case):
     """chip_smoke's f32 kernel cases (main_f32, gemma_2b_f32 with its
     query heads split, d512_mqa_f32 on the cluster), each kernel against
-    its plain version by the f32 rule and launched twice for the same bits
-    as the kernels phase runs them; dk/dv on the tensor cores."""
-    before = A.launches()["flash_backward_dkv"]
-    result = kernel_case(case, timing=False)
+    its plain version by the f32 rule (dq and dk/dv in f64) and launched
+    twice for the same bits as the kernels phase runs them; dq and dk/dv
+    on the tensor cores, on their clusters at d512_mqa_f32."""
+    result, ran, cluster = _launched(lambda: kernel_case(case,
+                                                         timing=False))
     assert set(result) == {"flash_forward", "flash_backward_dq",
                            "flash_backward_dkv"}
-    assert A.launches()["flash_backward_dkv"] == before + 2
+    assert ran == {"flash_backward_dq": 2, "flash_backward_dkv": 2}
+    assert cluster == {n: c * (case.d > A.SLICE) for n, c in ran.items()}
 
 
 @pytest.mark.cuda
@@ -1141,6 +1176,118 @@ def test_f32_rule_rejects_dkv_in_one_tf32_pass(cuda, tmp_path, monkeypatch):
             print(f"one TF32 pass at D {d}: {name} worst err/limit "
                   f"{worst:.1f}, relative Frobenius {rel:.3e}")
             assert not _held(got, ref, "float32"), (d, name)
+
+
+def _f32_dq(q, k, v, g, **opts):
+    """(two launches of f32 dq on the same inputs, its plain version's in
+    f64, dq's launches and its cluster launches among the two)."""
+    o, lse = A.flash_forward(q, k, v, **opts, **DEFAULT)
+    delta = (g * o).sum(-1)
+
+    def run():
+        return (A.flash_backward_dq(q, k, v, g, lse, delta, **opts,
+                                    **DEFAULT),
+                A.flash_backward_dq(q, k, v, g, lse, delta, **opts,
+                                    **DEFAULT))
+
+    (first, second), ran, cluster = _launched(run)
+    ref = A.backward_dq_plain(
+        *(x.double() for x in (q, k, v, g, lse, delta)), **opts)
+    return first, second, ref, ran["flash_backward_dq"], cluster[
+        "flash_backward_dq"]
+
+
+@pytest.mark.cuda
+def test_f32_dq_holds_at_every_f32_instantiation(cuda):
+    """f32 dq at every head dim of chip_smoke.every_instantiation's f32
+    runs (T 300, B 1, 4 query heads over 2 KV heads, causal with window 64
+    and sink 70; both signs of the scale at the classes and at 300): on
+    the tensor-core kernel at the classes 64, 128 and 256, its cluster at
+    2, 4 and 8 slices and its streamed slices above TF32_LD (2056), each
+    against its plain version in f64 by the f32 rule, two launches the same
+    bits, the cluster's launches counted; every f32 dq instantiation
+    reached."""
+    reached = set()
+    for d, sign in [(64, 1), (64, -1), (128, 1), (128, -1), (256, 1),
+                    (256, -1), (300, 1), (300, -1), (1000, 1), (2048, 1),
+                    (2056, 1)]:
+        q, k, v, g = _inputs(300, 4, 2, d=d, b=1, seed=d,
+                             dtype=torch.float32)
+        first, second, ref, launched, clustered = _f32_dq(
+            q, k, v, g, scale=sign * d ** -0.5, causal=True, window=64,
+            sink=70)
+        assert launched == 2
+        assert clustered == 2 * (A.SLICE < d <= A.TF32_LD)
+        assert torch.equal(first, second), d
+        assert _held(first, ref, "float32"), (
+            d, sign, tolerance_ratios(first, ref, rule("float32")[0]))
+        tiles = A.resolve_tiles(128, 128, d, torch.float32, 300)
+        reached.add(("dq", "float32", A.route("dq", d, torch.float32),
+                     *tiles.dq))
+    assert reached == {x for x in A.instantiations()
+                       if x[:2] == ("dq", "float32")}
+
+
+@pytest.mark.cuda
+def test_f32_dq_builds_without_spills(cuda, tmp_path):
+    """ptxas's report of a build: f32 dq on the tensor cores (the three
+    head-dim classes, the cluster and the streamed slices) is there and
+    spills nothing, and no SIMT dq is left."""
+    log = _build.build_log or _build.nvcc(_build.SOURCE,
+                                          tmp_path / "libfa.so")
+    report = ptxas_report(log)
+    tf32 = [r for r in report if r[0].startswith("dq_tf32")]
+    print("\n".join(f"{r[0]}: {r[1]} registers at launch, {r[2]}/{r[3]} "
+                    "bytes spilled" for r in tf32))
+    assert {r[4][2] for r in tf32} == {64, 128, 256, A.CLUSTER, A.SLICED}
+    assert all(r[2] == r[3] == 0 for r in tf32)
+    assert not [r for r in report if r[0].startswith("dq_") and
+                r[4][1] == "float32" and "tf32" not in r[0]]
+
+
+@pytest.mark.cuda
+def test_f32_rule_rejects_dq_in_one_tf32_pass(cuda, tmp_path, monkeypatch):
+    """f32 dq built with a planted fault, every product in one TF32 pass
+    (kernel_variants.py's one_pass edit): dq leaves the f32 rule at head
+    dims 64 (class 64), 256 and 512 (the cluster)."""
+    from kernel_variants import F32_VARIANTS
+
+    (site, fault), = F32_VARIANTS["one_pass"]
+    _faulty_library(tmp_path, monkeypatch, site, fault)
+    for h, kv_h, d in ((4, 4, 64), (8, 1, 256), (4, 1, 512)):
+        q, k, v, g = _inputs(1024, h, kv_h, d=d, b=1, dtype=torch.float32)
+        first, _, ref, launched, _ = _f32_dq(q, k, v, g, scale=d ** -0.5,
+                                             causal=True, window=None,
+                                             sink=0)
+        assert launched == 2
+        worst, rel = tolerance_ratios(first, ref, rule("float32")[0])
+        print(f"one TF32 pass at D {d}: dq worst err/limit {worst:.1f}, "
+              f"relative Frobenius {rel:.3e}")
+        assert not _held(first, ref, "float32"), d
+
+
+@pytest.mark.cuda
+def test_f32_rule_rejects_dq_without_its_refinement(cuda, tmp_path,
+                                                    monkeypatch):
+    """f32 dq built without its heavy elements' compensated dP
+    (kernel_variants.py's no_refine edit) leaves the f32 rule against the
+    plain version in f64 at scale -1 (T 300, 4 query heads over 2 KV
+    heads, window 64 + sink 70, head dim 512: the sliced test's case that
+    the refined kernel holds), its relative Frobenius error within the
+    rule: what the refinement repairs is the heavy elements alone."""
+    from kernel_variants import F32_VARIANTS
+
+    (site, fault), = F32_VARIANTS["no_refine"]
+    _faulty_library(tmp_path, monkeypatch, site, fault)
+    q, k, v, g = _inputs(300, 4, 2, d=512, b=1, dtype=torch.float32)
+    first, second, ref, launched, _ = _f32_dq(q, k, v, g, scale=-1.0,
+                                              causal=True, window=64,
+                                              sink=70)
+    assert launched == 2 and torch.equal(first, second)
+    worst, rel = tolerance_ratios(first, ref, rule("float32")[0])
+    print(f"dq without its refinement at scale -1, D 512: worst err/limit "
+          f"{worst:.3f}, relative Frobenius {rel:.3e}")
+    assert worst > 1.0 and rel <= rule("float32")[1]
 
 
 @pytest.mark.cuda

@@ -185,12 +185,13 @@ def test_resolve_tiles_maps_every_block_pair_onto_the_sliced_tiles():
     """Every (block_q, block_k) the env takes resolves above head dim 256
     to the sliced kernels' one tile in each dtype (f32: its own), dq's and
     dk/dv's in bf16 and fp16 up to CLUSTER_LD to the cluster kernels' one
-    tile, f32 dk/dv's to its tensor-core kernel's (up to TF32_LD on its
-    cluster), an instantiation attention.INSTANTIATED lists, whatever T."""
+    tile, f32 dq's and dk/dv's to their tensor-core kernels' (up to TF32_LD
+    on their clusters), an instantiation attention.INSTANTIATED lists,
+    whatever T."""
     built = A.instantiations()
     want = {torch.bfloat16: A.Tiles((128, 64), (128, 64), (64, 64)),
             torch.float16: A.Tiles((128, 64), (128, 64), (64, 64)),
-            torch.float32: A.Tiles((64, 32), (64, 32), (64, 16))}
+            torch.float32: A.Tiles((64, 32), (64, 16), (64, 16))}
     for dtype, sliced in want.items():
         name = str(dtype).removeprefix("torch.")
         for d in (257, 304, 512, 4096):
@@ -205,8 +206,7 @@ def test_resolve_tiles_maps_every_block_pair_onto_the_sliced_tiles():
                         tiles = A.resolve_tiles(bq, bk, d, dtype, t)
                         assert tiles == tiles_want
                         for kernel in ("fwd", "dq", "dkv"):
-                            route = (A.CLUSTER if (cluster or tf32
-                                                   and kernel == "dkv")
+                            route = (A.CLUSTER if (cluster or tf32)
                                      and kernel != "fwd" else A.SLICED)
                             assert route == A.route(kernel, d, dtype) or (
                                 kernel == "fwd" and A.pair_route(d, dtype))

@@ -11,7 +11,7 @@ sliced kernels of every head dim above 256: their forward in bf16 and in
 fp16, their dq, their dk/dv, their f32 kernels; and the cluster kernels
 of dq and dk/dv up to head dim 1024, each in bf16 and in fp16; the
 pair forward up to head dim 512 in bf16 and in fp16; and the f32 dk/dv's
-cluster up to head dim 2048), compiled
+and dq's clusters up to head dim 2048, one each), compiled
 by one `nvcc` each, all started together, and linked into one library, so
 a build takes about as long as its largest part.  The library is built at
 first use, from the sources in this checkout only, into `ops/_build/`
@@ -38,7 +38,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v", "-diag-suppress", "177")
 # the translation units of flash_attention.cu (its FA_PART values)
-PARTS = 27
+PARTS = 28
 
 # nvcc's output (the ptxas register/spill report of every part) when this
 # process built the library; None when it was already built

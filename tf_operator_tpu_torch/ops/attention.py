@@ -16,8 +16,9 @@ Dispatch is decided by the tensors' device, outside autograd:
     launches the dq and the dk/dv kernels; `flash_attention_lse` returns
     the lse too, through `FlashAttentionLseFn`, whose backward takes a
     cotangent on it as well.  The kernels take what the Pallas kernels
-    take: bf16 and fp16 (tensor cores) and f32 (the forward and dq on SIMT
-    kernels of their own, dk/dv on the tensor cores in three TF32 passes),
+    take: bf16 and fp16 (tensor cores) and f32 (the forward on SIMT
+    kernels of its own, dq and dk/dv on the tensor cores in three TF32
+    passes),
     any head_dim (one that is not a multiple of 8 is zero-padded here and
     the outputs sliced; above 256 the sliced kernels, `SLICED`, take it),
     any scale, any batch*heads, and any block sizes, which `resolve_tiles`
@@ -33,9 +34,11 @@ split into at head-dim class 256) computes its kernel's plain version when
 handed CPU tensors, and counts, in its `launches` attribute, every time it
 launches its kernel (and `short_launches`, the launches of the encoders'
 kernels among them, `sliced_launches`, those of the kernels above head
-dim 256, and of those `cluster_launches`, the cluster dq's and dk/dv's,
-and `pair_launches`, the pair forward's; f32 dk/dv launches only its
-kernel on the tensor cores, so its `launches` are that kernel's).
+dim 256, and of those `cluster_launches`, the launches of dq's and
+dk/dv's clusters (the cluster kernels' in bf16 and fp16, the tensor-core
+kernels' in f32), and `pair_launches`, the pair forward's; f32 dq and
+dk/dv launch only their kernels on the tensor cores, so their `launches`
+are those kernels').
 The kernels live in `csrc/flash_attention.cu` (with the Hopper building
 blocks in `csrc/hopper.cuh`) and are built at first use (`_build.py`).
 """
@@ -221,7 +224,7 @@ def backward_dkv_plain(q, k, v, do, lse, delta, *, scale: float,
 DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 # The "class" of every head dim above 256, which has no compile-time head
 # dim: the sliced kernels (csrc: fwd_sliced_kernel, dq_sliced_kernel,
-# dkv_sliced_kernel and their f32 counterparts), each of whose blocks
+# dkv_sliced_kernel and the forward's f32 counterpart), each of whose blocks
 # writes one SLICE-column slice of its outputs and streams the head dim
 # through shared memory in 64-column chunks, so that no head dim is too
 # wide for them.
@@ -280,21 +283,26 @@ INSTANTIATED = {
             256: ((64,), (64,)), SLICED: ((64,), (64,)),
             CLUSTER: ((64,), (64,))},
 }
-# the f32 forward's and dq's one tile, for every block size
+# the f32 forward's one tile, for every block size
 F32_TILE = (64, 32)
-# f32 dk/dv runs on the tensor cores in three TF32 passes at every head
-# dim (csrc: dkv_tf32_kernel): 64 keys a block (two warpgroups over
-# them, one forming S^T, P^T and dV, the other dP^T, dS^T and dK), over
-# query steps of 32 at head-dim classes 64 and 128 and of 16 at 256 (where
-# K, V and two stages of Q and dO fill the SM's shared memory) and above
-# 256, where up to head dim TF32_LD (csrc's TF32_REACH) the blocks of a
-# key tile's 256-column slices form a cluster that splits the contraction
-# and sums S^T and dP^T across its blocks in slice order, so each is
-# computed once, and above it each slice's block contracts the whole head
-# dim itself.  Its tile by route (`route`), for every block size:
+# f32 dq and dk/dv run on the tensor cores in three TF32 passes at every
+# head dim (csrc: dq_tf32_kernel, dkv_tf32_kernel): 64 rows a block (query
+# rows for dq, keys for dk/dv), two warpgroups over them (dq: one forming
+# S and P, the other dP and dS, each then holding half of dq's columns;
+# dk/dv: one forming S^T, P^T and dV, the other dP^T, dS^T and dK), over
+# steps of 32 (keys for dq, queries for dk/dv) at head-dim classes 64 and
+# 128 and of 16 at 256 (where the resident operands and two stages of the
+# streamed ones fill the SM's shared memory) and above 256, where up to
+# head dim TF32_LD (csrc's TF32_REACH) the blocks of a row or key tile's
+# 256-column slices form a cluster that splits the contraction and sums
+# it across its blocks in slice order, so it is computed once, and above
+# it each slice's block contracts the whole head dim itself.  Their tiles
+# by route (`route`), for every block size, one table (dq's rows are
+# queries and its step keys, dk/dv's the other way round):
 TF32_LD = 2048
 F32_DKV = {64: (64, 32), 128: (64, 32), 256: (64, 16), CLUSTER: (64, 16),
            SLICED: (64, 16)}
+F32_DQ = F32_DKV
 # The encoders' route (`short_route`): at head-dim class 64 in bf16 and
 # fp16 a call of T <= SHORT_T takes the forward, dq and dk/dv kernels that
 # walk whole heads over a persistent grid (csrc: fwd_short_kernel,
@@ -348,12 +356,12 @@ def pair_route(head_dim: int, dtype) -> bool:
 def route(kernel: str, head_dim: int, dtype) -> int:
     """The key of INSTANTIATED (and of `instantiations()`) whose kernel a
     call of `kernel` ("fwd", "dq" or "dkv") launches: CLUSTER on the
-    cluster routes (`cluster_route`, and f32 dk/dv above head dim 256 up to
-    TF32_LD), PAIR on the pair route, else the head-dim class (SLICED above
-    256)."""
+    cluster routes (`cluster_route`, and f32 dq and dk/dv above head dim
+    256 up to TF32_LD), PAIR on the pair route, else the head-dim class
+    (SLICED above 256)."""
     if kernel != "fwd" and cluster_route(head_dim, dtype):
         return CLUSTER
-    if (kernel == "dkv" and dtype == torch.float32
+    if (kernel != "fwd" and dtype == torch.float32
             and SLICE < head_dim <= TF32_LD):
         return CLUSTER
     if kernel == "fwd" and pair_route(head_dim, dtype):
@@ -394,13 +402,13 @@ def resolve_tiles(block_q: int, block_k: int, head_dim: int,
     the largest instantiated value <= the request, or the smallest one if
     none is.  Any pair maps, so every value the env contract takes runs;
     the default (128, 128) keeps the tiles the kernels were tuned at.  f32
-    has one tile a kernel and route (dk/dv's: F32_DKV).  Given the
+    has one tile a kernel and route (F32_TILE, F32_DQ, F32_DKV).  Given the
     sequence length t, a call on the encoders'
     route (`short_route`) takes SHORT's tiles for all three kernels
     whatever its blocks; without t, the tiled kernels' tiles.  On the
     cluster route (`cluster_route`) dq and dk/dv take CLUSTER's tiles."""
     if dtype == torch.float32:
-        return Tiles(F32_TILE, F32_TILE,
+        return Tiles(F32_TILE, F32_DQ[route("dq", head_dim, dtype)],
                      F32_DKV[route("dkv", head_dim, dtype)])
     dc = head_class(head_dim)
     fwd_rows, fwd_steps = INSTANTIATED["fwd"][dc]
@@ -478,9 +486,11 @@ def instantiations() -> set:
             for dtype in ("bfloat16", "float16"):
                 out.update((kernel, dtype, dc, r, s) for r in rows
                            for s in steps)
-            if kernel != "dkv" and dc not in (CLUSTER, PAIR):
+            if kernel == "fwd" and dc != PAIR:
                 out.add((kernel, "float32", dc) + F32_TILE)
-    out.update(("dkv", "float32", key) + tile for key, tile in F32_DKV.items())
+    for kernel, tiles in (("dq", F32_DQ), ("dkv", F32_DKV)):
+        out.update((kernel, "float32", key) + tile
+                   for key, tile in tiles.items())
     for kernel, tile in SHORT.items():
         out.update((kernel, dtype, 64) + tile
                    for dtype in ("bfloat16", "float16"))
@@ -526,8 +536,9 @@ def _check(err: int, name: str) -> None:
 def cluster_info(kernel: str, dtype, head_dim: int) -> Tuple[int, int]:
     """(shared-memory bytes a block takes, clusters the card holds at
     once: cudaOccupancyMaxActiveClusters) of the cluster kernel of
-    `kernel` ("dq" or "dkv") at a head dim on the cluster route."""
-    if not cluster_route(head_dim, dtype) or head_dim % 8:
+    `kernel` ("dq" or "dkv") at a head dim on its CLUSTER route (bf16 and
+    fp16 up to CLUSTER_LD, f32 up to TF32_LD)."""
+    if route(kernel, head_dim, dtype) != CLUSTER or head_dim % 8:
         raise ValueError(f"no cluster kernel at head_dim {head_dim}, "
                          f"{dtype}")
     smem, clusters = ctypes.c_int(), ctypes.c_int()
@@ -648,8 +659,9 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     from block_q, key step from block_k, or a whole KV head's query heads a
     work item on the encoders' route (`short_route`), or above head_dim 256
     a 256-column slice of a row tile a block: up to CLUSTER_LD in bf16 and
-    fp16 (`cluster_route`) the cluster kernel's 64 rows, the slices of a
-    row tile one cluster."""
+    fp16 (`cluster_route`) the cluster kernel's 64 rows, and up to TF32_LD
+    in f32, the slices of a row tile one cluster.  f32 runs on the tensor
+    cores in three TF32 passes at every head dim."""
     if q.device.type == "cpu":
         return backward_dq_plain(q, k, v, do, lse, delta, scale=scale,
                                  causal=causal, window=window, sink=sink)
@@ -669,7 +681,7 @@ def flash_backward_dq(q, k, v, do, lse, delta, *, scale: float, causal: bool,
     flash_backward_dq.launches += 1
     flash_backward_dq.short_launches += tile == SHORT["dq"]
     flash_backward_dq.sliced_launches += head_class(d) == SLICED
-    flash_backward_dq.cluster_launches += cluster_route(d, q.dtype)
+    flash_backward_dq.cluster_launches += route("dq", d, q.dtype) == CLUSTER
     return _unpadded(dq, d)
 
 
@@ -718,7 +730,8 @@ def flash_backward_dkv(q, k, v, do, lse, delta, *, scale: float,
     flash_backward_dkv.launches += 1
     flash_backward_dkv.short_launches += tile == SHORT["dkv"]
     flash_backward_dkv.sliced_launches += head_class(d) == SLICED
-    flash_backward_dkv.cluster_launches += cluster_route(d, q.dtype)
+    flash_backward_dkv.cluster_launches += (route("dkv", d, q.dtype)
+                                            == CLUSTER)
     if ws is not None:
         dk, dv = dkv_reduce(ws, scale, q.dtype)
     return _unpadded(dk, d), _unpadded(dv, d)
@@ -766,11 +779,13 @@ def dkv_reduce(ws, scale: float, dtype):
 # Each of the three has a second kernel, the encoders' (`short_route`),
 # whose launches `short_launches` counts apart, and a third, the sliced
 # kernel of head dims above 256, counted apart in `sliced_launches` (and
-# `launches` counts them all).  Of those, dq's and dk/dv's launches on the
-# cluster route (`cluster_route`) are the cluster kernels', counted again
-# in `cluster_launches`, and the forward's on the pair route
-# (`pair_route`) are the pair kernel's, counted again in `pair_launches`.
-# dk/dv's in f32 are all the tensor-core kernel's (dkv_tf32_kernel).
+# `launches` counts them all).  Of those, dq's and dk/dv's launches on
+# their CLUSTER route (`route`: the cluster kernels' in bf16 and fp16, the
+# tensor-core kernels' clusters in f32) are counted again in
+# `cluster_launches`, and the forward's on the pair route (`pair_route`)
+# are the pair kernel's, counted again in `pair_launches`.  dq's and
+# dk/dv's in f32 are all the tensor-core kernels' (dq_tf32_kernel,
+# dkv_tf32_kernel).
 KERNELS = (flash_forward, flash_backward_dq, flash_backward_dkv)
 CLUSTER_KERNELS = (flash_backward_dq, flash_backward_dkv)
 PAIR_KERNELS = (flash_forward,)

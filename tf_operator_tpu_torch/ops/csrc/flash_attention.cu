@@ -11,10 +11,10 @@
 //   * bf16 and fp16: the tensor-core kernels, templated on the element type
 //     E (wgmma's bf16 or f16 form; P and dS are rounded to E before their
 //     second product, outputs are written in E).  f32: behind the same C
-//     entry points, the forward and dq on SIMT kernels of their own (f32
-//     products and sums, as the Pallas kernels compute in f32 inside; one
-//     TF32 pass would round the products), dk/dv on the tensor cores in
-//     three TF32 passes (dkv_tf32_kernel, tf32.cuh).
+//     entry points, the forward on SIMT kernels of its own (f32 products
+//     and sums, as the Pallas kernels compute in f32 inside; one TF32 pass
+//     would round the products), dq and dk/dv on the tensor cores in three
+//     TF32 passes (dq_tf32_kernel, dkv_tf32_kernel, tf32.cuh).
 //   * Head dims: the tensor-core kernels are built for the head-dim classes
 //     D = 64, 128 and 256, and a stored head dim ld runs on the smallest
 //     class that holds it: 8..64 on D 64, 72..128 on D 128, 136..256 on
@@ -23,8 +23,8 @@
 //     multiple of 8 and slices the outputs).  The tensor maps zero-fill the
 //     columns past ld (a 64-column box wholly past it included), so Q K^T
 //     and dO V^T are unchanged, and the epilogues store only the columns <
-//     ld.  The f32 kernels take any ld up to 256 on DMAX 64, 128 or 256
-//     (dk/dv: on 64, 128 or 256 columns a block).
+//     ld.  The f32 forward takes any ld up to 256 on DMAX 64, 128 or 256
+//     (dq and dk/dv: on 64, 128 or 256 columns a block).
 //     Every ld above 256 runs on the sliced kernels (below: each block one
 //     256-column slice of the outputs, the head dim streamed through shared
 //     memory in 64-column chunks), in bf16, fp16 and f32, with no bound of
@@ -34,10 +34,11 @@
 //     the head dim's contraction and sums S and dP across its blocks), and
 //     the forward in bf16 and fp16 up to ld PAIR_REACH (512) on the pair
 //     forward (below: a block's two consumer warpgroups split the head dim
-//     and sum their partial S through shared memory), and dk/dv in f32 up
-//     to ld TF32_REACH (2048) on dkv_tf32_kernel's clusters (the same
-//     split of the contraction across a key tile's slices; above it a
-//     block for each slice contracts the whole head dim).
+//     and sum their partial S through shared memory), and dq and dk/dv in
+//     f32 up to ld TF32_REACH (2048) on dq_tf32_kernel's and
+//     dkv_tf32_kernel's clusters (the same split of the contraction across
+//     a row or key tile's slices; above it a block for each slice
+//     contracts the whole head dim).
 //   * Any scale: dq and dk/dv form p = exp(s * scale - lse) for any scale.
 //     The forward takes the row max of the raw scores, which is the max of
 //     the scaled ones only for scale > 0; every other scale (negative, 0,
@@ -89,15 +90,15 @@
 // kernels; 10: the C interface (which sends head-dim class 256 to parts
 // 11-15, head dims above 256 to parts 16-20, and dq's and dk/dv's up to
 // CLUSTER_REACH in bf16 and fp16 to parts 21-24, the forward's up to
-// PAIR_REACH in bf16 and fp16 to parts 25-26, and dk/dv's up to
-// TF32_REACH in f32 to part 27); 11-12: the forward at
+// PAIR_REACH in bf16 and fp16 to parts 25-26, and dk/dv's and dq's up to
+// TF32_REACH in f32 to parts 27 and 28); 11-12: the forward at
 // D 256 in bf16 and fp16; 13: dq and 14: dk/dv at D 256 (with the
 // reduction of its slices' partials); 15: the f32 kernels at D 256; 16-17:
 // the sliced forward in bf16 and fp16; 18: the sliced dq and 19: dk/dv;
 // 20: the sliced f32 kernels; 21-22: the cluster dq in bf16 and fp16;
 // 23-24: the cluster dk/dv in bf16 and fp16; 25-26: the pair forward in
-// bf16 and fp16; 27: the f32 dk/dv's cluster; 0 (unset): every part in one
-// unit.
+// bf16 and fp16; 27: the f32 dk/dv's cluster; 28: the f32 dq's cluster; 0
+// (unset): every part in one unit.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -183,7 +184,6 @@ int forward_f32(int bh, const FwdArgs& a, int rows, int step,
                 cudaStream_t st);
 int dq_bf16(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dq_f16(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
-int dq_f32(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_bf16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_f16(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_f32(int bkv, const BwdArgs& a, int rows, int step, cudaStream_t st);
@@ -201,7 +201,6 @@ int forward_f32_256(int bh, const FwdArgs& a, int rows, int step,
 int dq_bf16_256(int bh, const BwdArgs& a, int rows, int step,
                 cudaStream_t st);
 int dq_f16_256(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
-int dq_f32_256(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
 int dkv_bf16_256(int bkv, const BwdArgs& a, int rows, int step,
                  cudaStream_t st);
 int dkv_f16_256(int bkv, const BwdArgs& a, int rows, int step,
@@ -222,8 +221,6 @@ int forward_f32_sliced(int bh, const FwdArgs& a, int rows, int step,
 int dq_bf16_sliced(int bh, const BwdArgs& a, int rows, int step,
                    cudaStream_t st);
 int dq_f16_sliced(int bh, const BwdArgs& a, int rows, int step,
-                  cudaStream_t st);
-int dq_f32_sliced(int bh, const BwdArgs& a, int rows, int step,
                   cudaStream_t st);
 int dkv_bf16_sliced(int bkv, const BwdArgs& a, int rows, int step,
                     cudaStream_t st);
@@ -256,9 +253,22 @@ int forward_f16_pair(int bh, const FwdArgs& a, int rows, int step,
 int forward_f16_scaled_pair(int bh, const FwdArgs& a, int rows, int step,
                             cudaStream_t st);
 // f32 dk/dv on the tensor cores over a cluster of the slices of head dims
-// 257..TF32_REACH (part 27)
+// 257..TF32_REACH (part 27), and its shared memory and clusters at once
 int dkv_f32_cluster(int bkv, const BwdArgs& a, int rows, int step,
                     cudaStream_t st);
+int dkv_f32_cluster_info(int ld, int* smem, int* clusters);
+// f32 dq on the tensor cores (dq_tf32_kernel): at head-dim classes 64 and
+// 128 (part 9) and 256 (part 15), a block for each slice above TF32_REACH
+// (part 20), and over a cluster of the slices of head dims 257..TF32_REACH
+// (part 28), with the cluster's shared memory and clusters at once
+int dq_tf32(int bh, const BwdArgs& a, int rows, int step, cudaStream_t st);
+int dq_tf32_256(int bh, const BwdArgs& a, int rows, int step,
+                cudaStream_t st);
+int dq_tf32_stream(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t st);
+int dq_tf32_cluster(int bh, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st);
+int dq_f32_cluster_info(int ld, int* smem, int* clusters);
 // the sum of dk/dv's slices (parts 14 and 15): ws [2][splits][n] f32 -> dk,
 // dv [n]
 int dkv_reduce_bf16(const float* ws, void* dk, void* dv, long long n,
@@ -2757,12 +2767,12 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
 }
 
 // ---------------------------------------------------------------------------
-// f32: SIMT kernels of the forward and dq.  The Pallas kernels compute in
-// f32, and one TF32 pass on the tensor cores would round the products to
-// 10-bit mantissas, so these take f32 products and f32 sums on the CUDA
-// cores, one step at a time between two barriers: right, and not tuned.
-// (dk/dv in f32 runs on the tensor cores in three TF32 passes:
-// dkv_tf32_kernel, below the sliced kernels.)
+// f32: the SIMT forward.  The Pallas kernels compute in f32, and one TF32
+// pass on the tensor cores would round the products to 10-bit mantissas,
+// so the forward takes f32 products and f32 sums on the CUDA cores, one
+// step at a time between two barriers: right, and not tuned.  (dq and
+// dk/dv in f32 run on the tensor cores in three TF32 passes: dq_tf32_kernel
+// and dkv_tf32_kernel, below the sliced kernels.)
 //
 // A block of F32_THREADS threads owns F32_ROWS query rows of one b*h, and
 // walks the same tiles as the tensor-core kernels (key_tiles) F32_STEP keys
@@ -2770,9 +2780,9 @@ int dkv_tiles(int bkv, const BwdArgs& a, int rows, int step,
 // the same warp: per step the pair splits the step's columns (thread h
 // takes 2j + h, so the two read neighbouring shared-memory rows) and the
 // output columns (thread h takes [h * DMAX / 2, (h + 1) * DMAX / 2)), and
-// trades the step's p (or ds) with one shuffle.  Tiles are stored with a
-// row stride of DMAX + 1 floats, so the 16 rows a warp reads lie in 16
-// banks.  The mask is Mask::live on every element, and exp is expf.
+// trades the step's p with one shuffle.  Tiles are stored with a row stride
+// of DMAX + 1 floats, so the 16 rows a warp reads lie in 16 banks.  The
+// mask is Mask::live on every element, and exp is expf.
 // Bound: operations on the f32 pipes (67 TFLOP/s on an H100 SXM), far from
 // reached.  DMAX 256's tiles (64 KB each) take opted-in dynamic shared
 // memory, as every launch here does.
@@ -2873,75 +2883,7 @@ __global__ void __launch_bounds__(F32_THREADS)
     lse[(size_t)bh * T + i] = l > 0.f ? m + logf(l) : 0.f;
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(F32_THREADS)
-    dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int group, int ld, float scale, Mask mk) {
-  constexpr int SD = DMAX + 1, J = F32_STEP / 2, C = DMAX / 2;
-  extern __shared__ float f32_smem[];
-  float* sQ = f32_smem;              // [F32_ROWS][SD]
-  float* sdO = sQ + F32_ROWS * SD;   // [F32_ROWS][SD]
-  float* sK = sdO + F32_ROWS * SD;   // [F32_STEP][SD]
-  float* sV = sK + F32_STEP * SD;    // [F32_STEP][SD]
-  const int T = mk.T;
-  const GridTile gt = grid_tile(F32_ROWS, T);
-  const int bh = gt.bh, bkv = bh / group;
-  const int q0 = (gt.n - 1 - gt.tile) * F32_ROWS;
-  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
-  int lo, n_sink, n_iter;
-  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
-
-  f32_load<DMAX>(sQ, q + (size_t)bh * T * ld, q0, F32_ROWS, T, ld);
-  f32_load<DMAX>(sdO, dout + (size_t)bh * T * ld, q0, F32_ROWS, T, ld);
-  const float lse_i = i < T ? lse[(size_t)bh * T + i] : 0.f;
-  const float dl = i < T ? delta[(size_t)bh * T + i] : 0.f;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int it = 0; it < n_iter; ++it) {
-    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
-    __syncthreads();
-    f32_load<DMAX>(sK, k + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
-    f32_load<DMAX>(sV, v + (size_t)bkv * T * ld, k0, F32_STEP, T, ld);
-    __syncthreads();
-    float s[J], dp[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
-    for (int d = 0; d < ld; ++d) {
-      const float qd = sQ[r * SD + d], gd = sdO[r * SD + d];
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        s[j] = fmaf(qd, sK[(2 * j + h) * SD + d], s[j]);
-        dp[j] = fmaf(gd, sV[(2 * j + h) * SD + d], dp[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float p =
-          mk.live(i, k0 + 2 * j + h) ? expf(s[j] * scale - lse_i) : 0.f;
-      s[j] = p * (dp[j] - dl);  // ds
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float dsm = s[j], dso = __shfl_xor_sync(0xffffffffu, s[j], 1);
-      const float* km = sK + (2 * j + h) * SD + h * C;
-      const float* ko = sK + (2 * j + 1 - h) * SD + h * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        acc[c] = fmaf(dsm, km[c], fmaf(dso, ko[c], acc[c]));
-    }
-  }
-  if (i >= T) return;
-  float* out = dq + ((size_t)bh * T + i) * ld + h * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    if (h * C + c < ld) out[c] = acc[c] * scale;
-}
-
-// f32 launchers (dynamic shared memory above 48 KB, as above).
+// The f32 forward's launcher (dynamic shared memory above 48 KB, as above).
 
 template <int DMAX>
 int launch_fwd_f32(int bh, const FwdArgs& a, cudaStream_t st) {
@@ -2959,36 +2901,19 @@ int launch_fwd_f32(int bh, const FwdArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <int DMAX>
-int launch_dq_f32(int bh, const BwdArgs& a, cudaStream_t st) {
-  const int bytes = (2 * F32_ROWS + 2 * F32_STEP) * (DMAX + 1) * 4;
-  auto kernel = dq_f32_kernel<DMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = grid_blocks(bh, a.mk.T, F32_ROWS);
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, F32_THREADS, bytes, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.heads / a.kv_heads, a.ld,
-      a.scale, a.mk);
-  return (int)cudaGetLastError();
-}
-
-
 // ---------------------------------------------------------------------------
 // Head dims above 256: the sliced kernels.  They replace the same three
 // Pallas kernels (tf_operator_tpu/ops/attention.py:_fwd_kernel,
 // _bwd_dq_kernel, _bwd_dkv_kernel), which take any head dim, at every
 // stored head dim ld > 256: fwd_sliced_kernel, dq_sliced_kernel and
-// dkv_sliced_kernel in bf16 and fp16, and their f32 counterparts.  In bf16
-// and fp16, dq and dk/dv up to ld CLUSTER_REACH run on the cluster kernels
-// below them instead, which split the contraction across a cluster of the
-// slices' blocks rather than recompute it in each; dq_sliced_kernel and
-// dkv_sliced_kernel take the head dims above that reach.  In f32, dk/dv
-// runs on dkv_tf32_kernel (below): up to ld TF32_REACH on its clusters,
-// above it a block for each slice that contracts the whole head dim.
+// dkv_sliced_kernel in bf16 and fp16, and the forward's f32 counterpart.
+// In bf16 and fp16, dq and dk/dv up to ld CLUSTER_REACH run on the cluster
+// kernels below them instead, which split the contraction across a cluster
+// of the slices' blocks rather than recompute it in each; dq_sliced_kernel
+// and dkv_sliced_kernel take the head dims above that reach.  In f32, dq
+// and dk/dv run on dq_tf32_kernel and dkv_tf32_kernel (below): up to ld
+// TF32_REACH on their clusters, above it a block for each slice that
+// contracts the whole head dim.
 //
 // Where the plans above stop: a warpgroup's 64-row f32 accumulator over W
 // columns takes W/2 registers a thread (255 at most), wgmma's N is at most
@@ -4829,13 +4754,14 @@ __global__ void __launch_bounds__(384, 1)
   }
 }
 
-// The sliced f32 forward and dq: the f32 kernels above with the head dim
+// The sliced f32 forward: the f32 forward above with the head dim
 // streamed F32_CHUNK columns at a time through [rows][F32_CHUNK + 1] tiles
-// for the contractions, and each block one SW-column slice of the outputs,
-// whose rows of V or K it loads into [rows][SW + 1] tiles for the second
-// products: the same grid and sums as the tensor-core sliced kernels, f32
-// products and sums on the CUDA cores, the thread plan of the f32 kernels
-// at DMAX SW (two threads a row).  (dk/dv in f32 runs on dkv_tf32_kernel.)
+// for the contraction, and each block one SW-column slice of the output,
+// whose rows of V it loads into [rows][SW + 1] tiles for the second
+// product: the same grid and sums as the tensor-core sliced kernels, f32
+// products and sums on the CUDA cores, the thread plan of the f32 forward
+// at DMAX SW (two threads a row).  (dq and dk/dv in f32 run on
+// dq_tf32_kernel and dkv_tf32_kernel.)
 constexpr int F32_CHUNK = 64;
 
 // Rows [row0, row0 + n) x columns [c0, c0 + W) of a [T, ld] f32 slab into
@@ -4941,167 +4867,76 @@ __global__ void __launch_bounds__(F32_THREADS)
     lse[(size_t)bh * T + i] = l > 0.f ? m + logf(l) : 0.f;
 }
 
-template <int SW>
-__global__ void __launch_bounds__(F32_THREADS)
-    dq_sliced_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v,
-                         const float* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta,
-                         float* __restrict__ dq, int group, int ld,
-                         float scale, Mask mk) {
-  constexpr int CD = F32_CHUNK + 1, SD = SW + 1, J = F32_STEP / 2;
-  constexpr int C = SW / 2;
-  extern __shared__ float f32_smem[];
-  float* sQ = f32_smem;               // [F32_ROWS][CD]
-  float* sdO = sQ + F32_ROWS * CD;    // [F32_ROWS][CD]
-  float* sK = sdO + F32_ROWS * CD;    // [F32_STEP][CD]
-  float* sV = sK + F32_STEP * CD;     // [F32_STEP][CD]
-  float* sKs = sV + F32_STEP * CD;    // [F32_STEP][SD]: the slice's K
-  const int T = mk.T;
-  const SliceTile st = slice_tile(F32_ROWS, T, ceil_div(ld, SW));
-  const int bh = st.bh, bkv = bh / group;
-  const int q0 = st.tile * F32_ROWS, c0 = st.slice * SW;
-  const int r = threadIdx.x >> 1, h = threadIdx.x & 1, i = q0 + r;
-  const float* qh = q + (size_t)bh * T * ld;
-  const float* gh = dout + (size_t)bh * T * ld;
-  const float* kh = k + (size_t)bkv * T * ld;
-  const float* vh = v + (size_t)bkv * T * ld;
-  int lo, n_sink, n_iter;
-  key_tiles<F32_STEP>(q0, F32_ROWS, mk, &lo, &n_sink, &n_iter);
-
-  const float lse_i = i < T ? lse[(size_t)bh * T + i] : 0.f;
-  const float dl = i < T ? delta[(size_t)bh * T + i] : 0.f;
-  float acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  for (int it = 0; it < n_iter; ++it) {
-    const int k0 = (it < n_sink ? it : lo + it - n_sink) * F32_STEP;
-    float s[J], dp[J];
-#pragma unroll
-    for (int j = 0; j < J; ++j) s[j] = dp[j] = 0.f;
-    for (int d0 = 0; d0 < ld; d0 += F32_CHUNK) {
-      __syncthreads();
-      f32_load_cols<F32_CHUNK, F32_THREADS>(sQ, qh, q0, F32_ROWS, d0, T, ld);
-      f32_load_cols<F32_CHUNK, F32_THREADS>(sdO, gh, q0, F32_ROWS, d0, T,
-                                            ld);
-      f32_load_cols<F32_CHUNK, F32_THREADS>(sK, kh, k0, F32_STEP, d0, T, ld);
-      f32_load_cols<F32_CHUNK, F32_THREADS>(sV, vh, k0, F32_STEP, d0, T, ld);
-      __syncthreads();
-      const int n = min(F32_CHUNK, ld - d0);
-      for (int d = 0; d < n; ++d) {
-        const float qd = sQ[r * CD + d], gd = sdO[r * CD + d];
-#pragma unroll
-        for (int j = 0; j < J; ++j) {
-          s[j] = fmaf(qd, sK[(2 * j + h) * CD + d], s[j]);
-          dp[j] = fmaf(gd, sV[(2 * j + h) * CD + d], dp[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float p =
-          mk.live(i, k0 + 2 * j + h) ? expf(s[j] * scale - lse_i) : 0.f;
-      s[j] = p * (dp[j] - dl);  // ds
-    }
-    __syncthreads();
-    f32_load_cols<SW, F32_THREADS>(sKs, kh, k0, F32_STEP, c0, T, ld);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const float dsm = s[j], dso = __shfl_xor_sync(0xffffffffu, s[j], 1);
-      const float* km = sKs + (2 * j + h) * SD + h * C;
-      const float* ko = sKs + (2 * j + 1 - h) * SD + h * C;
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        acc[c] = fmaf(dsm, km[c], fmaf(dso, ko[c], acc[c]));
-    }
-  }
-  if (i >= T) return;
-  float* out = dq + ((size_t)bh * T + i) * ld + c0 + h * C;
-#pragma unroll
-  for (int c = 0; c < C; ++c)
-    if (c0 + h * C + c < ld) out[c] = acc[c] * scale;
-}
-
 // ---------------------------------------------------------------------------
-// f32 dk/dv on the tensor cores: dkv_tf32_kernel.  Replaces
-// tf_operator_tpu/ops/attention.py:_bwd_dkv_kernel in f32 at every head
-// dim: dv = sum p^T dO and dk = scale * sum ds^T Q over the GQA
-// group, p = exp(scale * s - lse) (expf), ds = p (dp - delta), every mask,
-// any scale.
+// f32 dq and dk/dv on the tensor cores: dq_tf32_kernel and dkv_tf32_kernel.
+// They replace tf_operator_tpu/ops/attention.py:_bwd_dq_kernel and
+// _bwd_dkv_kernel in f32 at every head dim: dq = scale * sum ds K, dv = sum
+// p^T dO and dk = scale * sum ds^T Q over the GQA group, p = exp(scale * s
+// - lse) (expf), ds = p (dp - delta), every mask, any scale.
 //
 // Every product is mma.sync m16n8k8 in three TF32 passes (tf32.cuh): f32
 // tiles in shared memory, each fragment split in registers into its TF32
 // halves, lo * hi and hi * lo added before hi * hi, f32 accumulators; each
-// short chain of products (a 32-column block of a contraction, a query
-// step of a second product) summed apart and added to the long sum in f32
+// short chain of products (a 32-column block of a contraction, a step of a
+// second product) summed apart and added to the long sum in f32
 // (tf32::promote: one long chain into an accumulator left the rule), a
 // contraction's blocks and the cluster's partials by the compensated sum
 // (tf32::kahan: at large logits, scale -1 at head dim 512, dk left the
 // rule by its f32 sum of 16 blocks); the f32 rule (chip_smoke.RTOL_F32,
-// FRO_F32) holds against the plain version in f64 up to head dim 512 at
-// scale -1 (above it, dk reaches 1.1 to 2.1 of the limit, where plain f32
-// reaches 8 to 18: PERF.md) and at the usual scales everywhere, where one
-// pass misses it by some 40x.  Not wgmma: its TF32 form takes both
-// operands K-major in shared memory, and dV = P^T dO and dK = dS^T Q
-// contract over the queries, across dO's and Q's stored rows, which would
-// need transposed (and, for three passes, split) copies of both; mma.sync
-// reads its fragments from one f32 copy in either orientation.
+// FRO_F32) holds against the plain version in f64 at the usual scales
+// everywhere, where one pass misses it by some 40x, and at scale -1 for
+// dk up to head dim 512 (above it, dk reaches 1.1 to 2.1 of the limit,
+// where plain f32 reaches 8 to 18: PERF.md) and for dq, whose heavy
+// elements take dP - delta from a compensated dot product (TF32_REFINE),
+// at every head dim measured (0.16 to 0.27 of the limit up to 1000, where
+// plain f32 reaches 4 to 12).  Not wgmma: its TF32 form takes both
+// operands K-major in shared memory, and dq = dS K, dV = P^T dO and dK =
+// dS^T Q contract across K's, dO's and Q's stored rows, which would need
+// transposed (and, for three passes, split) copies of them; mma.sync reads
+// its fragments from one f32 copy in either orientation.
 //
-// A block: 64 keys of one b*kv_head and SW columns of the head dim (SW 64,
-// 128 or 256: the head-dim classes; above 256, one 256-column slice), 8
-// warps in two warpgroups over the same keys, warp w4 of each holding keys
-// 16 w4 .. 16 w4 + 15.  Warpgroup 0 forms S^T = K Q^T, P^T, and holds dV;
-// warpgroup 1 forms dP^T = V dO^T and dS^T, and holds dK (dk/dv_split's
-// plan: each product once, two of the four a warpgroup).  K and V (the
-// block's columns) stay in shared memory; per query step of BQ queries
-// (BQ = 32, 16 at SW 256) thread 0 keeps Q and dO in a ring of STAGES
-// stages (TMA, 32-column boxes, zero past T and past ld; a stage is
-// refilled after the block's barrier at the end of the step that read it,
-// so the next steps' loads run under this step's products).  A query step:
-//   * the contraction over the block's columns (S^T or dP^T, 16 keys x BQ
-//     a warp, m16n8 tiles; the 32-column blocks wholly past ld skipped);
-//   * above 256, the slices of a key tile are one thread-block cluster:
-//     each block's partials (its columns' S^T and dP^T) go to shared memory,
+// Both kernels: a block of 8 warps in two warpgroups over the same 64 rows
+// (keys for dk/dv, queries for dq) and SW columns of the head dim (SW 64,
+// 128 or 256: the head-dim classes; above 256, one 256-column slice), warp
+// w4 of each warpgroup holding rows 16 w4 .. 16 w4 + 15.  The block's
+// operand of those rows stays in shared memory, and the other side's
+// operand goes through a ring of STAGES stages by the step (thread 0, TMA,
+// 32-column boxes, zero past T and past ld; a stage is refilled after the
+// block's barrier at the end of the step that read it, so the next steps'
+// loads run under this step's products).  A step:
+//   * the contraction over the block's columns (16 rows x the step a warp,
+//     m16n8 tiles; the 32-column blocks wholly past ld skipped; tf32_block);
+//   * above 256, the slices of a row tile are one thread-block cluster:
+//     each block's partials (its columns' contraction) go to shared memory,
 //     the cluster meets at its barrier, and every block sums all the
 //     partials in slice order (its own and, through distributed shared
-//     memory, its partners'), so each forms the same S^T and dP^T once
-//     for all the slices (two buffers, one barrier a step: a block writes
-//     a buffer again two steps later, after every partner has passed the
-//     barrier that follows its last read of it); above TF32_REACH (nine
-//     slices and more, past a portable cluster's eight blocks) each block
-//     of a slice contracts the whole head dim itself (STREAM: no K or V
-//     resident, every 32-column chunk of K, V, Q and dO through two
-//     buffers by cp.async, the next chunk's loads under this one's
-//     products), (n + 1) / 2 times the products over n slices;
-//   * warpgroup 0 forms P^T in its accumulators (the element mask only on
-//     tiles that are not full) and hands it to warpgroup 1 through shared
+//     memory, its partners'), so each forms the same sum once for all the
+//     slices (two buffers, one barrier a step: a block writes a buffer
+//     again two steps later, after every partner has passed the barrier
+//     that follows its last read of it; tf32_exchange); above TF32_REACH
+//     (nine slices and more, past a portable cluster's eight blocks) each
+//     block of a slice contracts the whole head dim itself (STREAM: every
+//     32-column chunk of both operands through two buffers by cp.async,
+//     the next chunk's loads under this one's products), (n + 1) / 2 times
+//     the contraction over n slices;
+//   * P (P^T) forms in warpgroup 0's accumulators (the element mask only
+//     on tiles that are not full) and goes to warpgroup 1 through shared
 //     memory (each thread the elements it holds, so thread i of one reads
 //     what thread i of the other wrote: 16-byte stores and loads, no
-//     re-layout), which forms dS^T;
-//   * dV += P^T dO and dK += dS^T Q over the block's columns: A is the
-//     accumulator of the step's first product as it stands (the permuted k
-//     index, tf32.cuh), B read down dO's or Q's columns.
-// The blocks walk dkv_split_kernel's grid: (key tile, b*kv_head, split of
-// the query-head group, slice), slices fastest, key tiles slowest, so the
-// longest causal walks start first.  At SW 256 the host may split each
-// group's query heads (ops/attention.py:dkv_splits), and then the blocks
-// write f32 partials that dkv_reduce_kernel sums in slice order.  Outputs
-// are f32, dk times scale.
-// Bound: operations, 3 TF32 passes of 4 products at 495 TFLOP/s dense
-// (the card's TF32 rate; 165 TFLOP/s of three-pass products).  Measured
-// at 0.18-0.27 of it on an H100 (PERF.md): the products are about a fifth
-// of the time; the fragments' loads and TF32 splits (each B value split
-// by the four warps of its warpgroup) the rest, which more warps (two
-// pairs of warpgroups over column halves at 256) did not move.
-// Registers: a warp's [16 x SW] accumulator is SW / 2 a thread (128 at SW
-// 256, beside the step's 16 x BQ score tile); at SW 64 two blocks share an
-// SM.  Shared memory: K, V (64 x SW f32 each), P^T, the ring, and above 256
-// the two partial buffers or (STREAM, in place of K and V) the two chunk
-// buffers (DkvTf32Smem).
-constexpr int TF32_REACH = 2048;  // the cluster's reach: 8 slices
+//     re-layout), which forms dS (dS^T);
+//   * the second products over the block's columns: A is the accumulator
+//     of the step's first product as it stands (the permuted k index,
+//     tf32.cuh), B read down the other operand's columns (tf32_second).
+// Bound: operations, 3 TF32 passes of 3 (dq) or 4 (dk/dv) products at 495
+// TFLOP/s dense (the card's TF32 rate; 165 TFLOP/s of three-pass
+// products).  dk/dv measured at 0.18-0.27 of it on an H100 (PERF.md): the
+// products are about a fifth of the time; the fragments' loads and TF32
+// splits (each B value split by the four warps of its warpgroup) the
+// rest, which more warps (two pairs of warpgroups over column halves at
+// 256) did not move.  dq at 0.14-0.24: one TF32 pass (two of three
+// products and the lo splits dropped) takes 29-46 % off its time, at 512
+// the cluster's barrier every 16-key step 17 %.
+constexpr int TF32_REACH = 2048;  // the clusters' reach: 8 slices
 
 // Diagnostics for kernel_variants.py only (the values below in every build
 // the wrappers load): TF32_PASSES 1 takes one TF32 pass (the planted fault
@@ -5113,6 +4948,208 @@ constexpr int TF32_PASSES = 3;
 constexpr bool TF32_SECOND = true;
 constexpr bool TF32_EXCHANGE = true;
 
+// dq's heavy elements: an element of dS = P (dP - delta) whose p is at
+// least TF32_REFINE takes dP - delta from a compensated dot product of its
+// rows of dO and V (tf32_dp_less) in place of the tensor cores' dP.  At
+// nearly one-hot rows (large logits) dP - delta cancels to a small part of
+// dP there, and dq's error is that of dP's sum over the head dim; where p
+// is small, p scales it down.  On the CPU (tests/test_torch_f32_dq.py)
+// the plan's dq against the plain version in f64 at scale -1 moves from
+// 1.7x the f32 rule to 0.03x at head dims 256-2112 with the heavy elements
+// exact, and at the usual scale dq's first query row (one live key) with
+// it.  Each row has at most 1 / TF32_REFINE such keys; the rows of long
+// sequences at the usual scale have none.  (kernel_variants.py's no_refine
+// leaves the refinement out.)
+constexpr float TF32_REFINE = 0.125f;
+
+// (sum_c x[c] y[c]) - sub over n columns (n a multiple of 4, 16-byte
+// aligned rows) by Ogita, Rump and Oishi's compensated dot product: each
+// product's rounding error from an FMA, each sum's by TwoSum, their total
+// added at the end, as if summed in twice f32's precision; sub is taken
+// from the rounded sum before the errors are added, so that a cancellation
+// against it keeps them.  The roundings are explicit (__fmul_rn,
+// __fadd_rn) so that nothing is contracted into an FMA.
+__device__ __forceinline__ float tf32_dp_less(const float* __restrict__ x,
+                                              const float* __restrict__ y,
+                                              int n, float sub) {
+  float s = 0.f, c = 0.f;
+#pragma unroll 1
+  for (int i = 0; i < n; i += 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(x + i));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(y + i));
+    const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __fmul_rn(av[e], bv[e]);
+      const float pe = fmaf(av[e], bv[e], -p);
+      const float t = __fadd_rn(s, p);
+      const float z = __fsub_rn(t, s);
+      const float te =
+          __fadd_rn(__fsub_rn(s, __fsub_rn(t, z)), __fsub_rn(p, z));
+      c = __fadd_rn(c, __fadd_rn(te, pe));
+      s = t;
+    }
+  }
+  return __fadd_rn(__fsub_rn(s, sub), c);
+}
+
+// One 32-column block of a contraction added to st (the warp's 16 rows x
+// NJ m16n8 tiles; sc its compensation): A's rows from ab (the block's row
+// of the warp's lane g), B's from bb (row g of the step), ro the row
+// offsets (tf32::row_off).  The block's products in sums of their own (one
+// a pass with CHAINS), added to st by the compensated sum (COMPENSATED) or
+// in f32 (tf32::promote).
+template <int NJ, bool CHAINS, bool COMPENSATED>
+__device__ __forceinline__ void tf32_block(float (&st)[NJ][4],
+                                           float (&sc)[NJ][4],
+                                           const float* ab, const float* bb,
+                                           const int (&ro)[8]) {
+  float part[NJ][4] = {}, part_lh[NJ][4] = {}, part_hl[NJ][4] = {};
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const int o0 = ro[2 * kk], o1 = ro[2 * kk + 1];
+    const float a[4] = {ab[o0], ab[8 * 32 + o0], ab[o1], ab[8 * 32 + o1]};
+    const tf32::Split<4> as = tf32::split(a);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float bv[2] = {bb[j * 8 * 32 + o0], bb[j * 8 * 32 + o1]};
+      if constexpr (CHAINS)
+        tf32::mma3<TF32_PASSES>(part_lh[j], part_hl[j], part[j], as,
+                                tf32::split(bv));
+      else
+        tf32::mma3<TF32_PASSES>(part[j], as, tf32::split(bv));
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    if constexpr (CHAINS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) part[j][i] += part_lh[j][i] + part_hl[j][i];
+    }
+    if constexpr (COMPENSATED)
+      tf32::kahan(st[j], sc[j], part[j]);
+    else
+      tf32::promote(st[j], part[j]);
+  }
+}
+
+// st less its compensation: the compensated sum's total.
+template <int NJ>
+__device__ __forceinline__ void tf32_fold(float (&st)[NJ][4],
+                                          const float (&sc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st[j][i] -= sc[j][i];
+}
+
+// A cluster's sum of st: this block's partial out to its slot `mine` (16
+// bytes a lane, a warp's NJ tiles 32 slots apart), the cluster's barrier,
+// then the ns slices' partials summed in slice order by the compensated
+// sum, so that every block forms the same bits.
+template <int NJ>
+__device__ __forceinline__ void tf32_exchange(float (&st)[NJ][4],
+                                              float4* mine, int ns) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    mine[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+  hopper::cluster_sync();
+  const uint32_t at = hopper::smem_addr(mine);
+  float sc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
+  for (int r = 0; r < ns; ++r) {
+    const uint32_t src = hopper::mapa(at, r);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const float4 v = tf32::ld_cluster4(src + j * 32 * 16);
+      const float x[4] = {v.x, v.y, v.z, v.w};
+      tf32::kahan(st[j], sc[j], x);
+    }
+  }
+  tf32_fold(st, sc);
+}
+
+// The step's accumulator st (16 rows x NJ m16n8 tiles) as the split A
+// operands of a second product: k step j is the accumulator's columns 8j
+// .. 8j + 7, k = t and t + 4 being columns 8j + 2t and 8j + 2t + 1 (the
+// columns this thread holds: tf32.cuh's permuted k index).
+template <int NJ>
+__device__ __forceinline__ void tf32_as_a(tf32::Split<4> (&as)[NJ],
+                                          const float (&st)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float a[4] = {st[j][0], st[j][2], st[j][1], st[j][3]};
+    as[j] = tf32::split(a);
+  }
+}
+
+// acc (one m16n8 tile of the warp's 16 rows) += A B over a step's NJ k
+// steps: A from tf32_as_a, B read down the columns of cb (the step's first
+// row in a 32-column block; co the tile's column offsets, tf32::col_off),
+// the step's products in sums of their own (one a pass with CHAINS) added
+// to acc in f32 (tf32::promote).
+template <int NJ, bool CHAINS>
+__device__ __forceinline__ void tf32_second(float (&acc)[4],
+                                            const tf32::Split<4> (&as)[NJ],
+                                            const float* cb,
+                                            const int (&co)[2]) {
+  float part[4] = {}, part_lh[4] = {}, part_hl[4] = {};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float bv[2] = {cb[j * 8 * 32 + co[0]], cb[j * 8 * 32 + co[1]]};
+    if constexpr (CHAINS)
+      tf32::mma3<TF32_PASSES>(part_lh, part_hl, part, as[j], tf32::split(bv));
+    else
+      tf32::mma3<TF32_PASSES>(part, as[j], tf32::split(bv));
+  }
+  if constexpr (CHAINS)
+    tf32::promote(acc, part_lh, part_hl, part);
+  else
+    tf32::promote(acc, part);
+}
+
+// (every thread of 256) chunk b (columns 32 b ..) of two operands into the
+// chunk buffer at dst, as TMA's 128-byte swizzle lays a 32-column box out,
+// zeros past T and past ld: n0 rows of each of x0 and x1 from row i0, then
+// n1 rows of each of y0 and y1 from row j0 ([T, ld] slabs).
+__device__ __forceinline__ void tf32_chunk(uint32_t dst, int b,
+                                           const float* x0, const float* x1,
+                                           int n0, int i0, const float* y0,
+                                           const float* y1, int n1, int j0,
+                                           int T, int ld) {
+  for (int i = threadIdx.x; i < (2 * n0 + 2 * n1) * 8; i += 256) {
+    const int row = i >> 3, c4 = i & 7, c = 32 * b + 4 * c4;
+    const bool x_row = row < 2 * n0;
+    const int r = x_row ? row % n0 : (row - 2 * n0) % n1;
+    const int at = (x_row ? i0 : j0) + r;
+    const float* src = x_row ? (row < n0 ? x0 : x1)
+                             : (row < 2 * n0 + n1 ? y0 : y1);
+    const bool valid = at < T && c < ld;
+    tf32::cp_async16(dst + row * 128 + ((c4 ^ (row & 7)) << 4),
+                     valid ? src + (size_t)at * ld + c : x0, valid);
+  }
+  tf32::cp_async_commit();
+}
+
+// dk/dv: a block is 64 keys of one b*kv_head.  Warpgroup 0 forms S^T = K
+// Q^T, P^T, and holds dV; warpgroup 1 forms dP^T = V dO^T and dS^T, and
+// holds dK (dk/dv_split's plan: each product once, two of the four a
+// warpgroup).  K and V (the block's columns) stay in shared memory; Q and
+// dO come a query step of BQ queries a stage.  dV += P^T dO and dK += dS^T
+// Q over all the block's columns.  The blocks walk dkv_split_kernel's
+// grid: (key tile, b*kv_head, split of the query-head group, slice),
+// slices fastest, key tiles slowest, so the longest causal walks start
+// first.  At SW 256 the host may split each group's query heads
+// (ops/attention.py:dkv_splits), and then the blocks write f32 partials
+// that dkv_reduce_kernel sums in slice order.  Outputs are f32, dk times
+// scale.  Registers: a warp's [16 x SW] accumulator is SW / 2 a thread (128
+// at SW 256, beside the step's 16 x BQ score tile); at SW 64 two blocks
+// share an SM.  Shared memory: K, V (64 x SW f32 each), P^T, the ring, and
+// above 256 the two partial buffers or (STREAM, in place of K and V) the
+// two chunk buffers (DkvTf32Smem).
 template <int SW, bool CL, bool STREAM = false>
 struct DkvTf32Smem {
   static constexpr int BM = 64, BQ = SW == 256 ? 16 : 32;
@@ -5245,27 +5282,6 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
   float4* x_slot = reinterpret_cast<float4*>(smem + S::X_OFF) +
                    warp * NJ * 32 + lane;
 
-  // (STREAM, every thread) chunk b (columns 32 b ..) of K and V (this key
-  // tile) and of Q and dO (query step q0 of head bh) into buffer b % 2,
-  // as TMA's 128-byte swizzle lays a 32-column box out, zeros past T and
-  // past ld
-  auto load_chunk = [&](int b, int q0, int bh) {
-    const uint32_t dst = base + S::C_OFF + (b & 1) * S::CHUNK_BYTES;
-    for (int i = threadIdx.x; i < (2 * BM + 2 * BQ) * 8; i += 256) {
-      const int row = i >> 3, c4 = i & 7, c = 32 * b + 4 * c4;
-      const bool kv_row = row < 2 * BM;
-      const int r = kv_row ? row % BM : (row - 2 * BM) % BQ;
-      const int i0 = kv_row ? k0 + r : q0 + r;
-      const float* src =
-          kv_row ? (row < BM ? k : v) + ((size_t)bkv * T + i0) * ld
-                 : (row < 2 * BM + BQ ? q : dout) + ((size_t)bh * T + i0) * ld;
-      const bool valid = i0 < T && c < ld;
-      tf32::cp_async16(dst + row * 128 + ((c4 ^ (row & 7)) << 4),
-                       valid ? src + c : k, valid);
-    }
-    tf32::cp_async_commit();
-  };
-
   float acc[NT][4];  // dV (warpgroup 0) or dK (1): keys x the SW columns
 #pragma unroll
   for (int nt = 0; nt < NT; ++nt)
@@ -5294,58 +5310,30 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
     const float* b_rows = stage + wg * (BQ * SW) + g * 32;
     const float* c_tile = stage + (1 - wg) * (BQ * SW);
 
-    // S^T (warpgroup 0) or dP^T (1): 16 keys x BQ queries over the columns,
-    // each 32-column block's sum added by the compensated sum above 64
-    // columns (sc its compensation, tf32::kahan)
+    // S^T (warpgroup 0) or dP^T (1): 16 keys x BQ queries over the columns
     float st[NJ][4], sc[NJ][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
-    // one 32-column block of the contraction, A's rows (K or V) from ab
-    // and B's (Q or dO) from bb
-    auto contract_block = [&](const float* ab, const float* bb) {
-      // the block's 32 columns in sums of their own (one a pass above 64
-      // columns a block), added to the step's in f32 (tf32::kahan above 64
-      // columns, tf32::promote at 64)
-      float part[NJ][4] = {}, part_lh[NJ][4] = {}, part_hl[NJ][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int o0 = ro[2 * kk], o1 = ro[2 * kk + 1];
-        const float a[4] = {ab[o0], ab[8 * 32 + o0], ab[o1], ab[8 * 32 + o1]};
-        const tf32::Split<4> as = tf32::split(a);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float bv[2] = {bb[j * 8 * 32 + o0], bb[j * 8 * 32 + o1]};
-          if constexpr (S::CHAINS)
-            tf32::mma3<TF32_PASSES>(part_lh[j], part_hl[j], part[j], as,
-                                    tf32::split(bv));
-          else
-            tf32::mma3<TF32_PASSES>(part[j], as, tf32::split(bv));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if constexpr (S::CHAINS) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            part[j][i] += part_lh[j][i] + part_hl[j][i];
-        }
-        if constexpr (S::COMPENSATED)
-          tf32::kahan(st[j], sc[j], part[j]);
-        else
-          tf32::promote(st[j], part[j]);
-      }
-    };
     if constexpr (STREAM) {
       // every column of the head dim, a chunk at a time through the two
-      // buffers, the next chunk's loads in flight under this one's products
+      // buffers (K, V, Q, dO), the next chunk's loads in flight under this
+      // one's products
       const int n_all = (ld + 31) / 32;
-      load_chunk(0, q0, bh);
+      const float* kh = k + (size_t)bkv * T * ld;
+      const float* vh = v + (size_t)bkv * T * ld;
+      const float* qh = q + (size_t)bh * T * ld;
+      const float* gh = dout + (size_t)bh * T * ld;
+      auto load_chunk = [&](int b) {
+        tf32_chunk(base + S::C_OFF + (b & 1) * S::CHUNK_BYTES, b, kh, vh, BM,
+                   k0, qh, gh, BQ, q0, T, ld);
+      };
+      load_chunk(0);
 #pragma unroll 1
       for (int b = 0; b < n_all; ++b) {
         if (b + 1 < n_all) {
-          load_chunk(b + 1, q0, bh);
+          load_chunk(b + 1);
           tf32::cp_async_wait<1>();
         } else {
           tf32::cp_async_wait<0>();
@@ -5353,8 +5341,9 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
         __syncthreads();
         const float* chunk = reinterpret_cast<const float*>(
             smem + S::C_OFF + (b & 1) * S::CHUNK_BYTES);
-        contract_block(chunk + wg * (BM * 32) + (16 * w4 + g) * 32,
-                       chunk + 2 * BM * 32 + wg * (BQ * 32) + g * 32);
+        tf32_block<NJ, S::CHAINS, S::COMPENSATED>(
+            st, sc, chunk + wg * (BM * 32) + (16 * w4 + g) * 32,
+            chunk + 2 * BM * 32 + wg * (BQ * 32) + g * 32, ro);
         // every warp is done with this buffer before the chunk after next
         // is loaded into it
         __syncthreads();
@@ -5362,42 +5351,12 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
     } else {
 #pragma unroll 1
       for (int b = 0; b < nblk; ++b)
-        contract_block(a_rows + b * (BM * 32), b_rows + b * (BQ * 32));
+        tf32_block<NJ, S::CHAINS, S::COMPENSATED>(
+            st, sc, a_rows + b * (BM * 32), b_rows + b * (BQ * 32), ro);
     }
-    if constexpr (S::COMPENSATED) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[j][i] -= sc[j][i];
-    }
-
-    if (CL && TF32_EXCHANGE) {
-      // this block's partial out, the cluster's barrier, then every slice's
-      // partial summed in slice order
-      float4* mine = x_slot + (it & 1) * (8 * NJ * 32);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        mine[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
-      hopper::cluster_sync();
-      const uint32_t at = hopper::smem_addr(mine);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
-      for (int r = 0; r < ns; ++r) {
-        const uint32_t src = hopper::mapa(at, r);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float4 v = tf32::ld_cluster4(src + j * 32 * 16);
-          const float x[4] = {v.x, v.y, v.z, v.w};
-          tf32::kahan(st[j], sc[j], x);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[j][i] -= sc[j][i];
-    }
+    if constexpr (S::COMPENSATED) tf32_fold(st, sc);
+    if (CL && TF32_EXCHANGE)
+      tf32_exchange(st, x_slot + (it & 1) * (8 * NJ * 32), ns);
 
     if (wg == 0) {
       // P^T, handed to warpgroup 1
@@ -5426,38 +5385,15 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
       }
     }
 
-    // dV += P^T dO or dK += dS^T Q: k step j is queries 8j .. 8j + 7, k = t
-    // and t + 4 being queries 8j + 2t and 8j + 2t + 1 (the accumulator's
-    // columns of this thread)
+    // dV += P^T dO or dK += dS^T Q: k step j is queries 8j .. 8j + 7
     if (TF32_SECOND) {
       tf32::Split<4> as[NJ];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float a[4] = {st[j][0], st[j][2], st[j][1], st[j][3]};
-        as[j] = tf32::split(a);
-      }
-      // each m16n8 tile's sum over the step in sums of its own (one a pass
-      // above 64 columns a block), added to the accumulator in f32
-      // (tf32::promote)
+      tf32_as_a(as, st);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         if (nt / 4 >= nblk) continue;  // columns wholly past ld
-        const float* cb = c_tile + (nt / 4) * (BQ * 32);
-        float part[4] = {}, part_lh[4] = {}, part_hl[4] = {};
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float bv[2] = {cb[j * 8 * 32 + co[nt % 4][0]],
-                               cb[j * 8 * 32 + co[nt % 4][1]]};
-          if constexpr (S::CHAINS)
-            tf32::mma3<TF32_PASSES>(part_lh, part_hl, part, as[j],
-                                    tf32::split(bv));
-          else
-            tf32::mma3<TF32_PASSES>(part, as[j], tf32::split(bv));
-        }
-        if constexpr (S::CHAINS)
-          tf32::promote(acc[nt], part_lh, part_hl, part);
-        else
-          tf32::promote(acc[nt], part);
+        tf32_second<NJ, S::CHAINS>(acc[nt], as,
+                                   c_tile + (nt / 4) * (BQ * 32), co[nt % 4]);
       }
     }
     // every warp is done with stage s (and warpgroup 1 with P^T): refill
@@ -5484,6 +5420,324 @@ __global__ void __launch_bounds__(256, DkvTf32Smem<SW, CL, STREAM>::BLOCKS)
       if (c0 + c < ld)
         *reinterpret_cast<float2*>(row + c) =
             make_float2(acc[nt][2 * h] * mul, acc[nt][2 * h + 1] * mul);
+    }
+  }
+}
+
+// dq: a block is 64 query rows of one b*h (its KV head bh / group).
+// Warpgroup 0 forms S = Q K^T and P; warpgroup 1 forms dP = dO V^T and dS,
+// which it hands back to warpgroup 0 through the same slot; each then
+// holds half of the block's columns of dq += dS K (dq_cluster_kernel's
+// split: each product once, the second one's columns halved, so that the
+// two warpgroups take equal shares).  Q and dO (the block's columns) stay
+// in shared memory with lse and delta of the thread's rows in registers;
+// K and V come a key step of BK keys a stage, in key_tiles' order (sinks,
+// then the band).  The grid walks (b*h, row tile, slice), slices fastest,
+// each b*h's row tiles from the last (the longest under causal masking)
+// down (slice_tile).  Where p >= TF32_REFINE, warpgroup 1 takes dP -
+// delta from a compensated dot product of the element's rows of dO and V
+// (above).  dq is f32, times scale.  Registers: a warp's [16 x
+// SW / 2] accumulator is SW / 4 a thread (64 at SW 256); at SW 64 two
+// blocks share an SM.  Shared memory: Q, dO (64 x SW f32 each), P then
+// dS, the ring of K and V, and above 256 the two partial buffers or
+// (STREAM, in place of Q and dO) the two chunk buffers, its ring then
+// holding K alone for the second product (DqTf32Smem).
+template <int SW, bool CL, bool STREAM = false>
+struct DqTf32Smem {
+  // dk/dv's plan (DkvTf32Smem) with rows for keys: a key step of 16 at 256
+  // columns, where Q, dO and two stages of K and V fill the SM's shared
+  // memory; two blocks an SM at 64, one sum a pass above, the compensated
+  // sum above 64 columns
+  static constexpr int BM = 64, BK = SW == 256 ? 16 : 32;
+  static constexpr int BLOCKS = SW == 64 ? 2 : 1;
+  static constexpr bool CHAINS = BLOCKS == 1;
+  static constexpr bool COMPENSATED = SW > 64;
+  // Q or dO (STREAM: none resident)
+  static constexpr int QD_BYTES = STREAM ? 0 : BM * SW * 4;
+  static constexpr int KT_BYTES = BK * SW * 4;  // K or V of a step
+  static constexpr int STAGE_BYTES = (STREAM ? 1 : 2) * KT_BYTES;
+  // P, then dS: [4][BK / 8][32] x 16 B
+  static constexpr int P_OFF = 2 * QD_BYTES;
+  static constexpr int P_BYTES = BM * BK * 4;
+  // partials: [2][8][BK / 8][32] x 16 B
+  static constexpr int X_OFF = P_OFF + P_BYTES;
+  static constexpr int X_BYTES = CL ? 2 * 2 * BM * BK * 4 : 0;
+  // STREAM: two buffers of one 32-column chunk of Q, dO, K and V (rows in
+  // that order, 128 bytes each, swizzled as TMA would)
+  static constexpr int CHUNK_BYTES = (2 * BM + 2 * BK) * 128;
+  static constexpr int C_OFF = X_OFF + X_BYTES;
+  static constexpr int C_BYTES = STREAM ? 2 * CHUNK_BYTES : 0;
+  static constexpr int RING_OFF = C_OFF + C_BYTES;
+  static constexpr int STAGES =
+      cmin(3, (smem_budget(BLOCKS) - RING_OFF - 1024 - 64) / STAGE_BYTES);
+  static constexpr int BAR_OFF = RING_OFF + STAGES * STAGE_BYTES;
+  // full[STAGES], qd
+  static constexpr int BYTES = BAR_OFF + 8 * (STAGES + 1) + 1024;
+  static_assert(STAGES >= 2 && BYTES <= smem_budget(BLOCKS),
+                "f32 dq does not fit in shared memory");
+  static_assert(QD_BYTES % 1024 == 0 && (BK * 128) % 1024 == 0 &&
+                    P_BYTES % 1024 == 0 && CHUNK_BYTES % 1024 == 0,
+                "the swizzled tiles start on 1024 bytes");
+};
+
+template <int SW, bool CL, bool STREAM>
+__global__ void __launch_bounds__(256, DqTf32Smem<SW, CL, STREAM>::BLOCKS)
+    dq_tf32_kernel(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int group, int ld, float scale, Mask mk) {
+  using S = DqTf32Smem<SW, CL, STREAM>;
+  constexpr int BM = S::BM, BK = S::BK, STAGES = S::STAGES;
+  // NT: the m16n8 tiles of this warpgroup's half of the columns
+  constexpr int NJ = BK / 8, NT = SW / 16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const uint32_t base = hopper::smem_addr(smem);
+  const uint32_t bars = base + S::BAR_OFF;  // full[STAGES], qd
+  const uint32_t qd_bar = bars + 8 * STAGES;
+
+  // the block: (b*h, row tile, slice), slices fastest
+  const int T = mk.T;
+  const int ns = CL       ? (int)tf32::cluster_size()
+                 : STREAM ? (ld + SW - 1) / SW
+                          : 1;
+  const SliceTile tile = slice_tile(BM, T, ns);
+  const int bh = tile.bh, bkv = bh / group, q0 = tile.tile * BM;
+  const int c0 = tile.slice * SW;  // the block's first column
+  // its 32-column blocks that hold a column < ld
+  const int nblk = cmin(SW / 32, (ld - c0 + 31) / 32);
+  int lo, n_sink, n_iter;
+  key_tiles<BK>(q0, BM, mk, &lo, &n_sink, &n_iter);
+  auto key0 = [=](int it) {
+    return (it < n_sink ? it : lo + it - n_sink) * BK;
+  };
+
+  // (thread 0) step it's K and V (STREAM: K) into stage it % STAGES
+  const CUtensorMap* mkt = &map_k;
+  const CUtensorMap* mvt = &map_v;
+  auto load_step = [=](int it) {
+    const int s = it % STAGES, k0 = key0(it);
+    const uint32_t st = base + S::RING_OFF + s * S::STAGE_BYTES;
+    const uint32_t bar = bars + 8 * s;
+    hopper::mbar_arrive_tx(bar, (STREAM ? 1 : 2) * nblk * BK * 128);
+    for (int b = 0; b < nblk; ++b) {
+      hopper::tma_load(st + b * BK * 128, mkt, c0 + 32 * b, k0, bkv, bar);
+      if (!STREAM)
+        hopper::tma_load(st + S::KT_BYTES + b * BK * 128, mvt, c0 + 32 * b,
+                         k0, bkv, bar);
+    }
+  };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) hopper::mbar_init(bars + 8 * s, 1);
+    hopper::mbar_init(qd_bar, 1);
+    hopper::mbar_init_fence();
+    // (STREAM: Q and dO come by the chunk, below; the phase completes
+    // empty)
+    hopper::mbar_arrive_tx(qd_bar, STREAM ? 0 : 2 * nblk * BM * 128);
+    for (int b = 0; b < (STREAM ? 0 : nblk); ++b) {
+      hopper::tma_load(base + b * BM * 128, &map_q, c0 + 32 * b, q0, bh,
+                       qd_bar);
+      hopper::tma_load(base + S::QD_BYTES + b * BM * 128, &map_do,
+                       c0 + 32 * b, q0, bh, qd_bar);
+    }
+    for (int it = 0; it < cmin(STAGES, n_iter); ++it) load_step(it);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wg = warp >> 2, w4 = warp & 3;
+  const int row0 = q0 + 16 * w4 + g;  // this thread's rows: row0, row0 + 8
+  // this warpgroup's contraction operand (Q or dO) from its warp's first
+  // row, and the row scalar (lse or delta) of the thread's two rows
+  const float* a_rows = reinterpret_cast<const float*>(smem) +
+                        wg * (BM * SW) + (16 * w4 + g) * 32;
+  float rv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    rv[h] = i < T ? (wg == 0 ? lse : delta)[(size_t)bh * T + i] : 0.f;
+  }
+  int ro[8], co[4][2];
+#pragma unroll
+  for (int ch = 0; ch < 8; ++ch) ro[ch] = tf32::row_off(ch, g, t);
+#pragma unroll
+  for (int c4 = 0; c4 < 4; ++c4) {
+    co[c4][0] = tf32::col_off(c4, 0, g, t);
+    co[c4][1] = tf32::col_off(c4, 1, g, t);
+  }
+  // this thread's P / dS slot and partial slot (16 bytes a lane)
+  float4* p_slot = reinterpret_cast<float4*>(smem + S::P_OFF) +
+                   w4 * NJ * 32 + lane;
+  float4* x_slot = reinterpret_cast<float4*>(smem + S::X_OFF) +
+                   warp * NJ * 32 + lane;
+
+  // dq over this warpgroup's half of the columns (the 32-column blocks
+  // from wg * SW / 64)
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+  hopper::mbar_wait(qd_bar, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES, k0 = key0(it);
+    hopper::mbar_wait(bars + 8 * s, (it / STAGES) & 1);
+    const float* stage = reinterpret_cast<const float*>(
+        smem + S::RING_OFF + s * S::STAGE_BYTES);
+
+    // S (warpgroup 0) or dP (1): 16 rows x BK keys over the columns
+    float st[NJ][4], sc[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = sc[j][i] = 0.f;
+    if constexpr (STREAM) {
+      // every column of the head dim, a chunk at a time through the two
+      // buffers (Q, dO, K, V), the next chunk's loads in flight under this
+      // one's products
+      const int n_all = (ld + 31) / 32;
+      const float* qh = q + (size_t)bh * T * ld;
+      const float* gh = dout + (size_t)bh * T * ld;
+      const float* kh = k + (size_t)bkv * T * ld;
+      const float* vh = v + (size_t)bkv * T * ld;
+      auto load_chunk = [&](int b) {
+        tf32_chunk(base + S::C_OFF + (b & 1) * S::CHUNK_BYTES, b, qh, gh, BM,
+                   q0, kh, vh, BK, k0, T, ld);
+      };
+      load_chunk(0);
+#pragma unroll 1
+      for (int b = 0; b < n_all; ++b) {
+        if (b + 1 < n_all) {
+          load_chunk(b + 1);
+          tf32::cp_async_wait<1>();
+        } else {
+          tf32::cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* chunk = reinterpret_cast<const float*>(
+            smem + S::C_OFF + (b & 1) * S::CHUNK_BYTES);
+        tf32_block<NJ, S::CHAINS, S::COMPENSATED>(
+            st, sc, chunk + wg * (BM * 32) + (16 * w4 + g) * 32,
+            chunk + 2 * BM * 32 + wg * (BK * 32) + g * 32, ro);
+        // every warp is done with this buffer before the chunk after next
+        // is loaded into it
+        __syncthreads();
+      }
+    } else {
+      // B: K or V of the step, from key g
+      const float* b_rows = stage + wg * (BK * SW) + g * 32;
+#pragma unroll 1
+      for (int b = 0; b < nblk; ++b)
+        tf32_block<NJ, S::CHAINS, S::COMPENSATED>(
+            st, sc, a_rows + b * (BM * 32), b_rows + b * (BK * 32), ro);
+    }
+    if constexpr (S::COMPENSATED) tf32_fold(st, sc);
+    if (CL && TF32_EXCHANGE)
+      tf32_exchange(st, x_slot + (it & 1) * (8 * NJ * 32), ns);
+
+    if (wg == 0) {
+      // P, handed to warpgroup 1; dS back from it
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          st[j][i] = expf(st[j][i] * scale - rv[i >> 1]);
+      // the bounds of the live keys, on tiles that are not full
+      if (!tile_full(mk, q0, BM, k0, BK))
+        mask_tile(*reinterpret_cast<float(*)[NJ * 4]>(&st[0][0]), mk, row0,
+                  k0, t);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        p_slot[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+      hopper::named_arrive(1, 256);
+      hopper::named_sync(2, 256);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 ds = p_slot[j * 32];
+        st[j][0] = ds.x;
+        st[j][1] = ds.y;
+        st[j][2] = ds.z;
+        st[j][3] = ds.w;
+      }
+    } else {
+      // dS = P (dP - delta), handed to warpgroup 0; where p >=
+      // TF32_REFINE, dP - delta again from dO and V (one copy of that
+      // loop, over the heavy elements' bits: each of its results replaces
+      // its element's p in the slot, read back below)
+      hopper::named_sync(1, 256);
+      uint32_t heavy = 0;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 p4 = p_slot[j * 32];
+        const float p[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          st[j][i] = p[i] * (st[j][i] - rv[i >> 1]);
+          heavy |= (uint32_t)(p[i] >= TF32_REFINE) << (4 * j + i);
+        }
+      }
+      if (heavy) {
+        for (uint32_t todo = heavy; todo; todo &= todo - 1) {
+          const int x = __ffs(todo) - 1, j = x >> 2, h = x >> 1 & 1;
+          float* slot = reinterpret_cast<float*>(p_slot + j * 32) + (x & 3);
+          *slot *= tf32_dp_less(
+              dout + ((size_t)bh * T + row0 + 8 * h) * ld,
+              v + ((size_t)bkv * T + k0 + 8 * j + 2 * t + (x & 1)) * ld, ld,
+              h ? rv[1] : rv[0]);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float4 r4 = p_slot[j * 32];
+          const float r[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (heavy >> (4 * j + i) & 1) st[j][i] = r[i];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        p_slot[j * 32] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+      hopper::named_arrive(2, 256);
+    }
+
+    // dq += dS K over this warpgroup's columns: k step j is keys 8j .. 8j
+    // + 7, B read down K's columns
+    if (TF32_SECOND) {
+      tf32::Split<4> as[NJ];
+      tf32_as_a(as, st);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int blk = (wg * NT + nt) / 4;
+        if (blk >= nblk) continue;  // columns wholly past ld
+        tf32_second<NJ, S::CHAINS>(acc[nt], as, stage + blk * (BK * 32),
+                                   co[nt % 4]);
+      }
+    }
+    // every warp is done with stage s (and with P / dS): refill
+    __syncthreads();
+    if (threadIdx.x == 0 && it + STAGES < n_iter) load_step(it + STAGES);
+  }
+  // no block exits while a partner may still read its partials
+  if (CL) hopper::cluster_sync();
+
+  float* out = dq + (size_t)bh * T * ld + c0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = row0 + 8 * h;
+    if (i >= T) continue;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = 8 * (wg * NT + nt) + 2 * t;
+      if (c0 + c < ld)
+        *reinterpret_cast<float2*>(out + (size_t)i * ld + c) =
+            make_float2(acc[nt][2 * h] * scale, acc[nt][2 * h + 1] * scale);
     }
   }
 }
@@ -5547,8 +5801,62 @@ int dkv_tf32(int bkv, const BwdArgs& a, int rows, int step,
   return (int)cudaGetLastError();
 }
 
+// Launcher of dq_tf32_kernel: CL the cluster of ld's slices (an ld in
+// (256, TF32_REACH]), STREAM a block for each slice (an ld above
+// TF32_REACH), else head-dim class SW.  Its one tile is (64, BK); any other
+// tile, or an ld outside the route or not a multiple of 8, returns
+// cudaErrorInvalidValue; a cluster launch the card refuses returns its
+// error.
+template <int SW, bool CL, bool STREAM = false>
+int launch_dq_tf32(int bh, const BwdArgs& a, int rows, int step,
+                   cudaStream_t stream) {
+  using S = DqTf32Smem<SW, CL, STREAM>;
+  const int T = a.mk.T;
+  const int group = a.heads / a.kv_heads;
+  const int ns = CL || STREAM ? n_slices(a.ld) : 1;
+  const bool route = CL       ? a.ld > SLICE && a.ld <= TF32_REACH
+                     : STREAM ? a.ld > TF32_REACH
+                              : head_class(a.ld) == SW;
+  if (rows != S::BM || step != S::BK || a.ld % 8 || !route)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap map_q, map_k, map_v, map_do;
+  int e;
+  if ((e = tf32::tile_map(&map_q, a.q, bh, T, a.ld, S::BM)) ||
+      (e = tf32::tile_map(&map_k, a.k, bh / group, T, a.ld, S::BK)) ||
+      (e = tf32::tile_map(&map_v, a.v, bh / group, T, a.ld, S::BK)) ||
+      (e = tf32::tile_map(&map_do, a.dout, bh, T, a.ld, S::BM)))
+    return TENSOR_MAP_ERROR + e;
+  const unsigned grid = slice_blocks(bh, T, S::BM, ns);
+  if (grid == 0) return (int)cudaErrorInvalidValue;
+  auto kernel = dq_tf32_kernel<SW, CL, STREAM>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, S::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(256);
+  cfg.dynamicSmemBytes = S::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kernel, map_q, map_k, map_v, map_do,
+                           static_cast<const float*>(a.q),
+                           static_cast<const float*>(a.k),
+                           static_cast<const float*>(a.v),
+                           static_cast<const float*>(a.dout), a.lse, a.delta,
+                           static_cast<float*>(a.dq), group, a.ld, a.scale,
+                           a.mk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // Launchers of the sliced kernels.  Their one tile each (rows per block,
-// step): the forward and dq (128, 64), dk/dv (64, 64), the f32 kernels
+// step): the forward and dq (128, 64), dk/dv (64, 64), the f32 forward
 // (F32_ROWS, F32_STEP); any other, or ld <= 256 (and for the tensor-core
 // kernels an ld that is not a multiple of 8), returns
 // cudaErrorInvalidValue.
@@ -5656,27 +5964,6 @@ int launch_fwd_sliced_f32(int bh, const FwdArgs& a, int rows, int step,
   return (int)cudaGetLastError();
 }
 
-template <int SW>
-int launch_dq_sliced_f32(int bh, const BwdArgs& a, int rows, int step,
-                         cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP || a.ld <= SW)
-    return (int)cudaErrorInvalidValue;
-  const int bytes = ((2 * F32_ROWS + 2 * F32_STEP) * (F32_CHUNK + 1) +
-                     F32_STEP * (SW + 1)) * 4;
-  auto kernel = dq_sliced_f32_kernel<SW>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned grid = slice_blocks(bh, a.mk.T, F32_ROWS, ceil_div(a.ld, SW));
-  if (grid == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<grid, F32_THREADS, bytes, st>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
-      a.lse, a.delta, static_cast<float*>(a.dq), a.heads / a.kv_heads, a.ld,
-      a.scale, a.mk);
-  return (int)cudaGetLastError();
-}
-
 // Launchers of the cluster kernels.  Their one tile each is (64, 64): dq's
 // 64 rows over 64-key steps, dk/dv's 64 keys over 64-query steps.  Any
 // other tile, or an ld outside (256, CLUSTER_REACH] or not a multiple of
@@ -5707,11 +5994,11 @@ int cluster_launch(void (*kernel)(P...), unsigned grid, int ns, int bytes,
   return (int)cudaGetLastError();
 }
 
-// The clusters of ns blocks the card holds at once of a kernel taking
-// `bytes` of shared memory (cudaOccupancyMaxActiveClusters).
+// The clusters of ns blocks of `threads` the card holds at once of a
+// kernel taking `bytes` of shared memory (cudaOccupancyMaxActiveClusters).
 template <typename... P>
 int cluster_occupancy(void (*kernel)(P...), int ns, int bytes,
-                      int* clusters) {
+                      int* clusters, int threads = 384) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
@@ -5722,7 +6009,7 @@ int cluster_occupancy(void (*kernel)(P...), int ns, int bytes,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ns);
-  cfg.blockDim = dim3(384);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = bytes;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -5823,6 +6110,23 @@ int cluster_info(int ld, int* smem, int* clusters) {
   return (int)cudaErrorInvalidValue;
 }
 
+// f32 dq's or dk/dv's cluster (dq_tf32_kernel, dkv_tf32_kernel): its
+// shared memory and the clusters the card holds at once, at the slices of
+// ld.
+template <bool DQ>
+int tf32_cluster_info(int ld, int* smem, int* clusters) {
+  if (ld <= SLICE || ld > TF32_REACH) return (int)cudaErrorInvalidValue;
+  if constexpr (DQ) {
+    *smem = DqTf32Smem<SLICE, true>::BYTES;
+    return cluster_occupancy(dq_tf32_kernel<SLICE, true, false>,
+                             n_slices(ld), *smem, clusters, 256);
+  } else {
+    *smem = DkvTf32Smem<SLICE, true>::BYTES;
+    return cluster_occupancy(dkv_tf32_kernel<SLICE, true, false>,
+                             n_slices(ld), *smem, clusters, 256);
+  }
+}
+
 // Launcher of the pair forward.  Its one tile is (64, 64); any other, or
 // an ld outside (256, PAIR_REACH] or not a multiple of 8, returns
 // cudaErrorInvalidValue.
@@ -5915,8 +6219,8 @@ int fa::dkv_f16(int bkv, const BwdArgs& a, int rows, int step,
 #endif
 
 #if FA_IN_PART(9)
-// the forward's and dq's one f32 tile (F32_ROWS, F32_STEP), at head-dim
-// class 64 or 128
+// the forward's one f32 tile (F32_ROWS, F32_STEP), at head-dim class 64 or
+// 128
 int fa::forward_f32(int bh, const FwdArgs& a, int rows, int step,
                     cudaStream_t st) {
   if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
@@ -5926,12 +6230,12 @@ int fa::forward_f32(int bh, const FwdArgs& a, int rows, int step,
   }
   return (int)cudaErrorInvalidValue;
 }
-int fa::dq_f32(int bh, const BwdArgs& a, int rows, int step,
-               cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP) return (int)cudaErrorInvalidValue;
+// dq: dq_tf32_kernel's tile at head-dim class 64 or 128
+int fa::dq_tf32(int bh, const BwdArgs& a, int rows, int step,
+                cudaStream_t st) {
   switch (head_class(a.ld)) {
-    case 64: return launch_dq_f32<64>(bh, a, st);
-    case 128: return launch_dq_f32<128>(bh, a, st);
+    case 64: return launch_dq_tf32<64, false>(bh, a, rows, step, st);
+    case 128: return launch_dq_tf32<128, false>(bh, a, rows, step, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -5999,20 +6303,18 @@ int fa::dkv_reduce_f16(const float* ws, void* dk, void* dv, long long n,
 #endif
 
 #if FA_IN_PART(15)
-// the forward's and dq's one f32 tile at head-dim class 256, and dk/dv's
-// (dkv_tf32_kernel, its query heads split as the host asks) with the sum
-// of its splits' partials
+// the forward's one f32 tile at head-dim class 256, dq's
+// (dq_tf32_kernel) and dk/dv's (dkv_tf32_kernel, its query heads split as
+// the host asks) with the sum of its splits' partials
 int fa::forward_f32_256(int bh, const FwdArgs& a, int rows, int step,
                         cudaStream_t st) {
   if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
     return (int)cudaErrorInvalidValue;
   return launch_fwd_f32<256>(bh, a, st);
 }
-int fa::dq_f32_256(int bh, const BwdArgs& a, int rows, int step,
-                   cudaStream_t st) {
-  if (rows != F32_ROWS || step != F32_STEP || head_class(a.ld) != 256)
-    return (int)cudaErrorInvalidValue;
-  return launch_dq_f32<256>(bh, a, st);
+int fa::dq_tf32_256(int bh, const BwdArgs& a, int rows, int step,
+                    cudaStream_t st) {
+  return launch_dq_tf32<256, false>(bh, a, rows, step, st);
 }
 int fa::dkv_f32_256(int bkv, const BwdArgs& a, int rows, int step,
                     cudaStream_t st) {
@@ -6073,9 +6375,9 @@ int fa::forward_f32_sliced(int bh, const FwdArgs& a, int rows, int step,
                            cudaStream_t st) {
   return launch_fwd_sliced_f32<SLICE>(bh, a, rows, step, st);
 }
-int fa::dq_f32_sliced(int bh, const BwdArgs& a, int rows, int step,
-                      cudaStream_t st) {
-  return launch_dq_sliced_f32<SLICE>(bh, a, rows, step, st);
+int fa::dq_tf32_stream(int bh, const BwdArgs& a, int rows, int step,
+                       cudaStream_t st) {
+  return launch_dq_tf32<SLICE, false, true>(bh, a, rows, step, st);
 }
 int fa::dkv_f32_sliced(int bkv, const BwdArgs& a, int rows, int step,
                        cudaStream_t st) {
@@ -6150,6 +6452,19 @@ int fa::dkv_f32_cluster(int bkv, const BwdArgs& a, int rows, int step,
                         cudaStream_t st) {
   return dkv_tf32<SLICE, true>(bkv, a, rows, step, st);
 }
+int fa::dkv_f32_cluster_info(int ld, int* smem, int* clusters) {
+  return tf32_cluster_info<false>(ld, smem, clusters);
+}
+#endif
+
+#if FA_IN_PART(28)
+int fa::dq_tf32_cluster(int bh, const BwdArgs& a, int rows, int step,
+                        cudaStream_t st) {
+  return launch_dq_tf32<SLICE, true>(bh, a, rows, step, st);
+}
+int fa::dq_f32_cluster_info(int ld, int* smem, int* clusters) {
+  return tf32_cluster_info<true>(ld, smem, clusters);
+}
 #endif
 
 #if FA_IN_PART(10)
@@ -6165,7 +6480,9 @@ int fa::dkv_f32_cluster(int bkv, const BwdArgs& a, int rows, int step,
 // dq and dk/dv in bf16 and fp16 up to CLUSTER_REACH, which go to the
 // cluster kernels' (ops/attention.py:CLUSTER_LD is the same bound), and
 // the forward in bf16 and fp16 up to PAIR_REACH, which goes to the pair
-// forward's (ops/attention.py:PAIR_LD).
+// forward's (ops/attention.py:PAIR_LD); dq in f32 goes to dq_tf32_kernel
+// at every head dim (above 256 its cluster's part up to TF32_REACH,
+// ops/attention.py:TF32_LD, and its streamed slices above).
 
 enum { FA_BF16 = 0, FA_F16 = 1, FA_F32 = 2 };
 
@@ -6262,6 +6579,12 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
                   1,
                   nullptr};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool wide = head_class(head_dim) == 256;
+  if (dtype == FA_F32)
+    return (head_dim > TF32_REACH ? fa::dq_tf32_stream
+            : head_dim > SLICE    ? fa::dq_tf32_cluster
+            : wide                ? fa::dq_tf32_256
+                                  : fa::dq_tf32)(bh, a, rows, step, st);
   if (head_dim > SLICE && head_dim <= CLUSTER_REACH) {
     switch (dtype) {
       case FA_BF16: return fa::dq_bf16_cluster(bh, a, rows, step, st);
@@ -6272,18 +6595,14 @@ extern "C" int fa_backward_dq(const void* q, const void* k, const void* v,
     switch (dtype) {
       case FA_BF16: return fa::dq_bf16_sliced(bh, a, rows, step, st);
       case FA_F16: return fa::dq_f16_sliced(bh, a, rows, step, st);
-      case FA_F32: return fa::dq_f32_sliced(bh, a, rows, step, st);
     }
     return (int)cudaErrorInvalidValue;
   }
-  const bool wide = head_class(head_dim) == 256;
   switch (dtype) {
     case FA_BF16:
       return (wide ? fa::dq_bf16_256 : fa::dq_bf16)(bh, a, rows, step, st);
     case FA_F16:
       return (wide ? fa::dq_f16_256 : fa::dq_f16)(bh, a, rows, step, st);
-    case FA_F32:
-      return (wide ? fa::dq_f32_256 : fa::dq_f32)(bh, a, rows, step, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -6352,14 +6671,17 @@ extern "C" int fa_backward_dkv(const void* q, const void* k, const void* v,
 
 // The shared memory (bytes) a cluster kernel takes at a head dim, and the
 // clusters of its n_slices blocks the card holds at once: kernel 0 dq, 1
-// dk/dv; dtype bf16 or fp16.
+// dk/dv; dtype bf16, fp16 (up to CLUSTER_REACH) or f32 (the tensor-core
+// kernels' clusters, up to TF32_REACH).
 extern "C" int fa_cluster_info(int kernel, int dtype, int head_dim,
                                int* smem, int* clusters) {
-  switch (kernel * 2 + dtype) {
+  switch (kernel * 3 + dtype) {
     case 0: return fa::dq_bf16_cluster_info(head_dim, smem, clusters);
     case 1: return fa::dq_f16_cluster_info(head_dim, smem, clusters);
-    case 2: return fa::dkv_bf16_cluster_info(head_dim, smem, clusters);
-    case 3: return fa::dkv_f16_cluster_info(head_dim, smem, clusters);
+    case 2: return fa::dq_f32_cluster_info(head_dim, smem, clusters);
+    case 3: return fa::dkv_bf16_cluster_info(head_dim, smem, clusters);
+    case 4: return fa::dkv_f16_cluster_info(head_dim, smem, clusters);
+    case 5: return fa::dkv_f32_cluster_info(head_dim, smem, clusters);
   }
   return (int)cudaErrorInvalidValue;
 }
